@@ -12,3 +12,5 @@ def rng():
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running integration test")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips (inside the test) without one")

@@ -94,10 +94,16 @@ class LRDConfig:
         "conv", "conv1x1", "fc",
     )
     branches: int = 1                 # branched (block-diagonal) LRD; 1 = off
-    # Serve-time compression the slice does not serve yet: the engine
+    # Serve-time factor quantization (repro_torch.quant): "none" | "int8"
+    # (per-channel symmetric) | "fp8" (e4m3), of the factor keys below.
+    quantize: str = "none"
+    quant_targets: Sequence[str] = (  # which factor keys to quantize
+        "w0", "w1", "u", "xc", "v", "tucker_u", "core", "tucker_v",
+    )
+    # Runtime KV pool: "none" | "int8" (per-(slot, head, channel) scales).
+    kv_quantize: str = "none"
+    # Serve-time compression the port does not serve yet: the engine
     # raises NotImplementedError naming the ROADMAP item when one is set.
-    quantize: str = "none"            # A6
-    kv_quantize: str = "none"         # A7
     act_quantize: str = "none"        # A8
     sparsify: str = "none"            # A11
     kv_layout: str = "slot"           # A9 ("paged")

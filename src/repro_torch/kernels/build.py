@@ -20,7 +20,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("lowrank_matmul.cu", "branched_matmul.cu")
+SOURCES = ("lowrank_matmul.cu", "branched_matmul.cu", "lowrank_matmul_q.cu",
+           "branched_matmul_q.cu", "decode_attention_q.cu")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 LIB_NAME = "libreprotorch_kernels.so"
@@ -99,6 +100,17 @@ def load() -> ctypes.CDLL:
     lib.lrk_branched_matmul.restype = i
     lib.lrk_branched_smem.argtypes = [i, i, i, i, i]
     lib.lrk_branched_smem.restype = ctypes.c_size_t
+    lib.lrk_lowrank_matmul_q.argtypes = [i, i, p, p, p, p, p, p, i, i, i,
+                                         i, p]
+    lib.lrk_lowrank_matmul_q.restype = i
+    lib.lrk_branched_matmul_q.argtypes = [i, i, p, p, p, p, p, p, p, p, i,
+                                          i, i, i, i, i, p]
+    lib.lrk_branched_matmul_q.restype = i
+    lib.lrk_decode_attention_q.argtypes = [i, p, p, p, p, p, p, p, i, i, i,
+                                           i, i, ctypes.c_float, p]
+    lib.lrk_decode_attention_q.restype = i
+    lib.lrk_decode_attention_q_fits.argtypes = [i, i, i]
+    lib.lrk_decode_attention_q_fits.restype = i
     lib.lrk_error_string.argtypes = [i]
     lib.lrk_error_string.restype = ctypes.c_char_p
     return lib

@@ -33,70 +33,30 @@ branched_kernel(const T* __restrict__ x, const T* __restrict__ u,
                 const T* __restrict__ xc, const T* __restrict__ v,
                 T* __restrict__ y, int M, int C, int N, int R1, int R2,
                 int S) {
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank();
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* As = reinterpret_cast<float*>(smem_raw);
-  float* Bs = As + BM * Depth<BM>::KC;
-  const int LA = N * R1, LB = N * R2;
-  T* hA = reinterpret_cast<T*>(Bs + Depth<BM>::KC * NT);  // (BM, N*r1)
-  T* hB = hA + (size_t)BM * LA;                             // (BM, N*r2)
-
-  const int row0 = blockIdx.y * BM;
-  const int a_rows = min(BM, M - row0);
-
-  // Stage 1: h1_n = x_blk @ u_n for this CTA's columns of all branches.
-  const int W1 = (LA + CLUSTER - 1) / CLUSTER;
-  slice_product<T, BM>(hA, LA, min(LA, rank * W1), min(LA, rank * W1 + W1),
-                       R1, x + (size_t)row0 * C, C, 0, a_rows, u,
-                       (size_t)C * R1, C, As, Bs);
-  cluster.sync();
-  gather_slices<T, BM>(cluster, hA, LA, W1);
-  __syncthreads();
-
-  // Stage 2: h2_n = h1_n @ xc_n for this CTA's columns.
-  const int W2 = (LB + CLUSTER - 1) / CLUSTER;
-  slice_product<T, BM>(hB, LB, min(LB, rank * W2), min(LB, rank * W2 + W2),
-                       R2, hA, LA, R1, BM, xc, (size_t)R1 * R2, R1, As, Bs);
-  cluster.sync();
-  gather_slices<T, BM>(cluster, hB, LB, W2);
-  cluster.sync();  // hB complete, and no CTA leaves while read remotely
-
-  // Stage 3: y tiles = sum_n h2_n @ v_n.
-  output_tiles<T, BM>(y, row0, a_rows, S, hB, LB, R2, N, v, As, Bs);
-}
-
-template <typename T, int BM>
-size_t branched_smem(int N, int R1, int R2) {
-  return staging_bytes<T, BM>() + (size_t)BM * N * (R1 + R2) * sizeof(T);
+  branched_chain<T, BM>(smem_raw, x, Plain<T>{u}, Plain<T>{xc}, Plain<T>{v},
+                        y, M, C, N, R1, R2, S);
 }
 
 template <typename T, int BM>
 int launch_branched(const void* x, const void* u, const void* xc,
                     const void* v, void* y, int M, int C, int N, int R1,
                     int R2, int S, cudaStream_t stream) {
-  const size_t smem = branched_smem<T, BM>(N, R1, R2);
-  if (smem > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      branched_kernel<T, BM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  branched_kernel<T, BM><<<chain_grid(M, S, BM), THREADS, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(u),
-      static_cast<const T*>(xc), static_cast<const T*>(v),
-      static_cast<T*>(y), M, C, N, R1, R2, S);
-  return (int)cudaGetLastError();
+  return launch_chain(branched_kernel<T, BM>, branched_smem<T, BM>(N, R1, R2),
+                      M, S, BM, stream, static_cast<const T*>(x),
+                      static_cast<const T*>(u), static_cast<const T*>(xc),
+                      static_cast<const T*>(v), static_cast<T*>(y), M, C, N,
+                      R1, R2, S);
 }
 
 }  // namespace lrk
 
-static int pick_bm(int M) { return M <= 8 ? 8 : 32; }
-
 extern "C" {
 
 // Shared memory one launch needs (bytes).  dtype: 0 = float32, 1 = bf16.
+// The quantized kernel (branched_matmul_q.cu) needs the same.
 size_t lrk_branched_smem(int dtype, int M, int N, int R1, int R2) {
-  const int bm = pick_bm(M);
+  const int bm = lrk::pick_bm(M);
   if (dtype == 0)
     return bm == 8 ? lrk::branched_smem<float, 8>(N, R1, R2)
                    : lrk::branched_smem<float, 32>(N, R1, R2);
@@ -111,7 +71,7 @@ int lrk_branched_matmul(int dtype, const void* x, const void* u,
                         const void* xc, const void* v, void* y, int M, int C,
                         int N, int R1, int R2, int S, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int bm = pick_bm(M);
+  const int bm = lrk::pick_bm(M);
   using bf16 = __nv_bfloat16;
   if (dtype == 0)
     return bm == 8 ? lrk::launch_branched<float, 8>(x, u, xc, v, y, M, C, N,
@@ -121,8 +81,8 @@ int lrk_branched_matmul(int dtype, const void* x, const void* u,
   if (dtype == 1)
     return bm == 8 ? lrk::launch_branched<bf16, 8>(x, u, xc, v, y, M, C, N,
                                                    R1, R2, S, s)
-                   : lrk::launch_branched<bf16, 32>(x, u, xc, v, y, M, C, N,
-                                                    R1, R2, S, s);
+                   : lrk::launch_branched<bf16, 32>(x, u, xc, v, y, M, C,
+                                                    N, R1, R2, S, s);
   return (int)cudaErrorInvalidValue;
 }
 

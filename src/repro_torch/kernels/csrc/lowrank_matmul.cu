@@ -32,60 +32,30 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS)
 lowrank_kernel(const T* __restrict__ x, const T* __restrict__ w0,
                const T* __restrict__ w1, T* __restrict__ y, int M, int C,
                int R, int S) {
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank();
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* As = reinterpret_cast<float*>(smem_raw);
-  float* Bs = As + BM * Depth<BM>::KC;
-  T* h = reinterpret_cast<T*>(Bs + Depth<BM>::KC * NT);  // (BM, R)
-
-  const int row0 = blockIdx.y * BM;
-  const int a_rows = min(BM, M - row0);
-
-  // Stage 1: this CTA's slice of h = x_blk @ w0, rounded to T.
-  const int W = (R + CLUSTER - 1) / CLUSTER;
-  const int j0 = min(R, rank * W), j1 = min(R, j0 + W);
-  slice_product<T, BM>(h, R, j0, j1, R, x + (size_t)row0 * C, C, 0, a_rows,
-                       w0, 0, C, As, Bs);
-  cluster.sync();
-  gather_slices<T, BM>(cluster, h, R, W);
-  cluster.sync();  // h complete here, and no CTA leaves while read remotely
-
-  // Stage 2: y tiles = h @ w1.
-  output_tiles<T, BM>(y, row0, a_rows, S, h, R, R, 1, w1, As, Bs);
-}
-
-template <typename T, int BM>
-size_t lowrank_smem(int R) {
-  return staging_bytes<T, BM>() + (size_t)BM * R * sizeof(T);
+  lowrank_chain<T, BM>(smem_raw, x, Plain<T>{w0}, Plain<T>{w1}, y, M, C, R,
+                       S);
 }
 
 template <typename T, int BM>
 int launch_lowrank(const void* x, const void* w0, const void* w1, void* y,
                    int M, int C, int R, int S, cudaStream_t stream) {
-  const size_t smem = lowrank_smem<T, BM>(R);
-  if (smem > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      lowrank_kernel<T, BM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  lowrank_kernel<T, BM><<<chain_grid(M, S, BM), THREADS, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w0),
-      static_cast<const T*>(w1), static_cast<T*>(y), M, C, R, S);
-  return (int)cudaGetLastError();
+  return launch_chain(lowrank_kernel<T, BM>, lowrank_smem<T, BM>(R), M, S,
+                      BM, stream, static_cast<const T*>(x),
+                      static_cast<const T*>(w0), static_cast<const T*>(w1),
+                      static_cast<T*>(y), M, C, R, S);
 }
 
 }  // namespace lrk
 
-// Row block height: 8 rows for decode-sized M, else 32.
-static int pick_bm(int M) { return M <= 8 ? 8 : 32; }
-
 extern "C" {
 
-// Shared memory one launch needs (bytes); the wrapper refuses a rank
+// Shared memory one launch needs (bytes); the wrappers refuse a rank
 // whose intermediate does not fit.  dtype: 0 = float32, 1 = bfloat16.
+// The quantized kernel (lowrank_matmul_q.cu) stages its weights in f32
+// like this one, so it needs the same.
 size_t lrk_lowrank_smem(int dtype, int M, int R) {
-  const int bm = pick_bm(M);
+  const int bm = lrk::pick_bm(M);
   if (dtype == 0)
     return bm == 8 ? lrk::lowrank_smem<float, 8>(R)
                    : lrk::lowrank_smem<float, 32>(R);
@@ -99,7 +69,7 @@ int lrk_lowrank_matmul(int dtype, const void* x, const void* w0,
                        const void* w1, void* y, int M, int C, int R, int S,
                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int bm = pick_bm(M);
+  const int bm = lrk::pick_bm(M);
   using bf16 = __nv_bfloat16;
   if (dtype == 0)
     return bm == 8

@@ -1,7 +1,8 @@
 """Attention: RoPE and GQA for prefill, chunked prefill and decode.
 
-Plain torch (``einsum`` / ``softmax``), as the reference uses plain jnp:
-the reference has no attention kernel on this path.  Logits are f32,
+Plain torch (``einsum`` / ``softmax``), as the reference uses plain jnp
+for prefill and full-width decode; decode over an int8 pool goes through
+the plan to the ``decode_attention_q`` kernel.  Logits are f32,
 masked with ``-1e30``; probabilities round to the value dtype before
 the context product.  Prefill attention runs over query chunks of
 ``Q_CHUNK`` rows so the logits never exceed ``q_chunk x kv_len`` per
@@ -17,7 +18,7 @@ import math
 
 import torch
 
-from repro_torch.layers.cache import CachePlan, gqa_plan
+from repro_torch.layers.cache import CachePlan, plan_from_cache
 from repro_torch.layers.param import (EMBED, QKV, ParamBuilder, apply_linear,
                                       init_linear)
 
@@ -122,7 +123,7 @@ def apply_attention(p: dict, x: torch.Tensor, *, num_heads: int,
         o = chunked_attention(q, k, v, causal=causal, softcap=softcap)
     else:
         if plan is None:
-            plan = gqa_plan(num_kv_heads, head_dim, cache["k"].dtype)
+            plan = plan_from_cache(cache, x.dtype)
         if cache_pos is not None:        # decode
             if sq != 1:
                 raise ValueError(f"decode takes one token, got {sq}")

@@ -5,8 +5,9 @@ Per-layer params are stacked along a leading ``layers`` axis, as in the
 reference; where the reference scans the stack with ``lax.scan``, the
 port runs a Python loop over the layer axis, each layer seeing 2-D / 3-D
 factor views that go straight to the kernels.  The KV cache is stacked
-the same way (``{"blocks": {"k", "v"}}``, ``(L, B, S, KH, D)``) and is
-written in place.  The other families (MoE, VLM, SSM, hybrid, encoder)
+the same way (``{"blocks": {"k", "v"}}``, ``(L, B, S, KH, D)``, or the
+int8 family's ``k_q``/``k_scale``/``v_q``/``v_scale``) and is written in
+place.  The other families (MoE, VLM, SSM, hybrid, encoder)
 come with ROADMAP item A13.
 """
 from __future__ import annotations
@@ -130,11 +131,12 @@ class LMModel:
 
     def init_cache(self, batch: int, seq_len: int,
                    kv_quantize: str | None = None) -> PyTree:
-        plan = self.cache_plan(kv_quantize)
-        shape = (self.cfg.num_layers, *plan.shape(batch, seq_len))
-        return {"blocks": {n: torch.zeros(shape, dtype=plan.dtype,
-                                          device=self.device)
-                           for n in plan.leaf_names}}
+        """Zero cache of every layer, stacked ``(L, ...)`` per leaf of
+        the plan (int8 values and f32 scale rows for ``"int8"``)."""
+        leaves = self.cache_plan(kv_quantize).leaves(batch, seq_len)
+        return {"blocks": {n: torch.zeros((self.cfg.num_layers, *shape),
+                                          dtype=dt, device=self.device)
+                           for n, (shape, dt) in leaves.items()}}
 
     # -- prefill / decode -----------------------------------------------------
 

@@ -6,24 +6,30 @@
   the per-step token budget: decode first (every live stream decodes one
   token per step), then chunked-prefill segments with the leftover
   budget, so a long prompt never stalls live streams;
-* :class:`repro_torch.serve.pool.KVPoolManager` — the ``gqa_f32`` slot
-  pool, slot allocation, byte accounting, byte-budget admission and
-  youngest-first preemption;
+* :class:`repro_torch.serve.pool.KVPoolManager` — the slot pool
+  (``gqa_f32``, or ``gqa_int8`` with ``kv_quantize="int8"``), slot
+  allocation, byte accounting, byte-budget admission and youngest-first
+  preemption;
 * :class:`repro_torch.serve.runner.ModelRunner` — params and the one
   ``step(tokens, positions, seg_kind)`` entry, plus the sampler.
 
 Continuous (chunked) admission is the default for the dense family; a
 prompt stages in a full-width batch=1 cache while it is chunk-prefilled
-and lands in its slot in one scatter, so chunked greedy streams equal
-whole-prefill ("blocking" admission) streams.  Prefill token arrays are
-padded to power-of-two length buckets (the reference compiles once per
-bucket; the port keeps the same shapes so both see the same padding).
+and lands in its slot in one scatter (quantizing into an int8 pool), so
+chunked greedy streams equal whole-prefill ("blocking" admission)
+streams.  ``quantize="int8"`` / ``"fp8"`` quantizes the decomposed
+factors at load (:mod:`repro_torch.quant.quantize`), and every fully
+quantized linear then runs the quantized kernels.  Prefill token arrays
+are padded to power-of-two length buckets (the reference compiles once
+per bucket; the port keeps the same shapes so both see the same
+padding).
 
 Sampling is greedy or temperature (Gumbel-max on a seeded
 ``torch.Generator``); a stream whose logits go non-finite is quarantined
-(terminated ``failed``) without disturbing its neighbours.  Deadlines,
-cancellation, fault injection, load shedding, weight / KV quantization
-and the paged pool come with ROADMAP items A6-A9 and A12.
+(terminated ``failed``) without disturbing its neighbours.  Activation
+quantization, the paged pool, 2:4 sparsity, deadlines, cancellation,
+fault injection and load shedding come with ROADMAP items A8, A9, A11
+and A12.
 """
 from __future__ import annotations
 
@@ -37,6 +43,8 @@ import torch
 from repro_torch.configs.base import RunConfig
 from repro_torch.layers import plan as lplan
 from repro_torch.models.api import get_model
+from repro_torch.quant.quantize import MODES as QUANT_MODES
+from repro_torch.quant.quantize import quantize_tree
 from repro_torch.serve.metrics import latency_summary
 from repro_torch.serve.pool import KVPoolManager
 from repro_torch.serve.runner import ModelRunner
@@ -50,10 +58,9 @@ PyTree = Any
 DEFAULT_PREFILL_CHUNK = 64
 STATS_WINDOW = 4096
 
-#: LRDConfig fields whose non-default values this slice does not serve,
+#: LRDConfig fields whose non-default values the port does not serve yet,
 #: with the ROADMAP item that brings each
-_UNSERVED = {"quantize": "A6", "kv_quantize": "A7", "act_quantize": "A8",
-             "sparsify": "A11"}
+_UNSERVED = {"act_quantize": "A8", "sparsify": "A11"}
 
 
 def _param_device(params: PyTree) -> torch.device:
@@ -72,12 +79,18 @@ class ServeEngine:
                  admission: str = "continuous",
                  prefill_chunk: int | None = None,
                  kv_byte_budget: int | None = None,
+                 quantize: str | None = None,
+                 kv_quantize: str | None = None,
                  device: str | torch.device = "cuda"):
         """``params`` must already live on ``device`` (the card by
         default; tests pass ``"cpu"``).  ``admission`` is "continuous"
         (default: token-budget chunked prefill) or "blocking" (one whole
         prefill per admit).  ``kv_byte_budget`` gates admission and
-        triggers youngest-first preemption; None = never preempt."""
+        triggers youngest-first preemption; None = never preempt.
+        ``quantize`` ("none" | "int8" | "fp8") quantizes the
+        ``run.lrd.quant_targets`` factors at load; ``kv_quantize``
+        ("none" | "int8") stores the KV pool in int8.  Both default to
+        ``run.lrd``."""
         for field, item in _UNSERVED.items():
             if getattr(run.lrd, field) != "none":
                 raise NotImplementedError(
@@ -94,6 +107,17 @@ class ServeEngine:
         self.model = get_model(run.model, self.device)
         if not run.model.has_decode:
             raise ValueError("serving needs a decoder")
+        if quantize is None:
+            quantize = run.lrd.quantize
+        if quantize not in ("none", *QUANT_MODES):
+            raise ValueError(f"quantize {quantize!r} (want 'none' or one "
+                             f"of {QUANT_MODES})")
+        if quantize != "none":
+            params = quantize_tree(params, quantize,
+                                   targets=run.lrd.quant_targets)
+        if kv_quantize is None:
+            kv_quantize = run.lrd.kv_quantize
+        self.kv_quantize = None if kv_quantize == "none" else kv_quantize
         self.params = params
         self.plans = lplan.build_plan_tree(params)
         self.plan_summary = lplan.tree_summary(self.plans)
@@ -110,10 +134,12 @@ class ServeEngine:
                                   or slots + self.prefill_chunk)
         with torch.inference_mode():
             self.pool = KVPoolManager(self.model, slots, max_seq,
+                                      kv_quantize=self.kv_quantize,
                                       byte_budget=kv_byte_budget)
         self.plan_summary["kv_bytes_per_step"] = self.pool.kv_bytes_per_step
         self.plan_summary["kv_cache_family"] = self.pool.plans[0].family
-        self.runner = ModelRunner(self.model, params, max_seq=max_seq)
+        self.runner = ModelRunner(self.model, params, max_seq=max_seq,
+                                  kv_quantize=self.kv_quantize)
         self.scheduler = Scheduler(slots, prefill_chunk=self.prefill_chunk,
                                    step_token_budget=self.step_token_budget)
         self.generator = torch.Generator(device=self.device)
@@ -207,7 +233,7 @@ class ServeEngine:
             n = len(ps.tokens)
             padded = np.zeros((1, self._bucket_len(n)), np.int64)
             padded[0, :n] = ps.tokens
-            cache1 = self.runner.new_stream_cache()
+            cache1 = self.runner.new_stream_cache(self.kv_quantize)
             logits, cache1 = self.runner.step(
                 self._tokens(padded), None, "prefill", cache=cache1,
                 last_pos=n - 1)

@@ -1,13 +1,15 @@
 """KVPoolManager: slot + KV-byte accounting over the serve cache pool.
 
 The pool is the model's stacked cache ``(L, slots, S_max, KH, D)`` — one
-batch slot per in-flight stream — in the full-width ``gqa_f32`` family.
-This manager owns the state side of the serve stack: the cache tensors
-and per-slot write positions, slot allocation with admission tickets
-(preemption evicts the youngest stream first), byte accounting derived
-from the model's cache plans, and the slot scatter that lands a finished
-batch=1 staging cache in its slot.  The paged pool and int8 pools come
-with ROADMAP items A9 and A7.
+batch slot per in-flight stream — in the full-width ``gqa_f32`` or the
+int8 ``gqa_int8`` family (``kv_quantize="int8"``: int8 values plus
+``(L, slots, KH, D)`` f32 scale rows).  This manager owns the state side
+of the serve stack: the cache tensors and per-slot write positions, slot
+allocation with admission tickets (preemption evicts the youngest stream
+first), byte accounting derived from the model's cache plans, and the
+slot scatter that lands a finished batch=1 staging cache in its slot —
+quantizing a full-precision chunked-prefill staging cache into an int8
+pool on the way.  The paged pool comes with ROADMAP item A9.
 """
 from __future__ import annotations
 
@@ -16,6 +18,9 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.layers.cache import SEQ_LEAVES
+from repro_torch.quant.kv import quantize_kv_tree
+
 PyTree = Any
 
 
@@ -23,18 +28,19 @@ class KVPoolManager:
     """Slot/byte owner for one engine's KV pool."""
 
     def __init__(self, model, slots: int, max_seq: int, *,
+                 kv_quantize: str | None = None,
                  byte_budget: int | None = None):
         self.model = model
         self.slots = slots
         self.max_seq = max_seq
         self.byte_budget = byte_budget
-        self.cache = model.init_cache(slots, max_seq)
+        self.cache = model.init_cache(slots, max_seq, kv_quantize)
         self.positions = np.zeros((slots,), np.int32)   # next write pos
         self.lengths = np.zeros((slots,), np.int64)     # logical KV tokens
         self.tickets = np.full((slots,), -1, np.int64)  # admission age
         self._next_ticket = 0
         #: one CachePlan per attention layer — the source of all bytes
-        self.plans = model.cache_plans()
+        self.plans = model.cache_plans(kv_quantize)
         #: per-position KV bytes of ONE stream across all layers
         self.bytes_per_token = sum(p.bytes_per_token for p in self.plans)
         #: bytes the whole pool streams per decode step
@@ -101,12 +107,19 @@ class KVPoolManager:
 
     def insert(self, cache1: PyTree, slot: int, length: int) -> None:
         """Land a batch=1 staging cache in pool slot ``slot``.  Positions
-        ``>= length`` (bucket padding) are zeroed on the way in."""
+        ``>= length`` (bucket padding) are zeroed on the way in.  A
+        full-width staging cache entering an int8 pool (chunked prefill)
+        is quantized first, with one-shot scales over the real prompt; a
+        cache already in the pool's family (blocking prefill) lands as
+        it is."""
+        if cache1["blocks"].keys() != self.cache["blocks"].keys():
+            cache1 = quantize_kv_tree(cache1, length)
         for name, pool_leaf in self.cache["blocks"].items():
-            one = cache1["blocks"][name][:, 0]          # (L, S, KH, D)
-            keep = (torch.arange(one.shape[1], device=one.device)
-                    < length).reshape(1, -1, 1, 1)
-            pool_leaf[:, slot] = torch.where(keep, one,
-                                             torch.zeros_like(one))
+            one = cache1["blocks"][name][:, 0]   # (L, S, KH, D) / (L, KH, D)
+            if name in SEQ_LEAVES:
+                keep = (torch.arange(one.shape[1], device=one.device)
+                        < length).reshape(1, -1, 1, 1)
+                one = torch.where(keep, one, torch.zeros_like(one))
+            pool_leaf[:, slot] = one
         self.positions[slot] = length
         self.lengths[slot] = length

@@ -11,6 +11,12 @@ the model API directly.  Segment kinds:
 * ``"prefill"``:       tokens ``(1, S)`` whole-prompt prefill (blocking
                        admission).
 
+Each segment runs with its cache's plan: the pool plan (the
+``kv_quantize`` family) for decode and blocking prefill, the
+full-precision stream plan for chunked-prefill staging caches — chunk
+attention runs over the exact K/V prefix and the pool quantizes once at
+slot insert, so chunked greedy streams equal whole-prefill ones.
+
 Every step runs under ``torch.inference_mode()``.  :meth:`sample` is the
 batched sampler with the numerical watchdog fused in (the reference's
 ``guard.sample_and_flag``).
@@ -48,17 +54,21 @@ def sample_and_flag(logits: torch.Tensor, temps: torch.Tensor,
 
 
 class ModelRunner:
-    def __init__(self, model, params: PyTree, *, max_seq: int):
+    def __init__(self, model, params: PyTree, *, max_seq: int,
+                 kv_quantize: str | None = None):
         self.model = model
         self.params = params
         self.max_seq = max_seq
         self.device = model.device
-        #: plan of the shared pool and of the staging caches
-        self.pool_plan = model.cache_plan()
+        #: plan of the shared pool and of blocking-admission staging
+        self.pool_plan = model.cache_plan(kv_quantize)
+        #: plan of a full-precision chunked-prefill staging cache
+        self.stream_plan = model.cache_plan(None)
 
-    def new_stream_cache(self) -> PyTree:
-        """A fresh batch=1 cache for one stream."""
-        return self.model.init_cache(1, self.max_seq)
+    def new_stream_cache(self, kv_quantize: str | None = None) -> PyTree:
+        """A fresh batch=1 cache for one stream (full precision unless
+        ``kv_quantize`` asks for the pool's int8 family)."""
+        return self.model.init_cache(1, self.max_seq, kv_quantize)
 
     @torch.inference_mode()
     def step(self, tokens: torch.Tensor, positions: torch.Tensor | None,
@@ -74,7 +84,7 @@ class ModelRunner:
             return m.prefill_chunk(p, {"tokens": tokens}, cache,
                                    start_pos=start_pos,
                                    prompt_len=prompt_len,
-                                   cache_plan=self.pool_plan)
+                                   cache_plan=self.stream_plan)
         if seg_kind == "prefill":
             return m.prefill(p, {"tokens": tokens}, cache,
                              last_pos=last_pos, cache_plan=self.pool_plan)

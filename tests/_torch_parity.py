@@ -61,3 +61,13 @@ def torch_tree(name: str):
 def prompts(seed: int = 0, lengths=(3, 9, 17, 5, 12, 21), vocab: int = 250):
     rng = np.random.default_rng(seed)
     return [rng.integers(1, vocab, n).tolist() for n in lengths]
+
+
+def flat(tree, prefix=()):
+    """A nested-dict tree as ``{"a/b/c": leaf}``."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(flat(v, (*prefix, k)))
+        return out
+    return {"/".join(prefix): tree}

@@ -4,17 +4,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import jax_tree, to_numpy
+from _torch_parity import flat, jax_tree, to_numpy
 from repro_torch import bridge
-
-
-def _flat(tree, prefix=()):
-    if isinstance(tree, dict):
-        out = {}
-        for k, v in tree.items():
-            out.update(_flat(v, (*prefix, k)))
-        return out
-    return {"/".join(prefix): tree}
 
 
 @pytest.mark.parametrize("name", ["dense", "svd", "branched"])
@@ -22,17 +13,17 @@ def _flat(tree, prefix=()):
 def test_smoke_tree_round_trips(name, dtype):
     tree = to_numpy(jax_tree(name)[0])
     if dtype == "bfloat16":
-        tree = {k: v for k, v in _flat(tree).items()}
+        tree = {k: v for k, v in flat(tree).items()}
         tree = {k: np.asarray(jnp.asarray(v).astype(jnp.bfloat16))
                 for k, v in tree.items()}
-    src = _flat(tree)
+    src = flat(tree)
     tt = bridge.to_torch(tree, "cpu")
-    flat_t = _flat(tt)
+    flat_t = flat(tt)
     assert flat_t.keys() == src.keys()
     want = torch.bfloat16 if dtype == "bfloat16" else torch.float32
     for k, t in flat_t.items():
         assert t.dtype == want and tuple(t.shape) == src[k].shape, k
-    back = _flat(bridge.to_numpy(tt))
+    back = flat(bridge.to_numpy(tt))
     assert back.keys() == src.keys()
     for k, a in back.items():
         assert a.dtype == src[k].dtype and a.shape == src[k].shape, k

@@ -87,15 +87,23 @@ def test_ragged_everything(cuda, m, c, r, s, n):
                      ref.branched_matmul_ref(x, u, xc, v)) <= 1e-5
 
 
-def test_serve_path_launches_kernels_and_matches_cpu(cuda):
+@pytest.mark.parametrize("quantize", ["none", "int8"])
+def test_serve_path_launches_kernels_and_matches_cpu(cuda, quantize):
+    """The engine on the card goes through the path's kernels (bf16
+    chains, or the quantized chains and the int8-KV attention) and
+    emits the CPU's greedy tokens."""
+    import importlib
     from repro_torch.configs import registry
     from repro_torch.configs.base import LRDConfig, RunConfig
     from repro_torch.core.surgery import decompose_model
-    from repro_torch.kernels import branched_matmul as bk
-    from repro_torch.kernels import lowrank_matmul as lk
     from repro_torch.models.api import get_model
     from repro_torch.serve.engine import Request, ServeEngine
     import dataclasses
+    names = (("lowrank_matmul", "branched_matmul") if quantize == "none"
+             else ("lowrank_matmul_q", "branched_matmul_q",
+                   "decode_attention_q"))
+    mods = [importlib.import_module(f"repro_torch.kernels.{n}")
+            for n in names]
     cfg = dataclasses.replace(registry.get("llama3.2-1b").smoke,
                               dtype="float32")
     params, axes = get_model(cfg, "cpu").init(
@@ -109,17 +117,106 @@ def test_serve_path_launches_kernels_and_matches_cpu(cuda):
     outs = {}
     for dev in ("cpu", "cuda"):
         eng = ServeEngine(RunConfig(model=cfg, lrd=lrd), move(params, dev),
-                          slots=2, max_seq=64, prefill_chunk=8, device=dev)
-        lk.launches = bk.launches = 0
+                          slots=2, max_seq=64, prefill_chunk=8,
+                          quantize=quantize, kv_quantize=quantize,
+                          device=dev)
+        for m in mods:
+            m.launches = 0
         reqs = [Request(uid=i, prompt=list(range(3 + 5 * i, 14 + 7 * i)),
                         max_new_tokens=4) for i in range(3)]
         for r in reqs:
             eng.add_request(r)
         eng.run_until_done()
         outs[dev] = [r.output for r in reqs]
-        if dev == "cuda":
-            assert lk.launches > 0 and bk.launches > 0
-        else:
-            assert lk.launches == 0 and bk.launches == 0
+        counts = [m.launches for m in mods]
+        assert all(counts) if dev == "cuda" else not any(counts)
     # f32 kernels vs f32 plain versions differ by summation order only
     assert outs["cuda"] == outs["cpu"]
+
+
+def _quantized(g, *shape, mode):
+    from repro_torch.quant.quantize import quantize_array
+    return quantize_array(_rnd(g, *shape, scale=shape[-2] ** -0.5,
+                               dtype=torch.float32), mode)
+
+
+@pytest.mark.parametrize("mode", chip_smoke.QMODES)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("m", chip_smoke.M_CASES)
+@pytest.mark.parametrize("label", list(chip_smoke.LOWRANK_SHAPES))
+def test_lowrank_q_kernel_matches_plain(cuda, label, m, dtype, mode):
+    from repro_torch.kernels import lowrank_matmul_q as lqk
+    from repro_torch.kernels import ref
+    c, r, s = chip_smoke.LOWRANK_SHAPES[label]
+    x = _rnd(cuda, m, c, dtype=getattr(torch, dtype))
+    args = (x, *_quantized(cuda, c, r, mode=mode),
+            *_quantized(cuda, r, s, mode=mode))
+    n0 = lqk.launches
+    y = lqk.lowrank_matmul_q(*args)
+    assert lqk.launches == n0 + 1
+    assert _norm_err(y, ref.lowrank_matmul_q_ref(*args)) \
+        <= chip_smoke.KERNEL_TOL[dtype]
+
+
+@pytest.mark.parametrize("mode", chip_smoke.QMODES)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("m", chip_smoke.M_CASES)
+@pytest.mark.parametrize("label", list(chip_smoke.BRANCHED_SHAPES))
+def test_branched_q_kernel_matches_plain(cuda, label, m, dtype, mode):
+    from repro_torch.kernels import branched_matmul_q as bqk
+    from repro_torch.kernels import ref
+    n, c, r, s = chip_smoke.BRANCHED_SHAPES[label]
+    x = _rnd(cuda, m, c, dtype=getattr(torch, dtype))
+    args = (x, *_quantized(cuda, n, c, r, mode=mode),
+            *_quantized(cuda, n, r, r, mode=mode),
+            *_quantized(cuda, n, r, s, mode=mode))
+    y = bqk.branched_matmul_q(*args)
+    assert _norm_err(y, ref.branched_matmul_q_ref(*args)) \
+        <= chip_smoke.KERNEL_TOL[dtype]
+
+
+@pytest.mark.parametrize("mode", chip_smoke.QMODES)
+@pytest.mark.parametrize("m,c,r,s,n", [(1, 33, 5, 70, 3),
+                                       (9, 200, 17, 129, 1)])
+def test_ragged_everything_quantized(cuda, m, c, r, s, n, mode):
+    from repro_torch.kernels import ops, ref
+    x = _rnd(cuda, m, c, dtype=torch.float32)
+    lr = (*_quantized(cuda, c, r, mode=mode),
+          *_quantized(cuda, r, s, mode=mode))
+    assert _norm_err(ops.lowrank_matmul_q(x, *lr),
+                     ref.lowrank_matmul_q_ref(x, *lr)) <= 1e-5
+    br = (*_quantized(cuda, n, c, r, mode=mode),
+          *_quantized(cuda, n, r, r, mode=mode),
+          *_quantized(cuda, n, r, s, mode=mode))
+    assert _norm_err(ops.branched_matmul_q(x, *br),
+                     ref.branched_matmul_q_ref(x, *br)) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("b,s,kh,g,d,softcap,idle", [
+    (8, 1024, 8, 4, 64, 0.0, 0),      # the served pool
+    (8, 1000, 8, 4, 64, 30.0, 3),     # ragged S, softcap, idle slots
+    (3, 70, 2, 2, 16, 0.0, 1),        # the smoke model's heads
+    (2, 129, 1, 8, 128, 5.0, 0),      # wide heads, G * D = 1024
+])
+def test_decode_attention_q_kernel_matches_plain(cuda, b, s, kh, g, d,
+                                                 softcap, idle, dtype):
+    from repro_torch.kernels import decode_attention_q as dak
+    from repro_torch.kernels import ops, ref
+    from repro_torch.quant.kv import quantize_kv_prefill
+    q = _rnd(cuda, b, 1, kh * g, d, dtype=getattr(torch, dtype))
+    k_q, k_s = quantize_kv_prefill(_rnd(cuda, b, s, kh, d,
+                                        dtype=torch.float32))
+    v_q, v_s = quantize_kv_prefill(_rnd(cuda, b, s, kh, d,
+                                        dtype=torch.float32))
+    pos = torch.arange(b, device="cuda", dtype=torch.int32) * (s // b)
+    pos[0] = s - 1
+    if idle:
+        pos[-idle:] = -1
+    n0 = dak.launches
+    y = ops.decode_attention_q(q, k_q, k_s, v_q, v_s, pos, softcap=softcap)
+    assert dak.launches == n0 + 1
+    want = ref.decode_attention_q_ref(q, k_q, k_s, v_q, v_s, pos,
+                                      softcap=softcap)
+    assert torch.isfinite(y.float()).all()
+    assert _norm_err(y, want) <= chip_smoke.KERNEL_TOL[dtype]

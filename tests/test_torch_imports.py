@@ -30,7 +30,11 @@ def test_port_has_the_slice_modules():
               "repro_torch.kernels.ops", "repro_torch.kernels.ref",
               "repro_torch.kernels.build", "repro_torch.layers.plan",
               "repro_torch.layers.cache", "repro_torch.core.surgery",
-              "repro_torch.models.lm", "repro_torch.serve.engine"):
+              "repro_torch.models.lm", "repro_torch.serve.engine",
+              "repro_torch.quant.quantize", "repro_torch.quant.kv",
+              "repro_torch.kernels.lowrank_matmul_q",
+              "repro_torch.kernels.branched_matmul_q",
+              "repro_torch.kernels.decode_attention_q"):
         assert m in mods, m
 
 

@@ -128,8 +128,9 @@ def test_chunk_plan_is_fifo_and_budgeted():
 
 def test_unserved_options_raise_not_implemented():
     cfg = torch_cfg()
-    for field, item in (("quantize", "A6"), ("kv_quantize", "A7")):
-        lrd = dataclasses.replace(LRDConfig(), **{field: "int8"})
+    for field, value, item in (("act_quantize", "int8", "A8"),
+                               ("sparsify", "2:4", "A11")):
+        lrd = dataclasses.replace(LRDConfig(), **{field: value})
         with pytest.raises(NotImplementedError, match=item):
             ServeEngine(RunConfig(model=cfg, lrd=lrd), torch_tree("dense"),
                         device="cpu")

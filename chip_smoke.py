@@ -15,10 +15,14 @@ Phases (each prints its own seconds; any failure exits non-zero):
              M = 8 (decode), 64 (prefill chunk), 37 (ragged) -- the
              quantized chains with int8 and fp8 factors, the int8-KV
              decode attention at the served pool shape and at a ragged
-             S with idle slots and with a softcap; times the kernel, the
-             plain version and one library call as yardstick (CUDA
-             events), beside the bound (bytes at 3.35 TB/s, FLOPs at
-             989 TFLOP/s bf16 / 67 TFLOP/s f32).
+             S with idle slots and with a softcap; the int8-activation
+             chains at M = 64, 37 and 512 with an all-zero row; the paged
+             attentions (full width and int8) at the served pool with
+             shuffled tables, ragged positions and an idle slot; times
+             the kernel, the plain version and one library call as
+             yardstick (CUDA events), beside the bound (bytes at 3.35
+             TB/s, operations at 989 TFLOP/s bf16 / 67 TFLOP/s f32 /
+             1,979 TOP/s int8).
 4. serve   — llama3.2-1b at full width (random weights from a seed, bf16)
              decomposed with SVD + branched surgery, served by
              ServeEngine(slots=8, max_seq=1024) on 8 requests; every
@@ -37,6 +41,24 @@ Phases (each prints its own seconds; any failure exits non-zero):
 7. check_q — prefill plus 16 greedy decode steps of the quantized model
              over the int8 pool on the card against the same quantized
              tree in f32 on the CPU through the plain versions.
+8. serve_paged — the bf16 branches=4 model over the paged pool
+             (kv_layout="paged", blocks of 16) on 8 requests, four of
+             which share a 256-token prefix (one of them arrives once the
+             first has been prefilled, so it hits the radix cache); every
+             decode step must launch exactly 32 lowrank, 80 branched and
+             16 decode_attention_paged kernels, every prefill chunk
+             32 + 80 + 0; radix hits > 0 and the pool's integrity check.
+9. check_paged — prefill plus 16 greedy decode steps through the paged
+             pool (staging, insert, block tables) on the card against the
+             same tree in f32 on the CPU.
+10. serve_qa — the int8 tree with int8 activations on prefill and an int8
+             paged pool (quantize="int8", act_quantize="int8",
+             kv_quantize="int8", kv_layout="paged"), same requests: every
+             prefill chunk exactly 32 lowrank_matmul_qa + 80
+             branched_matmul_qa and nothing else, every decode step 32
+             lowrank_matmul_q + 80 branched_matmul_q + 16
+             decode_attention_paged_q.
+11. check_qa — check_paged on that configuration.
 
 Only on request (``--phases ...,profile``): torch.profiler over steady
 decode steps of the branches=4 model, plain and quantized — device time
@@ -59,12 +81,14 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 PHASES = ("device", "build", "kernels", "serve", "check", "serve_q",
-          "check_q")
+          "check_q", "serve_paged", "check_paged", "serve_qa", "check_qa")
 #: phases run only when asked for with --phases
 EXTRA_PHASES = ("profile",)
 
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+#: dense peak rates of one H100 SXM (NVIDIA's data sheet constants, not
+#: measurements): bf16 and int8 on the tensor cores, f32 outside them
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 
 #: normalised tolerance of a kernel vs its plain version on the same
 #: inputs: max|kernel - plain| / max|plain|.  f32: the two sum the same
@@ -106,22 +130,61 @@ DECODE_LAUNCHES = {"lowrank_matmul": {"k,v": 32},
                    "lowrank_matmul_q": {"k,v": 32},
                    "branched_matmul_q": {"q,o": 32, "gate,up": 32,
                                          "down": 16},
-                   "decode_attention_q": {"served": 16}}
+                   "decode_attention_q": {"served": 16},
+                   "decode_attention_paged": {"served": 16},
+                   "decode_attention_paged_q": {"served": 16}}
 M_CASES = (8, 64, 37)
 QMODES = ("int8", "fp8")
-#: kernel module of each wrapper, its CUDA source and the TPU kernel it
-#: replaces
+#: row counts of the activation-quantized chains, which run prefill
+#: segments only: a prefill chunk, a ragged chunk, a long prompt
+QA_M_CASES = (64, 37, 512)
+#: paged decode attention at the served pool: 8 slots of 64 blocks of 16
+#: positions (max_seq 1024) over 512 physical blocks + the dummy, tables
+#: shuffled, ragged positions, one idle slot (no valid position)
+PAGED_CASES = {"served": dict(b=8, kh=8, g=4, d=64, bs=16, nblk=64, nb=512,
+                              idle=1, softcap=0.0),
+               "softcap 30": dict(b=8, kh=8, g=4, d=64, bs=16, nblk=64,
+                                  nb=512, idle=1, softcap=30.0)}
+#: launches of each activation-quantized chain per prefill chunk (M = 64)
+#: of the branches=4 model
+PREFILL_LAUNCHES = {"lowrank_matmul_qa": {"k,v": 32},
+                    "branched_matmul_qa": {"q,o": 32, "gate,up": 32,
+                                           "down": 16}}
+#: kernel module of each wrapper (its CUDA source has the module's name),
+#: the wrapper's launch counter and the TPU kernel it replaces
 KERNELS = {
-    "lowrank_matmul": ("lowrank_matmul", "src/repro/kernels/lowrank_matmul.py:54"),
-    "branched_matmul": ("branched_matmul",
+    "lowrank_matmul": ("lowrank_matmul", "launches",
+                       "src/repro/kernels/lowrank_matmul.py:54"),
+    "branched_matmul": ("branched_matmul", "launches",
                         "src/repro/kernels/branched_matmul.py:56"),
-    "lowrank_matmul_q": ("lowrank_matmul_q",
+    "lowrank_matmul_q": ("lowrank_matmul_q", "launches",
                          "src/repro/kernels/lowrank_matmul_q.py:57"),
-    "branched_matmul_q": ("branched_matmul_q",
+    "branched_matmul_q": ("branched_matmul_q", "launches",
                           "src/repro/kernels/branched_matmul_q.py:71"),
-    "decode_attention_q": ("decode_attention_q",
+    "decode_attention_q": ("decode_attention_q", "launches",
                            "src/repro/kernels/decode_attention_q.py:103"),
+    "lowrank_matmul_qa": ("lowrank_matmul_qa", "launches",
+                          "src/repro/kernels/lowrank_matmul_qa.py:83"),
+    "branched_matmul_qa": ("branched_matmul_qa", "launches",
+                           "src/repro/kernels/branched_matmul_qa.py:77"),
+    "decode_attention_paged": ("decode_attention_paged", "launches",
+                               "src/repro/kernels/decode_attention_paged.py:96"),
+    "decode_attention_paged_q": (
+        "decode_attention_paged", "launches_q",
+        "src/repro/kernels/decode_attention_paged.py:192"),
 }
+
+#: the serve run (key of the serve phases' results) whose launches each
+#: kernel's entry reports: the path the kernel belongs to
+RUN_OF = {"lowrank_matmul": "branches4", "branched_matmul": "branches4",
+          "lowrank_matmul_q": "quantized", "branched_matmul_q": "quantized",
+          "decode_attention_q": "quantized", "lowrank_matmul_qa": "qa",
+          "branched_matmul_qa": "qa", "decode_attention_paged": "paged",
+          "decode_attention_paged_q": "qa"}
+#: the paged serve runs: tokens per block, and the shared prompt prefix
+#: (16 blocks) that four of the eight requests begin with
+PAGED_BLOCK = 16
+SHARED_PREFIX = 256
 
 
 def log(msg: str) -> None:
@@ -178,6 +241,15 @@ def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
 def kernel_module(name: str):
     import importlib
     return importlib.import_module(f"repro_torch.kernels.{KERNELS[name][0]}")
+
+
+def launch_count(name: str) -> int:
+    return getattr(kernel_module(name), KERNELS[name][1])
+
+
+def reset_launches() -> None:
+    for name in KERNELS:
+        setattr(kernel_module(name), KERNELS[name][1], 0)
 
 
 def check_kernels(card: str) -> list[dict]:
@@ -283,17 +355,35 @@ def check_kernels(card: str) -> list[dict]:
         for label, case in ATTN_CASES.items():
             rows["decode_attention_q"].append(
                 _check_attention(label, case, dname, rnd))
+        for label, (c, r, s) in LOWRANK_SHAPES.items():
+            for m in QA_M_CASES:
+                rows["lowrank_matmul_qa"].append(_check_qa(
+                    label, m, dname, rnd, [qrnd(c, r, mode="int8"),
+                                           qrnd(r, s, mode="int8")]))
+        for label, (n, c, r, s) in BRANCHED_SHAPES.items():
+            for m in QA_M_CASES:
+                rows["branched_matmul_qa"].append(_check_qa(
+                    label, m, dname, rnd, [qrnd(n, c, r, mode="int8"),
+                                           qrnd(n, r, r, mode="int8"),
+                                           qrnd(n, r, s, mode="int8")]))
+        for label, case in PAGED_CASES.items():
+            for quant in (False, True):
+                rows["decode_attention_paged" + ("_q" if quant else "")] \
+                    .append(_check_paged(label, case, dname, quant, g))
     failures = []
     for name, rs in rows.items():
         for row in rs:
             ok = row["norm_err"] <= KERNEL_TOL[row["dtype"]]
-            log(f"{name:18s} {row['shape']:22s} {row['dtype']:8s} "
+            lib_ms = row["library_ms"]
+            log(f"{name:24s} {row['shape']:22s} {row['dtype']:8s} "
                 f"{row.get('qmode', ''):4s} M={row.get('M', row.get('B')):4d}"
                 f" max_abs_err={row['max_abs_err']:.3e} "
                 f"norm_err={row['norm_err']:.3e} "
                 f"(tol {KERNEL_TOL[row['dtype']]:.0e}) "
-                f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
-                f"library_ms={row['library_ms']:.4f} "
+                + (f"differing={row['differing']} "
+                   if "differing" in row else "")
+                + f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+                f"library_ms={'null' if lib_ms is None else f'{lib_ms:.4f}'} "
                 f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
                 f"[{card}] {'ok' if ok else 'FAIL'}")
             if not ok:
@@ -349,6 +439,164 @@ def _check_attention(label: str, case: dict, dname: str, rnd) -> dict:
                 **_bound(nbytes, 4 * b * kh * g_ * s * d, dname))
 
 
+def _int_mm_chain(args: tuple):
+    """The library yardstick of the activation-quantized chains: the same
+    quantization and folds around ``torch._int_mm`` (cuBLASLt int8 x
+    int8 -> int32) for every dot.  ``args`` are a lowrank or a branched
+    kernel's arguments."""
+    import torch
+    from repro_torch.kernels.ref import quantize_rows
+
+    def dot(a_q, b_q, a_s, b_s):
+        return torch._int_mm(a_q, b_q).to(torch.float32) * a_s * b_s
+    x = args[0]
+    xq, xs = quantize_rows(x)
+    if len(args) == 5:
+        _, w0q, w0s, w1q, w1s = args
+        hq, hs = quantize_rows(dot(xq, w0q, xs, w0s))
+        return dot(hq, w1q, hs, w1s).to(x.dtype)
+    _, uq, us, xcq, xcs, vq, vs = args
+    y = 0.0
+    for i in range(uq.shape[0]):
+        h1q, h1s = quantize_rows(dot(xq, uq[i], xs, us[i]))
+        h2q, h2s = quantize_rows(dot(h1q, xcq[i], h1s, xcs[i]))
+        y = y + dot(h2q, vq[i], h2s, vs[i])
+    return y.to(x.dtype)
+
+
+def _check_qa(label: str, m: int, dname: str, rnd, factors: list) -> dict:
+    """One row of an activation-quantized chain: int8 ``factors`` (q,
+    scale) pairs, x in ``dname`` with one all-zero row (scale 0, output
+    exactly 0).  ``differing`` counts output elements not bit-equal to
+    the plain version (the folds and roundings are the same, so 0 is
+    expected)."""
+    import torch
+    from repro_torch.kernels import ref
+    lowrank = len(factors) == 2
+    name = "lowrank_matmul_qa" if lowrank else "branched_matmul_qa"
+    fn = getattr(kernel_module(name), name)
+    plain = ref.lowrank_matmul_qa_ref if lowrank \
+        else ref.branched_matmul_qa_ref
+    c = factors[0][0].shape[-2]
+    x = rnd(m, c, dtype=getattr(torch, dname))
+    x[m // 2] = 0
+    args = (x, *[t for pair in factors for t in pair])
+    y = fn(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    n = 1 if lowrank else factors[0][0].shape[0]
+    chain = [tuple(q.shape[-2:]) for q, _ in factors]
+    s = chain[-1][1]
+    try:
+        library_ms = time_ms(lambda: _int_mm_chain(args))
+    except RuntimeError as e:             # the yardstick only, never the port
+        log(f"torch._int_mm chain unavailable at M={m} ({e}); "
+            "library_ms null")
+        library_ms = None
+    dims = dict(C=c, R=chain[0][1], S=s) if lowrank else \
+        dict(N=n, C=c, r=chain[0][1], S=s)
+    return dict(shape=label, dtype=dname, M=m, **dims,
+                **_compare(y, want, dname),
+                differing=int((y.to(torch.float32)
+                               != want.to(torch.float32)).sum().item()),
+                ms=time_ms(lambda: fn(*args)),
+                plain_ms=time_ms(lambda: plain(*args)),
+                library_ms=library_ms,
+                **_bound(x.element_size() * m * (c + s)
+                         + n * sum(k * o + 4 * o for k, o in chain),
+                         2 * m * n * sum(k * o for k, o in chain), "int8"))
+
+
+def paged_inputs(case: dict, dname: str, quant: bool, g) -> tuple:
+    """Decode attention inputs over a paged pool of ``nb`` + 1 blocks:
+    q (B, 1, H, D) in ``dname``; the pool in ``dname`` (or int8 with one
+    scale row per block, quantized as the engine's insert quantizes a
+    block); tables whose live entries are a shuffled run of physical
+    blocks, the dummy past them; cache_pos ragged over [S/2, S), the
+    last ``idle`` slots -1 (no valid position) on rows of dummies.
+    Returns ``(q, pool, tables, cache_pos)``, ``pool`` being ``(k, v)``
+    or ``(k_q, k_scale, v_q, v_scale)``."""
+    import torch
+    from repro_torch.quant.kv import kv_scales, quantize_kv
+    b, kh, gg, d, bs, nblk, nb = (case[k] for k in
+                                  ("b", "kh", "g", "d", "bs", "nblk", "nb"))
+    dt = getattr(torch, dname)
+    q = torch.randn((b, 1, kh * gg, d), generator=g, device="cuda").to(dt)
+    seq = nblk * bs
+    pos = torch.randint(seq // 2, seq, (b,), generator=g, device="cuda",
+                        dtype=torch.int32)
+    pos[0] = seq - 1
+    perm = torch.randperm(nb, generator=g, device="cuda").to(torch.int32)
+    tables = torch.full((b, nblk), nb, dtype=torch.int32, device="cuda")
+    for i in range(b):
+        if i >= b - case["idle"]:
+            pos[i] = -1
+            continue
+        used = int(pos[i]) // bs + 1
+        tables[i, :used] = perm[i * nblk:i * nblk + used]
+    pool = []
+    for _ in ("k", "v"):
+        x = torch.randn((nb + 1, bs, kh, d), generator=g, device="cuda")
+        if quant:
+            scale = kv_scales(x, axis=1)
+            pool += [quantize_kv(x, scale[:, None]), scale]
+        else:
+            pool.append(x.to(dt))
+    return q, tuple(pool), tables, pos
+
+
+def _check_paged(label: str, case: dict, dname: str, quant: bool,
+                 g) -> dict:
+    """One paged decode attention row (full-width pool in ``dname``, or
+    int8).  The bound counts the blocks the tables reach up to each
+    slot's position once each (every entry for an idle slot), their scale
+    rows, the table entries read, q and the output; the yardstick is SDPA
+    on the pool gathered (and dequantized) beforehand, K/V expanded to
+    every query head."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    name = "decode_attention_paged" + ("_q" if quant else "")
+    q, pool, tables, pos = paged_inputs(case, dname, quant, g)
+    kw = {"softcap": case["softcap"]}
+    fn = getattr(ops, name)
+    plain = getattr(ref, name + "_ref")
+    args = (q, *pool, tables, pos)
+    y = fn(*args, **kw)
+    want = plain(*args, **kw)
+    torch.cuda.synchronize()
+    b, kh, gg, d, bs, nblk = (case[k] for k in
+                              ("b", "kh", "g", "d", "bs", "nblk"))
+    dt = q.dtype
+    if quant:
+        kd, vd = (pool[0].float() * pool[1][:, None],
+                  pool[2].float() * pool[3][:, None])
+    else:
+        kd, vd = pool
+    heads = [ref._gather_blocks(t.to(dt), tables).permute(0, 2, 1, 3)
+             .repeat_interleave(gg, dim=1).contiguous() for t in (kd, vd)]
+    qd = q.reshape(b, kh * gg, 1, d)
+    mask = (torch.arange(nblk * bs, device="cuda")[None, :]
+            <= pos[:, None].long())[:, None, None, :]
+    walked, live = set(), 0
+    for i, cp in enumerate(pos.tolist()):
+        walk = nblk if cp < 0 else min(nblk, cp // bs + 1)
+        walked.update(tables[i, :walk].tolist())
+        live += walk
+    block_bytes = 2 * bs * kh * d * (1 if quant else dt.itemsize) \
+        + (2 * kh * d * 4 if quant else 0)
+    nbytes = (len(walked) * block_bytes + 4 * live + 4 * b
+              + 2 * q.numel() * dt.itemsize)
+    return dict(shape=label, dtype=dname, B=b, KH=kh, G=gg, D=d, bs=bs,
+                nblk=nblk, softcap=case["softcap"], idle=case["idle"],
+                **_compare(y, want, dname),
+                ms=time_ms(lambda: fn(*args, **kw)),
+                plain_ms=time_ms(lambda: plain(*args, **kw)),
+                library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                    qd, heads[0], heads[1], attn_mask=mask)),
+                **_bound(nbytes, 4 * gg * d * kh * bs * live, dname))
+
+
 def _compare(y, want, dname: str) -> dict:
     import torch
     d = (y.to(torch.float32) - want.to(torch.float32)).abs().max().item()
@@ -358,30 +606,38 @@ def _compare(y, want, dname: str) -> dict:
     return {"max_abs_err": d, "norm_err": d / max(scale, 1e-30)}
 
 
-def _bound(nbytes: int, flops: int, dname: str) -> dict:
-    t, by = bound_ms(nbytes, flops, dname)
-    return {"bound_ms": t, "bound_by": by, "flops": flops, "bytes": nbytes}
+def _bound(nbytes: int, flops: int, peak: str) -> dict:
+    t, by = bound_ms(nbytes, flops, peak)
+    return {"bound_ms": t, "bound_by": by, "flops": flops, "bytes": nbytes,
+            "peak": peak}
 
 
 def _kernel_entries(rows: dict[str, list[dict]]) -> list[dict]:
-    """One entry per kernel: times summed over one decode step of the
-    branches=4 model (bf16; M = 8 and int8 factors for the chains, the
-    served pool shape for the attention), from this run's
-    measurements."""
+    """One entry per kernel, from this run's measurements: times summed
+    over the kernel's launches in one decode step of the branches=4
+    model (bf16; M = 8 and int8 factors for the weight-only chains, the
+    served pool for the attentions) or, for the activation-quantized
+    chains, which run prefill only, in one prefill chunk (M = 64)."""
     out = []
     for name, rs in rows.items():
+        prefill = name in PREFILL_LAUNCHES
+        m = 64 if prefill else 8
         per_step = {k: 0.0 for k in ("ms", "plain_ms", "library_ms",
                                      "bound_ms", "bytes", "flops")}
-        for label, count in DECODE_LAUNCHES[name].items():
+        t_ops = 0.0
+        for label, count in (PREFILL_LAUNCHES if prefill
+                             else DECODE_LAUNCHES)[name].items():
             row = next(r for r in rs if r["shape"] == label
-                       and r.get("M", 8) == 8 and r["dtype"] == "bfloat16"
+                       and r.get("M", m) == m and r["dtype"] == "bfloat16"
                        and r.get("qmode", "int8") == "int8")
             for k in per_step:
-                per_step[k] += count * row[k]
-        by = ("bytes" if per_step["bytes"] / HBM_BYTES_PER_S
-              >= per_step["flops"] / PEAK_FLOPS["bfloat16"] else
-              "operations")
-        module, replaces = KERNELS[name]
+                if per_step[k] is not None:
+                    per_step[k] = (None if row[k] is None
+                                   else per_step[k] + count * row[k])
+            t_ops += count * row["flops"] / PEAK_FLOPS[row["peak"]]
+        by = ("bytes" if per_step["bytes"] / HBM_BYTES_PER_S >= t_ops
+              else "operations")
+        module, _, replaces = KERNELS[name]
         out.append({"name": name, "route": "cuda",
                     "source": f"src/repro_torch/kernels/csrc/{module}.cu",
                     "replaces": replaces, "launches": None,
@@ -389,9 +645,12 @@ def _kernel_entries(rows: dict[str, list[dict]]) -> list[dict]:
                     "ms": per_step["ms"], "plain_ms": per_step["plain_ms"],
                     "bound_ms": per_step["bound_ms"], "bound_by": by,
                     "library_ms": per_step["library_ms"],
-                    "timed_as": ("one decode step's launches, bf16"
-                                 + (", M=8, int8 factors" if name.endswith(
-                                     "matmul_q") else "")),
+                    "timed_as": (
+                        "one prefill chunk's launches, M=64, bf16, int8 "
+                        "factors" if prefill else
+                        "one decode step's launches, bf16"
+                        + (", M=8, int8 factors"
+                           if name.endswith("matmul_q") else "")),
                     "shapes": rs})
     return out
 
@@ -424,51 +683,82 @@ def decompose(params, axes, branches: int):
     return lrd, p2, rep, time.perf_counter() - t0
 
 
+def request_prompts(cfg, seed: int, n_req: int, lo: int, hi: int,
+                    shared: int = 0) -> list[list[int]]:
+    """``n_req`` prompts of ``lo``-``hi`` tokens from the seed; with
+    ``shared``, the first ``shared`` of them begin with one
+    :data:`SHARED_PREFIX`-token prefix (and run at least 32 tokens past
+    it)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    prefix = (rng.integers(0, cfg.vocab_size, SHARED_PREFIX).tolist()
+              if shared else [])
+    out = []
+    for i in range(n_req):
+        n = int(rng.integers(lo, hi + 1))
+        if i < shared:
+            n = max(n, SHARED_PREFIX + 32)
+            out.append(prefix + rng.integers(
+                0, cfg.vocab_size, n - SHARED_PREFIX).tolist())
+        else:
+            out.append(rng.integers(0, cfg.vocab_size, n).tolist())
+    return out
+
+
 def serve(cfg, lrd, params, *, n_req: int, prompt_lo: int, prompt_hi: int,
           new_tokens: int, expect: dict[str, dict[str, int]], card: str,
-          seed: int, quantize: str = "none",
-          kv_quantize: str = "none") -> dict:
+          seed: int, shared: int = 0, **engine_kw) -> dict:
     """Serve ``n_req`` requests and check the launches of every kernel in
     every model segment: ``expect[seg_kind][kernel]`` (a kernel not
     named must not launch at all).  Every count is set to 0 just before
-    the requests are driven and read just after."""
-    import numpy as np
+    the requests are driven and read just after.  ``engine_kw`` go to
+    :class:`ServeEngine` (quantize, kv_quantize, act_quantize,
+    kv_layout, kv_block_size).  With ``shared`` (a paged pool), the first
+    ``shared`` prompts begin with one prefix and the last of them is
+    submitted only once the first has its first token, so its admission
+    finds the prefix in the radix cache."""
     import torch
     from repro_torch.configs.base import RunConfig
     from repro_torch.serve.engine import Request, ServeEngine
 
-    mods = {name: kernel_module(name) for name in KERNELS}
     eng = ServeEngine(RunConfig(model=cfg, lrd=lrd), params, slots=8,
-                      max_seq=1024, quantize=quantize,
-                      kv_quantize=kv_quantize, device="cuda")
+                      max_seq=1024, device="cuda", **engine_kw)
+    paged = eng.kv_layout == "paged"
     segs: list[tuple[str, dict[str, int]]] = []
+    blocks_peak = 0
     step = eng.runner.step
 
     def counted(tokens, positions, seg_kind, **kw):
-        before = {k: m.launches for k, m in mods.items()}
+        nonlocal blocks_peak
+        before = {k: launch_count(k) for k in KERNELS}
         out = step(tokens, positions, seg_kind, **kw)
-        segs.append((seg_kind, {k: m.launches - before[k]
-                                for k, m in mods.items()}))
+        segs.append((seg_kind, {k: launch_count(k) - before[k]
+                                for k in KERNELS}))
+        if paged:
+            blocks_peak = max(blocks_peak, eng.pool.physical_blocks_in_use())
         return out
     eng.runner.step = counted
 
-    rng = np.random.default_rng(seed)
-    reqs = [Request(uid=i, prompt=rng.integers(
-                        0, cfg.vocab_size,
-                        int(rng.integers(prompt_lo, prompt_hi + 1))).tolist(),
-                    max_new_tokens=new_tokens,
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=new_tokens,
                     temperature=0.0 if i % 2 == 0 else 0.8)
-            for i in range(n_req)]
+            for i, p in enumerate(request_prompts(
+                cfg, seed, n_req, prompt_lo, prompt_hi, shared))]
+    late = reqs[shared - 1:shared] if shared > 1 else []
     torch.cuda.reset_peak_memory_stats()
-    for m in mods.values():
-        m.launches = 0
+    reset_launches()
     for r in reqs:
-        eng.add_request(r)
+        if r not in late:
+            eng.add_request(r)
     t0 = time.perf_counter()
+    if late:
+        while not reqs[0].output:
+            eng.step()
+        eng.pool.check_integrity()
+        eng.add_request(late[0])
     eng.run_until_done()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: m.launches for k, m in mods.items()}
+    launches = {k: launch_count(k) for k in KERNELS}
     bad = [r.uid for r in reqs
            if r.status != "finished" or len(r.output) != new_tokens]
     if bad:
@@ -485,21 +775,31 @@ def serve(cfg, lrd, params, *, n_req: int, prompt_lo: int, prompt_hi: int,
             if n and launches[name] == 0:
                 raise SystemExit(f"{name} never launched on the main path")
     tp = eng.throughput()
-    res = {"quantize": quantize, "kv_quantize": kv_quantize,
-           "requests": n_req, "new_tokens": new_tokens, "wall_s": wall,
-           "segments": len(segs),
+    res = {**{k: engine_kw.get(k, "none")
+              for k in ("quantize", "kv_quantize", "act_quantize")},
+           "kv_layout": eng.kv_layout, "requests": n_req, "new_tokens": new_tokens,
+           "wall_s": wall, "segments": len(segs),
            "decode_segments": sum(1 for s in segs if s[0] == "decode"),
            "per_segment": {kind: {k: n for k, n in c.items() if n}
                            for kind, c in want.items()},
            "launches": launches, "tokens_per_s": tp["tokens_per_s"],
            "ttft_mean_s": tp["ttft_mean_s"],
            "decode_step_ms_mean": tp["decode_step_ms_mean"],
+           "preemptions": tp["preemptions"],
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "kv_bytes_per_step": eng.plan_summary["kv_bytes_per_step"],
            "weight_bytes": eng.plan_summary["weight_bytes"],
            "quant_bytes": eng.plan_summary["quant_bytes"],
            "kv_cache_family": eng.plan_summary["kv_cache_family"],
            "card": card}
+    if paged:
+        eng.pool.check_integrity()
+        res.update(prefix_stats=eng.pool.prefix_stats(),
+                   physical_blocks_in_use_peak=blocks_peak,
+                   physical_blocks=eng.pool.num_blocks,
+                   bytes_per_block=eng.pool.bytes_per_block)
+        if res["prefix_stats"]["prefix_block_hits"] <= 0:
+            raise SystemExit(f"no radix prefix hit: {res['prefix_stats']}")
     log("serve " + json.dumps(res))
     return res
 
@@ -689,6 +989,95 @@ def cross_check_q(cfg, params_q, card: str, seed: int, n_tok: int = 64,
     return res
 
 
+def cross_check_paged(cfg, params, card: str, seed: int, *,
+                      kv_quantize: str | None = None,
+                      act_quantize: str | None = None, n_tok: int = 64,
+                      steps: int = 16) -> dict:
+    """Prefill and ``steps`` greedy decode steps through the paged pool
+    as the engine drives them -- the prompt chunk-prefilled into a
+    full-precision staging cache, inserted into the stream's blocks
+    (quantized per block for an int8 pool), decode over the block tables
+    -- on the card (kernels, bf16) against the same tree in f32 on the
+    CPU (plain versions).  Both are fed the CPU's greedy tokens, so every
+    step compares logits of the same context.  Checks that the card ran
+    one prefill chunk and ``steps`` decode steps through the kernels of
+    the path, the paged attention in every layer."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.models.api import get_model
+    from repro_torch.serve.pool import PagedKVPoolManager
+    from repro_torch.serve.runner import ModelRunner
+    toks = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, n_tok).tolist()
+    max_seq = -(-(n_tok + steps + 1) // PAGED_BLOCK) * PAGED_BLOCK
+    sides = []
+    for model, p in ((get_model(cfg, "cuda"), params),
+                     (get_model(dataclasses.replace(cfg, dtype="float32"),
+                                "cpu"), to_cpu_f32(params))):
+        pool = PagedKVPoolManager(model, 1, max_seq, kv_quantize=kv_quantize,
+                                  block_size=PAGED_BLOCK)
+        runner = ModelRunner(model, p, max_seq=max_seq,
+                             kv_quantize=kv_quantize,
+                             act_quantize=act_quantize, paged=pool.geometry)
+        sides.append((model.device, pool, runner))
+    reset_launches()
+    rels, agree, logits = [], [], []
+    with torch.inference_mode():
+        for dev, pool, runner in sides:
+            pool.allocate(0, n_tok, tokens=toks)
+            lg, staged = runner.step(
+                torch.tensor([toks], device=dev), None, "prefill_chunk",
+                cache=runner.new_stream_cache(), start_pos=0,
+                prompt_len=n_tok)
+            pool.insert(staged, 0, n_tok)
+            logits.append(lg[0, -1])
+        for i in range(steps + 1):
+            lg, lc = logits[0].float().cpu(), logits[1]
+            rels.append(((lg - lc).abs().max() / lc.std()).item())
+            agree.append(bool(lg.argmax() == lc.argmax()))
+            if i == steps:
+                break
+            tok = int(lc.argmax())
+            logits = []
+            for dev, pool, runner in sides:
+                lg, pool.cache = runner.step(
+                    torch.tensor([[tok]], device=dev),
+                    torch.as_tensor(pool.positions, device=dev), "decode",
+                    cache=pool.cache)
+                pool.grow(0, token=tok)
+                logits.append(lg[0, -1])
+    torch.cuda.synchronize()
+    launches = {k: launch_count(k) for k in KERNELS}
+    L = cfg.num_layers
+    if act_quantize:
+        want = {"lowrank_matmul_qa": 2 * L, "branched_matmul_qa": 5 * L,
+                "lowrank_matmul_q": 2 * L * steps,
+                "branched_matmul_q": 5 * L * steps}
+    else:
+        want = {"lowrank_matmul": 2 * L * (steps + 1),
+                "branched_matmul": 5 * L * (steps + 1)}
+    want["decode_attention_paged" + ("_q" if kv_quantize else "")] = \
+        L * steps
+    want = {k: want.get(k, 0) for k in KERNELS}
+    res = {"kv_quantize": kv_quantize or "none",
+           "act_quantize": act_quantize or "none", "tokens": n_tok,
+           "decode_steps": steps, "block_size": PAGED_BLOCK,
+           "max_diff_over_std": max(rels), "per_step": rels,
+           "tol": CHECK_TOL, "greedy_agree": f"{sum(agree)}/{len(agree)}",
+           "launches": {k: n for k, n in launches.items() if n},
+           "card": card}
+    log(("check_qa " if act_quantize else "check_paged ") + json.dumps(res))
+    if not max(rels) <= CHECK_TOL:
+        raise SystemExit(f"card logits through the paged pool differ from "
+                         f"the CPU f32 reference: {max(rels):.4f} > "
+                         f"{CHECK_TOL}")
+    if launches != want:
+        raise SystemExit(f"the paged check launched {launches}, want "
+                         f"{want}")
+    return res
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -719,7 +1108,8 @@ def main() -> int:
             f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
     kernels = None
-    model_phases = {"serve", "check", "serve_q", "check_q", "profile"}
+    model_phases = {"serve", "check", "serve_q", "check_q", "serve_paged",
+                    "check_paged", "serve_qa", "check_qa", "profile"}
     if set(phases) & ({"build", "kernels"} | model_phases):
         with Phase("build"):
             from repro_torch.kernels import build
@@ -775,7 +1165,7 @@ def main() -> int:
     if "check" in phases:
         with Phase("check"):
             cross_check(cfg, p4, card, args.seed)
-    if set(phases) & {"serve_q", "check_q"}:
+    if set(phases) & {"serve_q", "check_q", "serve_qa", "check_qa"}:
         from repro_torch.quant.quantize import quantize_tree
         t0 = time.perf_counter()
         with torch.inference_mode():
@@ -795,6 +1185,35 @@ def main() -> int:
     if "check_q" in phases:
         with Phase("check_q"):
             cross_check_q(cfg, pq, card, args.seed)
+    paged_run = dict(n_req=8, prompt_lo=32, prompt_hi=512, new_tokens=32,
+                     card=card, seed=args.seed, shared=4,
+                     kv_layout="paged", kv_block_size=PAGED_BLOCK)
+    if "serve_paged" in phases:
+        with Phase("serve_paged"):
+            serve_res["paged"] = serve(
+                cfg, lrd, p4, **paged_run,
+                expect={"decode": {"lowrank_matmul": 32,
+                                   "branched_matmul": 80,
+                                   "decode_attention_paged": 16},
+                        "prefill_chunk": {"lowrank_matmul": 32,
+                                          "branched_matmul": 80}})
+    if "check_paged" in phases:
+        with Phase("check_paged"):
+            cross_check_paged(cfg, p4, card, args.seed)
+    if "serve_qa" in phases:
+        with Phase("serve_qa"):
+            serve_res["qa"] = serve(
+                cfg, lrd, pq, **paged_run, quantize="int8",
+                act_quantize="int8", kv_quantize="int8",
+                expect={"decode": {"lowrank_matmul_q": 32,
+                                   "branched_matmul_q": 80,
+                                   "decode_attention_paged_q": 16},
+                        "prefill_chunk": {"lowrank_matmul_qa": 32,
+                                          "branched_matmul_qa": 80}})
+    if "check_qa" in phases:
+        with Phase("check_qa"):
+            cross_check_paged(cfg, pq, card, args.seed, kv_quantize="int8",
+                              act_quantize="int8")
     if "profile" in phases:
         with Phase("profile"):
             profile_decode(cfg, lrd, p4, card, args.seed)
@@ -803,9 +1222,9 @@ def main() -> int:
 
     if kernels is not None:
         for k in kernels:
-            run = ("quantized" if k["name"].endswith("_q") else "branches4")
-            if run in serve_res:
-                k["launches"] = serve_res[run]["launches"][k["name"]]
+            run = serve_res.get(RUN_OF[k["name"]])
+            if run is not None:
+                k["launches"] = run["launches"][k["name"]]
         log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -100,17 +100,24 @@ class LRDConfig:
     quant_targets: Sequence[str] = (  # which factor keys to quantize
         "w0", "w1", "u", "xc", "v", "tucker_u", "core", "tucker_v",
     )
-    # Runtime KV pool: "none" | "int8" (per-(slot, head, channel) scales).
+    # Runtime KV pool: "none" | "int8" (per-(slot, head, channel) scales,
+    # per-(block, head, channel) on the paged pool).
     kv_quantize: str = "none"
-    # Serve-time compression the port does not serve yet: the engine
-    # raises NotImplementedError naming the ROADMAP item when one is set.
-    act_quantize: str = "none"        # A8
-    sparsify: str = "none"            # A11
-    kv_layout: str = "slot"           # A9 ("paged")
+    # Per-token int8 activations on prefill and chunked-prefill segments
+    # (the *_qa kernels): "none" | "int8"; needs quantize="int8".
+    act_quantize: str = "none"
+    # 2:4 sparsity, which the port does not serve yet: the engine raises
+    # NotImplementedError naming ROADMAP item A11 when it is set.
+    sparsify: str = "none"
     # Continuous-batching serve stack: tokens per chunked-prefill segment
     # and the per-step token budget (0 = engine defaults).
     prefill_chunk: int = 0
     step_token_budget: int = 0
+    # KV pool memory layout: "slot" (one contiguous region per stream) or
+    # "paged" (fixed-size blocks behind per-slot block tables with radix
+    # prefix sharing), and the paged pool's tokens per block (0 = 16).
+    kv_layout: str = "slot"
+    kv_block_size: int = 0
 
 
 @dataclass(frozen=True)

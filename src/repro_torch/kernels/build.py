@@ -21,7 +21,9 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("lowrank_matmul.cu", "branched_matmul.cu", "lowrank_matmul_q.cu",
-           "branched_matmul_q.cu", "decode_attention_q.cu")
+           "branched_matmul_q.cu", "decode_attention_q.cu",
+           "lowrank_matmul_qa.cu", "branched_matmul_qa.cu",
+           "decode_attention_paged.cu")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 LIB_NAME = "libreprotorch_kernels.so"
@@ -111,6 +113,24 @@ def load() -> ctypes.CDLL:
     lib.lrk_decode_attention_q.restype = i
     lib.lrk_decode_attention_q_fits.argtypes = [i, i, i]
     lib.lrk_decode_attention_q_fits.restype = i
+    lib.lrk_lowrank_matmul_qa.argtypes = [i, p, p, p, p, p, p, i, i, i, i, p]
+    lib.lrk_lowrank_matmul_qa.restype = i
+    lib.lrk_lowrank_qa_smem.argtypes = [i, i]
+    lib.lrk_lowrank_qa_smem.restype = ctypes.c_size_t
+    lib.lrk_branched_matmul_qa.argtypes = [i, p, p, p, p, p, p, p, p, i, i,
+                                           i, i, i, i, p]
+    lib.lrk_branched_matmul_qa.restype = i
+    lib.lrk_branched_qa_smem.argtypes = [i, i, i, i]
+    lib.lrk_branched_qa_smem.restype = ctypes.c_size_t
+    lib.lrk_decode_attention_paged.argtypes = [i, p, p, p, p, p, p, i, i, i,
+                                               i, i, i, ctypes.c_float, p]
+    lib.lrk_decode_attention_paged.restype = i
+    lib.lrk_decode_attention_paged_q.argtypes = [i, p, p, p, p, p, p, p, p,
+                                                 i, i, i, i, i, i,
+                                                 ctypes.c_float, p]
+    lib.lrk_decode_attention_paged_q.restype = i
+    lib.lrk_decode_attention_paged_fits.argtypes = [i, i, i, i]
+    lib.lrk_decode_attention_paged_fits.restype = i
     lib.lrk_error_string.argtypes = [i]
     lib.lrk_error_string.restype = ctypes.c_char_p
     return lib

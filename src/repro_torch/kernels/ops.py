@@ -12,9 +12,12 @@ import torch
 
 from repro_torch.kernels import branched_matmul as bk
 from repro_torch.kernels import branched_matmul_q as bqk
+from repro_torch.kernels import branched_matmul_qa as bak
+from repro_torch.kernels import decode_attention_paged as dpk
 from repro_torch.kernels import decode_attention_q as dak
 from repro_torch.kernels import lowrank_matmul as lk
 from repro_torch.kernels import lowrank_matmul_q as lqk
+from repro_torch.kernels import lowrank_matmul_qa as lak
 from repro_torch.kernels import ref
 
 
@@ -74,22 +77,95 @@ def branched_matmul_q(x: torch.Tensor, u_q: torch.Tensor,
     return y.reshape(*lead, v_q.shape[-1])
 
 
+def lowrank_matmul_qa(x: torch.Tensor, w0_q: torch.Tensor,
+                      w0_scale: torch.Tensor, w1_q: torch.Tensor,
+                      w1_scale: torch.Tensor) -> torch.Tensor:
+    """The activation-quantized chain: x (..., C) quantized per row,
+    both dots int8 x int8 on int8 w0_q (C, R) / w1_q (R, S) with f32
+    scales (1, R) / (1, S) -> (..., S)."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.device.type == "cpu":
+        y = ref.lowrank_matmul_qa_ref(x2, w0_q, w0_scale, w1_q, w1_scale)
+    else:
+        y = lak.lowrank_matmul_qa(x2.contiguous(), w0_q, w0_scale, w1_q,
+                                  w1_scale)
+    return y.reshape(*lead, w1_q.shape[-1])
+
+
+def branched_matmul_qa(x: torch.Tensor, u_q: torch.Tensor,
+                       u_scale: torch.Tensor, xc_q: torch.Tensor,
+                       xc_scale: torch.Tensor, v_q: torch.Tensor,
+                       v_scale: torch.Tensor) -> torch.Tensor:
+    """The activation-quantized branched chain: x (..., C) quantized per
+    row once, every branch dot int8 x int8 -> (..., S)."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.device.type == "cpu":
+        y = ref.branched_matmul_qa_ref(x2, u_q, u_scale, xc_q, xc_scale,
+                                       v_q, v_scale)
+    else:
+        y = bak.branched_matmul_qa(x2.contiguous(), u_q, u_scale, xc_q,
+                                   xc_scale, v_q, v_scale)
+    return y.reshape(*lead, v_q.shape[-1])
+
+
+def _decode_rows(q: torch.Tensor, kh: int) -> torch.Tensor:
+    """q (B, 1, H, D) -> (B, KH, G, D): the H query rows group as (KH, G),
+    as in the reference (``repro/kernels/ops.py:407-408``)."""
+    b, sq, h, d = q.shape
+    if sq != 1:
+        raise ValueError(f"decode attention takes one query row, got {sq}")
+    return q.reshape(b, kh, h // kh, d).contiguous()
+
+
+def decode_attention_paged(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, block_tables: torch.Tensor,
+                           cache_pos: torch.Tensor, *,
+                           softcap: float = 0.0) -> torch.Tensor:
+    """One decode step of attention over a full-width paged pool.  q (B,
+    1, H, D); k/v (NB+1, bs, KH, D), block NB the dummy; block_tables
+    (B, nblk) int32; cache_pos (B,) -> (B, 1, H, D)."""
+    if q.device.type == "cpu":
+        return ref.decode_attention_paged_ref(q, k, v, block_tables,
+                                              cache_pos, softcap=softcap)
+    o = dpk.decode_attention_paged(
+        _decode_rows(q, k.shape[2]), k, v,
+        block_tables.to(torch.int32).contiguous(),
+        cache_pos.to(torch.int32).contiguous(), softcap=softcap)
+    return o.reshape(q.shape)
+
+
+def decode_attention_paged_q(q: torch.Tensor, k_q: torch.Tensor,
+                             k_scale: torch.Tensor, v_q: torch.Tensor,
+                             v_scale: torch.Tensor,
+                             block_tables: torch.Tensor,
+                             cache_pos: torch.Tensor, *,
+                             softcap: float = 0.0) -> torch.Tensor:
+    """One decode step of attention over an int8 paged pool with one
+    scale row per physical block, k/v_scale (NB+1, KH, D) f32."""
+    if q.device.type == "cpu":
+        return ref.decode_attention_paged_q_ref(
+            q, k_q, k_scale, v_q, v_scale, block_tables, cache_pos,
+            softcap=softcap)
+    o = dpk.decode_attention_paged_q(
+        _decode_rows(q, k_q.shape[2]), k_q, k_scale, v_q, v_scale,
+        block_tables.to(torch.int32).contiguous(),
+        cache_pos.to(torch.int32).contiguous(), softcap=softcap)
+    return o.reshape(q.shape)
+
+
 def decode_attention_q(q: torch.Tensor, k_q: torch.Tensor,
                        k_scale: torch.Tensor, v_q: torch.Tensor,
                        v_scale: torch.Tensor, cache_pos: torch.Tensor, *,
                        softcap: float = 0.0) -> torch.Tensor:
     """One decode step of attention over an int8 KV pool.  q (B, 1, H, D);
     k_q/v_q (B, S, KH, D) int8; k/v_scale (B, KH, D) f32; cache_pos (B,)
-    -> (B, 1, H, D).  The H query rows group as (KH, G), as in the
-    reference (``repro/kernels/ops.py:407-408``)."""
+    -> (B, 1, H, D)."""
     if q.device.type == "cpu":
         return ref.decode_attention_q_ref(q, k_q, k_scale, v_q, v_scale,
                                           cache_pos, softcap=softcap)
-    b, sq, h, d = q.shape
-    if sq != 1:
-        raise ValueError(f"decode attention takes one query row, got {sq}")
-    kh = k_q.shape[2]
     o = dak.decode_attention_q(
-        q.reshape(b, kh, h // kh, d).contiguous(), k_q, k_scale, v_q,
-        v_scale, cache_pos.to(torch.int32).contiguous(), softcap=softcap)
-    return o.reshape(b, 1, h, d)
+        _decode_rows(q, k_q.shape[2]), k_q, k_scale, v_q, v_scale,
+        cache_pos.to(torch.int32).contiguous(), softcap=softcap)
+    return o.reshape(q.shape)

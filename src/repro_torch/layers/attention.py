@@ -1,8 +1,9 @@
 """Attention: RoPE and GQA for prefill, chunked prefill and decode.
 
 Plain torch (``einsum`` / ``softmax``), as the reference uses plain jnp
-for prefill and full-width decode; decode over an int8 pool goes through
-the plan to the ``decode_attention_q`` kernel.  Logits are f32,
+for prefill and full-width slot decode; decode over an int8 or a paged
+pool goes through the plan to the ``decode_attention_q`` /
+``decode_attention_paged[_q]`` kernels.  Logits are f32,
 masked with ``-1e30``; probabilities round to the value dtype before
 the context product.  Prefill attention runs over query chunks of
 ``Q_CHUNK`` rows so the logits never exceed ``q_chunk x kv_len`` per
@@ -98,7 +99,7 @@ def apply_attention(p: dict, x: torch.Tensor, *, num_heads: int,
                     prompt_len: int | None = None,
                     start_pos: int | None = None,
                     plan: CachePlan | None = None,
-                    softcap: float = 0.0
+                    softcap: float = 0.0, act_quantize: bool = False
                     ) -> tuple[torch.Tensor, dict | None]:
     """Self-attention.  Returns (output, cache).
 
@@ -110,11 +111,14 @@ def apply_attention(p: dict, x: torch.Tensor, *, num_heads: int,
       (``positions`` carry the absolute offsets).
     * decode: ``cache_pos`` (B,) given, Sq = 1 — writes K/V at
       ``cache_pos`` and attends over the pool.
+
+    ``act_quantize`` runs the projections int8 x int8 on int8 plans.
     """
     b, sq, _ = x.shape
-    q = apply_linear(p["q"], x).reshape(b, sq, num_heads, head_dim)
-    k = apply_linear(p["k"], x).reshape(b, sq, num_kv_heads, head_dim)
-    v = apply_linear(p["v"], x).reshape(b, sq, num_kv_heads, head_dim)
+    aq = dict(act_quantize=act_quantize)
+    q = apply_linear(p["q"], x, **aq).reshape(b, sq, num_heads, head_dim)
+    k = apply_linear(p["k"], x, **aq).reshape(b, sq, num_kv_heads, head_dim)
+    v = apply_linear(p["v"], x, **aq).reshape(b, sq, num_kv_heads, head_dim)
     sin, cos = rope_sincos(positions, head_dim, rope_theta)
     q = apply_rope(q, sin, cos)
     k = apply_rope(k, sin, cos)
@@ -139,4 +143,4 @@ def apply_attention(p: dict, x: torch.Tensor, *, num_heads: int,
             cache = plan.write_prefill(cache, {"k": k, "v": v}, prompt_len)
             o = chunked_attention(q, k, v, causal=causal, softcap=softcap)
     o = o.reshape(b, sq, num_heads * head_dim)
-    return apply_linear(p["o"], o), cache
+    return apply_linear(p["o"], o, **aq), cache

@@ -1,5 +1,4 @@
-"""CachePlan for the GQA slot pool: full width (``gqa_f32``) or int8
-(``gqa_int8``).
+"""CachePlan for the GQA KV pools: slot or paged, full width or int8.
 
 One plan per attention layer declares the cache leaves, their byte
 accounting, the three write executors and the cache-coupled decode
@@ -10,10 +9,19 @@ attention:
 * ``gqa_int8`` — ``k_q``/``v_q`` ``(B, S, KH, D)`` int8 plus
   ``k_scale``/``v_scale`` ``(B, KH, D)`` f32 per-(slot, head, channel)
   scales (:mod:`repro_torch.quant.kv`); decode attention runs the
-  ``decode_attention_q`` kernel on the int8 pool.
+  ``decode_attention_q`` kernel on the int8 pool;
+* ``gqa_paged_f32`` / ``gqa_paged_int8`` — the paged pool
+  (:class:`PagedGeometry`): value leaves ``(NB+1, bs, KH, D)`` whose
+  batch axis indexes physical blocks (block ``NB`` is the dummy that idle
+  table entries point at), int8 scale rows ``(NB+1, KH, D)`` — one per
+  block, so a shared prefix block travels with its own scales — and a
+  ``block_tables`` leaf ``(slots, blocks_per_slot)`` int32.  Decode
+  attention runs the ``decode_attention_paged[_q]`` kernels through the
+  tables; prompts never write the paged pool directly (serve stages
+  them in a contiguous stream cache, and the pool manager scatters whole
+  blocks, :mod:`repro_torch.serve.pool`).
 
-The MLA and paged families of the reference come with ROADMAP items A10
-and A9.
+The MLA families of the reference come with ROADMAP item A10.
 
 The port writes caches IN PLACE (the reference returns updated copies):
 a decode step would otherwise copy the whole pool.  Every writer returns
@@ -38,12 +46,36 @@ from repro_torch.quant import kv as kvq
 
 FAMILY_GQA = "gqa_f32"
 FAMILY_GQA_INT8 = "gqa_int8"
+FAMILY_GQA_PAGED = "gqa_paged_f32"
+FAMILY_GQA_PAGED_INT8 = "gqa_paged_int8"
 
 #: leaves with a sequence axis (``(B, S, KH, D)``); the scale rows
 #: ``(B, KH, D)`` have none
 SEQ_LEAVES = ("k", "v", "k_q", "v_q")
 
 _NEG_INF = -1e30
+
+
+@dataclasses.dataclass(frozen=True)
+class PagedGeometry:
+    """Static geometry of a paged KV pool: value leaves are laid out
+    ``(num_blocks + 1, block_size, ...)``, physical block ``num_blocks``
+    being the dummy that idle table entries point at, and each slot's row
+    of ``block_tables (slots, blocks_per_slot)`` maps its logical blocks
+    to physical ones."""
+
+    block_size: int       #: tokens per KV block
+    num_blocks: int       #: usable blocks (the leaves hold one more)
+    slots: int            #: concurrent streams (block-table rows)
+    blocks_per_slot: int  #: max_seq // block_size (table row width)
+
+    @property
+    def dummy_block(self) -> int:
+        return self.num_blocks
+
+    @property
+    def max_seq(self) -> int:
+        return self.block_size * self.blocks_per_slot
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,25 +87,43 @@ class CachePlan:
     head_dim: int
     dtype: torch.dtype
     family: str = FAMILY_GQA
+    #: paged families carry their block geometry; slot families None
+    paged: PagedGeometry | None = None
 
     @property
     def quantized(self) -> bool:
-        return self.family == FAMILY_GQA_INT8
+        return self.family in (FAMILY_GQA_INT8, FAMILY_GQA_PAGED_INT8)
 
     def leaves(self, batch: int, seq_len: int
                ) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
-        """``{name: (shape, dtype)}`` of one layer's cache leaves."""
+        """``{name: (shape, dtype)}`` of one layer's cache leaves (for a
+        paged plan, ``batch`` = physical blocks + 1 and ``seq_len`` = the
+        block size)."""
         value = (batch, seq_len, self.num_kv_heads, self.head_dim)
         if not self.quantized:
-            return {n: (value, self.dtype) for n in ("k", "v")}
-        row = (batch, self.num_kv_heads, self.head_dim)
-        return {"k_q": (value, torch.int8), "k_scale": (row, torch.float32),
-                "v_q": (value, torch.int8), "v_scale": (row, torch.float32)}
+            out = {n: (value, self.dtype) for n in ("k", "v")}
+        else:
+            row = (batch, self.num_kv_heads, self.head_dim)
+            out = {"k_q": (value, torch.int8),
+                   "k_scale": (row, torch.float32),
+                   "v_q": (value, torch.int8),
+                   "v_scale": (row, torch.float32)}
+        if self.paged is not None:
+            out["block_tables"] = ((self.paged.slots,
+                                    self.paged.blocks_per_slot), torch.int32)
+        return out
+
+    def fill_value(self, name: str) -> int:
+        """A fresh leaf's value: block tables point at the dummy block
+        (an unallocated stream never aliases live data), all else 0
+        (zero scales dequantize to zeros)."""
+        return self.paged.dummy_block if name == "block_tables" else 0
 
     def init(self, batch: int, seq_len: int,
              device: str | torch.device = "cuda") -> dict:
-        """Zero cache (zero scales dequantize to zeros)."""
-        return {n: torch.zeros(shape, dtype=dt, device=device)
+        """A fresh cache of one layer."""
+        return {n: torch.full(shape, self.fill_value(n), dtype=dt,
+                              device=device)
                 for n, (shape, dt) in self.leaves(batch, seq_len).items()}
 
     # -- accounting ---------------------------------------------------------
@@ -86,13 +136,27 @@ class CachePlan:
 
     @property
     def bytes_per_slot(self) -> int:
-        """Per-slot constant bytes (the f32 scale rows), this layer."""
+        """Per-slot constant bytes (the f32 scale rows), this layer; for
+        a paged plan, per physical block."""
         return 2 * self.num_kv_heads * self.head_dim * 4 \
             if self.quantized else 0
 
+    @property
+    def bytes_per_block(self) -> int:
+        """KV bytes of one physical block of a paged plan: ``block_size``
+        positions plus the block's scale rows."""
+        if self.paged is None:
+            raise ValueError(f"{self.family} is not a paged family")
+        return (self.paged.block_size * self.bytes_per_token
+                + self.bytes_per_slot)
+
     def bytes_per_step(self, slots: int, seq_len: int) -> int:
-        """Bytes the pool streams per decode step (every slot's full
-        ``seq_len`` is read: masked, not skipped)."""
+        """Bytes the pool streams per decode step, as the reference
+        counts them: every slot's full ``seq_len`` (masked, not skipped);
+        a paged pool one block per table entry plus the entries."""
+        if self.paged is not None:
+            nblk = seq_len // self.paged.block_size
+            return slots * nblk * (self.bytes_per_block + 4)
         return slots * (seq_len * self.bytes_per_token + self.bytes_per_slot)
 
     # -- write executors ----------------------------------------------------
@@ -125,12 +189,20 @@ class CachePlan:
             cache[key][:, start:start + sq] = x.to(cache[key].dtype)
         return cache
 
+    def _no_paged_writes(self, what: str) -> None:
+        if self.paged is not None:
+            raise ValueError(
+                f"paged pools take no {what} writes: serve stages prompts "
+                "in a contiguous stream cache and the pool manager "
+                "scatters whole blocks at insert")
+
     def write_prefill(self, cache: dict, new: dict,
                       prompt_len: int | None = None) -> dict:
         """Whole-prompt write at position 0.  Full-width pools keep the
         pad rows (causality hides them and insert masks them); int8 pools
         quantize on insert, with one-shot scales over the real prompt
         (``prompt_len`` masks the pad tail out first)."""
+        self._no_paged_writes("prefill")
         if not self.quantized:
             return self._write_at(cache, new, 0)
         for key, x in self._mask_new(new, 0, prompt_len).items():
@@ -147,6 +219,7 @@ class CachePlan:
         view under the logical names — the written pool itself for a
         full-width pool, the dequantized pool for int8 (serve stages
         chunked prompts at full width instead, for exactness)."""
+        self._no_paged_writes("chunk")
         new = self._mask_new(new, start_pos, prompt_len)
         if not self.quantized:
             cache = self._write_at(cache, new, start_pos)
@@ -166,6 +239,8 @@ class CachePlan:
         rows rewrite the value already stored at a clamped position.
         Int8 pools take the running-max scale update
         (:func:`repro_torch.quant.kv.kv_write_token`)."""
+        if self.paged is not None:
+            return self._write_decode_paged(cache, new, cache_pos)
         if self.quantized:
             for key, x in new.items():
                 kvq.kv_write_token(cache[key + "_q"], cache[key + "_scale"],
@@ -184,17 +259,60 @@ class CachePlan:
                                          x.to(pool.dtype), cur)
         return cache
 
+    def _write_decode_paged(self, cache: dict, new: dict,
+                            cache_pos: torch.Tensor) -> dict:
+        """One-token write through the block tables: block
+        ``tables[slot, pos // bs]``, row ``pos % bs``.  A position past
+        the table lands in the dummy block (the slot pool drops it), as
+        does an idle slot's write (its row points at the dummy).  Int8
+        takes the running-max scale update on the ONE gathered block
+        (:func:`repro_torch.quant.kv.kv_write_token` on a copy), then
+        scatters block and scale row back — a shared prefix block is
+        never the target, decode always lands past the shared prefix.
+        No host sync."""
+        geom = self.paged
+        bt = cache["block_tables"]
+        pos = cache_pos.to(device=bt.device, dtype=torch.long)
+        slots = torch.arange(pos.shape[0], device=bt.device)
+        blk = torch.clamp(torch.div(pos, geom.block_size,
+                                    rounding_mode="floor"),
+                          max=geom.blocks_per_slot - 1)
+        phys = torch.where(pos < geom.max_seq, bt[slots, blk].long(),
+                           geom.dummy_block)
+        row = torch.remainder(pos, geom.block_size)
+        if not self.quantized:
+            for key, x in new.items():
+                cache[key][phys, row] = x.to(cache[key].dtype)
+            return cache
+        for key, x in new.items():
+            values, scales = cache[key + "_q"], cache[key + "_scale"]
+            blocks, rows = values[phys], scales[phys]
+            kvq.kv_write_token(blocks, rows, x, row)
+            values[phys] = blocks
+            scales[phys] = rows
+        return cache
+
     # -- decode attention ---------------------------------------------------
 
     def attend_decode(self, q: torch.Tensor, cache: dict,
                       cache_pos: torch.Tensor, *,
                       softcap: float = 0.0) -> torch.Tensor:
         """One query row vs the whole pool.  q (B, 1, H, D) ->
-        (B, 1, H, D); positions ``> cache_pos`` are masked.  Int8 pools
-        go through :func:`repro_torch.kernels.ops.decode_attention_q`
-        (the kernel on the card, its plain version on the CPU)."""
+        (B, 1, H, D); positions ``> cache_pos`` are masked.  Int8 and
+        paged pools go through :mod:`repro_torch.kernels.ops`
+        (``decode_attention_q`` / ``decode_attention_paged[_q]``: the
+        kernel on the card, its plain version on the CPU)."""
+        from repro_torch.kernels import ops
+        if self.paged is not None:
+            bt = cache["block_tables"]
+            if not self.quantized:
+                return ops.decode_attention_paged(
+                    q, cache["k"], cache["v"], bt, cache_pos,
+                    softcap=softcap)
+            return ops.decode_attention_paged_q(
+                q, cache["k_q"], cache["k_scale"], cache["v_q"],
+                cache["v_scale"], bt, cache_pos, softcap=softcap)
         if self.quantized:
-            from repro_torch.kernels import ops
             return ops.decode_attention_q(
                 q, cache["k_q"], cache["k_scale"], cache["v_q"],
                 cache["v_scale"], cache_pos, softcap=softcap)
@@ -234,8 +352,30 @@ def gqa_plan(num_kv_heads: int, head_dim: int, dtype: torch.dtype,
     return CachePlan(num_kv_heads, head_dim, dtype, FAMILY_GQA_INT8)
 
 
+def gqa_paged_plan(num_kv_heads: int, head_dim: int, dtype: torch.dtype,
+                   quantize: str | None = None, *,
+                   geometry: PagedGeometry) -> CachePlan:
+    """The plan for one GQA layer's paged K/V pool (``quantize`` None /
+    "none" or "int8")."""
+    if quantize in (None, "none"):
+        return CachePlan(num_kv_heads, head_dim, dtype, FAMILY_GQA_PAGED,
+                         geometry)
+    kvq.check_mode(quantize)
+    return CachePlan(num_kv_heads, head_dim, dtype, FAMILY_GQA_PAGED_INT8,
+                     geometry)
+
+
 def build_cache_plan(cfg, dtype: torch.dtype,
-                     kv_quantize: str | None = None) -> CachePlan:
+                     kv_quantize: str | None = None,
+                     paged: PagedGeometry | None = None) -> CachePlan:
+    """The per-attention-layer plan of a model config; a ``paged``
+    geometry selects the paged families."""
+    if paged is not None:
+        if cfg.mla:
+            raise ValueError("paged KV pools serve the GQA families only "
+                             "(no paged MLA latent cache)")
+        return gqa_paged_plan(cfg.num_kv_heads, cfg.resolved_head_dim,
+                              dtype, kv_quantize, geometry=paged)
     if cfg.mla:
         raise NotImplementedError("MLA latent caches come with ROADMAP "
                                   "item A10 (MLA)")
@@ -247,7 +387,15 @@ def plan_from_cache(cache: dict, dtype: torch.dtype = torch.float32
                     ) -> CachePlan:
     """Classify a per-layer GQA cache dict into its plan, for callers
     that thread none.  Geometry comes from the leaf shapes; ``dtype`` is
-    only read for the int8 family (full-width leaves carry theirs)."""
+    only read for the int8 families (full-width leaves carry theirs)."""
+    if "block_tables" in cache:
+        val = cache.get("k", cache.get("k_q"))
+        nb1, bs, kh, hd = val.shape[-4:]
+        slots, bpslot = cache["block_tables"].shape[-2:]
+        geom = PagedGeometry(bs, nb1 - 1, slots, bpslot)
+        if "k_q" in cache:
+            return gqa_paged_plan(kh, hd, dtype, "int8", geometry=geom)
+        return gqa_paged_plan(kh, hd, cache["k"].dtype, geometry=geom)
     if "k_q" in cache:
         kh, hd = cache["k_q"].shape[-2:]
         return gqa_plan(kh, hd, dtype, "int8")

@@ -20,8 +20,9 @@ def init_mlp(pb: ParamBuilder, name: str, d_model: int, d_ff: int,
     init_linear(sub, "down", d_ff, d_model, FFN, EMBED)
 
 
-def apply_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
-    up = apply_linear(p["up"], x)
-    gate = apply_linear(p["gate"], x)
+def apply_mlp(p: dict, x: torch.Tensor, *,
+              act_quantize: bool = False) -> torch.Tensor:
+    up = apply_linear(p["up"], x, act_quantize=act_quantize)
+    gate = apply_linear(p["gate"], x, act_quantize=act_quantize)
     h = F.silu(gate.to(torch.float32)).to(x.dtype) * up
-    return apply_linear(p["down"], h)
+    return apply_linear(p["down"], h, act_quantize=act_quantize)

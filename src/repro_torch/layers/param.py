@@ -84,10 +84,12 @@ def init_linear(pb: ParamBuilder, name: str, d_in: int, d_out: int,
                          scale=scale)
 
 
-def apply_linear(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """Apply a (possibly decomposed) linear op to ``x`` (..., d_in)."""
+def apply_linear(p: dict, x: torch.Tensor, *,
+                 act_quantize: bool = False) -> torch.Tensor:
+    """Apply a (possibly decomposed) linear op to ``x`` (..., d_in);
+    ``act_quantize`` opts into the int8 x int8 kernels on int8 plans."""
     from repro_torch.layers.plan import build_plan
-    return build_plan(p).execute(p, x)
+    return build_plan(p).execute(p, x, act_quantize=act_quantize)
 
 
 def linear_flops(p: dict, n_tokens: int) -> float:

@@ -12,7 +12,9 @@ classifying as their plain originals), records its factors as
 :mod:`repro_torch.kernels.ops`, which launches the CUDA kernel for a
 CUDA activation and runs the kernel's plain version for a CPU one.  A
 fully quantized plan runs the quantized kernel (``lowrank_q`` /
-``branched_q``); a mixed one (partial ``quant_targets``) dequantizes to
+``branched_q``), or, on prefill segments with activation quantization
+and int8 factors, the int8 x int8 kernel (``lowrank_qa`` /
+``branched_qa``); a mixed one (partial ``quant_targets``) dequantizes to
 ``x.dtype`` and runs the plain chain's kernel, as the reference runs it
 through its dequantizing jnp path.
 
@@ -76,6 +78,14 @@ class LinearPlan:
     factors: tuple[FactorSpec, ...]
 
     @property
+    def d_in(self) -> int:
+        return self.factors[0].shape[-2]
+
+    @property
+    def d_out(self) -> int:
+        return self.factors[-1].shape[-1]
+
+    @property
     def branches(self) -> int:
         return self.factors[0].shape[-3] if self.kind == KIND_BRANCHED else 1
 
@@ -127,13 +137,19 @@ class LinearPlan:
 
     # -- kernel dispatch ----------------------------------------------------
 
-    def kernel_for(self, x_shape: tuple[int, ...]) -> str | None:
+    def kernel_for(self, x_shape: tuple[int, ...],
+                   act_quantize: bool = False) -> str | None:
         """The fused kernel that executes this plan for an activation of
         ``x_shape``: ``"lowrank"`` for a 2-D SVD pair, ``"branched"`` for
         3-D branch factors (``"lowrank_q"`` / ``"branched_q"`` when every
-        factor is quantized), None for a dense linear.  Stacked factors
-        (a leading layer axis) never reach a kernel: the model slices the
-        layer axis first."""
+        factor is quantized), None for a dense linear.  ``act_quantize``
+        (prefill segments only) asks for the int8 x int8 kernels
+        ``"lowrank_qa"`` / ``"branched_qa"``, which take fully int8
+        plans only: fp8 plans keep the weight-only kernels, and a mixed
+        plan runs the dequantized plain chain, as in the reference
+        (``repro/layers/plan.py:370-381``).  Stacked factors (a leading
+        layer axis) never reach a kernel: the model slices the layer
+        axis first."""
         if self.kind == KIND_DENSE or len(x_shape) < 2:
             return None
         want_ndim = 2 if self.kind == KIND_LOWRANK else 3
@@ -141,7 +157,12 @@ class LinearPlan:
             raise ValueError(
                 f"{self.kind} factors {[f.shape for f in self.factors]} "
                 "carry a leading stack axis; slice it before executing")
-        return self.kind + "_q" if self.fully_quantized else self.kind
+        if not self.fully_quantized:
+            return self.kind
+        if act_quantize and all(f.dtype == torch.int8
+                                for f in self.factors):
+            return self.kind + "_qa"
+        return self.kind + "_q"
 
     def value(self, p: dict, name: str, dtype: torch.dtype) -> torch.Tensor:
         """Factor ``name`` of tree ``p``; a quantized pair is dequantized
@@ -153,10 +174,19 @@ class LinearPlan:
 
     # -- execution ----------------------------------------------------------
 
-    def execute(self, p: dict, x: torch.Tensor) -> torch.Tensor:
-        """Apply this plan's linear op to ``x`` (..., d_in)."""
+    def execute(self, p: dict, x: torch.Tensor, *,
+                act_quantize: bool = False) -> torch.Tensor:
+        """Apply this plan's linear op to ``x`` (..., d_in);
+        ``act_quantize`` as in :meth:`kernel_for`."""
         from repro_torch.kernels import ops
-        kernel = self.kernel_for(tuple(x.shape))
+        kernel = self.kernel_for(tuple(x.shape), act_quantize)
+        if kernel == "lowrank_qa":
+            return ops.lowrank_matmul_qa(x, p["w0_q"], p["w0_scale"],
+                                         p["w1_q"], p["w1_scale"])
+        if kernel == "branched_qa":
+            return ops.branched_matmul_qa(x, p["u_q"], p["u_scale"],
+                                          p["xc_q"], p["xc_scale"],
+                                          p["v_q"], p["v_scale"])
         if kernel == "lowrank_q":
             return ops.lowrank_matmul_q(x, p["w0_q"], p["w0_scale"],
                                         p["w1_q"], p["w1_scale"])

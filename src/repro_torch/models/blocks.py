@@ -30,9 +30,12 @@ def apply_block(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
                 cache: dict | None = None,
                 cache_pos: torch.Tensor | None = None,
                 prompt_len: int | None = None, start_pos: int | None = None,
-                cache_plan=None) -> tuple[torch.Tensor, dict | None]:
+                cache_plan=None, act_quantize: bool = False
+                ) -> tuple[torch.Tensor, dict | None]:
     """Pre-norm block.  Returns ``(x', cache)``; ``start_pos`` marks a
-    chunked prefill (K/V land at the offset in the existing cache)."""
+    chunked prefill (K/V land at the offset in the existing cache);
+    ``act_quantize`` runs every int8 linear int8 x int8 (prefill
+    segments)."""
     h = rms_norm(p["attn_norm"], x, cfg.norm_eps)
     a, cache = attn.apply_attention(
         p["attn"], h, num_heads=cfg.num_heads,
@@ -40,7 +43,7 @@ def apply_block(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
         rope_theta=cfg.rope_theta, positions=positions, causal=True,
         cache=cache, cache_pos=cache_pos, prompt_len=prompt_len,
         start_pos=start_pos, plan=cache_plan,
-        softcap=cfg.attn_logit_softcap)
+        softcap=cfg.attn_logit_softcap, act_quantize=act_quantize)
     x = x + a
     h = rms_norm(p["mlp_norm"], x, cfg.norm_eps)
-    return x + apply_mlp(p["mlp"], h), cache
+    return x + apply_mlp(p["mlp"], h, act_quantize=act_quantize), cache

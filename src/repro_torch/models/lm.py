@@ -5,9 +5,9 @@ Per-layer params are stacked along a leading ``layers`` axis, as in the
 reference; where the reference scans the stack with ``lax.scan``, the
 port runs a Python loop over the layer axis, each layer seeing 2-D / 3-D
 factor views that go straight to the kernels.  The KV cache is stacked
-the same way (``{"blocks": {"k", "v"}}``, ``(L, B, S, KH, D)``, or the
-int8 family's ``k_q``/``k_scale``/``v_q``/``v_scale``) and is written in
-place.  The other families (MoE, VLM, SSM, hybrid, encoder)
+the same way (``{"blocks": {"k", "v"}}``, ``(L, B, S, KH, D)``, the
+int8 family's ``k_q``/``k_scale``/``v_q``/``v_scale``, or a paged pool's
+blocks and ``block_tables``) and is written in place.  The other families (MoE, VLM, SSM, hybrid, encoder)
 come with ROADMAP item A13.
 """
 from __future__ import annotations
@@ -88,14 +88,16 @@ class LMModel:
     def embed(self, params: PyTree, tokens: torch.Tensor) -> torch.Tensor:
         return params["embed"]["w"][tokens].to(self.dtype)
 
-    def logits(self, params: PyTree, x: torch.Tensor) -> torch.Tensor:
+    def logits(self, params: PyTree, x: torch.Tensor, *,
+               act_quantize: bool = False) -> torch.Tensor:
         """f32 logits over the padded vocab; padded columns masked."""
         cfg = self.cfg
         h = rms_norm(params["final_norm"], x, cfg.norm_eps)
         if cfg.tie_embeddings:
             out = matmul_f32(h, params["embed"]["w"].t())
         else:
-            out = apply_linear(params["unembed"], h).to(torch.float32)
+            out = apply_linear(params["unembed"], h,
+                               act_quantize=act_quantize).to(torch.float32)
         if self.padded_vocab != cfg.vocab_size:
             keep = torch.arange(self.padded_vocab,
                                 device=out.device) < cfg.vocab_size
@@ -108,41 +110,51 @@ class LMModel:
               positions: torch.Tensor, cache: PyTree | None = None,
               cache_pos: torch.Tensor | None = None,
               prompt_len: int | None = None, start_pos: int | None = None,
-              cache_plan=None) -> tuple[torch.Tensor, PyTree | None]:
+              cache_plan=None, act_quantize: bool = False
+              ) -> tuple[torch.Tensor, PyTree | None]:
         """Run every layer.  Returns ``(x, cache)``; the cache is written
-        in place."""
+        in place.  ``act_quantize`` runs every int8 linear int8 x int8
+        (prefill segments only)."""
         for i in range(self.cfg.num_layers):
             c_l = None if cache is None else layer_slice(cache["blocks"], i)
             x, _ = B.apply_block(layer_slice(params["blocks"], i), x,
                                  self.cfg, positions=positions, cache=c_l,
                                  cache_pos=cache_pos, prompt_len=prompt_len,
-                                 start_pos=start_pos, cache_plan=cache_plan)
+                                 start_pos=start_pos, cache_plan=cache_plan,
+                                 act_quantize=act_quantize)
         return x, cache
 
     # -- caches ---------------------------------------------------------------
 
-    def cache_plan(self, kv_quantize: str | None = None
+    def cache_plan(self, kv_quantize: str | None = None,
+                   paged: cache_mod.PagedGeometry | None = None
                    ) -> cache_mod.CachePlan:
-        return cache_mod.build_cache_plan(self.cfg, self.dtype, kv_quantize)
+        return cache_mod.build_cache_plan(self.cfg, self.dtype, kv_quantize,
+                                          paged)
 
-    def cache_plans(self, kv_quantize: str | None = None
+    def cache_plans(self, kv_quantize: str | None = None,
+                    paged: cache_mod.PagedGeometry | None = None
                     ) -> list[cache_mod.CachePlan]:
-        return [self.cache_plan(kv_quantize)] * self.cfg.num_layers
+        return [self.cache_plan(kv_quantize, paged)] * self.cfg.num_layers
 
     def init_cache(self, batch: int, seq_len: int,
-                   kv_quantize: str | None = None) -> PyTree:
-        """Zero cache of every layer, stacked ``(L, ...)`` per leaf of
-        the plan (int8 values and f32 scale rows for ``"int8"``)."""
-        leaves = self.cache_plan(kv_quantize).leaves(batch, seq_len)
-        return {"blocks": {n: torch.zeros((self.cfg.num_layers, *shape),
-                                          dtype=dt, device=self.device)
-                           for n, (shape, dt) in leaves.items()}}
+                   kv_quantize: str | None = None,
+                   paged: cache_mod.PagedGeometry | None = None) -> PyTree:
+        """A fresh cache of every layer, stacked ``(L, ...)`` per leaf of
+        the plan (int8 values and f32 scale rows for ``"int8"``; for a
+        ``paged`` geometry, ``batch`` physical blocks of ``seq_len``
+        positions plus block tables pointing at the dummy)."""
+        plan = self.cache_plan(kv_quantize, paged)
+        return {"blocks": {
+            n: torch.full((self.cfg.num_layers, *shape), plan.fill_value(n),
+                          dtype=dt, device=self.device)
+            for n, (shape, dt) in plan.leaves(batch, seq_len).items()}}
 
     # -- prefill / decode -----------------------------------------------------
 
     def prefill(self, params: PyTree, batch: dict, cache: PyTree, *,
-                last_pos: int | None = None, cache_plan=None
-                ) -> tuple[torch.Tensor, PyTree]:
+                last_pos: int | None = None, cache_plan=None,
+                act_quantize: bool = False) -> tuple[torch.Tensor, PyTree]:
         """Fill the cache with a whole prompt; returns (logits at the
         last real position (B, 1, V), cache).  ``last_pos`` is the index
         of the final real token of a right-padded prompt."""
@@ -152,12 +164,15 @@ class LMModel:
         positions = torch.arange(s, device=x.device)[None, :].expand(bsz, s)
         prompt_len = None if last_pos is None else int(last_pos) + 1
         x, cache = self.trunk(params, x, positions=positions, cache=cache,
-                              prompt_len=prompt_len, cache_plan=cache_plan)
+                              prompt_len=prompt_len, cache_plan=cache_plan,
+                              act_quantize=act_quantize)
         lp = s - 1 if last_pos is None else int(last_pos)
-        return self.logits(params, x[:, lp:lp + 1]), cache
+        return self.logits(params, x[:, lp:lp + 1],
+                           act_quantize=act_quantize), cache
 
     def prefill_chunk(self, params: PyTree, batch: dict, cache: PyTree, *,
-                      start_pos: int, prompt_len: int, cache_plan=None
+                      start_pos: int, prompt_len: int, cache_plan=None,
+                      act_quantize: bool = False
                       ) -> tuple[torch.Tensor, PyTree]:
         """Continue a prefill one chunk at a time: ``batch["tokens"]``
         (1, C) holds prompt positions ``[start_pos, start_pos + C)``,
@@ -171,9 +186,11 @@ class LMModel:
                                                                          c)
         x, cache = self.trunk(params, x, positions=positions, cache=cache,
                               prompt_len=prompt_len, start_pos=start_pos,
-                              cache_plan=cache_plan)
+                              cache_plan=cache_plan,
+                              act_quantize=act_quantize)
         lp = min(max(int(prompt_len) - 1 - int(start_pos), 0), c - 1)
-        return self.logits(params, x[:, lp:lp + 1]), cache
+        return self.logits(params, x[:, lp:lp + 1],
+                           act_quantize=act_quantize), cache
 
     def decode_step(self, params: PyTree, tokens: torch.Tensor,
                     positions: torch.Tensor, cache: PyTree, *,

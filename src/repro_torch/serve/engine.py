@@ -7,9 +7,11 @@
   token per step), then chunked-prefill segments with the leftover
   budget, so a long prompt never stalls live streams;
 * :class:`repro_torch.serve.pool.KVPoolManager` — the slot pool
-  (``gqa_f32``, or ``gqa_int8`` with ``kv_quantize="int8"``), slot
-  allocation, byte accounting, byte-budget admission and youngest-first
-  preemption;
+  (``gqa_f32``, or ``gqa_int8`` with ``kv_quantize="int8"``), or with
+  ``kv_layout="paged"`` :class:`~repro_torch.serve.pool.PagedKVPoolManager`
+  — fixed-size KV blocks behind block tables with radix prefix sharing
+  (``gqa_paged_f32`` / ``gqa_paged_int8``); slot allocation, byte
+  accounting, byte-budget admission and youngest-first preemption;
 * :class:`repro_torch.serve.runner.ModelRunner` — params and the one
   ``step(tokens, positions, seg_kind)`` entry, plus the sampler.
 
@@ -19,17 +21,19 @@ and lands in its slot in one scatter (quantizing into an int8 pool), so
 chunked greedy streams equal whole-prefill ("blocking" admission)
 streams.  ``quantize="int8"`` / ``"fp8"`` quantizes the decomposed
 factors at load (:mod:`repro_torch.quant.quantize`), and every fully
-quantized linear then runs the quantized kernels.  Prefill token arrays
-are padded to power-of-two length buckets (the reference compiles once
-per bucket; the port keeps the same shapes so both see the same
-padding).
+quantized linear then runs the quantized kernels; ``act_quantize="int8"``
+(with int8 factors) runs the prefill and chunk segments int8 x int8.
+Prefill token arrays are padded to power-of-two length buckets (the
+reference compiles once per bucket; the port keeps the same shapes so
+both see the same padding).  On a paged pool a prompt whose leading
+blocks are cached in the radix starts with their KV gathered into its
+staging cache and prefills only the rest.
 
 Sampling is greedy or temperature (Gumbel-max on a seeded
 ``torch.Generator``); a stream whose logits go non-finite is quarantined
-(terminated ``failed``) without disturbing its neighbours.  Activation
-quantization, the paged pool, 2:4 sparsity, deadlines, cancellation,
-fault injection and load shedding come with ROADMAP items A8, A9, A11
-and A12.
+(terminated ``failed``) without disturbing its neighbours.  2:4
+sparsity, deadlines, cancellation, fault injection and load shedding
+come with ROADMAP items A11 and A12.
 """
 from __future__ import annotations
 
@@ -45,8 +49,10 @@ from repro_torch.layers import plan as lplan
 from repro_torch.models.api import get_model
 from repro_torch.quant.quantize import MODES as QUANT_MODES
 from repro_torch.quant.quantize import quantize_tree
+from repro_torch.serve import paging
 from repro_torch.serve.metrics import latency_summary
-from repro_torch.serve.pool import KVPoolManager
+from repro_torch.serve.paging import PoolExhausted
+from repro_torch.serve.pool import KVPoolManager, PagedKVPoolManager
 from repro_torch.serve.runner import ModelRunner
 from repro_torch.serve.scheduler import (PREFILL_BUCKET_MIN, PrefillStream,
                                          Request, Scheduler)
@@ -60,7 +66,7 @@ STATS_WINDOW = 4096
 
 #: LRDConfig fields whose non-default values the port does not serve yet,
 #: with the ROADMAP item that brings each
-_UNSERVED = {"act_quantize": "A8", "sparsify": "A11"}
+_UNSERVED = {"sparsify": "A11"}
 
 
 def _param_device(params: PyTree) -> torch.device:
@@ -81,6 +87,10 @@ class ServeEngine:
                  kv_byte_budget: int | None = None,
                  quantize: str | None = None,
                  kv_quantize: str | None = None,
+                 act_quantize: str | None = None,
+                 kv_layout: str | None = None,
+                 kv_block_size: int | None = None,
+                 kv_num_blocks: int | None = None,
                  device: str | torch.device = "cuda"):
         """``params`` must already live on ``device`` (the card by
         default; tests pass ``"cpu"``).  ``admission`` is "continuous"
@@ -89,16 +99,20 @@ class ServeEngine:
         triggers youngest-first preemption; None = never preempt.
         ``quantize`` ("none" | "int8" | "fp8") quantizes the
         ``run.lrd.quant_targets`` factors at load; ``kv_quantize``
-        ("none" | "int8") stores the KV pool in int8.  Both default to
+        ("none" | "int8") stores the KV pool in int8; ``act_quantize``
+        ("none" | "int8", needs ``quantize="int8"``) quantizes prefill
+        activations per token so the int8 plans run int8 x int8 (decode
+        keeps full-width activations).  ``kv_layout`` ("slot" |
+        "paged") selects the pool; "paged" needs continuous admission,
+        ``kv_block_size`` (default 16) must divide ``max_seq``, and
+        ``kv_num_blocks`` sizes the block pool (default the slot pool's
+        capacity, ``slots * max_seq / kv_block_size``).  All default to
         ``run.lrd``."""
         for field, item in _UNSERVED.items():
             if getattr(run.lrd, field) != "none":
                 raise NotImplementedError(
                     f"LRDConfig.{field}={getattr(run.lrd, field)!r} comes "
                     f"with ROADMAP item {item}")
-        if run.lrd.kv_layout != "slot":
-            raise NotImplementedError("the paged KV pool comes with "
-                                      "ROADMAP item A9")
         self.device = torch.device(device)
         if _param_device(params).type != self.device.type:
             raise ValueError(f"params live on {_param_device(params)}, "
@@ -118,6 +132,16 @@ class ServeEngine:
         if kv_quantize is None:
             kv_quantize = run.lrd.kv_quantize
         self.kv_quantize = None if kv_quantize == "none" else kv_quantize
+        if act_quantize is None:
+            act_quantize = run.lrd.act_quantize
+        self.act_quantize = None if act_quantize == "none" else act_quantize
+        if self.act_quantize and self.act_quantize != "int8":
+            raise ValueError(
+                f"act_quantize {act_quantize!r} (want 'int8' or 'none')")
+        if self.act_quantize and quantize != "int8":
+            raise ValueError(
+                "act_quantize='int8' needs quantize='int8' — the qa "
+                "kernels run int8 x int8 against fully-int8 factor plans")
         self.params = params
         self.plans = lplan.build_plan_tree(params)
         self.plan_summary = lplan.tree_summary(self.plans)
@@ -132,14 +156,37 @@ class ServeEngine:
         self.prefill_chunk = max(1, min(chunk, max_seq))
         self.step_token_budget = (run.lrd.step_token_budget
                                   or slots + self.prefill_chunk)
+        if kv_layout is None:
+            kv_layout = run.lrd.kv_layout or "slot"
+        if kv_layout not in ("slot", "paged"):
+            raise ValueError(
+                f"kv_layout {kv_layout!r} (want 'slot' or 'paged')")
+        self.kv_layout = kv_layout
         with torch.inference_mode():
-            self.pool = KVPoolManager(self.model, slots, max_seq,
-                                      kv_quantize=self.kv_quantize,
-                                      byte_budget=kv_byte_budget)
+            if kv_layout == "paged":
+                if admission != "continuous":
+                    raise ValueError(
+                        "kv_layout='paged' needs continuous admission "
+                        "(the radix prefix gather stages into the "
+                        "chunked prefill path)")
+                self.pool = PagedKVPoolManager(
+                    self.model, slots, max_seq,
+                    kv_quantize=self.kv_quantize,
+                    byte_budget=kv_byte_budget,
+                    block_size=(kv_block_size or run.lrd.kv_block_size
+                                or paging.DEFAULT_BLOCK_SIZE),
+                    num_blocks=kv_num_blocks)
+            else:
+                self.pool = KVPoolManager(self.model, slots, max_seq,
+                                          kv_quantize=self.kv_quantize,
+                                          byte_budget=kv_byte_budget)
         self.plan_summary["kv_bytes_per_step"] = self.pool.kv_bytes_per_step
+        self.plan_summary["kv_layout"] = kv_layout
         self.plan_summary["kv_cache_family"] = self.pool.plans[0].family
         self.runner = ModelRunner(self.model, params, max_seq=max_seq,
-                                  kv_quantize=self.kv_quantize)
+                                  kv_quantize=self.kv_quantize,
+                                  act_quantize=self.act_quantize,
+                                  paged=getattr(self.pool, "geometry", None))
         self.scheduler = Scheduler(slots, prefill_chunk=self.prefill_chunk,
                                    step_token_budget=self.step_token_budget)
         self.generator = torch.Generator(device=self.device)
@@ -198,8 +245,10 @@ class ServeEngine:
         return False
 
     def _quarantine(self, slot: int) -> None:
+        """Terminate the stream in ``slot`` as ``failed``; its blocks are
+        not published (a poisoned cache must never seed later prompts)."""
         self.scheduler.quarantine(slot)
-        self.pool.release(slot)
+        self.pool.release(slot, publish=False)
         self.quarantined += 1
 
     def _sample_first(self, streams: list[PrefillStream],
@@ -254,6 +303,12 @@ class ServeEngine:
         for ps, c in plan:
             if ps.cache is None:
                 ps.cache = self.runner.new_stream_cache()
+                if ps.written:
+                    # a paged prefix hit: the first `written` positions'
+                    # KV is pooled already; gather it (dequantizing int8
+                    # blocks) and prefill only the rest
+                    ps.cache = self.pool.gather_prefix(ps.cache, ps.slot,
+                                                       ps.written)
             b = self._bucket_len(c)
             if ps.written + b > self.max_seq:   # keep the offset write
                 b = self.max_seq - ps.written   # inside the slot
@@ -299,7 +354,18 @@ class ServeEngine:
                 self._quarantine(i)
                 continue
             self._append_token(self.scheduler.active[i], int(toks[i]), now)
-            pool.grow(i)
+            # the KV this step wrote belongs to the *input* token: the
+            # paged pool's prefix registry tracks it
+            try:
+                pool.grow(i, token=int(tokens[i, 0]))
+            except PoolExhausted:
+                # no block for the next write: preempt (the stream
+                # resumes by re-prefilling prompt + output; grow is
+                # atomic, so the pool is as it was before the call)
+                self.scheduler.preempt(i)
+                pool.release(i)
+                produced += 1
+                continue
             produced += 1
             self._maybe_finish(i)
         return produced

@@ -12,10 +12,12 @@ the model API directly.  Segment kinds:
                        admission).
 
 Each segment runs with its cache's plan: the pool plan (the
-``kv_quantize`` family) for decode and blocking prefill, the
-full-precision stream plan for chunked-prefill staging caches — chunk
-attention runs over the exact K/V prefix and the pool quantizes once at
-slot insert, so chunked greedy streams equal whole-prefill ones.
+``kv_quantize`` family, slot or paged) for decode and blocking prefill,
+the full-precision stream plan for chunked-prefill staging caches —
+chunk attention runs over the exact K/V prefix and the pool quantizes
+once at insert, so chunked greedy streams equal whole-prefill ones.
+``act_quantize="int8"`` runs the prefill and chunk segments' int8 plans
+int8 x int8; decode keeps full-width activations.
 
 Every step runs under ``torch.inference_mode()``.  :meth:`sample` is the
 batched sampler with the numerical watchdog fused in (the reference's
@@ -55,15 +57,21 @@ def sample_and_flag(logits: torch.Tensor, temps: torch.Tensor,
 
 class ModelRunner:
     def __init__(self, model, params: PyTree, *, max_seq: int,
-                 kv_quantize: str | None = None):
+                 kv_quantize: str | None = None,
+                 act_quantize: str | None = None, paged=None):
         self.model = model
         self.params = params
         self.max_seq = max_seq
         self.device = model.device
-        #: plan of the shared pool and of blocking-admission staging
-        self.pool_plan = model.cache_plan(kv_quantize)
+        #: plan of the shared pool (slot, or paged given a PagedGeometry)
+        #: and of blocking-admission staging
+        self.pool_plan = model.cache_plan(kv_quantize, paged)
         #: plan of a full-precision chunked-prefill staging cache
         self.stream_plan = model.cache_plan(None)
+        #: int8 activations on prefill and chunk segments only: decode's
+        #: M = batch rows stay at full width, as in the reference
+        #: (``repro/serve/runner.py:74-79``)
+        self.prefill_act_quantize = act_quantize == "int8"
 
     def new_stream_cache(self, kv_quantize: str | None = None) -> PyTree:
         """A fresh batch=1 cache for one stream (full precision unless
@@ -80,14 +88,17 @@ class ModelRunner:
         if seg_kind == "decode":
             return m.decode_step(p, tokens, positions, cache,
                                  cache_plan=self.pool_plan)
+        aq = self.prefill_act_quantize
         if seg_kind == "prefill_chunk":
             return m.prefill_chunk(p, {"tokens": tokens}, cache,
                                    start_pos=start_pos,
                                    prompt_len=prompt_len,
-                                   cache_plan=self.stream_plan)
+                                   cache_plan=self.stream_plan,
+                                   act_quantize=aq)
         if seg_kind == "prefill":
             return m.prefill(p, {"tokens": tokens}, cache,
-                             last_pos=last_pos, cache_plan=self.pool_plan)
+                             last_pos=last_pos, cache_plan=self.pool_plan,
+                             act_quantize=aq)
         raise ValueError(
             f"unknown seg_kind {seg_kind!r} (want one of {SEG_KINDS})")
 

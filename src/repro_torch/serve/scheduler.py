@@ -22,6 +22,8 @@ import dataclasses
 from collections import deque
 from typing import Any
 
+from repro_torch.serve.paging import PoolExhausted
+
 PyTree = Any
 
 #: admission pads prompts (and prefill chunks) up to at least this
@@ -108,20 +110,30 @@ class Scheduler:
         return [i for i, r in enumerate(self.active) if r is not None]
 
     def admit(self, pool) -> list[PrefillStream]:
-        """Move waiting requests into free slots while the byte budget
-        allows (FIFO)."""
+        """Move waiting requests into free slots while the pool allows
+        (FIFO).  A refusal — ``can_admit`` saying no, or ``allocate``
+        raising :class:`~repro_torch.serve.paging.PoolExhausted` (the
+        paged pool's check is optimistic about shared blocks) — counts
+        into ``admit_failures`` and leaves the request at the head.  A
+        paged pool prefix-matches the prompt: its ``matched`` leading
+        tokens are already pooled, so the stream starts with them
+        written (the engine gathers their KV before the first chunk)."""
         started: list[PrefillStream] = []
         for slot in pool.free_slots():
             if not self.waiting:
                 break
             req = self.waiting[0]
             toks = list(req.prompt) + list(req.output)
-            if not pool.can_admit(len(toks)):
+            if not pool.can_admit(len(toks), tokens=toks):
                 self.admit_failures += 1
                 break
-            pool.allocate(slot, len(toks))
+            try:
+                matched = pool.allocate(slot, len(toks), tokens=toks)
+            except PoolExhausted:
+                self.admit_failures += 1
+                break
             self.waiting.popleft()
-            ps = PrefillStream(req, slot, toks)
+            ps = PrefillStream(req, slot, toks, written=matched)
             self.prefilling.append(ps)
             started.append(ps)
         return started

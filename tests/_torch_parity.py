@@ -1,6 +1,10 @@
-"""Shared fixtures of the port's parity tests: the reference's smoke
-model trees (dense, SVD, SVD+branched; f32), built with the JAX package
-and bridged into the port as CPU tensors.
+"""Shared fixtures of the port's parity tests: the smoke model trees
+(dense, SVD, SVD+branched; f32) on both sides — built with the JAX
+package and bridged into the port (:func:`jax_tree` /
+:func:`torch_tree`), or built with the port and bridged into the JAX
+package (:func:`port_tree` / :func:`port_tree_for_jax`, for the serve
+tests whose time the JAX init and surgery would dominate).  Either way
+both packages run on one tree.
 
 f32 model dtype: the parity tests compare whole greedy token streams, so
 bf16 near-ties must not decide them.
@@ -17,8 +21,14 @@ from repro.configs import registry as jreg
 from repro.configs.base import LRDConfig as JLRD
 from repro.core.surgery import decompose_model as jdecompose
 from repro.models.api import get_model as jget_model
+import jax.numpy as jnp
+import torch
+
 from repro_torch import bridge
 from repro_torch.configs import registry as treg
+from repro_torch.configs.base import LRDConfig as TLRD
+from repro_torch.core.surgery import decompose_model as tdecompose
+from repro_torch.models.api import get_model as tget_model
 
 #: LRD settings of the three smoke trees.  "branched" mixes SVD pairs
 #: (k/v) and branched linears (q/o/gate/up/down) on the smoke widths.
@@ -56,6 +66,22 @@ def to_numpy(tree):
 def torch_tree(name: str):
     """The same smoke tree bridged into the port (CPU tensors)."""
     return bridge.to_torch(to_numpy(jax_tree(name)[0]), "cpu")
+
+
+@functools.lru_cache(maxsize=None)
+def port_tree(name: str):
+    """One smoke tree built by the port (CPU tensors, seed 0): the port's
+    init and surgery with :data:`TREE_LRD`."""
+    params, axes = tget_model(torch_cfg(), "cpu").init(
+        torch.Generator().manual_seed(0))
+    if TREE_LRD[name] is not None:
+        params, axes, _ = tdecompose(params, axes, TLRD(**TREE_LRD[name]))
+    return params
+
+
+def port_tree_for_jax(name: str):
+    """The same tree as the reference package's arrays."""
+    return jax.tree.map(jnp.asarray, bridge.to_numpy(port_tree(name)))
 
 
 def prompts(seed: int = 0, lengths=(3, 9, 17, 5, 12, 21), vocab: int = 250):

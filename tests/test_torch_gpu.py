@@ -220,3 +220,88 @@ def test_decode_attention_q_kernel_matches_plain(cuda, b, s, kh, g, d,
                                       softcap=softcap)
     assert torch.isfinite(y.float()).all()
     assert _norm_err(y, want) <= chip_smoke.KERNEL_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("m", chip_smoke.QA_M_CASES)
+@pytest.mark.parametrize("label", list(chip_smoke.LOWRANK_SHAPES))
+def test_lowrank_qa_kernel_matches_plain(cuda, label, m, dtype):
+    """B6 at every main-path shape, one all-zero row: the folds and
+    roundings are the plain version's, so the outputs are bit-equal."""
+    from repro_torch.kernels import lowrank_matmul_qa as lak
+    from repro_torch.kernels import ref
+    c, r, s = chip_smoke.LOWRANK_SHAPES[label]
+    x = _rnd(cuda, m, c, dtype=getattr(torch, dtype))
+    x[m // 2] = 0
+    args = (x, *_quantized(cuda, c, r, mode="int8"),
+            *_quantized(cuda, r, s, mode="int8"))
+    n0 = lak.launches
+    y = lak.lowrank_matmul_qa(*args)
+    assert lak.launches == n0 + 1
+    want = ref.lowrank_matmul_qa_ref(*args)
+    assert _norm_err(y, want) <= chip_smoke.KERNEL_TOL[dtype]
+    assert (y[m // 2] == 0).all()
+    assert int((y.float() != want.float()).sum()) == 0
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("m", chip_smoke.QA_M_CASES)
+@pytest.mark.parametrize("label", list(chip_smoke.BRANCHED_SHAPES))
+def test_branched_qa_kernel_matches_plain(cuda, label, m, dtype):
+    from repro_torch.kernels import branched_matmul_qa as bak
+    from repro_torch.kernels import ref
+    n, c, r, s = chip_smoke.BRANCHED_SHAPES[label]
+    x = _rnd(cuda, m, c, dtype=getattr(torch, dtype))
+    x[m // 2] = 0
+    args = (x, *_quantized(cuda, n, c, r, mode="int8"),
+            *_quantized(cuda, n, r, r, mode="int8"),
+            *_quantized(cuda, n, r, s, mode="int8"))
+    n0 = bak.launches
+    y = bak.branched_matmul_qa(*args)
+    assert bak.launches == n0 + 1
+    want = ref.branched_matmul_qa_ref(*args)
+    assert _norm_err(y, want) <= chip_smoke.KERNEL_TOL[dtype]
+    assert (y[m // 2] == 0).all()
+    assert int((y.float() != want.float()).sum()) == 0
+
+
+@pytest.mark.parametrize("m,c,r,s,n", [(1, 33, 5, 70, 3), (9, 200, 17, 129,
+                                                            1)])
+def test_ragged_everything_qa(cuda, m, c, r, s, n):
+    from repro_torch.kernels import ops, ref
+    x = _rnd(cuda, m, c, dtype=torch.float32)
+    lr = (*_quantized(cuda, c, r, mode="int8"),
+          *_quantized(cuda, r, s, mode="int8"))
+    assert torch.equal(ops.lowrank_matmul_qa(x, *lr),
+                       ref.lowrank_matmul_qa_ref(x, *lr))
+    br = (*_quantized(cuda, n, c, r, mode="int8"),
+          *_quantized(cuda, n, r, r, mode="int8"),
+          *_quantized(cuda, n, r, s, mode="int8"))
+    assert torch.equal(ops.branched_matmul_qa(x, *br),
+                       ref.branched_matmul_qa_ref(x, *br))
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("case", [
+    *chip_smoke.PAGED_CASES.values(),
+    dict(b=3, kh=2, g=2, d=16, bs=4, nblk=5, nb=16, idle=1, softcap=0.0),
+    dict(b=2, kh=1, g=8, d=128, bs=128, nblk=3, nb=6, idle=0, softcap=5.0),
+    dict(b=2, kh=2, g=4, d=64, bs=3, nblk=40, nb=80, idle=0, softcap=0.0),
+], ids=["served", "softcap30", "smoke", "wide-block", "odd-block"])
+def test_paged_attention_kernels_match_plain(cuda, case, dtype, quant):
+    """B8 / B9 against their plain versions: shuffled tables, ragged
+    positions, an idle slot (the plain version's uniform average), block
+    sizes below, at and above one staged pass."""
+    from repro_torch.kernels import decode_attention_paged as dpk
+    from repro_torch.kernels import ops, ref
+    name = "decode_attention_paged" + ("_q" if quant else "")
+    counter = "launches_q" if quant else "launches"
+    q, pool, tables, pos = chip_smoke.paged_inputs(case, dtype, quant, cuda)
+    n0 = getattr(dpk, counter)
+    y = getattr(ops, name)(q, *pool, tables, pos, softcap=case["softcap"])
+    assert getattr(dpk, counter) == n0 + 1
+    want = getattr(ref, name + "_ref")(q, *pool, tables, pos,
+                                       softcap=case["softcap"])
+    assert torch.isfinite(y.float()).all()
+    assert _norm_err(y, want) <= chip_smoke.KERNEL_TOL[dtype]

@@ -34,7 +34,11 @@ def test_port_has_the_slice_modules():
               "repro_torch.quant.quantize", "repro_torch.quant.kv",
               "repro_torch.kernels.lowrank_matmul_q",
               "repro_torch.kernels.branched_matmul_q",
-              "repro_torch.kernels.decode_attention_q"):
+              "repro_torch.kernels.decode_attention_q",
+              "repro_torch.kernels.lowrank_matmul_qa",
+              "repro_torch.kernels.branched_matmul_qa",
+              "repro_torch.kernels.decode_attention_paged",
+              "repro_torch.core.cost_model", "repro_torch.serve.paging"):
         assert m in mods, m
 
 

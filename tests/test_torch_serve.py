@@ -112,11 +112,11 @@ def test_chunk_plan_is_fifo_and_budgeted():
         def free_slots(self):
             return [0, 1]
 
-        def can_admit(self, n):
+        def can_admit(self, n, tokens=None):
             return True
 
-        def allocate(self, slot, n):
-            pass
+        def allocate(self, slot, n, tokens=None):
+            return 0                      # no pooled prefix
     for i, n in enumerate((20, 5)):
         s.submit(Request(uid=i, prompt=[1] * n))
     started = s.admit(Pool())
@@ -128,8 +128,7 @@ def test_chunk_plan_is_fifo_and_budgeted():
 
 def test_unserved_options_raise_not_implemented():
     cfg = torch_cfg()
-    for field, value, item in (("act_quantize", "int8", "A8"),
-                               ("sparsify", "2:4", "A11")):
+    for field, value, item in (("sparsify", "2:4", "A11"),):
         lrd = dataclasses.replace(LRDConfig(), **{field: value})
         with pytest.raises(NotImplementedError, match=item):
             ServeEngine(RunConfig(model=cfg, lrd=lrd), torch_tree("dense"),

@@ -59,6 +59,24 @@ Phases (each prints its own seconds; any failure exits non-zero):
              lowrank_matmul_q + 80 branched_matmul_q + 16
              decode_attention_paged_q.
 11. check_qa — check_paged on that configuration.
+12. serve_mla — the llama trees freed, DeepSeek-V2's MLA stack at its
+             published widths (d_model 5120, 128 heads, q_lora 1536,
+             kv_lora 512, rope 64, the first layer's dense FFN of 12288
+             in every layer, vocab 102400 untied; 4 of its 60 layers,
+             random weights from a seed, bf16) decomposed with the same
+             LRD at branches=4 (o, gate, up, down and the unembed
+             branched; the mla_* projections dense), served over the
+             ``mla_latent`` slot pool on 8 requests: every decode step
+             and prefill chunk exactly 17 branched_matmul and nothing
+             else.
+13. check_mla — prefill plus 16 greedy decode steps through the latent
+             pool as the engine drives it, on the card against the same
+             tree in f32 on the CPU.
+14. serve_mla_q — the same tree with int8 factors over the int8 latent
+             pool (``mla_latent_int8``): every decode step exactly 17
+             branched_matmul_q and 4 decode_attention_latent_q, every
+             prefill chunk 17 branched_matmul_q.
+15. check_mla_q — check_mla on that configuration.
 
 Only on request (``--phases ...,profile``): torch.profiler over steady
 decode steps of the branches=4 model, plain and quantized — device time
@@ -81,7 +99,12 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 PHASES = ("device", "build", "kernels", "serve", "check", "serve_q",
-          "check_q", "serve_paged", "check_paged", "serve_qa", "check_qa")
+          "check_q", "serve_paged", "check_paged", "serve_qa", "check_qa",
+          "serve_mla", "check_mla", "serve_mla_q", "check_mla_q")
+#: the phases that serve or check the llama3.2-1b trees, and the MLA ones
+LLAMA_PHASES = ("serve", "check", "serve_q", "check_q", "serve_paged",
+                "check_paged", "serve_qa", "check_qa", "profile")
+MLA_PHASES = ("serve_mla", "check_mla", "serve_mla_q", "check_mla_q")
 #: phases run only when asked for with --phases
 EXTRA_PHASES = ("profile",)
 
@@ -122,6 +145,28 @@ ATTN_CASES = {"served": dict(b=8, s=1024, kh=8, g=4, d=64, idle=0,
                                        softcap=0.0),
               "softcap 30": dict(b=8, s=1024, kh=8, g=4, d=64, idle=0,
                                  softcap=30.0)}
+#: DeepSeek-V2's branched linears (N, C, r, S) under the same LRD at
+#: branches=4, and their launches per decode step / prefill chunk of the
+#: 4-layer MLA stack
+DEEPSEEK_BRANCHED_SHAPES = {"ds o": (4, 16384, 480, 5120),
+                            "ds gate,up": (4, 5120, 448, 12288),
+                            "ds down": (4, 12288, 448, 5120),
+                            "ds unembed": (4, 5120, 608, 102400)}
+MLA_LAYERS = 4
+MLA_BRANCHED_LAUNCHES = {"ds o": MLA_LAYERS, "ds gate,up": 2 * MLA_LAYERS,
+                         "ds down": MLA_LAYERS, "ds unembed": 1}
+#: row counts of the DeepSeek-shape chain rows: a decode step, a chunk
+DEEPSEEK_M_CASES = (8, 64)
+#: the int8 latent decode attention at the served latent pool (8 slots of
+#: max_seq 1024, 128 heads, kv_lora 512, rope 64; ragged positions over
+#: [S/2, S)), with an idle slot (no valid position), and at a ragged S
+LATENT_CASES = {"served": dict(b=8, s=1024, h=128, lora=512, rope=64,
+                               idle=0),
+                "idle slot": dict(b=8, s=1024, h=128, lora=512, rope=64,
+                                  idle=1),
+                "ragged S 1000": dict(b=8, s=1000, h=128, lora=512,
+                                      rope=64, idle=1)}
+
 #: launches of each kernel per decode step of the branches=4 model
 #: (quantized kernels: with quantize="int8", kv_quantize="int8")
 DECODE_LAUNCHES = {"lowrank_matmul": {"k,v": 32},
@@ -132,7 +177,8 @@ DECODE_LAUNCHES = {"lowrank_matmul": {"k,v": 32},
                                          "down": 16},
                    "decode_attention_q": {"served": 16},
                    "decode_attention_paged": {"served": 16},
-                   "decode_attention_paged_q": {"served": 16}}
+                   "decode_attention_paged_q": {"served": 16},
+                   "decode_attention_latent_q": {"served": MLA_LAYERS}}
 M_CASES = (8, 64, 37)
 QMODES = ("int8", "fp8")
 #: row counts of the activation-quantized chains, which run prefill
@@ -172,6 +218,9 @@ KERNELS = {
     "decode_attention_paged_q": (
         "decode_attention_paged", "launches_q",
         "src/repro/kernels/decode_attention_paged.py:192"),
+    "decode_attention_latent_q": (
+        "decode_attention_latent_q", "launches",
+        "src/repro/kernels/decode_attention_q.py:214"),
 }
 
 #: the serve run (key of the serve phases' results) whose launches each
@@ -180,7 +229,8 @@ RUN_OF = {"lowrank_matmul": "branches4", "branched_matmul": "branches4",
           "lowrank_matmul_q": "quantized", "branched_matmul_q": "quantized",
           "decode_attention_q": "quantized", "lowrank_matmul_qa": "qa",
           "branched_matmul_qa": "qa", "decode_attention_paged": "paged",
-          "decode_attention_paged_q": "qa"}
+          "decode_attention_paged_q": "qa",
+          "decode_attention_latent_q": "mla_q"}
 #: the paged serve runs: tokens per block, and the shared prompt prefix
 #: (16 blocks) that four of the eight requests begin with
 PAGED_BLOCK = 16
@@ -257,9 +307,8 @@ def check_kernels(card: str) -> list[dict]:
     from repro_torch.kernels import ref
     from repro_torch.quant.quantize import quantize_array
 
-    lk, bk = kernel_module("lowrank_matmul"), kernel_module("branched_matmul")
+    lk = kernel_module("lowrank_matmul")
     lqk = kernel_module("lowrank_matmul_q")
-    bqk = kernel_module("branched_matmul_q")
     g = torch.Generator(device="cuda").manual_seed(1234)
 
     def rnd(*shape, scale=1.0, dtype=torch.float32):
@@ -312,46 +361,18 @@ def check_kernels(card: str) -> list[dict]:
                         **_bound(xb * (m * c + m * s) + c * r + r * s
                                  + 4 * (r + s), 2 * m * (c * r + r * s),
                                  dname)))
-        for label, (n, c, r, s) in BRANCHED_SHAPES.items():
+        for label, shape in BRANCHED_SHAPES.items():
             for m in M_CASES:
-                x = rnd(m, c, dtype=dt)
-                u = rnd(n, c, r, scale=c ** -0.5, dtype=dt)
-                xc = rnd(n, r, r, scale=r ** -0.5, dtype=dt)
-                v = rnd(n, r, s, scale=r ** -0.5, dtype=dt)
-                y = bk.branched_matmul(x, u, xc, v)
-                want = ref.branched_matmul_ref(x, u, xc, v)
-                torch.cuda.synchronize()
-                xb3 = x.expand(n, m, c)
-                flops = 2 * m * n * (c * r + r * r + r * s)
-                rows["branched_matmul"].append(dict(
-                    shape=label, dtype=dname, M=m, N=n, C=c, r=r, S=s,
-                    **_compare(y, want, dname),
-                    ms=time_ms(lambda: bk.branched_matmul(x, u, xc, v)),
-                    plain_ms=time_ms(lambda: ref.branched_matmul_ref(
-                        x, u, xc, v)),
-                    library_ms=time_ms(lambda: torch.bmm(torch.bmm(
-                        torch.bmm(xb3, u), xc), v).sum(0)),
-                    **_bound(xb * (m * c + n * (c * r + r * r + r * s)
-                                   + m * s), flops, dname)))
-                for mode in QMODES:
-                    qs = [qrnd(n, c, r, mode=mode), qrnd(n, r, r, mode=mode),
-                          qrnd(n, r, s, mode=mode)]
-                    args = (x, *[t for pair in qs for t in pair])
-                    y = bqk.branched_matmul_q(*args)
-                    want = ref.branched_matmul_q_ref(*args)
-                    torch.cuda.synchronize()
-                    ud, xcd, vd = (dq(q, sc, dt) for q, sc in qs)
-                    rows["branched_matmul_q"].append(dict(
-                        shape=label, dtype=dname, qmode=mode, M=m, N=n, C=c,
-                        r=r, S=s, **_compare(y, want, dname),
-                        ms=time_ms(lambda: bqk.branched_matmul_q(*args)),
-                        plain_ms=time_ms(
-                            lambda: ref.branched_matmul_q_ref(*args)),
-                        library_ms=time_ms(lambda: torch.bmm(torch.bmm(
-                            torch.bmm(xb3, ud), xcd), vd).sum(0)),
-                        **_bound(xb * (m * c + m * s)
-                                 + n * (c * r + r * r + r * s)
-                                 + 4 * n * (2 * r + s), flops, dname)))
+                _check_branched(rows, label, shape, m, dname, rnd, qrnd,
+                                QMODES)
+        for label, case in LATENT_CASES.items():
+            rows["decode_attention_latent_q"].append(
+                _check_latent(label, case, dname, rnd))
+        if dname == "bfloat16":
+            for label, shape in DEEPSEEK_BRANCHED_SHAPES.items():
+                for m in DEEPSEEK_M_CASES:
+                    _check_branched(rows, label, shape, m, dname, rnd, qrnd,
+                                    ("int8",))
         for label, case in ATTN_CASES.items():
             rows["decode_attention_q"].append(
                 _check_attention(label, case, dname, rnd))
@@ -392,6 +413,121 @@ def check_kernels(card: str) -> list[dict]:
         raise SystemExit(f"kernel disagrees with its plain version: "
                          f"{failures}")
     return _kernel_entries(rows)
+
+
+def _check_branched(rows: dict, label: str, shape: tuple, m: int,
+                    dname: str, rnd, qrnd, qmodes) -> None:
+    """One branched_matmul row at (N, C, r, S) and M rows in ``dname``,
+    and one branched_matmul_q row per factor mode of ``qmodes``; the
+    yardstick is the cuBLAS chain of batched products (on factors
+    dequantized beforehand for the quantized kernel)."""
+    import torch
+    from repro_torch.kernels import ref
+    bk = kernel_module("branched_matmul")
+    bqk = kernel_module("branched_matmul_q")
+    n, c, r, s = shape
+    dt = getattr(torch, dname)
+    xb = dt.itemsize
+    x = rnd(m, c, dtype=dt)
+    u = rnd(n, c, r, scale=c ** -0.5, dtype=dt)
+    xc = rnd(n, r, r, scale=r ** -0.5, dtype=dt)
+    v = rnd(n, r, s, scale=r ** -0.5, dtype=dt)
+    y = bk.branched_matmul(x, u, xc, v)
+    want = ref.branched_matmul_ref(x, u, xc, v)
+    torch.cuda.synchronize()
+    xb3 = x.expand(n, m, c)
+    flops = 2 * m * n * (c * r + r * r + r * s)
+    rows["branched_matmul"].append(dict(
+        shape=label, dtype=dname, M=m, N=n, C=c, r=r, S=s,
+        **_compare(y, want, dname),
+        ms=time_ms(lambda: bk.branched_matmul(x, u, xc, v)),
+        plain_ms=time_ms(lambda: ref.branched_matmul_ref(x, u, xc, v)),
+        library_ms=time_ms(lambda: torch.bmm(torch.bmm(
+            torch.bmm(xb3, u), xc), v).sum(0)),
+        **_bound(xb * (m * c + n * (c * r + r * r + r * s) + m * s), flops,
+                 dname)))
+    del u, xc, v
+    for mode in qmodes:
+        qs = [qrnd(n, c, r, mode=mode), qrnd(n, r, r, mode=mode),
+              qrnd(n, r, s, mode=mode)]
+        args = (x, *[t for pair in qs for t in pair])
+        y = bqk.branched_matmul_q(*args)
+        want = ref.branched_matmul_q_ref(*args)
+        torch.cuda.synchronize()
+        ud, xcd, vd = ((q.to(torch.float32) * sc).to(dt) for q, sc in qs)
+        rows["branched_matmul_q"].append(dict(
+            shape=label, dtype=dname, qmode=mode, M=m, N=n, C=c, r=r, S=s,
+            **_compare(y, want, dname),
+            ms=time_ms(lambda: bqk.branched_matmul_q(*args)),
+            plain_ms=time_ms(lambda: ref.branched_matmul_q_ref(*args)),
+            library_ms=time_ms(lambda: torch.bmm(torch.bmm(
+                torch.bmm(xb3, ud), xcd), vd).sum(0)),
+            **_bound(xb * (m * c + m * s) + n * (c * r + r * r + r * s)
+                     + 4 * n * (2 * r + s), flops, dname)))
+
+
+def latent_inputs(case: dict, dname: str, rnd) -> tuple:
+    """Absorbed-decode inputs at a latent pool: q_lat (B, 1, H, L) and
+    q_rope (B, 1, H, R) in ``dname``; the int8 latents quantized as the
+    engine's insert quantizes them (one-shot per-(slot, channel)
+    scales); cache_pos ragged over [S/2, S), slot 0 at S - 1, the last
+    ``idle`` slots -1 (no valid position)."""
+    import torch
+    from repro_torch.quant.kv import quantize_kv_prefill
+    b, s, h, lora, rope = (case[k] for k in ("b", "s", "h", "lora", "rope"))
+    dt = getattr(torch, dname)
+    q_lat = rnd(b, 1, h, lora, scale=0.5, dtype=dt)
+    q_rope = rnd(b, 1, h, rope, scale=0.5, dtype=dt)
+    ckv_q, ckv_s = quantize_kv_prefill(rnd(b, s, lora))
+    krope_q, krope_s = quantize_kv_prefill(rnd(b, s, rope))
+    pos = (torch.arange(b, device="cuda", dtype=torch.int32) * 97
+           % (s - s // 2) + s // 2).to(torch.int32)
+    pos[0] = s - 1
+    if case["idle"]:
+        pos[b - case["idle"]:] = -1
+    return q_lat, q_rope, ckv_q, ckv_s, krope_q, krope_s, pos
+
+
+def _check_latent(label: str, case: dict, dname: str, rnd) -> dict:
+    """One decode_attention_latent_q row.  The bound counts the work this
+    run's positions need: a live slot's positions up to its cache_pos
+    (the kernel skips the blocks past it), an idle slot's whole pool;
+    the operations (2 H (2L + R) per position) at the ``dname`` peak,
+    the bytes (q rows, those positions' latents, the scale rows, the
+    output) at HBM rate.  The yardstick is SDPA on the latents
+    dequantized beforehand: q = [q_lat | q_rope], k = [ckv | krope] and
+    v = ckv expanded over the heads, a position mask."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    b, s, h, lora, rope = (case[k] for k in ("b", "s", "h", "lora", "rope"))
+    dt = getattr(torch, dname)
+    args = latent_inputs(case, dname, rnd)
+    scale = 1.0 / math.sqrt(128 + rope)        # 1/sqrt(qk_nope + qk_rope)
+    y = ops.decode_attention_latent_q(*args, scale=scale)
+    want = ref.decode_attention_latent_q_ref(*args, scale=scale)
+    torch.cuda.synchronize()
+    q_lat, q_rope, ckv_q, ckv_s, krope_q, krope_s, pos = args
+    ckv = (ckv_q.float() * ckv_s[:, None]).to(dt)
+    krope = (krope_q.float() * krope_s[:, None]).to(dt)
+    qd = torch.cat([q_lat, q_rope], -1).transpose(1, 2)    # (B, H, 1, L+R)
+    kd = torch.cat([ckv, krope], -1)[:, None].expand(b, h, s, lora + rope)
+    vd = ckv[:, None].expand(b, h, s, lora)
+    mask = (torch.arange(s, device="cuda")[None, :]
+            <= pos[:, None].long())[:, None, None, :]
+    live = sum(s if cp < 0 else min(s, cp + 1) for cp in pos.tolist())
+    nbytes = (q_lat.numel() + q_rope.numel() + y.numel()) * dt.itemsize \
+        + live * (lora + rope) + 4 * b * (lora + rope) + 4 * b
+    return dict(shape=label, dtype=dname, B=b, S=s, H=h, L=lora, R=rope,
+                idle=case["idle"], **_compare(y, want, dname),
+                ms=time_ms(lambda: ops.decode_attention_latent_q(
+                    *args, scale=scale)),
+                plain_ms=time_ms(lambda: ref.decode_attention_latent_q_ref(
+                    *args, scale=scale)),
+                library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                    qd, kd, vd, attn_mask=mask, scale=scale)),
+                library="sdpa on dequantized latents",
+                **_bound(nbytes, 2 * h * (2 * lora + rope) * live, dname))
 
 
 def _check_attention(label: str, case: dict, dname: str, rnd) -> dict:
@@ -638,6 +774,18 @@ def _kernel_entries(rows: dict[str, list[dict]]) -> list[dict]:
         by = ("bytes" if per_step["bytes"] / HBM_BYTES_PER_S >= t_ops
               else "operations")
         module, _, replaces = KERNELS[name]
+        extra = {}
+        if name in ("branched_matmul", "branched_matmul_q"):
+            extra["mla_path"] = {
+                f"M={m}": {k: sum(n * next(
+                    r for r in rs if r["shape"] == label and r["M"] == m
+                    and r["dtype"] == "bfloat16")[k]
+                    for label, n in MLA_BRANCHED_LAUNCHES.items())
+                    for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                for m in DEEPSEEK_M_CASES}
+            extra["mla_path"]["timed_as"] = (
+                "the 17 launches of one decode step (M=8) or prefill chunk "
+                "(M=64) of the 4-layer DeepSeek-V2 MLA stack, bf16")
         out.append({"name": name, "route": "cuda",
                     "source": f"src/repro_torch/kernels/csrc/{module}.cu",
                     "replaces": replaces, "launches": None,
@@ -651,7 +799,7 @@ def _kernel_entries(rows: dict[str, list[dict]]) -> list[dict]:
                         "one decode step's launches, bf16"
                         + (", M=8, int8 factors"
                            if name.endswith("matmul_q") else "")),
-                    "shapes": rs})
+                    **extra, "shapes": rs})
     return out
 
 
@@ -989,37 +1137,45 @@ def cross_check_q(cfg, params_q, card: str, seed: int, n_tok: int = 64,
     return res
 
 
-def cross_check_paged(cfg, params, card: str, seed: int, *,
-                      kv_quantize: str | None = None,
-                      act_quantize: str | None = None, n_tok: int = 64,
-                      steps: int = 16) -> dict:
-    """Prefill and ``steps`` greedy decode steps through the paged pool
-    as the engine drives them -- the prompt chunk-prefilled into a
-    full-precision staging cache, inserted into the stream's blocks
-    (quantized per block for an int8 pool), decode over the block tables
-    -- on the card (kernels, bf16) against the same tree in f32 on the
-    CPU (plain versions).  Both are fed the CPU's greedy tokens, so every
-    step compares logits of the same context.  Checks that the card ran
-    one prefill chunk and ``steps`` decode steps through the kernels of
-    the path, the paged attention in every layer."""
+def cross_check_staged(cfg, params, card: str, seed: int, *, label: str,
+                       want: dict[str, int], paged: bool = False,
+                       kv_quantize: str | None = None,
+                       act_quantize: str | None = None, n_tok: int = 64,
+                       steps: int = 16) -> dict:
+    """Prefill and ``steps`` greedy decode steps as the engine drives them
+    -- the prompt chunk-prefilled into a full-precision staging cache,
+    inserted into the pool (quantized for an int8 pool; into the
+    stream's blocks for a ``paged`` one), decode over the pool -- on the
+    card (kernels, bf16) against the same tree in f32 on the CPU (plain
+    versions).  Both are fed the CPU's greedy tokens, so every step
+    compares logits of the same context.  Checks that the card launched
+    exactly ``want`` (kernel -> launches over the prefill chunk and the
+    decode steps; every other kernel none)."""
     import dataclasses
     import numpy as np
     import torch
     from repro_torch.models.api import get_model
-    from repro_torch.serve.pool import PagedKVPoolManager
+    from repro_torch.serve.pool import KVPoolManager, PagedKVPoolManager
     from repro_torch.serve.runner import ModelRunner
     toks = np.random.default_rng(seed).integers(
         0, cfg.vocab_size, n_tok).tolist()
-    max_seq = -(-(n_tok + steps + 1) // PAGED_BLOCK) * PAGED_BLOCK
+    max_seq = n_tok + steps + 1
+    if paged:
+        max_seq = -(-max_seq // PAGED_BLOCK) * PAGED_BLOCK
     sides = []
     for model, p in ((get_model(cfg, "cuda"), params),
                      (get_model(dataclasses.replace(cfg, dtype="float32"),
                                 "cpu"), to_cpu_f32(params))):
-        pool = PagedKVPoolManager(model, 1, max_seq, kv_quantize=kv_quantize,
-                                  block_size=PAGED_BLOCK)
+        if paged:
+            pool = PagedKVPoolManager(model, 1, max_seq,
+                                      kv_quantize=kv_quantize,
+                                      block_size=PAGED_BLOCK)
+        else:
+            pool = KVPoolManager(model, 1, max_seq, kv_quantize=kv_quantize)
         runner = ModelRunner(model, p, max_seq=max_seq,
                              kv_quantize=kv_quantize,
-                             act_quantize=act_quantize, paged=pool.geometry)
+                             act_quantize=act_quantize,
+                             paged=getattr(pool, "geometry", None))
         sides.append((model.device, pool, runner))
     reset_launches()
     rels, agree, logits = [], [], []
@@ -1049,6 +1205,30 @@ def cross_check_paged(cfg, params, card: str, seed: int, *,
                 logits.append(lg[0, -1])
     torch.cuda.synchronize()
     launches = {k: launch_count(k) for k in KERNELS}
+    want = {k: want.get(k, 0) for k in KERNELS}
+    res = {"kv_quantize": kv_quantize or "none",
+           "act_quantize": act_quantize or "none", "paged": paged,
+           "tokens": n_tok, "decode_steps": steps,
+           "max_diff_over_std": max(rels), "per_step": rels,
+           "tol": CHECK_TOL, "greedy_agree": f"{sum(agree)}/{len(agree)}",
+           "launches": {k: n for k, n in launches.items() if n},
+           "card": card}
+    log(f"{label} " + json.dumps(res))
+    if not max(rels) <= CHECK_TOL:
+        raise SystemExit(f"{label}: card logits differ from the CPU f32 "
+                         f"reference: {max(rels):.4f} > {CHECK_TOL}")
+    if launches != want:
+        raise SystemExit(f"{label} launched {launches}, want {want}")
+    return res
+
+
+def cross_check_paged(cfg, params, card: str, seed: int, *,
+                      kv_quantize: str | None = None,
+                      act_quantize: str | None = None,
+                      steps: int = 16) -> dict:
+    """:func:`cross_check_staged` through the paged pool of the llama
+    tree: one prefill chunk and ``steps`` decode steps through the
+    kernels of the path, the paged attention in every layer."""
     L = cfg.num_layers
     if act_quantize:
         want = {"lowrank_matmul_qa": 2 * L, "branched_matmul_qa": 5 * L,
@@ -1059,23 +1239,217 @@ def cross_check_paged(cfg, params, card: str, seed: int, *,
                 "branched_matmul": 5 * L * (steps + 1)}
     want["decode_attention_paged" + ("_q" if kv_quantize else "")] = \
         L * steps
-    want = {k: want.get(k, 0) for k in KERNELS}
-    res = {"kv_quantize": kv_quantize or "none",
-           "act_quantize": act_quantize or "none", "tokens": n_tok,
-           "decode_steps": steps, "block_size": PAGED_BLOCK,
-           "max_diff_over_std": max(rels), "per_step": rels,
-           "tol": CHECK_TOL, "greedy_agree": f"{sum(agree)}/{len(agree)}",
-           "launches": {k: n for k, n in launches.items() if n},
-           "card": card}
-    log(("check_qa " if act_quantize else "check_paged ") + json.dumps(res))
-    if not max(rels) <= CHECK_TOL:
-        raise SystemExit(f"card logits through the paged pool differ from "
-                         f"the CPU f32 reference: {max(rels):.4f} > "
-                         f"{CHECK_TOL}")
-    if launches != want:
-        raise SystemExit(f"the paged check launched {launches}, want "
-                         f"{want}")
-    return res
+    return cross_check_staged(
+        cfg, params, card, seed, paged=True, want=want, steps=steps,
+        label="check_qa" if act_quantize else "check_paged",
+        kv_quantize=kv_quantize, act_quantize=act_quantize)
+
+
+def cross_check_mla(cfg, params, card: str, seed: int, *,
+                    kv_quantize: str | None = None,
+                    steps: int = 16) -> dict:
+    """:func:`cross_check_staged` through the MLA stack's latent slot
+    pool: 4 branched linears per layer and the unembed in the prefill
+    chunk and every decode step (the quantized chain on an int8 tree),
+    and over the int8 latent pool the latent attention in every layer
+    of every decode step."""
+    per_seg = 4 * cfg.num_layers + 1
+    if kv_quantize:
+        want = {"branched_matmul_q": per_seg * (steps + 1),
+                "decode_attention_latent_q": cfg.num_layers * steps}
+    else:
+        want = {"branched_matmul": per_seg * (steps + 1)}
+    return cross_check_staged(
+        cfg, params, card, seed, want=want, steps=steps,
+        label="check_mla_q" if kv_quantize else "check_mla",
+        kv_quantize=kv_quantize)
+
+
+def mla_model(seed: int = 0):
+    """DeepSeek-V2's MLA stack at its published widths, served without
+    experts: every layer the first layer's dense FFN, 4 of the 60 layers
+    (``moe_first_dense`` goes to 0 with the experts); random bf16 weights
+    from ``seed``, on the card."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.models.api import get_model
+    cfg = dataclasses.replace(registry.get("deepseek-v2-236b").full,
+                              family="dense", moe_num_experts=0,
+                              moe_first_dense=0, num_layers=MLA_LAYERS)
+    model = get_model(cfg, "cuda")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    params, axes = model.init(g)
+    torch.cuda.synchronize()
+    return cfg, params, axes
+
+
+#: the surgery decisions the MLA stack must get under ``LRD`` at
+#: branches=4: path -> (kind, rank per branch); every other linear skips
+MLA_SURGERY = {"blocks/mla/o": ("branched", 480),
+               "blocks/mlp/gate": ("branched", 448),
+               "blocks/mlp/up": ("branched", 448),
+               "blocks/mlp/down": ("branched", 448),
+               "unembed": ("branched", 608)}
+
+
+def check_mla_surgery(rep, params, card: str) -> None:
+    """Print every surgery decision of the MLA stack and hold the branched
+    ones (and their factors' per-branch ranks) to :data:`MLA_SURGERY`."""
+    got = {}
+    for d in rep.decisions:
+        log(f"surgery mla: {d.path} label={d.label} kind={d.kind} "
+            f"shape={list(d.shape)} rank={d.rank} {d.reason} [{card}]")
+        if d.kind != "skip":
+            node = params
+            for k in d.path.split("/"):
+                node = node[k]
+            got[d.path] = (d.kind, int(node["u"].shape[-1])
+                           if "u" in node else d.rank)
+    if got != MLA_SURGERY:
+        raise SystemExit(f"MLA surgery decided {got}, want {MLA_SURGERY}")
+
+
+def latent_smem() -> int:
+    """Dynamic shared memory of one decode_attention_latent_q launch at
+    the served latent pool."""
+    from repro_torch.kernels import decode_attention_latent_q as dlk
+    case = LATENT_CASES["served"]
+    return dlk.smem_bytes(case["lora"], case["rope"], case["h"])
+
+
+def run_llama(phases: list[str], card: str, seed: int,
+              serve_res: dict) -> None:
+    """The llama3.2-1b phases (serve ... check_qa, profile) on one set of
+    trees, freed when this returns."""
+    import torch
+    cfg, dense, axes = full_model(seed)
+    lrd, p4, rep, surg_s = decompose(dense, axes, branches=4)
+    log(f"surgery branches=4: {surg_s:.2f} s, "
+        f"{json.dumps(rep.summary())} [{card}]")
+    if "serve" in phases:
+        with Phase("serve"):
+            every = lambda counts: {"decode": counts,  # noqa: E731
+                                    "prefill_chunk": counts}
+            serve_res["branches4"] = serve(
+                cfg, lrd, p4, n_req=8, prompt_lo=32, prompt_hi=512,
+                new_tokens=32, card=card, seed=seed,
+                expect=every({"lowrank_matmul": 32, "branched_matmul": 80}))
+            serve_res["branches4"]["surgery_s"] = surg_s
+            lrd1, p1, _, surg1_s = decompose(dense, axes, branches=1)
+            log(f"surgery branches=1: {surg1_s:.2f} s [{card}]")
+            serve_res["branches1"] = serve(
+                cfg, lrd1, p1, n_req=4, prompt_lo=32, prompt_hi=128,
+                new_tokens=8, card=card, seed=seed + 1,
+                expect=every({"lowrank_matmul": 112}))
+            serve_res["branches1"]["surgery_s"] = surg1_s
+            del p1
+    if "check" in phases:
+        with Phase("check"):
+            cross_check(cfg, p4, card, seed)
+    if set(phases) & {"serve_q", "check_q", "serve_qa", "check_qa"}:
+        from repro_torch.quant.quantize import quantize_tree
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            pq = quantize_tree(p4, "int8", targets=lrd.quant_targets)
+        torch.cuda.synchronize()
+        log(f"quantize int8: {time.perf_counter() - t0:.2f} s [{card}]")
+    if "serve_q" in phases:
+        with Phase("serve_q"):
+            chain = {"lowrank_matmul_q": 32, "branched_matmul_q": 80}
+            serve_res["quantized"] = serve(
+                cfg, lrd, pq, n_req=8, prompt_lo=32, prompt_hi=512,
+                new_tokens=32, card=card, seed=seed, quantize="int8",
+                kv_quantize="int8",
+                expect={"decode": {**chain, "decode_attention_q": 16},
+                        "prefill_chunk": chain})
+            serve_res["quantized"]["kv_write"] = time_kv_write(card)
+    if "check_q" in phases:
+        with Phase("check_q"):
+            cross_check_q(cfg, pq, card, seed)
+    paged_run = dict(n_req=8, prompt_lo=32, prompt_hi=512, new_tokens=32,
+                     card=card, seed=seed, shared=4,
+                     kv_layout="paged", kv_block_size=PAGED_BLOCK)
+    if "serve_paged" in phases:
+        with Phase("serve_paged"):
+            serve_res["paged"] = serve(
+                cfg, lrd, p4, **paged_run,
+                expect={"decode": {"lowrank_matmul": 32,
+                                   "branched_matmul": 80,
+                                   "decode_attention_paged": 16},
+                        "prefill_chunk": {"lowrank_matmul": 32,
+                                          "branched_matmul": 80}})
+    if "check_paged" in phases:
+        with Phase("check_paged"):
+            cross_check_paged(cfg, p4, card, seed)
+    if "serve_qa" in phases:
+        with Phase("serve_qa"):
+            serve_res["qa"] = serve(
+                cfg, lrd, pq, **paged_run, quantize="int8",
+                act_quantize="int8", kv_quantize="int8",
+                expect={"decode": {"lowrank_matmul_q": 32,
+                                   "branched_matmul_q": 80,
+                                   "decode_attention_paged_q": 16},
+                        "prefill_chunk": {"lowrank_matmul_qa": 32,
+                                          "branched_matmul_qa": 80}})
+    if "check_qa" in phases:
+        with Phase("check_qa"):
+            cross_check_paged(cfg, pq, card, seed, kv_quantize="int8",
+                              act_quantize="int8")
+    if "profile" in phases:
+        with Phase("profile"):
+            profile_decode(cfg, lrd, p4, card, seed)
+            profile_decode(cfg, lrd, p4, card, seed, quantize="int8",
+                           kv_quantize="int8")
+
+
+def run_mla(phases: list[str], card: str, seed: int,
+            serve_res: dict) -> None:
+    """The MLA phases: DeepSeek-V2's MLA stack decomposed once, served
+    and checked over the full-width and the int8 latent pool."""
+    import torch
+    cfg, dense, axes = mla_model(seed)
+    lrd, pm, rep, surg_s = decompose(dense, axes, branches=4)
+    del dense
+    torch.cuda.empty_cache()
+    log(f"surgery mla branches=4: {surg_s:.2f} s, "
+        f"{json.dumps(rep.summary())} [{card}]")
+    check_mla_surgery(rep, pm, card)
+    chain = 4 * cfg.num_layers + 1          # o, gate, up, down; unembed
+    run = dict(n_req=8, prompt_lo=32, prompt_hi=512, new_tokens=32,
+               card=card, seed=seed)
+    if "serve_mla" in phases:
+        with Phase("serve_mla"):
+            every = {"branched_matmul": chain}
+            serve_res["mla"] = serve(
+                cfg, lrd, pm, **run,
+                expect={"decode": every, "prefill_chunk": every})
+            serve_res["mla"]["surgery_s"] = surg_s
+    if "check_mla" in phases:
+        with Phase("check_mla"):
+            cross_check_mla(cfg, pm, card, seed)
+    if not set(phases) & {"serve_mla_q", "check_mla_q"}:
+        return
+    from repro_torch.quant.quantize import quantize_tree
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        pq = quantize_tree(pm, "int8", targets=lrd.quant_targets)
+    del pm
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    log(f"quantize int8 (mla): {time.perf_counter() - t0:.2f} s [{card}]")
+    if "serve_mla_q" in phases:
+        with Phase("serve_mla_q"):
+            q_chain = {"branched_matmul_q": chain}
+            serve_res["mla_q"] = serve(
+                cfg, lrd, pq, **run, quantize="int8", kv_quantize="int8",
+                expect={"decode": {**q_chain, "decode_attention_latent_q":
+                                   cfg.num_layers},
+                        "prefill_chunk": q_chain})
+            serve_res["mla_q"]["surgery_s"] = surg_s
+    if "check_mla_q" in phases:
+        with Phase("check_mla_q"):
+            cross_check_mla(cfg, pq, card, seed, kv_quantize="int8")
 
 
 # ---------------------------------------------------------------------------
@@ -1108,9 +1482,7 @@ def main() -> int:
             f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
     kernels = None
-    model_phases = {"serve", "check", "serve_q", "check_q", "serve_paged",
-                    "check_paged", "serve_qa", "check_qa", "profile"}
-    if set(phases) & ({"build", "kernels"} | model_phases):
+    if set(phases) & {"build", "kernels", *LLAMA_PHASES, *MLA_PHASES}:
         with Phase("build"):
             from repro_torch.kernels import build
             _, report = build.build()
@@ -1119,106 +1491,48 @@ def main() -> int:
                         or "spill" in line or line.startswith("==")):
                     log(line.strip())
             lib = build.load()
-            # dynamic shared memory per launch (ptxas reports static only);
-            # the quantized chains stage their weights in f32 after
-            # dequantizing, so each needs what its plain twin needs
+            # dynamic shared memory per launch (ptxas reports static only)
+            # at the row block each launch takes; the quantized chains
+            # stage their weights in f32 after dequantizing, so each needs
+            # what its plain twin needs
             for dt, code in (("bfloat16", 1), ("float32", 0)):
                 for m in (8, 64):
-                    lr = {k: int(lib.lrk_lowrank_smem(code, m, r))
-                          for k, (_, r, _) in LOWRANK_SHAPES.items()}
-                    br = {k: int(lib.lrk_branched_smem(code, m, n, r, r))
-                          for k, (n, _, r, _) in BRANCHED_SHAPES.items()}
-                    fits = max([*lr.values(), *br.values()]) \
+                    lr = {k: build.chain_bm(m, lambda bm, r=r: int(
+                        lib.lrk_lowrank_smem(code, bm, r)))
+                        for k, (_, r, _) in LOWRANK_SHAPES.items()}
+                    br = {k: build.chain_bm(m, lambda bm, n=n, r=r: int(
+                        lib.lrk_branched_smem(code, bm, n, r, r)))
+                        for k, (n, _, r, _) in {
+                            **BRANCHED_SHAPES,
+                            **DEEPSEEK_BRANCHED_SHAPES}.items()}
+                    fits = max(b for _, b in [*lr.values(), *br.values()]) \
                         <= build.SMEM_LIMIT
-                    log(f"dynamic shared memory, {dt}, M={m}, plain and "
-                        f"quantized chains: lowrank {lr} branched {br} "
-                        f"(limit {build.SMEM_LIMIT} B: "
+                    log(f"dynamic shared memory (row block, bytes), {dt}, "
+                        f"M={m}, plain and quantized chains: lowrank {lr} "
+                        f"branched {br} (limit {build.SMEM_LIMIT} B: "
                         f"{'every rank fits' if fits else 'OVER'})")
+            for dt, code in (("bfloat16", 1), ("float32", 0)):
+                at32 = {k: int(lib.lrk_branched_smem(code, 32, n, r, r))
+                        for k, (n, _, r, _) in
+                        DEEPSEEK_BRANCHED_SHAPES.items()}
+                log(f"dynamic shared memory, {dt}, DeepSeek-V2 branched "
+                    f"shapes at 32 rows (the block a prefill chunk took "
+                    f"before the fit repair): {at32}")
+            log("dynamic shared memory, decode_attention_latent_q at the "
+                "served latent pool: "
+                f"{latent_smem()} B (limit {build.SMEM_LIMIT} B)")
 
     if "kernels" in phases:
         with Phase("kernels"):
             kernels = check_kernels(card)
 
-    serve_res = {}
-    if set(phases) & model_phases:
-        cfg, dense, axes = full_model(args.seed)
-        lrd, p4, rep, surg_s = decompose(dense, axes, branches=4)
-        log(f"surgery branches=4: {surg_s:.2f} s, "
-            f"{json.dumps(rep.summary())} [{card}]")
-    if "serve" in phases:
-        with Phase("serve"):
-            every = lambda counts: {"decode": counts,  # noqa: E731
-                                    "prefill_chunk": counts}
-            serve_res["branches4"] = serve(
-                cfg, lrd, p4, n_req=8, prompt_lo=32, prompt_hi=512,
-                new_tokens=32, card=card, seed=args.seed,
-                expect=every({"lowrank_matmul": 32, "branched_matmul": 80}))
-            serve_res["branches4"]["surgery_s"] = surg_s
-            lrd1, p1, _, surg1_s = decompose(dense, axes, branches=1)
-            log(f"surgery branches=1: {surg1_s:.2f} s [{card}]")
-            serve_res["branches1"] = serve(
-                cfg, lrd1, p1, n_req=4, prompt_lo=32, prompt_hi=128,
-                new_tokens=8, card=card, seed=args.seed + 1,
-                expect=every({"lowrank_matmul": 112}))
-            serve_res["branches1"]["surgery_s"] = surg1_s
-            del p1
-    if "check" in phases:
-        with Phase("check"):
-            cross_check(cfg, p4, card, args.seed)
-    if set(phases) & {"serve_q", "check_q", "serve_qa", "check_qa"}:
-        from repro_torch.quant.quantize import quantize_tree
-        t0 = time.perf_counter()
-        with torch.inference_mode():
-            pq = quantize_tree(p4, "int8", targets=lrd.quant_targets)
-        torch.cuda.synchronize()
-        log(f"quantize int8: {time.perf_counter() - t0:.2f} s [{card}]")
-    if "serve_q" in phases:
-        with Phase("serve_q"):
-            chain = {"lowrank_matmul_q": 32, "branched_matmul_q": 80}
-            serve_res["quantized"] = serve(
-                cfg, lrd, pq, n_req=8, prompt_lo=32, prompt_hi=512,
-                new_tokens=32, card=card, seed=args.seed, quantize="int8",
-                kv_quantize="int8",
-                expect={"decode": {**chain, "decode_attention_q": 16},
-                        "prefill_chunk": chain})
-            serve_res["quantized"]["kv_write"] = time_kv_write(card)
-    if "check_q" in phases:
-        with Phase("check_q"):
-            cross_check_q(cfg, pq, card, args.seed)
-    paged_run = dict(n_req=8, prompt_lo=32, prompt_hi=512, new_tokens=32,
-                     card=card, seed=args.seed, shared=4,
-                     kv_layout="paged", kv_block_size=PAGED_BLOCK)
-    if "serve_paged" in phases:
-        with Phase("serve_paged"):
-            serve_res["paged"] = serve(
-                cfg, lrd, p4, **paged_run,
-                expect={"decode": {"lowrank_matmul": 32,
-                                   "branched_matmul": 80,
-                                   "decode_attention_paged": 16},
-                        "prefill_chunk": {"lowrank_matmul": 32,
-                                          "branched_matmul": 80}})
-    if "check_paged" in phases:
-        with Phase("check_paged"):
-            cross_check_paged(cfg, p4, card, args.seed)
-    if "serve_qa" in phases:
-        with Phase("serve_qa"):
-            serve_res["qa"] = serve(
-                cfg, lrd, pq, **paged_run, quantize="int8",
-                act_quantize="int8", kv_quantize="int8",
-                expect={"decode": {"lowrank_matmul_q": 32,
-                                   "branched_matmul_q": 80,
-                                   "decode_attention_paged_q": 16},
-                        "prefill_chunk": {"lowrank_matmul_qa": 32,
-                                          "branched_matmul_qa": 80}})
-    if "check_qa" in phases:
-        with Phase("check_qa"):
-            cross_check_paged(cfg, pq, card, args.seed, kv_quantize="int8",
-                              act_quantize="int8")
-    if "profile" in phases:
-        with Phase("profile"):
-            profile_decode(cfg, lrd, p4, card, args.seed)
-            profile_decode(cfg, lrd, p4, card, args.seed, quantize="int8",
-                           kv_quantize="int8")
+    serve_res: dict[str, dict] = {}
+    if set(phases) & set(LLAMA_PHASES):
+        run_llama(phases, card, args.seed, serve_res)
+        # the llama trees are gone with run_llama's frame
+        torch.cuda.empty_cache()
+    if set(phases) & set(MLA_PHASES):
+        run_mla(phases, card, args.seed, serve_res)
 
     if kernels is not None:
         for k in kernels:

@@ -33,9 +33,9 @@ FAMILIES = (
 @dataclass(frozen=True)
 class ModelConfig:
     """Architecture definition (the reference's field names and
-    defaults).  Only the fields the dense family reads are here; those of
-    the other families (MoE, MLA, SSM, VLM, encoder, ResNet) come with
-    their slices (ROADMAP A10, A13)."""
+    defaults).  The fields of the dense family, MLA and MoE are here (the
+    MoE fields are not read yet: the MoE layer comes with ROADMAP A13, as
+    do the SSM, VLM, encoder and ResNet fields)."""
 
     name: str = "tiny"
     family: str = FAMILY_DENSE
@@ -52,8 +52,25 @@ class ModelConfig:
     tie_embeddings: bool = False
     act: str = "swiglu"
     attn_logit_softcap: float = 0.0
+
+    # MoE (served with ROADMAP A13).
     moe_num_experts: int = 0           # 0 -> dense FFN
+    moe_top_k: int = 2
+    moe_num_shared: int = 0            # always-on shared experts
+    moe_d_ff: int = 0                  # expert hidden dim (0 -> d_ff)
+    moe_every: int = 1                 # MoE FFN every k-th layer (1 = all)
+    moe_first_dense: int = 0           # first k layers use dense FFN
+    moe_capacity_factor: float = 1.25
+    moe_dispatch_groups: int = 0       # 0 = global dispatch
+
+    # Multi-head Latent Attention (deepseek-v2 style).
     mla: bool = False
+    q_lora_rank: int = 0               # 0 -> q projected from x directly
+    kv_lora_rank: int = 0              # width of the cached latent
+    qk_rope_dim: int = 64
+    qk_nope_dim: int = 128
+    v_head_dim: int = 128
+
     is_encoder: bool = False
 
     dtype: str = "bfloat16"            # activation / param dtype
@@ -69,6 +86,10 @@ class ModelConfig:
         if self.head_dim:
             return self.head_dim
         return self.d_model // self.num_heads if self.num_heads else 0
+
+    @property
+    def resolved_moe_d_ff(self) -> int:
+        return self.moe_d_ff or self.d_ff
 
     @property
     def has_decode(self) -> bool:

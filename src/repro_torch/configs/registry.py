@@ -39,4 +39,5 @@ def get(name: str) -> ArchEntry:
 def _ensure_loaded() -> None:
     # Importing the modules runs their register() calls (once: a second
     # import of a module is a no-op).
+    from repro_torch.configs import deepseek_v2_236b  # noqa: F401
     from repro_torch.configs import llama3_2_1b  # noqa: F401

@@ -55,14 +55,15 @@ def branched_matmul(x: torch.Tensor, u: torch.Tensor, xc: torch.Tensor,
     if m == 0 or s == 0:
         return y
     lib = build.load()
-    smem = int(lib.lrk_branched_smem(DTYPES[x.dtype], m, n, r1, r2))
+    bm, smem = build.chain_bm(
+        m, lambda bm: lib.lrk_branched_smem(DTYPES[x.dtype], bm, n, r1, r2))
     if smem > build.SMEM_LIMIT:
         raise ValueError(f"branched_matmul kernel: {n} branches of ranks "
-                         f"({r1}, {r2}) need {smem} B of shared memory "
-                         f"(limit {build.SMEM_LIMIT})")
+                         f"({r1}, {r2}) need {smem} B of shared memory at "
+                         f"{bm} rows (limit {build.SMEM_LIMIT})")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.lrk_branched_matmul(DTYPES[x.dtype], x.data_ptr(),
+        rc = lib.lrk_branched_matmul(DTYPES[x.dtype], bm, x.data_ptr(),
                                      u.data_ptr(), xc.data_ptr(),
                                      v.data_ptr(), y.data_ptr(), m, c, n,
                                      r1, r2, s, stream)

@@ -47,15 +47,16 @@ def branched_matmul_qa(x: torch.Tensor, u_q: torch.Tensor,
     if m == 0 or s == 0:
         return y
     lib = build.load()
-    smem = int(lib.lrk_branched_qa_smem(m, n, r1, r2))
+    bm, smem = build.chain_bm(
+        m, lambda bm: lib.lrk_branched_qa_smem(bm, n, r1, r2))
     if smem > build.SMEM_LIMIT:
         raise ValueError(f"branched_matmul_qa kernel: {n} branches of ranks "
-                         f"({r1}, {r2}) need {smem} B of shared memory "
-                         f"(limit {build.SMEM_LIMIT})")
+                         f"({r1}, {r2}) need {smem} B of shared memory at "
+                         f"{bm} rows (limit {build.SMEM_LIMIT})")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.lrk_branched_matmul_qa(
-            DTYPES[x.dtype], x.data_ptr(), u_q.data_ptr(),
+            DTYPES[x.dtype], bm, x.data_ptr(), u_q.data_ptr(),
             u_scale.data_ptr(), xc_q.data_ptr(), xc_scale.data_ptr(),
             v_q.data_ptr(), v_scale.data_ptr(), y.data_ptr(), m, c, n, r1,
             r2, s, stream)

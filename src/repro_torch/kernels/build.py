@@ -17,13 +17,14 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Callable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("lowrank_matmul.cu", "branched_matmul.cu", "lowrank_matmul_q.cu",
            "branched_matmul_q.cu", "decode_attention_q.cu",
            "lowrank_matmul_qa.cu", "branched_matmul_qa.cu",
-           "decode_attention_paged.cu")
+           "decode_attention_paged.cu", "decode_attention_latent_q.cu")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 LIB_NAME = "libreprotorch_kernels.so"
@@ -93,32 +94,33 @@ def load() -> ctypes.CDLL:
     path, _ = build()
     lib = ctypes.CDLL(str(path))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.lrk_lowrank_matmul.argtypes = [i, p, p, p, p, i, i, i, i, p]
+    lib.lrk_lowrank_matmul.argtypes = [i, i, p, p, p, p, i, i, i, i, p]
     lib.lrk_lowrank_matmul.restype = i
     lib.lrk_lowrank_smem.argtypes = [i, i, i]
     lib.lrk_lowrank_smem.restype = ctypes.c_size_t
-    lib.lrk_branched_matmul.argtypes = [i, p, p, p, p, p, i, i, i, i, i, i,
-                                        p]
+    lib.lrk_branched_matmul.argtypes = [i, i, p, p, p, p, p, i, i, i, i, i,
+                                        i, p]
     lib.lrk_branched_matmul.restype = i
     lib.lrk_branched_smem.argtypes = [i, i, i, i, i]
     lib.lrk_branched_smem.restype = ctypes.c_size_t
-    lib.lrk_lowrank_matmul_q.argtypes = [i, i, p, p, p, p, p, p, i, i, i,
-                                         i, p]
+    lib.lrk_lowrank_matmul_q.argtypes = [i, i, i, p, p, p, p, p, p, i, i,
+                                         i, i, p]
     lib.lrk_lowrank_matmul_q.restype = i
-    lib.lrk_branched_matmul_q.argtypes = [i, i, p, p, p, p, p, p, p, p, i,
-                                          i, i, i, i, i, p]
+    lib.lrk_branched_matmul_q.argtypes = [i, i, i, p, p, p, p, p, p, p, p,
+                                          i, i, i, i, i, i, p]
     lib.lrk_branched_matmul_q.restype = i
     lib.lrk_decode_attention_q.argtypes = [i, p, p, p, p, p, p, p, i, i, i,
                                            i, i, ctypes.c_float, p]
     lib.lrk_decode_attention_q.restype = i
     lib.lrk_decode_attention_q_fits.argtypes = [i, i, i]
     lib.lrk_decode_attention_q_fits.restype = i
-    lib.lrk_lowrank_matmul_qa.argtypes = [i, p, p, p, p, p, p, i, i, i, i, p]
+    lib.lrk_lowrank_matmul_qa.argtypes = [i, i, p, p, p, p, p, p, i, i, i,
+                                          i, p]
     lib.lrk_lowrank_matmul_qa.restype = i
     lib.lrk_lowrank_qa_smem.argtypes = [i, i]
     lib.lrk_lowrank_qa_smem.restype = ctypes.c_size_t
-    lib.lrk_branched_matmul_qa.argtypes = [i, p, p, p, p, p, p, p, p, i, i,
-                                           i, i, i, i, p]
+    lib.lrk_branched_matmul_qa.argtypes = [i, i, p, p, p, p, p, p, p, p, i,
+                                           i, i, i, i, i, p]
     lib.lrk_branched_matmul_qa.restype = i
     lib.lrk_branched_qa_smem.argtypes = [i, i, i, i]
     lib.lrk_branched_qa_smem.restype = ctypes.c_size_t
@@ -131,6 +133,12 @@ def load() -> ctypes.CDLL:
     lib.lrk_decode_attention_paged_q.restype = i
     lib.lrk_decode_attention_paged_fits.argtypes = [i, i, i, i]
     lib.lrk_decode_attention_paged_fits.restype = i
+    lib.lrk_decode_attention_latent_q.argtypes = [i, p, p, p, p, p, p, p, p,
+                                                  i, i, i, i, i, i,
+                                                  ctypes.c_float, p]
+    lib.lrk_decode_attention_latent_q.restype = i
+    lib.lrk_decode_attention_latent_q_smem.argtypes = [i, i, i]
+    lib.lrk_decode_attention_latent_q_smem.restype = ctypes.c_size_t
     lib.lrk_error_string.argtypes = [i]
     lib.lrk_error_string.restype = ctypes.c_char_p
     return lib
@@ -138,6 +146,20 @@ def load() -> ctypes.CDLL:
 
 #: shared memory a CTA may opt into on an H100 (bytes)
 SMEM_LIMIT = 232448
+
+
+def chain_bm(m: int, smem_at: Callable[[int], int]) -> tuple[int, int]:
+    """The row block height a chain kernel (the lowrank and branched
+    families) launches with for ``m`` activation rows, and the shared
+    memory that launch needs: 32 rows where ``m > 8`` and the 32-row
+    intermediates fit, else 8.  ``smem_at(bm)`` gives the bytes at a
+    block height (the library's ``lrk_*_smem``).  The caller raises if
+    even the 8-row launch does not fit."""
+    if m > 8:
+        smem = int(smem_at(32))
+        if smem <= SMEM_LIMIT:
+            return 32, smem
+    return 8, int(smem_at(8))
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

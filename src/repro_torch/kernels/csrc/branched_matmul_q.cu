@@ -50,11 +50,11 @@ int launch_branched_q(const void* x, const void* uq, const void* us,
 }
 
 template <typename T, typename Q>
-int dispatch_bm(const void* x, const void* uq, const void* us,
+int dispatch_bm(int bm, const void* x, const void* uq, const void* us,
                 const void* xcq, const void* xcs, const void* vq,
                 const void* vs, void* y, int M, int C, int N, int R1, int R2,
                 int S, cudaStream_t s) {
-  return pick_bm(M) == 8
+  return bm == 8
              ? launch_branched_q<T, Q, 8>(x, uq, us, xcq, xcs, vq, vs, y, M,
                                           C, N, R1, R2, S, s)
              : launch_branched_q<T, Q, 32>(x, uq, us, xcq, xcs, vq, vs, y, M,
@@ -68,27 +68,29 @@ extern "C" {
 // y (M,S) = sum_n ((x @ dq(uq[n])) @ dq(xcq[n])) @ dq(vq[n]); uq (N,C,R1),
 // xcq (N,R1,R2), vq (N,R2,S) with scales us (N,1,R1), xcs (N,1,R2),
 // vs (N,1,S), all row-major contiguous.  dtype: 0 = float32, 1 = bfloat16;
-// qtype: 0 = int8, 1 = float8_e4m3fn.  Returns the launch's cudaError_t.
-int lrk_branched_matmul_q(int dtype, int qtype, const void* x,
+// qtype: 0 = int8, 1 = float8_e4m3fn; bm: the row block height, 8 or
+// 32.  Returns the launch's cudaError_t.
+int lrk_branched_matmul_q(int dtype, int qtype, int bm, const void* x,
                           const void* uq, const void* us, const void* xcq,
                           const void* xcs, const void* vq, const void* vs,
                           void* y, int M, int C, int N, int R1, int R2, int S,
                           void* stream) {
+  if (!lrk::known_bm(bm)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;
   using fp8 = __nv_fp8_e4m3;
   if (dtype == 0 && qtype == 0)
-    return lrk::dispatch_bm<float, int8_t>(x, uq, us, xcq, xcs, vq, vs, y, M,
-                                           C, N, R1, R2, S, s);
+    return lrk::dispatch_bm<float, int8_t>(bm, x, uq, us, xcq, xcs, vq, vs,
+                                           y, M, C, N, R1, R2, S, s);
   if (dtype == 0 && qtype == 1)
-    return lrk::dispatch_bm<float, fp8>(x, uq, us, xcq, xcs, vq, vs, y, M, C,
-                                        N, R1, R2, S, s);
+    return lrk::dispatch_bm<float, fp8>(bm, x, uq, us, xcq, xcs, vq, vs, y,
+                                        M, C, N, R1, R2, S, s);
   if (dtype == 1 && qtype == 0)
-    return lrk::dispatch_bm<bf16, int8_t>(x, uq, us, xcq, xcs, vq, vs, y, M,
-                                          C, N, R1, R2, S, s);
+    return lrk::dispatch_bm<bf16, int8_t>(bm, x, uq, us, xcq, xcs, vq, vs,
+                                          y, M, C, N, R1, R2, S, s);
   if (dtype == 1 && qtype == 1)
-    return lrk::dispatch_bm<bf16, fp8>(x, uq, us, xcq, xcs, vq, vs, y, M, C,
-                                       N, R1, R2, S, s);
+    return lrk::dispatch_bm<bf16, fp8>(bm, x, uq, us, xcq, xcs, vq, vs, y,
+                                       M, C, N, R1, R2, S, s);
   return (int)cudaErrorInvalidValue;
 }
 

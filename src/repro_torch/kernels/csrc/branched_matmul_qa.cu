@@ -117,11 +117,11 @@ int launch(const void* x, const void* uq, const void* us, const void* xcq,
 }
 
 template <typename T>
-int dispatch_bm(const void* x, const void* uq, const void* us,
+int dispatch_bm(int bm, const void* x, const void* uq, const void* us,
                 const void* xcq, const void* xcs, const void* vq,
                 const void* vs, void* y, int M, int C, int N, int R1, int R2,
                 int S, cudaStream_t s) {
-  return lrk::pick_bm(M) == 8
+  return bm == 8
              ? launch<T, 8>(x, uq, us, xcq, xcs, vq, vs, y, M, C, N, R1, R2,
                             S, s)
              : launch<T, 32>(x, uq, us, xcq, xcs, vq, vs, y, M, C, N, R1, R2,
@@ -132,29 +132,31 @@ int dispatch_bm(const void* x, const void* uq, const void* us,
 
 extern "C" {
 
-// Dynamic shared memory of one launch at M rows, N branches of ranks
-// (R1, R2).
-size_t lrk_branched_qa_smem(int M, int N, int R1, int R2) {
-  return lrk::pick_bm(M) == 8 ? qa::branched_qa_smem<8>(N, R1, R2)
-                              : qa::branched_qa_smem<32>(N, R1, R2);
+// Dynamic shared memory of one launch at a row block of bm rows (8 or
+// 32), N branches of ranks (R1, R2).
+size_t lrk_branched_qa_smem(int bm, int N, int R1, int R2) {
+  return bm == 8 ? qa::branched_qa_smem<8>(N, R1, R2)
+                 : qa::branched_qa_smem<32>(N, R1, R2);
 }
 
 // y (M,S) = the activation-quantized branched chain of x (M,C) through
 // uq (N,C,R1), xcq (N,R1,R2), vq (N,R2,S) int8 with f32 scales us
 // (N,1,R1), xcs (N,1,R2), vs (N,1,S), all row-major contiguous.  dtype:
-// 0 = float32, 1 = bfloat16 (x, y).  Returns the launch's cudaError_t.
-int lrk_branched_matmul_qa(int dtype, const void* x, const void* uq,
+// 0 = float32, 1 = bfloat16 (x, y); bm: the row block height, 8 or 32.
+// Returns the launch's cudaError_t.
+int lrk_branched_matmul_qa(int dtype, int bm, const void* x, const void* uq,
                            const void* us, const void* xcq, const void* xcs,
                            const void* vq, const void* vs, void* y, int M,
                            int C, int N, int R1, int R2, int S,
                            void* stream) {
+  if (!lrk::known_bm(bm)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return qa::dispatch_bm<float>(x, uq, us, xcq, xcs, vq, vs, y, M, C, N,
-                                  R1, R2, S, s);
+    return qa::dispatch_bm<float>(bm, x, uq, us, xcq, xcs, vq, vs, y, M, C,
+                                  N, R1, R2, S, s);
   if (dtype == 1)
-    return qa::dispatch_bm<__nv_bfloat16>(x, uq, us, xcq, xcs, vq, vs, y, M,
-                                          C, N, R1, R2, S, s);
+    return qa::dispatch_bm<__nv_bfloat16>(bm, x, uq, us, xcq, xcs, vq, vs, y,
+                                          M, C, N, R1, R2, S, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -92,10 +92,10 @@ int launch(const void* x, const void* w0q, const void* w0s, const void* w1q,
 }
 
 template <typename T>
-int dispatch_bm(const void* x, const void* w0q, const void* w0s,
+int dispatch_bm(int bm, const void* x, const void* w0q, const void* w0s,
                 const void* w1q, const void* w1s, void* y, int M, int C,
                 int R, int S, cudaStream_t s) {
-  return lrk::pick_bm(M) == 8
+  return bm == 8
              ? launch<T, 8>(x, w0q, w0s, w1q, w1s, y, M, C, R, S, s)
              : launch<T, 32>(x, w0q, w0s, w1q, w1s, y, M, C, R, S, s);
 }
@@ -104,25 +104,27 @@ int dispatch_bm(const void* x, const void* w0q, const void* w0s,
 
 extern "C" {
 
-// Dynamic shared memory of one launch at M rows and rank R.
-size_t lrk_lowrank_qa_smem(int M, int R) {
-  return lrk::pick_bm(M) == 8 ? qa::lowrank_qa_smem<8>(R)
-                              : qa::lowrank_qa_smem<32>(R);
+// Dynamic shared memory of one launch at a row block of bm rows (8 or
+// 32) and rank R.
+size_t lrk_lowrank_qa_smem(int bm, int R) {
+  return bm == 8 ? qa::lowrank_qa_smem<8>(R) : qa::lowrank_qa_smem<32>(R);
 }
 
 // y (M,S) = the activation-quantized chain of x (M,C) through w0q (C,R)
 // int8 + w0s (1,R) f32 and w1q (R,S) int8 + w1s (1,S) f32, all row-major
-// contiguous.  dtype: 0 = float32, 1 = bfloat16 (x, y).  Returns the
-// launch's cudaError_t (0 on success).
-int lrk_lowrank_matmul_qa(int dtype, const void* x, const void* w0q,
+// contiguous.  dtype: 0 = float32, 1 = bfloat16 (x, y); bm: the row block
+// height, 8 or 32.  Returns the launch's cudaError_t (0 on success).
+int lrk_lowrank_matmul_qa(int dtype, int bm, const void* x, const void* w0q,
                           const void* w0s, const void* w1q, const void* w1s,
                           void* y, int M, int C, int R, int S, void* stream) {
+  if (!lrk::known_bm(bm)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return qa::dispatch_bm<float>(x, w0q, w0s, w1q, w1s, y, M, C, R, S, s);
+    return qa::dispatch_bm<float>(bm, x, w0q, w0s, w1q, w1s, y, M, C, R, S,
+                                  s);
   if (dtype == 1)
-    return qa::dispatch_bm<__nv_bfloat16>(x, w0q, w0s, w1q, w1s, y, M, C, R,
-                                          S, s);
+    return qa::dispatch_bm<__nv_bfloat16>(bm, x, w0q, w0s, w1q, w1s, y, M, C,
+                                          R, S, s);
   return (int)cudaErrorInvalidValue;
 }
 

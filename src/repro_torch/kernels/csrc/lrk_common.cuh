@@ -312,8 +312,12 @@ inline dim3 chain_grid(int M, int S, int BM) {
   return dim3(CLUSTER * (groups > 0 ? groups : 1), row_blocks);
 }
 
-// Row block height: 8 rows for decode-sized M, else 32.
-inline int pick_bm(int M) { return M <= 8 ? 8 : 32; }
+// Row block heights the chain kernels are instantiated for.  The wrapper
+// picks one per launch from the shared memory each would need
+// (kernels/build.py chain_bm): 32 rows where M > 8 and the 32-row
+// intermediates fit, else 8 -- wide ranks (a branched o projection of
+// 4 x 480, an unembed of 4 x 608) fit only at 8 rows.
+inline bool known_bm(int bm) { return bm == 8 || bm == 32; }
 
 // Opt a kernel into `smem` bytes of dynamic shared memory and launch it
 // on the chain grid; returns the launch's cudaError_t.

@@ -51,13 +51,15 @@ def lowrank_matmul(x: torch.Tensor, w0: torch.Tensor,
     if m == 0 or s == 0:
         return y
     lib = build.load()
-    smem = int(lib.lrk_lowrank_smem(DTYPES[x.dtype], m, r))
+    bm, smem = build.chain_bm(
+        m, lambda bm: lib.lrk_lowrank_smem(DTYPES[x.dtype], bm, r))
     if smem > build.SMEM_LIMIT:
         raise ValueError(f"lowrank_matmul kernel: rank {r} needs {smem} B "
-                         f"of shared memory (limit {build.SMEM_LIMIT})")
+                         f"of shared memory at {bm} rows (limit "
+                         f"{build.SMEM_LIMIT})")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.lrk_lowrank_matmul(DTYPES[x.dtype], x.data_ptr(),
+        rc = lib.lrk_lowrank_matmul(DTYPES[x.dtype], bm, x.data_ptr(),
                                     w0.data_ptr(), w1.data_ptr(),
                                     y.data_ptr(), m, c, r, s, stream)
     build.check(lib, rc, "lowrank_matmul")

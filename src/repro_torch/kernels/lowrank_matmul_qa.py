@@ -50,14 +50,15 @@ def lowrank_matmul_qa(x: torch.Tensor, w0_q: torch.Tensor,
     if m == 0 or s == 0:
         return y
     lib = build.load()
-    smem = int(lib.lrk_lowrank_qa_smem(m, r))
+    bm, smem = build.chain_bm(m, lambda bm: lib.lrk_lowrank_qa_smem(bm, r))
     if smem > build.SMEM_LIMIT:
         raise ValueError(f"lowrank_matmul_qa kernel: rank {r} needs {smem} "
-                         f"B of shared memory (limit {build.SMEM_LIMIT})")
+                         f"B of shared memory at {bm} rows (limit "
+                         f"{build.SMEM_LIMIT})")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.lrk_lowrank_matmul_qa(
-            DTYPES[x.dtype], x.data_ptr(), w0_q.data_ptr(),
+            DTYPES[x.dtype], bm, x.data_ptr(), w0_q.data_ptr(),
             w0_scale.data_ptr(), w1_q.data_ptr(), w1_scale.data_ptr(),
             y.data_ptr(), m, c, r, s, stream)
     build.check(lib, rc, "lowrank_matmul_qa")

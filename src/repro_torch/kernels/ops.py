@@ -13,6 +13,7 @@ import torch
 from repro_torch.kernels import branched_matmul as bk
 from repro_torch.kernels import branched_matmul_q as bqk
 from repro_torch.kernels import branched_matmul_qa as bak
+from repro_torch.kernels import decode_attention_latent_q as dlk
 from repro_torch.kernels import decode_attention_paged as dpk
 from repro_torch.kernels import decode_attention_q as dak
 from repro_torch.kernels import lowrank_matmul as lk
@@ -169,3 +170,29 @@ def decode_attention_q(q: torch.Tensor, k_q: torch.Tensor,
         _decode_rows(q, k_q.shape[2]), k_q, k_scale, v_q, v_scale,
         cache_pos.to(torch.int32).contiguous(), softcap=softcap)
     return o.reshape(q.shape)
+
+
+def decode_attention_latent_q(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                              ckv_q: torch.Tensor, ckv_scale: torch.Tensor,
+                              krope_q: torch.Tensor,
+                              krope_scale: torch.Tensor,
+                              cache_pos: torch.Tensor, *,
+                              scale: float) -> torch.Tensor:
+    """One absorbed-form MLA decode step over an int8 latent pool.  q_lat
+    (B, 1, H, L); q_rope (B, 1, H, R); ckv_q (B, S, L) / krope_q (B, S,
+    R) int8; ckv/krope_scale (B, L)/(B, R) f32; cache_pos (B,) ->
+    context latents (B, 1, H, L).  Where the reference falls back to its
+    oracle when the VMEM budget does not fit (``repro/kernels/ops.py:
+    478-510``), the kernel raises."""
+    if q_lat.device.type == "cpu":
+        return ref.decode_attention_latent_q_ref(
+            q_lat, q_rope, ckv_q, ckv_scale, krope_q, krope_scale,
+            cache_pos, scale=scale)
+    if q_lat.shape[1] != 1:
+        raise ValueError("decode attention takes one query row, got "
+                         f"{q_lat.shape[1]}")
+    o = dlk.decode_attention_latent_q(
+        q_lat[:, 0].contiguous(), q_rope[:, 0].contiguous(), ckv_q,
+        ckv_scale, krope_q, krope_scale,
+        cache_pos.to(torch.int32).contiguous(), scale=scale)
+    return o[:, None]

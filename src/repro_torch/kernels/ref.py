@@ -212,3 +212,30 @@ def decode_attention_q_ref(q: torch.Tensor, k_q: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskh->bqkgh", p, v)
     return o.reshape(b, sq, h, d).to(q.dtype)
+
+
+def decode_attention_latent_q_ref(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                                  ckv_q: torch.Tensor,
+                                  ckv_scale: torch.Tensor,
+                                  krope_q: torch.Tensor,
+                                  krope_scale: torch.Tensor,
+                                  cache_pos: torch.Tensor, *,
+                                  scale: float) -> torch.Tensor:
+    """MLA's absorbed decode over an int8 latent pool, dequantize then
+    attend.
+
+    q_lat (B, 1, H, L); q_rope (B, 1, H, R); ckv_q (B, S, L) / krope_q
+    (B, S, R) int8; ckv/krope_scale (B, L)/(B, R) f32; cache_pos (B,) ->
+    context latents (B, 1, H, L) in q_lat.dtype.  f32 softmax over
+    positions ``<= cache_pos`` (masked with -1e30, so a slot with no
+    valid position averages all of them, as the reference does)."""
+    cc = _f32(ckv_q) * ckv_scale[:, None]
+    cr = _f32(krope_q) * krope_scale[:, None]
+    s = (torch.einsum("bqhl,bsl->bhqs", _f32(q_lat), cc)
+         + torch.einsum("bqhr,bsr->bhqs", _f32(q_rope), cr)) * scale
+    pos = cache_pos.to(device=q_lat.device, dtype=torch.long)
+    valid = torch.arange(cc.shape[1], device=q_lat.device)[None, :] \
+        <= pos[:, None]
+    s = torch.where(valid[:, None, None, :], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqs,bsl->bqhl", p, cc).to(q_lat.dtype)

@@ -1,9 +1,11 @@
-"""Attention: RoPE and GQA for prefill, chunked prefill and decode.
+"""Attention: RoPE, GQA and MLA (DeepSeek-V2) for prefill, chunked
+prefill and decode.
 
 Plain torch (``einsum`` / ``softmax``), as the reference uses plain jnp
 for prefill and full-width slot decode; decode over an int8 or a paged
 pool goes through the plan to the ``decode_attention_q`` /
-``decode_attention_paged[_q]`` kernels.  Logits are f32,
+``decode_attention_paged[_q]`` kernels, and MLA's absorbed decode over
+an int8 latent pool to ``decode_attention_latent_q``.  Logits are f32,
 masked with ``-1e30``; probabilities round to the value dtype before
 the context product.  Prefill attention runs over query chunks of
 ``Q_CHUNK`` rows so the logits never exceed ``q_chunk x kv_len`` per
@@ -19,9 +21,11 @@ import math
 
 import torch
 
+from repro_torch.layers import cache as cache_mod
 from repro_torch.layers.cache import CachePlan, plan_from_cache
-from repro_torch.layers.param import (EMBED, QKV, ParamBuilder, apply_linear,
-                                      init_linear)
+from repro_torch.layers.norm import init_rms_norm, rms_norm
+from repro_torch.layers.param import (EMBED, QKV, RANK, ParamBuilder,
+                                      apply_linear, init_linear)
 
 Q_CHUNK = 1024
 
@@ -144,3 +148,153 @@ def apply_attention(p: dict, x: torch.Tensor, *, num_heads: int,
             o = chunked_attention(q, k, v, causal=causal, softcap=softcap)
     o = o.reshape(b, sq, num_heads * head_dim)
     return apply_linear(p["o"], o, **aq), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2): the paper's merged low-rank attention
+# ---------------------------------------------------------------------------
+
+def init_mla(pb: ParamBuilder, name: str, cfg) -> None:
+    sub = pb.child(name)
+    d, h = cfg.d_model, cfg.num_heads
+    qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+    if cfg.q_lora_rank:
+        init_linear(sub, "q_a", d, cfg.q_lora_rank, EMBED, RANK)
+        init_rms_norm(sub, "q_norm", cfg.q_lora_rank)
+        init_linear(sub, "q_b", cfg.q_lora_rank, h * qk, RANK, QKV)
+    else:
+        init_linear(sub, "q_b", d, h * qk, EMBED, QKV)
+    init_linear(sub, "kv_a", d, cfg.kv_lora_rank + cfg.qk_rope_dim, EMBED,
+                RANK)
+    init_rms_norm(sub, "kv_norm", cfg.kv_lora_rank)
+    init_linear(sub, "kv_b", cfg.kv_lora_rank,
+                h * (cfg.qk_nope_dim + cfg.v_head_dim), RANK, QKV)
+    init_linear(sub, "o", h * cfg.v_head_dim, d, QKV, EMBED)
+
+
+def mla_cache_spec(batch: int, seq_len: int, cfg, dtype: torch.dtype,
+                   quantize: str | None = None
+                   ) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
+    """``{name: (shape, dtype)}`` of one MLA layer's latent cache."""
+    return cache_mod.mla_plan(cfg.kv_lora_rank, cfg.qk_rope_dim, dtype,
+                              quantize).leaves(batch, seq_len)
+
+
+def init_mla_cache(batch: int, seq_len: int, cfg, dtype: torch.dtype,
+                   quantize: str | None = None,
+                   device: str | torch.device = "cuda") -> dict:
+    return cache_mod.mla_plan(cfg.kv_lora_rank, cfg.qk_rope_dim, dtype,
+                              quantize).init(batch, seq_len, device)
+
+
+def _mla_qkr(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
+             act_quantize: bool):
+    """Queries (nope and rotated rope parts), the normalised latent and
+    the rotated shared rope key of ``x (B, S, d)``."""
+    b, sq, _ = x.shape
+    aq = dict(act_quantize=act_quantize)
+    if cfg.q_lora_rank:
+        qa = rms_norm(p["q_norm"], apply_linear(p["q_a"], x, **aq),
+                      cfg.norm_eps)
+        q = apply_linear(p["q_b"], qa, **aq)
+    else:
+        q = apply_linear(p["q_b"], x, **aq)
+    q = q.reshape(b, sq, cfg.num_heads, cfg.qk_nope_dim + cfg.qk_rope_dim)
+    q_nope, q_rope = q[..., :cfg.qk_nope_dim], q[..., cfg.qk_nope_dim:]
+    sin, cos = rope_sincos(positions, cfg.qk_rope_dim, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, sin, cos)
+    kva = apply_linear(p["kv_a"], x, **aq)
+    ckv = rms_norm(p["kv_norm"], kva[..., :cfg.kv_lora_rank], cfg.norm_eps)
+    k_rope = apply_rope(kva[..., cfg.kv_lora_rank:][:, :, None, :], sin,
+                        cos)[:, :, 0]
+    return q_nope, q_rope, ckv, k_rope
+
+
+def apply_mla(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
+              causal: bool = True, cache: dict | None = None,
+              cache_pos: torch.Tensor | None = None,
+              prompt_len: int | None = None, start_pos: int | None = None,
+              plan: CachePlan | None = None, softcap: float = 0.0,
+              act_quantize: bool = False
+              ) -> tuple[torch.Tensor, dict | None]:
+    """Multi-head latent attention.  Returns (output, cache).
+
+    * decode (``cache_pos`` (B,) given, Sq = 1): the absorbed form —
+      ``kv_b``'s K half folds into the query, its V half into the output,
+      and attention runs against the cached latents alone (the plan's
+      :meth:`~repro_torch.layers.cache.CachePlan.attend_decode_latent`);
+    * prefill (a cache given): the latents fill ``cache[0:S]`` and K/V
+      expand from them through ``kv_b``;
+    * prefill chunk (``start_pos`` given): the chunk's latents land at the
+      offset and K/V re-expand from the whole cached latent prefix
+      (unwritten positions are zero latents, hidden by the absolute causal
+      mask); rows at positions ``>= prompt_len`` are zeroed at the write.
+    """
+    b, sq, _ = x.shape
+    h, nope, rope_d = cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    vd = cfg.v_head_dim
+    q_nope, q_rope, ckv, k_rope = _mla_qkr(p, x, cfg, positions,
+                                           act_quantize)
+    scale = 1.0 / math.sqrt(nope + rope_d)
+    if cache is not None and plan is None:
+        plan = plan_from_cache(cache, x.dtype)
+    if cache is not None and cache_pos is not None:      # absorbed decode
+        if sq != 1:
+            raise ValueError(f"decode takes one token, got {sq}")
+        cache = plan.write_decode(
+            cache, {"ckv": ckv[:, 0], "krope": k_rope[:, 0]}, cache_pos)
+        wkv = _kv_b_matrix(p["kv_b"], cfg, x.dtype)      # (r, H, nope+vd)
+        q_lat = torch.einsum("bqhn,lhn->bqhl", q_nope, wkv[..., :nope])
+        ctx = plan.attend_decode_latent(q_lat, q_rope, cache, cache_pos,
+                                        scale=scale)
+        o = torch.einsum("bqhl,lhv->bqhv", ctx, wkv[..., nope:])
+    else:
+        if cache is not None and start_pos is not None:  # prefill chunk
+            cache, view = plan.write_chunk(
+                cache, {"ckv": ckv, "krope": k_rope}, start_pos, prompt_len)
+            src_ckv, src_rope, q_off = view["ckv"], view["krope"], start_pos
+        else:
+            if cache is not None:                        # whole prefill
+                cache = plan.write_prefill(
+                    cache, {"ckv": ckv, "krope": k_rope}, prompt_len)
+            src_ckv, src_rope, q_off = ckv, k_rope, 0
+        skv = src_ckv.shape[1]
+        kv = apply_linear(p["kv_b"], src_ckv.to(x.dtype),
+                          act_quantize=act_quantize).reshape(b, skv, h,
+                                                             nope + vd)
+        k = torch.cat([kv[..., :nope],
+                       src_rope.to(x.dtype)[:, :, None, :].expand(
+                           b, skv, h, rope_d)], dim=-1)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        # v padded to the qk width for the shared attention, then sliced
+        o = chunked_attention(q, k, _pad_last(kv[..., nope:],
+                                              nope + rope_d - vd),
+                              causal=causal, q_offset=q_off,
+                              softcap=softcap, scale=scale)[..., :vd]
+    out = apply_linear(p["o"], o.reshape(b, sq, h * vd),
+                       act_quantize=act_quantize)
+    return out, cache
+
+
+def _kv_b_matrix(p: dict, cfg, dtype: torch.dtype) -> torch.Tensor:
+    """kv_b as a dense ``(r, H, nope + v)`` tensor, recomposed from its
+    factors when surgery decomposed it (``mla_kvb`` targeted)."""
+    from repro_torch.layers.plan import KIND_DENSE, KIND_LOWRANK, build_plan
+    plan = build_plan(p)
+    if plan.kind == KIND_DENSE:
+        w = plan.value(p, "w", dtype)
+    elif plan.kind == KIND_LOWRANK:
+        w = plan.value(p, "w0", dtype) @ plan.value(p, "w1", dtype)
+    else:
+        w = torch.einsum("ncr,nrs,nso->co", plan.value(p, "u", dtype),
+                         plan.value(p, "xc", dtype),
+                         plan.value(p, "v", dtype))
+    return w.reshape(cfg.kv_lora_rank, cfg.num_heads,
+                     cfg.qk_nope_dim + cfg.v_head_dim)
+
+
+def _pad_last(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Zero-pad the last axis of ``x`` by ``n`` (nothing for n <= 0)."""
+    if n <= 0:
+        return x
+    return torch.nn.functional.pad(x, (0, n))

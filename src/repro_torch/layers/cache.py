@@ -1,4 +1,5 @@
-"""CachePlan for the GQA KV pools: slot or paged, full width or int8.
+"""CachePlan for the KV pools: GQA (slot or paged, full width or int8)
+and the MLA latent pools.
 
 One plan per attention layer declares the cache leaves, their byte
 accounting, the three write executors and the cache-coupled decode
@@ -19,9 +20,19 @@ attention:
   attention runs the ``decode_attention_paged[_q]`` kernels through the
   tables; prompts never write the paged pool directly (serve stages
   them in a contiguous stream cache, and the pool manager scatters whole
-  blocks, :mod:`repro_torch.serve.pool`).
+  blocks, :mod:`repro_torch.serve.pool`);
+* ``mla_latent`` — MLA's latents ``ckv`` ``(B, S, r)`` and ``krope``
+  ``(B, S, rope)`` in the model dtype; decode attends in the absorbed
+  form in plain torch, as the reference does in plain jnp;
+* ``mla_latent_int8`` — ``ckv_q``/``krope_q`` int8 plus per-(slot,
+  channel) f32 scales ``(B, r)`` / ``(B, rope)`` (no head axis: every
+  head shares the one latent stream); decode attention runs the
+  ``decode_attention_latent_q`` kernel.  There is no paged MLA pool, as
+  in the reference.
 
-The MLA families of the reference come with ROADMAP item A10.
+A plan is its family plus the tail shape of each logical leaf (``k``,
+``v`` or ``ckv``, ``krope``): every leaf, byte count and write derives
+from those, whatever the rank of the tail.
 
 The port writes caches IN PLACE (the reference returns updated copies):
 a decode step would otherwise copy the whole pool.  Every writer returns
@@ -46,12 +57,18 @@ from repro_torch.quant import kv as kvq
 
 FAMILY_GQA = "gqa_f32"
 FAMILY_GQA_INT8 = "gqa_int8"
+FAMILY_MLA = "mla_latent"
+FAMILY_MLA_INT8 = "mla_latent_int8"
 FAMILY_GQA_PAGED = "gqa_paged_f32"
 FAMILY_GQA_PAGED_INT8 = "gqa_paged_int8"
 
-#: leaves with a sequence axis (``(B, S, KH, D)``); the scale rows
-#: ``(B, KH, D)`` have none
-SEQ_LEAVES = ("k", "v", "k_q", "v_q")
+#: sequence-axis position (from the right) of every per-position cache
+#: leaf, by key: K/V pools are ``(..., S, KH, D)``, latents ``(..., S,
+#: r)``.  Scale rows have no sequence axis.
+SEQ_AXIS: dict[str, int] = {
+    "k": -3, "v": -3, "k_q": -3, "v_q": -3,
+    "ckv": -2, "krope": -2, "ckv_q": -2, "krope_q": -2,
+}
 
 _NEG_INF = -1e30
 
@@ -80,34 +97,39 @@ class PagedGeometry:
 
 @dataclasses.dataclass(frozen=True)
 class CachePlan:
-    """How one attention layer's K/V cache is laid out, costed and
+    """How one attention layer's cache is laid out, costed and
     executed."""
 
-    num_kv_heads: int
-    head_dim: int
+    family: str
+    #: ``(logical leaf, tail shape)`` pairs: the dims after (batch, seq)
+    #: of ``k``/``v`` ``(KH, D)`` or of ``ckv``/``krope`` ``(r,)``
+    tails: tuple[tuple[str, tuple[int, ...]], ...]
     dtype: torch.dtype
-    family: str = FAMILY_GQA
     #: paged families carry their block geometry; slot families None
     paged: PagedGeometry | None = None
 
     @property
     def quantized(self) -> bool:
-        return self.family in (FAMILY_GQA_INT8, FAMILY_GQA_PAGED_INT8)
+        return self.family in (FAMILY_GQA_INT8, FAMILY_MLA_INT8,
+                               FAMILY_GQA_PAGED_INT8)
+
+    @property
+    def mla(self) -> bool:
+        return self.family in (FAMILY_MLA, FAMILY_MLA_INT8)
 
     def leaves(self, batch: int, seq_len: int
                ) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
         """``{name: (shape, dtype)}`` of one layer's cache leaves (for a
         paged plan, ``batch`` = physical blocks + 1 and ``seq_len`` = the
         block size)."""
-        value = (batch, seq_len, self.num_kv_heads, self.head_dim)
-        if not self.quantized:
-            out = {n: (value, self.dtype) for n in ("k", "v")}
-        else:
-            row = (batch, self.num_kv_heads, self.head_dim)
-            out = {"k_q": (value, torch.int8),
-                   "k_scale": (row, torch.float32),
-                   "v_q": (value, torch.int8),
-                   "v_scale": (row, torch.float32)}
+        out = {}
+        for name, tail in self.tails:
+            value = (batch, seq_len, *tail)
+            if not self.quantized:
+                out[name] = (value, self.dtype)
+            else:
+                out[name + "_q"] = (value, torch.int8)
+                out[name + "_scale"] = ((batch, *tail), torch.float32)
         if self.paged is not None:
             out["block_tables"] = ((self.paged.slots,
                                     self.paged.blocks_per_slot), torch.int32)
@@ -129,17 +151,20 @@ class CachePlan:
     # -- accounting ---------------------------------------------------------
 
     @property
+    def _values_per_position(self) -> int:
+        return sum(math.prod(tail) for _, tail in self.tails)
+
+    @property
     def bytes_per_token(self) -> int:
         """Per-position cache bytes of ONE stream, this layer."""
         itemsize = 1 if self.quantized else self.dtype.itemsize
-        return 2 * self.num_kv_heads * self.head_dim * itemsize
+        return self._values_per_position * itemsize
 
     @property
     def bytes_per_slot(self) -> int:
         """Per-slot constant bytes (the f32 scale rows), this layer; for
         a paged plan, per physical block."""
-        return 2 * self.num_kv_heads * self.head_dim * 4 \
-            if self.quantized else 0
+        return self._values_per_position * 4 if self.quantized else 0
 
     @property
     def bytes_per_block(self) -> int:
@@ -161,7 +186,8 @@ class CachePlan:
 
     # -- write executors ----------------------------------------------------
     # ``new`` holds the layer's full-precision values under their logical
-    # names {"k", "v"}: (B, S, KH, D), or (B, KH, D) for a decode write.
+    # names: {"k", "v"} (B, S, KH, D) or {"ckv", "krope"} (B, S, r); a
+    # decode write's values carry no S axis.
 
     @staticmethod
     def _mask_new(new: dict, start_pos: int, prompt_len: int | None
@@ -174,7 +200,8 @@ class CachePlan:
         masked = {}
         for key, x in new.items():
             pos = int(start_pos) + torch.arange(x.shape[1], device=x.device)
-            keep = (pos < int(prompt_len)).reshape(1, -1, 1, 1)
+            keep = (pos < int(prompt_len)).reshape(
+                1, -1, *([1] * (x.ndim - 2)))
             masked[key] = torch.where(keep, x, torch.zeros_like(x))
         return masked
 
@@ -255,8 +282,9 @@ class CachePlan:
             pc = pos.clamp(0, s_max - 1)
             rows = torch.arange(pool.shape[0], device=pool.device)
             cur = pool[rows, pc]
-            pool[rows, pc] = torch.where(valid.reshape(-1, 1, 1),
-                                         x.to(pool.dtype), cur)
+            pool[rows, pc] = torch.where(
+                valid.reshape(-1, *([1] * (x.ndim - 1))), x.to(pool.dtype),
+                cur)
         return cache
 
     def _write_decode_paged(self, cache: dict, new: dict,
@@ -303,6 +331,9 @@ class CachePlan:
         (``decode_attention_q`` / ``decode_attention_paged[_q]``: the
         kernel on the card, its plain version on the CPU)."""
         from repro_torch.kernels import ops
+        if self.mla:
+            raise ValueError("latent families attend via "
+                             "attend_decode_latent")
         if self.paged is not None:
             bt = cache["block_tables"]
             if not self.quantized:
@@ -324,6 +355,39 @@ class CachePlan:
                                     softcap)
 
 
+    def attend_decode_latent(self, q_lat: torch.Tensor,
+                             q_rope: torch.Tensor, cache: dict,
+                             cache_pos: torch.Tensor, *,
+                             scale: float) -> torch.Tensor:
+        """MLA's absorbed decode: latent-space queries against the latent
+        pool, per-head K/V never materialised.  q_lat (B, 1, H, r);
+        q_rope (B, 1, H, rope) -> context latents (B, 1, H, r).  The int8
+        pool goes through :func:`repro_torch.kernels.ops.
+        decode_attention_latent_q` (the kernel on the card, its plain
+        version on the CPU); the full-width pool attends in plain torch,
+        as the reference does in jnp: f32 logits, probabilities rounded to
+        the query dtype before the context product."""
+        if not self.mla:
+            raise ValueError("GQA families attend via attend_decode")
+        if self.quantized:
+            from repro_torch.kernels import ops
+            return ops.decode_attention_latent_q(
+                q_lat, q_rope, cache["ckv_q"], cache["ckv_scale"],
+                cache["krope_q"], cache["krope_scale"], cache_pos,
+                scale=scale)
+        cc, cr = cache["ckv"], cache["krope"]
+        s = (torch.einsum("bqhl,bsl->bhqs", q_lat.to(torch.float32),
+                          cc.to(torch.float32))
+             + torch.einsum("bqhr,bsr->bhqs", q_rope.to(torch.float32),
+                            cr.to(torch.float32))) * scale
+        pos = cache_pos.to(device=q_lat.device, dtype=torch.long)
+        valid = (torch.arange(cc.shape[1], device=q_lat.device)[None, :]
+                 <= pos[:, None])
+        s = torch.where(valid[:, None, None, :], s, _NEG_INF)
+        attn = torch.softmax(s, dim=-1).to(q_lat.dtype)
+        return torch.einsum("bhqs,bsl->bqhl", attn, cc.to(q_lat.dtype))
+
+
 def gqa_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          valid: torch.Tensor, softcap: float
                          ) -> torch.Tensor:
@@ -342,14 +406,23 @@ def gqa_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.reshape(b, sq, h, hd)
 
 
+def _family_plan(family: str, quant_family: str,
+                 tails: tuple[tuple[str, tuple[int, ...]], ...],
+                 dtype: torch.dtype, quantize: str | None,
+                 paged: PagedGeometry | None = None) -> CachePlan:
+    if quantize in (None, "none"):
+        return CachePlan(family, tails, dtype, paged)
+    kvq.check_mode(quantize)
+    return CachePlan(quant_family, tails, dtype, paged)
+
+
 def gqa_plan(num_kv_heads: int, head_dim: int, dtype: torch.dtype,
              quantize: str | None = None) -> CachePlan:
     """The plan for one GQA attention layer's K/V cache (``quantize``
     None / "none" or "int8")."""
-    if quantize in (None, "none"):
-        return CachePlan(num_kv_heads, head_dim, dtype)
-    kvq.check_mode(quantize)
-    return CachePlan(num_kv_heads, head_dim, dtype, FAMILY_GQA_INT8)
+    tail = (num_kv_heads, head_dim)
+    return _family_plan(FAMILY_GQA, FAMILY_GQA_INT8,
+                        (("k", tail), ("v", tail)), dtype, quantize)
 
 
 def gqa_paged_plan(num_kv_heads: int, head_dim: int, dtype: torch.dtype,
@@ -357,19 +430,29 @@ def gqa_paged_plan(num_kv_heads: int, head_dim: int, dtype: torch.dtype,
                    geometry: PagedGeometry) -> CachePlan:
     """The plan for one GQA layer's paged K/V pool (``quantize`` None /
     "none" or "int8")."""
-    if quantize in (None, "none"):
-        return CachePlan(num_kv_heads, head_dim, dtype, FAMILY_GQA_PAGED,
-                         geometry)
-    kvq.check_mode(quantize)
-    return CachePlan(num_kv_heads, head_dim, dtype, FAMILY_GQA_PAGED_INT8,
-                     geometry)
+    tail = (num_kv_heads, head_dim)
+    return _family_plan(FAMILY_GQA_PAGED, FAMILY_GQA_PAGED_INT8,
+                        (("k", tail), ("v", tail)), dtype, quantize,
+                        geometry)
+
+
+def mla_plan(kv_lora_rank: int, qk_rope_dim: int, dtype: torch.dtype,
+             quantize: str | None = None) -> CachePlan:
+    """The plan for one MLA layer's latent cache (``quantize`` None /
+    "none" or "int8").  The latent is the rank-compressed K/V factor;
+    the int8 family compresses it again with per-(slot, channel)
+    scales."""
+    return _family_plan(FAMILY_MLA, FAMILY_MLA_INT8,
+                        (("ckv", (kv_lora_rank,)),
+                         ("krope", (qk_rope_dim,))), dtype, quantize)
 
 
 def build_cache_plan(cfg, dtype: torch.dtype,
                      kv_quantize: str | None = None,
                      paged: PagedGeometry | None = None) -> CachePlan:
-    """The per-attention-layer plan of a model config; a ``paged``
-    geometry selects the paged families."""
+    """The per-attention-layer plan of a model config: ``cfg.mla``
+    selects the latent families, a ``paged`` geometry the paged GQA
+    families (there is no paged latent pool, as in the reference)."""
     if paged is not None:
         if cfg.mla:
             raise ValueError("paged KV pools serve the GQA families only "
@@ -377,17 +460,17 @@ def build_cache_plan(cfg, dtype: torch.dtype,
         return gqa_paged_plan(cfg.num_kv_heads, cfg.resolved_head_dim,
                               dtype, kv_quantize, geometry=paged)
     if cfg.mla:
-        raise NotImplementedError("MLA latent caches come with ROADMAP "
-                                  "item A10 (MLA)")
+        return mla_plan(cfg.kv_lora_rank, cfg.qk_rope_dim, dtype,
+                        kv_quantize)
     return gqa_plan(cfg.num_kv_heads, cfg.resolved_head_dim, dtype,
                     kv_quantize)
 
 
 def plan_from_cache(cache: dict, dtype: torch.dtype = torch.float32
                     ) -> CachePlan:
-    """Classify a per-layer GQA cache dict into its plan, for callers
-    that thread none.  Geometry comes from the leaf shapes; ``dtype`` is
-    only read for the int8 families (full-width leaves carry theirs)."""
+    """Classify a per-layer cache dict into its plan, for callers that
+    thread none.  Geometry comes from the leaf shapes; ``dtype`` is only
+    read for the int8 families (full-width leaves carry theirs)."""
     if "block_tables" in cache:
         val = cache.get("k", cache.get("k_q"))
         nb1, bs, kh, hd = val.shape[-4:]
@@ -396,10 +479,16 @@ def plan_from_cache(cache: dict, dtype: torch.dtype = torch.float32
         if "k_q" in cache:
             return gqa_paged_plan(kh, hd, dtype, "int8", geometry=geom)
         return gqa_paged_plan(kh, hd, cache["k"].dtype, geometry=geom)
+    if "ckv_q" in cache:
+        return mla_plan(cache["ckv_q"].shape[-1],
+                        cache["krope_q"].shape[-1], dtype, "int8")
+    if "ckv" in cache:
+        return mla_plan(cache["ckv"].shape[-1], cache["krope"].shape[-1],
+                        cache["ckv"].dtype)
     if "k_q" in cache:
         kh, hd = cache["k_q"].shape[-2:]
         return gqa_plan(kh, hd, dtype, "int8")
     if "k" in cache:
         kh, hd = cache["k"].shape[-2:]
         return gqa_plan(kh, hd, cache["k"].dtype)
-    raise ValueError(f"not a GQA KV cache dict: {sorted(cache)}")
+    raise ValueError(f"not a KV cache dict: {sorted(cache)}")

@@ -1,14 +1,17 @@
-"""LM trunk for the dense family: init, embed, trunk, logits, prefill,
-chunked prefill and decode.
+"""LM trunk for the dense family (GQA or MLA attention): init, embed,
+trunk, logits, prefill, chunked prefill and decode.
 
 Per-layer params are stacked along a leading ``layers`` axis, as in the
 reference; where the reference scans the stack with ``lax.scan``, the
 port runs a Python loop over the layer axis, each layer seeing 2-D / 3-D
 factor views that go straight to the kernels.  The KV cache is stacked
 the same way (``{"blocks": {"k", "v"}}``, ``(L, B, S, KH, D)``, the
-int8 family's ``k_q``/``k_scale``/``v_q``/``v_scale``, or a paged pool's
-blocks and ``block_tables``) and is written in place.  The other families (MoE, VLM, SSM, hybrid, encoder)
-come with ROADMAP item A13.
+int8 family's ``k_q``/``k_scale``/``v_q``/``v_scale``, a paged pool's
+blocks and ``block_tables``, or an MLA stack's latents ``ckv``/``krope``
+``(L, B, S, r)`` and their int8 pairs) and is written in place.  Still
+left for ROADMAP item A13: the MoE family (DeepSeek-V2 with its experts,
+the reference's unstacked first dense block), VLM, SSM, hybrid and
+encoder.
 """
 from __future__ import annotations
 

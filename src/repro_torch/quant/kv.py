@@ -20,8 +20,10 @@ of every step would stall the stream, and the requant is bit-exact where
 no scale grew (the ratio is exactly 1 and ``round(q * 1.0) == q``).
 
 The primitives are rank-polymorphic over the tail, as the reference's
-are: ``(B, S, KH, D)`` pools with ``(B, KH, D)`` scales, or stacked
-``(L, B, S, KH, D)`` caches through :func:`quantize_kv_tree`.
+are: GQA pools ``(B, S, KH, D)`` with ``(B, KH, D)`` scales and MLA
+latent pools ``(B, S, r)`` with per-(slot, channel) ``(B, r)`` scales
+alike, or stacked ``(L, B, S, ...)`` caches through
+:func:`quantize_kv_tree`.
 """
 from __future__ import annotations
 
@@ -127,8 +129,9 @@ def kv_write_token(cache_q: torch.Tensor, scale: torch.Tensor,
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Insert one decoded token's K (or V) into an int8 pool, in place.
 
-    ``cache_q (B, S, KH, D)`` int8; ``scale (B, KH, D)`` f32;
-    ``new (B, KH, D)``; ``pos (B,)`` per-slot write positions.  The
+    ``cache_q (B, S, *tail)`` int8 (``tail`` ``(KH, D)`` or ``(r,)``);
+    ``scale (B, *tail)`` f32; ``new (B, *tail)``; ``pos (B,)`` per-slot
+    write positions.  The
     scale grows to ``max(scale, |new| / 127)`` for EVERY slot, idle ones
     included, and the history is requantized where it grew.  A negative
     position wraps once (JAX indexing); a position still outside
@@ -146,7 +149,8 @@ def kv_write_token(cache_q: torch.Tensor, scale: torch.Tensor,
     pc = p.clamp(0, s_max - 1)
     rows = torch.arange(cache_q.shape[0], device=cache_q.device)
     cur = cache_q[rows, pc]
-    cache_q[rows, pc] = torch.where(valid.reshape(-1, 1, 1), q_new, cur)
+    cache_q[rows, pc] = torch.where(
+        valid.reshape(-1, *([1] * (q_new.ndim - 1))), q_new, cur)
     scale.copy_(scale_new)
     return cache_q, scale
 
@@ -154,27 +158,31 @@ def kv_write_token(cache_q: torch.Tensor, scale: torch.Tensor,
 def quantize_kv_tree(cache: PyTree, prompt_len: int | None = None
                      ) -> PyTree:
     """Quantize a full-precision cache into the int8 pool layout (a new
-    tree).  Every GQA dict ``{"k", "v"}`` (leaves ``(..., S, KH, D)``)
-    becomes ``{"k_q", "k_scale", "v_q", "v_scale"}``, per-layer or
-    stacked ``(L, B, S, ...)`` alike.  Positions ``>= prompt_len`` (the
-    right-padded prefill tail) are masked out of the values and of the
-    absmax, so the result equals the quantize-on-insert whole-prefill
-    path.  (The MLA latent dicts come with ROADMAP item A10.)"""
-    def one(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    tree).  Every GQA dict ``{"k", "v"}`` (leaves ``(..., S, KH, D)``,
+    sequence axis -3) and every MLA latent dict ``{"ckv", "krope"}``
+    (leaves ``(..., S, r)``, sequence axis -2) becomes its ``*_q`` /
+    ``*_scale`` pairs, per-layer or stacked ``(L, B, S, ...)`` alike.
+    Positions ``>= prompt_len`` (the right-padded prefill tail) are
+    masked out of the values and of the absmax, so the result equals the
+    quantize-on-insert whole-prefill path."""
+    def one(x: torch.Tensor, seq_axis: int
+            ) -> tuple[torch.Tensor, torch.Tensor]:
         xf = x.to(torch.float32)
         if prompt_len is not None:
-            keep = (torch.arange(x.shape[-3], device=x.device)
-                    < int(prompt_len)).reshape(-1, 1, 1)
+            keep = (torch.arange(x.shape[seq_axis], device=x.device)
+                    < int(prompt_len)).reshape(-1, *([1] * (-seq_axis - 1)))
             xf = torch.where(keep, xf, 0.0)
-        scale = kv_scales(xf, axis=-3)
-        return quantize_kv(xf, scale.unsqueeze(-3)), scale
+        scale = kv_scales(xf, axis=seq_axis)
+        return quantize_kv(xf, scale.unsqueeze(seq_axis)), scale
 
     if isinstance(cache, dict):
-        if set(cache) == {"k", "v"}:
-            out = {}
-            for name in ("k", "v"):
-                out[name + "_q"], out[name + "_scale"] = one(cache[name])
-            return out
+        for names, seq_axis in ((("k", "v"), -3), (("ckv", "krope"), -2)):
+            if set(cache) == set(names):
+                out = {}
+                for name in names:
+                    out[name + "_q"], out[name + "_scale"] = one(
+                        cache[name], seq_axis)
+                return out
         return {k: quantize_kv_tree(v, prompt_len) for k, v in cache.items()}
     return cache
 

@@ -7,7 +7,8 @@
   token per step), then chunked-prefill segments with the leftover
   budget, so a long prompt never stalls live streams;
 * :class:`repro_torch.serve.pool.KVPoolManager` — the slot pool
-  (``gqa_f32``, or ``gqa_int8`` with ``kv_quantize="int8"``), or with
+  (``gqa_f32``, or ``gqa_int8`` with ``kv_quantize="int8"``; an MLA
+  stack's latents in ``mla_latent`` / ``mla_latent_int8``), or with
   ``kv_layout="paged"`` :class:`~repro_torch.serve.pool.PagedKVPoolManager`
   — fixed-size KV blocks behind block tables with radix prefix sharing
   (``gqa_paged_f32`` / ``gqa_paged_int8``); slot allocation, byte
@@ -15,7 +16,8 @@
 * :class:`repro_torch.serve.runner.ModelRunner` — params and the one
   ``step(tokens, positions, seg_kind)`` entry, plus the sampler.
 
-Continuous (chunked) admission is the default for the dense family; a
+Continuous (chunked) admission is the default for the dense family, MLA
+stacks included; a
 prompt stages in a full-width batch=1 cache while it is chunk-prefilled
 and lands in its slot in one scatter (quantizing into an int8 pool), so
 chunked greedy streams equal whole-prefill ("blocking" admission)

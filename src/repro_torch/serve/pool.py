@@ -2,12 +2,14 @@
 cache pool.
 
 :class:`KVPoolManager` — the slot pool, the model's stacked cache
-``(L, slots, S_max, KH, D)``, one batch slot per in-flight stream, in the
-full-width ``gqa_f32`` or the int8 ``gqa_int8`` family
-(``kv_quantize="int8"``: int8 values plus ``(L, slots, KH, D)`` f32
-scale rows).  :class:`PagedKVPoolManager` — the paged pool, fixed-size
-physical blocks behind per-slot block tables with radix prefix sharing
-(``gqa_paged_f32`` / ``gqa_paged_int8``, :mod:`repro_torch.serve.paging`).
+``(L, slots, S_max, KH, D)`` (or MLA latents ``(L, slots, S_max, r)``),
+one batch slot per in-flight stream, in the full-width ``gqa_f32`` /
+``mla_latent`` or the int8 ``gqa_int8`` / ``mla_latent_int8`` family
+(``kv_quantize="int8"``: int8 values plus ``(L, slots, KH, D)`` or
+``(L, slots, r)`` f32 scale rows).  :class:`PagedKVPoolManager` — the
+paged pool, fixed-size physical blocks behind per-slot block tables with
+radix prefix sharing (``gqa_paged_f32`` / ``gqa_paged_int8``,
+:mod:`repro_torch.serve.paging`; no MLA).
 
 A manager owns the state side of the serve stack: the cache tensors and
 per-slot write positions, slot allocation with admission tickets
@@ -27,7 +29,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.layers.cache import SEQ_LEAVES, PagedGeometry
+from repro_torch.layers.cache import SEQ_AXIS, PagedGeometry
 from repro_torch.quant.kv import kv_scales, quantize_kv, quantize_kv_tree
 from repro_torch.serve import paging
 from repro_torch.serve.paging import PoolExhausted
@@ -145,10 +147,10 @@ class KVPoolManager:
         if cache1["blocks"].keys() != self.cache["blocks"].keys():
             cache1 = quantize_kv_tree(cache1, length)
         for name, pool_leaf in self.cache["blocks"].items():
-            one = cache1["blocks"][name][:, 0]   # (L, S, KH, D) / (L, KH, D)
-            if name in SEQ_LEAVES:
+            one = cache1["blocks"][name][:, 0]   # (L, S, *tail) / (L, *tail)
+            if name in SEQ_AXIS:
                 keep = (torch.arange(one.shape[1], device=one.device)
-                        < length).reshape(1, -1, 1, 1)
+                        < length).reshape(1, -1, *([1] * (one.ndim - 2)))
                 one = torch.where(keep, one, torch.zeros_like(one))
             pool_leaf[:, slot] = one
         self.positions[slot] = length

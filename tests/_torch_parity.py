@@ -97,3 +97,67 @@ def flat(tree, prefix=()):
             out.update(flat(v, (*prefix, k)))
         return out
     return {"/".join(prefix): tree}
+
+
+# ---------------------------------------------------------------------------
+# MLA stacks
+# ---------------------------------------------------------------------------
+
+#: the reference cache-plan tests' dense MLA stack (``MLA_CFG`` of
+#: tests/test_cache_plan.py): no query LoRA (``q_lora_rank = 0``)
+MLA_TINY = dict(name="mla-dense-tiny", family="dense", mla=True,
+                num_layers=2, d_model=32, num_heads=2, num_kv_heads=2,
+                d_ff=64, vocab_size=64, q_lora_rank=0, kv_lora_rank=16,
+                qk_rope_dim=8, qk_nope_dim=16, v_head_dim=16,
+                dtype="float32")
+MLA_CFG_NAMES = ("mla-tiny", "deepseek-smoke")
+
+#: LRD of the decomposed MLA trees: o, the FFN and the unembed branched
+#: (N = 2) under the default targets; "svd+branched" targets kv_b too,
+#: which becomes an SVD pair.  (The reference's absorbed decode reads a
+#: decomposed kv_b's plain factors, so it cannot serve that tree with
+#: int8 factors; the int8 cases take "branched".)
+_MLA_BRANCHED = dict(enabled=True, rank_mode="aligned", rank_align=4,
+                     min_dim=16, branches=2)
+MLA_LRD = {
+    "dense": None,
+    "branched": _MLA_BRANCHED,
+    "svd+branched": dict(_MLA_BRANCHED,
+                         targets=(*TLRD().targets, "mla_kvb")),
+}
+
+
+def mla_cfg(name: str, side: str):
+    """One of the MLA test configs (f32) in the reference's (``side`` =
+    "jax") or the port's ("torch") ModelConfig: ``mla-tiny``, or
+    DeepSeek-V2's smoke config served without experts (``q_lora_rank =
+    32``).  ``moe_first_dense`` goes to 0 with the experts: the
+    reference's dense-family cache tree holds ``num_layers -
+    moe_first_dense`` layers (``repro/models/lm.py:486-487``)."""
+    if name == "mla-tiny":
+        if side == "jax":
+            from repro.configs.base import ModelConfig as JModelConfig
+            return JModelConfig(**MLA_TINY)
+        from repro_torch.configs.base import ModelConfig as TModelConfig
+        return TModelConfig(**MLA_TINY)
+    reg = jreg if side == "jax" else treg
+    return dataclasses.replace(reg.get("deepseek-v2-236b").smoke,
+                               family="dense", moe_num_experts=0,
+                               moe_first_dense=0, dtype="float32")
+
+
+@functools.lru_cache(maxsize=None)
+def mla_port_tree(cfg_name: str, tree: str):
+    """An MLA tree built by the port (CPU tensors, seed 0), decomposed
+    with :data:`MLA_LRD`."""
+    params, axes = tget_model(mla_cfg(cfg_name, "torch"), "cpu").init(
+        torch.Generator().manual_seed(0))
+    if MLA_LRD[tree] is not None:
+        params, axes, _ = tdecompose(params, axes, TLRD(**MLA_LRD[tree]))
+    return params
+
+
+def mla_tree_for_jax(cfg_name: str, tree: str):
+    """The same MLA tree as the reference package's arrays."""
+    return jax.tree.map(jnp.asarray,
+                        bridge.to_numpy(mla_port_tree(cfg_name, tree)))

@@ -305,3 +305,109 @@ def test_paged_attention_kernels_match_plain(cuda, case, dtype, quant):
                                        softcap=case["softcap"])
     assert torch.isfinite(y.float()).all()
     assert _norm_err(y, want) <= chip_smoke.KERNEL_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("case", [
+    *chip_smoke.LATENT_CASES.values(),
+    dict(b=3, s=70, h=4, lora=16, rope=8, idle=1),
+    dict(b=2, s=129, h=20, lora=64, rope=16, idle=0),
+    dict(b=1, s=5, h=1, lora=1024, rope=4, idle=0),
+], ids=["served", "idle-slot", "ragged-S", "smoke", "partial-group",
+        "wide-latent"])
+def test_decode_attention_latent_q_kernel_matches_plain(cuda, case, dtype):
+    """B10 against its plain version: the served latent pool with ragged
+    positions, an idle slot (the plain version's uniform average), a
+    ragged S, the smoke widths, a last head group of 4 of 8 heads and a
+    latent of 1024."""
+    from repro_torch.kernels import decode_attention_latent_q as dlk
+    from repro_torch.kernels import ops, ref
+
+    def rnd(*shape, scale=1.0, dtype=torch.float32):
+        return _rnd(cuda, *shape, scale=scale, dtype=dtype)
+    args = chip_smoke.latent_inputs(case, dtype, rnd)
+    scale = 1.0 / (128 + case["rope"]) ** 0.5
+    n0 = dlk.launches
+    y = ops.decode_attention_latent_q(*args, scale=scale)
+    assert dlk.launches == n0 + 1
+    want = ref.decode_attention_latent_q_ref(*args, scale=scale)
+    assert y.shape == want.shape and torch.isfinite(y.float()).all()
+    assert _norm_err(y, want) <= chip_smoke.KERNEL_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("m", chip_smoke.DEEPSEEK_M_CASES)
+@pytest.mark.parametrize("label", list(chip_smoke.DEEPSEEK_BRANCHED_SHAPES))
+def test_branched_kernels_at_deepseek_shapes(cuda, label, m, dtype):
+    """B2 and B4 (int8 factors) at DeepSeek-V2's wide branch ranks: the
+    32-row block does not fit shared memory at M = 64, so they launch at
+    8 rows and stay within tolerance."""
+    from repro_torch.kernels import branched_matmul as bk
+    from repro_torch.kernels import branched_matmul_q as bqk
+    from repro_torch.kernels import ref
+    n, c, r, s = chip_smoke.DEEPSEEK_BRANCHED_SHAPES[label]
+    dt = getattr(torch, dtype)
+    x = _rnd(cuda, m, c, dtype=dt)
+    u = _rnd(cuda, n, c, r, scale=c ** -0.5, dtype=dt)
+    xc = _rnd(cuda, n, r, r, scale=r ** -0.5, dtype=dt)
+    v = _rnd(cuda, n, r, s, scale=r ** -0.5, dtype=dt)
+    n0 = bk.launches
+    y = bk.branched_matmul(x, u, xc, v)
+    assert bk.launches == n0 + 1
+    assert _norm_err(y, ref.branched_matmul_ref(x, u, xc, v)) \
+        <= chip_smoke.KERNEL_TOL[dtype]
+    del u, xc, v
+    args = (x, *_quantized(cuda, n, c, r, mode="int8"),
+            *_quantized(cuda, n, r, r, mode="int8"),
+            *_quantized(cuda, n, r, s, mode="int8"))
+    y = bqk.branched_matmul_q(*args)
+    assert _norm_err(y, ref.branched_matmul_q_ref(*args)) \
+        <= chip_smoke.KERNEL_TOL[dtype]
+
+
+@pytest.mark.parametrize("kv_quantize", ["none", "int8"])
+def test_mla_serve_path_launches_kernels_and_matches_cpu(cuda, kv_quantize):
+    """DeepSeek-V2's smoke MLA stack (f32, no experts, branched) served on
+    the card goes through B2 (or B4 and the latent attention over the
+    int8 latent pool) and emits the CPU's greedy tokens."""
+    import dataclasses
+    import importlib
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import LRDConfig, RunConfig
+    from repro_torch.core.surgery import decompose_model
+    from repro_torch.models.api import get_model
+    from repro_torch.serve.engine import Request, ServeEngine
+    quant = kv_quantize == "int8"
+    names = (("branched_matmul_q", "decode_attention_latent_q") if quant
+             else ("branched_matmul",))
+    mods = [importlib.import_module(f"repro_torch.kernels.{n}")
+            for n in names]
+    cfg = dataclasses.replace(registry.get("deepseek-v2-236b").smoke,
+                              family="dense", moe_num_experts=0,
+                              moe_first_dense=0, dtype="float32")
+    params, axes = get_model(cfg, "cpu").init(
+        torch.Generator().manual_seed(0))
+    lrd = LRDConfig(enabled=True, rank_mode="aligned", rank_align=4,
+                    min_dim=16, branches=2)
+    params, _, _ = decompose_model(params, axes, lrd)
+
+    def move(t, dev):
+        return ({k: move(v, dev) for k, v in t.items()}
+                if isinstance(t, dict) else t.to(dev))
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServeEngine(RunConfig(model=cfg, lrd=lrd), move(params, dev),
+                          slots=2, max_seq=64, prefill_chunk=8,
+                          quantize=kv_quantize, kv_quantize=kv_quantize,
+                          device=dev)
+        for m in mods:
+            m.launches = 0
+        reqs = [Request(uid=i, prompt=list(range(3 + 5 * i, 14 + 7 * i)),
+                        max_new_tokens=4) for i in range(3)]
+        for r in reqs:
+            eng.add_request(r)
+        eng.run_until_done()
+        outs[dev] = [r.output for r in reqs]
+        counts = [m.launches for m in mods]
+        assert all(counts) if dev == "cuda" else not any(counts)
+    assert outs["cuda"] == outs["cpu"]

@@ -38,7 +38,9 @@ def test_port_has_the_slice_modules():
               "repro_torch.kernels.lowrank_matmul_qa",
               "repro_torch.kernels.branched_matmul_qa",
               "repro_torch.kernels.decode_attention_paged",
-              "repro_torch.core.cost_model", "repro_torch.serve.paging"):
+              "repro_torch.core.cost_model", "repro_torch.serve.paging",
+              "repro_torch.kernels.decode_attention_latent_q",
+              "repro_torch.configs.deepseek_v2_236b"):
         assert m in mods, m
 
 

@@ -18,7 +18,9 @@ Phases (each prints its own seconds; any failure exits non-zero):
              S with idle slots and with a softcap; the int8-activation
              chains at M = 64, 37 and 512 with an all-zero row; the paged
              attentions (full width and int8) at the served pool with
-             shuffled tables, ragged positions and an idle slot; times
+             shuffled tables, ragged positions and an idle slot; the 2:4
+             chains (int8 and fp8 packs, some groups keeping their top
+             rows) at the k/v SVD shape and every branched shape; times
              the kernel, the plain version and one library call as
              yardstick (CUDA events), beside the bound (bytes at 3.35
              TB/s, operations at 989 TFLOP/s bf16 / 67 TFLOP/s f32 /
@@ -77,10 +79,24 @@ Phases (each prints its own seconds; any failure exits non-zero):
              branched_matmul_q and 4 decode_attention_latent_q, every
              prefill chunk 17 branched_matmul_q.
 15. check_mla_q — check_mla on that configuration.
+16. serve_sq — the llama branches=4 tree 2:4-packed in int8
+             (quantize="int8", sparsify="2:4", kv_quantize="int8"), the
+             serve_q request set: every decode step exactly 32
+             lowrank_matmul_sq + 80 branched_matmul_sq + 16
+             decode_attention_q, every prefill chunk 32 + 80, no other
+             chain kernel; prints plan_summary (weight_bytes, sparse).
+17. check_sq — prefill plus 16 greedy decode steps of that tree over the
+             int8 slot pool, on the card against the same packed tree in
+             f32 on the CPU.
+18. serve_mla_sq — the MLA stack 2:4-packed in int8 over the int8 latent
+             pool: every decode step exactly 17 branched_matmul_sq + 4
+             decode_attention_latent_q, every prefill chunk 17
+             branched_matmul_sq.
+19. check_mla_sq — check_mla on that configuration.
 
 Only on request (``--phases ...,profile``): torch.profiler over steady
-decode steps of the branches=4 model, plain and quantized — device time
-by operator and the device's idle share.
+decode steps of the branches=4 model, plain, int8 and 2:4-packed int8 —
+device time by operator and the device's idle share.
 
 Prints ``{"kernels": [...]}`` and the card's name and power limit on
 lines before the last, and ``{"ok": true, "device": {...}}`` last.
@@ -100,11 +116,14 @@ sys.path.insert(0, str(ROOT / "src"))
 
 PHASES = ("device", "build", "kernels", "serve", "check", "serve_q",
           "check_q", "serve_paged", "check_paged", "serve_qa", "check_qa",
-          "serve_mla", "check_mla", "serve_mla_q", "check_mla_q")
+          "serve_sq", "check_sq", "serve_mla", "check_mla", "serve_mla_q",
+          "check_mla_q", "serve_mla_sq", "check_mla_sq")
 #: the phases that serve or check the llama3.2-1b trees, and the MLA ones
 LLAMA_PHASES = ("serve", "check", "serve_q", "check_q", "serve_paged",
-                "check_paged", "serve_qa", "check_qa", "profile")
-MLA_PHASES = ("serve_mla", "check_mla", "serve_mla_q", "check_mla_q")
+                "check_paged", "serve_qa", "check_qa", "serve_sq",
+                "check_sq", "profile")
+MLA_PHASES = ("serve_mla", "check_mla", "serve_mla_q", "check_mla_q",
+              "serve_mla_sq", "check_mla_sq")
 #: phases run only when asked for with --phases
 EXTRA_PHASES = ("profile",)
 
@@ -178,9 +197,14 @@ DECODE_LAUNCHES = {"lowrank_matmul": {"k,v": 32},
                    "decode_attention_q": {"served": 16},
                    "decode_attention_paged": {"served": 16},
                    "decode_attention_paged_q": {"served": 16},
-                   "decode_attention_latent_q": {"served": MLA_LAYERS}}
+                   "decode_attention_latent_q": {"served": MLA_LAYERS},
+                   "lowrank_matmul_sq": {"k,v": 32},
+                   "branched_matmul_sq": {"q,o": 32, "gate,up": 32,
+                                          "down": 16}}
 M_CASES = (8, 64, 37)
 QMODES = ("int8", "fp8")
+#: the SVD pairs that the branches=4 tree serves 2:4-packed (B11 rows)
+SPARSE_LOWRANK = ("k,v",)
 #: row counts of the activation-quantized chains, which run prefill
 #: segments only: a prefill chunk, a ragged chunk, a long prompt
 QA_M_CASES = (64, 37, 512)
@@ -221,6 +245,10 @@ KERNELS = {
     "decode_attention_latent_q": (
         "decode_attention_latent_q", "launches",
         "src/repro/kernels/decode_attention_q.py:214"),
+    "lowrank_matmul_sq": ("lowrank_matmul_sq", "launches",
+                          "src/repro/kernels/lowrank_matmul_sq.py:84"),
+    "branched_matmul_sq": ("branched_matmul_sq", "launches",
+                           "src/repro/kernels/branched_matmul_sq.py:70"),
 }
 
 #: the serve run (key of the serve phases' results) whose launches each
@@ -230,7 +258,8 @@ RUN_OF = {"lowrank_matmul": "branches4", "branched_matmul": "branches4",
           "decode_attention_q": "quantized", "lowrank_matmul_qa": "qa",
           "branched_matmul_qa": "qa", "decode_attention_paged": "paged",
           "decode_attention_paged_q": "qa",
-          "decode_attention_latent_q": "mla_q"}
+          "decode_attention_latent_q": "mla_q", "lowrank_matmul_sq": "sq",
+          "branched_matmul_sq": "sq"}
 #: the paged serve runs: tokens per block, and the shared prompt prefix
 #: (16 blocks) that four of the eight requests begin with
 PAGED_BLOCK = 16
@@ -306,6 +335,7 @@ def check_kernels(card: str) -> list[dict]:
     import torch
     from repro_torch.kernels import ref
     from repro_torch.quant.quantize import quantize_array
+    from repro_torch.quant.sparse import sparsify_array
 
     lk = kernel_module("lowrank_matmul")
     lqk = kernel_module("lowrank_matmul_q")
@@ -321,6 +351,15 @@ def check_kernels(card: str) -> list[dict]:
 
     def dq(q, scale, dt):
         return (q.to(torch.float32) * scale).to(dt)
+
+    def spack(*shape, mode):
+        """A factor 2:4-packed as the engine packs it, (sp, idx, scale):
+        rows 0 and 1 of every other group shrunk, so that group keeps its
+        top positions (idx 2 and 3)."""
+        w = rnd(*shape, scale=shape[-2] ** -0.5)
+        top = torch.arange(shape[-2], device="cuda")
+        w[..., ((top // 4) % 2 == 0) & (top % 4 < 2), :] *= 0.125
+        return sparsify_array(w, mode=mode)
 
     rows: dict[str, list[dict]] = {k: [] for k in KERNELS}
     for dname in ("bfloat16", "float32"):
@@ -361,10 +400,14 @@ def check_kernels(card: str) -> list[dict]:
                         **_bound(xb * (m * c + m * s) + c * r + r * s
                                  + 4 * (r + s), 2 * m * (c * r + r * s),
                                  dname)))
+                    if label in SPARSE_LOWRANK:
+                        rows["lowrank_matmul_sq"].append(_check_sq(
+                            label, x, [spack(c, r, mode=mode),
+                                       spack(r, s, mode=mode)], dname))
         for label, shape in BRANCHED_SHAPES.items():
             for m in M_CASES:
                 _check_branched(rows, label, shape, m, dname, rnd, qrnd,
-                                QMODES)
+                                QMODES, spack)
         for label, case in LATENT_CASES.items():
             rows["decode_attention_latent_q"].append(
                 _check_latent(label, case, dname, rnd))
@@ -372,7 +415,7 @@ def check_kernels(card: str) -> list[dict]:
             for label, shape in DEEPSEEK_BRANCHED_SHAPES.items():
                 for m in DEEPSEEK_M_CASES:
                     _check_branched(rows, label, shape, m, dname, rnd, qrnd,
-                                    ("int8",))
+                                    ("int8",), spack)
         for label, case in ATTN_CASES.items():
             rows["decode_attention_q"].append(
                 _check_attention(label, case, dname, rnd))
@@ -416,11 +459,12 @@ def check_kernels(card: str) -> list[dict]:
 
 
 def _check_branched(rows: dict, label: str, shape: tuple, m: int,
-                    dname: str, rnd, qrnd, qmodes) -> None:
+                    dname: str, rnd, qrnd, qmodes, spack) -> None:
     """One branched_matmul row at (N, C, r, S) and M rows in ``dname``,
-    and one branched_matmul_q row per factor mode of ``qmodes``; the
-    yardstick is the cuBLAS chain of batched products (on factors
-    dequantized beforehand for the quantized kernel)."""
+    and one branched_matmul_q and one branched_matmul_sq row per factor
+    mode of ``qmodes``; the yardstick is the cuBLAS chain of batched
+    products (on factors dequantized, or expanded, beforehand for the
+    quantized and the 2:4 kernels)."""
     import torch
     from repro_torch.kernels import ref
     bk = kernel_module("branched_matmul")
@@ -464,6 +508,62 @@ def _check_branched(rows: dict, label: str, shape: tuple, m: int,
                 torch.bmm(xb3, ud), xcd), vd).sum(0)),
             **_bound(xb * (m * c + m * s) + n * (c * r + r * r + r * s)
                      + 4 * n * (2 * r + s), flops, dname)))
+        del ud, xcd, vd
+        rows["branched_matmul_sq"].append(_check_sq(
+            label, x, [spack(n, c, r, mode=mode), qs[1],
+                       spack(n, r, s, mode=mode)], dname))
+
+
+def _check_sq(label: str, x, factors: list, dname: str) -> dict:
+    """One row of a 2:4 chain on ``x``: ``factors`` are the 2:4 packs
+    (sp, idx, scale) of w0 / w1, or of u / v around the quantized core
+    (q, scale) of xc.  The yardstick is the cuBLAS chain on the factors
+    expanded and dequantized beforehand.  The bound counts the packed
+    values, the index bytes, the scales and the activations at HBM rate,
+    and the kept products only (the pruned half costs no operations)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.quant.sparse import expand_sparse
+    lowrank = len(factors) == 2
+    name = "lowrank_matmul_sq" if lowrank else "branched_matmul_sq"
+    fn = getattr(kernel_module(name), name)
+    plain = getattr(ref, name + "_ref")
+    args = (x, *[t for f in factors for t in f])
+    y = fn(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    dt = x.dtype
+    m, c = x.shape
+    qmode = "int8" if factors[0][0].dtype == torch.int8 else "fp8"
+    packs = [factors[0], factors[-1]]
+    dense = [expand_sparse(*f, dtype=dt) for f in packs]
+    if lowrank:
+        (r, s), n = dense[1].shape, 1
+        w0d, w1d = dense
+        library_ms = time_ms(lambda: (x @ w0d) @ w1d)
+        kept = c * r // 2 + r * s // 2
+        dims = dict(C=c, R=r, S=s)
+    else:
+        n, r, s = dense[1].shape
+        ud, vd = dense
+        xcd = (factors[1][0].to(torch.float32) * factors[1][1]).to(dt)
+        xb3 = x.expand(n, m, c)
+        library_ms = time_ms(lambda: torch.bmm(torch.bmm(
+            torch.bmm(xb3, ud), xcd), vd).sum(0))
+        kept = n * (c * r // 2 + r * r + r * s // 2)
+        dims = dict(N=n, C=c, r=r, S=s)
+    del dense
+    nbytes = (dt.itemsize * m * (c + s) + kept
+              + sum(f[1].numel() for f in packs)
+              + 4 * sum(f[-1].numel() for f in factors))
+    top = int((packs[0][1][..., 0, :, 0] == 2).sum().item())
+    return dict(shape=label, dtype=dname, qmode=qmode, M=m, **dims,
+                top_groups=top, **_compare(y, want, dname),
+                ms=time_ms(lambda: fn(*args)),
+                plain_ms=time_ms(lambda: plain(*args)),
+                library_ms=library_ms,
+                library="cuBLAS chain on factors expanded beforehand",
+                **_bound(nbytes, 2 * m * kept, dname))
 
 
 def latent_inputs(case: dict, dname: str, rnd) -> tuple:
@@ -775,7 +875,8 @@ def _kernel_entries(rows: dict[str, list[dict]]) -> list[dict]:
               else "operations")
         module, _, replaces = KERNELS[name]
         extra = {}
-        if name in ("branched_matmul", "branched_matmul_q"):
+        if name in ("branched_matmul", "branched_matmul_q",
+                    "branched_matmul_sq"):
             extra["mla_path"] = {
                 f"M={m}": {k: sum(n * next(
                     r for r in rs if r["shape"] == label and r["M"] == m
@@ -798,7 +899,9 @@ def _kernel_entries(rows: dict[str, list[dict]]) -> list[dict]:
                         "factors" if prefill else
                         "one decode step's launches, bf16"
                         + (", M=8, int8 factors"
-                           if name.endswith("matmul_q") else "")),
+                           if name.endswith("matmul_q") else "")
+                        + (", M=8, int8 2:4 packs"
+                           if name.endswith("matmul_sq") else "")),
                     **extra, "shapes": rs})
     return out
 
@@ -861,7 +964,8 @@ def serve(cfg, lrd, params, *, n_req: int, prompt_lo: int, prompt_hi: int,
     named must not launch at all).  Every count is set to 0 just before
     the requests are driven and read just after.  ``engine_kw`` go to
     :class:`ServeEngine` (quantize, kv_quantize, act_quantize,
-    kv_layout, kv_block_size).  With ``shared`` (a paged pool), the first
+    kv_layout, kv_block_size, sparsify).  With ``shared`` (a paged pool),
+    the first
     ``shared`` prompts begin with one prefix and the last of them is
     submitted only once the first has its first token, so its admission
     finds the prefix in the radix cache."""
@@ -924,7 +1028,8 @@ def serve(cfg, lrd, params, *, n_req: int, prompt_lo: int, prompt_hi: int,
                 raise SystemExit(f"{name} never launched on the main path")
     tp = eng.throughput()
     res = {**{k: engine_kw.get(k, "none")
-              for k in ("quantize", "kv_quantize", "act_quantize")},
+              for k in ("quantize", "sparsify", "kv_quantize",
+                        "act_quantize")},
            "kv_layout": eng.kv_layout, "requests": n_req, "new_tokens": new_tokens,
            "wall_s": wall, "segments": len(segs),
            "decode_segments": sum(1 for s in segs if s[0] == "decode"),
@@ -939,7 +1044,7 @@ def serve(cfg, lrd, params, *, n_req: int, prompt_lo: int, prompt_hi: int,
            "weight_bytes": eng.plan_summary["weight_bytes"],
            "quant_bytes": eng.plan_summary["quant_bytes"],
            "kv_cache_family": eng.plan_summary["kv_cache_family"],
-           "card": card}
+           "plan_summary": eng.plan_summary, "card": card}
     if paged:
         eng.pool.check_integrity()
         res.update(prefix_stats=eng.pool.prefix_stats(),
@@ -954,7 +1059,8 @@ def serve(cfg, lrd, params, *, n_req: int, prompt_lo: int, prompt_hi: int,
 
 def profile_decode(cfg, lrd, params, card: str, seed: int,
                    steps: int = 5, quantize: str = "none",
-                   kv_quantize: str = "none") -> dict:
+                   kv_quantize: str = "none", sparsify: str = "none"
+                   ) -> dict:
     """Where one decode step's time goes: ``torch.profiler`` over
     ``steps`` steady decode steps of 8 live slots, device time by
     operator and the device's busy share of the host-clock window."""
@@ -966,7 +1072,7 @@ def profile_decode(cfg, lrd, params, card: str, seed: int,
     from repro_torch.serve.engine import Request, ServeEngine
 
     eng = ServeEngine(RunConfig(model=cfg, lrd=lrd), params, slots=8,
-                      max_seq=1024, quantize=quantize,
+                      max_seq=1024, quantize=quantize, sparsify=sparsify,
                       kv_quantize=kv_quantize, device="cuda")
     rng = np.random.default_rng(seed)
     for i in range(8):
@@ -996,8 +1102,8 @@ def profile_decode(cfg, lrd, params, card: str, seed: int,
     host = sorted((e for e in events if e.device_type == DeviceType.CPU),
                   key=lambda e: e.self_cpu_time_total, reverse=True)
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
-    res = {"quantize": quantize, "kv_quantize": kv_quantize,
-           "steps": steps, "live_slots": 8,
+    res = {"quantize": quantize, "sparsify": sparsify,
+           "kv_quantize": kv_quantize, "steps": steps, "live_slots": 8,
            "step_ms": wall_ms / steps,
            "device_busy_ms_per_step": busy_ms / steps,
            "device_idle_share": 1 - busy_ms / wall_ms,
@@ -1245,24 +1351,21 @@ def cross_check_paged(cfg, params, card: str, seed: int, *,
         kv_quantize=kv_quantize, act_quantize=act_quantize)
 
 
-def cross_check_mla(cfg, params, card: str, seed: int, *,
-                    kv_quantize: str | None = None,
+def cross_check_mla(cfg, params, card: str, seed: int, *, label: str,
+                    chain: str, kv_quantize: str | None = None,
                     steps: int = 16) -> dict:
     """:func:`cross_check_staged` through the MLA stack's latent slot
     pool: 4 branched linears per layer and the unembed in the prefill
-    chunk and every decode step (the quantized chain on an int8 tree),
+    chunk and every decode step, all through the ``chain`` kernel
+    (branched_matmul, or the _q / _sq chain of an int8 or 2:4 tree),
     and over the int8 latent pool the latent attention in every layer
     of every decode step."""
-    per_seg = 4 * cfg.num_layers + 1
+    want = {chain: (4 * cfg.num_layers + 1) * (steps + 1)}
     if kv_quantize:
-        want = {"branched_matmul_q": per_seg * (steps + 1),
-                "decode_attention_latent_q": cfg.num_layers * steps}
-    else:
-        want = {"branched_matmul": per_seg * (steps + 1)}
-    return cross_check_staged(
-        cfg, params, card, seed, want=want, steps=steps,
-        label="check_mla_q" if kv_quantize else "check_mla",
-        kv_quantize=kv_quantize)
+        want["decode_attention_latent_q"] = cfg.num_layers * steps
+    return cross_check_staged(cfg, params, card, seed, want=want,
+                              steps=steps, label=label,
+                              kv_quantize=kv_quantize)
 
 
 def mla_model(seed: int = 0):
@@ -1318,9 +1421,28 @@ def latent_smem() -> int:
     return dlk.smem_bytes(case["lora"], case["rope"], case["h"])
 
 
+def pack_sparse(params, lrd, card: str, what: str):
+    """The engine's load pipeline for ``sparsify="2:4", quantize="int8"``
+    run once up front (the serve and check phases then share the tree;
+    the engine's own pass finds nothing left to pack): the
+    ``lrd.sparse_targets`` factors 2:4-packed in int8, the rest (the
+    branched cores) quantized."""
+    import torch
+    from repro_torch.quant.quantize import quantize_tree
+    from repro_torch.quant.sparse import sparsify_tree
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        psq = quantize_tree(sparsify_tree(params, "2:4", mode="int8",
+                                          targets=lrd.sparse_targets),
+                            "int8", targets=lrd.quant_targets)
+    torch.cuda.synchronize()
+    log(f"pack 2:4 int8 ({what}): {time.perf_counter() - t0:.2f} s [{card}]")
+    return psq
+
+
 def run_llama(phases: list[str], card: str, seed: int,
               serve_res: dict) -> None:
-    """The llama3.2-1b phases (serve ... check_qa, profile) on one set of
+    """The llama3.2-1b phases (serve ... check_sq, profile) on one set of
     trees, freed when this returns."""
     import torch
     cfg, dense, axes = full_model(seed)
@@ -1396,17 +1518,39 @@ def run_llama(phases: list[str], card: str, seed: int,
         with Phase("check_qa"):
             cross_check_paged(cfg, pq, card, seed, kv_quantize="int8",
                               act_quantize="int8")
+    if set(phases) & {"serve_sq", "check_sq"}:
+        psq = pack_sparse(p4, lrd, card, "llama")
+    if "serve_sq" in phases:
+        with Phase("serve_sq"):
+            chain = {"lowrank_matmul_sq": 32, "branched_matmul_sq": 80}
+            serve_res["sq"] = serve(
+                cfg, lrd, psq, n_req=8, prompt_lo=32, prompt_hi=512,
+                new_tokens=32, card=card, seed=seed, quantize="int8",
+                sparsify="2:4", kv_quantize="int8",
+                expect={"decode": {**chain, "decode_attention_q": 16},
+                        "prefill_chunk": chain})
+    if "check_sq" in phases:
+        with Phase("check_sq"):
+            L = cfg.num_layers
+            cross_check_staged(
+                cfg, psq, card, seed, label="check_sq", kv_quantize="int8",
+                want={"lowrank_matmul_sq": 2 * L * 17,
+                      "branched_matmul_sq": 5 * L * 17,
+                      "decode_attention_q": L * 16})
     if "profile" in phases:
         with Phase("profile"):
             profile_decode(cfg, lrd, p4, card, seed)
             profile_decode(cfg, lrd, p4, card, seed, quantize="int8",
                            kv_quantize="int8")
+            profile_decode(cfg, lrd, p4, card, seed, quantize="int8",
+                           kv_quantize="int8", sparsify="2:4")
 
 
 def run_mla(phases: list[str], card: str, seed: int,
             serve_res: dict) -> None:
     """The MLA phases: DeepSeek-V2's MLA stack decomposed once, served
-    and checked over the full-width and the int8 latent pool."""
+    and checked over the full-width latent pool, then with int8 and with
+    2:4-packed int8 factors over the int8 latent pool."""
     import torch
     cfg, dense, axes = mla_model(seed)
     lrd, pm, rep, surg_s = decompose(dense, axes, branches=4)
@@ -1427,17 +1571,22 @@ def run_mla(phases: list[str], card: str, seed: int,
             serve_res["mla"]["surgery_s"] = surg_s
     if "check_mla" in phases:
         with Phase("check_mla"):
-            cross_check_mla(cfg, pm, card, seed)
-    if not set(phases) & {"serve_mla_q", "check_mla_q"}:
+            cross_check_mla(cfg, pm, card, seed, label="check_mla",
+                            chain="branched_matmul")
+    if not set(phases) & {"serve_mla_q", "check_mla_q", "serve_mla_sq",
+                          "check_mla_sq"}:
         return
     from repro_torch.quant.quantize import quantize_tree
     t0 = time.perf_counter()
     with torch.inference_mode():
         pq = quantize_tree(pm, "int8", targets=lrd.quant_targets)
-    del pm
-    torch.cuda.empty_cache()
     torch.cuda.synchronize()
     log(f"quantize int8 (mla): {time.perf_counter() - t0:.2f} s [{card}]")
+    psq = None
+    if set(phases) & {"serve_mla_sq", "check_mla_sq"}:
+        psq = pack_sparse(pm, lrd, card, "mla")
+    del pm
+    torch.cuda.empty_cache()
     if "serve_mla_q" in phases:
         with Phase("serve_mla_q"):
             q_chain = {"branched_matmul_q": chain}
@@ -1449,7 +1598,24 @@ def run_mla(phases: list[str], card: str, seed: int,
             serve_res["mla_q"]["surgery_s"] = surg_s
     if "check_mla_q" in phases:
         with Phase("check_mla_q"):
-            cross_check_mla(cfg, pq, card, seed, kv_quantize="int8")
+            cross_check_mla(cfg, pq, card, seed, label="check_mla_q",
+                            chain="branched_matmul_q", kv_quantize="int8")
+    del pq
+    torch.cuda.empty_cache()
+    if "serve_mla_sq" in phases:
+        with Phase("serve_mla_sq"):
+            sq_chain = {"branched_matmul_sq": chain}
+            serve_res["mla_sq"] = serve(
+                cfg, lrd, psq, **run, quantize="int8", sparsify="2:4",
+                kv_quantize="int8",
+                expect={"decode": {**sq_chain, "decode_attention_latent_q":
+                                   cfg.num_layers},
+                        "prefill_chunk": sq_chain})
+            serve_res["mla_sq"]["surgery_s"] = surg_s
+    if "check_mla_sq" in phases:
+        with Phase("check_mla_sq"):
+            cross_check_mla(cfg, psq, card, seed, label="check_mla_sq",
+                            chain="branched_matmul_sq", kv_quantize="int8")
 
 
 # ---------------------------------------------------------------------------

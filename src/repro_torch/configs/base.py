@@ -127,9 +127,11 @@ class LRDConfig:
     # Per-token int8 activations on prefill and chunked-prefill segments
     # (the *_qa kernels): "none" | "int8"; needs quantize="int8".
     act_quantize: str = "none"
-    # 2:4 sparsity, which the port does not serve yet: the engine raises
-    # NotImplementedError naming ROADMAP item A11 when it is set.
+    # 2:4 sparsity of the factors (repro_torch.quant.sparse): "none" |
+    # "2:4", composable with `quantize` (the packed values take the
+    # quantized dtype).  The branched core xc is not targeted by default.
     sparsify: str = "none"
+    sparse_targets: Sequence[str] = ("w0", "w1", "u", "v")
     # Continuous-batching serve stack: tokens per chunked-prefill segment
     # and the per-step token budget (0 = engine defaults).
     prefill_chunk: int = 0

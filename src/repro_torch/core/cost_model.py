@@ -12,12 +12,14 @@ from __future__ import annotations
 
 def plan_qa_eligible(plan, act_quantize: bool = True) -> bool:
     """Does the whole chain run int8 x int8 with act-quant on: every
-    factor quantized, dense, with 1-byte values?  As in the reference,
-    the test is the value's byte width, so it also says yes for fp8
-    factors, which :meth:`repro_torch.layers.plan.LinearPlan.kernel_for`
-    keeps on the weight-only kernels (a quirk of the reference, kept)."""
+    factor quantized, dense (no 2:4 pack: sparse plans never take the qa
+    kernels), with 1-byte values?  As in the reference, the test is the
+    value's byte width, so it also says yes for fp8 factors, which
+    :meth:`repro_torch.layers.plan.LinearPlan.kernel_for` keeps on the
+    weight-only kernels (a quirk of the reference, kept)."""
     return act_quantize and all(
-        f.quantized and f.dtype.itemsize == 1 for f in plan.factors)
+        f.quantized and f.sparsity is None and f.dtype.itemsize == 1
+        for f in plan.chain_factors())
 
 
 def plan_act_stream_bytes(plan, *, act_bytes: int = 2,

@@ -12,8 +12,9 @@ linear subtree ``{"w": ...}`` by its path, picks a rank per
 
 Stacked-layer weights (leading ``layers`` axis) decompose batched, so
 every layer of a stack shares one rank.  The decisions go into a
-:class:`SurgeryReport`, field for field the reference's.  Convolution
-weights (Tucker-2) come with ROADMAP item A13.
+:class:`SurgeryReport`, field for field the reference's.
+:func:`sparsify_model` then 2:4-packs the factors (the third compression
+axis).  Convolution weights (Tucker-2) come with ROADMAP item A13.
 """
 from __future__ import annotations
 
@@ -203,3 +204,21 @@ def decompose_model(params: PyTree, axes: PyTree, lrd: LRDConfig
 
     new_params, new_axes = walk(params, axes, ())
     return new_params, new_axes, report
+
+
+def sparsify_model(params: PyTree, axes: PyTree, lrd: LRDConfig, *,
+                   mode: str | None = None) -> tuple[PyTree, PyTree]:
+    """Magnitude-based 2:4 sparsification of the decomposed factors, after
+    :func:`decompose_model`: every ``lrd.sparse_targets`` factor whose
+    input dim is a multiple of 4 becomes the packed ``k_sp``/``k_idx``
+    (+ ``k_scale``) triple of :mod:`repro_torch.quant.sparse`.  ``mode``
+    defaults to ``lrd.quantize``: with a quant mode the kept values pack
+    straight to the narrow dtype, else they keep the source dtype.
+    Returns rewritten ``(params, axes)``; a no-op at ``sparsify="none"``.
+    """
+    if lrd.sparsify == "none":
+        return params, axes
+    from repro_torch.quant.sparse import sparsify_tree
+    quant = lrd.quantize if mode is None else mode
+    return sparsify_tree(params, pattern=lrd.sparsify, mode=quant,
+                         targets=lrd.sparse_targets, axes=axes)

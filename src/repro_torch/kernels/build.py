@@ -24,7 +24,8 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("lowrank_matmul.cu", "branched_matmul.cu", "lowrank_matmul_q.cu",
            "branched_matmul_q.cu", "decode_attention_q.cu",
            "lowrank_matmul_qa.cu", "branched_matmul_qa.cu",
-           "decode_attention_paged.cu", "decode_attention_latent_q.cu")
+           "decode_attention_paged.cu", "decode_attention_latent_q.cu",
+           "lowrank_matmul_sq.cu", "branched_matmul_sq.cu")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 LIB_NAME = "libreprotorch_kernels.so"
@@ -109,6 +110,12 @@ def load() -> ctypes.CDLL:
     lib.lrk_branched_matmul_q.argtypes = [i, i, i, p, p, p, p, p, p, p, p,
                                           i, i, i, i, i, i, p]
     lib.lrk_branched_matmul_q.restype = i
+    lib.lrk_lowrank_matmul_sq.argtypes = [i, i, i, p, p, p, p, p, p, p, p,
+                                          i, i, i, i, p]
+    lib.lrk_lowrank_matmul_sq.restype = i
+    lib.lrk_branched_matmul_sq.argtypes = [i, i, i, p, p, p, p, p, p, p, p,
+                                           p, p, i, i, i, i, i, i, p]
+    lib.lrk_branched_matmul_sq.restype = i
     lib.lrk_decode_attention_q.argtypes = [i, p, p, p, p, p, p, p, i, i, i,
                                            i, i, ctypes.c_float, p]
     lib.lrk_decode_attention_q.restype = i

@@ -18,7 +18,9 @@
 // widened back to f32 for the FMA -- the TPU kernels dequantize the
 // factor to x.dtype before the dot (lowrank_matmul_q.py:42-48,
 // branched_matmul_q.py:47-49), and skipping that rounding would break
-// agreement with the plain version at bf16.
+// agreement with the plain version at bf16.  Sparse24<T, Q> reads a 2:4
+// pack the same way, expanding each row from its two kept slots on the
+// chip as the TPU kernels' expand_tile does (lowrank_matmul_sq.py:45).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -59,39 +61,97 @@ from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// Weight views.  shift(i, c): the view moved by i values and c output
-// columns; column(j): a loader of output column j of the current tile,
-// whose at(i) reads the value at flat offset i (which lies in column j).
-// A staging thread keeps to one column, so a column's scale is read once.
+// Weight views.  A factor is a (K, N) matrix, or a stack of them, read
+// through a view: branch(n, K, N) moves it to factor n of a stack of
+// (K, N) factors, cols(c) by c output columns, and column(j, N, K) gives
+// a loader of output column j of a (K, N) factor.  Plain and Dequant
+// address a dense row-major factor (row k of column j at k * N + j) and
+// are staged row by row (Col::at(k)); Sparse24 a 2:4 pack, which has no
+// dense layout, staged a group of 4 rows at a time (Col::group(g)).  A
+// staging thread keeps to one column, so a column's scale is read once.
 template <typename T> struct Plain {
+  static constexpr bool GROUPED = false;  // staged row by row (Col::at)
   const T* v;
   struct Col {
     const T* v;
-    __device__ __forceinline__ float at(size_t i) const {
-      return to_f32(v[i]);
+    size_t ld;
+    __device__ __forceinline__ float at(int k) const {
+      return to_f32(v[(size_t)k * ld]);
     }
   };
-  __device__ __forceinline__ Col column(int) const { return {v}; }
-  __device__ __forceinline__ Plain shift(size_t i, size_t) const {
-    return {v + i};
+  __device__ __forceinline__ Col column(int j, int N, int) const {
+    return {v + j, (size_t)N};
   }
+  __device__ __forceinline__ Plain branch(int n, int K, int N) const {
+    return {v + (size_t)n * K * N};
+  }
+  __device__ __forceinline__ Plain cols(int c) const { return {v + c}; }
 };
 
 template <typename T, typename Q> struct Dequant {
+  static constexpr bool GROUPED = false;
   const Q* v;
   const float* scale;   // one f32 per output column
   struct Col {
     const Q* v;
+    size_t ld;
     float s;
-    __device__ __forceinline__ float at(size_t i) const {
-      return to_f32(from_f32<T>(to_f32(v[i]) * s));
+    __device__ __forceinline__ float at(int k) const {
+      return to_f32(from_f32<T>(to_f32(v[(size_t)k * ld]) * s));
     }
   };
-  __device__ __forceinline__ Col column(int j) const {
-    return {v, scale[j]};
+  __device__ __forceinline__ Col column(int j, int N, int) const {
+    return {v + j, (size_t)N, scale[j]};
   }
-  __device__ __forceinline__ Dequant shift(size_t i, size_t c) const {
-    return {v + i, scale + c};
+  __device__ __forceinline__ Dequant branch(int n, int K, int N) const {
+    return {v + (size_t)n * K * N, scale + (size_t)n * N};
+  }
+  __device__ __forceinline__ Dequant cols(int c) const {
+    return {v + c, scale + c};
+  }
+};
+
+// A (K, N) factor packed 2:4 along K, slot-major as the reference packs
+// it (repro/quant/sparse.py): sp (2, K/4, N) int8 or e4m3 kept values,
+// idx (2, K/4) int8 within-group row positions, scale (N) f32.  Row 4g+t
+// of column j is round_T(v * scale[j]), v the sum in f32 of the slots i
+// whose idx[i][g] == t (sp[i][g][j], one slot for a pack made by
+// sparsify_array), as expand_tile's where-sum does, and exactly 0 where
+// no slot holds it: a pruned row is an explicit zero in the product, as
+// in the reference, so a non-finite activation meeting it still spreads.
+// A group's four rows come from two value and two index loads.  Per
+// branch the pack moves by K*N/2 values, K/2 indices and N scales.
+template <typename T, typename Q> struct Sparse24 {
+  static constexpr bool GROUPED = true;   // staged a group of 4 rows at once
+  const Q* sp;
+  const int8_t* idx;
+  const float* scale;
+  struct Col {
+    const Q* sp;
+    const int8_t* idx;
+    size_t ld;     // N: the row stride of one slot's (K/4, N) tile
+    int G;         // K/4 groups per slot
+    float s;
+    // rows 4g .. 4g+3 of this column, from the group's two kept values
+    __device__ __forceinline__ void group(int g, float (&w)[4]) const {
+      const int i0 = idx[g], i1 = idx[G + g];
+      const float v0 = to_f32(sp[(size_t)g * ld]);
+      const float v1 = to_f32(sp[(size_t)(G + g) * ld]);
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        w[t] = to_f32(from_f32<T>(
+            ((i0 == t ? v0 : 0.f) + (i1 == t ? v1 : 0.f)) * s));
+    }
+  };
+  __device__ __forceinline__ Col column(int j, int N, int K) const {
+    return {sp + j, idx, (size_t)N, K / 4, scale[j]};
+  }
+  __device__ __forceinline__ Sparse24 branch(int n, int K, int N) const {
+    return {sp + (size_t)n * K / 2 * N, idx + (size_t)n * K / 2,
+            scale + (size_t)n * N};
+  }
+  __device__ __forceinline__ Sparse24 cols(int c) const {
+    return {sp + c, idx, scale + c};
   }
 };
 
@@ -102,7 +162,7 @@ __host__ __device__ constexpr size_t staging_bytes() {
 
 // acc[i] += sum_{k<K} A(rg + 4i, k) * B(k, col) with col = tid % NT and
 // rg = tid / NT.  A(r, k) = A[r * lda + k], zero for r >= a_rows;
-// B(k, j) = B.column(j).at(k * ldb + j), zero for j >= ncols (>= 1).
+// B(k, j) = row k of B.column(j, ldb, K), zero for j >= ncols (>= 1).
 // Both are staged through shared memory (As, Bs) in f32, KC reduction
 // steps at a time; a thread stages B's column col only.
 template <typename T, int BM, typename WV>
@@ -116,7 +176,7 @@ __device__ __forceinline__ void tile_accumulate(
   const int tid = threadIdx.x;
   const int col = tid % NT;
   const int rg = tid / NT;
-  const auto Bcol = B.column(min(col, ncols - 1));
+  const auto Bcol = B.column(min(col, ncols - 1), ldb, K);
   for (int k0 = 0; k0 < K; k0 += KC) {
 #pragma unroll
     for (int p = 0; p < BM * KC / THREADS; ++p) {
@@ -125,12 +185,24 @@ __device__ __forceinline__ void tile_accumulate(
       As[e] = (r < a_rows && k0 + kk < K)
                   ? to_f32(A[(size_t)r * lda + k0 + kk]) : 0.f;
     }
+    if constexpr (WV::GROUPED) {
+      // a thread stages whole groups of 4 rows of its column (K and k0
+      // are multiples of 4, so a group is wholly inside or outside K)
 #pragma unroll
-    for (int p = 0; p < KC * NT / THREADS; ++p) {
-      const int e = tid + p * THREADS;
-      const int kk = e / NT, j = e % NT;
-      Bs[e] = (k0 + kk < K && j < ncols)
-                  ? Bcol.at((size_t)(k0 + kk) * ldb + j) : 0.f;
+      for (int q = 0; q < KC / (4 * ROW_GROUPS); ++q) {
+        const int kk = 4 * (rg + ROW_GROUPS * q);
+        float w[4] = {0.f, 0.f, 0.f, 0.f};
+        if (k0 + kk < K && col < ncols) Bcol.group((k0 + kk) >> 2, w);
+#pragma unroll
+        for (int t = 0; t < 4; ++t) Bs[(kk + t) * NT + col] = w[t];
+      }
+    } else {
+#pragma unroll
+      for (int p = 0; p < KC * NT / THREADS; ++p) {
+        const int e = tid + p * THREADS;
+        const int kk = e / NT, j = e % NT;
+        Bs[e] = (k0 + kk < K && j < ncols) ? Bcol.at(k0 + kk) : 0.f;
+      }
     }
     __syncthreads();
 #pragma unroll 8
@@ -148,14 +220,12 @@ __device__ __forceinline__ void tile_accumulate(
 // ldh) whose column space is `nseg` segments of width RS:
 //   H[:, n*RS + c] = round_T( A_n @ B_n[:, c] ),
 //   A_n = A + n*a_seg (row stride lda, a_rows valid rows),
-//   B_n = B shifted by n*b_seg values and n*RS columns (K x RS, row
-//   stride RS).
+//   B_n = factor n of B, a stack of (K, RS) factors.
 // A tile never straddles two segments.
 template <typename T, int BM, typename WV>
 __device__ void slice_product(T* H, int ldh, int j0, int j1, int RS,
                               const T* A, int lda, size_t a_seg, int a_rows,
-                              WV B, size_t b_seg, int K,
-                              float* As, float* Bs) {
+                              WV B, int K, float* As, float* Bs) {
   const int col = threadIdx.x % NT;
   const int rg = threadIdx.x / NT;
   for (int j = j0; j < j1;) {
@@ -163,8 +233,8 @@ __device__ void slice_product(T* H, int ldh, int j0, int j1, int RS,
     const int width = min(NT, min(j1 - j, RS - c));
     float acc[BM / ROW_GROUPS] = {};
     tile_accumulate<T, BM>(acc, A + n * a_seg, lda, a_rows,
-                           B.shift(n * b_seg + c, (size_t)n * RS + c), RS,
-                           width, K, As, Bs);
+                           B.branch(n, K, RS).cols(c), RS, width, K, As,
+                           Bs);
     if (col < width) {
 #pragma unroll
       for (int i = 0; i < BM / ROW_GROUPS; ++i)
@@ -194,9 +264,9 @@ __device__ void gather_slices(cg::cluster_group& cluster, T* H, int L,
 
 // y[row0 + r, s0 + j] = round_T( sum_n H_n @ W_n[:, s0 + j] ) for the
 // output tiles this CTA owns (tile t goes to CTA t mod gridDim.x of the
-// row block); H_n = H + n*RS (row stride ldh), W_n = Wt shifted by
-// n*RS*S values and n*S columns.  One f32 accumulator carries the sum
-// over segments.
+// row block); H_n = H + n*RS (row stride ldh), W_n = factor n of Wt, a
+// stack of (RS, S) factors.  One f32 accumulator carries the sum over
+// segments.
 template <typename T, int BM, typename WV>
 __device__ void output_tiles(T* y, int row0, int a_rows, int S,
                              const T* H, int ldh, int RS, int nseg,
@@ -210,9 +280,8 @@ __device__ void output_tiles(T* y, int row0, int a_rows, int S,
     float acc[BM / ROW_GROUPS] = {};
     for (int n = 0; n < nseg; ++n)
       tile_accumulate<T, BM>(acc, H + n * RS, ldh, BM,
-                             Wt.shift((size_t)n * RS * S + s0,
-                                      (size_t)n * S + s0),
-                             S, width, RS, As, Bs);
+                             Wt.branch(n, RS, S).cols(s0), S, width, RS, As,
+                             Bs);
     if (col < width) {
 #pragma unroll
       for (int i = 0; i < BM / ROW_GROUPS; ++i) {
@@ -227,9 +296,9 @@ __device__ void output_tiles(T* y, int row0, int a_rows, int S,
 // y = (x @ w0) @ w1 for this CTA's row block (blockIdx.y) and its share
 // of the S tiles.  Stage 1: this CTA's 1/CLUSTER slice of h = x_blk @ w0,
 // rounded to T, gathered across the cluster.  Stage 2: y tiles = h @ w1.
-template <typename T, int BM, typename WV>
-__device__ void lowrank_chain(unsigned char* smem_raw, const T* x, WV w0,
-                              WV w1, T* y, int M, int C, int R, int S) {
+template <typename T, int BM, typename W0, typename W1>
+__device__ void lowrank_chain(unsigned char* smem_raw, const T* x, W0 w0,
+                              W1 w1, T* y, int M, int C, int R, int S) {
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   float* As = reinterpret_cast<float*>(smem_raw);
@@ -242,7 +311,7 @@ __device__ void lowrank_chain(unsigned char* smem_raw, const T* x, WV w0,
   const int W = (R + CLUSTER - 1) / CLUSTER;
   const int j0 = min(R, rank * W), j1 = min(R, j0 + W);
   slice_product<T, BM>(h, R, j0, j1, R, x + (size_t)row0 * C, C, 0, a_rows,
-                       w0, 0, C, As, Bs);
+                       w0, C, As, Bs);
   cluster.sync();
   gather_slices<T, BM>(cluster, h, R, W);
   cluster.sync();  // h complete here, and no CTA leaves while read remotely
@@ -255,9 +324,9 @@ __device__ void lowrank_chain(unsigned char* smem_raw, const T* x, WV w0,
 //            the N*r1 columns, gathered into one BM x N*r1 tile per CTA;
 //   stage 2: h2_n = round_T(h1_n @ xc_n) the same way into BM x N*r2;
 //   stage 3: y tiles = sum_n h2_n @ v_n in ONE f32 accumulator.
-template <typename T, int BM, typename WV>
-__device__ void branched_chain(unsigned char* smem_raw, const T* x, WV u,
-                               WV xc, WV v, T* y, int M, int C, int N,
+template <typename T, int BM, typename WU, typename WX, typename WV>
+__device__ void branched_chain(unsigned char* smem_raw, const T* x, WU u,
+                               WX xc, WV v, T* y, int M, int C, int N,
                                int R1, int R2, int S) {
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -272,15 +341,15 @@ __device__ void branched_chain(unsigned char* smem_raw, const T* x, WV u,
 
   const int W1 = (LA + CLUSTER - 1) / CLUSTER;
   slice_product<T, BM>(hA, LA, min(LA, rank * W1), min(LA, rank * W1 + W1),
-                       R1, x + (size_t)row0 * C, C, 0, a_rows, u,
-                       (size_t)C * R1, C, As, Bs);
+                       R1, x + (size_t)row0 * C, C, 0, a_rows, u, C, As,
+                       Bs);
   cluster.sync();
   gather_slices<T, BM>(cluster, hA, LA, W1);
   __syncthreads();
 
   const int W2 = (LB + CLUSTER - 1) / CLUSTER;
   slice_product<T, BM>(hB, LB, min(LB, rank * W2), min(LB, rank * W2 + W2),
-                       R2, hA, LA, R1, BM, xc, (size_t)R1 * R2, R1, As, Bs);
+                       R2, hA, LA, R1, BM, xc, R1, As, Bs);
   cluster.sync();
   gather_slices<T, BM>(cluster, hB, LB, W2);
   cluster.sync();  // hB complete, and no CTA leaves while read remotely

@@ -22,13 +22,8 @@ launches = 0
 QDTYPES = {torch.int8: 0, torch.float8_e4m3fn: 1}
 
 
-def check_operands(name: str, x: torch.Tensor,
-                   factors: list[tuple[str, torch.Tensor, torch.Tensor, int]]
-                   ) -> None:
-    """Raise unless ``x`` is a contiguous 2-D f32/bf16 CUDA tensor and
-    every ``(label, q, scale, ndim)`` is a contiguous int8/e4m3 factor of
-    ``ndim`` dims on the same device, of one storage dtype, with a
-    contiguous f32 scale of its shape with the input axis collapsed."""
+def check_activation(name: str, x: torch.Tensor) -> None:
+    """Raise unless ``x`` is a contiguous 2-D f32/bf16 CUDA tensor."""
     if x.device.type != "cuda":
         raise ValueError(f"{name} kernel: x is on {x.device}, not a CUDA "
                          "device")
@@ -38,6 +33,16 @@ def check_operands(name: str, x: torch.Tensor,
     if x.ndim != 2 or not x.is_contiguous():
         raise ValueError(f"{name} kernel: x must be a contiguous 2-D "
                          f"tensor, got {tuple(x.shape)}")
+
+
+def check_operands(name: str, x: torch.Tensor,
+                   factors: list[tuple[str, torch.Tensor, torch.Tensor, int]]
+                   ) -> None:
+    """Raise unless ``x`` passes :func:`check_activation` and every
+    ``(label, q, scale, ndim)`` is a contiguous int8/e4m3 factor of
+    ``ndim`` dims on the same device, of one storage dtype, with a
+    contiguous f32 scale of its shape with the input axis collapsed."""
+    check_activation(name, x)
     qdtype = factors[0][1].dtype
     for label, q, scale, nd in factors:
         if qdtype not in QDTYPES or q.dtype != qdtype:

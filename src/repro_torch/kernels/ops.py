@@ -13,12 +13,14 @@ import torch
 from repro_torch.kernels import branched_matmul as bk
 from repro_torch.kernels import branched_matmul_q as bqk
 from repro_torch.kernels import branched_matmul_qa as bak
+from repro_torch.kernels import branched_matmul_sq as bsk
 from repro_torch.kernels import decode_attention_latent_q as dlk
 from repro_torch.kernels import decode_attention_paged as dpk
 from repro_torch.kernels import decode_attention_q as dak
 from repro_torch.kernels import lowrank_matmul as lk
 from repro_torch.kernels import lowrank_matmul_q as lqk
 from repro_torch.kernels import lowrank_matmul_qa as lak
+from repro_torch.kernels import lowrank_matmul_sq as lsk
 from repro_torch.kernels import ref
 
 
@@ -76,6 +78,42 @@ def branched_matmul_q(x: torch.Tensor, u_q: torch.Tensor,
         y = bqk.branched_matmul_q(x2.contiguous(), u_q, u_scale, xc_q,
                                   xc_scale, v_q, v_scale)
     return y.reshape(*lead, v_q.shape[-1])
+
+
+def lowrank_matmul_sq(x: torch.Tensor, w0_sp: torch.Tensor,
+                      w0_idx: torch.Tensor, w0_scale: torch.Tensor,
+                      w1_sp: torch.Tensor, w1_idx: torch.Tensor,
+                      w1_scale: torch.Tensor) -> torch.Tensor:
+    """y = (x @ ds(w0)) @ ds(w1) on 2:4-packed quantized factors.  x (...,
+    C); w0_sp (2, C/4, R) + w0_idx (2, C/4, 1) + w0_scale (1, R); w1_sp
+    (2, R/4, S) + w1_idx (2, R/4, 1) + w1_scale (1, S) -> (..., S)."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.device.type == "cpu":
+        y = ref.lowrank_matmul_sq_ref(x2, w0_sp, w0_idx, w0_scale, w1_sp,
+                                      w1_idx, w1_scale)
+    else:
+        y = lsk.lowrank_matmul_sq(x2.contiguous(), w0_sp, w0_idx, w0_scale,
+                                  w1_sp, w1_idx, w1_scale)
+    return y.reshape(*lead, w1_sp.shape[-1])
+
+
+def branched_matmul_sq(x: torch.Tensor, u_sp: torch.Tensor,
+                       u_idx: torch.Tensor, u_scale: torch.Tensor,
+                       xc_q: torch.Tensor, xc_scale: torch.Tensor,
+                       v_sp: torch.Tensor, v_idx: torch.Tensor,
+                       v_scale: torch.Tensor) -> torch.Tensor:
+    """y = sum_n ((x @ ds(u_n)) @ dq(xc_n)) @ ds(v_n): u and v 2:4-packed
+    per branch, xc quantized dense.  x (..., C) -> (..., S)."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.device.type == "cpu":
+        y = ref.branched_matmul_sq_ref(x2, u_sp, u_idx, u_scale, xc_q,
+                                       xc_scale, v_sp, v_idx, v_scale)
+    else:
+        y = bsk.branched_matmul_sq(x2.contiguous(), u_sp, u_idx, u_scale,
+                                   xc_q, xc_scale, v_sp, v_idx, v_scale)
+    return y.reshape(*lead, v_sp.shape[-1])
 
 
 def lowrank_matmul_qa(x: torch.Tensor, w0_q: torch.Tensor,

@@ -3,8 +3,9 @@
 They repeat the reference's rounding points exactly (every product
 accumulates in f32, intermediates round to ``x.dtype`` between products,
 the output rounds to ``x.dtype``; a quantized factor is dequantized to
-``x.dtype`` before its product): the CPU path runs them, and the card
-holds each kernel against them on the same inputs.  Operands are cast
+``x.dtype`` before its product, a 2:4-packed one expanded first): the
+CPU path runs them, and the card holds each kernel against them on the
+same inputs.  Operands are cast
 to f32 before each product — for bf16 inputs that is the f32
 accumulation of exact bf16 products the reference asks for.  The
 activation-quantized chains (``*_qa``) multiply int8 by int8 exactly
@@ -16,6 +17,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from repro_torch.quant.sparse import expand_sparse
 
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
@@ -67,6 +70,35 @@ def branched_matmul_q_ref(x: torch.Tensor, u_q: torch.Tensor,
     return branched_matmul_ref(x, _dq(u_q, u_scale, x.dtype),
                                _dq(xc_q, xc_scale, x.dtype),
                                _dq(v_q, v_scale, x.dtype))
+
+
+def lowrank_matmul_sq_ref(x: torch.Tensor, w0_sp: torch.Tensor,
+                          w0_idx: torch.Tensor, w0_scale: torch.Tensor,
+                          w1_sp: torch.Tensor, w1_idx: torch.Tensor,
+                          w1_scale: torch.Tensor) -> torch.Tensor:
+    """y = (x @ ds(w0)) @ ds(w1): each factor expanded from its 2:4 pack
+    (``w0_sp (2,C/4,R)`` + ``w0_idx (2,C/4,1)`` + ``w0_scale (1,R)``;
+    ``w1`` likewise over R) and dequantized to ``x.dtype``, as the sparse
+    kernel expands on the chip, then the plain chain."""
+    return lowrank_matmul_ref(x, expand_sparse(w0_sp, w0_idx, w0_scale,
+                                               x.dtype),
+                              expand_sparse(w1_sp, w1_idx, w1_scale,
+                                            x.dtype))
+
+
+def branched_matmul_sq_ref(x: torch.Tensor, u_sp: torch.Tensor,
+                           u_idx: torch.Tensor, u_scale: torch.Tensor,
+                           xc_q: torch.Tensor, xc_scale: torch.Tensor,
+                           v_sp: torch.Tensor, v_idx: torch.Tensor,
+                           v_scale: torch.Tensor) -> torch.Tensor:
+    """y = sum_n ((x @ ds(u_n)) @ dq(xc_n)) @ ds(v_n): ``u`` and ``v``
+    expanded from their per-branch 2:4 packs (``u_sp (N,2,C/4,r1)``,
+    ``v_sp (N,2,r2/4,S)``), the dense core dequantized, all to
+    ``x.dtype``, then the plain branched chain."""
+    return branched_matmul_ref(x, expand_sparse(u_sp, u_idx, u_scale,
+                                                x.dtype),
+                               _dq(xc_q, xc_scale, x.dtype),
+                               expand_sparse(v_sp, v_idx, v_scale, x.dtype))
 
 
 INT8_QMAX = 127.0

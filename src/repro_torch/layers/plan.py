@@ -4,23 +4,26 @@ Decomposition shrinks parameters but deepens the chain: a dense
 ``y = x W`` becomes ``y = (x W0) W1`` (paper Eq. 5) or the branched
 block-diagonal form of Eq. 17, ``y = sum_j ((x @ u_j) @ xc_j) @ v_j``.
 A :class:`LinearPlan` classifies a linear subtree once from its keys
-(``dense | lowrank | branched``, quantized ``k_q``/``k_scale`` trees
-classifying as their plain originals), records its factors as
-:class:`FactorSpec` metadata, answers the accounting questions
-(``weight_bytes``, ``quant_bytes``, ``flops_per_token``,
-``matmul_chain``) and executes it: every decomposed linear goes through
-:mod:`repro_torch.kernels.ops`, which launches the CUDA kernel for a
-CUDA activation and runs the kernel's plain version for a CPU one.  A
-fully quantized plan runs the quantized kernel (``lowrank_q`` /
-``branched_q``), or, on prefill segments with activation quantization
-and int8 factors, the int8 x int8 kernel (``lowrank_qa`` /
-``branched_qa``); a mixed one (partial ``quant_targets``) dequantizes to
-``x.dtype`` and runs the plain chain's kernel, as the reference runs it
-through its dequantizing jnp path.
+(``dense | lowrank | branched``; quantized ``k_q``/``k_scale`` and
+2:4-packed ``k_sp``/``k_idx`` trees classify as their plain originals),
+records its factors as :class:`FactorSpec` metadata, answers the
+accounting questions (``weight_bytes``, ``quant_bytes``,
+``flops_per_token``, ``matmul_chain``) and executes it: every decomposed
+linear goes through :mod:`repro_torch.kernels.ops`, which launches the
+CUDA kernel for a CUDA activation and runs the kernel's plain version
+for a CPU one.  A fully quantized plan runs the quantized kernel
+(``lowrank_q`` / ``branched_q``), or, on prefill segments with
+activation quantization and int8 factors, the int8 x int8 kernel
+(``lowrank_qa`` / ``branched_qa``).  A 2:4 plan in the canonical compound
+layout (every packed factor quantized; for branched, ``u`` and ``v``
+packed and ``xc`` quantized dense) runs the sparse kernel
+(``lowrank_sq`` / ``branched_sq``).  Any other mixed plan (partial
+``quant_targets`` or ``sparse_targets``, or an unquantized 2:4 pack)
+expands and dequantizes to ``x.dtype`` and runs the plain chain's
+kernel, as the reference runs it through its jnp path.
 
-2:4-packed (``*_sp``/``*_idx``) trees and the Tucker conv kinds are not
-part of this slice; they raise ``NotImplementedError`` naming the
-ROADMAP item that brings them.
+The Tucker conv kinds are not part of the port yet; they raise
+``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -42,29 +45,48 @@ _KIND_FACTORS: dict[str, tuple[str, ...]] = {
     KIND_BRANCHED: ("u", "xc", "v"),
 }
 
-_QUANT_SUFFIX, _SCALE_SUFFIX, _SP_SUFFIX = "_q", "_scale", "_sp"
+_QUANT_SUFFIX, _SCALE_SUFFIX = "_q", "_scale"
+_SP_SUFFIX, _IDX_SUFFIX = "_sp", "_idx"
 
 
 @dataclasses.dataclass(frozen=True)
 class FactorSpec:
-    """One factor of a (possibly decomposed, possibly quantized) linear.
-    Metadata only; ``dtype`` is the stored value dtype (int8 / e4m3 when
-    quantized)."""
+    """One factor of a (possibly decomposed, quantized or 2:4-packed)
+    linear.  Metadata only; ``shape`` is the logical dense shape and
+    ``dtype`` the stored value dtype (int8 / e4m3 when quantized)."""
 
     name: str
     shape: tuple[int, ...]
     dtype: torch.dtype
-    quantized: bool = False        # stored as name_q / name_scale
+    quantized: bool = False        # f32 name_scale beside the values
     scale_shape: tuple[int, ...] | None = None
+    sparsity: str | None = None    # "2:4" when stored name_sp / name_idx
+    idx_shape: tuple[int, ...] | None = None
+
+    @property
+    def density(self) -> float:
+        """Kept fraction of the logical values (1.0 when dense)."""
+        if self.sparsity is None:
+            return 1.0
+        keep, group = (int(t) for t in self.sparsity.split(":"))
+        return keep / group
 
     @property
     def size(self) -> int:
         return int(math.prod(self.shape))
 
     @property
+    def stored_size(self) -> int:
+        """Values actually stored (the 2:4 packing keeps half)."""
+        return int(round(self.size * self.density))
+
+    @property
     def bytes(self) -> int:
-        """Device-memory bytes of this factor, f32 scales included."""
-        n = self.size * self.dtype.itemsize
+        """Device-memory bytes of this factor: the stored values, one
+        int8 index per kept row of a 2:4 pack, the f32 scales."""
+        n = self.stored_size * self.dtype.itemsize
+        if self.idx_shape is not None:
+            n += int(math.prod(self.idx_shape))
         if self.quantized:
             n += int(math.prod(self.scale_shape)) * 4
         return n
@@ -99,11 +121,18 @@ class LinearPlan:
         """Every factor quantized — the quantized kernels need all."""
         return all(f.quantized for f in self.factors)
 
+    @property
+    def sparse(self) -> bool:
+        """Any factor stored 2:4-packed."""
+        return any(f.sparsity is not None for f in self.factors)
+
     # -- accounting ---------------------------------------------------------
 
     @property
     def param_count(self) -> int:
-        return sum(f.size for f in self.factors)
+        """Stored values (the kept ones of a 2:4 factor); scales and
+        indices are bookkeeping, not parameters."""
+        return sum(f.stored_size for f in self.factors)
 
     @property
     def quant_bytes(self) -> int:
@@ -130,10 +159,23 @@ class LinearPlan:
         r2 = s["xc"][-1]
         return [(n, c, r1), (n, r1, r2), (n, r2, s["v"][-1])]
 
+    def chain_factors(self) -> tuple[FactorSpec, ...]:
+        """The weight operand of each product of :meth:`matmul_chain`
+        (the factors are built in chain order)."""
+        return self.factors
+
+    def chain_density(self) -> tuple[float, ...]:
+        """Kept fraction of each product's weight, aligned with
+        :meth:`matmul_chain`."""
+        return tuple(f.density for f in self.chain_factors())
+
     @property
     def flops_per_token(self) -> float:
-        """Forward matmul FLOPs per input row."""
-        return sum(2.0 * mult * k * n for mult, k, n in self.matmul_chain())
+        """Forward matmul FLOPs per input row, scaled by the kept fraction
+        of 2:4 factors."""
+        return sum(2.0 * mult * k * n * d
+                   for (mult, k, n), d in zip(self.matmul_chain(),
+                                              self.chain_density()))
 
     # -- kernel dispatch ----------------------------------------------------
 
@@ -142,11 +184,17 @@ class LinearPlan:
         """The fused kernel that executes this plan for an activation of
         ``x_shape``: ``"lowrank"`` for a 2-D SVD pair, ``"branched"`` for
         3-D branch factors (``"lowrank_q"`` / ``"branched_q"`` when every
-        factor is quantized), None for a dense linear.  ``act_quantize``
-        (prefill segments only) asks for the int8 x int8 kernels
-        ``"lowrank_qa"`` / ``"branched_qa"``, which take fully int8
-        plans only: fp8 plans keep the weight-only kernels, and a mixed
-        plan runs the dequantized plain chain, as in the reference
+        factor is quantized), None for a dense linear.  A 2:4 plan is
+        decided first, as in the reference (``repro/layers/plan.py:
+        341-363``): ``"lowrank_sq"`` / ``"branched_sq"`` for the canonical
+        compound layout (every factor of an SVD pair packed and
+        quantized; branched ``u`` and ``v`` packed and quantized, ``xc``
+        quantized dense), the plain chain's kernel on expanded factors
+        for any other, never a qa kernel.  ``act_quantize`` (prefill
+        segments only) asks for the int8 x int8 kernels ``"lowrank_qa"``
+        / ``"branched_qa"``, which take fully int8 plans only: fp8 plans
+        keep the weight-only kernels, and a mixed plan runs the
+        dequantized plain chain, as in the reference
         (``repro/layers/plan.py:370-381``).  Stacked factors (a leading
         layer axis) never reach a kernel: the model slices the layer
         axis first."""
@@ -157,6 +205,15 @@ class LinearPlan:
             raise ValueError(
                 f"{self.kind} factors {[f.shape for f in self.factors]} "
                 "carry a leading stack axis; slice it before executing")
+        if self.sparse:
+            packed = [f.sparsity is not None and f.quantized
+                      for f in self.factors]
+            if self.kind == KIND_LOWRANK:
+                return "lowrank_sq" if all(packed) else self.kind
+            xc = self.factors[1]
+            canonical = (packed[0] and packed[2] and xc.quantized
+                         and xc.sparsity is None)
+            return "branched_sq" if canonical else self.kind
         if not self.fully_quantized:
             return self.kind
         if act_quantize and all(f.dtype == torch.int8
@@ -166,9 +223,13 @@ class LinearPlan:
 
     def value(self, p: dict, name: str, dtype: torch.dtype) -> torch.Tensor:
         """Factor ``name`` of tree ``p``; a quantized pair is dequantized
-        to ``dtype``."""
+        to ``dtype``, a 2:4 pack expanded (and dequantized) to it."""
         if name in p:
             return p[name]
+        if name + _SP_SUFFIX in p:
+            from repro_torch.quant.sparse import expand_sparse
+            return expand_sparse(p[name + _SP_SUFFIX], p[name + _IDX_SUFFIX],
+                                 p.get(name + _SCALE_SUFFIX), dtype)
         q, scale = p[name + _QUANT_SUFFIX], p[name + _SCALE_SUFFIX]
         return (q.to(torch.float32) * scale).to(dtype)
 
@@ -187,6 +248,14 @@ class LinearPlan:
             return ops.branched_matmul_qa(x, p["u_q"], p["u_scale"],
                                           p["xc_q"], p["xc_scale"],
                                           p["v_q"], p["v_scale"])
+        if kernel == "lowrank_sq":
+            return ops.lowrank_matmul_sq(
+                x, p["w0_sp"], p["w0_idx"], p["w0_scale"], p["w1_sp"],
+                p["w1_idx"], p["w1_scale"])
+        if kernel == "branched_sq":
+            return ops.branched_matmul_sq(
+                x, p["u_sp"], p["u_idx"], p["u_scale"], p["xc_q"],
+                p["xc_scale"], p["v_sp"], p["v_idx"], p["v_scale"])
         if kernel == "lowrank_q":
             return ops.lowrank_matmul_q(x, p["w0_q"], p["w0_scale"],
                                         p["w1_q"], p["w1_scale"])
@@ -214,16 +283,13 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _has(p: dict, key: str) -> bool:
-    return key in p or key + _QUANT_SUFFIX in p
+    return any(key + sfx in p for sfx in ("", _QUANT_SUFFIX, _SP_SUFFIX))
 
 
 def classify(p: dict) -> str:
-    """Kind of a linear subtree from the keys present (a quantized
-    ``k_q``/``k_scale`` tree classifies as its plain original)."""
-    if any(key.endswith(_SP_SUFFIX) for key in p):
-        raise NotImplementedError(
-            f"2:4-packed linear keys ({sorted(p)}) come with ROADMAP item "
-            "A11 (2:4 sparsity)")
+    """Kind of a linear subtree from the keys present (quantized
+    ``k_q``/``k_scale`` and 2:4-packed ``k_sp``/``k_idx`` trees classify
+    as their plain originals)."""
     if _has(p, "w"):
         return KIND_DENSE
     if _has(p, "tucker_u") or _has(p, "core"):
@@ -240,13 +306,23 @@ def is_linear_subtree(node: Any) -> bool:
     """Does this dict node hold the factors of one linear op?"""
     return isinstance(node, dict) and any(
         isinstance(node.get(k + sfx), torch.Tensor)
-        for k in ("w", "w0", "xc", "u") for sfx in ("", _QUANT_SUFFIX))
+        for k in ("w", "w0", "xc", "u")
+        for sfx in ("", _QUANT_SUFFIX, _SP_SUFFIX))
 
 
 def _spec(p: dict, name: str) -> FactorSpec:
     if name in p:
         v = p[name]
         return FactorSpec(name, tuple(int(d) for d in v.shape), v.dtype)
+    if name + _SP_SUFFIX in p:
+        # slot-major (..., 2, G, S) values: the logical shape has 4G rows
+        sp, idx = p[name + _SP_SUFFIX], p[name + _IDX_SUFFIX]
+        scale = p.get(name + _SCALE_SUFFIX)
+        return FactorSpec(
+            name, (*(int(d) for d in sp.shape[:-3]), 4 * int(sp.shape[-2]),
+                   int(sp.shape[-1])), sp.dtype, scale is not None,
+            None if scale is None else tuple(int(d) for d in scale.shape),
+            "2:4", tuple(int(d) for d in idx.shape))
     q, scale = p[name + _QUANT_SUFFIX], p[name + _SCALE_SUFFIX]
     return FactorSpec(name, tuple(int(d) for d in q.shape), q.dtype, True,
                       tuple(int(d) for d in scale.shape))
@@ -293,6 +369,7 @@ def tree_summary(plan_tree: PyTree) -> dict:
         "by_kind": {k: sum(1 for p in plans if p.kind == k)
                     for k in sorted({p.kind for p in plans})},
         "quantized": sum(1 for p in plans if p.quantized),
+        "sparse": sum(1 for p in plans if p.sparse),
         "param_count": sum(p.param_count for p in plans),
         "weight_bytes": sum(p.weight_bytes for p in plans),
         "quant_bytes": sum(p.quant_bytes for p in plans),

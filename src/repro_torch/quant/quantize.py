@@ -34,6 +34,12 @@ FACTOR_KEYS = ("w0", "w1", "u", "xc", "v", "tucker_u", "core", "tucker_v")
 
 QUANT_SUFFIX = "_q"
 SCALE_SUFFIX = "_scale"
+# 2:4 structured-sparsity pair (repro_torch.quant.sparse): ``k_sp`` packed
+# values (slot-major ``(..., 2, C/4, S)``) + ``k_idx`` int8 within-group
+# row positions ``(..., 2, C/4, 1)``.  Defined here so the axes alignment
+# below covers sparse trees without a circular import.
+SP_SUFFIX = "_sp"
+IDX_SUFFIX = "_idx"
 
 INT8_QMAX = 127.0          # symmetric narrow range [-127, 127]
 FP8_MAX = 448.0            # e4m3 max finite
@@ -93,18 +99,39 @@ def scale_axes(axes: tuple) -> tuple:
     return (*axes[:-2], None, axes[-1])
 
 
+def sparse_value_axes(axes: tuple) -> tuple:
+    """Logical axes of a ``k_sp`` leaf given factor ``k``'s axes: the
+    slot-major packing ``(..., 2, C/4, S)`` inserts an unsharded keep-slot
+    axis before the (grouped) input axis; input and output axes keep their
+    names."""
+    if len(axes) < 2:
+        raise ValueError(f"factor axes must be 2D+: {axes}")
+    return (*axes[:-2], None, axes[-2], axes[-1])
+
+
+def sparse_index_axes(axes: tuple) -> tuple:
+    """Logical axes of a ``k_idx`` leaf ``(..., 2, C/4, 1)``: keep-slot
+    and the collapsed output axis unsharded, the input axis as the
+    value's."""
+    if len(axes) < 2:
+        raise ValueError(f"factor axes must be 2D+: {axes}")
+    return (*axes[:-2], None, axes[-2], None)
+
+
 def align_quantized_axes(params_node: dict, axes_node: dict) -> dict:
-    """Axes dict aligned with a (possibly quantized) params dict: a
-    missing ``k_q`` entry inherits ``k``'s axes, a missing ``k_scale``
-    gets :func:`scale_axes` of them.  (The 2:4 ``k_sp``/``k_idx`` keys
-    come with ROADMAP item A11.)"""
+    """Axes dict aligned with a (possibly quantized or 2:4-packed) params
+    dict: a missing ``k_q`` entry inherits ``k``'s axes, a missing
+    ``k_scale`` gets :func:`scale_axes` of them, ``k_sp`` / ``k_idx``
+    get :func:`sparse_value_axes` / :func:`sparse_index_axes`."""
     out = {}
     for k in params_node:
         if k in axes_node:
             out[k] = axes_node[k]
             continue
         for suffix, fn in ((QUANT_SUFFIX, lambda a: a),
-                           (SCALE_SUFFIX, scale_axes)):
+                           (SCALE_SUFFIX, scale_axes),
+                           (SP_SUFFIX, sparse_value_axes),
+                           (IDX_SUFFIX, sparse_index_axes)):
             base = k[: -len(suffix)]
             if k.endswith(suffix) and base in axes_node:
                 out[k] = fn(axes_node[base])

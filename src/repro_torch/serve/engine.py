@@ -24,7 +24,10 @@ chunked greedy streams equal whole-prefill ("blocking" admission)
 streams.  ``quantize="int8"`` / ``"fp8"`` quantizes the decomposed
 factors at load (:mod:`repro_torch.quant.quantize`), and every fully
 quantized linear then runs the quantized kernels; ``act_quantize="int8"``
-(with int8 factors) runs the prefill and chunk segments int8 x int8.
+(with int8 factors) runs the prefill and chunk segments int8 x int8;
+``sparsify="2:4"`` packs the factors 2:4 first
+(:mod:`repro_torch.quant.sparse`), and with int8 / fp8 factors every
+packed linear runs the sparse kernels.
 Prefill token arrays are padded to power-of-two length buckets (the
 reference compiles once per bucket; the port keeps the same shapes so
 both see the same padding).  On a paged pool a prompt whose leading
@@ -33,9 +36,9 @@ staging cache and prefills only the rest.
 
 Sampling is greedy or temperature (Gumbel-max on a seeded
 ``torch.Generator``); a stream whose logits go non-finite is quarantined
-(terminated ``failed``) without disturbing its neighbours.  2:4
-sparsity, deadlines, cancellation, fault injection and load shedding
-come with ROADMAP items A11 and A12.
+(terminated ``failed``) without disturbing its neighbours.
+Deadlines, cancellation, fault injection and load shedding come with
+ROADMAP item A12.
 """
 from __future__ import annotations
 
@@ -51,6 +54,7 @@ from repro_torch.layers import plan as lplan
 from repro_torch.models.api import get_model
 from repro_torch.quant.quantize import MODES as QUANT_MODES
 from repro_torch.quant.quantize import quantize_tree
+from repro_torch.quant.sparse import sparsify_tree
 from repro_torch.serve import paging
 from repro_torch.serve.metrics import latency_summary
 from repro_torch.serve.paging import PoolExhausted
@@ -65,10 +69,6 @@ PyTree = Any
 
 DEFAULT_PREFILL_CHUNK = 64
 STATS_WINDOW = 4096
-
-#: LRDConfig fields whose non-default values the port does not serve yet,
-#: with the ROADMAP item that brings each
-_UNSERVED = {"sparsify": "A11"}
 
 
 def _param_device(params: PyTree) -> torch.device:
@@ -88,6 +88,7 @@ class ServeEngine:
                  prefill_chunk: int | None = None,
                  kv_byte_budget: int | None = None,
                  quantize: str | None = None,
+                 sparsify: str | None = None,
                  kv_quantize: str | None = None,
                  act_quantize: str | None = None,
                  kv_layout: str | None = None,
@@ -100,8 +101,11 @@ class ServeEngine:
         prefill per admit).  ``kv_byte_budget`` gates admission and
         triggers youngest-first preemption; None = never preempt.
         ``quantize`` ("none" | "int8" | "fp8") quantizes the
-        ``run.lrd.quant_targets`` factors at load; ``kv_quantize``
-        ("none" | "int8") stores the KV pool in int8; ``act_quantize``
+        ``run.lrd.quant_targets`` factors at load; ``sparsify`` ("none" |
+        "2:4") packs the ``run.lrd.sparse_targets`` factors 2:4 before
+        that (in the quantized dtype when ``quantize`` is set);
+        ``kv_quantize`` ("none" | "int8") stores the KV pool in int8;
+        ``act_quantize``
         ("none" | "int8", needs ``quantize="int8"``) quantizes prefill
         activations per token so the int8 plans run int8 x int8 (decode
         keeps full-width activations).  ``kv_layout`` ("slot" |
@@ -110,11 +114,6 @@ class ServeEngine:
         ``kv_num_blocks`` sizes the block pool (default the slot pool's
         capacity, ``slots * max_seq / kv_block_size``).  All default to
         ``run.lrd``."""
-        for field, item in _UNSERVED.items():
-            if getattr(run.lrd, field) != "none":
-                raise NotImplementedError(
-                    f"LRDConfig.{field}={getattr(run.lrd, field)!r} comes "
-                    f"with ROADMAP item {item}")
         self.device = torch.device(device)
         if _param_device(params).type != self.device.type:
             raise ValueError(f"params live on {_param_device(params)}, "
@@ -128,9 +127,18 @@ class ServeEngine:
         if quantize not in ("none", *QUANT_MODES):
             raise ValueError(f"quantize {quantize!r} (want 'none' or one "
                              f"of {QUANT_MODES})")
+        if sparsify is None:
+            sparsify = run.lrd.sparsify
+        if sparsify != "none":
+            # before quantize_tree: the pass prunes and packs (in the
+            # quantized dtype), and quantize_tree then skips the packed
+            # factors and quantizes the rest (xc, indivisible layers)
+            params = sparsify_tree(params, sparsify, mode=quantize,
+                                   targets=run.lrd.sparse_targets)
         if quantize != "none":
             params = quantize_tree(params, quantize,
                                    targets=run.lrd.quant_targets)
+        self.quantize, self.sparsify = quantize, sparsify
         if kv_quantize is None:
             kv_quantize = run.lrd.kv_quantize
         self.kv_quantize = None if kv_quantize == "none" else kv_quantize

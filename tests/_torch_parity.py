@@ -4,7 +4,9 @@ package and bridged into the port (:func:`jax_tree` /
 :func:`torch_tree`), or built with the port and bridged into the JAX
 package (:func:`port_tree` / :func:`port_tree_for_jax`, for the serve
 tests whose time the JAX init and surgery would dominate).  Either way
-both packages run on one tree.
+both packages run on one tree.  The 2:4 tests also share bit-for-bit
+comparison (:func:`assert_same`) and factor-like weights
+(:func:`factor_weights`).
 
 f32 model dtype: the parity tests compare whole greedy token streams, so
 bf16 near-ties must not decide them.
@@ -161,3 +163,55 @@ def mla_tree_for_jax(cfg_name: str, tree: str):
     """The same MLA tree as the reference package's arrays."""
     return jax.tree.map(jnp.asarray,
                         bridge.to_numpy(mla_port_tree(cfg_name, tree)))
+
+
+# ---------------------------------------------------------------------------
+# 2:4 sparsity
+# ---------------------------------------------------------------------------
+
+def raw_bytes(a) -> np.ndarray:
+    """Raw bytes of an array or tensor (fp8 / bf16 compared as bytes)."""
+    if isinstance(a, torch.Tensor):
+        return bridge.tensor_to_array(a).view(np.uint8)
+    return np.asarray(a).view(np.uint8)
+
+
+def assert_same(got, want, msg=""):
+    """A port tensor equal to a reference array bit for bit, shape and
+    dtype included (``None`` matching ``None``)."""
+    if want is None:
+        assert got is None, msg
+        return
+    assert tuple(got.shape) == tuple(want.shape), msg
+    assert bridge.tensor_to_array(got).dtype == np.asarray(want).dtype, msg
+    np.testing.assert_array_equal(raw_bytes(got), raw_bytes(want),
+                                  err_msg=msg)
+
+
+@functools.lru_cache(maxsize=None)
+def port_tree_with_axes(name: str):
+    """(params, axes) of one smoke tree built by the port: the trees of
+    :func:`port_tree`, with their axes."""
+    params, axes = tget_model(torch_cfg(), "cpu").init(
+        torch.Generator().manual_seed(0))
+    if TREE_LRD[name] is not None:
+        params, axes, _ = tdecompose(params, axes, TLRD(**TREE_LRD[name]))
+    return params, axes
+
+
+def to_jax(tree):
+    """A port tree as the reference package's arrays."""
+    return jax.tree.map(jnp.asarray, bridge.to_numpy(tree))
+
+
+def factor_weights(seed: int, shape, top_rows: bool = False) -> np.ndarray:
+    """Factor-like f32 weights (std ``shape[-2] ** -0.5``); with
+    ``top_rows`` rows 0 and 1 of every other group of 4 input rows are
+    shrunk, so a 2:4 pack of that group keeps its top positions, 2 and 3."""
+    rng = np.random.default_rng(seed)
+    w = rng.standard_normal(shape).astype(np.float32) * shape[-2] ** -0.5
+    if top_rows:
+        rows = np.arange(shape[-2])
+        sel = ((rows // 4) % 2 == 0) & (rows % 4 < 2)
+        w[..., sel, :] *= 0.125
+    return w

@@ -411,3 +411,121 @@ def test_mla_serve_path_launches_kernels_and_matches_cpu(cuda, kv_quantize):
         counts = [m.launches for m in mods]
         assert all(counts) if dev == "cuda" else not any(counts)
     assert outs["cuda"] == outs["cpu"]
+
+
+def _packed(g, *shape, mode, top_rows=True):
+    """A factor 2:4-packed as the engine packs it, (sp, idx, scale); with
+    ``top_rows`` every other group keeps its top positions, 2 and 3."""
+    from repro_torch.quant.sparse import sparsify_array
+    w = _rnd(g, *shape, scale=shape[-2] ** -0.5, dtype=torch.float32)
+    if top_rows:
+        rows = torch.arange(shape[-2], device="cuda")
+        w[..., ((rows // 4) % 2 == 0) & (rows % 4 < 2), :] *= 0.125
+    return sparsify_array(w, mode=mode)
+
+
+@pytest.mark.parametrize("mode", chip_smoke.QMODES)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("m", chip_smoke.M_CASES)
+@pytest.mark.parametrize("label", list(chip_smoke.SPARSE_LOWRANK))
+def test_lowrank_sq_kernel_matches_plain(cuda, label, m, dtype, mode):
+    from repro_torch.kernels import lowrank_matmul_sq as lsk
+    from repro_torch.kernels import ref
+    c, r, s = chip_smoke.LOWRANK_SHAPES[label]
+    x = _rnd(cuda, m, c, dtype=getattr(torch, dtype))
+    args = (x, *_packed(cuda, c, r, mode=mode),
+            *_packed(cuda, r, s, mode=mode))
+    n0 = lsk.launches
+    y = lsk.lowrank_matmul_sq(*args)
+    assert lsk.launches == n0 + 1
+    assert _norm_err(y, ref.lowrank_matmul_sq_ref(*args)) \
+        <= chip_smoke.KERNEL_TOL[dtype]
+
+
+@pytest.mark.parametrize("mode", chip_smoke.QMODES)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("m", chip_smoke.M_CASES)
+@pytest.mark.parametrize("label", list(chip_smoke.BRANCHED_SHAPES)
+                         + list(chip_smoke.DEEPSEEK_BRANCHED_SHAPES))
+def test_branched_sq_kernel_matches_plain(cuda, label, m, dtype, mode):
+    from repro_torch.kernels import branched_matmul_sq as bsk
+    from repro_torch.kernels import ref
+    n, c, r, s = {**chip_smoke.BRANCHED_SHAPES,
+                  **chip_smoke.DEEPSEEK_BRANCHED_SHAPES}[label]
+    x = _rnd(cuda, m, c, dtype=getattr(torch, dtype))
+    args = (x, *_packed(cuda, n, c, r, mode=mode),
+            *_quantized(cuda, n, r, r, mode=mode),
+            *_packed(cuda, n, r, s, mode=mode))
+    n0 = bsk.launches
+    y = bsk.branched_matmul_sq(*args)
+    assert bsk.launches == n0 + 1
+    assert _norm_err(y, ref.branched_matmul_sq_ref(*args)) \
+        <= chip_smoke.KERNEL_TOL[dtype]
+
+
+@pytest.mark.parametrize("mode", chip_smoke.QMODES)
+@pytest.mark.parametrize("m,c,r,s,n", [(1, 36, 8, 70, 3),
+                                       (9, 200, 20, 129, 1)])
+def test_ragged_everything_sparse(cuda, m, c, r, s, n, mode):
+    from repro_torch.kernels import ops, ref
+    x = _rnd(cuda, m, c, dtype=torch.float32)
+    lr = (*_packed(cuda, c, r, mode=mode), *_packed(cuda, r, s, mode=mode))
+    assert _norm_err(ops.lowrank_matmul_sq(x, *lr),
+                     ref.lowrank_matmul_sq_ref(x, *lr)) <= 1e-5
+    br = (*_packed(cuda, n, c, r, mode=mode),
+          *_quantized(cuda, n, r, r, mode=mode),
+          *_packed(cuda, n, r, s, mode=mode))
+    assert _norm_err(ops.branched_matmul_sq(x, *br),
+                     ref.branched_matmul_sq_ref(x, *br)) <= 1e-5
+
+
+def test_sq_wrappers_refuse_a_wrong_group_size(cuda):
+    """A pack whose groups do not cover the input width (C != 4 * G), or
+    index rows of another group count, raise before any launch."""
+    from repro_torch.kernels import branched_matmul_sq as bsk
+    from repro_torch.kernels import lowrank_matmul_sq as lsk
+    w0 = _packed(cuda, 32, 16, mode="int8")
+    w1 = _packed(cuda, 16, 48, mode="int8")
+    n0 = lsk.launches
+    with pytest.raises(ValueError, match="groups of 4"):
+        lsk.lowrank_matmul_sq(_rnd(cuda, 4, 30, dtype=torch.float32), *w0,
+                              *w1)
+    with pytest.raises(ValueError, match="_idx"):
+        lsk.lowrank_matmul_sq(_rnd(cuda, 4, 32, dtype=torch.float32),
+                              w0[0], w0[1][:, :4].contiguous(), w0[2], *w1)
+    assert lsk.launches == n0
+    u = _packed(cuda, 2, 32, 8, mode="int8")
+    xc = _quantized(cuda, 2, 8, 12, mode="int8")       # r2 = 12
+    v = _packed(cuda, 2, 8, 48, mode="int8")            # groups over 8
+    n0 = bsk.launches
+    with pytest.raises(ValueError, match="groups of 4"):
+        bsk.branched_matmul_sq(_rnd(cuda, 4, 32, dtype=torch.float32), *u,
+                               *xc, *v)
+    assert bsk.launches == n0
+
+
+@pytest.mark.parametrize("mode", chip_smoke.QMODES)
+def test_plan_execute_launches_the_sparse_kernels(cuda, mode):
+    """A 2:4 tree's plans on the card launch B11 / B12 once per call and
+    nothing else, and agree with the same plans on the CPU."""
+    from repro_torch.kernels import branched_matmul_q as bqk
+    from repro_torch.kernels import branched_matmul_sq as bsk
+    from repro_torch.kernels import lowrank_matmul_q as lqk
+    from repro_torch.kernels import lowrank_matmul_sq as lsk
+    from repro_torch.layers.param import apply_linear
+    from repro_torch.quant.quantize import quantize_tree
+    from repro_torch.quant.sparse import sparsify_tree
+    trees = {"lowrank": {"w0": _rnd(cuda, 64, 16, dtype=torch.float32),
+                         "w1": _rnd(cuda, 16, 96, dtype=torch.float32)},
+             "branched": {"u": _rnd(cuda, 2, 64, 8, dtype=torch.float32),
+                          "xc": _rnd(cuda, 2, 8, 8, dtype=torch.float32),
+                          "v": _rnd(cuda, 2, 8, 96, dtype=torch.float32)}}
+    x = _rnd(cuda, 2, 5, 64, dtype=torch.float32)
+    for kind, tree in trees.items():
+        p = quantize_tree(sparsify_tree(tree, mode=mode), mode)
+        mods = (lsk, lqk) if kind == "lowrank" else (bsk, bqk)
+        n0 = [mod.launches for mod in mods]
+        y = apply_linear(p, x)
+        assert [mod.launches - k for mod, k in zip(mods, n0)] == [1, 0]
+        p_cpu = {k: t.cpu() for k, t in p.items()}
+        assert _norm_err(y.cpu(), apply_linear(p_cpu, x.cpu())) <= 1e-5

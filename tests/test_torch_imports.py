@@ -40,7 +40,10 @@ def test_port_has_the_slice_modules():
               "repro_torch.kernels.decode_attention_paged",
               "repro_torch.core.cost_model", "repro_torch.serve.paging",
               "repro_torch.kernels.decode_attention_latent_q",
-              "repro_torch.configs.deepseek_v2_236b"):
+              "repro_torch.configs.deepseek_v2_236b",
+              "repro_torch.quant.sparse",
+              "repro_torch.kernels.lowrank_matmul_sq",
+              "repro_torch.kernels.branched_matmul_sq"):
         assert m in mods, m
 
 

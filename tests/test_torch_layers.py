@@ -69,16 +69,6 @@ def test_plan_accounting_matches_reference():
         assert tp.kernel_for((4, 24)) == (None if kind == "dense" else kind)
 
 
-def test_quantized_keys_raise_not_implemented():
-    # int8 pairs are served now (tests/test_torch_quant.py); the 2:4-packed
-    # int8 layout still waits for its ROADMAP item
-    with pytest.raises(NotImplementedError, match="A11"):
-        build_plan({"w0_sp": torch.zeros((2, 1, 2), dtype=torch.int8),
-                    "w0_idx": torch.zeros((2, 1, 1), dtype=torch.int8),
-                    "w0_scale": torch.zeros((1, 2)),
-                    "w1": torch.zeros((2, 4))})
-
-
 def test_rms_norm_and_swiglu_match_reference():
     rng = np.random.default_rng(5)
     x = rng.standard_normal((2, 3, 24), np.float32)

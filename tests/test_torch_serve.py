@@ -2,7 +2,6 @@
 greedy token streams identical for the dense, SVD and SVD+branched
 trees; continuous and blocking admission agree; every request
 finishes."""
-import dataclasses
 
 import numpy as np
 import pytest
@@ -13,7 +12,7 @@ from repro.configs.base import ParallelConfig
 from repro.configs.base import RunConfig as JRun
 from repro.serve.engine import Request as JRequest
 from repro.serve.engine import ServeEngine as JEngine
-from repro_torch.configs.base import LRDConfig, RunConfig
+from repro_torch.configs.base import RunConfig
 from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.serve.runner import sample_and_flag
 from repro_torch.serve.scheduler import Scheduler
@@ -124,15 +123,6 @@ def test_chunk_plan_is_fifo_and_budgeted():
     plan = s.chunk_plan(n_live=0)
     assert [(ps.req.uid, c) for ps, c in plan] == [(0, 8)]   # runt waits
     assert [(ps.req.uid, c) for ps, c in s.chunk_plan(n_live=2)] == [(0, 8)]
-
-
-def test_unserved_options_raise_not_implemented():
-    cfg = torch_cfg()
-    for field, value, item in (("sparsify", "2:4", "A11"),):
-        lrd = dataclasses.replace(LRDConfig(), **{field: value})
-        with pytest.raises(NotImplementedError, match=item):
-            ServeEngine(RunConfig(model=cfg, lrd=lrd), torch_tree("dense"),
-                        device="cpu")
 
 
 def test_engine_refuses_params_on_another_device():

@@ -10,8 +10,10 @@ Phases (each prints its own seconds; any failure exits non-zero):
              (``nvidia-smi``) and the torch / CUDA versions.
 2. build   — compiles the repo's ``.cu`` kernels for sm_90a and prints
              each kernel's registers, shared memory and spills.
-3. kernels — holds each kernel against its plain PyTorch version on the
-             card, in bf16 and f32, at every main-path shape and
+3. kernels — holds each kernel (``--kernels NAME[,NAME]`` for some of
+             them; all twelve by default) against its plain PyTorch
+             version on the card, in bf16 and f32, at every main-path
+             shape and
              M = 8 (decode), 64 (prefill chunk), 37 (ragged) -- the
              quantized chains with int8 and fp8 factors, the int8-KV
              decode attention at the served pool shape and at a ragged
@@ -24,7 +26,13 @@ Phases (each prints its own seconds; any failure exits non-zero):
              the kernel, the plain version and one library call as
              yardstick (CUDA events), beside the bound (bytes at 3.35
              TB/s, operations at 989 TFLOP/s bf16 / 67 TFLOP/s f32 /
-             1,979 TOP/s int8).
+             1,979 TOP/s int8).  The branched_matmul rows also time the
+             kernel and the library call with a cold L2 (``cold_ms``,
+             ``library_cold_ms``: 100 MB written before each launch),
+             and in bf16 the cluster kernel (the earlier bf16 design)
+             in turns with the split-phase kernel (``prev_ms``) and the
+             split-phase kernel's three phases (``phase_us``, its own
+             timer).
 4. serve   — llama3.2-1b at full width (random weights from a seed, bf16)
              decomposed with SVD + branched surgery, served by
              ServeEngine(slots=8, max_seq=1024) on 8 requests; every
@@ -96,7 +104,8 @@ Phases (each prints its own seconds; any failure exits non-zero):
 
 Only on request (``--phases ...,profile``): torch.profiler over steady
 decode steps of the branches=4 model, plain, int8 and 2:4-packed int8 —
-device time by operator and the device's idle share.
+device time by operator and the device's idle share; ``profile_mla`` the
+same over the bf16 MLA stack.
 
 Prints ``{"kernels": [...]}`` and the card's name and power limit on
 lines before the last, and ``{"ok": true, "device": {...}}`` last.
@@ -123,9 +132,9 @@ LLAMA_PHASES = ("serve", "check", "serve_q", "check_q", "serve_paged",
                 "check_paged", "serve_qa", "check_qa", "serve_sq",
                 "check_sq", "profile")
 MLA_PHASES = ("serve_mla", "check_mla", "serve_mla_q", "check_mla_q",
-              "serve_mla_sq", "check_mla_sq")
+              "serve_mla_sq", "check_mla_sq", "profile_mla")
 #: phases run only when asked for with --phases
-EXTRA_PHASES = ("profile",)
+EXTRA_PHASES = ("profile", "profile_mla")
 
 HBM_BYTES_PER_S = 3.35e12
 #: dense peak rates of one H100 SXM (NVIDIA's data sheet constants, not
@@ -138,6 +147,10 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 #: intermediates round to bf16 in both, so a last-bit difference in an
 #: f32 partial sum can flip one intermediate's rounding (2^-8 relative).
 KERNEL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+#: extra times of the branched_matmul rows: the cluster kernel (the
+#: earlier bf16 design) on the same bf16 inputs in the same call, and
+#: the kernel and its library call with a cold L2
+B2_TIMES = ("prev_ms", "cold_ms", "library_cold_ms")
 
 #: max |card bf16 logits - CPU f32 logits| / std(CPU logits): bf16
 #: activations and weights round at every layer boundary of 16 layers.
@@ -311,6 +324,30 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+#: bytes written between cold-L2 launches: twice the H100's 50 MB L2
+L2_FLUSH_BYTES = 100 * 1024 * 1024
+
+
+def cold_ms(fn, flush, iters: int = 10, warmup: int = 2) -> float:
+    """Mean time of ``fn`` with a cold L2: before each timed launch, and
+    outside its events, ``flush`` (L2_FLUSH_BYTES) is written, so no
+    weight byte is left in L2, as in a served stack of many layers."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    events = []
+    for _ in range(iters):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in events) / iters
+
+
 def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
     t_f = flops / PEAK_FLOPS[dtype] * 1e3
@@ -331,7 +368,10 @@ def reset_launches() -> None:
         setattr(kernel_module(name), KERNELS[name][1], 0)
 
 
-def check_kernels(card: str) -> list[dict]:
+def check_kernels(card: str, only: frozenset = frozenset(KERNELS)
+                  ) -> list[dict]:
+    """Every row of the kernels in ``only`` (default all twelve) against
+    its plain version; returns their entries of the kernels line."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.quant.quantize import quantize_array
@@ -361,11 +401,22 @@ def check_kernels(card: str) -> list[dict]:
         w[..., ((top // 4) % 2 == 0) & (top % 4 < 2), :] *= 0.125
         return sparsify_array(w, mode=mode)
 
-    rows: dict[str, list[dict]] = {k: [] for k in KERNELS}
+    rows: dict[str, list[dict]] = {k: [] for k in KERNELS if k in only}
+
+    def add(name: str, make_row) -> None:
+        """Make and keep a row of ``name`` if the kernel was asked for."""
+        if name in only:
+            rows[name].append(make_row())
+
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    lowrank = {"lowrank_matmul", "lowrank_matmul_q", "lowrank_matmul_sq"}
+    branched = {"branched_matmul", "branched_matmul_q", "branched_matmul_sq"}
     for dname in ("bfloat16", "float32"):
         dt = getattr(torch, dname)
         xb = dt.itemsize
         for label, (c, r, s) in LOWRANK_SHAPES.items():
+            if not only & lowrank:
+                break
             for m in M_CASES:
                 x = rnd(m, c, dtype=dt)
                 w0 = rnd(c, r, scale=c ** -0.5, dtype=dt)
@@ -373,7 +424,7 @@ def check_kernels(card: str) -> list[dict]:
                 y = lk.lowrank_matmul(x, w0, w1)
                 want = ref.lowrank_matmul_ref(x, w0, w1)
                 torch.cuda.synchronize()
-                rows["lowrank_matmul"].append(dict(
+                add("lowrank_matmul", lambda: dict(
                     shape=label, dtype=dname, M=m, C=c, R=r, S=s,
                     **_compare(y, want, dname),
                     ms=time_ms(lambda: lk.lowrank_matmul(x, w0, w1)),
@@ -383,6 +434,8 @@ def check_kernels(card: str) -> list[dict]:
                     **_bound(xb * (m * c + c * r + r * s + m * s),
                              2 * m * (c * r + r * s), dname)))
                 for mode in QMODES:
+                    if not only & (lowrank - {"lowrank_matmul"}):
+                        break
                     w0q, w0s = qrnd(c, r, mode=mode)
                     w1q, w1s = qrnd(r, s, mode=mode)
                     args = (x, w0q, w0s, w1q, w1s)
@@ -390,7 +443,7 @@ def check_kernels(card: str) -> list[dict]:
                     want = ref.lowrank_matmul_q_ref(*args)
                     torch.cuda.synchronize()
                     w0d, w1d = dq(w0q, w0s, dt), dq(w1q, w1s, dt)
-                    rows["lowrank_matmul_q"].append(dict(
+                    add("lowrank_matmul_q", lambda: dict(
                         shape=label, dtype=dname, qmode=mode, M=m, C=c, R=r,
                         S=s, **_compare(y, want, dname),
                         ms=time_ms(lambda: lqk.lowrank_matmul_q(*args)),
@@ -401,44 +454,49 @@ def check_kernels(card: str) -> list[dict]:
                                  + 4 * (r + s), 2 * m * (c * r + r * s),
                                  dname)))
                     if label in SPARSE_LOWRANK:
-                        rows["lowrank_matmul_sq"].append(_check_sq(
+                        add("lowrank_matmul_sq", lambda: _check_sq(
                             label, x, [spack(c, r, mode=mode),
                                        spack(r, s, mode=mode)], dname))
         for label, shape in BRANCHED_SHAPES.items():
-            for m in M_CASES:
-                _check_branched(rows, label, shape, m, dname, rnd, qrnd,
-                                QMODES, spack)
+            for m in (M_CASES if only & branched else ()):
+                _check_branched(add, label, shape, m, dname, rnd, qrnd,
+                                QMODES, spack, flush, only)
         for label, case in LATENT_CASES.items():
-            rows["decode_attention_latent_q"].append(
-                _check_latent(label, case, dname, rnd))
+            add("decode_attention_latent_q",
+                lambda: _check_latent(label, case, dname, rnd))
         if dname == "bfloat16":
             for label, shape in DEEPSEEK_BRANCHED_SHAPES.items():
-                for m in DEEPSEEK_M_CASES:
-                    _check_branched(rows, label, shape, m, dname, rnd, qrnd,
-                                    ("int8",), spack)
+                for m in (DEEPSEEK_M_CASES if only & branched else ()):
+                    _check_branched(add, label, shape, m, dname, rnd, qrnd,
+                                    ("int8",), spack, flush, only)
         for label, case in ATTN_CASES.items():
-            rows["decode_attention_q"].append(
-                _check_attention(label, case, dname, rnd))
+            add("decode_attention_q",
+                lambda: _check_attention(label, case, dname, rnd))
         for label, (c, r, s) in LOWRANK_SHAPES.items():
             for m in QA_M_CASES:
-                rows["lowrank_matmul_qa"].append(_check_qa(
+                add("lowrank_matmul_qa", lambda: _check_qa(
                     label, m, dname, rnd, [qrnd(c, r, mode="int8"),
                                            qrnd(r, s, mode="int8")]))
         for label, (n, c, r, s) in BRANCHED_SHAPES.items():
             for m in QA_M_CASES:
-                rows["branched_matmul_qa"].append(_check_qa(
+                add("branched_matmul_qa", lambda: _check_qa(
                     label, m, dname, rnd, [qrnd(n, c, r, mode="int8"),
                                            qrnd(n, r, r, mode="int8"),
                                            qrnd(n, r, s, mode="int8")]))
         for label, case in PAGED_CASES.items():
             for quant in (False, True):
-                rows["decode_attention_paged" + ("_q" if quant else "")] \
-                    .append(_check_paged(label, case, dname, quant, g))
+                add("decode_attention_paged" + ("_q" if quant else ""),
+                    lambda: _check_paged(label, case, dname, quant, g))
     failures = []
     for name, rs in rows.items():
         for row in rs:
             ok = row["norm_err"] <= KERNEL_TOL[row["dtype"]]
             lib_ms = row["library_ms"]
+            extra = "".join(f"{k}={row[k]:.4f} " for k in B2_TIMES
+                            if row.get(k) is not None)
+            if row.get("phase_us"):
+                extra += "phase_us=" + "/".join(
+                    f"{t:.1f}" for t in row["phase_us"]) + " "
             log(f"{name:24s} {row['shape']:22s} {row['dtype']:8s} "
                 f"{row.get('qmode', ''):4s} M={row.get('M', row.get('B')):4d}"
                 f" max_abs_err={row['max_abs_err']:.3e} "
@@ -447,6 +505,7 @@ def check_kernels(card: str) -> list[dict]:
                 + (f"differing={row['differing']} "
                    if "differing" in row else "")
                 + f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+                + extra +
                 f"library_ms={'null' if lib_ms is None else f'{lib_ms:.4f}'} "
                 f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
                 f"[{card}] {'ok' if ok else 'FAIL'}")
@@ -458,16 +517,64 @@ def check_kernels(card: str) -> list[dict]:
     return _kernel_entries(rows)
 
 
-def _check_branched(rows: dict, label: str, shape: tuple, m: int,
-                    dname: str, rnd, qrnd, qmodes, spack) -> None:
-    """One branched_matmul row at (N, C, r, S) and M rows in ``dname``,
-    and one branched_matmul_q and one branched_matmul_sq row per factor
-    mode of ``qmodes``; the yardstick is the cuBLAS chain of batched
-    products (on factors dequantized, or expanded, beforehand for the
-    quantized and the 2:4 kernels)."""
+def _branched_row(label: str, x, u, xc, v, dname: str, flush) -> dict:
+    """One branched_matmul row.  bf16 runs the split-phase kernel, times
+    the cluster kernel (the earlier design) beside it in turns (new, old,
+    old, new; ``prev_ms``) and reads the kernel's phase timer
+    (``phase_us``, one entry per phase and row block); f32 runs the
+    cluster kernel.
+    ``cold_ms`` and ``library_cold_ms`` time the kernel and the cuBLAS
+    chain of batched products with a cold L2."""
     import torch
     from repro_torch.kernels import ref
     bk = kernel_module("branched_matmul")
+    m, c = x.shape
+    n, _, r = u.shape
+    s = v.shape[-1]
+    y = bk.branched_matmul(x, u, xc, v)
+    want = ref.branched_matmul_ref(x, u, xc, v)
+    torch.cuda.synchronize()
+    xb3 = x.expand(n, m, c)
+
+    def kernel():
+        return bk.branched_matmul(x, u, xc, v)
+
+    def library():
+        return torch.bmm(torch.bmm(torch.bmm(xb3, u), xc), v).sum(0)
+
+    phases = None
+    if dname == "bfloat16":
+        def prev():
+            return bk.cluster_branched_matmul(x, u, xc, v)
+        turns = [time_ms(kernel), time_ms(prev), time_ms(prev),
+                 time_ms(kernel)]
+        ms, prev_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+        # the phase timer's fastest of five launches
+        phases = min((bk.branched_matmul_phase_us(x, u, xc, v)
+                      for _ in range(5)), key=sum)
+    else:
+        ms, prev_ms = time_ms(kernel), None
+    return dict(
+        shape=label, dtype=dname, M=m, N=n, C=c, r=r, S=s,
+        **_compare(y, want, dname), ms=ms, prev_ms=prev_ms, phase_us=phases,
+        cold_ms=cold_ms(kernel, flush),
+        plain_ms=time_ms(lambda: ref.branched_matmul_ref(x, u, xc, v)),
+        library_ms=time_ms(library),
+        library_cold_ms=cold_ms(library, flush),
+        **_bound(x.dtype.itemsize * (m * c + n * (c * r + r * r + r * s)
+                                     + m * s),
+                 2 * m * n * (c * r + r * r + r * s), dname))
+
+
+def _check_branched(add, label: str, shape: tuple, m: int, dname: str, rnd,
+                    qrnd, qmodes, spack, flush, only) -> None:
+    """One branched_matmul row at (N, C, r, S) and M rows in ``dname``,
+    and one branched_matmul_q and one branched_matmul_sq row per factor
+    mode of ``qmodes`` (each only if in ``only``); the yardstick is the
+    cuBLAS chain of batched products (on factors dequantized, or
+    expanded, beforehand for the quantized and the 2:4 kernels)."""
+    import torch
+    from repro_torch.kernels import ref
     bqk = kernel_module("branched_matmul_q")
     n, c, r, s = shape
     dt = getattr(torch, dname)
@@ -476,22 +583,14 @@ def _check_branched(rows: dict, label: str, shape: tuple, m: int,
     u = rnd(n, c, r, scale=c ** -0.5, dtype=dt)
     xc = rnd(n, r, r, scale=r ** -0.5, dtype=dt)
     v = rnd(n, r, s, scale=r ** -0.5, dtype=dt)
-    y = bk.branched_matmul(x, u, xc, v)
-    want = ref.branched_matmul_ref(x, u, xc, v)
-    torch.cuda.synchronize()
+    add("branched_matmul", lambda: _branched_row(label, x, u, xc, v, dname,
+                                                 flush))
     xb3 = x.expand(n, m, c)
     flops = 2 * m * n * (c * r + r * r + r * s)
-    rows["branched_matmul"].append(dict(
-        shape=label, dtype=dname, M=m, N=n, C=c, r=r, S=s,
-        **_compare(y, want, dname),
-        ms=time_ms(lambda: bk.branched_matmul(x, u, xc, v)),
-        plain_ms=time_ms(lambda: ref.branched_matmul_ref(x, u, xc, v)),
-        library_ms=time_ms(lambda: torch.bmm(torch.bmm(
-            torch.bmm(xb3, u), xc), v).sum(0)),
-        **_bound(xb * (m * c + n * (c * r + r * r + r * s) + m * s), flops,
-                 dname)))
     del u, xc, v
     for mode in qmodes:
+        if not only & {"branched_matmul_q", "branched_matmul_sq"}:
+            break
         qs = [qrnd(n, c, r, mode=mode), qrnd(n, r, r, mode=mode),
               qrnd(n, r, s, mode=mode)]
         args = (x, *[t for pair in qs for t in pair])
@@ -499,7 +598,7 @@ def _check_branched(rows: dict, label: str, shape: tuple, m: int,
         want = ref.branched_matmul_q_ref(*args)
         torch.cuda.synchronize()
         ud, xcd, vd = ((q.to(torch.float32) * sc).to(dt) for q, sc in qs)
-        rows["branched_matmul_q"].append(dict(
+        add("branched_matmul_q", lambda: dict(
             shape=label, dtype=dname, qmode=mode, M=m, N=n, C=c, r=r, S=s,
             **_compare(y, want, dname),
             ms=time_ms(lambda: bqk.branched_matmul_q(*args)),
@@ -509,7 +608,7 @@ def _check_branched(rows: dict, label: str, shape: tuple, m: int,
             **_bound(xb * (m * c + m * s) + n * (c * r + r * r + r * s)
                      + 4 * n * (2 * r + s), flops, dname)))
         del ud, xcd, vd
-        rows["branched_matmul_sq"].append(_check_sq(
+        add("branched_matmul_sq", lambda: _check_sq(
             label, x, [spack(n, c, r, mode=mode), qs[1],
                        spack(n, r, s, mode=mode)], dname))
 
@@ -858,8 +957,9 @@ def _kernel_entries(rows: dict[str, list[dict]]) -> list[dict]:
     for name, rs in rows.items():
         prefill = name in PREFILL_LAUNCHES
         m = 64 if prefill else 8
-        per_step = {k: 0.0 for k in ("ms", "plain_ms", "library_ms",
-                                     "bound_ms", "bytes", "flops")}
+        timed = ("ms", "plain_ms", "library_ms", "bound_ms") + tuple(
+            k for k in B2_TIMES if k in rs[0])
+        per_step = {k: 0.0 for k in timed + ("bytes", "flops")}
         t_ops = 0.0
         for label, count in (PREFILL_LAUNCHES if prefill
                              else DECODE_LAUNCHES)[name].items():
@@ -882,7 +982,7 @@ def _kernel_entries(rows: dict[str, list[dict]]) -> list[dict]:
                     r for r in rs if r["shape"] == label and r["M"] == m
                     and r["dtype"] == "bfloat16")[k]
                     for label, n in MLA_BRANCHED_LAUNCHES.items())
-                    for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                    for k in timed}
                 for m in DEEPSEEK_M_CASES}
             extra["mla_path"]["timed_as"] = (
                 "the 17 launches of one decode step (M=8) or prefill chunk "
@@ -894,6 +994,7 @@ def _kernel_entries(rows: dict[str, list[dict]]) -> list[dict]:
                     "ms": per_step["ms"], "plain_ms": per_step["plain_ms"],
                     "bound_ms": per_step["bound_ms"], "bound_by": by,
                     "library_ms": per_step["library_ms"],
+                    **{k: per_step[k] for k in B2_TIMES if k in per_step},
                     "timed_as": (
                         "one prefill chunk's launches, M=64, bf16, int8 "
                         "factors" if prefill else
@@ -1573,6 +1674,9 @@ def run_mla(phases: list[str], card: str, seed: int,
         with Phase("check_mla"):
             cross_check_mla(cfg, pm, card, seed, label="check_mla",
                             chain="branched_matmul")
+    if "profile_mla" in phases:
+        with Phase("profile_mla"):
+            profile_decode(cfg, lrd, pm, card, seed)
     if not set(phases) & {"serve_mla_q", "check_mla_q", "serve_mla_sq",
                           "check_mla_sq"}:
         return
@@ -1625,12 +1729,18 @@ def main() -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of "
                     + ",".join(PHASES + EXTRA_PHASES))
+    ap.add_argument("--kernels", default=",".join(KERNELS),
+                    help="the kernels phase's rows: comma-separated subset "
+                    "of " + ",".join(KERNELS))
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     phases = args.phases.split(",")
     unknown = set(phases) - set(PHASES) - set(EXTRA_PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
+    only = frozenset(args.kernels.split(","))
+    if only - set(KERNELS):
+        ap.error(f"unknown kernels {sorted(only - set(KERNELS))}")
 
     import torch
     if not torch.cuda.is_available():
@@ -1684,13 +1794,26 @@ def main() -> int:
                 log(f"dynamic shared memory, {dt}, DeepSeek-V2 branched "
                     f"shapes at 32 rows (the block a prefill chunk took "
                     f"before the fit repair): {at32}")
+            from repro_torch.kernels import branched_matmul as bk
+            mma_smem = int(lib.lrk_branched_mma_smem())
+            grids = {rows: int(lib.lrk_branched_mma_grid(rows))
+                     for rows in (8, 32, 64)}
+            log(f"bf16 branched_matmul (split-phase): {mma_smem} B of "
+                f"dynamic shared memory (wrapper's count "
+                f"{bk.mma_smem_bytes()}, limit {build.SMEM_LIMIT}); "
+                f"persistent grid (CTAs) at 8 / 32 / 64 rows: {grids} on "
+                f"{torch.cuda.get_device_properties(0).multi_processor_count}"
+                " SMs")
+            if mma_smem != bk.mma_smem_bytes() or min(grids.values()) <= 0:
+                raise SystemExit("split-phase kernel: shared memory or grid "
+                                 "disagrees with the wrapper")
             log("dynamic shared memory, decode_attention_latent_q at the "
                 "served latent pool: "
                 f"{latent_smem()} B (limit {build.SMEM_LIMIT} B)")
 
     if "kernels" in phases:
         with Phase("kernels"):
-            kernels = check_kernels(card)
+            kernels = check_kernels(card, only)
 
     serve_res: dict[str, dict] = {}
     if set(phases) & set(LLAMA_PHASES):

@@ -1,14 +1,22 @@
-"""Wrapper of the branched low-rank CUDA kernel
+"""Wrapper of the branched low-rank CUDA kernels
 ``y = sum_n ((x @ u_n) @ xc_n) @ v_n`` (paper Eq. 17).
 
-The kernel (``csrc/branched_matmul.cu``) replaces the TPU kernel
-``repro/kernels/branched_matmul.py::branched_matmul``; its source note
-says what bounds it and how the design answers.  This wrapper checks the
-operands, allocates the output, launches on the current stream and
-counts launches.  CUDA tensors only: the CPU path is the plain version in
-:mod:`repro_torch.kernels.ref`, chosen by :mod:`repro_torch.kernels.ops`.
+The kernels (``csrc/branched_matmul.cu``) replace the TPU kernel
+``repro/kernels/branched_matmul.py::branched_matmul``; the source note
+says what bounds them and how the design answers.  bf16 goes to the
+split-phase tensor-core kernel, one cooperative launch whose work split
+:func:`branched_split` computes here; f32 goes to the cluster kernel
+(tensor cores in TF32 cannot hold f32's tolerance).  This wrapper checks
+the operands, allocates the output and the scratch, launches on the
+current stream and counts launches.  CUDA tensors only: the CPU path is
+the plain version in :mod:`repro_torch.kernels.ref`, chosen by
+:mod:`repro_torch.kernels.ops`.
 """
 from __future__ import annotations
+
+import functools
+import math
+from dataclasses import dataclass
 
 import torch
 
@@ -18,12 +26,137 @@ from repro_torch.kernels.lowrank_matmul import DTYPES
 #: launches of the kernel since the last reset (set to 0 to reset)
 launches = 0
 
+#: the split-phase kernel's tile (csrc/mma_chain.cuh): rows of a row
+#: block, columns of a tile, reduction rows per stage, ring depth, and the
+#: padding (elements) of a shared-memory row
+BM, BN, BK, STAGES, PAD = 64, 128, 32, 6, 8
+#: work items per SM each phase aims for (one round of the persistent
+#: grid, two CTAs per SM)
+ITEMS_PER_SM = 2
+#: alignment of each scratch region (bytes)
+ALIGN = 256
 
-def branched_matmul(x: torch.Tensor, u: torch.Tensor, xc: torch.Tensor,
-                    v: torch.Tensor) -> torch.Tensor:
-    """x (M,C); u (N,C,r1); xc (N,r1,r2); v (N,r2,S) -> (M,S), all one
-    float dtype on one CUDA device, contiguous."""
-    global launches
+
+def mma_smem_bytes() -> int:
+    """Dynamic shared memory of the split-phase kernel (bytes): the ring of
+    STAGES (A, W) stage pairs, fixed by the tile whatever the ranks."""
+    return STAGES * (BM * (BK + PAD) + BK * (BN + PAD)) * 2
+
+
+def _slice(k: int, tiles: int, target: int) -> int:
+    """K-slice length (a multiple of BK) that gives ``tiles`` column tiles
+    about ``target`` items in all, and no more than ``target`` where the
+    tiles alone do not exceed it."""
+    chunks = math.ceil(k / BK)
+    want = max(1, target // tiles)
+    return math.ceil(chunks / want) * BK
+
+
+def _align(n: int) -> int:
+    return (n + ALIGN - 1) // ALIGN * ALIGN
+
+
+@dataclass(frozen=True)
+class BranchedSplit:
+    """The split-phase kernel's work split for one call: ``k1``, ``k2``,
+    ``k3`` are the K-slice lengths of phases 1-3 (passed to C) and
+    ``rows`` the rows of a row block."""
+    m: int
+    c: int
+    n: int
+    r1: int
+    r2: int
+    s: int
+    rows: int
+    k1: int
+    k2: int
+    k3: int
+
+    def phase(self, i: int) -> tuple[int, int, int, int]:
+        """Phase ``i`` (1, 2, 3) as ``(K, branches, columns per branch, K
+        slice)``: phase 1 reads u (N of (C, r1)), phase 2 xc (N of (r1,
+        r2)), phase 3 v as one (N*r2, S) matrix."""
+        if i == 1:
+            return self.c, self.n, self.r1, self.k1
+        if i == 2:
+            return self.r1, self.n, self.r2, self.k2
+        if i == 3:
+            return self.n * self.r2, 1, self.s, self.k3
+        raise ValueError(f"phase {i}: the kernel has phases 1, 2, 3")
+
+    def slices(self, i: int) -> int:
+        k, _, _, ks = self.phase(i)
+        return math.ceil(k / ks)
+
+    def region_bytes(self) -> dict[str, int]:
+        """Bytes of each scratch region: P, the f32 partials of the
+        largest K-sliced phase (slices x rows x its N*width), and h1
+        (rows, N*r1), h2 (rows, N*r2) in bf16."""
+        partials = [self.slices(i) * self.rows * nbr * width * 4
+                    for i in (1, 2, 3) for _, nbr, width, _ in [self.phase(i)]
+                    if self.slices(i) > 1]
+        return {"p": max(partials, default=0),
+                "h1": self.rows * self.n * self.r1 * 2,
+                "h2": self.rows * self.n * self.r2 * 2}
+
+    def offsets(self) -> dict[str, int]:
+        out, at = {}, 0
+        for name, nbytes in self.region_bytes().items():
+            out[name] = at
+            at += _align(nbytes)
+        return out
+
+    @property
+    def scratch_bytes(self) -> int:
+        return sum(_align(b) for b in self.region_bytes().values())
+
+    def items(self, i: int) -> list[tuple[int, int, int, int, int]]:
+        """Work items of phase ``i`` in the order the kernel decodes its
+        item index: ``(branch, k0, k1, c0, c1)``, the block of the branch's
+        weight (rows k0:k1, columns c0:c1) the item reads."""
+        k, nbr, width, ks = self.phase(i)
+        return [(b, q * ks, min(k, q * ks + ks), t * BN,
+                 min(width, t * BN + BN))
+                for q in range(self.slices(i)) for b in range(nbr)
+                for t in range(math.ceil(width / BN))]
+
+
+def branched_split(m: int, c: int, n: int, r1: int, r2: int, s: int,
+                   sms: int) -> BranchedSplit:
+    """Work split of the split-phase kernel on a card of ``sms`` SMs: each
+    phase slices its reduction axis (C, r1, N*r2) so that with its column
+    tiles (N x tiles(r1), N x tiles(r2), tiles(S)) it has about
+    ITEMS_PER_SM items per SM."""
+    if min(m, c, n, r1, r2, s, sms) <= 0:
+        raise ValueError(f"branched split of ({m}, {c}, {n}, {r1}, {r2}, "
+                         f"{s}) on {sms} SMs: every size must be positive")
+    target = ITEMS_PER_SM * sms
+    return BranchedSplit(
+        m=m, c=c, n=n, r1=r1, r2=r2, s=s, rows=min(m, BM),
+        k1=_slice(c, n * math.ceil(r1 / BN), target),
+        k2=_slice(r1, n * math.ceil(r2 / BN), target),
+        k3=_slice(n * r2, math.ceil(s / BN), target))
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(m: int, c: int, n: int, r1: int, r2: int, s: int, sms: int
+          ) -> tuple[tuple[int, ...], int, tuple[int, ...]]:
+    """What one launch passes to C: the split's K-slice lengths, its
+    scratch bytes and the offsets of P, h1, h2 (cached per shape)."""
+    sp = branched_split(m, c, n, r1, r2, s, sms)
+    return (sp.k1, sp.k2, sp.k3), sp.scratch_bytes, tuple(
+        sp.offsets().values())
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def check_operands(x: torch.Tensor, u: torch.Tensor, xc: torch.Tensor,
+                   v: torch.Tensor) -> tuple[int, int, int, int, int, int]:
+    """Raise on an operand the kernels do not take; return ``(m, c, n, r1,
+    r2, s)``."""
     for name, t, nd in (("x", x, 2), ("u", u, 3), ("xc", xc, 3),
                         ("v", v, 3)):
         if t.device.type != "cuda":
@@ -51,9 +184,77 @@ def branched_matmul(x: torch.Tensor, u: torch.Tensor, xc: torch.Tensor,
             f"branched_matmul kernel: shapes {tuple(x.shape)} "
             f"{tuple(u.shape)} {tuple(xc.shape)} {tuple(v.shape)} do not "
             "chain")
+    return m, c, n, r1, r2, s
+
+
+def branched_matmul(x: torch.Tensor, u: torch.Tensor, xc: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+    """x (M,C); u (N,C,r1); xc (N,r1,r2); v (N,r2,S) -> (M,S), all one
+    float dtype on one CUDA device, contiguous."""
+    global launches
+    m, c, n, r1, r2, s = check_operands(x, u, xc, v)
     y = torch.empty((m, s), dtype=x.dtype, device=x.device)
     if m == 0 or s == 0:
         return y
+    if x.dtype == torch.float32:
+        _launch_cluster(x, u, xc, v, y)
+        launches += 1
+        return y
+    if min(c, n, r1, r2) == 0:
+        raise ValueError(f"branched_matmul kernel: empty factors "
+                         f"{tuple(u.shape)} {tuple(xc.shape)} "
+                         f"{tuple(v.shape)}")
+    _launch_mma(x, u, xc, v, y, None)
+    launches += 1
+    return y
+
+
+def branched_matmul_phase_us(x: torch.Tensor, u: torch.Tensor,
+                             xc: torch.Tensor, v: torch.Tensor
+                             ) -> list[float]:
+    """One counted launch of the bf16 split-phase kernel with its phase
+    timer on: microseconds of each phase (1, 2, 3 per row block, each up
+    to the grid sync that ends it), read by CTA 0 from %globaltimer."""
+    global launches
+    m, c, n, r1, r2, s = check_operands(x, u, xc, v)
+    if x.dtype != torch.bfloat16 or min(m, c, n, r1, r2, s) == 0:
+        raise ValueError("the phase timer runs the bf16 kernel on "
+                         "non-empty operands")
+    y = torch.empty((m, s), dtype=x.dtype, device=x.device)
+    ts = torch.zeros(1 + 3 * math.ceil(m / BM), dtype=torch.int64,
+                     device=x.device)
+    _launch_mma(x, u, xc, v, y, ts)
+    launches += 1
+    t = ts.tolist()
+    return [(b - a) / 1e3 for a, b in zip(t, t[1:])]
+
+
+def _launch_mma(x: torch.Tensor, u: torch.Tensor, xc: torch.Tensor,
+                v: torch.Tensor, y: torch.Tensor,
+                ts: torch.Tensor | None) -> None:
+    """The split-phase kernel on bf16 operands already checked."""
+    m, c = x.shape
+    n, _, r1 = u.shape
+    r2, s = v.shape[1:]
+    lib = build.load()
+    ks, nbytes, off = _plan(m, c, n, r1, r2, s, _sm_count(x.device.index))
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+    base = scratch.data_ptr()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.lrk_branched_matmul_mma(
+            x.data_ptr(), u.data_ptr(), xc.data_ptr(), v.data_ptr(),
+            y.data_ptr(), *(base + o for o in off), m, c, n, r1, r2, s, *ks,
+            None if ts is None else ts.data_ptr(), stream)
+    build.check(lib, rc, "branched_matmul")
+
+
+def _launch_cluster(x: torch.Tensor, u: torch.Tensor, xc: torch.Tensor,
+                    v: torch.Tensor, y: torch.Tensor) -> None:
+    """The cluster kernel (8-CTA clusters, CUDA-core FMAs): f32's kernel."""
+    m, c = x.shape
+    n, _, r1 = u.shape
+    r2, s = v.shape[1:]
     lib = build.load()
     bm, smem = build.chain_bm(
         m, lambda bm: lib.lrk_branched_smem(DTYPES[x.dtype], bm, n, r1, r2))
@@ -68,5 +269,16 @@ def branched_matmul(x: torch.Tensor, u: torch.Tensor, xc: torch.Tensor,
                                      v.data_ptr(), y.data_ptr(), m, c, n,
                                      r1, r2, s, stream)
     build.check(lib, rc, "branched_matmul")
-    launches += 1
+
+
+def cluster_branched_matmul(x: torch.Tensor, u: torch.Tensor,
+                            xc: torch.Tensor, v: torch.Tensor
+                            ) -> torch.Tensor:
+    """The cluster kernel in x's dtype, bf16 included, uncounted: the
+    earlier bf16 design, kept as a yardstick for the split-phase kernel
+    (chip_smoke's ``prev_ms``).  The serve path never calls it."""
+    m, _, _, _, _, s = check_operands(x, u, xc, v)
+    y = torch.empty((m, s), dtype=x.dtype, device=x.device)
+    if m and s:
+        _launch_cluster(x, u, xc, v, y)
     return y

@@ -104,6 +104,13 @@ def load() -> ctypes.CDLL:
     lib.lrk_branched_matmul.restype = i
     lib.lrk_branched_smem.argtypes = [i, i, i, i, i]
     lib.lrk_branched_smem.restype = ctypes.c_size_t
+    lib.lrk_branched_matmul_mma.argtypes = [p, p, p, p, p, p, p, p, i, i, i,
+                                            i, i, i, i, i, i, p, p]
+    lib.lrk_branched_matmul_mma.restype = i
+    lib.lrk_branched_mma_smem.argtypes = []
+    lib.lrk_branched_mma_smem.restype = ctypes.c_size_t
+    lib.lrk_branched_mma_grid.argtypes = [i]
+    lib.lrk_branched_mma_grid.restype = i
     lib.lrk_lowrank_matmul_q.argtypes = [i, i, i, p, p, p, p, p, p, i, i,
                                          i, i, p]
     lib.lrk_lowrank_matmul_q.restype = i

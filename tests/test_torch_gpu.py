@@ -87,6 +87,79 @@ def test_ragged_everything(cuda, m, c, r, s, n):
                      ref.branched_matmul_ref(x, u, xc, v)) <= 1e-5
 
 
+@pytest.mark.parametrize("m,c,r,s,n", [(1, 33, 5, 70, 3), (9, 200, 17, 129,
+                                                            1)])
+def test_ragged_branched_bf16(cuda, m, c, r, s, n):
+    """The bf16 split-phase kernel at ragged shapes: rows whose stride is
+    not a multiple of 16 bytes and column tiles past the last column take
+    the masked scalar staging path."""
+    from repro_torch.kernels import branched_matmul as bk
+    from repro_torch.kernels import ref
+    dt = torch.bfloat16
+    x = _rnd(cuda, m, c, dtype=dt)
+    u = _rnd(cuda, n, c, r, scale=c ** -0.5, dtype=dt)
+    xc = _rnd(cuda, n, r, r, scale=r ** -0.5, dtype=dt)
+    v = _rnd(cuda, n, r, s, scale=r ** -0.5, dtype=dt)
+    n0 = bk.launches
+    y = bk.branched_matmul(x, u, xc, v)
+    assert bk.launches == n0 + 1
+    assert _norm_err(y, ref.branched_matmul_ref(x, u, xc, v)) \
+        <= chip_smoke.KERNEL_TOL["bfloat16"]
+
+
+@pytest.mark.parametrize("m", [72, 512])
+@pytest.mark.parametrize("label", [*chip_smoke.BRANCHED_SHAPES, "ds o"])
+def test_branched_bf16_row_blocks_same_bits(cuda, label, m):
+    """M past one 64-row block: the split-phase kernel loops over row
+    blocks; two calls on the same inputs give the same bits (no atomics),
+    one launch each."""
+    from repro_torch.kernels import branched_matmul as bk
+    from repro_torch.kernels import ref
+    n, c, r, s = {**chip_smoke.BRANCHED_SHAPES,
+                  **chip_smoke.DEEPSEEK_BRANCHED_SHAPES}[label]
+    dt = torch.bfloat16
+    x = _rnd(cuda, m, c, dtype=dt)
+    u = _rnd(cuda, n, c, r, scale=c ** -0.5, dtype=dt)
+    xc = _rnd(cuda, n, r, r, scale=r ** -0.5, dtype=dt)
+    v = _rnd(cuda, n, r, s, scale=r ** -0.5, dtype=dt)
+    n0 = bk.launches
+    y = bk.branched_matmul(x, u, xc, v)
+    assert bk.launches == n0 + 1
+    y2 = bk.branched_matmul(x, u, xc, v)
+    assert bk.launches == n0 + 2
+    assert torch.equal(y, y2)
+    assert _norm_err(y, ref.branched_matmul_ref(x, u, xc, v)) \
+        <= chip_smoke.KERNEL_TOL["bfloat16"]
+
+
+def test_branched_mma_smem_and_grid(cuda):
+    """The C side's shared memory equals the wrapper's count, under the
+    opt-in limit, and the persistent grid holds at least one CTA per SM."""
+    from repro_torch.kernels import branched_matmul as bk
+    from repro_torch.kernels import build
+    lib = build.load()
+    assert lib.lrk_branched_mma_smem() == bk.mma_smem_bytes() \
+        <= build.SMEM_LIMIT
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for rows in (1, 16, 32, 64):
+        assert lib.lrk_branched_mma_grid(rows) >= sms
+
+
+@pytest.mark.parametrize("m", [8, 72])
+def test_branched_phase_timer(cuda, m):
+    """The split-phase kernel's phase timer: one counted launch, three
+    non-negative phase times per 64-row block."""
+    from repro_torch.kernels import branched_matmul as bk
+    n, c, r, s = chip_smoke.BRANCHED_SHAPES["q,o"]
+    dt = torch.bfloat16
+    args = (_rnd(cuda, m, c, dtype=dt), _rnd(cuda, n, c, r, dtype=dt),
+            _rnd(cuda, n, r, r, dtype=dt), _rnd(cuda, n, r, s, dtype=dt))
+    n0 = bk.launches
+    us = bk.branched_matmul_phase_us(*args)
+    assert bk.launches == n0 + 1
+    assert len(us) == 3 * -(-m // 64) and min(us) >= 0 and sum(us) > 0
+
+
 @pytest.mark.parametrize("quantize", ["none", "int8"])
 def test_serve_path_launches_kernels_and_matches_cpu(cuda, quantize):
     """The engine on the card goes through the path's kernels (bf16
@@ -339,9 +412,11 @@ def test_decode_attention_latent_q_kernel_matches_plain(cuda, case, dtype):
 @pytest.mark.parametrize("m", chip_smoke.DEEPSEEK_M_CASES)
 @pytest.mark.parametrize("label", list(chip_smoke.DEEPSEEK_BRANCHED_SHAPES))
 def test_branched_kernels_at_deepseek_shapes(cuda, label, m, dtype):
-    """B2 and B4 (int8 factors) at DeepSeek-V2's wide branch ranks: the
-    32-row block does not fit shared memory at M = 64, so they launch at
-    8 rows and stay within tolerance."""
+    """B2 and B4 (int8 factors) at DeepSeek-V2's wide branch ranks stay
+    within tolerance, one launch per call.  B4 and f32 B2 launch at 8 rows
+    (the 32-row block does not fit shared memory at M = 64); bf16 B2 is
+    the split-phase kernel, whose shared memory does not depend on the
+    ranks, and gives the same bits on a second call."""
     from repro_torch.kernels import branched_matmul as bk
     from repro_torch.kernels import branched_matmul_q as bqk
     from repro_torch.kernels import ref
@@ -356,6 +431,7 @@ def test_branched_kernels_at_deepseek_shapes(cuda, label, m, dtype):
     assert bk.launches == n0 + 1
     assert _norm_err(y, ref.branched_matmul_ref(x, u, xc, v)) \
         <= chip_smoke.KERNEL_TOL[dtype]
+    assert torch.equal(y, bk.branched_matmul(x, u, xc, v))
     del u, xc, v
     args = (x, *_quantized(cuda, n, c, r, mode="int8"),
             *_quantized(cuda, n, r, r, mode="int8"),

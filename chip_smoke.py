@@ -26,13 +26,16 @@ Phases (each prints its own seconds; any failure exits non-zero):
              the kernel, the plain version and one library call as
              yardstick (CUDA events), beside the bound (bytes at 3.35
              TB/s, operations at 989 TFLOP/s bf16 / 67 TFLOP/s f32 /
-             1,979 TOP/s int8).  The branched_matmul rows also time the
-             kernel and the library call with a cold L2 (``cold_ms``,
+             1,979 TOP/s int8).  The branched chain rows (bf16,
+             quantized and 2:4: B2, B4, B12) also time the kernel and
+             the library call with a cold L2 (``cold_ms``,
              ``library_cold_ms``: 100 MB written before each launch),
              and in bf16 the cluster kernel (the earlier bf16 design)
-             in turns with the split-phase kernel (``prev_ms``) and the
+             in turns with the split-phase kernel (``prev_ms``), the
              split-phase kernel's three phases (``phase_us``, its own
-             timer).
+             timer), and check that a second call gives the same bits;
+             a control row beside DeepSeek-V2's ``ds o`` at a rank of
+             whole 128-byte int8 rows (``ALIGNED_CONTROL``).
 4. serve   — llama3.2-1b at full width (random weights from a seed, bf16)
              decomposed with SVD + branched surgery, served by
              ServeEngine(slots=8, max_seq=1024) on 8 requests; every
@@ -147,10 +150,10 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 #: intermediates round to bf16 in both, so a last-bit difference in an
 #: f32 partial sum can flip one intermediate's rounding (2^-8 relative).
 KERNEL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
-#: extra times of the branched_matmul rows: the cluster kernel (the
-#: earlier bf16 design) on the same bf16 inputs in the same call, and
-#: the kernel and its library call with a cold L2
-B2_TIMES = ("prev_ms", "cold_ms", "library_cold_ms")
+#: extra times of the branched chain rows (B2, B4, B12): the cluster
+#: kernel (the earlier bf16 design) on the same bf16 inputs in the same
+#: call, and the kernel and its library call with a cold L2
+SPLIT_TIMES = ("prev_ms", "cold_ms", "library_cold_ms")
 
 #: max |card bf16 logits - CPU f32 logits| / std(CPU logits): bf16
 #: activations and weights round at every layer boundary of 16 layers.
@@ -184,6 +187,11 @@ DEEPSEEK_BRANCHED_SHAPES = {"ds o": (4, 16384, 480, 5120),
                             "ds gate,up": (4, 5120, 448, 12288),
                             "ds down": (4, 12288, 448, 5120),
                             "ds unembed": (4, 5120, 608, 102400)}
+#: a control beside "ds o": the same sizes at a rank whose int8 rows are
+#: whole 128-byte lines (512, where 480 puts most column tiles across two
+#: lines), so the rows' phase 1 times show what line-straddling rows cost
+#: each weight view; timed at M = 8 with int8 factors
+ALIGNED_CONTROL = {"ds o, r 512": (4, 16384, 512, 5120)}
 MLA_LAYERS = 4
 MLA_BRANCHED_LAUNCHES = {"ds o": MLA_LAYERS, "ds gate,up": 2 * MLA_LAYERS,
                          "ds down": MLA_LAYERS, "ds unembed": 1}
@@ -464,11 +472,14 @@ def check_kernels(card: str, only: frozenset = frozenset(KERNELS)
         for label, case in LATENT_CASES.items():
             add("decode_attention_latent_q",
                 lambda: _check_latent(label, case, dname, rnd))
-        if dname == "bfloat16":
+        if dname == "bfloat16" and only & branched:
             for label, shape in DEEPSEEK_BRANCHED_SHAPES.items():
-                for m in (DEEPSEEK_M_CASES if only & branched else ()):
+                for m in DEEPSEEK_M_CASES:
                     _check_branched(add, label, shape, m, dname, rnd, qrnd,
                                     ("int8",), spack, flush, only)
+            for label, shape in ALIGNED_CONTROL.items():
+                _check_branched(add, label, shape, 8, dname, rnd, qrnd,
+                                ("int8",), spack, flush, only)
         for label, case in ATTN_CASES.items():
             add("decode_attention_q",
                 lambda: _check_attention(label, case, dname, rnd))
@@ -490,9 +501,10 @@ def check_kernels(card: str, only: frozenset = frozenset(KERNELS)
     failures = []
     for name, rs in rows.items():
         for row in rs:
-            ok = row["norm_err"] <= KERNEL_TOL[row["dtype"]]
+            ok = (row["norm_err"] <= KERNEL_TOL[row["dtype"]]
+                  and row.get("same_bits", True))
             lib_ms = row["library_ms"]
-            extra = "".join(f"{k}={row[k]:.4f} " for k in B2_TIMES
+            extra = "".join(f"{k}={row[k]:.4f} " for k in SPLIT_TIMES
                             if row.get(k) is not None)
             if row.get("phase_us"):
                 extra += "phase_us=" + "/".join(
@@ -504,6 +516,8 @@ def check_kernels(card: str, only: frozenset = frozenset(KERNELS)
                 f"(tol {KERNEL_TOL[row['dtype']]:.0e}) "
                 + (f"differing={row['differing']} "
                    if "differing" in row else "")
+                + (f"same_bits={row['same_bits']} "
+                   if "same_bits" in row else "")
                 + f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
                 + extra +
                 f"library_ms={'null' if lib_ms is None else f'{lib_ms:.4f}'} "
@@ -512,19 +526,38 @@ def check_kernels(card: str, only: frozenset = frozenset(KERNELS)
             if not ok:
                 failures.append((name, row))
     if failures:
-        raise SystemExit(f"kernel disagrees with its plain version: "
-                         f"{failures}")
+        raise SystemExit(f"kernel disagrees with its plain version (or "
+                         f"with its own first call): {failures}")
     return _kernel_entries(rows)
 
 
+def _split_times(kernel, prev, phases, library, flush, dname: str) -> dict:
+    """Times of one branched chain row (B2, B4 or B12) beside its cuBLAS
+    chain ``library``.  bf16 runs the split-phase ``kernel``: timed in
+    turns with ``prev``, the cluster kernel (the earlier design; new, old,
+    old, new: ``prev_ms``), its phase timer read (``phase_us``, the
+    fastest of five launches of ``phases()``) and a second call held to
+    the first's bits (``same_bits``).  f32 runs the cluster kernel.
+    ``cold_ms`` and ``library_cold_ms`` time the kernel and the library
+    call with a cold L2."""
+    import torch
+    out = dict(prev_ms=None, phase_us=None)
+    if dname == "bfloat16":
+        turns = [time_ms(kernel), time_ms(prev), time_ms(prev),
+                 time_ms(kernel)]
+        out.update(ms=(turns[0] + turns[3]) / 2,
+                   prev_ms=(turns[1] + turns[2]) / 2,
+                   phase_us=min((phases() for _ in range(5)), key=sum),
+                   same_bits=torch.equal(kernel(), kernel()))
+    else:
+        out["ms"] = time_ms(kernel)
+    return dict(out, cold_ms=cold_ms(kernel, flush),
+                library_ms=time_ms(library),
+                library_cold_ms=cold_ms(library, flush))
+
+
 def _branched_row(label: str, x, u, xc, v, dname: str, flush) -> dict:
-    """One branched_matmul row.  bf16 runs the split-phase kernel, times
-    the cluster kernel (the earlier design) beside it in turns (new, old,
-    old, new; ``prev_ms``) and reads the kernel's phase timer
-    (``phase_us``, one entry per phase and row block); f32 runs the
-    cluster kernel.
-    ``cold_ms`` and ``library_cold_ms`` time the kernel and the cuBLAS
-    chain of batched products with a cold L2."""
+    """One branched_matmul row (:func:`_split_times`)."""
     import torch
     from repro_torch.kernels import ref
     bk = kernel_module("branched_matmul")
@@ -535,32 +568,16 @@ def _branched_row(label: str, x, u, xc, v, dname: str, flush) -> dict:
     want = ref.branched_matmul_ref(x, u, xc, v)
     torch.cuda.synchronize()
     xb3 = x.expand(n, m, c)
-
-    def kernel():
-        return bk.branched_matmul(x, u, xc, v)
-
-    def library():
-        return torch.bmm(torch.bmm(torch.bmm(xb3, u), xc), v).sum(0)
-
-    phases = None
-    if dname == "bfloat16":
-        def prev():
-            return bk.cluster_branched_matmul(x, u, xc, v)
-        turns = [time_ms(kernel), time_ms(prev), time_ms(prev),
-                 time_ms(kernel)]
-        ms, prev_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
-        # the phase timer's fastest of five launches
-        phases = min((bk.branched_matmul_phase_us(x, u, xc, v)
-                      for _ in range(5)), key=sum)
-    else:
-        ms, prev_ms = time_ms(kernel), None
     return dict(
         shape=label, dtype=dname, M=m, N=n, C=c, r=r, S=s,
-        **_compare(y, want, dname), ms=ms, prev_ms=prev_ms, phase_us=phases,
-        cold_ms=cold_ms(kernel, flush),
+        **_compare(y, want, dname),
+        **_split_times(
+            lambda: bk.branched_matmul(x, u, xc, v),
+            lambda: bk.cluster_branched_matmul(x, u, xc, v),
+            lambda: bk.branched_matmul_phase_us(x, u, xc, v),
+            lambda: torch.bmm(torch.bmm(torch.bmm(xb3, u), xc), v).sum(0),
+            flush, dname),
         plain_ms=time_ms(lambda: ref.branched_matmul_ref(x, u, xc, v)),
-        library_ms=time_ms(library),
-        library_cold_ms=cold_ms(library, flush),
         **_bound(x.dtype.itemsize * (m * c + n * (c * r + r * r + r * s)
                                      + m * s),
                  2 * m * n * (c * r + r * r + r * s), dname))
@@ -601,31 +618,38 @@ def _check_branched(add, label: str, shape: tuple, m: int, dname: str, rnd,
         add("branched_matmul_q", lambda: dict(
             shape=label, dtype=dname, qmode=mode, M=m, N=n, C=c, r=r, S=s,
             **_compare(y, want, dname),
-            ms=time_ms(lambda: bqk.branched_matmul_q(*args)),
+            **_split_times(
+                lambda: bqk.branched_matmul_q(*args),
+                lambda: bqk.cluster_branched_matmul_q(*args),
+                lambda: bqk.branched_matmul_q_phase_us(*args),
+                lambda: torch.bmm(torch.bmm(torch.bmm(xb3, ud), xcd),
+                                  vd).sum(0), flush, dname),
             plain_ms=time_ms(lambda: ref.branched_matmul_q_ref(*args)),
-            library_ms=time_ms(lambda: torch.bmm(torch.bmm(
-                torch.bmm(xb3, ud), xcd), vd).sum(0)),
             **_bound(xb * (m * c + m * s) + n * (c * r + r * r + r * s)
                      + 4 * n * (2 * r + s), flops, dname)))
         del ud, xcd, vd
         add("branched_matmul_sq", lambda: _check_sq(
             label, x, [spack(n, c, r, mode=mode), qs[1],
-                       spack(n, r, s, mode=mode)], dname))
+                       spack(n, r, s, mode=mode)], dname, flush))
 
 
-def _check_sq(label: str, x, factors: list, dname: str) -> dict:
+def _check_sq(label: str, x, factors: list, dname: str,
+              flush=None) -> dict:
     """One row of a 2:4 chain on ``x``: ``factors`` are the 2:4 packs
     (sp, idx, scale) of w0 / w1, or of u / v around the quantized core
     (q, scale) of xc.  The yardstick is the cuBLAS chain on the factors
-    expanded and dequantized beforehand.  The bound counts the packed
-    values, the index bytes, the scales and the activations at HBM rate,
-    and the kept products only (the pruned half costs no operations)."""
+    expanded and dequantized beforehand; a branched row takes
+    :func:`_split_times` (``flush`` for its cold-L2 times).  The bound
+    counts the packed values, the index bytes, the scales and the
+    activations at HBM rate, and the kept products only (the pruned half
+    costs no operations)."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.quant.sparse import expand_sparse
     lowrank = len(factors) == 2
     name = "lowrank_matmul_sq" if lowrank else "branched_matmul_sq"
-    fn = getattr(kernel_module(name), name)
+    mod = kernel_module(name)
+    fn = getattr(mod, name)
     plain = getattr(ref, name + "_ref")
     args = (x, *[t for f in factors for t in f])
     y = fn(*args)
@@ -639,7 +663,8 @@ def _check_sq(label: str, x, factors: list, dname: str) -> dict:
     if lowrank:
         (r, s), n = dense[1].shape, 1
         w0d, w1d = dense
-        library_ms = time_ms(lambda: (x @ w0d) @ w1d)
+        times = dict(ms=time_ms(lambda: fn(*args)),
+                     library_ms=time_ms(lambda: (x @ w0d) @ w1d))
         kept = c * r // 2 + r * s // 2
         dims = dict(C=c, R=r, S=s)
     else:
@@ -647,8 +672,12 @@ def _check_sq(label: str, x, factors: list, dname: str) -> dict:
         ud, vd = dense
         xcd = (factors[1][0].to(torch.float32) * factors[1][1]).to(dt)
         xb3 = x.expand(n, m, c)
-        library_ms = time_ms(lambda: torch.bmm(torch.bmm(
-            torch.bmm(xb3, ud), xcd), vd).sum(0))
+        times = _split_times(
+            lambda: fn(*args),
+            lambda: mod.cluster_branched_matmul_sq(*args),
+            lambda: mod.branched_matmul_sq_phase_us(*args),
+            lambda: torch.bmm(torch.bmm(torch.bmm(xb3, ud), xcd),
+                              vd).sum(0), flush, dname)
         kept = n * (c * r // 2 + r * r + r * s // 2)
         dims = dict(N=n, C=c, r=r, S=s)
     del dense
@@ -657,10 +686,8 @@ def _check_sq(label: str, x, factors: list, dname: str) -> dict:
               + 4 * sum(f[-1].numel() for f in factors))
     top = int((packs[0][1][..., 0, :, 0] == 2).sum().item())
     return dict(shape=label, dtype=dname, qmode=qmode, M=m, **dims,
-                top_groups=top, **_compare(y, want, dname),
-                ms=time_ms(lambda: fn(*args)),
+                top_groups=top, **_compare(y, want, dname), **times,
                 plain_ms=time_ms(lambda: plain(*args)),
-                library_ms=library_ms,
                 library="cuBLAS chain on factors expanded beforehand",
                 **_bound(nbytes, 2 * m * kept, dname))
 
@@ -958,7 +985,7 @@ def _kernel_entries(rows: dict[str, list[dict]]) -> list[dict]:
         prefill = name in PREFILL_LAUNCHES
         m = 64 if prefill else 8
         timed = ("ms", "plain_ms", "library_ms", "bound_ms") + tuple(
-            k for k in B2_TIMES if k in rs[0])
+            k for k in SPLIT_TIMES if k in rs[0])
         per_step = {k: 0.0 for k in timed + ("bytes", "flops")}
         t_ops = 0.0
         for label, count in (PREFILL_LAUNCHES if prefill
@@ -994,7 +1021,8 @@ def _kernel_entries(rows: dict[str, list[dict]]) -> list[dict]:
                     "ms": per_step["ms"], "plain_ms": per_step["plain_ms"],
                     "bound_ms": per_step["bound_ms"], "bound_by": by,
                     "library_ms": per_step["library_ms"],
-                    **{k: per_step[k] for k in B2_TIMES if k in per_step},
+                    **{k: per_step[k] for k in SPLIT_TIMES
+                       if k in per_step},
                     "timed_as": (
                         "one prefill chunk's launches, M=64, bf16, int8 "
                         "factors" if prefill else
@@ -1514,6 +1542,37 @@ def check_mla_surgery(rep, params, card: str) -> None:
         raise SystemExit(f"MLA surgery decided {got}, want {MLA_SURGERY}")
 
 
+def split_kernels() -> None:
+    """Print the shared memory and the persistent grid of every
+    split-phase kernel (bf16 B2; B4 and B12 on int8 / e4m3) at each row
+    tile count, and fail where the C side's shared memory disagrees with
+    the wrapper's count or a grid is empty."""
+    import torch
+    from repro_torch.kernels import branched_matmul as bk
+    from repro_torch.kernels import build
+    lib = build.load()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for kind, name, qtypes in (("bf16", "branched_matmul", (None,)),
+                               ("q", "branched_matmul_q", (0, 1)),
+                               ("sq", "branched_matmul_sq", (0, 1))):
+        tag = "" if kind == "bf16" else f"_{kind}"
+        smem = int(getattr(lib, f"lrk_branched{tag}_mma_smem")())
+        grid_of = getattr(lib, f"lrk_branched{tag}_mma_grid")
+        for qt in qtypes:
+            grids = {rows: int(grid_of(rows) if qt is None
+                               else grid_of(qt, rows))
+                     for rows in (8, 32, 64)}
+            factors = "" if qt is None else ("int8", "e4m3")[qt] + ", "
+            log(f"{name} (split-phase, {factors}{bk.STAGES} stages): "
+                f"{smem} B of dynamic shared "
+                f"memory (wrapper's count {bk.mma_smem_bytes(kind)}, limit "
+                f"{build.SMEM_LIMIT}); persistent grid (CTAs) at 8 / 32 / "
+                f"64 rows: {grids} on {sms} SMs")
+            if smem != bk.mma_smem_bytes(kind) or min(grids.values()) <= 0:
+                raise SystemExit(f"{name} split-phase kernel: shared memory "
+                                 "or grid disagrees with the wrapper")
+
+
 def latent_smem() -> int:
     """Dynamic shared memory of one decode_attention_latent_q launch at
     the served latent pool."""
@@ -1794,19 +1853,7 @@ def main() -> int:
                 log(f"dynamic shared memory, {dt}, DeepSeek-V2 branched "
                     f"shapes at 32 rows (the block a prefill chunk took "
                     f"before the fit repair): {at32}")
-            from repro_torch.kernels import branched_matmul as bk
-            mma_smem = int(lib.lrk_branched_mma_smem())
-            grids = {rows: int(lib.lrk_branched_mma_grid(rows))
-                     for rows in (8, 32, 64)}
-            log(f"bf16 branched_matmul (split-phase): {mma_smem} B of "
-                f"dynamic shared memory (wrapper's count "
-                f"{bk.mma_smem_bytes()}, limit {build.SMEM_LIMIT}); "
-                f"persistent grid (CTAs) at 8 / 32 / 64 rows: {grids} on "
-                f"{torch.cuda.get_device_properties(0).multi_processor_count}"
-                " SMs")
-            if mma_smem != bk.mma_smem_bytes() or min(grids.values()) <= 0:
-                raise SystemExit("split-phase kernel: shared memory or grid "
-                                 "disagrees with the wrapper")
+            split_kernels()
             log("dynamic shared memory, decode_attention_latent_q at the "
                 "served latent pool: "
                 f"{latent_smem()} B (limit {build.SMEM_LIMIT} B)")

@@ -30,6 +30,19 @@ launches = 0
 #: block, columns of a tile, reduction rows per stage, ring depth, and the
 #: padding (elements) of a shared-memory row
 BM, BN, BK, STAGES, PAD = 64, 128, 32, 6, 8
+#: bytes of one ring stage of each weight view (csrc/mma_chain.cuh): a
+#: padded bf16 tile; BK rows of BN int8 / e4m3 values and BN f32 scales,
+#: or, for u's view, BK rows of the two 128-byte lines that may hold a
+#: row's BN values; the 2:4 pack's two slots of BK/4 value rows, a 4-byte
+#: word per index byte and BN scales
+RAW_STAGE = {"plain": BK * (BN + PAD) * 2, "dequant": BK * BN + 4 * BN,
+             "dequant_lines": BK * 2 * BN + 4 * BN,
+             "sparse24": 2 * (BK // 4) * BN + 2 * (BK // 4) * 4 + 4 * BN}
+#: the views of u, xc and v of each split-phase kernel: bf16 factors
+#: (this module), quantized factors (branched_matmul_q), 2:4 packs
+#: (branched_matmul_sq)
+VIEWS = {"bf16": ("plain",) * 3, "q": ("dequant_lines", "dequant", "dequant"),
+         "sq": ("sparse24", "dequant", "sparse24")}
 #: work items per SM each phase aims for (one round of the persistent
 #: grid, two CTAs per SM)
 ITEMS_PER_SM = 2
@@ -37,10 +50,14 @@ ITEMS_PER_SM = 2
 ALIGN = 256
 
 
-def mma_smem_bytes() -> int:
-    """Dynamic shared memory of the split-phase kernel (bytes): the ring of
-    STAGES (A, W) stage pairs, fixed by the tile whatever the ranks."""
-    return STAGES * (BM * (BK + PAD) + BK * (BN + PAD)) * 2
+def mma_smem_bytes(kind: str = "bf16") -> int:
+    """Dynamic shared memory of a split-phase kernel (bytes; ``kind`` a key
+    of VIEWS), fixed by the tile whatever the ranks: the ring of (A,
+    weight) stage pairs and, for a converting view, two converted bf16
+    tiles -- the largest of its three views'."""
+    return max(STAGES * (BM * (BK + PAD) * 2 + RAW_STAGE[view])
+               + (0 if view == "plain" else 2 * BK * (BN + PAD) * 2)
+               for view in VIEWS[kind])
 
 
 def _slice(k: int, tiles: int, target: int) -> int:
@@ -192,19 +209,15 @@ def branched_matmul(x: torch.Tensor, u: torch.Tensor, xc: torch.Tensor,
     """x (M,C); u (N,C,r1); xc (N,r1,r2); v (N,r2,S) -> (M,S), all one
     float dtype on one CUDA device, contiguous."""
     global launches
-    m, c, n, r1, r2, s = check_operands(x, u, xc, v)
-    y = torch.empty((m, s), dtype=x.dtype, device=x.device)
-    if m == 0 or s == 0:
+    dims = check_operands(x, u, xc, v)
+    y = torch.empty((dims[0], dims[5]), dtype=x.dtype, device=x.device)
+    if y.numel() == 0:
         return y
     if x.dtype == torch.float32:
         _launch_cluster(x, u, xc, v, y)
-        launches += 1
-        return y
-    if min(c, n, r1, r2) == 0:
-        raise ValueError(f"branched_matmul kernel: empty factors "
-                         f"{tuple(u.shape)} {tuple(xc.shape)} "
-                         f"{tuple(v.shape)}")
-    _launch_mma(x, u, xc, v, y, None)
+    else:
+        check_factors("branched_matmul", dims, u, xc, v)
+        _launch_mma(x, u, xc, v, y, None, dims)
     launches += 1
     return y
 
@@ -216,37 +229,65 @@ def branched_matmul_phase_us(x: torch.Tensor, u: torch.Tensor,
     timer on: microseconds of each phase (1, 2, 3 per row block, each up
     to the grid sync that ends it), read by CTA 0 from %globaltimer."""
     global launches
-    m, c, n, r1, r2, s = check_operands(x, u, xc, v)
-    if x.dtype != torch.bfloat16 or min(m, c, n, r1, r2, s) == 0:
+    dims = check_operands(x, u, xc, v)
+    us = phase_us(lambda y, ts: _launch_mma(x, u, xc, v, y, ts, dims), x,
+                  dims)
+    launches += 1
+    return us
+
+
+def check_factors(what: str, dims: tuple[int, ...], *factors) -> None:
+    """Raise on empty factors: the split-phase kernels take none."""
+    if min(dims[1:5]) == 0:
+        raise ValueError(f"{what} kernel: empty factors "
+                         + " ".join(str(tuple(f.shape)) for f in factors))
+
+
+def phase_us(launch, x: torch.Tensor, dims: tuple[int, ...]) -> list[float]:
+    """Run ``launch(y, ts)``, one launch of a split-phase kernel on bf16
+    ``x`` with its phase timer ``ts`` on, and return the microseconds of
+    each phase (1, 2, 3 per row block, each up to the grid sync that ends
+    it), read by CTA 0 from %globaltimer."""
+    m, s = dims[0], dims[5]
+    if x.dtype != torch.bfloat16 or min(dims) == 0:
         raise ValueError("the phase timer runs the bf16 kernel on "
                          "non-empty operands")
     y = torch.empty((m, s), dtype=x.dtype, device=x.device)
     ts = torch.zeros(1 + 3 * math.ceil(m / BM), dtype=torch.int64,
                      device=x.device)
-    _launch_mma(x, u, xc, v, y, ts)
-    launches += 1
+    launch(y, ts)
     t = ts.tolist()
     return [(b - a) / 1e3 for a, b in zip(t, t[1:])]
 
 
-def _launch_mma(x: torch.Tensor, u: torch.Tensor, xc: torch.Tensor,
-                v: torch.Tensor, y: torch.Tensor,
-                ts: torch.Tensor | None) -> None:
-    """The split-phase kernel on bf16 operands already checked."""
-    m, c = x.shape
-    n, _, r1 = u.shape
-    r2, s = v.shape[1:]
+def launch_split(entry: str, lead: tuple, x: torch.Tensor,
+                 weights: tuple[torch.Tensor, ...], y: torch.Tensor,
+                 dims: tuple[int, ...], ts: torch.Tensor | None,
+                 what: str) -> None:
+    """One cooperative launch of a split-phase kernel, the library's C
+    function ``entry``, on operands already checked: ``lead`` the
+    arguments before x (the factors' storage code), ``weights`` the
+    factor tensors in the C order, ``dims`` (M, C, N, r1, r2, S).  Plans
+    the work split and allocates its scratch."""
     lib = build.load()
-    ks, nbytes, off = _plan(m, c, n, r1, r2, s, _sm_count(x.device.index))
+    ks, nbytes, off = _plan(*dims, _sm_count(x.device.index))
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
     base = scratch.data_ptr()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.lrk_branched_matmul_mma(
-            x.data_ptr(), u.data_ptr(), xc.data_ptr(), v.data_ptr(),
-            y.data_ptr(), *(base + o for o in off), m, c, n, r1, r2, s, *ks,
+        rc = getattr(lib, entry)(
+            *lead, x.data_ptr(), *(w.data_ptr() for w in weights),
+            y.data_ptr(), *(base + o for o in off), *dims, *ks,
             None if ts is None else ts.data_ptr(), stream)
-    build.check(lib, rc, "branched_matmul")
+    build.check(lib, rc, what)
+
+
+def _launch_mma(x: torch.Tensor, u: torch.Tensor, xc: torch.Tensor,
+                v: torch.Tensor, y: torch.Tensor, ts: torch.Tensor | None,
+                dims: tuple[int, ...]) -> None:
+    """The split-phase kernel on bf16 operands already checked."""
+    launch_split("lrk_branched_matmul_mma", (), x, (u, xc, v), y, dims, ts,
+                 "branched_matmul")
 
 
 def _launch_cluster(x: torch.Tensor, u: torch.Tensor, xc: torch.Tensor,

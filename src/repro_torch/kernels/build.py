@@ -111,6 +111,20 @@ def load() -> ctypes.CDLL:
     lib.lrk_branched_mma_smem.restype = ctypes.c_size_t
     lib.lrk_branched_mma_grid.argtypes = [i]
     lib.lrk_branched_mma_grid.restype = i
+    lib.lrk_branched_matmul_q_mma.argtypes = [i, p, p, p, p, p, p, p, p, p,
+                                              p, p, i, i, i, i, i, i, i, i,
+                                              i, p, p]
+    lib.lrk_branched_matmul_q_mma.restype = i
+    lib.lrk_branched_matmul_sq_mma.argtypes = [i, p, p, p, p, p, p, p, p, p,
+                                               p, p, p, p, i, i, i, i, i, i,
+                                               i, i, i, p, p]
+    lib.lrk_branched_matmul_sq_mma.restype = i
+    for kind in ("q", "sq"):
+        getattr(lib, f"lrk_branched_{kind}_mma_smem").argtypes = []
+        getattr(lib, f"lrk_branched_{kind}_mma_smem").restype = \
+            ctypes.c_size_t
+        getattr(lib, f"lrk_branched_{kind}_mma_grid").argtypes = [i, i]
+        getattr(lib, f"lrk_branched_{kind}_mma_grid").restype = i
     lib.lrk_lowrank_matmul_q.argtypes = [i, i, i, p, p, p, p, p, p, i, i,
                                          i, i, p]
     lib.lrk_lowrank_matmul_q.restype = i

@@ -15,7 +15,20 @@
 // r2*S/2) values, N*(C/2 + r2/2) index bytes, the scale rows) -- a few
 // FLOPs per byte at decode and at prefill-chunk row counts.
 //
-// Design: the chain of branched_matmul_q.cu (lrk_common.cuh
+// bf16 activations: the split-phase tensor-core kernel of bf16
+// branched_matmul (branched_mma.cuh; branched_matmul.cu's note has the
+// design) with u and v read through mma_chain.cuh's Sparse24B view and
+// xc through DequantB.  A ring stage of a pack carries, by cp.async, the
+// two slots' kept values of its 8 groups of 4 rows (a quarter of bf16's
+// bytes), the 4-byte words around their 16 index bytes and the scales of
+// its branch; once it has landed, each warp expands one group into 4
+// rows of round_bf16(value * scale), exactly 0 where pruned (so a NaN
+// activation meeting a pruned row still reaches y, as in the reference's
+// dense dot), into one of two bf16 tiles, while the warps multiply the
+// other on mma.sync.  A 2:4 group never straddles a stage or a branch: C
+// and r2 are multiples of 4 and a stage is 32 rows.
+//
+// f32 activations: the chain of branched_matmul_q.cu (lrk_common.cuh
 // branched_chain: h1 and h2 of every branch in shared memory, shared by
 // an 8-CTA cluster, the branch sum in one f32 accumulator per output
 // tile) with u and v read through the Sparse24 view -- a staging thread
@@ -25,6 +38,9 @@
 // Dequant view.  Per branch a pack moves by K*N/2 values, K/2 indices
 // and N scales.  Every row takes its FMA as in the dense chain; shared
 // memory is branched_matmul's at the same ranks (lrk_branched_smem).
+// Its bf16 instantiation stays callable as a yardstick (chip_smoke's
+// prev_ms); the wrapper never launches it for bf16.
+#include "branched_mma.cuh"
 #include "lrk_common.cuh"
 
 namespace lrk {
@@ -74,6 +90,31 @@ int dispatch_bm(int bm, const void* x, const void* usp, const void* uidx,
                                             s);
 }
 
+template <typename Q>
+int launch_sq_mma(const void* x, const void* usp, const void* uidx,
+                  const void* us, const void* xcq, const void* xcs,
+                  const void* vsp, const void* vidx, const void* vs, void* y,
+                  void* p, void* h1, void* h2, int M, int C, int N, int R1,
+                  int R2, int S, int k1, int k2, int k3, void* ts,
+                  cudaStream_t stream) {
+  using P = mmac::Sparse24B<Q>;
+  using D = mmac::DequantB<Q>;
+  const auto f = [](const void* s) { return static_cast<const float*>(s); };
+  const auto i8 = [](const void* s) { return static_cast<const int8_t*>(s); };
+  return mmac::launch_split(
+      x,
+      P{static_cast<const Q*>(usp), i8(uidx), f(us), R1, mmac::row_div(C)},
+      D{static_cast<const Q*>(xcq), f(xcs), R2, mmac::row_div(R1)},
+      P{static_cast<const Q*>(vsp), i8(vidx), f(vs), S, mmac::row_div(R2)},
+      y, p, h1, h2, M, C, N, R1, R2, S, k1, k2, k3, ts, stream);
+}
+
+template <typename Q>
+int sq_grid(int rows) {
+  using P = mmac::Sparse24B<Q>;
+  return mmac::split_grid<P, mmac::DequantB<Q>, P>(rows);
+}
+
 }  // namespace lrk
 
 extern "C" {
@@ -110,6 +151,49 @@ int lrk_branched_matmul_sq(int dtype, int qtype, int bm, const void* x,
   if (dtype == 1 && qtype == 1)
     return lrk::dispatch_bm<bf16, fp8>(bm, x, usp, uidx, us, xcq, xcs, vsp,
                                        vidx, vs, y, M, C, N, R1, R2, S, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory of the bf16 split-phase kernel on 2:4 packs
+// (bytes): fixed by its tile, whatever the ranks.
+size_t lrk_branched_sq_mma_smem(void) {
+  using P = mmac::Sparse24B<int8_t>;  // e4m3 stages the same bytes
+  return mmac::split_smem<P, mmac::DequantB<int8_t>, P>();
+}
+
+// Its persistent grid (CTAs) on the current device for a row block of
+// `rows` rows (qtype: 0 = int8, 1 = e4m3), or minus the cudaError_t.
+int lrk_branched_sq_mma_grid(int qtype, int rows) {
+  if (qtype == 0) return lrk::sq_grid<int8_t>(rows);
+  if (qtype == 1) return lrk::sq_grid<__nv_fp8_e4m3>(rows);
+  return -(int)cudaErrorInvalidValue;
+}
+
+// bf16 y (M,S) = sum_n ((x @ ds(u[n])) @ dq(xc[n])) @ ds(v[n]) in one
+// cooperative launch of the split-phase kernel: operands as
+// lrk_branched_matmul_sq's, x and y bf16; p / h1 / h2 the scratch regions
+// branched_split lays out, k1 / k2 / k3 its K-slice lengths; ts null, or
+// 1 + 3 * ceil(M / 64) u64 slots for the phase timer.  C and R2 must be
+// multiples of 4.  Returns the launch's cudaError_t.
+int lrk_branched_matmul_sq_mma(int qtype, const void* x, const void* usp,
+                               const void* uidx, const void* us,
+                               const void* xcq, const void* xcs,
+                               const void* vsp, const void* vidx,
+                               const void* vs, void* y, void* p, void* h1,
+                               void* h2, int M, int C, int N, int R1,
+                               int R2, int S, int k1, int k2, int k3,
+                               void* ts, void* stream) {
+  if (C % 4 != 0 || R2 % 4 != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (qtype == 0)
+    return lrk::launch_sq_mma<int8_t>(x, usp, uidx, us, xcq, xcs, vsp, vidx,
+                                      vs, y, p, h1, h2, M, C, N, R1, R2, S,
+                                      k1, k2, k3, ts, s);
+  if (qtype == 1)
+    return lrk::launch_sq_mma<__nv_fp8_e4m3>(x, usp, uidx, us, xcq, xcs,
+                                             vsp, vidx, vs, y, p, h1, h2, M,
+                                             C, N, R1, R2, S, k1, k2, k3, ts,
+                                             s);
   return (int)cudaErrorInvalidValue;
 }
 

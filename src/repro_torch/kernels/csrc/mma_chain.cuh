@@ -23,16 +23,30 @@
 // (C = 33, say) -- take a masked scalar path inside the same staging loop,
 // which writes zeros past the edge.
 //
-// Weight staging goes through one hook: a view's
-//   stage(Ws, k0, k_end, c0, c_end, tid)
-// fills one BK x BN stage (row stride LDW_S) with rows [k0, k0 + BK) and
-// columns [c0, c0 + BN) of the weight, zero at and past k_end / c_end.
-// PlainB copies bf16 with cp.async.  A view that dequantizes int8 / e4m3
-// factors or expands a 2:4 pack writes the converted bf16 values with
-// st.shared instead and reuses everything else.
+// Weight views.  A view addresses a stack of (R, ld) factors read as one
+// (branches*R, ld) matrix: branch(n) moves it to factor n (phases 1 and 2
+// of the branched kernel), and phase 3 reads the whole stack, so a row k
+// belongs to branch k / R.  Its
+//   stage(ring_stage, k0, k_end, c0, c_end, tid)
+// puts rows [k0, k0 + BK) and columns [c0, c0 + BN) of the weight into one
+// ring stage with cp.async, zero (or ignored) at and past k_end / c_end.
+//   - PlainB (bf16) copies the bf16 tile straight into the stage the
+//     warps multiply.
+//   - DequantB (int8 / e4m3 with f32 per-column scales) and Sparse24B
+//     (2:4 packs of int8 / e4m3 values, int8 row positions and scales)
+//     copy their raw bytes, half or a quarter of the bf16 tile's, and the
+//     scales of the stage's branch; once the stage has landed, convert()
+//     writes it as bf16 (st.shared) into one of two converted tiles,
+//     while the warps multiply the other (tile_mma).  Each value becomes
+//     round_bf16(f32(q) * scale[col]) -- exactly 0 at a pruned 2:4 row --
+//     as the TPU kernels dequantize before the dot
+//     (branched_matmul_q.py:47-49, lowrank_matmul_sq.py:45 expand_tile).
+//     So copies stay in flight across stages as with PlainB (STAGES - 2
+//     ahead of the stage being converted).
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -49,12 +63,11 @@ constexpr int LDA_S = BK + 8;  // A stage row: 80 B
 constexpr int LDW_S = BN + 8;  // W stage row: 272 B
 constexpr int A_STAGE = BM * LDA_S;  // elements
 constexpr int W_STAGE = BK * LDW_S;
-constexpr size_t SMEM_BYTES =
-    (size_t)STAGES * (A_STAGE + W_STAGE) * sizeof(bf16);
 static_assert((BM * BK / 8) % THREADS == 0, "whole A staging passes");
 static_assert((BK * BN / 8) % THREADS == 0, "whole W staging passes");
 static_assert((A_STAGE * 2) % 16 == 0 && (W_STAGE * 2) % 16 == 0,
               "stages stay 16-byte aligned");
+static_assert(STAGES >= 3, "a converting ring converts one stage ahead");
 
 __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
 
@@ -64,6 +77,13 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
                    smem_u32(dst)),
                "l"(src)
                : "memory");
@@ -132,12 +152,45 @@ __device__ __forceinline__ void stage_a(bf16* As, const bf16* A, int lda,
   }
 }
 
-// A dense row-major bf16 weight (K rows, row stride ld).
+// Sixteen bytes of shared memory from src[0 .. valid) (a quantized
+// weight's values): one 16-byte cp.async where all sixteen are valid and
+// src is 16-byte aligned, else the masked scalar path (zeros at and past
+// `valid`; src is not read there).  copy_floats: four f32 (scales) alike.
+__device__ __forceinline__ void copy_bytes(unsigned char* dst,
+                                           const unsigned char* src,
+                                           int valid) {
+  if (valid >= 16 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    cp_async16(dst, src);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) dst[i] = i < valid ? src[i] : 0;
+  }
+}
+
+__device__ __forceinline__ void copy_floats(unsigned char* dst,
+                                            const float* src, int valid) {
+  if (valid >= 4 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    cp_async16(dst, src);
+  } else {
+    float* d = reinterpret_cast<float*>(dst);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) d[i] = i < valid ? src[i] : 0.f;
+  }
+}
+
+// A dense row-major bf16 weight: a stack of (R, ld) factors.
 struct PlainB {
+  static constexpr bool CONVERTS = false;
+  static constexpr int RAW_STAGE = W_STAGE * sizeof(bf16);  // bytes
   const bf16* w;
-  int ld;
-  __device__ __forceinline__ void stage(bf16* Ws, int k0, int k_end, int c0,
-                                        int c_end, int tid) const {
+  int ld, R;
+  __device__ __forceinline__ PlainB branch(int n) const {
+    return {w + (size_t)n * R * ld, ld, R};
+  }
+  __device__ __forceinline__ void stage(unsigned char* ring, int k0,
+                                        int k_end, int c0, int c_end,
+                                        int tid) const {
+    bf16* Ws = reinterpret_cast<bf16*>(ring);
 #pragma unroll
     for (int p = 0; p < BK * BN / 8 / THREADS; ++p) {
       const int e = tid + p * THREADS;
@@ -151,6 +204,335 @@ struct PlainB {
     }
   }
 };
+
+// k / R for a row index 0 <= k < 2^31 and a divisor R >= 1 fixed per
+// launch, by one multiply-high (Granlund-Montgomery): (umulhi(k, m) + k)
+// >> s with s = ceil(log2 R), m = 2^32 (2^s - R) / R + 1 (row_div
+// computes both on the host).  A stage's rows find their branch with it:
+// the conversion is the kernel's bottleneck, and an integer division per
+// row would cost more instructions than converting the row's values.
+struct RowDiv {
+  int R;
+  uint32_t m, s;
+  __device__ __forceinline__ int operator()(int k) const {
+    return (int)((__umulhi((uint32_t)k, m) + (uint32_t)k) >> s);
+  }
+};
+
+inline RowDiv row_div(int R) {
+  uint32_t s = 0;
+  while ((1ull << s) < (unsigned long long)R) ++s;
+  const uint64_t m = (((1ull << s) - (uint64_t)R) << 32) / (uint64_t)R + 1;
+  return {R, (uint32_t)m, s};
+}
+
+// Four weight bytes (int8 or e4m3) as f32.
+template <typename Q>
+__device__ __forceinline__ void bytes_to_f32(uint32_t w, float (&f)[4]);
+template <>
+__device__ __forceinline__ void bytes_to_f32<int8_t>(uint32_t w,
+                                                     float (&f)[4]) {
+  // byte b + 128 as the low mantissa bits of 2^23: the float 2^23 + 128
+  // + b, exact; subtracting 2^23 + 128 leaves b.  A byte permute and an
+  // add per value, where I2F would run at a quarter of their rate.
+  const uint32_t u = w ^ 0x80808080u;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    f[j] = __uint_as_float(__byte_perm(u, 0x4b000000u, 0x7440u | j)) -
+           8388736.f;
+}
+template <>
+__device__ __forceinline__ void bytes_to_f32<__nv_fp8_e4m3>(uint32_t w,
+                                                            float (&f)[4]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {  // e4m3 -> f16 is exact, f16 -> f32 too
+    const __half2 p(__nv_cvt_fp8x2_to_halfraw2(
+        (__nv_fp8x2_storage_t)((w >> (16 * h)) & 0xffffu), __NV_E4M3));
+    const float2 v = __half22float2(p);
+    f[2 * h] = v.x;
+    f[2 * h + 1] = v.y;
+  }
+}
+
+// round_bf16 of four f32 products, packed for one 8-byte st.shared
+__device__ __forceinline__ uint2 pack_bf16x4(const float (&f)[4]) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(f[0], f[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(f[2], f[3]);
+  return make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                    *reinterpret_cast<const uint32_t*>(&hi));
+}
+
+// Columns [c, c + 4) of one branch's scale row from device memory, zero at
+// and past c_end: the scales of a row whose branch is not its stage's
+// first row's (phase 3 at a rank that is not a multiple of BK; not at the
+// served shapes).
+__device__ __forceinline__ void load_scales(const float* row, int c,
+                                            int c_end, float (&s)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) s[j] = c + j < c_end ? row[c + j] : 0.f;
+}
+
+// The converted tile: warp w writes rows 4w .. 4w + 3, lane l columns
+// 4l .. 4l + 3 (one 8-byte store per row), so a warp writes whole rows
+// and reads a stage's scales (512 contiguous bytes) once.
+static_assert(BK == 4 * (THREADS / 32) && BN == 4 * 32,
+              "convert: a warp takes 4 rows, a lane 4 columns");
+
+// An int8 / e4m3 weight with one f32 scale per output column and branch:
+// q a stack of (R, ld) factors, scale (branches, ld).  A ring stage holds
+// the tile's BK rows (RS bytes apart), then the BN scales of the branch of
+// its first row.
+//
+// LINES (u's view, phase 1): a row whose bytes are not a multiple of 128
+// (r1 = 192, 448, 480, 608 int8) puts most column tiles across two
+// 128-byte lines, each shared with the neighbouring tile's CTA, and such
+// partial-line reads ran phase 1 at about half the rate of line-aligned
+// rows on the H100 (chip_smoke's "ds o, r 512" control row beside "ds o"
+// shows what is left of it for each view).  So where rows start 16-byte
+// aligned but not all on a line, a row is fetched as the whole lines that
+// hold its tile (one or two) and converted from its offset in them,
+// columns past the tile masked.  The check and the masks cost
+// instructions, which the other phases (rows of S, aligned, or a small
+// xc) do not repay, so their views stage the tile's own bytes.  Ragged
+// rows take the masked scalar path at offset 0.
+template <typename Q, bool LINES = false>
+struct DequantB {
+  static constexpr bool CONVERTS = true;
+  static constexpr int RS = LINES ? 2 * BN : BN;       // a staged row
+  static constexpr int VALUES = BK * RS;               // bytes
+  static constexpr int RAW_STAGE = VALUES + BN * 4;    // then the scales
+  static_assert(BK * (BN / 16) == THREADS, "a thread per 16 bytes of tile");
+  const Q* q;
+  const float* scale;
+  int ld;
+  RowDiv R;  // rows per branch
+  __device__ __forceinline__ DequantB branch(int n) const {
+    return {q + (size_t)n * R.R * ld, scale + (size_t)n * ld, ld, R};
+  }
+  __device__ __forceinline__ int branch_of(int k) const {
+    return k < R.R ? 0 : R(k);
+  }
+  // rows 16-byte aligned, not all on a line: fetch whole lines
+  __device__ __forceinline__ bool lines() const {
+    const uintptr_t a = reinterpret_cast<uintptr_t>(q) | (uintptr_t)ld;
+    return LINES && (a & 15) == 0 && (a & 127) != 0;
+  }
+  // where row k's tile starts in its staged row
+  __device__ __forceinline__ int offset(int k, int c0) const {
+    return lines() ? (int)(((uint32_t)reinterpret_cast<uintptr_t>(q) +
+                            (uint32_t)k * (uint32_t)ld + (uint32_t)c0) &
+                           127u)
+                   : 0;
+  }
+  __device__ __forceinline__ void stage(unsigned char* ring, int k0,
+                                        int k_end, int c0, int c_end,
+                                        int tid) const {
+    const int kk = tid / (BN / 16), j = tid % (BN / 16);
+    if (k0 + kk < k_end) {
+      const int width = min(BN, c_end - c0);  // the tile's bytes in a row
+      const uintptr_t a =
+          reinterpret_cast<uintptr_t>(q + (size_t)(k0 + kk) * ld + c0);
+      unsigned char* dst = ring + kk * RS + 16 * j;
+      if (lines()) {  // chunk j of the first line, and of the second
+        const uintptr_t w = (a & ~uintptr_t(127)) + 16 * j;
+        cp_async16(dst, reinterpret_cast<const void*>(w));
+        if ((int)(a & 127) + width > 128)
+          cp_async16(dst + 128, reinterpret_cast<const void*>(w + 128));
+      } else {
+        copy_bytes(dst, reinterpret_cast<const unsigned char*>(a) + 16 * j,
+                   width - 16 * j);
+      }
+    }
+    if (tid < BN / 4)
+      copy_floats(ring + VALUES + 16 * tid,
+                  scale + (size_t)branch_of(k0) * ld + c0 + 4 * tid,
+                  c_end - (c0 + 4 * tid));
+  }
+  // columns c .. c + 3 of a staged row (src), times scales s; with LINES,
+  // zero at and past column `width` of the tile (fetched lines hold the
+  // next tile's or row's bytes there; staged tile bytes are zero there,
+  // and so are the scales)
+  __device__ __forceinline__ static uint2 row(const unsigned char* src,
+                                              int c, int width,
+                                              const float (&s)[4]) {
+    float f[4];
+    bytes_to_f32<Q>(*reinterpret_cast<const uint32_t*>(src), f);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      f[j] = !LINES || c + j < width ? __fmul_rn(f[j], s[j]) : 0.f;
+    return pack_bf16x4(f);
+  }
+  __device__ __forceinline__ void convert(bf16* Wc, const unsigned char* ring,
+                                          int k0, int k_end, int c0,
+                                          int c_end, int tid) const {
+    const int warp = tid >> 5, c = 4 * (tid & 31);
+    const int k = k0 + 4 * warp;  // the warp's first row
+    const int width = min(BN, c_end - c0);
+    const float4 s4 =
+        *reinterpret_cast<const float4*>(ring + VALUES + 4 * c);
+    const float s[4] = {s4.x, s4.y, s4.z, s4.w};
+    const int b0 = branch_of(k0);
+    const unsigned char* src = ring + 4 * warp * RS + c;
+    if (k + 3 < k_end && branch_of(k + 3) == b0) {  // the common case
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        *reinterpret_cast<uint2*>(Wc + (4 * warp + t) * LDW_S + c) =
+            row(src + t * RS + offset(k + t, c0), c, width, s);
+      return;
+    }
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {  // past k_end, or another branch's rows
+      uint2 out = make_uint2(0u, 0u);
+      if (k + t < k_end) {
+        const int b = branch_of(k + t);
+        float sb[4] = {s[0], s[1], s[2], s[3]};
+        if (b != b0)
+          load_scales(scale + (size_t)b * ld + c0, c, c_end - c0, sb);
+        out = row(src + t * RS + offset(k + t, c0), c, width, sb);
+      }
+      *reinterpret_cast<uint2*>(Wc + (4 * warp + t) * LDW_S + c) = out;
+    }
+  }
+};
+
+// A stack of (R, ld) factors each packed 2:4 along R, slot-major as the
+// reference packs it (repro/quant/sparse.py): per branch, sp (2, R/4, ld)
+// int8 or e4m3 kept values, idx (2, R/4) int8 within-group row positions,
+// scale (ld) f32.  Row 4g + t of column j is round_bf16(v * scale[j]), v
+// the f32 sum of the slots i whose idx[i][g] == t (sp[i][g][j]), as
+// expand_tile's where-sum does, and exactly 0 where no slot holds it: a
+// pruned row is an explicit zero in the product, so a non-finite
+// activation meeting it still spreads, as in the reference's dense dot.
+// A stage's BK rows are BK / 4 groups (R is a multiple of 4, so a group
+// never straddles a branch or a stage); its ring stage holds the groups'
+// two value rows per slot, one 4-byte word holding each (slot, group)'s
+// index byte (cp.async takes no single bytes), and the scales of the
+// branch of its first row.
+template <typename Q>
+struct Sparse24B {
+  static constexpr bool CONVERTS = true;
+  static constexpr int GROUPS = BK / 4;
+  static constexpr int VALUES = 2 * GROUPS * BN;       // [slot][group][col]
+  static constexpr int WORDS = 2 * GROUPS * 4;         // [slot][group] u32
+  static constexpr int RAW_STAGE = VALUES + WORDS + BN * 4;
+  static constexpr int VALUE_CHUNKS = VALUES / 16;     // threads that copy
+  static_assert(VALUE_CHUNKS + 2 * GROUPS + BN / 4 <= THREADS,
+                "one copy per thread");
+  static_assert(GROUPS == THREADS / 32, "convert: one group per warp");
+  const Q* sp;
+  const int8_t* idx;
+  const float* scale;
+  int ld;
+  RowDiv R;  // rows per branch
+  __device__ __forceinline__ Sparse24B branch(int n) const {
+    return {sp + (size_t)n * (R.R / 2) * ld, idx + (size_t)n * (R.R / 2),
+            scale + (size_t)n * ld, ld, R};
+  }
+  __device__ __forceinline__ int branch_of(int k) const {
+    return k < R.R ? 0 : R(k);
+  }
+  // slot i's index byte of the group holding row k of branch b
+  __device__ __forceinline__ const int8_t* index_at(int i, int k,
+                                                    int b) const {
+    return idx + (size_t)b * (R.R / 2) + i * (R.R / 4) + (k - b * R.R) / 4;
+  }
+  __device__ __forceinline__ void stage(unsigned char* ring, int k0,
+                                        int k_end, int c0, int c_end,
+                                        int tid) const {
+    if (tid < VALUE_CHUNKS) {
+      const int row = tid / (BN / 16), c = (tid % (BN / 16)) * 16;
+      const int i = row / GROUPS, k = k0 + 4 * (row % GROUPS);
+      if (k < k_end) {
+        const int b = branch_of(k);
+        const Q* src = sp + (size_t)b * (R.R / 2) * ld +
+                       ((size_t)i * (R.R / 4) + (k - b * R.R) / 4) * ld +
+                       c0 + c;
+        copy_bytes(ring + row * BN + c,
+                   reinterpret_cast<const unsigned char*>(src),
+                   c_end - (c0 + c));
+      }
+    } else if (tid < VALUE_CHUNKS + 2 * GROUPS) {
+      const int e = tid - VALUE_CHUNKS;
+      const int k = k0 + 4 * (e % GROUPS);
+      if (k < k_end) {  // the aligned word around the byte
+        const uintptr_t a = reinterpret_cast<uintptr_t>(
+            index_at(e / GROUPS, k, branch_of(k)));
+        cp_async4(ring + VALUES + 4 * e,
+                  reinterpret_cast<const void*>(a & ~uintptr_t(3)));
+      }
+    } else if (tid < VALUE_CHUNKS + 2 * GROUPS + BN / 4) {
+      const int e = tid - VALUE_CHUNKS - 2 * GROUPS;
+      copy_floats(ring + VALUES + WORDS + 16 * e,
+                  scale + (size_t)branch_of(k0) * ld + c0 + 4 * e,
+                  c_end - (c0 + 4 * e));
+    }
+  }
+  __device__ __forceinline__ void convert(bf16* Wc, const unsigned char* ring,
+                                          int k0, int k_end, int c0,
+                                          int c_end, int tid) const {
+    const int gg = tid >> 5, c = 4 * (tid & 31);
+    const int k = k0 + 4 * gg;
+    uint2* out = reinterpret_cast<uint2*>(Wc + 4 * gg * LDW_S + c);
+    constexpr int ROW = LDW_S / 4;  // a converted row, in uint2
+    if (k >= k_end) {
+#pragma unroll
+      for (int t = 0; t < 4; ++t) out[t * ROW] = make_uint2(0u, 0u);
+      return;
+    }
+    const float4 s4 =
+        *reinterpret_cast<const float4*>(ring + VALUES + WORDS + 4 * c);
+    float s[4] = {s4.x, s4.y, s4.z, s4.w};
+    const int b = branch_of(k);
+    if (b != branch_of(k0))
+      load_scales(scale + (size_t)b * ld + c0, c, c_end - c0, s);
+    int at[2];
+    float v[2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const uint32_t word = *reinterpret_cast<const uint32_t*>(
+          ring + VALUES + 4 * (i * GROUPS + gg));
+      const int shift =
+          8 * (int)(reinterpret_cast<uintptr_t>(index_at(i, k, b)) & 3);
+      at[i] = (int8_t)((word >> shift) & 0xffu);
+      bytes_to_f32<Q>(*reinterpret_cast<const uint32_t*>(
+                          ring + (i * GROUPS + gg) * BN + c),
+                      v[i]);
+    }
+    if (at[0] == at[1]) {
+      // both slots name one row (a pack not made by sparsify_array):
+      // their f32 sum, as expand_tile's where-sum
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[0][j] = __fadd_rn(v[0][j], v[1][j]);
+      at[1] = -1;
+    }
+    // each row holds one slot or none: round_bf16(v * s) of its slot (f32
+    // 0 + v is v), or 0
+    uint2 slot[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[i][j] = __fmul_rn(v[i][j], s[j]);
+      slot[i] = pack_bf16x4(v[i]);
+    }
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+      out[t * ROW] = at[0] == t   ? slot[0]
+                     : at[1] == t ? slot[1]
+                                  : make_uint2(0u, 0u);
+  }
+};
+
+// Dynamic shared memory of a tile of view WV: the A stages, the weight
+// stages and, for a converting view, two converted tiles.
+template <typename WV>
+__host__ __device__ constexpr size_t tile_smem() {
+  return (size_t)STAGES * (A_STAGE * sizeof(bf16) + WV::RAW_STAGE) +
+         (WV::CONVERTS ? 2 * W_STAGE * sizeof(bf16) : 0);
+}
+static_assert(DequantB<int8_t, true>::RAW_STAGE % 16 == 0 &&
+                  DequantB<int8_t>::RAW_STAGE % 16 == 0 &&
+                  Sparse24B<int8_t>::RAW_STAGE % 16 == 0,
+              "stages stay 16-byte aligned");
 
 // Zero rows [rows, MT*16) of every A stage: the row padding of M to 16.
 // Call between tiles (after one tile's closing barrier); the next tile's
@@ -187,16 +569,26 @@ __device__ __forceinline__ void mma_stage(const bf16* As, const bf16* Ws,
 }
 
 // acc = A[0:rows, k_begin:k_end] @ W[k_begin:k_end, c0:c0 + BN] (columns
-// at and past c_end are zero).  smem holds the ring: STAGES A stages, then
-// STAGES W stages.  Every thread of the CTA calls it; it ends on a barrier,
-// so the ring is free for the next tile.
+// at and past c_end are zero).  smem holds the ring: STAGES A stages,
+// then STAGES weight stages of WV::RAW_STAGE bytes, then, for a converting
+// view, two converted tiles.  Every thread of the CTA calls it; it ends on a
+// barrier, so the ring is free for the next tile.
+//
+// PlainB: each iteration waits for stage kt, prefetches stage kt + STAGES - 1
+// and multiplies stage kt.  A converting view: each iteration waits for
+// stage kt + 1, prefetches stage kt + STAGES - 1, converts stage kt + 1 into
+// one converted tile and multiplies stage kt from the other (converted
+// one iteration before), so one barrier per stage separates them, and a
+// warp's conversion overlaps its products.
 template <int MT, typename WV>
 __device__ __forceinline__ void tile_mma(float (&acc)[MT][2][4],
                                          const bf16* A, int lda, int rows,
                                          const WV& wv, int c0, int c_end,
-                                         int k_begin, int k_end, bf16* smem) {
-  bf16* As = smem;
-  bf16* Ws = smem + STAGES * A_STAGE;
+                                         int k_begin, int k_end,
+                                         unsigned char* smem) {
+  bf16* As = reinterpret_cast<bf16*>(smem);
+  unsigned char* Wr = smem + (size_t)STAGES * A_STAGE * sizeof(bf16);
+  bf16* Wc = reinterpret_cast<bf16*>(Wr + (size_t)STAGES * WV::RAW_STAGE);
   const int tid = threadIdx.x;
 #pragma unroll
   for (int i = 0; i < MT; ++i)
@@ -210,22 +602,44 @@ __device__ __forceinline__ void tile_mma(float (&acc)[MT][2][4],
     if (s < nk) {
       const int k0 = k_begin + s * BK;
       stage_a(As + s * A_STAGE, A, lda, rows, k0, k_end, tid);
-      wv.stage(Ws + s * W_STAGE, k0, k_end, c0, c_end, tid);
+      wv.stage(Wr + s * WV::RAW_STAGE, k0, k_end, c0, c_end, tid);
     }
     cp_async_commit();  // empty groups keep the count uniform
   }
+  if constexpr (WV::CONVERTS) {
+    cp_async_wait<STAGES - 2>();  // stage 0 landed
+    __syncthreads();
+    wv.convert(Wc, Wr, k_begin, k_end, c0, c_end, tid);
+  }
   for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<STAGES - 2>();  // this thread's copies of stage kt landed
+    if constexpr (WV::CONVERTS) {
+      // this thread's copies of stage kt + 1 landed; after the barrier,
+      // everyone's, converted tile kt % 2 is written, and stage kt - 1
+      // and converted tile (kt + 1) % 2 are no longer read
+      cp_async_wait<STAGES - 3>();
+    } else {
+      cp_async_wait<STAGES - 2>();  // this thread's copies of stage kt landed
+    }
     __syncthreads();  // everyone's, and stage kt - 1 is no longer read
     const int pf = kt + STAGES - 1;
     if (pf < nk) {
       const int k0 = k_begin + pf * BK, b = pf % STAGES;
       stage_a(As + b * A_STAGE, A, lda, rows, k0, k_end, tid);
-      wv.stage(Ws + b * W_STAGE, k0, k_end, c0, c_end, tid);
+      wv.stage(Wr + b * WV::RAW_STAGE, k0, k_end, c0, c_end, tid);
     }
     cp_async_commit();
     const int b = kt % STAGES;
-    mma_stage<MT>(As + b * A_STAGE, Ws + b * W_STAGE, acc);
+    if constexpr (WV::CONVERTS) {
+      if (kt + 1 < nk)
+        wv.convert(Wc + ((kt + 1) & 1) * W_STAGE,
+                   Wr + ((kt + 1) % STAGES) * WV::RAW_STAGE,
+                   k_begin + (kt + 1) * BK, k_end, c0, c_end, tid);
+      mma_stage<MT>(As + b * A_STAGE, Wc + (kt & 1) * W_STAGE, acc);
+    } else {
+      mma_stage<MT>(As + b * A_STAGE,
+                    reinterpret_cast<const bf16*>(Wr + b * WV::RAW_STAGE),
+                    acc);
+    }
   }
   cp_async_wait<0>();
   __syncthreads();

@@ -412,13 +412,15 @@ def test_decode_attention_latent_q_kernel_matches_plain(cuda, case, dtype):
 @pytest.mark.parametrize("m", chip_smoke.DEEPSEEK_M_CASES)
 @pytest.mark.parametrize("label", list(chip_smoke.DEEPSEEK_BRANCHED_SHAPES))
 def test_branched_kernels_at_deepseek_shapes(cuda, label, m, dtype):
-    """B2 and B4 (int8 factors) at DeepSeek-V2's wide branch ranks stay
-    within tolerance, one launch per call.  B4 and f32 B2 launch at 8 rows
-    (the 32-row block does not fit shared memory at M = 64); bf16 B2 is
-    the split-phase kernel, whose shared memory does not depend on the
-    ranks, and gives the same bits on a second call."""
+    """B2, B4 (int8 factors) and B12 (int8 packs) at DeepSeek-V2's wide
+    branch ranks stay within tolerance, one launch per call.  In f32 they
+    launch the cluster kernel at 8 rows (the 32-row block does not fit
+    shared memory at M = 64); in bf16 the split-phase kernel, whose shared
+    memory does not depend on the ranks, and give the same bits on a
+    second call."""
     from repro_torch.kernels import branched_matmul as bk
     from repro_torch.kernels import branched_matmul_q as bqk
+    from repro_torch.kernels import branched_matmul_sq as bsk
     from repro_torch.kernels import ref
     n, c, r, s = chip_smoke.DEEPSEEK_BRANCHED_SHAPES[label]
     dt = getattr(torch, dtype)
@@ -436,9 +438,20 @@ def test_branched_kernels_at_deepseek_shapes(cuda, label, m, dtype):
     args = (x, *_quantized(cuda, n, c, r, mode="int8"),
             *_quantized(cuda, n, r, r, mode="int8"),
             *_quantized(cuda, n, r, s, mode="int8"))
+    n0 = bqk.launches
     y = bqk.branched_matmul_q(*args)
+    assert bqk.launches == n0 + 1
     assert _norm_err(y, ref.branched_matmul_q_ref(*args)) \
         <= chip_smoke.KERNEL_TOL[dtype]
+    assert torch.equal(y, bqk.branched_matmul_q(*args))
+    args = (x, *_packed(cuda, n, c, r, mode="int8"), *args[3:5],
+            *_packed(cuda, n, r, s, mode="int8"))
+    n0 = bsk.launches
+    y = bsk.branched_matmul_sq(*args)
+    assert bsk.launches == n0 + 1
+    assert _norm_err(y, ref.branched_matmul_sq_ref(*args)) \
+        <= chip_smoke.KERNEL_TOL[dtype]
+    assert torch.equal(y, bsk.branched_matmul_sq(*args))
 
 
 @pytest.mark.parametrize("kv_quantize", ["none", "int8"])
@@ -605,3 +618,160 @@ def test_plan_execute_launches_the_sparse_kernels(cuda, mode):
         assert [mod.launches - k for mod, k in zip(mods, n0)] == [1, 0]
         p_cpu = {k: t.cpu() for k, t in p.items()}
         assert _norm_err(y.cpu(), apply_linear(p_cpu, x.cpu())) <= 1e-5
+
+
+# --- bf16 B4 / B12 on the split-phase kernel -------------------------------
+
+_Q_SHAPES = {**chip_smoke.BRANCHED_SHAPES,
+             **chip_smoke.DEEPSEEK_BRANCHED_SHAPES,
+             "ragged r=5": (3, 33, 5, 70), "ragged r=17": (1, 200, 17, 129)}
+_SQ_SHAPES = {**chip_smoke.BRANCHED_SHAPES,
+              **chip_smoke.DEEPSEEK_BRANCHED_SHAPES,
+              "ragged r=8": (3, 32, 8, 70), "ragged r=20": (2, 200, 20, 129)}
+
+
+def _q_args(g, x, n, c, r, s, mode):
+    return (x, *_quantized(g, n, c, r, mode=mode),
+            *_quantized(g, n, r, r, mode=mode),
+            *_quantized(g, n, r, s, mode=mode))
+
+
+def _sq_args(g, x, n, c, r, s, mode):
+    return (x, *_packed(g, n, c, r, mode=mode),
+            *_quantized(g, n, r, r, mode=mode),
+            *_packed(g, n, r, s, mode=mode))
+
+
+def _dense_factors(kind, args):
+    """The bf16 factors the split-phase kernel stages: dequantized, or
+    expanded from the packs, beforehand."""
+    from repro_torch.quant.sparse import expand_sparse
+    dq = lambda q, sc: (q.float() * sc).to(torch.bfloat16)  # noqa: E731
+    if kind == "q":
+        return dq(*args[1:3]), dq(*args[3:5]), dq(*args[5:7])
+    return (expand_sparse(*args[1:4], dtype=torch.bfloat16),
+            dq(*args[4:6]), expand_sparse(*args[6:9], dtype=torch.bfloat16))
+
+
+def _kind(kind):
+    from repro_torch.kernels import branched_matmul_q as bqk
+    from repro_torch.kernels import branched_matmul_sq as bsk
+    from repro_torch.kernels import ref
+    if kind == "q":
+        return bqk, bqk.branched_matmul_q, ref.branched_matmul_q_ref, _q_args
+    return (bsk, bsk.branched_matmul_sq, ref.branched_matmul_sq_ref,
+            _sq_args)
+
+
+@pytest.mark.parametrize("mode", chip_smoke.QMODES)
+@pytest.mark.parametrize("m", chip_smoke.M_CASES)
+@pytest.mark.parametrize("kind,label", [("q", k) for k in _Q_SHAPES]
+                         + [("sq", k) for k in _SQ_SHAPES])
+def test_split_q_sq_bf16_matches_plain_and_b2(cuda, kind, label, m, mode):
+    """bf16 B4 / B12 run the split-phase kernel: within KERNEL_TOL of the
+    plain version, one launch per call, the same bits on a second call,
+    and bit-equal to bf16 B2's split-phase kernel on the factors
+    dequantized (or expanded) beforehand -- the views stage exactly those
+    bf16 values and the work split is the same."""
+    from repro_torch.kernels import branched_matmul as bk
+    mod, fn, plain, make = _kind(kind)
+    n, c, r, s = (_Q_SHAPES if kind == "q" else _SQ_SHAPES)[label]
+    x = _rnd(cuda, m, c, dtype=torch.bfloat16)
+    args = make(cuda, x, n, c, r, s, mode)
+    n0 = mod.launches
+    y = fn(*args)
+    assert mod.launches == n0 + 1
+    assert torch.equal(y, fn(*args))
+    assert _norm_err(y, plain(*args)) <= chip_smoke.KERNEL_TOL["bfloat16"]
+    assert torch.equal(y, bk.branched_matmul(x, *_dense_factors(kind, args)))
+
+
+@pytest.mark.parametrize("kind", ["q", "sq"])
+@pytest.mark.parametrize("m", [72, 512])
+@pytest.mark.parametrize("label", [*chip_smoke.BRANCHED_SHAPES, "ds o"])
+def test_split_q_sq_row_blocks_same_bits(cuda, label, m, kind):
+    """M past one 64-row block: the kernel loops over row blocks; two
+    calls give the same bits, one launch each."""
+    mod, fn, plain, make = _kind(kind)
+    n, c, r, s = {**chip_smoke.BRANCHED_SHAPES,
+                  **chip_smoke.DEEPSEEK_BRANCHED_SHAPES}[label]
+    args = make(cuda, _rnd(cuda, m, c, dtype=torch.bfloat16), n, c, r, s,
+                "int8")
+    n0 = mod.launches
+    y = fn(*args)
+    y2 = fn(*args)
+    assert mod.launches == n0 + 2
+    assert torch.equal(y, y2)
+    assert _norm_err(y, plain(*args)) <= chip_smoke.KERNEL_TOL["bfloat16"]
+
+
+@pytest.mark.parametrize("kind", ["q", "sq"])
+def test_split_q_sq_f32_runs_the_cluster_kernel(cuda, kind):
+    """f32 x keeps the cluster kernel: bit-equal to the yardstick entry
+    that launches it, and within f32's tolerance."""
+    mod, fn, plain, make = _kind(kind)
+    n, c, r, s = chip_smoke.BRANCHED_SHAPES["gate,up"]
+    args = make(cuda, _rnd(cuda, 37, c, dtype=torch.float32), n, c, r, s,
+                "int8")
+    cluster = getattr(mod, f"cluster_branched_matmul_{kind}")
+    n0 = mod.launches
+    y = fn(*args)
+    assert torch.equal(y, cluster(*args))
+    assert mod.launches == n0 + 1
+    assert _norm_err(y, plain(*args)) <= chip_smoke.KERNEL_TOL["float32"]
+
+
+def test_split_q_sq_smem_and_grid(cuda):
+    """The C side's shared memory equals the wrapper's count, under the
+    opt-in limit; every instantiation's persistent grid holds at least
+    one CTA per SM."""
+    from repro_torch.kernels import branched_matmul as bk
+    from repro_torch.kernels import build
+    lib = build.load()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for kind in ("q", "sq"):
+        smem = getattr(lib, f"lrk_branched_{kind}_mma_smem")()
+        assert smem == bk.mma_smem_bytes(kind) <= build.SMEM_LIMIT
+        grid = getattr(lib, f"lrk_branched_{kind}_mma_grid")
+        for qtype in (0, 1):
+            for rows in (1, 16, 32, 64):
+                assert grid(qtype, rows) >= sms
+
+
+@pytest.mark.parametrize("kind", ["q", "sq"])
+@pytest.mark.parametrize("m", [8, 72])
+def test_split_q_sq_phase_timer(cuda, kind, m):
+    """The phase timer of B4 / B12: one counted launch, three
+    non-negative phase times per 64-row block."""
+    mod, _, _, make = _kind(kind)
+    n, c, r, s = chip_smoke.BRANCHED_SHAPES["q,o"]
+    args = make(cuda, _rnd(cuda, m, c, dtype=torch.bfloat16), n, c, r, s,
+                "int8")
+    n0 = mod.launches
+    us = getattr(mod, f"branched_matmul_{kind}_phase_us")(*args)
+    assert mod.launches == n0 + 1
+    assert len(us) == 3 * -(-m // 64) and min(us) >= 0 and sum(us) > 0
+
+
+@pytest.mark.parametrize("mode", chip_smoke.QMODES)
+def test_split_sq_nan_meets_only_pruned_rows(cuda, mode):
+    """A NaN in an x column whose u rows are all pruned still reaches y,
+    as in the reference's dense dot: the pruned rows are explicit zeros
+    in the product (NaN * 0 = NaN)."""
+    from repro_torch.kernels import branched_matmul_sq as bsk
+    from repro_torch.kernels import ref
+    n, c, r, s = chip_smoke.BRANCHED_SHAPES["q,o"]
+    x = _rnd(cuda, 8, c, dtype=torch.bfloat16)
+    args = list(_sq_args(cuda, x, n, c, r, s, mode))
+    u_idx = args[2]
+    # group 5 keeps rows 1 and 3 in every branch, so row 20 is pruned
+    u_idx[:, 0, 5] = 1
+    u_idx[:, 1, 5] = 3
+    x[3, 20] = float("nan")
+    y = bsk.branched_matmul_sq(*args)
+    want = ref.branched_matmul_sq_ref(*args)
+    assert torch.isnan(want[3]).all() and torch.isnan(y[3]).all()
+    keep = torch.arange(8, device="cuda") != 3
+    assert torch.isfinite(y[keep]).all()
+    assert _norm_err(y[keep], want[keep]) \
+        <= chip_smoke.KERNEL_TOL["bfloat16"]

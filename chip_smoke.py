@@ -35,7 +35,19 @@ Phases (each prints its own seconds; any failure exits non-zero):
              split-phase kernel's three phases (``phase_us``, its own
              timer), and check that a second call gives the same bits;
              a control row beside DeepSeek-V2's ``ds o`` at a rank of
-             whole 128-byte int8 rows (``ALIGNED_CONTROL``).
+             whole 128-byte int8 rows (``ALIGNED_CONTROL``).  The
+             split attention rows (B9, B10, in both dtypes) are timed
+             with the host kept ahead of the card (a spin kernel first,
+             so the times are the device's): the earlier
+             one-CTA-per-slot kernel in turns with the split kernel
+             (``prev_ms``), the two held within tolerance of each other
+             (``prev_err``), a second call's bits, the split count, the
+             cold-L2 times, and at the served bf16 shape the kernel at
+             1, 2, the planned and twice the planned splits
+             (``split_ms``); ``--kernels
+             decode_attention_latent_q,decode_attention_paged_q`` with
+             ``--phases device,build,kernels`` is the quick call for
+             them.
 4. serve   — llama3.2-1b at full width (random weights from a seed, bf16)
              decomposed with SVD + branched surgery, served by
              ServeEngine(slots=8, max_seq=1024) on 8 requests; every
@@ -150,9 +162,10 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 #: intermediates round to bf16 in both, so a last-bit difference in an
 #: f32 partial sum can flip one intermediate's rounding (2^-8 relative).
 KERNEL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
-#: extra times of the branched chain rows (B2, B4, B12): the cluster
-#: kernel (the earlier bf16 design) on the same bf16 inputs in the same
-#: call, and the kernel and its library call with a cold L2
+#: extra times of the branched chain rows (B2, B4, B12) and the split
+#: attention rows (B9, B10): the earlier design (the cluster kernel in
+#: bf16; the one-CTA-per-slot attention kernels) on the same inputs in the
+#: same call, and the kernel and its library call with a cold L2
 SPLIT_TIMES = ("prev_ms", "cold_ms", "library_cold_ms")
 
 #: max |card bf16 logits - CPU f32 logits| / std(CPU logits): bf16
@@ -318,12 +331,26 @@ class Phase:
 # kernels vs plain
 # ---------------------------------------------------------------------------
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+#: spin cycles queued before a timed run with the host ahead (about 10 ms
+#: at the H100's clock: longer than the host takes to enqueue the run)
+AHEAD_CYCLES = 20_000_000
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3,
+            ahead: bool = False) -> float:
+    """Mean time of ``fn`` over ``iters`` launches between CUDA events.
+    ``ahead``: a spin kernel first keeps the card busy while the host
+    enqueues the run, so the events time the device's work and not the
+    host's enqueue (which sets the time of a launch shorter than its
+    wrapper's host code)."""
     import torch
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if ahead:
+        torch.cuda.synchronize()
+        torch.cuda._sleep(AHEAD_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -336,16 +363,21 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 L2_FLUSH_BYTES = 100 * 1024 * 1024
 
 
-def cold_ms(fn, flush, iters: int = 10, warmup: int = 2) -> float:
+def cold_ms(fn, flush, iters: int = 10, warmup: int = 2,
+            ahead: bool = False) -> float:
     """Mean time of ``fn`` with a cold L2: before each timed launch, and
     outside its events, ``flush`` (L2_FLUSH_BYTES) is written, so no
-    weight byte is left in L2, as in a served stack of many layers."""
+    weight byte is left in L2, as in a served stack of many layers.
+    ``ahead``: a short spin kernel after each flush keeps the host ahead
+    of the card (:func:`time_ms`)."""
     import torch
     for _ in range(warmup):
         fn()
     events = []
     for _ in range(iters):
         flush.zero_()
+        if ahead:
+            torch.cuda._sleep(AHEAD_CYCLES // 20)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -471,7 +503,7 @@ def check_kernels(card: str, only: frozenset = frozenset(KERNELS)
                                 QMODES, spack, flush, only)
         for label, case in LATENT_CASES.items():
             add("decode_attention_latent_q",
-                lambda: _check_latent(label, case, dname, rnd))
+                lambda: _check_latent(label, case, dname, rnd, flush))
         if dname == "bfloat16" and only & branched:
             for label, shape in DEEPSEEK_BRANCHED_SHAPES.items():
                 for m in DEEPSEEK_M_CASES:
@@ -497,12 +529,13 @@ def check_kernels(card: str, only: frozenset = frozenset(KERNELS)
         for label, case in PAGED_CASES.items():
             for quant in (False, True):
                 add("decode_attention_paged" + ("_q" if quant else ""),
-                    lambda: _check_paged(label, case, dname, quant, g))
+                    lambda: _check_paged(label, case, dname, quant, g, flush))
     failures = []
     for name, rs in rows.items():
         for row in rs:
             ok = (row["norm_err"] <= KERNEL_TOL[row["dtype"]]
-                  and row.get("same_bits", True))
+                  and row.get("same_bits", True)
+                  and row.get("prev_err", 0.0) <= KERNEL_TOL[row["dtype"]])
             lib_ms = row["library_ms"]
             extra = "".join(f"{k}={row[k]:.4f} " for k in SPLIT_TIMES
                             if row.get(k) is not None)
@@ -518,6 +551,11 @@ def check_kernels(card: str, only: frozenset = frozenset(KERNELS)
                    if "differing" in row else "")
                 + (f"same_bits={row['same_bits']} "
                    if "same_bits" in row else "")
+                + (f"splits={row['splits']} prev_err={row['prev_err']:.3e} "
+                   if "splits" in row else "")
+                + ("split_ms=" + "/".join(f"{n}:{t:.4f}" for n, t in
+                                          row["split_ms"].items()) + " "
+                   if "split_ms" in row else "")
                 + f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
                 + extra +
                 f"library_ms={'null' if lib_ms is None else f'{lib_ms:.4f}'} "
@@ -714,7 +752,32 @@ def latent_inputs(case: dict, dname: str, rnd) -> tuple:
     return q_lat, q_rope, ckv_q, ckv_s, krope_q, krope_s, pos
 
 
-def _check_latent(label: str, case: dict, dname: str, rnd) -> dict:
+def _split_sweep(launch, planned: int) -> dict:
+    """Device ms of one launch at 1, 2, the planned and twice the planned
+    splits (``launch(n)`` runs the kernel at n splits), keyed by the
+    split count: the fixed cost of a split against the work it divides."""
+    return {str(n): time_ms(lambda n=n: launch(n), ahead=True)
+            for n in sorted({1, 2, planned, 2 * planned})}
+
+
+def _attention_times(kernel, prev, library, flush) -> dict:
+    """Times of a split attention row (B9, B10) beside its SDPA call
+    ``library``, every one with the host ahead of the card
+    (:func:`time_ms`): the split kernel in turns with ``prev``, the
+    earlier design (new, old, old, new: ``prev_ms``), a second call held
+    to the first's bits (``same_bits``), and the kernel and the library
+    call with a cold L2 (``cold_ms``, ``library_cold_ms``)."""
+    import torch
+    turns = [time_ms(f, ahead=True) for f in (kernel, prev, prev, kernel)]
+    return dict(ms=(turns[0] + turns[3]) / 2,
+                prev_ms=(turns[1] + turns[2]) / 2,
+                same_bits=torch.equal(kernel(), kernel()),
+                cold_ms=cold_ms(kernel, flush, ahead=True),
+                library_ms=time_ms(library, ahead=True),
+                library_cold_ms=cold_ms(library, flush, ahead=True))
+
+
+def _check_latent(label: str, case: dict, dname: str, rnd, flush) -> dict:
     """One decode_attention_latent_q row.  The bound counts the work this
     run's positions need: a live slot's positions up to its cache_pos
     (the kernel skips the blocks past it), an idle slot's whole pool;
@@ -722,10 +785,14 @@ def _check_latent(label: str, case: dict, dname: str, rnd) -> dict:
     the bytes (q rows, those positions' latents, the scale rows, the
     output) at HBM rate.  The yardstick is SDPA on the latents
     dequantized beforehand: q = [q_lat | q_rope], k = [ckv | krope] and
-    v = ckv expanded over the heads, a position mask."""
+    v = ckv expanded over the heads, a position mask.  Times at the
+    wrapper (the engine's ops entry adds a slice of q); ``prev_err`` is
+    the split kernel's distance from the earlier kernel, normalised as
+    ``norm_err``."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
+    dlk = kernel_module("decode_attention_latent_q")
     b, s, h, lora, rope = (case[k] for k in ("b", "s", "h", "lora", "rope"))
     dt = getattr(torch, dname)
     args = latent_inputs(case, dname, rnd)
@@ -734,6 +801,9 @@ def _check_latent(label: str, case: dict, dname: str, rnd) -> dict:
     want = ref.decode_attention_latent_q_ref(*args, scale=scale)
     torch.cuda.synchronize()
     q_lat, q_rope, ckv_q, ckv_s, krope_q, krope_s, pos = args
+    flat = (q_lat[:, 0].contiguous(), q_rope[:, 0].contiguous(), ckv_q,
+            ckv_s, krope_q, krope_s, pos)
+    old = dlk.prev_decode_attention_latent_q(*flat, scale=scale)
     ckv = (ckv_q.float() * ckv_s[:, None]).to(dt)
     krope = (krope_q.float() * krope_s[:, None]).to(dt)
     qd = torch.cat([q_lat, q_rope], -1).transpose(1, 2)    # (B, H, 1, L+R)
@@ -744,14 +814,26 @@ def _check_latent(label: str, case: dict, dname: str, rnd) -> dict:
     live = sum(s if cp < 0 else min(s, cp + 1) for cp in pos.tolist())
     nbytes = (q_lat.numel() + q_rope.numel() + y.numel()) * dt.itemsize \
         + live * (lora + rope) + 4 * b * (lora + rope) + 4 * b
+    plan = dlk.latent_split(b, h, s, lora, rope,
+                            torch.cuda.get_device_properties(0)
+                            .multi_processor_count)
+    sweep = {}
+    if label == "served" and dname == "bfloat16":
+        sweep["split_ms"] = _split_sweep(
+            lambda n: dlk.decode_attention_latent_q_split(
+                *flat, scale=scale, splits=n), plan.splits)
     return dict(shape=label, dtype=dname, B=b, S=s, H=h, L=lora, R=rope,
-                idle=case["idle"], **_compare(y, want, dname),
-                ms=time_ms(lambda: ops.decode_attention_latent_q(
-                    *args, scale=scale)),
+                idle=case["idle"], splits=plan.splits, **sweep,
+                **_compare(y, want, dname),
+                prev_err=_compare(y[:, 0], old, dname)["norm_err"],
+                **_attention_times(
+                    lambda: dlk.decode_attention_latent_q(*flat, scale=scale),
+                    lambda: dlk.prev_decode_attention_latent_q(*flat,
+                                                               scale=scale),
+                    lambda: F.scaled_dot_product_attention(
+                        qd, kd, vd, attn_mask=mask, scale=scale), flush),
                 plain_ms=time_ms(lambda: ref.decode_attention_latent_q_ref(
                     *args, scale=scale)),
-                library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                    qd, kd, vd, attn_mask=mask, scale=scale)),
                 library="sdpa on dequantized latents",
                 **_bound(nbytes, 2 * h * (2 * lora + rope) * live, dname))
 
@@ -908,13 +990,15 @@ def paged_inputs(case: dict, dname: str, quant: bool, g) -> tuple:
 
 
 def _check_paged(label: str, case: dict, dname: str, quant: bool,
-                 g) -> dict:
+                 g, flush) -> dict:
     """One paged decode attention row (full-width pool in ``dname``, or
     int8).  The bound counts the blocks the tables reach up to each
     slot's position once each (every entry for an idle slot), their scale
     rows, the table entries read, q and the output; the yardstick is SDPA
     on the pool gathered (and dequantized) beforehand, K/V expanded to
-    every query head."""
+    every query head.  The int8 rows (B9, the split kernel) add
+    :func:`_attention_times` against the earlier kernel, timed at the
+    wrapper, and ``prev_err``."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
@@ -949,13 +1033,33 @@ def _check_paged(label: str, case: dict, dname: str, quant: bool,
         + (2 * kh * d * 4 if quant else 0)
     nbytes = (len(walked) * block_bytes + 4 * live + 4 * b
               + 2 * q.numel() * dt.itemsize)
+    library = (lambda: F.scaled_dot_product_attention(
+        qd, heads[0], heads[1], attn_mask=mask))
+    if quant:
+        dpk = kernel_module("decode_attention_paged_q")
+        rows = (q.reshape(b, kh, gg, d), *pool, tables, pos)
+        old = dpk.prev_decode_attention_paged_q(*rows, **kw)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        planned = dpk.paged_split(b, kh, nblk, sms).splits
+        times = {}
+        if label == "served" and dname == "bfloat16":
+            times["split_ms"] = _split_sweep(
+                lambda n: dpk.decode_attention_paged_q_split(
+                    *rows, **kw, splits=n), planned)
+        times.update(
+            splits=planned,
+            prev_err=_compare(y.reshape(old.shape), old, dname)["norm_err"],
+            **_attention_times(
+                lambda: dpk.decode_attention_paged_q(*rows, **kw),
+                lambda: dpk.prev_decode_attention_paged_q(*rows, **kw),
+                library, flush))
+    else:
+        times = dict(ms=time_ms(lambda: fn(*args, **kw)),
+                     library_ms=time_ms(library))
     return dict(shape=label, dtype=dname, B=b, KH=kh, G=gg, D=d, bs=bs,
                 nblk=nblk, softcap=case["softcap"], idle=case["idle"],
-                **_compare(y, want, dname),
-                ms=time_ms(lambda: fn(*args, **kw)),
+                **_compare(y, want, dname), **times,
                 plain_ms=time_ms(lambda: plain(*args, **kw)),
-                library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                    qd, heads[0], heads[1], attn_mask=mask)),
                 **_bound(nbytes, 4 * gg * d * kh * bs * live, dname))
 
 
@@ -1002,6 +1106,10 @@ def _kernel_entries(rows: dict[str, list[dict]]) -> list[dict]:
               else "operations")
         module, _, replaces = KERNELS[name]
         extra = {}
+        if "splits" in rs[0]:
+            extra["splits"] = next(r["splits"] for r in rs
+                                   if r["shape"] == "served"
+                                   and r["dtype"] == "bfloat16")
         if name in ("branched_matmul", "branched_matmul_q",
                     "branched_matmul_sq"):
             extra["mla_path"] = {
@@ -1573,12 +1681,38 @@ def split_kernels() -> None:
                                  "or grid disagrees with the wrapper")
 
 
-def latent_smem() -> int:
-    """Dynamic shared memory of one decode_attention_latent_q launch at
-    the served latent pool."""
+def attention_splits() -> None:
+    """Print the plan and the shared memory of the split attention
+    kernels (B10 at the served latent pool, B9 at the served paged pool),
+    and fail where the C side's shared memory disagrees with the
+    wrapper's count or exceeds the limit."""
+    import torch
+    from repro_torch.kernels import build
     from repro_torch.kernels import decode_attention_latent_q as dlk
-    case = LATENT_CASES["served"]
-    return dlk.smem_bytes(case["lora"], case["rope"], case["h"])
+    from repro_torch.kernels import decode_attention_paged as dpk
+    lib = build.load()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    c = LATENT_CASES["served"]
+    sp = dlk.latent_split(c["b"], c["h"], c["s"], c["lora"], c["rope"], sms)
+    smem = int(lib.lrk_decode_attention_latent_q_smem(c["lora"], c["rope"],
+                                                      sp.bs, sp.mt))
+    want = dlk.latent_smem(c["lora"], c["rope"], sp.bs, sp.mt)
+    log(f"decode_attention_latent_q (split, mma.sync) at the served latent "
+        f"pool: {sp.tiles} head tiles x {c['b']} slots x {sp.splits} "
+        f"splits of {sp.span} positions = {sp.ctas} CTAs on {sms} SMs, "
+        f"{sp.bs} positions per stage; {smem} B of dynamic shared memory "
+        f"(wrapper's count {want}, limit {build.SMEM_LIMIT})")
+    p = PAGED_CASES["served"]
+    pp = dpk.paged_split(p["b"], p["kh"], p["nblk"], sms)
+    psmem = int(lib.lrk_decode_attention_paged_split_smem(
+        p["g"], p["d"], p["bs"], 1, 1, pp.span))
+    log(f"decode_attention_paged_q (split) at the served paged pool: "
+        f"{p['kh']} KV heads x {p['b']} slots x {pp.splits} splits of "
+        f"{pp.span} entries = {pp.ctas} CTAs on {sms} SMs; {psmem} B of "
+        f"dynamic shared memory (limit {build.SMEM_LIMIT})")
+    if smem != want or max(smem, psmem) > build.SMEM_LIMIT:
+        raise SystemExit("split attention kernels: shared memory disagrees "
+                         "with the wrapper or exceeds the limit")
 
 
 def pack_sparse(params, lrd, card: str, what: str):
@@ -1854,9 +1988,7 @@ def main() -> int:
                     f"shapes at 32 rows (the block a prefill chunk took "
                     f"before the fit repair): {at32}")
             split_kernels()
-            log("dynamic shared memory, decode_attention_latent_q at the "
-                "served latent pool: "
-                f"{latent_smem()} B (limit {build.SMEM_LIMIT} B)")
+            attention_splits()
 
     if "kernels" in phases:
         with Phase("kernels"):

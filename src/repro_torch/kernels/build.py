@@ -156,17 +156,30 @@ def load() -> ctypes.CDLL:
                                                i, i, i, ctypes.c_float, p]
     lib.lrk_decode_attention_paged.restype = i
     lib.lrk_decode_attention_paged_q.argtypes = [i, p, p, p, p, p, p, p, p,
-                                                 i, i, i, i, i, i,
-                                                 ctypes.c_float, p]
+                                                 p, p, i, i, i, i, i, i, i,
+                                                 i, ctypes.c_float, p]
     lib.lrk_decode_attention_paged_q.restype = i
+    lib.lrk_decode_attention_paged_q_prev.argtypes = [
+        i, p, p, p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
+    lib.lrk_decode_attention_paged_q_prev.restype = i
     lib.lrk_decode_attention_paged_fits.argtypes = [i, i, i, i]
     lib.lrk_decode_attention_paged_fits.restype = i
+    lib.lrk_decode_attention_paged_split_fits.argtypes = [i, i, i, i, i, i]
+    lib.lrk_decode_attention_paged_split_fits.restype = i
+    lib.lrk_decode_attention_paged_split_smem.argtypes = [i, i, i, i, i,
+                                                          i]
+    lib.lrk_decode_attention_paged_split_smem.restype = ctypes.c_size_t
     lib.lrk_decode_attention_latent_q.argtypes = [i, p, p, p, p, p, p, p, p,
-                                                  i, i, i, i, i, i,
-                                                  ctypes.c_float, p]
+                                                  p, p, i, i, i, i, i, i, i,
+                                                  i, i, ctypes.c_float, p]
     lib.lrk_decode_attention_latent_q.restype = i
-    lib.lrk_decode_attention_latent_q_smem.argtypes = [i, i, i]
+    lib.lrk_decode_attention_latent_q_smem.argtypes = [i, i, i, i]
     lib.lrk_decode_attention_latent_q_smem.restype = ctypes.c_size_t
+    lib.lrk_decode_attention_latent_q_prev.argtypes = [
+        i, p, p, p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
+    lib.lrk_decode_attention_latent_q_prev.restype = i
+    lib.lrk_decode_attention_latent_q_prev_smem.argtypes = [i, i, i]
+    lib.lrk_decode_attention_latent_q_prev_smem.restype = ctypes.c_size_t
     lib.lrk_error_string.argtypes = [i]
     lib.lrk_error_string.restype = ctypes.c_char_p
     return lib
@@ -188,6 +201,26 @@ def chain_bm(m: int, smem_at: Callable[[int], int]) -> tuple[int, int]:
         if smem <= SMEM_LIMIT:
             return 32, smem
     return 8, int(smem_at(8))
+
+
+#: zeroed int32 tickets of the split attention kernels, per (device,
+#: stream): the kernel leaves them zero again, so one buffer serves every
+#: launch on that stream
+_TICKETS: dict[tuple[int, int], "torch.Tensor"] = {}
+
+
+def tickets(device, n: int):
+    """At least ``n`` int32 tickets, all zero, for a launch on ``device``'s
+    current stream.  The split kernels count the finished CTAs of each
+    fold group on them and the last CTA resets its ticket, so the buffer
+    is zeroed once, when it is made (or grown), and never again."""
+    import torch
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    buf = _TICKETS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _TICKETS[key] = buf
+    return buf
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

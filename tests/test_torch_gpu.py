@@ -775,3 +775,85 @@ def test_split_sq_nan_meets_only_pruned_rows(cuda, mode):
     assert torch.isfinite(y[keep]).all()
     assert _norm_err(y[keep], want[keep]) \
         <= chip_smoke.KERNEL_TOL["bfloat16"]
+
+
+_PAGED_IDS = ["served", "softcap30", "smoke", "wide-block", "odd-block"]
+_PAGED_SPLIT_CASES = [
+    *chip_smoke.PAGED_CASES.values(),
+    dict(b=3, kh=2, g=2, d=16, bs=4, nblk=5, nb=16, idle=1, softcap=0.0),
+    dict(b=2, kh=1, g=8, d=128, bs=128, nblk=3, nb=6, idle=0, softcap=5.0),
+    dict(b=2, kh=2, g=4, d=64, bs=3, nblk=40, nb=80, idle=0, softcap=0.0)]
+_LATENT_IDS = ["served", "idle-slot", "ragged-S", "smoke", "partial-group",
+               "wide-latent"]
+_LATENT_SPLIT_CASES = [
+    *chip_smoke.LATENT_CASES.values(),
+    dict(b=3, s=70, h=4, lora=16, rope=8, idle=1),
+    dict(b=2, s=129, h=20, lora=64, rope=16, idle=0),
+    dict(b=1, s=5, h=1, lora=1024, rope=4, idle=0)]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("case", _PAGED_SPLIT_CASES, ids=_PAGED_IDS)
+def test_paged_q_split_same_bits_prev_and_one_split(cuda, case, dtype):
+    """B9's split kernel gives the same bits on a second call, stays
+    within tolerance of the earlier kernel and of itself forced to one
+    split, one counted launch per call (the earlier kernel uncounted)."""
+    from repro_torch.kernels import decode_attention_paged as dpk
+    q, pool, tables, pos = chip_smoke.paged_inputs(case, dtype, True, cuda)
+    b, kh, g, d = case["b"], case["kh"], case["g"], case["d"]
+    args = (q.reshape(b, kh, g, d), *pool, tables, pos)
+    kw = {"softcap": case["softcap"]}
+    n0 = dpk.launches_q
+    y = dpk.decode_attention_paged_q(*args, **kw)
+    assert torch.equal(y, dpk.decode_attention_paged_q(*args, **kw))
+    one = dpk.decode_attention_paged_q_split(*args, **kw, splits=1)
+    assert dpk.launches_q == n0 + 3
+    old = dpk.prev_decode_attention_paged_q(*args, **kw)
+    assert dpk.launches_q == n0 + 3
+    tol = chip_smoke.KERNEL_TOL[dtype]
+    assert _norm_err(y, old) <= tol and _norm_err(one, y) <= tol
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("case", _LATENT_SPLIT_CASES, ids=_LATENT_IDS)
+def test_latent_q_split_same_bits_prev_and_one_split(cuda, case, dtype):
+    """B10's split kernel gives the same bits on a second call, stays
+    within tolerance of the earlier kernel and of itself forced to one
+    split, one counted launch per call (the earlier kernel uncounted)."""
+    from repro_torch.kernels import decode_attention_latent_q as dlk
+
+    def rnd(*shape, scale=1.0, dtype=torch.float32):
+        return _rnd(cuda, *shape, scale=scale, dtype=dtype)
+    q_lat, q_rope, *rest = chip_smoke.latent_inputs(case, dtype, rnd)
+    args = (q_lat[:, 0].contiguous(), q_rope[:, 0].contiguous(), *rest)
+    scale = 1.0 / (128 + case["rope"]) ** 0.5
+    n0 = dlk.launches
+    y = dlk.decode_attention_latent_q(*args, scale=scale)
+    assert torch.equal(y, dlk.decode_attention_latent_q(*args, scale=scale))
+    one = dlk.decode_attention_latent_q_split(*args, scale=scale, splits=1)
+    assert dlk.launches == n0 + 3
+    old = dlk.prev_decode_attention_latent_q(*args, scale=scale)
+    assert dlk.launches == n0 + 3
+    tol = chip_smoke.KERNEL_TOL[dtype]
+    assert _norm_err(y, old) <= tol and _norm_err(one, y) <= tol
+
+
+def test_split_attention_smem_matches_the_wrappers(cuda):
+    """The C side's shared memory of B10's split kernel equals the
+    wrapper's count at every geometry the card tests plan, and B9's split
+    kernel takes every paged case."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import decode_attention_latent_q as dlk
+    lib = build.load()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for c in _LATENT_SPLIT_CASES:
+        sp = dlk.latent_split(c["b"], c["h"], c["s"], c["lora"], c["rope"],
+                              sms)
+        assert int(lib.lrk_decode_attention_latent_q_smem(
+            c["lora"], c["rope"], sp.bs, sp.mt)) == \
+            dlk.latent_smem(c["lora"], c["rope"], sp.bs, sp.mt)
+    from repro_torch.kernels import decode_attention_paged as dpk
+    for c in _PAGED_SPLIT_CASES:
+        span = dpk.paged_split(c["b"], c["kh"], c["nblk"], sms).span
+        assert lib.lrk_decode_attention_paged_split_fits(
+            c["g"], c["d"], c["bs"], 1, 1, span)

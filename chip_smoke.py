@@ -36,18 +36,24 @@ Phases (each prints its own seconds; any failure exits non-zero):
              timer), and check that a second call gives the same bits;
              a control row beside DeepSeek-V2's ``ds o`` at a rank of
              whole 128-byte int8 rows (``ALIGNED_CONTROL``).  The
-             split attention rows (B9, B10, in both dtypes) are timed
+             redesigned rows of B8, B9, B10 (the split attentions, in
+             both dtypes) and B11 (the two-phase lowrank chain) are timed
              with the host kept ahead of the card (a spin kernel first,
-             so the times are the device's): the earlier
-             one-CTA-per-slot kernel in turns with the split kernel
-             (``prev_ms``), the two held within tolerance of each other
-             (``prev_err``), a second call's bits, the split count, the
-             cold-L2 times, and at the served bf16 shape the kernel at
-             1, 2, the planned and twice the planned splits
-             (``split_ms``); ``--kernels
-             decode_attention_latent_q,decode_attention_paged_q`` with
-             ``--phases device,build,kernels`` is the quick call for
-             them.
+             so the times are the device's), and between CUDA events
+             without (``event_ms``, ``library_event_ms``): the earlier
+             kernel (one CTA per slot; B11's cluster kernel) in turns with
+             the new one (``prev_ms``), the two held within tolerance of
+             each other (``prev_err``), a second call's bits, the cold-L2
+             times; the attentions' split count and, at the served bf16
+             shape, the kernel at 1, 2, the planned and twice the planned
+             splits (``split_ms``); B11's phase timer (``phase_us``) and,
+             at the served decode shape, the device and phase times of
+             other plans (``plan_us``: coarser and finer K slices, fewer
+             CTAs).  B1, B3 and B5 are timed both
+             ways too (``ms`` / ``library_ms`` with the host ahead,
+             ``event_ms`` / ``library_event_ms`` without).  ``--kernels
+             decode_attention_paged,lowrank_matmul_sq`` with ``--phases
+             device,build,kernels`` is the quick call for B8 and B11.
 4. serve   — llama3.2-1b at full width (random weights from a seed, bf16)
              decomposed with SVD + branched surgery, served by
              ServeEngine(slots=8, max_seq=1024) on 8 requests; every
@@ -167,6 +173,11 @@ KERNEL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 #: bf16; the one-CTA-per-slot attention kernels) on the same inputs in the
 #: same call, and the kernel and its library call with a cold L2
 SPLIT_TIMES = ("prev_ms", "cold_ms", "library_cold_ms")
+#: the kernel and its library call between CUDA events with the host not
+#: kept ahead, on the rows whose ``ms`` / ``library_ms`` are device times
+#: with the host ahead (B1, B3, B5, B8, B11): the series of the earlier
+#: event-timed runs
+EVENT_TIMES = ("event_ms", "library_event_ms")
 
 #: max |card bf16 logits - CPU f32 logits| / std(CPU logits): bf16
 #: activations and weights round at every layer boundary of 16 layers.
@@ -239,6 +250,16 @@ M_CASES = (8, 64, 37)
 QMODES = ("int8", "fp8")
 #: the SVD pairs that the branches=4 tree serves 2:4-packed (B11 rows)
 SPARSE_LOWRANK = ("k,v",)
+#: the bf16 two-phase B11 plans the served decode row times beside its
+#: own (lowrank_split's ``items``, one count or one a phase, None for
+#: the default of two a SM; and ``ctas``, the CTAs a launch takes at most,
+#: 0 for the whole persistent grid, None for the default of one a SM):
+#: fewer items give longer K slices and fewer partials to sum, one item
+#: a column tile (phase 2 at 4) no sum and no grid sync for it; fewer
+#: CTAs a cheaper grid sync
+LOWRANK_PLAN_SWEEP = ((8, None), (16, None), (32, None), (None, None),
+                      ((None, 4), None), ((None, 8), None), (None, 0),
+                      (16, 0), ((None, 4), 0), (None, 64))
 #: row counts of the activation-quantized chains, which run prefill
 #: segments only: a prefill chunk, a ragged chunk, a long prompt
 QA_M_CASES = (64, 37, 512)
@@ -467,10 +488,11 @@ def check_kernels(card: str, only: frozenset = frozenset(KERNELS)
                 add("lowrank_matmul", lambda: dict(
                     shape=label, dtype=dname, M=m, C=c, R=r, S=s,
                     **_compare(y, want, dname),
-                    ms=time_ms(lambda: lk.lowrank_matmul(x, w0, w1)),
+                    **_ahead_and_event(
+                        lambda: lk.lowrank_matmul(x, w0, w1),
+                        lambda: (x @ w0) @ w1),
                     plain_ms=time_ms(lambda: ref.lowrank_matmul_ref(x, w0,
                                                                     w1)),
-                    library_ms=time_ms(lambda: (x @ w0) @ w1),
                     **_bound(xb * (m * c + c * r + r * s + m * s),
                              2 * m * (c * r + r * s), dname)))
                 for mode in QMODES:
@@ -486,17 +508,19 @@ def check_kernels(card: str, only: frozenset = frozenset(KERNELS)
                     add("lowrank_matmul_q", lambda: dict(
                         shape=label, dtype=dname, qmode=mode, M=m, C=c, R=r,
                         S=s, **_compare(y, want, dname),
-                        ms=time_ms(lambda: lqk.lowrank_matmul_q(*args)),
+                        **_ahead_and_event(
+                            lambda: lqk.lowrank_matmul_q(*args),
+                            lambda: (x @ w0d) @ w1d),
                         plain_ms=time_ms(
                             lambda: ref.lowrank_matmul_q_ref(*args)),
-                        library_ms=time_ms(lambda: (x @ w0d) @ w1d),
                         **_bound(xb * (m * c + m * s) + c * r + r * s
                                  + 4 * (r + s), 2 * m * (c * r + r * s),
                                  dname)))
                     if label in SPARSE_LOWRANK:
                         add("lowrank_matmul_sq", lambda: _check_sq(
                             label, x, [spack(c, r, mode=mode),
-                                       spack(r, s, mode=mode)], dname))
+                                       spack(r, s, mode=mode)], dname,
+                            flush))
         for label, shape in BRANCHED_SHAPES.items():
             for m in (M_CASES if only & branched else ()):
                 _check_branched(add, label, shape, m, dname, rnd, qrnd,
@@ -537,11 +561,17 @@ def check_kernels(card: str, only: frozenset = frozenset(KERNELS)
                   and row.get("same_bits", True)
                   and row.get("prev_err", 0.0) <= KERNEL_TOL[row["dtype"]])
             lib_ms = row["library_ms"]
-            extra = "".join(f"{k}={row[k]:.4f} " for k in SPLIT_TIMES
+            extra = "".join(f"{k}={row[k]:.4f} "
+                            for k in SPLIT_TIMES + EVENT_TIMES
                             if row.get(k) is not None)
             if row.get("phase_us"):
                 extra += "phase_us=" + "/".join(
                     f"{t:.1f}" for t in row["phase_us"]) + " "
+            if row.get("plan_us"):
+                extra += "plan_us=" + " ".join(
+                    f"{k}:{v['ms'] * 1e3:.1f}:" + "/".join(
+                        f"{t:.1f}" for t in v["phase_us"])
+                    for k, v in row["plan_us"].items()) + " "
             log(f"{name:24s} {row['shape']:22s} {row['dtype']:8s} "
                 f"{row.get('qmode', ''):4s} M={row.get('M', row.get('B')):4d}"
                 f" max_abs_err={row['max_abs_err']:.3e} "
@@ -551,8 +581,9 @@ def check_kernels(card: str, only: frozenset = frozenset(KERNELS)
                    if "differing" in row else "")
                 + (f"same_bits={row['same_bits']} "
                    if "same_bits" in row else "")
-                + (f"splits={row['splits']} prev_err={row['prev_err']:.3e} "
-                   if "splits" in row else "")
+                + (f"splits={row['splits']} " if "splits" in row else "")
+                + (f"prev_err={row['prev_err']:.3e} "
+                   if "prev_err" in row else "")
                 + ("split_ms=" + "/".join(f"{n}:{t:.4f}" for n, t in
                                           row["split_ms"].items()) + " "
                    if "split_ms" in row else "")
@@ -677,10 +708,14 @@ def _check_sq(label: str, x, factors: list, dname: str,
     (sp, idx, scale) of w0 / w1, or of u / v around the quantized core
     (q, scale) of xc.  The yardstick is the cuBLAS chain on the factors
     expanded and dequantized beforehand; a branched row takes
-    :func:`_split_times` (``flush`` for its cold-L2 times).  The bound
-    counts the packed values, the index bytes, the scales and the
-    activations at HBM rate, and the kept products only (the pruned half
-    costs no operations)."""
+    :func:`_split_times` (``flush`` for its cold-L2 times), a lowrank row
+    :func:`_attention_times` against the cluster kernel (the earlier bf16
+    design; f32 runs it) with ``prev_err`` and, in bf16, the phase timer
+    (``phase_us``) and at the served decode shape the times of the plans
+    of :data:`LOWRANK_PLAN_SWEEP` (``plan_us``).
+    The bound counts the packed values, the index bytes, the scales and
+    the activations at HBM rate, and the kept products only (the pruned
+    half costs no operations)."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.quant.sparse import expand_sparse
@@ -701,8 +736,20 @@ def _check_sq(label: str, x, factors: list, dname: str,
     if lowrank:
         (r, s), n = dense[1].shape, 1
         w0d, w1d = dense
-        times = dict(ms=time_ms(lambda: fn(*args)),
-                     library_ms=time_ms(lambda: (x @ w0d) @ w1d))
+        bf16 = dname == "bfloat16"
+        old = mod.cluster_lowrank_matmul_sq(*args)
+        times = dict(
+            prev_err=_compare(y, old, dname)["norm_err"],
+            **_attention_times(
+                lambda: fn(*args),
+                (lambda: mod.cluster_lowrank_matmul_sq(*args)) if bf16
+                else None, lambda: (x @ w0d) @ w1d, flush))
+        if bf16:
+            times["phase_us"] = min(
+                (mod.lowrank_matmul_sq_phase_us(*args) for _ in range(5)),
+                key=sum)
+        if bf16 and label in SPARSE_LOWRANK and m == 8:
+            times["plan_us"] = _lowrank_plans(mod, args)
         kept = c * r // 2 + r * s // 2
         dims = dict(C=c, R=r, S=s)
     else:
@@ -728,6 +775,30 @@ def _check_sq(label: str, x, factors: list, dname: str,
                 plain_ms=time_ms(lambda: plain(*args)),
                 library="cuBLAS chain on factors expanded beforehand",
                 **_bound(nbytes, 2 * m * kept, dname))
+
+
+def _lowrank_plans(mod, args) -> dict:
+    """Device ms of one launch (host ahead) and the phase times (the
+    fastest of five launches) of the bf16 two-phase B11 kernel at each
+    plan of :data:`LOWRANK_PLAN_SWEEP`, keyed ``items/ctas`` (``items``
+    a count for both phases, or one a phase; ``-`` a default)."""
+    import torch
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for items, ctas in LOWRANK_PLAN_SWEEP:
+        default = kernel_module("branched_matmul").ITEMS_PER_SM * sms
+        if isinstance(items, tuple):
+            items = tuple(default if n is None else n for n in items)
+        knobs = dict(items=items, ctas=ctas)
+        label = ("-" if items is None else
+                 ",".join(map(str, items)) if isinstance(items, tuple)
+                 else str(items)) + ("/-" if ctas is None else f"/{ctas}")
+        out[label] = dict(
+            ms=time_ms(lambda: mod.lowrank_matmul_sq_split(*args, **knobs),
+                       ahead=True),
+            phase_us=min((mod.lowrank_matmul_sq_phase_us(*args, **knobs)
+                          for _ in range(5)), key=sum))
+    return out
 
 
 def latent_inputs(case: dict, dname: str, rnd) -> tuple:
@@ -761,20 +832,39 @@ def _split_sweep(launch, planned: int) -> dict:
 
 
 def _attention_times(kernel, prev, library, flush) -> dict:
-    """Times of a split attention row (B9, B10) beside its SDPA call
+    """Times of a redesigned kernel's row (the split attentions B8, B9,
+    B10; the bf16 two-phase lowrank chain B11) beside its library call
     ``library``, every one with the host ahead of the card
-    (:func:`time_ms`): the split kernel in turns with ``prev``, the
-    earlier design (new, old, old, new: ``prev_ms``), a second call held
-    to the first's bits (``same_bits``), and the kernel and the library
-    call with a cold L2 (``cold_ms``, ``library_cold_ms``)."""
+    (:func:`time_ms`): the kernel in turns with ``prev``, the earlier
+    design (new, old, old, new: ``prev_ms``; ``prev`` None where the row
+    runs the earlier design itself), a second call held to the first's
+    bits (``same_bits``), the kernel and the library call with a cold L2
+    (``cold_ms``, ``library_cold_ms``), and both between CUDA events with
+    the host not kept ahead (:data:`EVENT_TIMES`, the series of the rows
+    timed so before)."""
     import torch
-    turns = [time_ms(f, ahead=True) for f in (kernel, prev, prev, kernel)]
-    return dict(ms=(turns[0] + turns[3]) / 2,
-                prev_ms=(turns[1] + turns[2]) / 2,
-                same_bits=torch.equal(kernel(), kernel()),
+    if prev is None:
+        out = dict(ms=time_ms(kernel, ahead=True), prev_ms=None)
+    else:
+        turns = [time_ms(f, ahead=True) for f in (kernel, prev, prev, kernel)]
+        out = dict(ms=(turns[0] + turns[3]) / 2,
+                   prev_ms=(turns[1] + turns[2]) / 2)
+    return dict(out, same_bits=torch.equal(kernel(), kernel()),
                 cold_ms=cold_ms(kernel, flush, ahead=True),
                 library_ms=time_ms(library, ahead=True),
-                library_cold_ms=cold_ms(library, flush, ahead=True))
+                library_cold_ms=cold_ms(library, flush, ahead=True),
+                event_ms=time_ms(kernel), library_event_ms=time_ms(library))
+
+
+def _ahead_and_event(kernel, library) -> dict:
+    """Times of a row not redesigned yet (B1, B3, B5): the kernel and its
+    library call with the host kept ahead of the card (``ms``,
+    ``library_ms``: device times, by which a later PR ranks them) and
+    between CUDA events without (:data:`EVENT_TIMES`, comparable with the
+    earlier runs' series)."""
+    return dict(ms=time_ms(kernel, ahead=True),
+                library_ms=time_ms(library, ahead=True),
+                event_ms=time_ms(kernel), library_event_ms=time_ms(library))
 
 
 def _check_latent(label: str, case: dict, dname: str, rnd, flush) -> dict:
@@ -875,11 +965,12 @@ def _check_attention(label: str, case: dict, dname: str, rnd) -> dict:
     return dict(shape=label, dtype=dname, B=b, S=s, KH=kh, G=g_, D=d,
                 softcap=case["softcap"], idle=case["idle"],
                 **_compare(y.reshape(want.shape), want, dname),
-                ms=time_ms(lambda: dak.decode_attention_q(*args, **kw)),
+                **_ahead_and_event(
+                    lambda: dak.decode_attention_q(*args, **kw),
+                    lambda: F.scaled_dot_product_attention(
+                        qd, kd, vd, attn_mask=mask)),
                 plain_ms=time_ms(lambda: ref.decode_attention_q_ref(
                     q4, *args[1:], **kw)),
-                library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                    qd, kd, vd, attn_mask=mask)),
                 **_bound(nbytes, 4 * b * kh * g_ * s * d, dname))
 
 
@@ -996,9 +1087,10 @@ def _check_paged(label: str, case: dict, dname: str, quant: bool,
     slot's position once each (every entry for an idle slot), their scale
     rows, the table entries read, q and the output; the yardstick is SDPA
     on the pool gathered (and dequantized) beforehand, K/V expanded to
-    every query head.  The int8 rows (B9, the split kernel) add
-    :func:`_attention_times` against the earlier kernel, timed at the
-    wrapper, and ``prev_err``."""
+    every query head.  Both pools run the split kernel (B8 full width, B9
+    int8): :func:`_attention_times` against the earlier kernel, timed at
+    the wrapper, ``prev_err``, the planned split count and, at the served
+    bf16 shape, ``split_ms``."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
@@ -1035,27 +1127,25 @@ def _check_paged(label: str, case: dict, dname: str, quant: bool,
               + 2 * q.numel() * dt.itemsize)
     library = (lambda: F.scaled_dot_product_attention(
         qd, heads[0], heads[1], attn_mask=mask))
-    if quant:
-        dpk = kernel_module("decode_attention_paged_q")
-        rows = (q.reshape(b, kh, gg, d), *pool, tables, pos)
-        old = dpk.prev_decode_attention_paged_q(*rows, **kw)
-        sms = torch.cuda.get_device_properties(0).multi_processor_count
-        planned = dpk.paged_split(b, kh, nblk, sms).splits
-        times = {}
-        if label == "served" and dname == "bfloat16":
-            times["split_ms"] = _split_sweep(
-                lambda n: dpk.decode_attention_paged_q_split(
-                    *rows, **kw, splits=n), planned)
-        times.update(
-            splits=planned,
-            prev_err=_compare(y.reshape(old.shape), old, dname)["norm_err"],
-            **_attention_times(
-                lambda: dpk.decode_attention_paged_q(*rows, **kw),
-                lambda: dpk.prev_decode_attention_paged_q(*rows, **kw),
-                library, flush))
-    else:
-        times = dict(ms=time_ms(lambda: fn(*args, **kw)),
-                     library_ms=time_ms(library))
+    dpk = kernel_module(name)
+    rows = (q.reshape(b, kh, gg, d), *pool, tables, pos)
+    split = getattr(dpk, name + "_split")
+    old = getattr(dpk, "prev_" + name)(*rows, **kw)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    esize = 1 if quant else dt.itemsize
+    planned = dpk.paged_split(b, kh, nblk, sms,
+                              fit=(gg, d, bs, esize, quant)).splits
+    times = {}
+    if label == "served" and dname == "bfloat16":
+        times["split_ms"] = _split_sweep(
+            lambda n: split(*rows, **kw, splits=n), planned)
+    times.update(
+        splits=planned,
+        prev_err=_compare(y.reshape(old.shape), old, dname)["norm_err"],
+        **_attention_times(
+            lambda: getattr(dpk, name)(*rows, **kw),
+            lambda: getattr(dpk, "prev_" + name)(*rows, **kw),
+            library, flush))
     return dict(shape=label, dtype=dname, B=b, KH=kh, G=gg, D=d, bs=bs,
                 nblk=nblk, softcap=case["softcap"], idle=case["idle"],
                 **_compare(y, want, dname), **times,
@@ -1089,7 +1179,7 @@ def _kernel_entries(rows: dict[str, list[dict]]) -> list[dict]:
         prefill = name in PREFILL_LAUNCHES
         m = 64 if prefill else 8
         timed = ("ms", "plain_ms", "library_ms", "bound_ms") + tuple(
-            k for k in SPLIT_TIMES if k in rs[0])
+            k for k in SPLIT_TIMES + EVENT_TIMES if k in rs[0])
         per_step = {k: 0.0 for k in timed + ("bytes", "flops")}
         t_ops = 0.0
         for label, count in (PREFILL_LAUNCHES if prefill
@@ -1129,7 +1219,7 @@ def _kernel_entries(rows: dict[str, list[dict]]) -> list[dict]:
                     "ms": per_step["ms"], "plain_ms": per_step["plain_ms"],
                     "bound_ms": per_step["bound_ms"], "bound_by": by,
                     "library_ms": per_step["library_ms"],
-                    **{k: per_step[k] for k in SPLIT_TIMES
+                    **{k: per_step[k] for k in SPLIT_TIMES + EVENT_TIMES
                        if k in per_step},
                     "timed_as": (
                         "one prefill chunk's launches, M=64, bf16, int8 "
@@ -1652,9 +1742,10 @@ def check_mla_surgery(rep, params, card: str) -> None:
 
 def split_kernels() -> None:
     """Print the shared memory and the persistent grid of every
-    split-phase kernel (bf16 B2; B4 and B12 on int8 / e4m3) at each row
-    tile count, and fail where the C side's shared memory disagrees with
-    the wrapper's count or a grid is empty."""
+    split-phase kernel (bf16 B2; B4, B12 and the two-phase B11 on int8 /
+    e4m3) at each row tile count, and B11's served plan, and fail where
+    the C side's shared memory disagrees with the wrapper's count or a
+    grid is empty."""
     import torch
     from repro_torch.kernels import branched_matmul as bk
     from repro_torch.kernels import build
@@ -1679,13 +1770,31 @@ def split_kernels() -> None:
             if smem != bk.mma_smem_bytes(kind) or min(grids.values()) <= 0:
                 raise SystemExit(f"{name} split-phase kernel: shared memory "
                                  "or grid disagrees with the wrapper")
+    smem = int(lib.lrk_lowrank_sq_mma_smem())
+    c, r, s = LOWRANK_SHAPES["k,v"]
+    sp = bk.lowrank_split(8, c, r, s, sms)
+    for qt in (0, 1):
+        grids = {rows: int(lib.lrk_lowrank_sq_mma_grid(qt, rows))
+                 for rows in (8, 32, 64)}
+        log(f"lowrank_matmul_sq (two-phase split, {('int8', 'e4m3')[qt]}, "
+            f"{bk.STAGES} stages): {smem} B of dynamic shared memory "
+            f"(wrapper's count {bk.mma_smem_bytes('lowrank_sq')}); "
+            f"persistent grid (CTAs) at 8 / 32 / 64 rows: {grids} on {sms} "
+            f"SMs; served k/v plan at M = 8: {sp.slices(1)} x "
+            f"{math.ceil(r / bk.BN)} items of K slice {sp.k1} (phase 1), "
+            f"{sp.slices(2)} x {math.ceil(s / bk.BN)} of {sp.k2} (phase 2), "
+            f"{sp.scratch_bytes} B of scratch")
+        if smem != bk.mma_smem_bytes("lowrank_sq") or \
+                min(grids.values()) <= 0:
+            raise SystemExit("lowrank_matmul_sq split kernel: shared memory "
+                             "or grid disagrees with the wrapper")
 
 
 def attention_splits() -> None:
     """Print the plan and the shared memory of the split attention
-    kernels (B10 at the served latent pool, B9 at the served paged pool),
-    and fail where the C side's shared memory disagrees with the
-    wrapper's count or exceeds the limit."""
+    kernels (B10 at the served latent pool; B9, and B8 on bf16 and f32
+    pools, at the served paged pool), and fail where the C side's shared
+    memory disagrees with the wrapper's count or exceeds the limit."""
     import torch
     from repro_torch.kernels import build
     from repro_torch.kernels import decode_attention_latent_q as dlk
@@ -1703,14 +1812,22 @@ def attention_splits() -> None:
         f"{sp.bs} positions per stage; {smem} B of dynamic shared memory "
         f"(wrapper's count {want}, limit {build.SMEM_LIMIT})")
     p = PAGED_CASES["served"]
-    pp = dpk.paged_split(p["b"], p["kh"], p["nblk"], sms)
-    psmem = int(lib.lrk_decode_attention_paged_split_smem(
-        p["g"], p["d"], p["bs"], 1, 1, pp.span))
-    log(f"decode_attention_paged_q (split) at the served paged pool: "
-        f"{p['kh']} KV heads x {p['b']} slots x {pp.splits} splits of "
-        f"{pp.span} entries = {pp.ctas} CTAs on {sms} SMs; {psmem} B of "
-        f"dynamic shared memory (limit {build.SMEM_LIMIT})")
-    if smem != want or max(smem, psmem) > build.SMEM_LIMIT:
+    bad = smem != want or smem > build.SMEM_LIMIT
+    for name, esize in (("decode_attention_paged_q", 1),
+                        ("decode_attention_paged, bf16", 2),
+                        ("decode_attention_paged, f32", 4)):
+        fit = (p["g"], p["d"], p["bs"], esize, esize == 1)
+        pp = dpk.paged_split(p["b"], p["kh"], p["nblk"], sms, fit=fit)
+        psmem = int(lib.lrk_decode_attention_paged_split_smem(
+            *fit[:4], int(fit[4]), pp.span))
+        log(f"{name} (split) at the served paged pool: {p['kh']} KV heads "
+            f"x {p['b']} slots x {pp.splits} splits of {pp.span} entries = "
+            f"{pp.ctas} CTAs on {sms} SMs; {psmem} B of dynamic shared "
+            f"memory (wrapper's count {dpk.split_smem(*fit, pp.span)}, "
+            f"limit {build.SMEM_LIMIT})")
+        bad |= psmem != dpk.split_smem(*fit, pp.span) \
+            or psmem > build.SMEM_LIMIT
+    if bad:
         raise SystemExit("split attention kernels: shared memory disagrees "
                          "with the wrapper or exceeds the limit")
 

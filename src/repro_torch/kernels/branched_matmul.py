@@ -5,12 +5,13 @@ The kernels (``csrc/branched_matmul.cu``) replace the TPU kernel
 ``repro/kernels/branched_matmul.py::branched_matmul``; the source note
 says what bounds them and how the design answers.  bf16 goes to the
 split-phase tensor-core kernel, one cooperative launch whose work split
-:func:`branched_split` computes here; f32 goes to the cluster kernel
-(tensor cores in TF32 cannot hold f32's tolerance).  This wrapper checks
-the operands, allocates the output and the scratch, launches on the
-current stream and counts launches.  CUDA tensors only: the CPU path is
-the plain version in :mod:`repro_torch.kernels.ref`, chosen by
-:mod:`repro_torch.kernels.ops`.
+:func:`branched_split` computes here (:func:`lowrank_split` plans its
+two-phase form, which bf16 ``lowrank_matmul_sq`` runs); f32 goes to the
+cluster kernel (tensor cores in TF32 cannot hold f32's tolerance).
+This wrapper checks the operands, allocates the output and the scratch,
+launches on the current stream and counts launches.  CUDA tensors only:
+the CPU path is the plain version in :mod:`repro_torch.kernels.ref`,
+chosen by :mod:`repro_torch.kernels.ops`.
 """
 from __future__ import annotations
 
@@ -38,14 +39,21 @@ BM, BN, BK, STAGES, PAD = 64, 128, 32, 6, 8
 RAW_STAGE = {"plain": BK * (BN + PAD) * 2, "dequant": BK * BN + 4 * BN,
              "dequant_lines": BK * 2 * BN + 4 * BN,
              "sparse24": 2 * (BK // 4) * BN + 2 * (BK // 4) * 4 + 4 * BN}
-#: the views of u, xc and v of each split-phase kernel: bf16 factors
-#: (this module), quantized factors (branched_matmul_q), 2:4 packs
-#: (branched_matmul_sq)
+#: the views of u, xc and v of each branched split-phase kernel: bf16
+#: factors (this module), quantized factors (branched_matmul_q), 2:4
+#: packs (branched_matmul_sq); and of w0, w1 of the lowrank one on 2:4
+#: packs (lowrank_matmul_sq)
 VIEWS = {"bf16": ("plain",) * 3, "q": ("dequant_lines", "dequant", "dequant"),
-         "sq": ("sparse24", "dequant", "sparse24")}
+         "sq": ("sparse24", "dequant", "sparse24"),
+         "lowrank_sq": ("sparse24", "sparse24")}
 #: work items per SM each phase aims for (one round of the persistent
 #: grid, two CTAs per SM)
 ITEMS_PER_SM = 2
+#: CTAs per SM the two-phase lowrank kernel launches (of the two the
+#: persistent grid holds): at llama's k/v pair a grid sync of 132 CTAs
+#: is cheaper than one of 264 and the phases have at most 64 items, so a
+#: launch took 10.7 against 11.8 us on an H100 at 700 W (PERF.md)
+LOWRANK_CTAS_PER_SM = 1
 #: alignment of each scratch region (bytes)
 ALIGN = 256
 
@@ -54,7 +62,7 @@ def mma_smem_bytes(kind: str = "bf16") -> int:
     """Dynamic shared memory of a split-phase kernel (bytes; ``kind`` a key
     of VIEWS), fixed by the tile whatever the ranks: the ring of (A,
     weight) stage pairs and, for a converting view, two converted bf16
-    tiles -- the largest of its three views'."""
+    tiles -- the largest of its views'."""
     return max(STAGES * (BM * (BK + PAD) * 2 + RAW_STAGE[view])
                + (0 if view == "plain" else 2 * BK * (BN + PAD) * 2)
                for view in VIEWS[kind])
@@ -73,48 +81,35 @@ def _align(n: int) -> int:
     return (n + ALIGN - 1) // ALIGN * ALIGN
 
 
-@dataclass(frozen=True)
-class BranchedSplit:
-    """The split-phase kernel's work split for one call: ``k1``, ``k2``,
-    ``k3`` are the K-slice lengths of phases 1-3 (passed to C) and
-    ``rows`` the rows of a row block."""
-    m: int
-    c: int
-    n: int
-    r1: int
-    r2: int
-    s: int
+class _Split:
+    """What the split-phase kernels' plans share: each phase's K slices
+    and work items, and the scratch layout -- P, the f32 partials of the
+    largest K-sliced phase, then the bf16 intermediates
+    (:meth:`intermediates`), each region aligned to ALIGN bytes.  A plan
+    names its phases (``PHASES``), their ``(K, branches, columns per
+    branch, K slice)`` (:meth:`phase`) and its rows of a row block."""
+    PHASES: tuple[int, ...] = ()
     rows: int
-    k1: int
-    k2: int
-    k3: int
 
     def phase(self, i: int) -> tuple[int, int, int, int]:
-        """Phase ``i`` (1, 2, 3) as ``(K, branches, columns per branch, K
-        slice)``: phase 1 reads u (N of (C, r1)), phase 2 xc (N of (r1,
-        r2)), phase 3 v as one (N*r2, S) matrix."""
-        if i == 1:
-            return self.c, self.n, self.r1, self.k1
-        if i == 2:
-            return self.r1, self.n, self.r2, self.k2
-        if i == 3:
-            return self.n * self.r2, 1, self.s, self.k3
-        raise ValueError(f"phase {i}: the kernel has phases 1, 2, 3")
+        raise NotImplementedError
+
+    def intermediates(self) -> dict[str, int]:
+        raise NotImplementedError
 
     def slices(self, i: int) -> int:
         k, _, _, ks = self.phase(i)
         return math.ceil(k / ks)
 
     def region_bytes(self) -> dict[str, int]:
-        """Bytes of each scratch region: P, the f32 partials of the
-        largest K-sliced phase (slices x rows x its N*width), and h1
-        (rows, N*r1), h2 (rows, N*r2) in bf16."""
+        """Bytes of each scratch region: P (slices x rows x the phase's
+        branches*width, f32, the largest over the K-sliced phases), then
+        the intermediates."""
         partials = [self.slices(i) * self.rows * nbr * width * 4
-                    for i in (1, 2, 3) for _, nbr, width, _ in [self.phase(i)]
+                    for i in self.PHASES
+                    for _, nbr, width, _ in [self.phase(i)]
                     if self.slices(i) > 1]
-        return {"p": max(partials, default=0),
-                "h1": self.rows * self.n * self.r1 * 2,
-                "h2": self.rows * self.n * self.r2 * 2}
+        return {"p": max(partials, default=0), **self.intermediates()}
 
     def offsets(self) -> dict[str, int]:
         out, at = {}, 0
@@ -138,6 +133,83 @@ class BranchedSplit:
                 for t in range(math.ceil(width / BN))]
 
 
+@dataclass(frozen=True)
+class BranchedSplit(_Split):
+    """The branched split-phase kernel's work split for one call: ``k1``,
+    ``k2``, ``k3`` are the K-slice lengths of phases 1-3 (passed to C)
+    and ``rows`` the rows of a row block."""
+    m: int
+    c: int
+    n: int
+    r1: int
+    r2: int
+    s: int
+    rows: int
+    k1: int
+    k2: int
+    k3: int
+    PHASES = (1, 2, 3)
+
+    def phase(self, i: int) -> tuple[int, int, int, int]:
+        """Phase ``i`` (1, 2, 3) as ``(K, branches, columns per branch, K
+        slice)``: phase 1 reads u (N of (C, r1)), phase 2 xc (N of (r1,
+        r2)), phase 3 v as one (N*r2, S) matrix."""
+        if i == 1:
+            return self.c, self.n, self.r1, self.k1
+        if i == 2:
+            return self.r1, self.n, self.r2, self.k2
+        if i == 3:
+            return self.n * self.r2, 1, self.s, self.k3
+        raise ValueError(f"phase {i}: the kernel has phases 1, 2, 3")
+
+    def intermediates(self) -> dict[str, int]:
+        """h1 (rows, N*r1) and h2 (rows, N*r2) in bf16."""
+        return {"h1": self.rows * self.n * self.r1 * 2,
+                "h2": self.rows * self.n * self.r2 * 2}
+
+    @property
+    def c_args(self) -> tuple[int, int, int]:
+        """The integers C takes after the sizes: the K-slice lengths."""
+        return self.k1, self.k2, self.k3
+
+
+@dataclass(frozen=True)
+class LowrankSplit(_Split):
+    """The two-phase lowrank kernel's work split for one call
+    ``y = (x @ W(w0)) @ W(w1)``: ``k1``, ``k2`` are the K-slice lengths of
+    phase 1 (x @ w0, K = C, width R) and phase 2 (h @ w1, K = R, width S),
+    ``rows`` the rows of a row block, ``ctas`` the CTAs the launch takes
+    at most (0: the whole persistent grid)."""
+    m: int
+    c: int
+    r: int
+    s: int
+    rows: int
+    k1: int
+    k2: int
+    ctas: int = 0
+    PHASES = (1, 2)
+
+    def phase(self, i: int) -> tuple[int, int, int, int]:
+        """Phase ``i`` (1, 2) as ``(K, branches, columns, K slice)``, one
+        branch each."""
+        if i == 1:
+            return self.c, 1, self.r, self.k1
+        if i == 2:
+            return self.r, 1, self.s, self.k2
+        raise ValueError(f"phase {i}: the kernel has phases 1, 2")
+
+    def intermediates(self) -> dict[str, int]:
+        """h (rows, R) in bf16."""
+        return {"h": self.rows * self.r * 2}
+
+    @property
+    def c_args(self) -> tuple[int, int, int]:
+        """The integers C takes after the sizes: the K-slice lengths and
+        the CTA cap."""
+        return self.k1, self.k2, self.ctas
+
+
 def branched_split(m: int, c: int, n: int, r1: int, r2: int, s: int,
                    sms: int) -> BranchedSplit:
     """Work split of the split-phase kernel on a card of ``sms`` SMs: each
@@ -155,14 +227,40 @@ def branched_split(m: int, c: int, n: int, r1: int, r2: int, s: int,
         k3=_slice(n * r2, math.ceil(s / BN), target))
 
 
+def lowrank_split(m: int, c: int, r: int, s: int, sms: int,
+                  items: int | tuple[int, int] | None = None,
+                  ctas: int | None = None) -> LowrankSplit:
+    """Work split of the two-phase lowrank kernel on a card of ``sms``
+    SMs: each phase slices its reduction axis (C, R) so that with its
+    column tiles (tiles(R), tiles(S)) it has about ``items`` items (one
+    count for both phases or one each; default ITEMS_PER_SM per SM, one
+    round of the persistent grid); fewer items give longer slices, fewer
+    partials to sum.  ``ctas``: the CTAs the launch takes at most (0: the
+    whole persistent grid; default LOWRANK_CTAS_PER_SM per SM)."""
+    n1, n2 = (ITEMS_PER_SM * sms,) * 2 if items is None else \
+        (items, items) if isinstance(items, int) else items
+    if ctas is None:
+        ctas = LOWRANK_CTAS_PER_SM * sms
+    if min(m, c, r, s, sms, n1, n2) <= 0 or ctas < 0:
+        raise ValueError(f"lowrank split of ({m}, {c}, {r}, {s}) on {sms} "
+                         f"SMs, {items} items, {ctas} CTAs: every size must "
+                         "be positive")
+    return LowrankSplit(m=m, c=c, r=r, s=s, rows=min(m, BM),
+                        k1=_slice(c, math.ceil(r / BN), n1),
+                        k2=_slice(r, math.ceil(s / BN), n2), ctas=ctas)
+
+
 @functools.lru_cache(maxsize=256)
-def _plan(m: int, c: int, n: int, r1: int, r2: int, s: int, sms: int
+def _plan(dims: tuple[int, ...], sms: int, knobs: tuple
           ) -> tuple[tuple[int, ...], int, tuple[int, ...]]:
-    """What one launch passes to C: the split's K-slice lengths, its
-    scratch bytes and the offsets of P, h1, h2 (cached per shape)."""
-    sp = branched_split(m, c, n, r1, r2, s, sms)
-    return (sp.k1, sp.k2, sp.k3), sp.scratch_bytes, tuple(
-        sp.offsets().values())
+    """What one launch passes to C (cached per shape): the split's
+    integers after the sizes (:attr:`c_args`), its scratch bytes and the
+    offsets of its regions -- a branched split for ``dims`` (M, C, N, r1,
+    r2, S), a lowrank split for (M, C, R, S) with ``knobs`` the keyword
+    arguments of :func:`lowrank_split` as pairs."""
+    sp = branched_split(*dims, sms) if len(dims) == 6 else \
+        lowrank_split(*dims, sms, **dict(knobs))
+    return sp.c_args, sp.scratch_bytes, tuple(sp.offsets().values())
 
 
 @functools.lru_cache(maxsize=None)
@@ -216,7 +314,7 @@ def branched_matmul(x: torch.Tensor, u: torch.Tensor, xc: torch.Tensor,
     if x.dtype == torch.float32:
         _launch_cluster(x, u, xc, v, y)
     else:
-        check_factors("branched_matmul", dims, u, xc, v)
+        check_factors("branched_matmul", dims[1:5], u, xc, v)
         _launch_mma(x, u, xc, v, y, None, dims)
     launches += 1
     return y
@@ -236,9 +334,10 @@ def branched_matmul_phase_us(x: torch.Tensor, u: torch.Tensor,
     return us
 
 
-def check_factors(what: str, dims: tuple[int, ...], *factors) -> None:
-    """Raise on empty factors: the split-phase kernels take none."""
-    if min(dims[1:5]) == 0:
+def check_factors(what: str, sizes: tuple[int, ...], *factors) -> None:
+    """Raise on empty factors (a zero in ``sizes``, the factors' widths):
+    the split-phase kernels take none."""
+    if min(sizes) == 0:
         raise ValueError(f"{what} kernel: empty factors "
                          + " ".join(str(tuple(f.shape)) for f in factors))
 
@@ -246,14 +345,16 @@ def check_factors(what: str, dims: tuple[int, ...], *factors) -> None:
 def phase_us(launch, x: torch.Tensor, dims: tuple[int, ...]) -> list[float]:
     """Run ``launch(y, ts)``, one launch of a split-phase kernel on bf16
     ``x`` with its phase timer ``ts`` on, and return the microseconds of
-    each phase (1, 2, 3 per row block, each up to the grid sync that ends
-    it), read by CTA 0 from %globaltimer."""
-    m, s = dims[0], dims[5]
+    each phase (1, 2, 3 per row block for a branched kernel, ``dims`` (M,
+    C, N, r1, r2, S); 1, 2 for the lowrank kernel, (M, C, R, S)), each up
+    to the grid sync that ends it, read by CTA 0 from %globaltimer."""
+    m, s = dims[0], dims[-1]
     if x.dtype != torch.bfloat16 or min(dims) == 0:
         raise ValueError("the phase timer runs the bf16 kernel on "
                          "non-empty operands")
+    phases = 3 if len(dims) == 6 else 2
     y = torch.empty((m, s), dtype=x.dtype, device=x.device)
-    ts = torch.zeros(1 + 3 * math.ceil(m / BM), dtype=torch.int64,
+    ts = torch.zeros(1 + phases * math.ceil(m / BM), dtype=torch.int64,
                      device=x.device)
     launch(y, ts)
     t = ts.tolist()
@@ -263,14 +364,17 @@ def phase_us(launch, x: torch.Tensor, dims: tuple[int, ...]) -> list[float]:
 def launch_split(entry: str, lead: tuple, x: torch.Tensor,
                  weights: tuple[torch.Tensor, ...], y: torch.Tensor,
                  dims: tuple[int, ...], ts: torch.Tensor | None,
-                 what: str) -> None:
+                 what: str, **knobs) -> None:
     """One cooperative launch of a split-phase kernel, the library's C
     function ``entry``, on operands already checked: ``lead`` the
     arguments before x (the factors' storage code), ``weights`` the
-    factor tensors in the C order, ``dims`` (M, C, N, r1, r2, S).  Plans
-    the work split and allocates its scratch."""
+    factor tensors in the C order, ``dims`` (M, C, N, r1, r2, S) for a
+    branched kernel or (M, C, R, S) for the lowrank one (``knobs``: its
+    plan's ``items`` and ``ctas``, see :func:`lowrank_split`).  Plans the
+    work split and allocates its scratch."""
     lib = build.load()
-    ks, nbytes, off = _plan(*dims, _sm_count(x.device.index))
+    ks, nbytes, off = _plan(dims, _sm_count(x.device.index),
+                            tuple(sorted(knobs.items())))
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
     base = scratch.data_ptr()
     with torch.cuda.device(x.device):

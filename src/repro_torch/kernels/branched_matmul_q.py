@@ -60,7 +60,7 @@ def branched_matmul_q(x: torch.Tensor, u_q: torch.Tensor,
     if x.dtype == torch.float32:
         _launch_cluster(*args, y, dims)
     else:
-        bk.check_factors("branched_matmul_q", dims, u_q, xc_q, v_q)
+        bk.check_factors("branched_matmul_q", dims[1:5], u_q, xc_q, v_q)
         _launch_mma(*args, y, None, dims)
     launches += 1
     return y

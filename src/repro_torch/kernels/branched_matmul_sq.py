@@ -70,7 +70,8 @@ def branched_matmul_sq(x: torch.Tensor, u_sp: torch.Tensor,
     if x.dtype == torch.float32:
         _launch_cluster(*args, y, dims)
     else:
-        bk.check_factors("branched_matmul_sq", dims, u_sp, xc_q, v_sp)
+        bk.check_factors("branched_matmul_sq", dims[1:5], u_sp, xc_q,
+                            v_sp)
         _launch_mma(*args, y, None, dims)
     launches += 1
     return y

@@ -134,6 +134,13 @@ def load() -> ctypes.CDLL:
     lib.lrk_lowrank_matmul_sq.argtypes = [i, i, i, p, p, p, p, p, p, p, p,
                                           i, i, i, i, p]
     lib.lrk_lowrank_matmul_sq.restype = i
+    lib.lrk_lowrank_matmul_sq_mma.argtypes = [i, p, p, p, p, p, p, p, p, p,
+                                              p, i, i, i, i, i, i, i, p, p]
+    lib.lrk_lowrank_matmul_sq_mma.restype = i
+    lib.lrk_lowrank_sq_mma_smem.argtypes = []
+    lib.lrk_lowrank_sq_mma_smem.restype = ctypes.c_size_t
+    lib.lrk_lowrank_sq_mma_grid.argtypes = [i, i]
+    lib.lrk_lowrank_sq_mma_grid.restype = i
     lib.lrk_branched_matmul_sq.argtypes = [i, i, i, p, p, p, p, p, p, p, p,
                                            p, p, i, i, i, i, i, i, p]
     lib.lrk_branched_matmul_sq.restype = i
@@ -152,9 +159,13 @@ def load() -> ctypes.CDLL:
     lib.lrk_branched_matmul_qa.restype = i
     lib.lrk_branched_qa_smem.argtypes = [i, i, i, i]
     lib.lrk_branched_qa_smem.restype = ctypes.c_size_t
-    lib.lrk_decode_attention_paged.argtypes = [i, p, p, p, p, p, p, i, i, i,
-                                               i, i, i, ctypes.c_float, p]
+    lib.lrk_decode_attention_paged.argtypes = [i, p, p, p, p, p, p, p, p, i,
+                                               i, i, i, i, i, i, i,
+                                               ctypes.c_float, p]
     lib.lrk_decode_attention_paged.restype = i
+    lib.lrk_decode_attention_paged_prev.argtypes = [
+        i, p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
+    lib.lrk_decode_attention_paged_prev.restype = i
     lib.lrk_decode_attention_paged_q.argtypes = [i, p, p, p, p, p, p, p, p,
                                                  p, p, i, i, i, i, i, i, i,
                                                  i, ctypes.c_float, p]

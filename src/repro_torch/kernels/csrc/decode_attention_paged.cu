@@ -30,35 +30,39 @@
 // holds finite values.
 //
 // What bounds it on an H100: the live blocks' bytes (2 * live positions
-// * D per head, at 1 byte int8 or 2 bytes bf16) -- a handful of FLOPs per
-// byte; about 6 MB, 2.3 us, per int8 launch at the served pool (8 slots x
-// 8 KV heads, 64 entries of 16 positions).  Two kernels:
+// * D per head, at 1 byte int8, 2 bytes bf16 or 4 bytes f32) -- a handful
+// of FLOPs per byte; about 6 MB, 2.3 us, per int8 launch at the served
+// pool (8 slots x 8 KV heads, 64 entries of 16 positions), twice that in
+// bf16.  Two kernels:
 //
-//   * paged_split_kernel (the int8 pool, B9): the sequence split across
-//     the card.  Grid (KH, B, splits), splits of `span` table entries from
-//     paged_split in kernels/decode_attention_paged.py (about four CTAs
-//     per SM: 8 splits of 8 entries, 512 CTAs, at the served pool); a live
-//     slot's split that starts past cache_pos // bs writes an empty
+//   * paged_split_kernel (every pool: B9 int8, B8 bf16 and f32): the
+//     sequence split across the card.  Grid (KH, B, splits), splits of
+//     `span` table entries from paged_split in
+//     kernels/decode_attention_paged.py (about four CTAs per SM: 8 splits
+//     of 8 entries, 512 CTAs, at the served pool; the planner shrinks the
+//     span where a wide element's ring would not fit shared memory); a
+//     live slot's split that starts past cache_pos // bs writes an empty
 //     partial (m = -inf, l = 0), an idle slot's splits walk their whole
-//     ranges.  Whole table entries (K and V rows and both scale rows) are
-//     staged by 16-byte cp.async into a 3-pass ring, so two passes are in
-//     flight while one is used, behind one barrier per pass.  One warp
-//     per query row (G warps): each lane takes two positions' logits (f32
-//     FMAs on the bytes, the block's K scale folded per value), the
-//     softmax is the warp's own (shuffles, no barrier), and each lane
-//     accumulates its D / 32 output values entry by entry.  The splits'
-//     f32 partials are folded inside the launch: the last CTA of each
-//     (slot, KV head) to take an atomic ticket sums them in split order
-//     (so a second call gives the same bits) and resets the ticket.  The
-//     kernel is written for an int8 or a bf16 pool (its chunk readers);
-//     it is instantiated for int8 only.
-//   * paged_kernel (the full-width pool, B8; and the earlier int8 design,
-//     kept callable as lrk_decode_attention_paged_q_prev for chip_smoke's
-//     prev_ms): B*KH CTAs of 128 threads, each walking its slot's whole
-//     table; each pass stages up to 64 positions (whole table entries when
-//     bs < 64) through shared memory with 16-byte loads, rows padded by
-//     one word so per-position dot products hit distinct banks; plain f32
-//     FMAs; three barriers per pass.
+//     ranges.  Whole table entries (K and V rows and, int8, both scale
+//     rows) are staged by 16-byte cp.async into a ring of up to 3 passes,
+//     so two passes are in flight while one is used, behind one barrier
+//     per pass.  One warp per query row (G warps): each lane takes two
+//     positions' logits (f32 FMAs on 16-byte chunks of the row: 16 int8,
+//     8 bf16 or 4 f32 values; int8 folds the block's K scale per value),
+//     the softmax is the warp's own (shuffles, no barrier), and each lane
+//     accumulates its D / 32 output values entry by entry (int8: each
+//     entry's sum times its V scale).  The splits' f32 partials are folded
+//     inside the launch: the last CTA of each (slot, KV head) to take an
+//     atomic ticket sums them in split order (so a second call gives the
+//     same bits) and resets the ticket.
+//   * paged_kernel (the earlier design of both, kept callable as
+//     lrk_decode_attention_paged_prev and lrk_decode_attention_paged_q_prev
+//     for chip_smoke's prev_ms; the serve path never launches it): B*KH
+//     CTAs of 128 threads, each walking its slot's whole table; each pass
+//     stages up to 64 positions (whole table entries when bs < 64) through
+//     shared memory with 16-byte loads, rows padded by one word so
+//     per-position dot products hit distinct banks; plain f32 FMAs; three
+//     barriers per pass.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -321,8 +325,8 @@ bool fits(int G, int D, int bs, int esize) {
 
 
 // ---------------------------------------------------------------------------
-// The sequence-split kernel (B9's; written for an int8 or a bf16 pool
-// element type E, so a bf16 pool can take it too).
+// The sequence-split kernel, on an int8 (B9), bf16 or f32 (B8) pool
+// element type E.
 // ---------------------------------------------------------------------------
 
 constexpr int SPLIT_P = 64;       // positions of one pass
@@ -409,6 +413,17 @@ template <> struct Chunk<__nv_bfloat16> {
       f[2 * i] = __uint_as_float(words[i] << 16);
       f[2 * i + 1] = __uint_as_float(words[i] & 0xffff0000u);
     }
+  }
+};
+template <> struct Chunk<float> {
+  static constexpr int N = 4;
+  __device__ __forceinline__ static void get(const unsigned char* p,
+                                             float (&f)[N]) {
+    const float4 w = *reinterpret_cast<const float4*>(p);
+    f[0] = w.x;
+    f[1] = w.y;
+    f[2] = w.z;
+    f[3] = w.w;
   }
 };
 
@@ -733,9 +748,10 @@ int launch_split(const void* q, const void* k, const void* ks, const void* v,
 
 extern "C" {
 
-// Whether the kernels take this geometry (esize: bytes per pool value,
-// 1 int8, 2 bf16, 4 f32): D a multiple of 16 up to 256, at most 16 query
-// heads per KV head, G*D <= 1024, and the pass fitting shared memory.
+// Whether the earlier kernel takes this geometry (esize: bytes per pool
+// value, 1 int8, 2 bf16, 4 f32): D a multiple of 16 up to 256, at most 16
+// query heads per KV head, G*D <= 1024, and the pass fitting shared
+// memory.
 int lrk_decode_attention_paged_fits(int G, int D, int bs, int esize) {
   return dap::fits(G, D, bs, esize);
 }
@@ -743,12 +759,37 @@ int lrk_decode_attention_paged_fits(int G, int D, int bs, int esize) {
 // out (B,KH,G,D) = attention of q (B,KH,G,D) over the full-width paged
 // pool k/v (NB+1, bs, KH, D) through block tables bt (B, nblk) int32, at
 // positions <= cache_pos (B,) int32; pool in q's type.  dtype: 0 =
-// float32, 1 = bfloat16.  Returns the launch's cudaError_t.
+// float32, 1 = bfloat16.  On the split kernel: KH x B x nsplit CTAs,
+// split j owning table entries [j*span, (j+1)*span); part the f32
+// scratch of B * KH * nsplit * G * (D + 2) floats; tickets B * KH int32,
+// zero (and zero again after the launch).  Returns the launch's
+// cudaError_t.
 int lrk_decode_attention_paged(int dtype, const void* q, const void* k,
                                const void* v, const void* bt,
-                               const void* cache_pos, void* out, int B,
-                               int nblk, int bs, int KH, int G, int D,
+                               const void* cache_pos, void* out, void* part,
+                               void* tickets, int B, int nblk, int bs,
+                               int KH, int G, int D, int span, int nsplit,
                                float softcap, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return dap::launch_split<float, float, false>(
+        q, k, nullptr, v, nullptr, bt, cache_pos, out, part, tickets, B,
+        nblk, bs, KH, G, D, span, nsplit, softcap, s);
+  if (dtype == 1)
+    return dap::launch_split<__nv_bfloat16, __nv_bfloat16, false>(
+        q, k, nullptr, v, nullptr, bt, cache_pos, out, part, tickets, B,
+        nblk, bs, KH, G, D, span, nsplit, softcap, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The earlier full-width kernel (one CTA per slot and KV head walking the
+// whole table), kept for chip_smoke's prev_ms; operands as
+// lrk_decode_attention_paged's, without the split's.
+int lrk_decode_attention_paged_prev(int dtype, const void* q, const void* k,
+                                    const void* v, const void* bt,
+                                    const void* cache_pos, void* out, int B,
+                                    int nblk, int bs, int KH, int G, int D,
+                                    float softcap, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && dap::fits(G, D, bs, 4))
     return dap::launch<float, float, false>(q, k, nullptr, v, nullptr, bt,

@@ -1,5 +1,6 @@
 """The sequence splits of the attention kernels B10 (int8 latent MLA
-decode) and B9 (int8 paged decode), checked on the CPU.
+decode), B9 (int8 paged decode) and B8 (paged decode on a bf16 or f32
+pool, the same split kernel as B9), checked on the CPU.
 
 The CUDA kernels run only on the card, so their work split and their
 arithmetic are held here through plain stand-ins:
@@ -10,8 +11,9 @@ arithmetic are held here through plain stand-ins:
 * a numpy mirror of each kernel's split-and-fold arithmetic (per split an
   online softmax over the kernel's stages or passes, -1e30 masking, -inf
   marking a split that starts past a live slot's position, the per-entry
-  V scale and the softcap of B9, then the fold in split order) is held
-  against the reference's Pallas kernels in interpret mode at 1e-5,
+  V scale and the softcap of B9 -- B8 the same without scales -- then
+  the fold in split order) is held against the reference's Pallas
+  kernels in interpret mode at 1e-5,
   normalised as the card's ``KERNEL_TOL`` is (max |a - b| / max |b|), in
   f32;
 * a mirror of B10's bf16 hi + lo split of the folded query and of the
@@ -220,9 +222,10 @@ def test_latent_hi_alone_would_miss_the_f32_tolerance():
 # ---------------------------------------------------------------------------
 
 def paged_mirror(q, kq, ks, vq, vs, tables, pos, softcap, plan):
-    """B9's split kernel in numpy: q (B,KH,G,D) f32; kq/vq (NB+1,bs,KH,D)
-    int8; ks/vs (NB+1,KH,D) f32; tables (B,nblk); pos (B,) -> (B,KH,G,D)
-    f32."""
+    """The paged split kernel in numpy: q (B,KH,G,D) f32; B9's int8 pool
+    kq/vq (NB+1,bs,KH,D) with scale rows ks/vs (NB+1,KH,D) f32, or B8's
+    full-width pool (ks and vs None: the query scaled by 1/sqrt(D) alone,
+    no V scale); tables (B,nblk); pos (B,) -> (B,KH,G,D) f32."""
     b, kh, g, d = q.shape
     bs = kq.shape[1]
     nblk = tables.shape[1]
@@ -247,7 +250,8 @@ def paged_mirror(q, kq, ks, vq, vs, tables, pos, softcap, plan):
                     lp = np.arange(p0, min(e1 * bs, p0 + pp))
                     phys = tables[bi, lp // bs]
                     kk = kq[phys, lp % bs, h].astype(f32)
-                    qk = q[bi, h][:, None, :] * (ks[phys, h] * scale)
+                    qk = (q[bi, h] * scale)[:, None, :] if ks is None \
+                        else q[bi, h][:, None, :] * (ks[phys, h] * scale)
                     logit = (qk * kk[None]).sum(-1).astype(f32)
                     if softcap:
                         logit = (np.tanh(logit / f32(softcap))
@@ -259,8 +263,9 @@ def paged_mirror(q, kq, ks, vq, vs, tables, pos, softcap, plan):
                         o = np.zeros((g, d), f32)
                         for ent in np.unique(lp // bs):
                             at = lp // bs == ent
-                            o = o + (w[:, at] @ vv[at]) \
-                                * vs[tables[bi, ent], h]
+                            part = w[:, at] @ vv[at]
+                            o = o + (part if vs is None
+                                     else part * vs[tables[bi, ent], h])
                         return o
                     state = _online(state, logit, ctx)
                 parts.append(state)
@@ -380,3 +385,91 @@ def test_paged_split_served_plan():
     entries, 512 CTAs on 132 SMs."""
     plan = dpk.paged_split(8, 8, 64, 132)
     assert (plan.span, plan.splits, plan.ctas) == (8, 8, 512)
+
+
+# ---------------------------------------------------------------------------
+# B8: the full-width pools on the split kernel
+# ---------------------------------------------------------------------------
+
+def _full_inputs(b, kh, g, d, bs, nblk, nb, pos, seed):
+    """q and a full-width f32 pool, tables of shuffled physical blocks
+    (the dummy NB past a slot's live entries)."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, kh, g, d), np.float32)
+    k = rng.standard_normal((nb + 1, bs, kh, d), np.float32)
+    v = rng.standard_normal((nb + 1, bs, kh, d), np.float32)
+    perm = rng.permutation(nb).astype(np.int32)
+    tables = np.full((b, nblk), nb, np.int32)
+    for i, cp in enumerate(pos):
+        used = nblk if cp < 0 else cp // bs + 1
+        tables[i, :used] = perm[i * nblk:i * nblk + used]
+    return q, k, v, tables, np.asarray(pos, np.int32)
+
+
+@pytest.mark.parametrize("esize", [2, 4])
+@pytest.mark.parametrize("label", list(PAGED_CASES))
+def test_paged_split_full_width_mirror_matches_pallas_interpret(label,
+                                                                esize):
+    """B8's split kernel without scales, on the plans of a bf16 (esize 2)
+    and an f32 (4) pool, in f32: idle slots (the uniform average over the
+    whole table), softcaps before the mask, splits past a live slot's
+    position, a block past one pass."""
+    b, kh, g, d, bs, nblk, nb, pos, softcap, splits = PAGED_CASES[label]
+    q, k, v, tables, cpos = _full_inputs(b, kh, g, d, bs, nblk, nb, pos,
+                                         seed=nb + bs + esize)
+    plan = dpk.paged_split(b, kh, nblk, SMS, splits=splits,
+                           fit=(g, d, bs, esize, False))
+    got = paged_mirror(q, k, None, v, None, tables, cpos, softcap, plan)
+    pallas = np.asarray(jpaged.decode_attention_paged(
+        *map(jnp.asarray, (q, k, v, tables)), jnp.asarray(cpos[:, None]),
+        softcap=softcap, interpret=True))
+    assert _norm_err(got, pallas) <= 1e-5
+    plain = ref.decode_attention_paged_ref(
+        torch.from_numpy(q.reshape(b, 1, kh * g, d)),
+        *map(torch.from_numpy, (k, v, tables, cpos)),
+        softcap=softcap).numpy().reshape(b, kh, g, d)
+    assert _norm_err(got, plain) <= 1e-5
+
+
+@pytest.mark.parametrize("g,d,bs,nblk,esize", [
+    (4, 64, 16, 64, 2), (4, 64, 16, 64, 4), (8, 128, 128, 3, 4),
+    (4, 64, 3, 40, 4), (16, 256, 16, 200, 2), (4, 256, 16, 128, 4),
+    (4, 192, 16, 256, 4), (1, 256, 64, 30, 4)])
+def test_paged_split_fits_full_width_pools(g, d, bs, nblk, esize):
+    """On bf16 and f32 pools every table entry is covered once, in split
+    order, and the planned span's ring fits shared memory; where a wide
+    f32 row shrank the span, one entry more would not fit."""
+    fit = (g, d, bs, esize, False)
+    free = dpk.paged_split(2, 2, nblk, SMS)
+    plan = dpk.paged_split(2, 2, nblk, SMS, fit=fit)
+    covered = [e for e0, e1 in plan.entries() for e in range(e0, e1)]
+    assert covered == list(range(nblk))
+    assert 1 <= plan.splits <= dpk.MAX_SPLITS
+    assert dpk.split_smem(*fit, plan.span) <= 232448
+    assert plan.span <= free.span
+    if plan.span < free.span:
+        assert dpk.split_smem(*fit, plan.span + 1) > 232448
+
+
+def test_paged_split_served_full_width_plan():
+    """The served paged pool in bf16 and f32 takes B9's plan: 8 KV heads
+    x 8 slots x 8 splits of 8 entries (two passes of 64 positions), 512
+    CTAs; the ring is two stages of 64 K and 64 V rows of 64 values
+    padded by 16 bytes."""
+    for esize in (2, 4):
+        fit = (4, 64, 16, esize, False)
+        plan = dpk.paged_split(8, 8, 64, SMS, fit=fit)
+        assert (plan.span, plan.splits, plan.ctas) == (8, 8, 512)
+        assert plan == dpk.paged_split(8, 8, 64, SMS)
+        ring = 2 * 2 * 64 * (64 * esize + 16)
+        assert dpk.split_smem(*fit, plan.span) == \
+            ring + 4 * 64 * 4 + 4 * 64 * 4 + 32 + 16
+
+
+def test_paged_split_refuses_a_wide_f32_pool_past_its_passes():
+    """An f32 pool of D 256 fits one 64-position pass a split: 2,048
+    positions a slot take 32 splits, 4,096 would take 64 and raise."""
+    fit = (4, 256, 16, 4, False)
+    assert dpk.paged_split(1, 1, 128, SMS, fit=fit).splits == 32
+    with pytest.raises(ValueError, match="no span"):
+        dpk.paged_split(1, 1, 256, SMS, fit=fit)

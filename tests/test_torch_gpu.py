@@ -857,3 +857,204 @@ def test_split_attention_smem_matches_the_wrappers(cuda):
         span = dpk.paged_split(c["b"], c["kh"], c["nblk"], sms).span
         assert lib.lrk_decode_attention_paged_split_fits(
             c["g"], c["d"], c["bs"], 1, 1, span)
+
+
+# --- bf16 B11 on the two-phase split kernel --------------------------------
+
+#: lowrank pairs (C, R, S) of B11's split kernel: llama's k/v SVD pair,
+#: DeepSeek-V2-width pairs (d_model 5120 into ranks of 512 and 256 out to
+#: q_lora 1536 and kv_lora + rope 576), and ragged ones (C, R multiples of
+#: 4 but not of the stage depth 32; S past a 128-column tile)
+_LOWRANK_SQ_SHAPES = {
+    **{k: chip_smoke.LOWRANK_SHAPES[k] for k in chip_smoke.SPARSE_LOWRANK},
+    "ds q": (5120, 512, 1536), "ds kv": (5120, 256, 576),
+    "ragged C=36": (36, 20, 70), "ragged R=8": (200, 8, 129)}
+
+
+def _lowrank_sq_args(g, m, label, mode, dtype=torch.bfloat16):
+    c, r, s = _LOWRANK_SQ_SHAPES[label]
+    return (_rnd(g, m, c, dtype=dtype), *_packed(g, c, r, mode=mode),
+            *_packed(g, r, s, mode=mode))
+
+
+@pytest.mark.parametrize("mode", chip_smoke.QMODES)
+@pytest.mark.parametrize("m", chip_smoke.M_CASES)
+@pytest.mark.parametrize("label", list(_LOWRANK_SQ_SHAPES))
+def test_split_lowrank_sq_bf16_matches_plain_and_cluster(cuda, label, m,
+                                                         mode):
+    """bf16 B11 runs the two-phase split kernel: one launch per call, the
+    same bits on a second call, within KERNEL_TOL of the plain version and
+    of the cluster kernel (the earlier design, uncounted)."""
+    from repro_torch.kernels import lowrank_matmul_sq as lsk
+    from repro_torch.kernels import ref
+    args = _lowrank_sq_args(cuda, m, label, mode)
+    n0 = lsk.launches
+    y = lsk.lowrank_matmul_sq(*args)
+    assert lsk.launches == n0 + 1
+    assert torch.equal(y, lsk.lowrank_matmul_sq(*args))
+    old = lsk.cluster_lowrank_matmul_sq(*args)
+    assert lsk.launches == n0 + 2
+    tol = chip_smoke.KERNEL_TOL["bfloat16"]
+    assert _norm_err(y, ref.lowrank_matmul_sq_ref(*args)) <= tol
+    assert _norm_err(y, old) <= tol
+
+
+@pytest.mark.parametrize("m", [72, 512])
+def test_split_lowrank_sq_row_blocks_same_bits(cuda, m):
+    """M past one 64-row block: the kernel loops over row blocks; two
+    calls give the same bits, one launch each."""
+    from repro_torch.kernels import lowrank_matmul_sq as lsk
+    from repro_torch.kernels import ref
+    args = _lowrank_sq_args(cuda, m, "k,v", "int8")
+    n0 = lsk.launches
+    y = lsk.lowrank_matmul_sq(*args)
+    assert torch.equal(y, lsk.lowrank_matmul_sq(*args))
+    assert lsk.launches == n0 + 2
+    assert _norm_err(y, ref.lowrank_matmul_sq_ref(*args)) \
+        <= chip_smoke.KERNEL_TOL["bfloat16"]
+
+
+def test_split_lowrank_sq_f32_runs_the_cluster_kernel(cuda):
+    """f32 x keeps the cluster kernel: bit-equal to the yardstick entry
+    that launches it, one counted launch, within f32's tolerance."""
+    from repro_torch.kernels import lowrank_matmul_sq as lsk
+    from repro_torch.kernels import ref
+    args = _lowrank_sq_args(cuda, 37, "k,v", "int8", dtype=torch.float32)
+    n0 = lsk.launches
+    y = lsk.lowrank_matmul_sq(*args)
+    assert lsk.launches == n0 + 1
+    assert torch.equal(y, lsk.cluster_lowrank_matmul_sq(*args))
+    assert _norm_err(y, ref.lowrank_matmul_sq_ref(*args)) \
+        <= chip_smoke.KERNEL_TOL["float32"]
+
+
+def test_split_lowrank_sq_smem_and_grid(cuda):
+    """The C side's shared memory of the two-phase kernel equals the
+    wrapper's count, under the opt-in limit; its persistent grid holds at
+    least one CTA per SM at every row tile count."""
+    from repro_torch.kernels import branched_matmul as bk
+    from repro_torch.kernels import build
+    lib = build.load()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert lib.lrk_lowrank_sq_mma_smem() == bk.mma_smem_bytes("lowrank_sq") \
+        <= build.SMEM_LIMIT
+    for qtype in (0, 1):
+        for rows in (1, 16, 32, 64):
+            assert lib.lrk_lowrank_sq_mma_grid(qtype, rows) >= sms
+
+
+@pytest.mark.parametrize("items", [None, 8, 64])
+@pytest.mark.parametrize("m", [8, 72])
+def test_split_lowrank_sq_phase_timer(cuda, m, items):
+    """B11's phase timer: one counted launch, two non-negative phase
+    times per 64-row block, at the default plan and at coarser and finer
+    K slices."""
+    from repro_torch.kernels import lowrank_matmul_sq as lsk
+    args = _lowrank_sq_args(cuda, m, "k,v", "int8")
+    n0 = lsk.launches
+    us = lsk.lowrank_matmul_sq_phase_us(*args, items=items)
+    assert lsk.launches == n0 + 1
+    assert len(us) == 2 * -(-m // 64) and min(us) >= 0 and sum(us) > 0
+
+
+@pytest.mark.parametrize("mode", chip_smoke.QMODES)
+def test_split_lowrank_sq_nan_meets_only_pruned_rows(cuda, mode):
+    """A NaN in an x column whose w0 row is pruned still reaches y, as in
+    the reference's dense dot: pruned rows are explicit zeros in the
+    product (NaN * 0 = NaN)."""
+    from repro_torch.kernels import lowrank_matmul_sq as lsk
+    from repro_torch.kernels import ref
+    args = list(_lowrank_sq_args(cuda, 8, "k,v", mode))
+    # group 5 keeps rows 1 and 3, so row 20 is pruned
+    args[2][0, 5] = 1
+    args[2][1, 5] = 3
+    args[0][3, 20] = float("nan")
+    y = lsk.lowrank_matmul_sq(*args)
+    want = ref.lowrank_matmul_sq_ref(*args)
+    assert torch.isnan(want[3]).all() and torch.isnan(y[3]).all()
+    keep = torch.arange(8, device="cuda") != 3
+    assert torch.isfinite(y[keep]).all()
+    assert _norm_err(y[keep], want[keep]) \
+        <= chip_smoke.KERNEL_TOL["bfloat16"]
+
+
+# --- B8 on the sequence-split kernel ---------------------------------------
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("case", _PAGED_SPLIT_CASES, ids=_PAGED_IDS)
+def test_paged_split_same_bits_prev_and_one_split(cuda, case, dtype):
+    """B8's split kernel on bf16 and f32 pools gives the same bits on a
+    second call, stays within tolerance of the earlier kernel and of
+    itself forced to one split, one counted launch per call (the earlier
+    kernel uncounted)."""
+    from repro_torch.kernels import decode_attention_paged as dpk
+    q, pool, tables, pos = chip_smoke.paged_inputs(case, dtype, False, cuda)
+    b, kh, g, d = case["b"], case["kh"], case["g"], case["d"]
+    args = (q.reshape(b, kh, g, d), *pool, tables, pos)
+    kw = {"softcap": case["softcap"]}
+    n0 = dpk.launches
+    y = dpk.decode_attention_paged(*args, **kw)
+    assert torch.equal(y, dpk.decode_attention_paged(*args, **kw))
+    one = dpk.decode_attention_paged_split(*args, **kw, splits=1)
+    assert dpk.launches == n0 + 3
+    old = dpk.prev_decode_attention_paged(*args, **kw)
+    assert dpk.launches == n0 + 3
+    tol = chip_smoke.KERNEL_TOL[dtype]
+    assert _norm_err(y, old) <= tol and _norm_err(one, y) <= tol
+
+
+def test_paged_split_smem_matches_the_wrapper(cuda):
+    """The C side's shared memory of the split kernel equals the
+    wrapper's count (``split_smem``) on int8, bf16 and f32 pools at every
+    paged case's planned span, and the kernel takes each plan."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import decode_attention_paged as dpk
+    lib = build.load()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for c in _PAGED_SPLIT_CASES:
+        for esize in (1, 2, 4):
+            fit = (c["g"], c["d"], c["bs"], esize, esize == 1)
+            span = dpk.paged_split(c["b"], c["kh"], c["nblk"], sms,
+                                   fit=fit).span
+            assert int(lib.lrk_decode_attention_paged_split_smem(
+                *fit[:4], int(fit[4]), span)) == dpk.split_smem(*fit, span)
+            assert lib.lrk_decode_attention_paged_split_fits(
+                *fit[:4], int(fit[4]), span)
+
+
+def test_paged_split_wide_f32_pool_refuses_a_long_table(cuda):
+    """An f32 pool of D 256 fits one pass a split: a table of 256 entries
+    of 16 positions needs more than MAX_SPLITS splits, so the wrapper
+    raises before any launch; at 128 entries it plans 32 splits and runs."""
+    from repro_torch.kernels import decode_attention_paged as dpk
+    from repro_torch.kernels import ref
+    case = dict(b=1, kh=1, g=2, d=256, bs=16, nblk=256, nb=256, idle=0,
+                softcap=0.0)
+    q, pool, tables, pos = chip_smoke.paged_inputs(case, "float32", False,
+                                                   cuda)
+    args = (q.reshape(1, 1, 2, 256), *pool, tables, pos)
+    n0 = dpk.launches
+    with pytest.raises(ValueError, match="no span"):
+        dpk.decode_attention_paged(*args)
+    assert dpk.launches == n0
+    short = (args[0], *pool, tables[:, :128].contiguous(),
+             torch.clamp(pos, max=128 * 16 - 1))
+    y = dpk.decode_attention_paged(*short)
+    assert dpk.launches == n0 + 1
+    want = ref.decode_attention_paged_ref(q, *pool, *short[3:])
+    assert _norm_err(y.reshape(want.shape), want) \
+        <= chip_smoke.KERNEL_TOL["float32"]
+
+
+@pytest.mark.parametrize("m", [8, 72])
+def test_split_lowrank_sq_plans_change_no_bit(cuda, m):
+    """The CTA cap moves items between CTAs but not the order partials
+    are summed in: the whole persistent grid, one CTA and the default cap
+    give the same bits; one counted launch each."""
+    from repro_torch.kernels import lowrank_matmul_sq as lsk
+    args = _lowrank_sq_args(cuda, m, "k,v", "int8")
+    n0 = lsk.launches
+    y = lsk.lowrank_matmul_sq(*args)
+    for ctas in (0, 1, 7):
+        assert torch.equal(y, lsk.lowrank_matmul_sq_split(*args, ctas=ctas))
+    assert lsk.launches == n0 + 4

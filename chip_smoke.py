@@ -37,23 +37,25 @@ Phases (each prints its own seconds; any failure exits non-zero):
              a control row beside DeepSeek-V2's ``ds o`` at a rank of
              whole 128-byte int8 rows (``ALIGNED_CONTROL``).  The
              redesigned rows of B8, B9, B10 (the split attentions, in
-             both dtypes) and B11 (the two-phase lowrank chain) are timed
-             with the host kept ahead of the card (a spin kernel first,
-             so the times are the device's), and between CUDA events
-             without (``event_ms``, ``library_event_ms``): the earlier
-             kernel (one CTA per slot; B11's cluster kernel) in turns with
-             the new one (``prev_ms``), the two held within tolerance of
-             each other (``prev_err``), a second call's bits, the cold-L2
-             times; the attentions' split count and, at the served bf16
-             shape, the kernel at 1, 2, the planned and twice the planned
-             splits (``split_ms``); B11's phase timer (``phase_us``) and,
-             at the served decode shape, the device and phase times of
-             other plans (``plan_us``: coarser and finer K slices, fewer
-             CTAs).  B1, B3 and B5 are timed both
-             ways too (``ms`` / ``library_ms`` with the host ahead,
-             ``event_ms`` / ``library_event_ms`` without).  ``--kernels
+             both dtypes) and B1, B3, B11 (the two-phase lowrank chains)
+             are timed with the host kept ahead of the card (a spin
+             kernel first, so the times are the device's), and between
+             CUDA events without (``event_ms``, ``library_event_ms``):
+             the earlier kernel (one CTA per slot; the lowrank chains'
+             cluster kernel) in turns with the new one (``prev_ms``), the
+             two held within tolerance of each other (``prev_err``), a
+             second call's bits, the cold-L2 times; the attentions' split
+             count and, at the served bf16 shape, the kernel at 1, 2, the
+             planned and twice the planned splits (``split_ms``); the
+             lowrank chains' phase timer (``phase_us``) and, at M = 8 at
+             the shapes of ``LOWRANK_PLAN_SHAPES``, the device and phase
+             times of other plans (``plan_us``: coarser and finer K
+             slices, fewer CTAs).  B5 is timed both ways too (``ms`` /
+             ``library_ms`` with the host ahead, ``event_ms`` /
+             ``library_event_ms`` without).  ``--kernels
              decode_attention_paged,lowrank_matmul_sq`` with ``--phases
-             device,build,kernels`` is the quick call for B8 and B11.
+             device,build,kernels`` is the quick call for B8 and B11,
+             ``--kernels lowrank_matmul,lowrank_matmul_q`` for B1 and B3.
 4. serve   — llama3.2-1b at full width (random weights from a seed, bf16)
              decomposed with SVD + branched surgery, served by
              ServeEngine(slots=8, max_seq=1024) on 8 requests; every
@@ -168,14 +170,15 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 #: intermediates round to bf16 in both, so a last-bit difference in an
 #: f32 partial sum can flip one intermediate's rounding (2^-8 relative).
 KERNEL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
-#: extra times of the branched chain rows (B2, B4, B12) and the split
-#: attention rows (B9, B10): the earlier design (the cluster kernel in
-#: bf16; the one-CTA-per-slot attention kernels) on the same inputs in the
-#: same call, and the kernel and its library call with a cold L2
+#: extra times of the branched chain rows (B2, B4, B12), the split
+#: attention rows (B8, B9, B10) and the lowrank chain rows (B1, B3, B11):
+#: the earlier design (the cluster kernel in bf16; the one-CTA-per-slot
+#: attention kernels) on the same inputs in the same call, and the kernel
+#: and its library call with a cold L2
 SPLIT_TIMES = ("prev_ms", "cold_ms", "library_cold_ms")
 #: the kernel and its library call between CUDA events with the host not
 #: kept ahead, on the rows whose ``ms`` / ``library_ms`` are device times
-#: with the host ahead (B1, B3, B5, B8, B11): the series of the earlier
+#: with the host ahead (B1, B3, B5, B8-B11): the series of the earlier
 #: event-timed runs
 EVENT_TIMES = ("event_ms", "library_event_ms")
 
@@ -250,16 +253,21 @@ M_CASES = (8, 64, 37)
 QMODES = ("int8", "fp8")
 #: the SVD pairs that the branches=4 tree serves 2:4-packed (B11 rows)
 SPARSE_LOWRANK = ("k,v",)
-#: the bf16 two-phase B11 plans the served decode row times beside its
-#: own (lowrank_split's ``items``, one count or one a phase, None for
-#: the default of two a SM; and ``ctas``, the CTAs a launch takes at most,
-#: 0 for the whole persistent grid, None for the default of one a SM):
-#: fewer items give longer K slices and fewer partials to sum, one item
-#: a column tile (phase 2 at 4) no sum and no grid sync for it; fewer
-#: CTAs a cheaper grid sync
+#: the SVD pairs whose bf16 B1 / B3 rows at M = 8 time the plans of
+#: LOWRANK_PLAN_SWEEP (B11's: SPARSE_LOWRANK): every served pair, from the
+#: k/v pair's 0.3 MB of int8 weights to gate/up's 12.6 MB of bf16 w1
+LOWRANK_PLAN_SHAPES = tuple(LOWRANK_SHAPES)
+#: the bf16 two-phase lowrank plans (B1, B3, B11) an M = 8 row times
+#: beside its own (lowrank_split's ``items``, one count or one a phase,
+#: None for the default of two a SM; and ``ctas``, the CTAs a launch takes
+#: at most, 0 for the whole persistent grid, None for the default of one
+#: a SM where no phase has more items than SMs, else the whole grid): fewer
+#: items give longer K slices and fewer partials to sum, one item a column
+#: tile (phase 2 at 4 at k/v) no sum and no grid sync for it; fewer CTAs
+#: a cheaper grid sync
 LOWRANK_PLAN_SWEEP = ((8, None), (16, None), (32, None), (None, None),
                       ((None, 4), None), ((None, 8), None), (None, 0),
-                      (16, 0), ((None, 4), 0), (None, 64))
+                      (16, 0), ((None, 4), 0), (None, 64), (None, 132))
 #: row counts of the activation-quantized chains, which run prefill
 #: segments only: a prefill chunk, a ragged chunk, a long prompt
 QA_M_CASES = (64, 37, 512)
@@ -485,12 +493,13 @@ def check_kernels(card: str, only: frozenset = frozenset(KERNELS)
                 y = lk.lowrank_matmul(x, w0, w1)
                 want = ref.lowrank_matmul_ref(x, w0, w1)
                 torch.cuda.synchronize()
+                plans = label in LOWRANK_PLAN_SHAPES and m == 8
                 add("lowrank_matmul", lambda: dict(
                     shape=label, dtype=dname, M=m, C=c, R=r, S=s,
                     **_compare(y, want, dname),
-                    **_ahead_and_event(
-                        lambda: lk.lowrank_matmul(x, w0, w1),
-                        lambda: (x @ w0) @ w1),
+                    **_lowrank_times("lowrank_matmul", (x, w0, w1), y,
+                                     lambda: (x @ w0) @ w1, dname, flush,
+                                     plans),
                     plain_ms=time_ms(lambda: ref.lowrank_matmul_ref(x, w0,
                                                                     w1)),
                     **_bound(xb * (m * c + c * r + r * s + m * s),
@@ -508,9 +517,9 @@ def check_kernels(card: str, only: frozenset = frozenset(KERNELS)
                     add("lowrank_matmul_q", lambda: dict(
                         shape=label, dtype=dname, qmode=mode, M=m, C=c, R=r,
                         S=s, **_compare(y, want, dname),
-                        **_ahead_and_event(
-                            lambda: lqk.lowrank_matmul_q(*args),
-                            lambda: (x @ w0d) @ w1d),
+                        **_lowrank_times("lowrank_matmul_q", args, y,
+                                         lambda: (x @ w0d) @ w1d, dname,
+                                         flush, plans),
                         plain_ms=time_ms(
                             lambda: ref.lowrank_matmul_q_ref(*args)),
                         **_bound(xb * (m * c + m * s) + c * r + r * s
@@ -709,10 +718,8 @@ def _check_sq(label: str, x, factors: list, dname: str,
     (q, scale) of xc.  The yardstick is the cuBLAS chain on the factors
     expanded and dequantized beforehand; a branched row takes
     :func:`_split_times` (``flush`` for its cold-L2 times), a lowrank row
-    :func:`_attention_times` against the cluster kernel (the earlier bf16
-    design; f32 runs it) with ``prev_err`` and, in bf16, the phase timer
-    (``phase_us``) and at the served decode shape the times of the plans
-    of :data:`LOWRANK_PLAN_SWEEP` (``plan_us``).
+    :func:`_lowrank_times`, with the plans of :data:`LOWRANK_PLAN_SWEEP`
+    at the served decode shape.
     The bound counts the packed values, the index bytes, the scales and
     the activations at HBM rate, and the kept products only (the pruned
     half costs no operations)."""
@@ -736,20 +743,9 @@ def _check_sq(label: str, x, factors: list, dname: str,
     if lowrank:
         (r, s), n = dense[1].shape, 1
         w0d, w1d = dense
-        bf16 = dname == "bfloat16"
-        old = mod.cluster_lowrank_matmul_sq(*args)
-        times = dict(
-            prev_err=_compare(y, old, dname)["norm_err"],
-            **_attention_times(
-                lambda: fn(*args),
-                (lambda: mod.cluster_lowrank_matmul_sq(*args)) if bf16
-                else None, lambda: (x @ w0d) @ w1d, flush))
-        if bf16:
-            times["phase_us"] = min(
-                (mod.lowrank_matmul_sq_phase_us(*args) for _ in range(5)),
-                key=sum)
-        if bf16 and label in SPARSE_LOWRANK and m == 8:
-            times["plan_us"] = _lowrank_plans(mod, args)
+        times = _lowrank_times(name, args, y, lambda: (x @ w0d) @ w1d,
+                               dname, flush,
+                               label in SPARSE_LOWRANK and m == 8)
         kept = c * r // 2 + r * s // 2
         dims = dict(C=c, R=r, S=s)
     else:
@@ -777,13 +773,42 @@ def _check_sq(label: str, x, factors: list, dname: str,
                 **_bound(nbytes, 2 * m * kept, dname))
 
 
-def _lowrank_plans(mod, args) -> dict:
+def _lowrank_times(name: str, args: tuple, y, library, dname: str, flush,
+                   plans: bool) -> dict:
+    """Times of a lowrank chain row (B1, B3 or B11, the wrapper ``name``
+    on ``args``, whose output was ``y``) beside its cuBLAS chain
+    ``library``, by :func:`_attention_times`: bf16 runs the two-phase
+    split kernel, timed in turns with the cluster kernel (the earlier
+    design, ``prev_ms``), held to it (``prev_err``) and its phase timer
+    read (``phase_us``, the fastest of five launches), with ``plans`` the
+    times of the plans of :data:`LOWRANK_PLAN_SWEEP` (``plan_us``); f32
+    runs the cluster kernel."""
+    mod = kernel_module(name)
+    fn = getattr(mod, name)
+    cluster = getattr(mod, "cluster_" + name)
+    bf16 = dname == "bfloat16"
+    times = dict(prev_err=_compare(y, cluster(*args), dname)["norm_err"],
+                 **_attention_times(lambda: fn(*args),
+                                    (lambda: cluster(*args)) if bf16
+                                    else None, library, flush))
+    if bf16:
+        phases = getattr(mod, name + "_phase_us")
+        times["phase_us"] = min((phases(*args) for _ in range(5)), key=sum)
+        if plans:
+            times["plan_us"] = _lowrank_plans(mod, name, args)
+    return times
+
+
+def _lowrank_plans(mod, name: str, args: tuple) -> dict:
     """Device ms of one launch (host ahead) and the phase times (the
-    fastest of five launches) of the bf16 two-phase B11 kernel at each
-    plan of :data:`LOWRANK_PLAN_SWEEP`, keyed ``items/ctas`` (``items``
-    a count for both phases, or one a phase; ``-`` a default)."""
+    fastest of five launches) of the bf16 two-phase lowrank kernel of the
+    wrapper ``name`` (B1, B3, B11) at each plan of
+    :data:`LOWRANK_PLAN_SWEEP`, keyed ``items/ctas`` (``items`` a count
+    for both phases, or one a phase; ``-`` a default)."""
     import torch
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    split = getattr(mod, name + "_split")
+    phases = getattr(mod, name + "_phase_us")
     out = {}
     for items, ctas in LOWRANK_PLAN_SWEEP:
         default = kernel_module("branched_matmul").ITEMS_PER_SM * sms
@@ -794,10 +819,9 @@ def _lowrank_plans(mod, args) -> dict:
                  ",".join(map(str, items)) if isinstance(items, tuple)
                  else str(items)) + ("/-" if ctas is None else f"/{ctas}")
         out[label] = dict(
-            ms=time_ms(lambda: mod.lowrank_matmul_sq_split(*args, **knobs),
-                       ahead=True),
-            phase_us=min((mod.lowrank_matmul_sq_phase_us(*args, **knobs)
-                          for _ in range(5)), key=sum))
+            ms=time_ms(lambda: split(*args, **knobs), ahead=True),
+            phase_us=min((phases(*args, **knobs) for _ in range(5)),
+                         key=sum))
     return out
 
 
@@ -833,7 +857,7 @@ def _split_sweep(launch, planned: int) -> dict:
 
 def _attention_times(kernel, prev, library, flush) -> dict:
     """Times of a redesigned kernel's row (the split attentions B8, B9,
-    B10; the bf16 two-phase lowrank chain B11) beside its library call
+    B10; the two-phase lowrank chains B1, B3, B11) beside its library call
     ``library``, every one with the host ahead of the card
     (:func:`time_ms`): the kernel in turns with ``prev``, the earlier
     design (new, old, old, new: ``prev_ms``; ``prev`` None where the row
@@ -857,7 +881,7 @@ def _attention_times(kernel, prev, library, flush) -> dict:
 
 
 def _ahead_and_event(kernel, library) -> dict:
-    """Times of a row not redesigned yet (B1, B3, B5): the kernel and its
+    """Times of a row not redesigned yet (B5): the kernel and its
     library call with the host kept ahead of the card (``ms``,
     ``library_ms``: device times, by which a later PR ranks them) and
     between CUDA events without (:data:`EVENT_TIMES`, comparable with the
@@ -1515,6 +1539,15 @@ def to_cpu_f32(tree):
     return tree.to("cpu", torch.float32)
 
 
+def _greedy_gap(step: int, lg, lc) -> dict[str, float]:
+    """``{}`` where the card's greedy token at ``step`` (logits ``lg``) is
+    the CPU's (``lc``); else ``{step: gap}``, how far below its own pick
+    the CPU f32 logits rank the card's, in CPU-logit stds -- a gap under
+    the step's distance is a near tie that the card's roundings flip."""
+    a, b = int(lg.argmax()), int(lc.argmax())
+    return {} if a == b else {str(step): ((lc[b] - lc[a]) / lc.std()).item()}
+
+
 def cross_check_q(cfg, params_q, card: str, seed: int, n_tok: int = 64,
                   steps: int = 16) -> dict:
     """Prefill and ``steps`` greedy decode steps over an int8 KV pool:
@@ -1533,7 +1566,7 @@ def cross_check_q(cfg, params_q, card: str, seed: int, n_tok: int = 64,
     p_cpu = to_cpu_f32(params_q)
     plans = (m_gpu.cache_plan("int8"), m_cpu.cache_plan("int8"))
     dak = kernel_module("decode_attention_q")
-    rels, agree = [], []
+    rels, gaps = [], {}
     with torch.inference_mode():
         c_gpu = m_gpu.init_cache(1, n_tok + steps, "int8")
         c_cpu = m_cpu.init_cache(1, n_tok + steps, "int8")
@@ -1545,7 +1578,7 @@ def cross_check_q(cfg, params_q, card: str, seed: int, n_tok: int = 64,
         for i in range(steps + 1):
             lg, lc = lg[0, -1].float().cpu(), lc[0, -1]
             rels.append(((lg - lc).abs().max() / lc.std()).item())
-            agree.append(bool(lg.argmax() == lc.argmax()))
+            gaps.update(_greedy_gap(i, lg, lc))
             if i == steps:
                 break
             tok = lc.argmax().reshape(1, 1)
@@ -1557,7 +1590,9 @@ def cross_check_q(cfg, params_q, card: str, seed: int, n_tok: int = 64,
     torch.cuda.synchronize()
     res = {"tokens": n_tok, "decode_steps": steps,
            "max_diff_over_std": max(rels), "per_step": rels,
-           "tol": CHECK_TOL, "greedy_agree": f"{sum(agree)}/{len(agree)}",
+           "tol": CHECK_TOL,
+           "greedy_agree": f"{len(rels) - len(gaps)}/{len(rels)}",
+           "greedy_gap": gaps,
            "decode_attention_q_launches": dak.launches - launches0,
            "card": card}
     log("check_q " + json.dumps(res))
@@ -1611,7 +1646,7 @@ def cross_check_staged(cfg, params, card: str, seed: int, *, label: str,
                              paged=getattr(pool, "geometry", None))
         sides.append((model.device, pool, runner))
     reset_launches()
-    rels, agree, logits = [], [], []
+    rels, gaps, logits = [], {}, []
     with torch.inference_mode():
         for dev, pool, runner in sides:
             pool.allocate(0, n_tok, tokens=toks)
@@ -1624,7 +1659,7 @@ def cross_check_staged(cfg, params, card: str, seed: int, *, label: str,
         for i in range(steps + 1):
             lg, lc = logits[0].float().cpu(), logits[1]
             rels.append(((lg - lc).abs().max() / lc.std()).item())
-            agree.append(bool(lg.argmax() == lc.argmax()))
+            gaps.update(_greedy_gap(i, lg, lc))
             if i == steps:
                 break
             tok = int(lc.argmax())
@@ -1643,7 +1678,9 @@ def cross_check_staged(cfg, params, card: str, seed: int, *, label: str,
            "act_quantize": act_quantize or "none", "paged": paged,
            "tokens": n_tok, "decode_steps": steps,
            "max_diff_over_std": max(rels), "per_step": rels,
-           "tol": CHECK_TOL, "greedy_agree": f"{sum(agree)}/{len(agree)}",
+           "tol": CHECK_TOL,
+           "greedy_agree": f"{len(rels) - len(gaps)}/{len(rels)}",
+           "greedy_gap": gaps,
            "launches": {k: n for k, n in launches.items() if n},
            "card": card}
     log(f"{label} " + json.dumps(res))
@@ -1742,52 +1779,53 @@ def check_mla_surgery(rep, params, card: str) -> None:
 
 def split_kernels() -> None:
     """Print the shared memory and the persistent grid of every
-    split-phase kernel (bf16 B2; B4, B12 and the two-phase B11 on int8 /
-    e4m3) at each row tile count, and B11's served plan, and fail where
-    the C side's shared memory disagrees with the wrapper's count or a
-    grid is empty."""
+    split-phase kernel (bf16 B2; B4, B12 on int8 / e4m3; the two-phase
+    B1, and B3, B11 on int8 / e4m3) at each row tile count, and the
+    two-phase kernels' served plans at M = 8 (B1 / B3 at every SVD pair
+    of LOWRANK_SHAPES, B11 at the 2:4-served ones), and fail where the C
+    side's shared memory disagrees with the wrapper's count or a grid is
+    empty."""
     import torch
     from repro_torch.kernels import branched_matmul as bk
     from repro_torch.kernels import build
     lib = build.load()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for kind, name, qtypes in (("bf16", "branched_matmul", (None,)),
-                               ("q", "branched_matmul_q", (0, 1)),
-                               ("sq", "branched_matmul_sq", (0, 1))):
+    for chain, kind, qtypes, shapes in (
+            ("branched", "bf16", (None,), ()), ("branched", "q", (0, 1), ()),
+            ("branched", "sq", (0, 1), ()),
+            ("lowrank", "bf16", (None,), LOWRANK_SHAPES),
+            ("lowrank", "q", (0, 1), LOWRANK_SHAPES),
+            ("lowrank", "sq", (0, 1), SPARSE_LOWRANK)):
         tag = "" if kind == "bf16" else f"_{kind}"
-        smem = int(getattr(lib, f"lrk_branched{tag}_mma_smem")())
-        grid_of = getattr(lib, f"lrk_branched{tag}_mma_grid")
+        name = f"{chain}_matmul{tag}"
+        smem = int(getattr(lib, f"lrk_{chain}{tag}_mma_smem")())
+        want = bk.mma_smem_bytes(kind if chain == "branched"
+                                 else f"lowrank_{kind}")
+        grid_of = getattr(lib, f"lrk_{chain}{tag}_mma_grid")
+        plans = []
+        for label in shapes:
+            c, r, s = LOWRANK_SHAPES[label]
+            sp = bk.lowrank_split(8, c, r, s, sms)
+            plans.append(
+                f"{label}: {sp.slices(1)} x {math.ceil(r / bk.BN)} items of "
+                f"K slice {sp.k1} (phase 1), {sp.slices(2)} x "
+                f"{math.ceil(s / bk.BN)} of {sp.k2} (phase 2), "
+                + (f"{sp.ctas} CTAs at most" if sp.ctas else "the whole grid")
+                + f", {sp.scratch_bytes} B of scratch")
         for qt in qtypes:
             grids = {rows: int(grid_of(rows) if qt is None
                                else grid_of(qt, rows))
                      for rows in (8, 32, 64)}
             factors = "" if qt is None else ("int8", "e4m3")[qt] + ", "
-            log(f"{name} (split-phase, {factors}{bk.STAGES} stages): "
-                f"{smem} B of dynamic shared "
-                f"memory (wrapper's count {bk.mma_smem_bytes(kind)}, limit "
-                f"{build.SMEM_LIMIT}); persistent grid (CTAs) at 8 / 32 / "
-                f"64 rows: {grids} on {sms} SMs")
-            if smem != bk.mma_smem_bytes(kind) or min(grids.values()) <= 0:
+            log(f"{name} ({'split-phase' if not shapes else 'two-phase split'}"
+                f", {factors}{bk.STAGES} stages): {smem} B of dynamic shared "
+                f"memory (wrapper's count {want}, limit {build.SMEM_LIMIT}); "
+                f"persistent grid (CTAs) at 8 / 32 / 64 rows: {grids} on "
+                f"{sms} SMs" + ("; served plans at M = 8: " + "; ".join(plans)
+                                if plans else ""))
+            if smem != want or min(grids.values()) <= 0:
                 raise SystemExit(f"{name} split-phase kernel: shared memory "
                                  "or grid disagrees with the wrapper")
-    smem = int(lib.lrk_lowrank_sq_mma_smem())
-    c, r, s = LOWRANK_SHAPES["k,v"]
-    sp = bk.lowrank_split(8, c, r, s, sms)
-    for qt in (0, 1):
-        grids = {rows: int(lib.lrk_lowrank_sq_mma_grid(qt, rows))
-                 for rows in (8, 32, 64)}
-        log(f"lowrank_matmul_sq (two-phase split, {('int8', 'e4m3')[qt]}, "
-            f"{bk.STAGES} stages): {smem} B of dynamic shared memory "
-            f"(wrapper's count {bk.mma_smem_bytes('lowrank_sq')}); "
-            f"persistent grid (CTAs) at 8 / 32 / 64 rows: {grids} on {sms} "
-            f"SMs; served k/v plan at M = 8: {sp.slices(1)} x "
-            f"{math.ceil(r / bk.BN)} items of K slice {sp.k1} (phase 1), "
-            f"{sp.slices(2)} x {math.ceil(s / bk.BN)} of {sp.k2} (phase 2), "
-            f"{sp.scratch_bytes} B of scratch")
-        if smem != bk.mma_smem_bytes("lowrank_sq") or \
-                min(grids.values()) <= 0:
-            raise SystemExit("lowrank_matmul_sq split kernel: shared memory "
-                             "or grid disagrees with the wrapper")
 
 
 def attention_splits() -> None:

@@ -6,7 +6,8 @@ The kernels (``csrc/branched_matmul.cu``) replace the TPU kernel
 says what bounds them and how the design answers.  bf16 goes to the
 split-phase tensor-core kernel, one cooperative launch whose work split
 :func:`branched_split` computes here (:func:`lowrank_split` plans its
-two-phase form, which bf16 ``lowrank_matmul_sq`` runs); f32 goes to the
+two-phase form, which bf16 ``lowrank_matmul``, ``lowrank_matmul_q`` and
+``lowrank_matmul_sq`` run); f32 goes to the
 cluster kernel (tensor cores in TF32 cannot hold f32's tolerance).
 This wrapper checks the operands, allocates the output and the scratch,
 launches on the current stream and counts launches.  CUDA tensors only:
@@ -22,7 +23,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.lowrank_matmul import DTYPES
+from repro_torch.kernels.build import DTYPES
 
 #: launches of the kernel since the last reset (set to 0 to reset)
 launches = 0
@@ -41,18 +42,24 @@ RAW_STAGE = {"plain": BK * (BN + PAD) * 2, "dequant": BK * BN + 4 * BN,
              "sparse24": 2 * (BK // 4) * BN + 2 * (BK // 4) * 4 + 4 * BN}
 #: the views of u, xc and v of each branched split-phase kernel: bf16
 #: factors (this module), quantized factors (branched_matmul_q), 2:4
-#: packs (branched_matmul_sq); and of w0, w1 of the lowrank one on 2:4
-#: packs (lowrank_matmul_sq)
+#: packs (branched_matmul_sq); and of w0, w1 of each two-phase lowrank
+#: one: bf16 factors (lowrank_matmul), quantized factors
+#: (lowrank_matmul_q), 2:4 packs (lowrank_matmul_sq)
 VIEWS = {"bf16": ("plain",) * 3, "q": ("dequant_lines", "dequant", "dequant"),
          "sq": ("sparse24", "dequant", "sparse24"),
+         "lowrank_bf16": ("plain", "plain"),
+         "lowrank_q": ("dequant", "dequant"),
          "lowrank_sq": ("sparse24", "sparse24")}
 #: work items per SM each phase aims for (one round of the persistent
 #: grid, two CTAs per SM)
 ITEMS_PER_SM = 2
 #: CTAs per SM the two-phase lowrank kernel launches (of the two the
-#: persistent grid holds): at llama's k/v pair a grid sync of 132 CTAs
-#: is cheaper than one of 264 and the phases have at most 64 items, so a
-#: launch took 10.7 against 11.8 us on an H100 at 700 W (PERF.md)
+#: persistent grid holds) where no phase has more items than the card has
+#: SMs: at llama's k/v pair (at most 64 items a phase) a grid sync of 132
+#: CTAs is cheaper than one of 264, so a launch took 10.1 against 10.9 us
+#: (bf16) on an H100 at 700 W; where a phase has more (gate/up of
+#: branches = 1, 256 items), the whole grid streams more bytes at once and
+#: won, 14.1 against 15.9 us (PERF.md)
 LOWRANK_CTAS_PER_SM = 1
 #: alignment of each scratch region (bytes)
 ALIGN = 256
@@ -236,18 +243,22 @@ def lowrank_split(m: int, c: int, r: int, s: int, sms: int,
     count for both phases or one each; default ITEMS_PER_SM per SM, one
     round of the persistent grid); fewer items give longer slices, fewer
     partials to sum.  ``ctas``: the CTAs the launch takes at most (0: the
-    whole persistent grid; default LOWRANK_CTAS_PER_SM per SM)."""
+    whole persistent grid; default LOWRANK_CTAS_PER_SM per SM where no
+    phase has more items than ``sms``, else the whole grid)."""
     n1, n2 = (ITEMS_PER_SM * sms,) * 2 if items is None else \
         (items, items) if isinstance(items, int) else items
-    if ctas is None:
-        ctas = LOWRANK_CTAS_PER_SM * sms
-    if min(m, c, r, s, sms, n1, n2) <= 0 or ctas < 0:
+    if min(m, c, r, s, sms, n1, n2) <= 0 or (ctas or 0) < 0:
         raise ValueError(f"lowrank split of ({m}, {c}, {r}, {s}) on {sms} "
                          f"SMs, {items} items, {ctas} CTAs: every size must "
                          "be positive")
-    return LowrankSplit(m=m, c=c, r=r, s=s, rows=min(m, BM),
-                        k1=_slice(c, math.ceil(r / BN), n1),
-                        k2=_slice(r, math.ceil(s / BN), n2), ctas=ctas)
+    k1 = _slice(c, math.ceil(r / BN), n1)
+    k2 = _slice(r, math.ceil(s / BN), n2)
+    if ctas is None:
+        most = max(math.ceil(c / k1) * math.ceil(r / BN),
+                   math.ceil(r / k2) * math.ceil(s / BN))
+        ctas = LOWRANK_CTAS_PER_SM * sms if most <= sms else 0
+    return LowrankSplit(m=m, c=c, r=r, s=s, rows=min(m, BM), k1=k1, k2=k2,
+                        ctas=ctas)
 
 
 @functools.lru_cache(maxsize=256)

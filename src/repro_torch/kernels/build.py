@@ -19,6 +19,8 @@ import subprocess
 from pathlib import Path
 from typing import Callable
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("lowrank_matmul.cu", "branched_matmul.cu", "lowrank_matmul_q.cu",
@@ -29,6 +31,8 @@ SOURCES = ("lowrank_matmul.cu", "branched_matmul.cu", "lowrank_matmul_q.cu",
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 LIB_NAME = "libreprotorch_kernels.so"
+#: activation dtypes the kernels take, with their code in the C interface
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def nvcc_path() -> str:
@@ -137,6 +141,20 @@ def load() -> ctypes.CDLL:
     lib.lrk_lowrank_matmul_sq_mma.argtypes = [i, p, p, p, p, p, p, p, p, p,
                                               p, i, i, i, i, i, i, i, p, p]
     lib.lrk_lowrank_matmul_sq_mma.restype = i
+    lib.lrk_lowrank_matmul_mma.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
+                                           i, i, p, p]
+    lib.lrk_lowrank_matmul_mma.restype = i
+    lib.lrk_lowrank_mma_smem.argtypes = []
+    lib.lrk_lowrank_mma_smem.restype = ctypes.c_size_t
+    lib.lrk_lowrank_mma_grid.argtypes = [i]
+    lib.lrk_lowrank_mma_grid.restype = i
+    lib.lrk_lowrank_matmul_q_mma.argtypes = [i, p, p, p, p, p, p, p, p, i, i,
+                                             i, i, i, i, i, p, p]
+    lib.lrk_lowrank_matmul_q_mma.restype = i
+    lib.lrk_lowrank_q_mma_smem.argtypes = []
+    lib.lrk_lowrank_q_mma_smem.restype = ctypes.c_size_t
+    lib.lrk_lowrank_q_mma_grid.argtypes = [i, i]
+    lib.lrk_lowrank_q_mma_grid.restype = i
     lib.lrk_lowrank_sq_mma_smem.argtypes = []
     lib.lrk_lowrank_sq_mma_smem.restype = ctypes.c_size_t
     lib.lrk_lowrank_sq_mma_grid.argtypes = [i, i]
@@ -217,7 +235,7 @@ def chain_bm(m: int, smem_at: Callable[[int], int]) -> tuple[int, int]:
 #: zeroed int32 tickets of the split attention kernels, per (device,
 #: stream): the kernel leaves them zero again, so one buffer serves every
 #: launch on that stream
-_TICKETS: dict[tuple[int, int], "torch.Tensor"] = {}
+_TICKETS: dict[tuple[int, int], torch.Tensor] = {}
 
 
 def tickets(device, n: int):
@@ -225,7 +243,6 @@ def tickets(device, n: int):
     current stream.  The split kernels count the finished CTAs of each
     fold group on them and the last CTA resets its ticket, so the buffer
     is zeroed once, when it is made (or grown), and never again."""
-    import torch
     key = (device.index, torch.cuda.current_stream(device).cuda_stream)
     buf = _TICKETS.get(key)
     if buf is None or buf.numel() < n:

@@ -4,11 +4,11 @@
 //   lowrank_mma_kernel:  y = (x @ W(w0)) @ W(w1), the same core in two
 //     phases (lowrank_matmul_sq.cu's note);
 // W each factor's weight view of mma_chain.cuh: PlainB (bf16 factors,
-// branched_matmul.cu), DequantB (int8 / e4m3 with scales,
-// branched_matmul_q.cu), Sparse24B (2:4 packs, branched_matmul_sq.cu and
-// lowrank_matmul_sq.cu).  Each source instantiates a kernel with its
-// views; SplitLaunch is the grid, shared memory and cooperative launch of
-// both.
+// branched_matmul.cu and lowrank_matmul.cu), DequantB (int8 / e4m3 with
+// scales, branched_matmul_q.cu and lowrank_matmul_q.cu), Sparse24B (2:4
+// packs, branched_matmul_sq.cu and lowrank_matmul_sq.cu).  Each source
+// instantiates a kernel with its views; SplitLaunch is the grid, shared
+// memory and cooperative launch of both.
 #pragma once
 
 #include <cooperative_groups.h>

@@ -21,8 +21,24 @@
 // share of the S tiles with h resident in shared memory.  More clusters
 // per row block (groups) spread the w1 stream over more SMs at the cost of
 // recomputing h once per cluster.  Products are plain f32 FMAs staged
-// through shared memory -- simple and exact in f32; tensor cores (wgmma)
-// and TMA are later work.
+// through shared memory, exact in f32: f32 activations run this design,
+// because TF32 tensor cores cannot hold f32's tolerance.
+//
+// bf16 activations: lowrank_mma_kernel (branched_mma.cuh), the two-phase
+// split kernel of lowrank_matmul_sq.cu with both factors read through
+// mma_chain.cuh's PlainB view (bf16 tiles staged by cp.async straight
+// into the ring, no conversion):
+//   phase 1: h = round_bf16(x_blk @ w0), K = C, width R;
+//   phase 2: y_blk = round_bf16(h @ w1), K = R, width S,
+// one cooperative launch whose phases slice their reduction axis over the
+// whole card (kernels/branched_matmul.py::lowrank_split) where the
+// cluster design above streamed a k/v launch's 512 KB of w0 through the
+// 8 SMs of one cluster.  h rounds to bf16 where the TPU kernel casts;
+// f32 partials are summed in slice order, so a second call gives the same
+// bits.  The cluster kernel's bf16 instantiation stays callable as a
+// yardstick (chip_smoke's prev_ms); the wrapper never launches it for
+// bf16.
+#include "branched_mma.cuh"
 #include "lrk_common.cuh"
 
 namespace lrk {
@@ -81,6 +97,38 @@ int lrk_lowrank_matmul(int dtype, int bm, const void* x, const void* w0,
                ? lrk::launch_lowrank<bf16, 8>(x, w0, w1, y, M, C, R, S, s)
                : lrk::launch_lowrank<bf16, 32>(x, w0, w1, y, M, C, R, S, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory of the bf16 two-phase split kernel on bf16
+// factors (bytes): fixed by its tile, whatever the ranks.
+size_t lrk_lowrank_mma_smem(void) {
+  using V = mmac::PlainB;
+  return mmac::split_smem<V, V>();
+}
+
+// Its persistent grid (CTAs) on the current device for a row block of
+// `rows` rows, or minus the cudaError_t.
+int lrk_lowrank_mma_grid(int rows) {
+  using V = mmac::PlainB;
+  return mmac::split_grid<V, V>(rows);
+}
+
+// bf16 y (M,S) = (x (M,C) @ w0 (C,R)) @ w1 (R,S) in one cooperative launch
+// of the two-phase split kernel, all bf16 row-major contiguous; p / h the
+// scratch regions lowrank_split lays out, k1 / k2 its K-slice lengths,
+// ctas the CTAs it launches at most (0: the whole persistent grid); ts
+// null, or 1 + 2 * ceil(M / 64) u64 slots for the phase timer.  Returns
+// the launch's cudaError_t (0 on success).
+int lrk_lowrank_matmul_mma(const void* x, const void* w0, const void* w1,
+                           void* y, void* p, void* h, int M, int C, int R,
+                           int S, int k1, int k2, int ctas, void* ts,
+                           void* stream) {
+  using bf16 = __nv_bfloat16;
+  using V = mmac::PlainB;
+  return mmac::launch_lowrank(x, V{static_cast<const bf16*>(w0), R, C},
+                              V{static_cast<const bf16*>(w1), S, R}, y, p, h,
+                              M, C, R, S, k1, k2, ctas, ts,
+                              static_cast<cudaStream_t>(stream));
 }
 
 const char* lrk_error_string(int code) {

@@ -18,7 +18,25 @@
 // casts (lowrank_matmul_q.py:42-48) -- then widened to f32 for the FMA.
 // h rounds to T as in lowrank_matmul.  Staging stays f32, so a launch
 // needs the shared memory of lowrank_matmul at the same rank
-// (lrk_lowrank_smem).  Plain f32 FMAs; tensor cores are later work.
+// (lrk_lowrank_smem).  Plain f32 FMAs, exact in f32: f32 activations
+// run this design, because TF32 tensor cores cannot hold f32's tolerance.
+//
+// bf16 activations: lowrank_mma_kernel (branched_mma.cuh), the two-phase
+// split kernel of lowrank_matmul.cu with both factors read through
+// mma_chain.cuh's DequantB view: each item stages its tile's int8 / e4m3
+// bytes and its columns' scales by cp.async and converts each landed
+// stage to round_bf16(q * scale) -- the TPU kernel's rounding -- one stage
+// ahead of its mma.sync products.  Every served row is whole 128-byte
+// lines (R = 128, 512, 768 and S = 512, 2048, 8192 bytes), so both views
+// stage the tile's own bytes, not the line-fetching view branched_matmul_q
+// gives u.  One cooperative launch whose two phases slice their reduction
+// axis over the whole card (kernels/branched_matmul.py::lowrank_split),
+// where the cluster design streamed a k/v launch's 256 KB of w0 through
+// the 8 SMs of one cluster; f32 partials are summed in slice order, so a
+// second call gives the same bits.  The cluster kernel's bf16
+// instantiation stays callable as a yardstick (chip_smoke's prev_ms); the
+// wrapper never launches it for bf16.
+#include "branched_mma.cuh"
 #include "lrk_common.cuh"
 
 namespace lrk {
@@ -58,6 +76,25 @@ int dispatch_bm(int bm, const void* x, const void* w0q, const void* w0s,
                                           S, s);
 }
 
+template <typename Q>
+int launch_lowrank_q_mma(const void* x, const void* w0q, const void* w0s,
+                         const void* w1q, const void* w1s, void* y, void* p,
+                         void* h, int M, int C, int R, int S, int k1, int k2,
+                         int ctas, void* ts, cudaStream_t stream) {
+  using V = mmac::DequantB<Q>;
+  const auto f = [](const void* s) { return static_cast<const float*>(s); };
+  const auto q = [](const void* s) { return static_cast<const Q*>(s); };
+  return mmac::launch_lowrank(x, V{q(w0q), f(w0s), R, mmac::row_div(C)},
+                              V{q(w1q), f(w1s), S, mmac::row_div(R)}, y, p,
+                              h, M, C, R, S, k1, k2, ctas, ts, stream);
+}
+
+template <typename Q>
+int lowrank_q_grid(int rows) {
+  using V = mmac::DequantB<Q>;
+  return mmac::split_grid<V, V>(rows);
+}
+
 }  // namespace lrk
 
 extern "C" {
@@ -87,6 +124,42 @@ int lrk_lowrank_matmul_q(int dtype, int qtype, int bm, const void* x,
   if (dtype == 1 && qtype == 1)
     return lrk::dispatch_bm<bf16, fp8>(bm, x, w0q, w0s, w1q, w1s, y, M, C,
                                        R, S, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory of the bf16 two-phase split kernel on quantized
+// factors (bytes): fixed by its tile, whatever the ranks.
+size_t lrk_lowrank_q_mma_smem(void) {
+  using V = mmac::DequantB<int8_t>;  // e4m3 stages the same bytes
+  return mmac::split_smem<V, V>();
+}
+
+// Its persistent grid (CTAs) on the current device for a row block of
+// `rows` rows (qtype: 0 = int8, 1 = e4m3), or minus the cudaError_t.
+int lrk_lowrank_q_mma_grid(int qtype, int rows) {
+  if (qtype == 0) return lrk::lowrank_q_grid<int8_t>(rows);
+  if (qtype == 1) return lrk::lowrank_q_grid<__nv_fp8_e4m3>(rows);
+  return -(int)cudaErrorInvalidValue;
+}
+
+// bf16 y (M,S) = (x (M,C) @ dq(w0q, w0s)) @ dq(w1q, w1s) in one cooperative
+// launch of the two-phase split kernel: operands as lrk_lowrank_matmul_q's,
+// x and y bf16; p / h the scratch regions lowrank_split lays out, k1 / k2
+// its K-slice lengths, ctas the CTAs it launches at most (0: the whole
+// persistent grid); ts null, or 1 + 2 * ceil(M / 64) u64 slots for the
+// phase timer.  Returns the launch's cudaError_t.
+int lrk_lowrank_matmul_q_mma(int qtype, const void* x, const void* w0q,
+                             const void* w0s, const void* w1q,
+                             const void* w1s, void* y, void* p, void* h,
+                             int M, int C, int R, int S, int k1, int k2,
+                             int ctas, void* ts, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (qtype == 0)
+    return lrk::launch_lowrank_q_mma<int8_t>(x, w0q, w0s, w1q, w1s, y, p, h,
+                                             M, C, R, S, k1, k2, ctas, ts, s);
+  if (qtype == 1)
+    return lrk::launch_lowrank_q_mma<__nv_fp8_e4m3>(
+        x, w0q, w0s, w1q, w1s, y, p, h, M, C, R, S, k1, k2, ctas, ts, s);
   return (int)cudaErrorInvalidValue;
 }
 

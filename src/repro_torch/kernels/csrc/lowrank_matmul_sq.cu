@@ -114,7 +114,7 @@ int launch_sq_mma(const void* x, const void* w0sp, const void* w0idx,
 }
 
 template <typename Q>
-int sq_grid(int rows) {
+int lowrank_sq_grid(int rows) {
   using P = mmac::Sparse24B<Q>;
   return mmac::split_grid<P, P>(rows);
 }
@@ -164,8 +164,8 @@ size_t lrk_lowrank_sq_mma_smem(void) {
 // Its persistent grid (CTAs) on the current device for a row block of
 // `rows` rows (qtype: 0 = int8, 1 = e4m3), or minus the cudaError_t.
 int lrk_lowrank_sq_mma_grid(int qtype, int rows) {
-  if (qtype == 0) return lrk::sq_grid<int8_t>(rows);
-  if (qtype == 1) return lrk::sq_grid<__nv_fp8_e4m3>(rows);
+  if (qtype == 0) return lrk::lowrank_sq_grid<int8_t>(rows);
+  if (qtype == 1) return lrk::lowrank_sq_grid<__nv_fp8_e4m3>(rows);
   return -(int)cudaErrorInvalidValue;
 }
 

@@ -1,30 +1,33 @@
-"""Wrapper of the fused low-rank CUDA kernel ``y = (x @ w0) @ w1``.
+"""Wrapper of the fused low-rank CUDA kernels ``y = (x @ w0) @ w1``.
 
-The kernel (``csrc/lowrank_matmul.cu``) replaces the TPU kernel
-``repro/kernels/lowrank_matmul.py::lowrank_matmul``; its source note says
-what bounds it and how the design answers.  This wrapper checks the
-operands, allocates the output, launches on the current stream and
-counts launches.  It takes CUDA tensors only: the CPU path is the plain
-version in :mod:`repro_torch.kernels.ref`, chosen by
-:mod:`repro_torch.kernels.ops`.
+The kernels (``csrc/lowrank_matmul.cu``) replace the TPU kernel
+``repro/kernels/lowrank_matmul.py::lowrank_matmul``; the source note
+says what bounds them and how the design answers.  bf16 goes to the
+two-phase split kernel on the split-phase tensor-core core of bf16
+``branched_matmul``, one cooperative launch whose work split
+:func:`repro_torch.kernels.branched_matmul.lowrank_split` computes; f32
+goes to the cluster kernel (tensor cores in TF32 cannot hold f32's
+tolerance).  This wrapper checks the operands, allocates the output and
+the scratch, launches on the current stream and counts launches.  CUDA
+tensors only: the CPU path is the plain version in
+:mod:`repro_torch.kernels.ref`, chosen by :mod:`repro_torch.kernels.ops`.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import branched_matmul as bk
 from repro_torch.kernels import build
+from repro_torch.kernels.build import DTYPES
 
 #: launches of the kernel since the last reset (set to 0 to reset)
 launches = 0
 
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-
-def lowrank_matmul(x: torch.Tensor, w0: torch.Tensor,
-                   w1: torch.Tensor) -> torch.Tensor:
-    """x (M,C); w0 (C,R); w1 (R,S) -> (M,S), all one float dtype on one
-    CUDA device, contiguous."""
-    global launches
+def _check(x: torch.Tensor, w0: torch.Tensor,
+           w1: torch.Tensor) -> tuple[int, int, int, int]:
+    """Raise on operands the kernels do not take; return ``(M, C, R,
+    S)``."""
     for name, t in (("x", x), ("w0", w0), ("w1", w1)):
         if t.device.type != "cuda":
             raise ValueError(f"lowrank_matmul kernel: {name} is on "
@@ -47,9 +50,75 @@ def lowrank_matmul(x: torch.Tensor, w0: torch.Tensor,
     if c != c2 or r != r2:
         raise ValueError(f"lowrank_matmul kernel: shapes {tuple(x.shape)} "
                          f"{tuple(w0.shape)} {tuple(w1.shape)} do not chain")
-    y = torch.empty((m, s), dtype=x.dtype, device=x.device)
-    if m == 0 or s == 0:
+    return m, c, r, s
+
+
+def lowrank_matmul(x: torch.Tensor, w0: torch.Tensor,
+                   w1: torch.Tensor) -> torch.Tensor:
+    """x (M,C); w0 (C,R); w1 (R,S) -> (M,S), all one float dtype on one
+    CUDA device, contiguous.  bf16 takes the two-phase split kernel, which
+    takes no empty factors (C or R of 0 raise); f32 the cluster kernel."""
+    return lowrank_matmul_split(x, w0, w1)
+
+
+def lowrank_matmul_split(x: torch.Tensor, w0: torch.Tensor,
+                         w1: torch.Tensor, **knobs) -> torch.Tensor:
+    """:func:`lowrank_matmul` with the bf16 plan's ``items`` and ``ctas``
+    asked of :func:`~repro_torch.kernels.branched_matmul.lowrank_split`
+    (its defaults where not given), one counted launch; chip_smoke times
+    other plans with it."""
+    global launches
+    dims = _check(x, w0, w1)
+    y = torch.empty((dims[0], dims[3]), dtype=x.dtype, device=x.device)
+    if y.numel() == 0:
         return y
+    if x.dtype == torch.float32:
+        _launch_cluster(x, w0, w1, y, dims)
+    else:
+        bk.check_factors("lowrank_matmul", dims[1:3], w0, w1)
+        _launch_mma(x, w0, w1, y, None, dims, **knobs)
+    launches += 1
+    return y
+
+
+def lowrank_matmul_phase_us(x: torch.Tensor, w0: torch.Tensor,
+                            w1: torch.Tensor, **knobs) -> list[float]:
+    """One counted launch of the bf16 two-phase split kernel with its
+    phase timer on: microseconds of each phase (1, 2 per row block), read
+    by CTA 0 from %globaltimer.  ``knobs``: the plan's ``items`` and
+    ``ctas``, as for :func:`lowrank_matmul_split`."""
+    global launches
+    dims = _check(x, w0, w1)
+    us = bk.phase_us(lambda y, ts: _launch_mma(x, w0, w1, y, ts, dims,
+                                               **knobs), x, dims)
+    launches += 1
+    return us
+
+
+def cluster_lowrank_matmul(x: torch.Tensor, w0: torch.Tensor,
+                           w1: torch.Tensor) -> torch.Tensor:
+    """The cluster kernel in x's dtype, bf16 included, uncounted: the
+    earlier bf16 design, kept as a yardstick for the split kernel
+    (chip_smoke's ``prev_ms``).  The serve path never calls it."""
+    dims = _check(x, w0, w1)
+    y = torch.empty((dims[0], dims[3]), dtype=x.dtype, device=x.device)
+    if y.numel():
+        _launch_cluster(x, w0, w1, y, dims)
+    return y
+
+
+def _launch_mma(x: torch.Tensor, w0: torch.Tensor, w1: torch.Tensor,
+                y: torch.Tensor, ts: torch.Tensor | None,
+                dims: tuple[int, ...], **knobs) -> None:
+    """The two-phase split kernel on bf16 operands already checked."""
+    bk.launch_split("lrk_lowrank_matmul_mma", (), x, (w0, w1), y, dims, ts,
+                    "lowrank_matmul", **knobs)
+
+
+def _launch_cluster(x: torch.Tensor, w0: torch.Tensor, w1: torch.Tensor,
+                    y: torch.Tensor, dims: tuple[int, ...]) -> None:
+    """The cluster kernel (8-CTA clusters, CUDA-core FMAs): f32's kernel."""
+    m, c, r, s = dims
     lib = build.load()
     bm, smem = build.chain_bm(
         m, lambda bm: lib.lrk_lowrank_smem(DTYPES[x.dtype], bm, r))
@@ -63,5 +132,3 @@ def lowrank_matmul(x: torch.Tensor, w0: torch.Tensor,
                                     w0.data_ptr(), w1.data_ptr(),
                                     y.data_ptr(), m, c, r, s, stream)
     build.check(lib, rc, "lowrank_matmul")
-    launches += 1
-    return y

@@ -1,19 +1,25 @@
-"""Wrapper of the fused low-rank CUDA kernel on quantized factors,
+"""Wrapper of the fused low-rank CUDA kernels on quantized factors,
 ``y = (x @ dq(w0)) @ dq(w1)``.
 
-The kernel (``csrc/lowrank_matmul_q.cu``) replaces the TPU kernel
-``repro/kernels/lowrank_matmul_q.py::lowrank_matmul_q``; its source note
-says what bounds it and how the design answers.  This wrapper checks the
-operands, allocates the output, launches on the current stream and
-counts launches.  CUDA tensors only: the CPU path is the plain version
-in :mod:`repro_torch.kernels.ref`, chosen by :mod:`repro_torch.kernels.ops`.
+The kernels (``csrc/lowrank_matmul_q.cu``) replace the TPU kernel
+``repro/kernels/lowrank_matmul_q.py::lowrank_matmul_q``; the source note
+says what bounds them and how the design answers.  bf16 goes to the
+two-phase split kernel on the split-phase tensor-core core of bf16
+``branched_matmul``, one cooperative launch whose work split
+:func:`repro_torch.kernels.branched_matmul.lowrank_split` computes; f32
+goes to the cluster kernel (tensor cores in TF32 cannot hold f32's
+tolerance).  This wrapper checks the operands, allocates the output and
+the scratch, launches on the current stream and counts launches.  CUDA
+tensors only: the CPU path is the plain version in
+:mod:`repro_torch.kernels.ref`, chosen by :mod:`repro_torch.kernels.ops`.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import branched_matmul as bk
 from repro_torch.kernels import build
-from repro_torch.kernels.lowrank_matmul import DTYPES
+from repro_torch.kernels.build import DTYPES
 
 #: launches of the kernel since the last reset (set to 0 to reset)
 launches = 0
@@ -65,12 +71,11 @@ def check_operands(name: str, x: torch.Tensor,
                              f"got {tuple(q.shape)}")
 
 
-def lowrank_matmul_q(x: torch.Tensor, w0_q: torch.Tensor,
-                     w0_scale: torch.Tensor, w1_q: torch.Tensor,
-                     w1_scale: torch.Tensor) -> torch.Tensor:
-    """x (M,C) f32/bf16; w0_q (C,R) + w0_scale (1,R); w1_q (R,S) +
-    w1_scale (1,S); int8 or e4m3 values, f32 scales -> (M,S) in x.dtype."""
-    global launches
+def _check(x: torch.Tensor, w0_q: torch.Tensor, w0_scale: torch.Tensor,
+           w1_q: torch.Tensor, w1_scale: torch.Tensor
+           ) -> tuple[int, int, int, int]:
+    """Raise on operands the kernels do not take; return ``(M, C, R,
+    S)``."""
     check_operands("lowrank_matmul_q", x, [("w0", w0_q, w0_scale, 2),
                                            ("w1", w1_q, w1_scale, 2)])
     m, c = x.shape
@@ -80,9 +85,86 @@ def lowrank_matmul_q(x: torch.Tensor, w0_q: torch.Tensor,
         raise ValueError(f"lowrank_matmul_q kernel: shapes {tuple(x.shape)} "
                          f"{tuple(w0_q.shape)} {tuple(w1_q.shape)} do not "
                          "chain")
-    y = torch.empty((m, s), dtype=x.dtype, device=x.device)
-    if m == 0 or s == 0:
+    return m, c, r, s
+
+
+def lowrank_matmul_q(x: torch.Tensor, w0_q: torch.Tensor,
+                     w0_scale: torch.Tensor, w1_q: torch.Tensor,
+                     w1_scale: torch.Tensor) -> torch.Tensor:
+    """x (M,C) f32/bf16; w0_q (C,R) + w0_scale (1,R); w1_q (R,S) +
+    w1_scale (1,S); int8 or e4m3 values, f32 scales -> (M,S) in x.dtype.
+    bf16 takes the two-phase split kernel, which takes no empty factors
+    (C or R of 0 raise); f32 the cluster kernel."""
+    return lowrank_matmul_q_split(x, w0_q, w0_scale, w1_q, w1_scale)
+
+
+def lowrank_matmul_q_split(x: torch.Tensor, w0_q: torch.Tensor,
+                           w0_scale: torch.Tensor, w1_q: torch.Tensor,
+                           w1_scale: torch.Tensor, **knobs) -> torch.Tensor:
+    """:func:`lowrank_matmul_q` with the bf16 plan's ``items`` and
+    ``ctas`` asked of
+    :func:`~repro_torch.kernels.branched_matmul.lowrank_split` (its
+    defaults where not given), one counted launch; chip_smoke times other
+    plans with it."""
+    global launches
+    args = (x, w0_q, w0_scale, w1_q, w1_scale)
+    dims = _check(*args)
+    y = torch.empty((dims[0], dims[3]), dtype=x.dtype, device=x.device)
+    if y.numel() == 0:
         return y
+    if x.dtype == torch.float32:
+        _launch_cluster(*args, y, dims)
+    else:
+        bk.check_factors("lowrank_matmul_q", dims[1:3], w0_q, w1_q)
+        _launch_mma(*args, y, None, dims, **knobs)
+    launches += 1
+    return y
+
+
+def lowrank_matmul_q_phase_us(x: torch.Tensor, w0_q: torch.Tensor,
+                              w0_scale: torch.Tensor, w1_q: torch.Tensor,
+                              w1_scale: torch.Tensor, **knobs
+                              ) -> list[float]:
+    """One counted launch of the bf16 two-phase split kernel with its
+    phase timer on: microseconds of each phase (1, 2 per row block), read
+    by CTA 0 from %globaltimer.  ``knobs``: the plan's ``items`` and
+    ``ctas``, as for :func:`lowrank_matmul_q_split`."""
+    global launches
+    args = (x, w0_q, w0_scale, w1_q, w1_scale)
+    dims = _check(*args)
+    us = bk.phase_us(lambda y, ts: _launch_mma(*args, y, ts, dims, **knobs),
+                     x, dims)
+    launches += 1
+    return us
+
+
+def cluster_lowrank_matmul_q(x: torch.Tensor, w0_q: torch.Tensor,
+                             w0_scale: torch.Tensor, w1_q: torch.Tensor,
+                             w1_scale: torch.Tensor) -> torch.Tensor:
+    """The cluster kernel in x's dtype, bf16 included, uncounted: the
+    earlier bf16 design, kept as a yardstick for the split kernel
+    (chip_smoke's ``prev_ms``).  The serve path never calls it."""
+    args = (x, w0_q, w0_scale, w1_q, w1_scale)
+    dims = _check(*args)
+    y = torch.empty((dims[0], dims[3]), dtype=x.dtype, device=x.device)
+    if y.numel():
+        _launch_cluster(*args, y, dims)
+    return y
+
+
+def _launch_mma(x, w0_q, w0_scale, w1_q, w1_scale, y: torch.Tensor,
+                ts: torch.Tensor | None, dims: tuple[int, ...],
+                **knobs) -> None:
+    """The two-phase split kernel on bf16 operands already checked."""
+    bk.launch_split("lrk_lowrank_matmul_q_mma", (QDTYPES[w0_q.dtype],), x,
+                    (w0_q, w0_scale, w1_q, w1_scale), y, dims, ts,
+                    "lowrank_matmul_q", **knobs)
+
+
+def _launch_cluster(x, w0_q, w0_scale, w1_q, w1_scale, y: torch.Tensor,
+                    dims: tuple[int, ...]) -> None:
+    """The cluster kernel (8-CTA clusters, CUDA-core FMAs): f32's kernel."""
+    m, c, r, s = dims
     lib = build.load()
     bm, smem = build.chain_bm(
         m, lambda bm: lib.lrk_lowrank_smem(DTYPES[x.dtype], bm, r))
@@ -97,5 +179,3 @@ def lowrank_matmul_q(x: torch.Tensor, w0_q: torch.Tensor,
             w0_q.data_ptr(), w0_scale.data_ptr(), w1_q.data_ptr(),
             w1_scale.data_ptr(), y.data_ptr(), m, c, r, s, stream)
     build.check(lib, rc, "lowrank_matmul_q")
-    launches += 1
-    return y

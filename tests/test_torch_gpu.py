@@ -1058,3 +1058,172 @@ def test_split_lowrank_sq_plans_change_no_bit(cuda, m):
     for ctas in (0, 1, 7):
         assert torch.equal(y, lsk.lowrank_matmul_sq_split(*args, ctas=ctas))
     assert lsk.launches == n0 + 4
+
+
+# --- bf16 B1 / B3 on the two-phase split kernel ----------------------------
+
+#: the factors of a lowrank row: bf16 (B1), int8 or e4m3 with scales (B3)
+_LOWRANK_KINDS = ("bf16",) + chip_smoke.QMODES
+#: decode, ragged, chunk, past one 64-row block, a long prompt
+_LOWRANK_M = (8, 37, 64, 72, 512)
+
+
+def _lowrank_kernel(kind):
+    """The wrapper module and entry of a lowrank row's kernel."""
+    from repro_torch.kernels import lowrank_matmul as lk
+    from repro_torch.kernels import lowrank_matmul_q as lqk
+    return (lk, "lowrank_matmul") if kind == "bf16" else \
+        (lqk, "lowrank_matmul_q")
+
+
+def _lowrank_args(g, kind, m, c, r, s, dtype=torch.bfloat16):
+    x = _rnd(g, m, c, dtype=dtype)
+    if kind == "bf16":
+        return (x, _rnd(g, c, r, scale=c ** -0.5, dtype=dtype),
+                _rnd(g, r, s, scale=r ** -0.5, dtype=dtype))
+    return (x, *_quantized(g, c, r, mode=kind),
+            *_quantized(g, r, s, mode=kind))
+
+
+@pytest.mark.parametrize("kind", _LOWRANK_KINDS)
+@pytest.mark.parametrize("m", _LOWRANK_M)
+@pytest.mark.parametrize("label", list(chip_smoke.LOWRANK_SHAPES))
+def test_split_lowrank_bf16_matches_plain_and_cluster(cuda, label, m,
+                                                      kind):
+    """bf16 B1 / B3 run the two-phase split kernel at every served SVD
+    pair: one counted launch per call, the same bits on a second call,
+    within KERNEL_TOL of the plain version and of the cluster kernel (the
+    earlier design, uncounted)."""
+    from repro_torch.kernels import ref
+    mod, name = _lowrank_kernel(kind)
+    args = _lowrank_args(cuda, kind, m, *chip_smoke.LOWRANK_SHAPES[label])
+    n0 = mod.launches
+    y = getattr(mod, name)(*args)
+    assert mod.launches == n0 + 1
+    assert torch.equal(y, getattr(mod, name)(*args))
+    old = getattr(mod, "cluster_" + name)(*args)
+    assert mod.launches == n0 + 2
+    tol = chip_smoke.KERNEL_TOL["bfloat16"]
+    assert _norm_err(y, getattr(ref, name + "_ref")(*args)) <= tol
+    assert _norm_err(y, old) <= tol
+
+
+@pytest.mark.parametrize("kind", _LOWRANK_KINDS)
+def test_split_lowrank_f32_runs_the_cluster_kernel(cuda, kind):
+    """f32 x keeps the cluster kernel: bit-equal to the yardstick entry
+    that launches it, one counted launch, within f32's tolerance."""
+    from repro_torch.kernels import ref
+    mod, name = _lowrank_kernel(kind)
+    args = _lowrank_args(cuda, kind, 37, *chip_smoke.LOWRANK_SHAPES["k,v"],
+                         dtype=torch.float32)
+    n0 = mod.launches
+    y = getattr(mod, name)(*args)
+    assert mod.launches == n0 + 1
+    assert torch.equal(y, getattr(mod, "cluster_" + name)(*args))
+    assert _norm_err(y, getattr(ref, name + "_ref")(*args)) \
+        <= chip_smoke.KERNEL_TOL["float32"]
+
+
+def test_split_lowrank_smem_and_grid(cuda):
+    """The C side's shared memory of B1's and B3's two-phase kernels
+    equals the wrapper's count, under the opt-in limit; each persistent
+    grid holds at least one CTA per SM at every row tile count."""
+    from repro_torch.kernels import branched_matmul as bk
+    from repro_torch.kernels import build
+    lib = build.load()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert lib.lrk_lowrank_mma_smem() == bk.mma_smem_bytes("lowrank_bf16") \
+        <= build.SMEM_LIMIT
+    assert lib.lrk_lowrank_q_mma_smem() == bk.mma_smem_bytes("lowrank_q") \
+        <= build.SMEM_LIMIT
+    for rows in (1, 16, 32, 64):
+        assert lib.lrk_lowrank_mma_grid(rows) >= sms
+        for qtype in (0, 1):
+            assert lib.lrk_lowrank_q_mma_grid(qtype, rows) >= sms
+
+
+@pytest.mark.parametrize("kind", _LOWRANK_KINDS)
+@pytest.mark.parametrize("m", [8, 72])
+def test_split_lowrank_phase_timer(cuda, m, kind):
+    """The phase timer of bf16 B1 / B3: one counted launch, two positive
+    phase times per 64-row block."""
+    mod, name = _lowrank_kernel(kind)
+    args = _lowrank_args(cuda, kind, m, *chip_smoke.LOWRANK_SHAPES["k,v"])
+    n0 = mod.launches
+    us = getattr(mod, name + "_phase_us")(*args)
+    assert mod.launches == n0 + 1
+    assert len(us) == 2 * -(-m // 64) and min(us) > 0
+
+
+@pytest.mark.parametrize("kind", _LOWRANK_KINDS)
+@pytest.mark.parametrize("label", ["k,v", "gate,up (branches=1)"])
+def test_split_lowrank_plans_change_no_bit(cuda, label, kind):
+    """The CTA cap moves items between CTAs but not the order partials
+    are summed in: the whole persistent grid, one CTA, seven and the
+    default give the same bits.  Another K slicing sums other partials,
+    so it is held within KERNEL_TOL instead.  One counted launch each."""
+    mod, name = _lowrank_kernel(kind)
+    split = getattr(mod, name + "_split")
+    args = _lowrank_args(cuda, kind, 8, *chip_smoke.LOWRANK_SHAPES[label])
+    n0 = mod.launches
+    y = getattr(mod, name)(*args)
+    for ctas in (0, 1, 7):
+        assert torch.equal(y, split(*args, ctas=ctas))
+    for items in (8, (264, 4)):
+        assert _norm_err(split(*args, items=items), y) \
+            <= chip_smoke.KERNEL_TOL["bfloat16"]
+    assert mod.launches == n0 + 6
+
+
+@pytest.mark.parametrize("kind", _LOWRANK_KINDS)
+@pytest.mark.parametrize("m,c,r,s", [(1, 33, 5, 70), (9, 200, 17, 129)])
+def test_ragged_lowrank_bf16(cuda, m, c, r, s, kind):
+    """bf16 B1 / B3 at test_ragged_everything's shapes: rows whose stride
+    is not a multiple of 16 bytes and column tiles past the last column
+    take the masked scalar staging path."""
+    from repro_torch.kernels import ref
+    mod, name = _lowrank_kernel(kind)
+    args = _lowrank_args(cuda, kind, m, c, r, s)
+    n0 = mod.launches
+    y = getattr(mod, name)(*args)
+    assert mod.launches == n0 + 1
+    assert _norm_err(y, getattr(ref, name + "_ref")(*args)) \
+        <= chip_smoke.KERNEL_TOL["bfloat16"]
+
+
+@pytest.mark.parametrize("kind", _LOWRANK_KINDS)
+def test_split_lowrank_nan_reaches_y(cuda, kind):
+    """A NaN in x reaches its row of y, as in the reference's dot, and no
+    other row."""
+    from repro_torch.kernels import ref
+    mod, name = _lowrank_kernel(kind)
+    args = _lowrank_args(cuda, kind, 8, *chip_smoke.LOWRANK_SHAPES["k,v"])
+    args[0][3, 20] = float("nan")
+    y = getattr(mod, name)(*args)
+    want = getattr(ref, name + "_ref")(*args)
+    assert torch.isnan(want[3]).all() and torch.isnan(y[3]).all()
+    keep = torch.arange(8, device="cuda") != 3
+    assert torch.isfinite(y[keep]).all()
+    assert _norm_err(y[keep], want[keep]) \
+        <= chip_smoke.KERNEL_TOL["bfloat16"]
+
+
+@pytest.mark.parametrize("kind", _LOWRANK_KINDS)
+def test_split_lowrank_refuses_empty_factors(cuda, kind):
+    """bf16 B1 / B3 take no empty factors, as B11: no surgery makes a
+    rank under 8, so nothing on the serve path has one."""
+    mod, name = _lowrank_kernel(kind)
+    x = _rnd(cuda, 8, 64, dtype=torch.bfloat16)
+    if kind == "bf16":
+        args = (x, torch.zeros(64, 0, dtype=x.dtype, device="cuda"),
+                torch.zeros(0, 96, dtype=x.dtype, device="cuda"))
+    else:
+        qt = torch.int8 if kind == "int8" else torch.float8_e4m3fn
+        args = (x, torch.zeros(64, 0, dtype=qt, device="cuda"),
+                torch.zeros(1, 0, device="cuda"),
+                torch.zeros(0, 96, dtype=qt, device="cuda"),
+                torch.zeros(1, 96, device="cuda"))
+    n0 = mod.launches
+    with pytest.raises(ValueError, match="empty factors"):
+        getattr(mod, name)(*args)
+    assert mod.launches == n0

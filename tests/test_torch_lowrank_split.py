@@ -1,6 +1,7 @@
-"""The work split of bf16 B11's two-phase split kernel
+"""The work split of the bf16 two-phase split kernel of B1, B3 and B11
 (``repro_torch.kernels.branched_matmul.lowrank_split``), checked on the
-CPU, and its arithmetic mirrored in numpy.
+CPU, and its arithmetic mirrored in numpy for each of their weight
+views.
 
 The CUDA kernel runs only on the card, so what surrounds it is held here:
 
@@ -10,15 +11,19 @@ The CUDA kernel runs only on the card, so what surrounds it is held here:
   the scratch regions (P, then h) are aligned and do not overlap, and the
   served k/v plan is the one ``PERF.md`` describes;
 * the arithmetic: a numpy mirror of the two phases -- each item's block of
-  a 2:4 factor expanded a stage at a time as ``Sparse24B`` stages it
-  (``round_bf16(value * scale)``, exactly 0 at a pruned row), per-slice
-  f32 partials summed in slice order, ``h`` rounded to bf16 -- is held
-  against the reference's ``lowrank_matmul_sq`` in Pallas interpret mode
-  and against its plain reference, on the same seeded packs, at
-  ``KERNEL_TOL["bfloat16"]`` (2e-2) normalised as on the card (max |a -
-  b| / max |b|): both sides round h to bf16, so a last-bit difference in
-  an f32 sum can flip one rounding of h.
+  a factor staged a stage at a time as its weight view stages it (B11's
+  ``Sparse24B``: a 2:4 pack expanded to ``round_bf16(value * scale)``,
+  exactly 0 at a pruned row; B3's ``DequantB``: ``round_bf16(f32(q) *
+  scale)``; B1's ``PlainB``: the bf16 values as they are), per-slice f32
+  partials summed in slice order, ``h`` rounded to bf16 -- is held
+  against the reference's ``lowrank_matmul_sq`` / ``lowrank_matmul_q`` /
+  ``lowrank_matmul`` in Pallas interpret mode and against its plain
+  reference, on the same seeded factors, at ``KERNEL_TOL["bfloat16"]``
+  (2e-2) normalised as on the card (max |a - b| / max |b|): both sides
+  round h to bf16, so a last-bit difference in an f32 sum can flip one
+  rounding of h.
 """
+import functools
 import math
 import sys
 from pathlib import Path
@@ -33,6 +38,7 @@ import chip_smoke  # noqa: E402
 from _torch_parity import factor_weights  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
+from repro.quant import quantize as jq  # noqa: E402
 from repro.quant import sparse as jsp  # noqa: E402
 from repro_torch.kernels import branched_matmul as bk  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
@@ -131,6 +137,22 @@ def test_served_plan():
     assert plans[(None, 64)] == (32, 32, 64)
 
 
+@pytest.mark.parametrize("label", list(chip_smoke.LOWRANK_SHAPES))
+def test_cta_cap_follows_the_phases_items(label):
+    """The default plan caps the grid at one CTA a SM where no phase has
+    more items than SMs (the k/v pair: 64 and 16 items) and takes the
+    whole persistent grid where one has (the branches = 1 pairs: 192-258
+    items), as the chip sweep chose; a cap asked for stays."""
+    c, r, s = chip_smoke.LOWRANK_SHAPES[label]
+    for m in (8, 64):
+        sp = bk.lowrank_split(m, c, r, s, SMS)
+        most = max(len(sp.items(1)), len(sp.items(2)))
+        assert sp.ctas == (bk.LOWRANK_CTAS_PER_SM * SMS if most <= SMS
+                           else 0)
+        assert (sp.ctas > 0) == (label == "k,v")
+        assert bk.lowrank_split(m, c, r, s, SMS, ctas=7).ctas == 7
+
+
 def test_split_refuses_empty_sizes_and_a_third_phase():
     with pytest.raises(ValueError, match="positive"):
         bk.lowrank_split(8, 0, 16, 64, SMS)
@@ -145,14 +167,20 @@ def test_split_refuses_empty_sizes_and_a_third_phase():
 
 
 def test_tile_fits_two_ctas_per_sm():
-    """Both factors take the Sparse24B view: its ring of (A, pack) stages
-    and two converted bf16 tiles, under the opt-in limit, two CTAs (with
-    the 1 KB each that the card reserves) to an SM's 228 KB."""
-    smem = bk.mma_smem_bytes("lowrank_sq")
-    assert smem == bk.STAGES * (bk.BM * (bk.BK + bk.PAD) * 2
-                                + bk.RAW_STAGE["sparse24"]) \
-        + 2 * bk.BK * (bk.BN + bk.PAD) * 2
-    assert smem <= build.SMEM_LIMIT and 2 * (smem + 1024) <= 228 * 1024
+    """Both factors of a two-phase kernel take one view: B11's Sparse24B
+    and B3's DequantB a ring of (A, raw weight) stages and two converted
+    bf16 tiles, B1's PlainB a ring of (A, bf16 tile) stages -- each under
+    the opt-in limit, two CTAs (with the 1 KB each that the card
+    reserves) to an SM's 228 KB."""
+    a_stage = bk.BM * (bk.BK + bk.PAD) * 2
+    converted = 2 * bk.BK * (bk.BN + bk.PAD) * 2
+    for kind, view, extra in (("lowrank_sq", "sparse24", converted),
+                              ("lowrank_q", "dequant", converted),
+                              ("lowrank_bf16", "plain", 0)):
+        assert bk.VIEWS[kind] == (view, view)
+        smem = bk.mma_smem_bytes(kind)
+        assert smem == bk.STAGES * (a_stage + bk.RAW_STAGE[view]) + extra
+        assert smem <= build.SMEM_LIMIT and 2 * (smem + 1024) <= 228 * 1024
 
 
 # ---------------------------------------------------------------------------
@@ -176,21 +204,36 @@ def _expand(sp, idx, scale, k0, k1, c0, c1):
     return _bf16(out)
 
 
-def _run_phase(sp, phase, a, pack):
-    """One phase item by item: each item's block of the factor expanded a
-    stage (BK rows) at a time, its f32 partial stored per K slice, the
-    slices summed in order and rounded to bf16."""
+def _dequant(q, scale, k0, k1, c0, c1):
+    """Rows k0:k1, columns c0:c1 of an int8 / e4m3 factor ``q (K, N)``
+    with ``scale (1, N)``, as ``DequantB`` converts a landed stage:
+    round_bf16(f32(q) * scale)."""
+    return _bf16(q[k0:k1, c0:c1].astype(np.float32) * scale[0, c0:c1])
+
+
+def _plain(w, k0, k1, c0, c1):
+    """Rows k0:k1, columns c0:c1 of a bf16 factor, as ``PlainB`` stages
+    it: the values as they are."""
+    return w[k0:k1, c0:c1]
+
+
+def _run_phase(sp, phase, a, view):
+    """One phase item by item: each item's block of the factor staged
+    through ``view`` (rows k0:k1, columns c0:c1) a stage (BK rows) at a
+    time, its f32 partial stored per K slice, the slices summed in order
+    and rounded to bf16."""
     _, _, cols, ks = sp.phase(phase)
     part = np.zeros((sp.slices(phase), a.shape[0], cols), np.float32)
     for _, k0, k1, c0, c1 in sp.items(phase):
-        w = np.concatenate([_expand(*pack, s0, min(s0 + bk.BK, k1), c0, c1)
+        w = np.concatenate([view(s0, min(s0 + bk.BK, k1), c0, c1)
                             for s0 in range(k0, k1, bk.BK)])
         part[k0 // ks, :, c0:c1] = a[:, k0:k1] @ w
     return _bf16(part.sum(0, dtype=np.float32))
 
 
 def _mirror(sp, x, w0, w1):
-    """The kernel's two phases, row block by row block."""
+    """The kernel's two phases, row block by row block, the factors read
+    through the views ``w0`` and ``w1``."""
     y = np.zeros((x.shape[0], sp.s), np.float32)
     for row0 in range(0, x.shape[0], bk.BM):
         h = _run_phase(sp, 1, x[row0:row0 + bk.BM], w0)
@@ -203,30 +246,70 @@ def _err(got, want):
     return float(np.abs(got - want).max() / np.abs(want).max())
 
 
-@pytest.mark.parametrize("mode", ["int8", "fp8"])
-@pytest.mark.parametrize("m,c,r,s,items", [
-    (8, 256, 64, 200, None), (8, 256, 64, 200, 2), (37, 96, 20, 70, None),
-    (72, 64, 8, 129, None), (5, 36, 20, 70, 1)])
+def _np(a):
+    """A JAX array as numpy, int8 kept, every float type as f32."""
+    a = np.asarray(a)
+    return a if a.dtype == np.int8 else a.astype(np.float32)
+
+
+def _factors(mode, m, c, r, s):
+    """Seeded factors of a mirror case and the views the kernel reads
+    them through: 2:4 packs (``int8`` / ``fp8``, B11), quantized factors
+    (``dequant-int8`` / ``dequant-fp8``, B3) or bf16 factors (``plain``,
+    B1).  Returns the JAX operands after x, the two views and the
+    reference's plain and Pallas entries."""
+    ws = [factor_weights(m + i, shape, mode in ("int8", "fp8"))
+          for i, shape in enumerate(((c, r), (r, s)))]
+    if mode == "plain":
+        jw = [jnp.asarray(w).astype(jnp.bfloat16) for w in ws]
+        views = [functools.partial(_plain, _np(w)) for w in jw]
+        return jw, views, jref.lowrank_matmul_ref, jops.lowrank_matmul
+    if mode.startswith("dequant-"):
+        pairs = [jq.quantize_array(jnp.asarray(w), mode[8:]) for w in ws]
+        views = [functools.partial(_dequant, *map(_np, pr)) for pr in pairs]
+        return ([a for pr in pairs for a in pr], views,
+                jref.lowrank_matmul_q_ref, jops.lowrank_matmul_q)
+    packs = [jsp.sparsify_array(jnp.asarray(w), mode=mode) for w in ws]
+    views = [functools.partial(_expand, *map(_np, pk)) for pk in packs]
+    return ([a for pk in packs for a in pk], views,
+            jref.lowrank_matmul_sq_ref, jops.lowrank_matmul_sq)
+
+
+#: mirror cases (M, C, R, S, items): slices of one stage (the default
+#: plan at these widths) and long ones (``items`` 1-2), two row blocks
+#: (M = 72), ragged C, R and S (multiples of 4, as 2:4 packs need); all
+#: of them for 2:4 packs, all from the third on for the other views
+_MIRROR_SHAPES = [(8, 256, 64, 200, None), (8, 256, 64, 200, 2),
+                  (37, 96, 20, 70, None), (72, 64, 8, 129, None),
+                  (5, 36, 20, 70, 1)]
+#: and of the views of B1 and B3 alone: the served k/v pair at decode, a
+#: ragged M and a chunk, the q,o pair of branches = 1 at decode, and a
+#: ragged R that is not a multiple of 4
+_DENSE_SHAPES = [(8, 2048, 128, 512, None), (37, 2048, 128, 512, None),
+                 (64, 2048, 128, 512, None), (8, 2048, 512, 2048, None),
+                 (9, 200, 17, 129, None)]
+_DENSE_MODES = ("dequant-int8", "dequant-fp8", "plain")
+_MIRROR_CASES = [(*shape, mode) for shape in _MIRROR_SHAPES
+                 for mode in ("int8", "fp8")] + [
+    (*shape, mode) for shape in _MIRROR_SHAPES[2:] + _DENSE_SHAPES
+    for mode in _DENSE_MODES]
+
+
+@pytest.mark.parametrize("m,c,r,s,items,mode", _MIRROR_CASES)
 def test_mirror_matches_the_reference_and_pallas_interpret(m, c, r, s, items,
                                                            mode):
-    """Slices of one stage (the default plan at these widths) and long
-    ones (``items`` 1-2), two row blocks (M = 72), ragged C, R and S: the
-    mirror of the kernel's arithmetic agrees with the reference's plain
-    chain and its Pallas kernel (interpret mode, padded by the reference's
-    ops entry) on the same packs and activations."""
-    packs = [jsp.sparsify_array(jnp.asarray(factor_weights(m + i, shape, True)),
-                                mode=mode)
-             for i, shape in enumerate(((c, r), (r, s)))]
+    """The mirror of the kernel's arithmetic through each weight view
+    agrees with the reference's plain chain and its Pallas kernel
+    (interpret mode, padded by the reference's ops entry) on the same
+    factors and activations."""
+    operands, views, plain, kernel = _factors(mode, m, c, r, s)
     xa = _bf16(np.random.default_rng(m + r).standard_normal((m, c),
                                                             np.float32))
     sp = bk.lowrank_split(m, c, r, s, SMS, items)
     assert items is None or sp.slices(1) < math.ceil(c / bk.BK)
-    got = _mirror(sp, xa, *[tuple(np.asarray(a).astype(np.float32)
-                                  if a.dtype != jnp.int8 else np.asarray(a)
-                                  for a in pk) for pk in packs])
+    got = _mirror(sp, xa, *views)
     x = jnp.asarray(xa).astype(jnp.bfloat16)
-    flat = [a for pk in packs for a in pk]
-    want = jref.lowrank_matmul_sq_ref(x, *flat)
-    pallas = jops.lowrank_matmul_sq(x, *flat, force_kernel=True)
+    want = plain(x, *operands)
+    pallas = kernel(x, *operands, force_kernel=True)
     assert _err(got, want.astype(jnp.float32)) <= TOL
     assert _err(got, pallas.astype(jnp.float32)) <= TOL

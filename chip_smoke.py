@@ -36,26 +36,27 @@ Phases (each prints its own seconds; any failure exits non-zero):
              timer), and check that a second call gives the same bits;
              a control row beside DeepSeek-V2's ``ds o`` at a rank of
              whole 128-byte int8 rows (``ALIGNED_CONTROL``).  The
-             redesigned rows of B8, B9, B10 (the split attentions, in
-             both dtypes) and B1, B3, B11 (the two-phase lowrank chains)
-             are timed with the host kept ahead of the card (a spin
-             kernel first, so the times are the device's), and between
-             CUDA events without (``event_ms``, ``library_event_ms``):
-             the earlier kernel (one CTA per slot; the lowrank chains'
-             cluster kernel) in turns with the new one (``prev_ms``), the
-             two held within tolerance of each other (``prev_err``), a
+             redesigned rows of B5, B8, B9, B10 (the split attentions,
+             in both dtypes), B1, B3, B11 (the two-phase lowrank chains)
+             and B7 (the split-phase s8 chain) are timed with the host
+             kept ahead of the card (a spin kernel first, so the times
+             are the device's), and between CUDA events without
+             (``event_ms``, ``library_event_ms``): the earlier kernel (one
+             CTA per slot; the chains' cluster kernel) in turns with the
+             new one (``prev_ms``), the two held within tolerance of each
+             other (``prev_err``; B7 bit for bit, ``differing_prev``), a
              second call's bits, the cold-L2 times; the attentions' split
              count and, at the served bf16 shape, the kernel at 1, 2, the
              planned and twice the planned splits (``split_ms``); the
-             lowrank chains' phase timer (``phase_us``) and, at M = 8 at
-             the shapes of ``LOWRANK_PLAN_SHAPES``, the device and phase
-             times of other plans (``plan_us``: coarser and finer K
-             slices, fewer CTAs).  B5 is timed both ways too (``ms`` /
-             ``library_ms`` with the host ahead, ``event_ms`` /
-             ``library_event_ms`` without).  ``--kernels
-             decode_attention_paged,lowrank_matmul_sq`` with ``--phases
-             device,build,kernels`` is the quick call for B8 and B11,
-             ``--kernels lowrank_matmul,lowrank_matmul_q`` for B1 and B3.
+             chains' phase timer (``phase_us``) and, at M = 8 at the
+             shapes of ``LOWRANK_PLAN_SHAPES`` (B7: M = 64, every branched
+             shape), the device and phase times of other plans
+             (``plan_us``: coarser and finer K slices, fewer CTAs).
+             ``--kernels decode_attention_paged,lowrank_matmul_sq`` with
+             ``--phases device,build,kernels`` is the quick call for B8
+             and B11, ``--kernels lowrank_matmul,lowrank_matmul_q`` for B1
+             and B3, ``--kernels decode_attention_q,branched_matmul_qa``
+             for B5 and B7.
 4. serve   — llama3.2-1b at full width (random weights from a seed, bf16)
              decomposed with SVD + branched surgery, served by
              ServeEngine(slots=8, max_seq=1024) on 8 requests; every
@@ -171,14 +172,15 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 #: f32 partial sum can flip one intermediate's rounding (2^-8 relative).
 KERNEL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 #: extra times of the branched chain rows (B2, B4, B12), the split
-#: attention rows (B8, B9, B10) and the lowrank chain rows (B1, B3, B11):
+#: attention rows (B5, B8, B9, B10), the lowrank chain rows (B1, B3, B11)
+#: and the activation-quantized branched rows (B7):
 #: the earlier design (the cluster kernel in bf16; the one-CTA-per-slot
 #: attention kernels) on the same inputs in the same call, and the kernel
 #: and its library call with a cold L2
 SPLIT_TIMES = ("prev_ms", "cold_ms", "library_cold_ms")
 #: the kernel and its library call between CUDA events with the host not
 #: kept ahead, on the rows whose ``ms`` / ``library_ms`` are device times
-#: with the host ahead (B1, B3, B5, B8-B11): the series of the earlier
+#: with the host ahead (B1, B3, B5, B7, B8-B11): the series of the earlier
 #: event-timed runs
 EVENT_TIMES = ("event_ms", "library_event_ms")
 
@@ -271,6 +273,10 @@ LOWRANK_PLAN_SWEEP = ((8, None), (16, None), (32, None), (None, None),
 #: row counts of the activation-quantized chains, which run prefill
 #: segments only: a prefill chunk, a ragged chunk, a long prompt
 QA_M_CASES = (64, 37, 512)
+#: the plans of the split-phase s8 kernel (B7) a bf16 M = 64 row times
+#: beside its own (qa_split's ``items`` a phase; None its default of two a
+#: SM): longer K slices, fewer int32 partials to write and sum
+QA_PLAN_SWEEP = (None, 132, 64)
 #: paged decode attention at the served pool: 8 slots of 64 blocks of 16
 #: positions (max_seq 1024) over 512 physical blocks + the dummy, tables
 #: shuffled, ragged positions, one idle slot (no valid position)
@@ -314,6 +320,9 @@ KERNELS = {
                            "src/repro/kernels/branched_matmul_sq.py:70"),
 }
 
+#: the CUDA source of a kernel whose wrapper module's own source is not
+#: where it lives (B5 runs the split kernel of the paged pools)
+SOURCE_OF = {"decode_attention_q": "decode_attention_paged.cu"}
 #: the serve run (key of the serve phases' results) whose launches each
 #: kernel's entry reports: the path the kernel belongs to
 RUN_OF = {"lowrank_matmul": "branches4", "branched_matmul": "branches4",
@@ -547,18 +556,19 @@ def check_kernels(card: str, only: frozenset = frozenset(KERNELS)
                                 ("int8",), spack, flush, only)
         for label, case in ATTN_CASES.items():
             add("decode_attention_q",
-                lambda: _check_attention(label, case, dname, rnd))
+                lambda: _check_attention(label, case, dname, rnd, flush))
         for label, (c, r, s) in LOWRANK_SHAPES.items():
             for m in QA_M_CASES:
                 add("lowrank_matmul_qa", lambda: _check_qa(
                     label, m, dname, rnd, [qrnd(c, r, mode="int8"),
-                                           qrnd(r, s, mode="int8")]))
+                                           qrnd(r, s, mode="int8")], flush))
         for label, (n, c, r, s) in BRANCHED_SHAPES.items():
             for m in QA_M_CASES:
                 add("branched_matmul_qa", lambda: _check_qa(
                     label, m, dname, rnd, [qrnd(n, c, r, mode="int8"),
                                            qrnd(n, r, r, mode="int8"),
-                                           qrnd(n, r, s, mode="int8")]))
+                                           qrnd(n, r, s, mode="int8")],
+                    flush))
         for label, case in PAGED_CASES.items():
             for quant in (False, True):
                 add("decode_attention_paged" + ("_q" if quant else ""),
@@ -568,7 +578,9 @@ def check_kernels(card: str, only: frozenset = frozenset(KERNELS)
         for row in rs:
             ok = (row["norm_err"] <= KERNEL_TOL[row["dtype"]]
                   and row.get("same_bits", True)
-                  and row.get("prev_err", 0.0) <= KERNEL_TOL[row["dtype"]])
+                  and row.get("prev_err", 0.0) <= KERNEL_TOL[row["dtype"]]
+                  and row.get("differing", 0) == 0
+                  and row.get("differing_prev", 0) == 0)
             lib_ms = row["library_ms"]
             extra = "".join(f"{k}={row[k]:.4f} "
                             for k in SPLIT_TIMES + EVENT_TIMES
@@ -588,6 +600,8 @@ def check_kernels(card: str, only: frozenset = frozenset(KERNELS)
                 f"(tol {KERNEL_TOL[row['dtype']]:.0e}) "
                 + (f"differing={row['differing']} "
                    if "differing" in row else "")
+                + (f"differing_prev={row['differing_prev']} "
+                   if "differing_prev" in row else "")
                 + (f"same_bits={row['same_bits']} "
                    if "same_bits" in row else "")
                 + (f"splits={row['splits']} " if "splits" in row else "")
@@ -856,9 +870,10 @@ def _split_sweep(launch, planned: int) -> dict:
 
 
 def _attention_times(kernel, prev, library, flush) -> dict:
-    """Times of a redesigned kernel's row (the split attentions B8, B9,
-    B10; the two-phase lowrank chains B1, B3, B11) beside its library call
-    ``library``, every one with the host ahead of the card
+    """Times of a redesigned kernel's row (the split attentions B5, B8,
+    B9, B10; the two-phase lowrank chains B1, B3, B11; the split-phase s8
+    chain B7) beside its library call ``library`` (None where there is
+    none: its times are null), every one with the host ahead of the card
     (:func:`time_ms`): the kernel in turns with ``prev``, the earlier
     design (new, old, old, new: ``prev_ms``; ``prev`` None where the row
     runs the earlier design itself), a second call held to the first's
@@ -873,22 +888,14 @@ def _attention_times(kernel, prev, library, flush) -> dict:
         turns = [time_ms(f, ahead=True) for f in (kernel, prev, prev, kernel)]
         out = dict(ms=(turns[0] + turns[3]) / 2,
                    prev_ms=(turns[1] + turns[2]) / 2)
+    lib = library is not None
     return dict(out, same_bits=torch.equal(kernel(), kernel()),
                 cold_ms=cold_ms(kernel, flush, ahead=True),
-                library_ms=time_ms(library, ahead=True),
-                library_cold_ms=cold_ms(library, flush, ahead=True),
-                event_ms=time_ms(kernel), library_event_ms=time_ms(library))
-
-
-def _ahead_and_event(kernel, library) -> dict:
-    """Times of a row not redesigned yet (B5): the kernel and its
-    library call with the host kept ahead of the card (``ms``,
-    ``library_ms``: device times, by which a later PR ranks them) and
-    between CUDA events without (:data:`EVENT_TIMES`, comparable with the
-    earlier runs' series)."""
-    return dict(ms=time_ms(kernel, ahead=True),
-                library_ms=time_ms(library, ahead=True),
-                event_ms=time_ms(kernel), library_event_ms=time_ms(library))
+                library_ms=time_ms(library, ahead=True) if lib else None,
+                library_cold_ms=(cold_ms(library, flush, ahead=True)
+                                 if lib else None),
+                event_ms=time_ms(kernel),
+                library_event_ms=time_ms(library) if lib else None)
 
 
 def _check_latent(label: str, case: dict, dname: str, rnd, flush) -> dict:
@@ -952,12 +959,20 @@ def _check_latent(label: str, case: dict, dname: str, rnd, flush) -> dict:
                 **_bound(nbytes, 2 * h * (2 * lora + rope) * live, dname))
 
 
-def _check_attention(label: str, case: dict, dname: str, rnd) -> dict:
+def _check_attention(label: str, case: dict, dname: str, rnd,
+                     flush) -> dict:
     """One decode_attention_q row: the pool quantized like the engine's
     (one-shot scales), q in ``dname``; slots past the first ``idle``
-    live ones have no valid position (cache_pos -1).  The yardstick is
-    SDPA on the pool dequantized beforehand, K/V expanded to every query
-    head."""
+    live ones have no valid position (cache_pos -1).  B5 runs the split
+    kernel's slot view: :func:`_attention_times` against the earlier
+    kernel (one CTA per slot and KV head), ``prev_err``, the planned split
+    count and, at the served bf16 shape, ``split_ms``.  The bound counts
+    the work this run's positions need: a live slot's positions up to its
+    cache_pos (the kernel skips the entries past it), an idle slot's whole
+    S; the bytes (those positions' K and V, the scale rows, q and the
+    output, cache_pos) at HBM rate, the operations (4 G D per position
+    and KV head) at the ``dname`` peak.  The yardstick is SDPA on the
+    pool dequantized beforehand, K/V expanded to every query head."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
@@ -976,6 +991,7 @@ def _check_attention(label: str, case: dict, dname: str, rnd) -> dict:
     y = dak.decode_attention_q(*args, **kw)
     q4 = q.reshape(b, 1, kh * g_, d)
     want = ref.decode_attention_q_ref(q4, *args[1:], **kw)
+    old = dak.prev_decode_attention_q(*args, **kw)
     torch.cuda.synchronize()
     kd = (k_q.float() * k_s[:, None]).to(dt).permute(0, 2, 1, 3) \
         .repeat_interleave(g_, dim=1).contiguous()
@@ -984,18 +1000,28 @@ def _check_attention(label: str, case: dict, dname: str, rnd) -> dict:
     qd = q.reshape(b, kh * g_, 1, d)
     mask = (torch.arange(s, device="cuda")[None, :]
             <= pos[:, None].long())[:, None, None, :]
-    nbytes = (2 * b * s * kh * d + 2 * 4 * b * kh * d
-              + 2 * b * kh * g_ * d * dt.itemsize + 4 * b)
+    live = sum(s if cp < 0 else min(s, cp + 1) for cp in pos.tolist())
+    nbytes = (2 * live * kh * d + 2 * 4 * b * kh * d
+              + 2 * q.numel() * dt.itemsize + 4 * b)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    planned = dak.slot_split(b, kh, s, sms, g=g_, d=d).splits
+    times = {}
+    if label == "served" and dname == "bfloat16":
+        times["split_ms"] = _split_sweep(
+            lambda n: dak.decode_attention_q_split(*args, **kw, splits=n),
+            planned)
     return dict(shape=label, dtype=dname, B=b, S=s, KH=kh, G=g_, D=d,
-                softcap=case["softcap"], idle=case["idle"],
-                **_compare(y.reshape(want.shape), want, dname),
-                **_ahead_and_event(
+                softcap=case["softcap"], idle=case["idle"], splits=planned,
+                **times, **_compare(y.reshape(want.shape), want, dname),
+                prev_err=_compare(y, old, dname)["norm_err"],
+                **_attention_times(
                     lambda: dak.decode_attention_q(*args, **kw),
+                    lambda: dak.prev_decode_attention_q(*args, **kw),
                     lambda: F.scaled_dot_product_attention(
-                        qd, kd, vd, attn_mask=mask)),
+                        qd, kd, vd, attn_mask=mask), flush),
                 plain_ms=time_ms(lambda: ref.decode_attention_q_ref(
                     q4, *args[1:], **kw)),
-                **_bound(nbytes, 4 * b * kh * g_ * s * d, dname))
+                **_bound(nbytes, 4 * kh * g_ * d * live, dname))
 
 
 def _int_mm_chain(args: tuple):
@@ -1023,17 +1049,26 @@ def _int_mm_chain(args: tuple):
     return y.to(x.dtype)
 
 
-def _check_qa(label: str, m: int, dname: str, rnd, factors: list) -> dict:
+def _check_qa(label: str, m: int, dname: str, rnd, factors: list,
+              flush) -> dict:
     """One row of an activation-quantized chain: int8 ``factors`` (q,
     scale) pairs, x in ``dname`` with one all-zero row (scale 0, output
     exactly 0).  ``differing`` counts output elements not bit-equal to
     the plain version (the folds and roundings are the same, so 0 is
-    expected)."""
+    expected).  The yardstick is the same quantization and folds around
+    ``torch._int_mm`` (:func:`_int_mm_chain`; null where cuBLASLt refuses
+    the shape).  B6 is timed between CUDA events; B7, the split-phase s8
+    kernel, by :func:`_attention_times` against the cluster kernel (the
+    earlier design), whose output it must equal bit for bit
+    (``differing_prev``), with its phase timer (``phase_us``, the fastest
+    of five launches) and, at M = 64 in bf16, the plans of
+    :data:`QA_PLAN_SWEEP` (``plan_us``)."""
     import torch
     from repro_torch.kernels import ref
     lowrank = len(factors) == 2
     name = "lowrank_matmul_qa" if lowrank else "branched_matmul_qa"
-    fn = getattr(kernel_module(name), name)
+    mod = kernel_module(name)
+    fn = getattr(mod, name)
     plain = ref.lowrank_matmul_qa_ref if lowrank \
         else ref.branched_matmul_qa_ref
     c = factors[0][0].shape[-2]
@@ -1046,21 +1081,45 @@ def _check_qa(label: str, m: int, dname: str, rnd, factors: list) -> dict:
     n = 1 if lowrank else factors[0][0].shape[0]
     chain = [tuple(q.shape[-2:]) for q, _ in factors]
     s = chain[-1][1]
+    library = lambda: _int_mm_chain(args)  # noqa: E731
     try:
-        library_ms = time_ms(lambda: _int_mm_chain(args))
+        library()
     except RuntimeError as e:             # the yardstick only, never the port
         log(f"torch._int_mm chain unavailable at M={m} ({e}); "
             "library_ms null")
-        library_ms = None
+        library = None
     dims = dict(C=c, R=chain[0][1], S=s) if lowrank else \
         dict(N=n, C=c, r=chain[0][1], S=s)
+
+    def differing(a):
+        return int((y.to(torch.float32) != a.to(torch.float32)).sum().item())
+    if lowrank:
+        times = dict(ms=time_ms(lambda: fn(*args)),
+                     library_ms=None if library is None
+                     else time_ms(library))
+    else:
+        old = mod.cluster_branched_matmul_qa(*args)
+        torch.cuda.synchronize()
+        times = dict(
+            differing_prev=differing(old),
+            prev_err=_compare(y, old, dname)["norm_err"],
+            **_attention_times(
+                lambda: fn(*args),
+                lambda: mod.cluster_branched_matmul_qa(*args), library,
+                flush),
+            phase_us=min((mod.branched_matmul_qa_phase_us(*args)
+                          for _ in range(5)), key=sum))
+        if m == 64 and dname == "bfloat16":
+            times["plan_us"] = {
+                "-" if items is None else str(items): dict(
+                    ms=time_ms(lambda: mod.branched_matmul_qa_split(
+                        *args, items=items), ahead=True),
+                    phase_us=min((mod.branched_matmul_qa_phase_us(
+                        *args, items=items) for _ in range(5)), key=sum))
+                for items in QA_PLAN_SWEEP}
     return dict(shape=label, dtype=dname, M=m, **dims,
-                **_compare(y, want, dname),
-                differing=int((y.to(torch.float32)
-                               != want.to(torch.float32)).sum().item()),
-                ms=time_ms(lambda: fn(*args)),
-                plain_ms=time_ms(lambda: plain(*args)),
-                library_ms=library_ms,
+                **_compare(y, want, dname), differing=differing(want),
+                **times, plain_ms=time_ms(lambda: plain(*args)),
                 **_bound(x.element_size() * m * (c + s)
                          + n * sum(k * o + 4 * o for k, o in chain),
                          2 * m * n * sum(k * o for k, o in chain), "int8"))
@@ -1237,7 +1296,8 @@ def _kernel_entries(rows: dict[str, list[dict]]) -> list[dict]:
                 "the 17 launches of one decode step (M=8) or prefill chunk "
                 "(M=64) of the 4-layer DeepSeek-V2 MLA stack, bf16")
         out.append({"name": name, "route": "cuda",
-                    "source": f"src/repro_torch/kernels/csrc/{module}.cu",
+                    "source": "src/repro_torch/kernels/csrc/"
+                              + SOURCE_OF.get(name, f"{module}.cu"),
                     "replaces": replaces, "launches": None,
                     "max_abs_err": max(r["max_abs_err"] for r in rs),
                     "ms": per_step["ms"], "plain_ms": per_step["plain_ms"],
@@ -1780,10 +1840,11 @@ def check_mla_surgery(rep, params, card: str) -> None:
 def split_kernels() -> None:
     """Print the shared memory and the persistent grid of every
     split-phase kernel (bf16 B2; B4, B12 on int8 / e4m3; the two-phase
-    B1, and B3, B11 on int8 / e4m3) at each row tile count, and the
-    two-phase kernels' served plans at M = 8 (B1 / B3 at every SVD pair
-    of LOWRANK_SHAPES, B11 at the 2:4-served ones), and fail where the C
-    side's shared memory disagrees with the wrapper's count or a grid is
+    B1, and B3, B11 on int8 / e4m3; B7's s8 kernel on bf16 and f32
+    activations) at each row tile count, the two-phase kernels' served
+    plans at M = 8 (B1 / B3 at every SVD pair of LOWRANK_SHAPES, B11 at
+    the 2:4-served ones) and B7's at M = 64, and fail where the C side's
+    shared memory disagrees with the wrapper's count or a grid is
     empty."""
     import torch
     from repro_torch.kernels import branched_matmul as bk
@@ -1826,13 +1887,34 @@ def split_kernels() -> None:
             if smem != want or min(grids.values()) <= 0:
                 raise SystemExit(f"{name} split-phase kernel: shared memory "
                                  "or grid disagrees with the wrapper")
+    bak = kernel_module("branched_matmul_qa")
+    smem = int(lib.lrk_branched_qa_mma_smem())
+    grids = {dt: {rows: int(lib.lrk_branched_qa_mma_grid(code, rows))
+                  for rows in (8, 32, 64)}
+             for dt, code in (("bf16", 1), ("f32", 0))}
+    plans = []
+    for label, (n, c, r, s) in BRANCHED_SHAPES.items():
+        sp = bak.qa_split(64, c, n, r, r, s, sms)
+        plans.append(f"{label}: " + ", ".join(
+            f"{sp.slices(i)} x {n} x {math.ceil(sp.phase(i)[2] / bk.BN)} "
+            f"items of K slice {sp.phase(i)[3]} (phase {i})"
+            for i in sp.PHASES) + f", {sp.scratch_bytes} B of scratch")
+    log(f"branched_matmul_qa (split-phase s8, 4 stages): {smem} B of dynamic "
+        f"shared memory (wrapper's count {bak.QA_SMEM}, limit "
+        f"{build.SMEM_LIMIT}); persistent grid (CTAs) at 8 / 32 / 64 rows: "
+        f"{grids} on {sms} SMs; served plans at M = 64: " + "; ".join(plans))
+    if smem != bak.QA_SMEM or smem > build.SMEM_LIMIT \
+            or min(min(g.values()) for g in grids.values()) <= 0:
+        raise SystemExit("branched_matmul_qa split-phase kernel: shared "
+                         "memory or grid disagrees with the wrapper")
 
 
 def attention_splits() -> None:
     """Print the plan and the shared memory of the split attention
     kernels (B10 at the served latent pool; B9, and B8 on bf16 and f32
-    pools, at the served paged pool), and fail where the C side's shared
-    memory disagrees with the wrapper's count or exceeds the limit."""
+    pools, at the served paged pool; B5 at the served slot pool), and fail
+    where the C side's shared memory disagrees with the wrapper's count or
+    exceeds the limit."""
     import torch
     from repro_torch.kernels import build
     from repro_torch.kernels import decode_attention_latent_q as dlk
@@ -1865,6 +1947,19 @@ def attention_splits() -> None:
             f"limit {build.SMEM_LIMIT})")
         bad |= psmem != dpk.split_smem(*fit, pp.span) \
             or psmem > build.SMEM_LIMIT
+    a = ATTN_CASES["served"]
+    dak = kernel_module("decode_attention_q")
+    sp = dak.slot_split(a["b"], a["kh"], a["s"], sms, g=a["g"], d=a["d"])
+    fit = (a["g"], a["d"], dak.SLOT_ENTRY, 1, False)
+    ssmem = int(lib.lrk_decode_attention_paged_split_smem(*fit[:4], 0,
+                                                          sp.span))
+    log(f"decode_attention_q (split, slot view) at the served slot pool: "
+        f"{a['kh']} KV heads x {a['b']} slots x {sp.splits} splits of "
+        f"{sp.span} entries of {dak.SLOT_ENTRY} positions = {sp.ctas} CTAs "
+        f"on {sms} SMs; {ssmem} B of dynamic shared memory (wrapper's count "
+        f"{dpk.split_smem(*fit, sp.span)}, limit {build.SMEM_LIMIT})")
+    bad |= ssmem != dpk.split_smem(*fit, sp.span) \
+        or ssmem > build.SMEM_LIMIT
     if bad:
         raise SystemExit("split attention kernels: shared memory disagrees "
                          "with the wrapper or exceeds the limit")

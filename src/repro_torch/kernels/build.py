@@ -162,9 +162,14 @@ def load() -> ctypes.CDLL:
     lib.lrk_branched_matmul_sq.argtypes = [i, i, i, p, p, p, p, p, p, p, p,
                                            p, p, i, i, i, i, i, i, p]
     lib.lrk_branched_matmul_sq.restype = i
-    lib.lrk_decode_attention_q.argtypes = [i, p, p, p, p, p, p, p, i, i, i,
-                                           i, i, ctypes.c_float, p]
+    lib.lrk_decode_attention_q.argtypes = [i, p, p, p, p, p, p, p, p, p, i,
+                                           i, i, i, i, i, i, ctypes.c_float,
+                                           p]
     lib.lrk_decode_attention_q.restype = i
+    lib.lrk_decode_attention_q_prev.argtypes = [i, p, p, p, p, p, p, p, i,
+                                                i, i, i, i, ctypes.c_float,
+                                                p]
+    lib.lrk_decode_attention_q_prev.restype = i
     lib.lrk_decode_attention_q_fits.argtypes = [i, i, i]
     lib.lrk_decode_attention_q_fits.restype = i
     lib.lrk_lowrank_matmul_qa.argtypes = [i, i, p, p, p, p, p, p, i, i, i,
@@ -177,6 +182,12 @@ def load() -> ctypes.CDLL:
     lib.lrk_branched_matmul_qa.restype = i
     lib.lrk_branched_qa_smem.argtypes = [i, i, i, i]
     lib.lrk_branched_qa_smem.restype = ctypes.c_size_t
+    lib.lrk_branched_matmul_qa_mma.argtypes = [i, *[p] * 15, *[i] * 9, p, p]
+    lib.lrk_branched_matmul_qa_mma.restype = i
+    lib.lrk_branched_qa_mma_smem.argtypes = []
+    lib.lrk_branched_qa_mma_smem.restype = ctypes.c_size_t
+    lib.lrk_branched_qa_mma_grid.argtypes = [i, i]
+    lib.lrk_branched_qa_mma_grid.restype = i
     lib.lrk_decode_attention_paged.argtypes = [i, p, p, p, p, p, p, p, p, i,
                                                i, i, i, i, i, i, i,
                                                ctypes.c_float, p]

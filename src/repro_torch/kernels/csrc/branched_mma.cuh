@@ -169,11 +169,13 @@ struct SplitKernel<MT, W0V, W1V> {
 // Row tiles of 16 the kernels are instantiated with for a block of `rows`.
 inline int row_tiles(int rows) { return rows <= 16 ? 1 : rows <= 32 ? 2 : 4; }
 
-// Grid, shared memory and launch of the split-phase kernel of views V...
-template <typename... V>
-struct SplitLaunch {
-  static constexpr size_t SMEM = split_smem<V...>();
-
+// Grid, shared memory and cooperative launch of a persistent kernel K:
+// K::SMEM bytes of dynamic shared memory, K::fn<MT>() the kernel at MT
+// row tiles of 16, THREADS threads a CTA.  The split-phase chain kernels
+// below (SplitLaunch) and the int8 x int8 chain of qa_mma.cuh launch
+// through it.
+template <typename K>
+struct CoopLaunch {
   // The persistent grid of the instantiation at MT row tiles on the
   // current device: co-resident CTAs per SM (at its shared memory) x
   // SMs.  Opts the kernel into its dynamic shared memory first; cached
@@ -183,7 +185,7 @@ struct SplitLaunch {
   static int grid_of(int* grid) {
     constexpr int MAX_DEVICES = 64;
     static int cached[MAX_DEVICES] = {};
-    const void* kernel = SplitKernel<MT, V...>::fn();
+    const void* kernel = K::template fn<MT>();
     int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return (int)err;
@@ -192,11 +194,11 @@ struct SplitLaunch {
       return 0;
     }
     err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)K::SMEM);
     if (err != cudaSuccess) return (int)err;
     int per_sm = 0, sms = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        THREADS, SMEM);
+                                                        THREADS, K::SMEM);
     if (err != cudaSuccess) return (int)err;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return (int)err;
@@ -229,7 +231,7 @@ struct SplitLaunch {
     if (ctas > 0 && ctas < grid) grid = ctas;
     void* ptrs[] = {&args...};
     const cudaError_t err = cudaLaunchCooperativeKernel(
-        SplitKernel<MT, V...>::fn(), dim3(grid), dim3(THREADS), ptrs, SMEM,
+        K::template fn<MT>(), dim3(grid), dim3(THREADS), ptrs, K::SMEM,
         stream);
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
@@ -246,6 +248,20 @@ struct SplitLaunch {
     }
   }
 };
+
+// The split-phase kernel of views V... as a CoopLaunch kernel.
+template <typename... V>
+struct SplitKernels {
+  static constexpr size_t SMEM = split_smem<V...>();
+  template <int MT>
+  static const void* fn() {
+    return SplitKernel<MT, V...>::fn();
+  }
+};
+
+// Grid, shared memory and launch of the split-phase kernel of views V...
+template <typename... V>
+using SplitLaunch = CoopLaunch<SplitKernels<V...>>;
 
 template <typename... V>
 int split_grid(int rows) {

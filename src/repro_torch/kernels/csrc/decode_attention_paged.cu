@@ -1,11 +1,17 @@
 // One-token GQA decode attention over a paged KV pool (sm_90a): the pool
 // is a heap of fixed-size physical blocks, and each stream reaches its
-// positions through a row of a block table.
+// positions through a row of a block table.  The split kernel also reads
+// the int8 slot pool in place, where a slot's positions are one
+// contiguous run (the simplest paged pool: no table).
 //
 // Replaces the TPU kernels of src/repro/kernels/decode_attention_paged.py:
 //   decode_attention_paged   (pl.pallas_call at :135) -- full-width pool;
 //   decode_attention_paged_q (pl.pallas_call at :236) -- int8 pool with one
-//                            f32 scale row per physical block.
+//                            f32 scale row per physical block;
+// and of src/repro/kernels/decode_attention_q.py:
+//   decode_attention_q       (pl.pallas_call at :126) -- the int8 slot
+//                            pool (B, S, KH, D) with one f32 scale row
+//                            per (slot, KV head).
 // There the block table is a scalar-prefetch operand that aims each grid
 // step's DMA at bt[slot, blk], and the grid (B, KH, nblk) carries the
 // online-softmax state across the in-order block axis in VMEM.  GPU blocks
@@ -35,8 +41,9 @@
 // pool (8 slots x 8 KV heads, 64 entries of 16 positions), twice that in
 // bf16.  Two kernels:
 //
-//   * paged_split_kernel (every pool: B9 int8, B8 bf16 and f32): the
-//     sequence split across the card.  Grid (KH, B, splits), splits of
+//   * paged_split_kernel (every pool: B9 int8, B8 bf16 and f32, and, as
+//     its SLOT view, B5's int8 slot pool): the sequence split across the
+//     card.  Grid (KH, B, splits), splits of
 //     `span` table entries from paged_split in
 //     kernels/decode_attention_paged.py (about four CTAs per SM: 8 splits
 //     of 8 entries, 512 CTAs, at the served pool; the planner shrinks the
@@ -54,7 +61,13 @@
 //     entry's sum times its V scale).  The splits' f32 partials are folded
 //     inside the launch: the last CTA of each (slot, KV head) to take an
 //     atomic ticket sums them in split order (so a second call gives the
-//     same bits) and resets the ticket.
+//     same bits) and resets the ticket.  The slot view (B5) takes entries
+//     of SLOT_ENTRY = 64 positions of the slot's own run (one pass each,
+//     the last one cut at S, so a ragged S stages nothing of the next
+//     slot), 8 splits of 2 entries, 512 CTAs, at the served pool (8 slots
+//     of 1,024 positions x 8 KV heads); with one scale row per slot it
+//     folds the K scale into the query once and the V scale into the
+//     fold's result, as the TPU kernel does, and stages no scale rows.
 //   * paged_kernel (the earlier design of both, kept callable as
 //     lrk_decode_attention_paged_prev and lrk_decode_attention_paged_q_prev
 //     for chip_smoke's prev_ms; the serve path never launches it): B*KH
@@ -333,6 +346,7 @@ constexpr int SPLIT_P = 64;       // positions of one pass
 constexpr int SPLIT_STAGES = 3;   // ring depth, in passes
 constexpr int MAX_CE = 16;        // table entries of one pass (bs < 64)
 constexpr int MAX_SPLITS = 32;    // a lane per split in the fold
+constexpr int SLOT_ENTRY = 64;    // positions of a slot pool's entry (B5)
 
 // Positions of a pass and the table entries (scale rows) it may touch: whole
 // entries up to 64 positions where bs < 64, else 64 positions of at most two
@@ -453,12 +467,15 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // Stage the pass of np positions from position p0 of the split (counted
 // from its first table entry; `table` is the split's slice of the block
-// table, in shared memory), KV head h, into one ring stage.
-template <typename E, bool QUANT>
+// table, in shared memory), KV head h, into one ring stage.  SLOT: the
+// slot pool, where the split's positions are one contiguous run starting
+// at row `slot_row` (b * S + the split's first position) of the (B * S,
+// KH, D) pool, and there is no table.
+template <typename E, bool QUANT, bool SLOT>
 __device__ __forceinline__ void stage_pass(
     unsigned char* st, const E* k, const float* ks, const E* v,
-    const float* vs, const int* table, int p0, int np, int bs, int KH,
-    int h, int D, int tid, int nthreads) {
+    const float* vs, const int* table, size_t slot_row, int p0, int np,
+    int bs, int KH, int h, int D, int tid, int nthreads) {
   const int rb = D * (int)sizeof(E) + 16;
   const int chunks = D * (int)sizeof(E) / 16;
   unsigned char* Ks = st;
@@ -466,9 +483,9 @@ __device__ __forceinline__ void stage_pass(
   for (int e = tid; e < np * chunks; e += nthreads) {
     const int p = e / chunks, c = e % chunks;
     const int lp = p0 + p;
-    const size_t phys = (size_t)table[lp / bs];
-    const size_t off =
-        ((phys * bs + lp % bs) * KH + h) * (size_t)D * sizeof(E) + 16 * c;
+    const size_t row =
+        SLOT ? slot_row + lp : (size_t)table[lp / bs] * bs + lp % bs;
+    const size_t off = (row * KH + h) * (size_t)D * sizeof(E) + 16 * c;
     cp_async16(Ks + p * rb + 16 * c,
                reinterpret_cast<const unsigned char*>(k) + off);
     cp_async16(Vs + p * rb + 16 * c,
@@ -493,16 +510,23 @@ __device__ __forceinline__ void stage_pass(
 // part: the f32 partials, acc (B, KH, splits, G, D) then (m, l) (B, KH,
 // splits, G, 2); tickets (B, KH) int32, zero before the launch and left
 // zero.  Grid (KH, B, splits), 32*G threads: warp g owns query row g.
-// Split j owns table entries [j*span, (j+1)*span).  ND = ceil(D / 32)
-// output values per lane (1, 2, 4 or 8).
-template <typename T, typename E, bool QUANT, int ND>
+// Split j owns table entries [j*span, (j+1)*span), positions [j*span*bs,
+// min((j+1)*span*bs, S)); S = nblk * bs on a paged pool.  ND = ceil(D /
+// 32) output values per lane (1, 2, 4 or 8).
+// SLOT (B5; E int8, QUANT false): the int8 slot pool k/v (B, S, KH, D),
+// entries of bs positions of a slot's own contiguous run (no table, bt
+// unused); ks/vs (B, KH, D) f32, one scale row per (slot, head): the K
+// scale and 1/sqrt(D) fold into the query once, the raw int8 V values are
+// summed, and the V scale multiplies the fold's result, o = (sum_j c_j
+// acc_j) / L * v_scale (decode_attention_q.py:95-98).
+template <typename T, typename E, bool QUANT, bool SLOT, int ND>
 __global__ void __launch_bounds__(32 * MAX_G)
 paged_split_kernel(const T* __restrict__ q, const E* __restrict__ k,
                    const float* __restrict__ ks, const E* __restrict__ v,
                    const float* __restrict__ vs, const int* __restrict__ bt,
                    const int* __restrict__ cache_pos, T* __restrict__ out,
                    float* __restrict__ part, int* __restrict__ tickets,
-                   int nblk, int bs, int KH, int G, int D, int span,
+                   int nblk, int bs, int S, int KH, int G, int D, int span,
                    float scale, float softcap) {
   extern __shared__ __align__(16) unsigned char smem[];
   const size_t sb = stage_bytes(D, bs, sizeof(E), QUANT);
@@ -522,26 +546,31 @@ paged_split_kernel(const T* __restrict__ q, const E* __restrict__ k,
   const int walk = cp < 0 ? nblk : min(nblk, cp / bs + 1);
   const int e_end = min(walk, (split + 1) * span);
   const int p_begin = split * span * bs;
-  const int p_end = e_end * bs;
+  const int p_end = min(e_end * bs, S);
   const bool live = split * span < e_end;
   const int PP = pass_positions(bs);
   const int npass = live ? (p_end - p_begin + PP - 1) / PP : 0;
   const size_t group = (size_t)b * KH + h;  // this (slot, KV head)
+  const size_t slot_row = (size_t)b * S + p_begin;  // SLOT: the split's run
   float* MLbase = part + (size_t)gridDim.y * KH * nsplit * G * D;
 
   const T* qb = q + group * G * D;
   for (int i = tid; i < G * D; i += nthreads)
-    Qs[i] = QUANT ? to_f32(qb[i]) : to_f32(qb[i]) * scale;
+    Qs[i] = SLOT    ? __fmul_rn(to_f32(qb[i]),
+                                __fmul_rn(ks[group * D + i % D], scale))
+            : QUANT ? to_f32(qb[i])
+                    : to_f32(qb[i]) * scale;
   // the split's table entries, read once
-  for (int e = tid; e < e_end - split * span; e += nthreads)
-    Tb[e] = bt[(size_t)b * nblk + split * span + e];
+  if (!SLOT)
+    for (int e = tid; e < e_end - split * span; e += nthreads)
+      Tb[e] = bt[(size_t)b * nblk + split * span + e];
   __syncthreads();
 #pragma unroll
   for (int s = 0; s < SPLIT_STAGES - 1; ++s) {
     if (s < npass)
-      stage_pass<E, QUANT>(smem + s * sb, k, ks, v, vs, Tb, s * PP,
-                           min(PP, p_end - p_begin - s * PP), bs, KH, h, D,
-                           tid, nthreads);
+      stage_pass<E, QUANT, SLOT>(smem + s * sb, k, ks, v, vs, Tb, slot_row,
+                                 s * PP, min(PP, p_end - p_begin - s * PP),
+                                 bs, KH, h, D, tid, nthreads);
     cp_async_commit();  // empty groups keep the count uniform
   }
 
@@ -556,9 +585,10 @@ paged_split_kernel(const T* __restrict__ q, const E* __restrict__ k,
     __syncthreads();  // everyone's; pass i - 1's stage is no longer read
     const int pf = i + SPLIT_STAGES - 1;
     if (pf < npass)
-      stage_pass<E, QUANT>(smem + (pf % SPLIT_STAGES) * sb, k, ks, v, vs,
-                           Tb, pf * PP, min(PP, p_end - p_begin - pf * PP),
-                           bs, KH, h, D, tid, nthreads);
+      stage_pass<E, QUANT, SLOT>(smem + (pf % SPLIT_STAGES) * sb, k, ks, v,
+                                 vs, Tb, slot_row, pf * PP,
+                                 min(PP, p_end - p_begin - pf * PP), bs, KH,
+                                 h, D, tid, nthreads);
     cp_async_commit();
 
     const unsigned char* st = smem + (i % SPLIT_STAGES) * sb;
@@ -701,7 +731,9 @@ paged_split_kernel(const T* __restrict__ q, const E* __restrict__ k,
       const float v = __ldcg(a0 + ((size_t)j * G + g) * D + min(d, D - 1));
       if (c != 0.f) o += c * v;
     }
-    if (d < D) ob[d] = from_f32<T>(o / Ls);
+    if (d < D)
+      ob[d] = from_f32<T>(SLOT ? __fmul_rn(o / Ls, vs[group * D + d])
+                               : o / Ls);
   }
   if (tid == 0) tickets[group] = 0;
 }
@@ -715,21 +747,22 @@ inline bool split_fits(int G, int D, int bs, int esize, bool quant,
          split_smem(G, D, bs, esize, quant, span) <= (size_t)SMEM_LIMIT;
 }
 
-template <typename T, typename E, bool QUANT>
+template <typename T, typename E, bool QUANT, bool SLOT = false>
 int launch_split(const void* q, const void* k, const void* ks, const void* v,
                  const void* vs, const void* bt, const void* cache_pos,
                  void* out, void* part, void* tickets, int B, int nblk,
-                 int bs, int KH, int G, int D, int span, int nsplit,
+                 int bs, int S, int KH, int G, int D, int span, int nsplit,
                  float softcap, cudaStream_t stream) {
   if (!split_fits(G, D, bs, sizeof(E), QUANT, span) || nsplit < 1 ||
-      nsplit > MAX_SPLITS || (long long)(nsplit - 1) * span >= nblk)
+      nsplit > MAX_SPLITS || (long long)(nsplit - 1) * span >= nblk ||
+      S < 1 || S > nblk * bs || S <= (nblk - 1) * bs)
     return (int)cudaErrorInvalidValue;
   const size_t smem = split_smem(G, D, bs, sizeof(E), QUANT, span);
   const int nd = (D + 31) / 32;
-  const auto kernel = nd <= 1   ? paged_split_kernel<T, E, QUANT, 1>
-                      : nd <= 2 ? paged_split_kernel<T, E, QUANT, 2>
-                      : nd <= 4 ? paged_split_kernel<T, E, QUANT, 4>
-                                : paged_split_kernel<T, E, QUANT, 8>;
+  const auto kernel = nd <= 1   ? paged_split_kernel<T, E, QUANT, SLOT, 1>
+                      : nd <= 2 ? paged_split_kernel<T, E, QUANT, SLOT, 2>
+                      : nd <= 4 ? paged_split_kernel<T, E, QUANT, SLOT, 4>
+                                : paged_split_kernel<T, E, QUANT, SLOT, 8>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -739,8 +772,8 @@ int launch_split(const void* q, const void* k, const void* ks, const void* v,
       static_cast<const float*>(ks), static_cast<const E*>(v),
       static_cast<const float*>(vs), static_cast<const int*>(bt),
       static_cast<const int*>(cache_pos), static_cast<T*>(out),
-      static_cast<float*>(part), static_cast<int*>(tickets), nblk, bs, KH, G,
-      D, span, scale, softcap);
+      static_cast<float*>(part), static_cast<int*>(tickets), nblk, bs, S, KH,
+      G, D, span, scale, softcap);
   return (int)cudaGetLastError();
 }
 
@@ -774,11 +807,11 @@ int lrk_decode_attention_paged(int dtype, const void* q, const void* k,
   if (dtype == 0)
     return dap::launch_split<float, float, false>(
         q, k, nullptr, v, nullptr, bt, cache_pos, out, part, tickets, B,
-        nblk, bs, KH, G, D, span, nsplit, softcap, s);
+        nblk, bs, nblk * bs, KH, G, D, span, nsplit, softcap, s);
   if (dtype == 1)
     return dap::launch_split<__nv_bfloat16, __nv_bfloat16, false>(
         q, k, nullptr, v, nullptr, bt, cache_pos, out, part, tickets, B,
-        nblk, bs, KH, G, D, span, nsplit, softcap, s);
+        nblk, bs, nblk * bs, KH, G, D, span, nsplit, softcap, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -831,12 +864,12 @@ int lrk_decode_attention_paged_q(int dtype, const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return dap::launch_split<float, int8_t, true>(
-        q, k, ks, v, vs, bt, cache_pos, out, part, tickets, B, nblk, bs, KH,
-        G, D, span, nsplit, softcap, s);
+        q, k, ks, v, vs, bt, cache_pos, out, part, tickets, B, nblk, bs,
+        nblk * bs, KH, G, D, span, nsplit, softcap, s);
   if (dtype == 1)
     return dap::launch_split<__nv_bfloat16, int8_t, true>(
-        q, k, ks, v, vs, bt, cache_pos, out, part, tickets, B, nblk, bs, KH,
-        G, D, span, nsplit, softcap, s);
+        q, k, ks, v, vs, bt, cache_pos, out, part, tickets, B, nblk, bs,
+        nblk * bs, KH, G, D, span, nsplit, softcap, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -860,6 +893,34 @@ int lrk_decode_attention_paged_q_prev(int dtype, const void* q,
     return dap::launch<__nv_bfloat16, int8_t, true>(
         q, k, ks, v, vs, bt, cache_pos, out, B, nblk, bs, KH, G, D, softcap,
         s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// B5 on the split kernel: out (B,KH,G,D) = attention of q (B,KH,G,D) over
+// the int8 slot pool kq/vq (B,S,KH,D) with one f32 scale row per slot and
+// head, ks/vs (B,KH,D), at positions <= cache_pos (B,) int32; all
+// contiguous.  Entries of SLOT_ENTRY positions (the last one ragged where
+// S is not a multiple), KH x B x nsplit CTAs, split j owning entries
+// [j*span, (j+1)*span); part the f32 scratch of B * KH * nsplit * G *
+// (D + 2) floats; tickets B * KH int32, zero (and zero again after the
+// launch).  dtype (q, out): 0 = float32, 1 = bfloat16.  Shared memory as
+// lrk_decode_attention_paged_split_smem(G, D, SLOT_ENTRY, 1, 0, span).
+int lrk_decode_attention_q(int dtype, const void* q, const void* kq,
+                           const void* ks, const void* vq, const void* vs,
+                           const void* cache_pos, void* out, void* part,
+                           void* tickets, int B, int S, int KH, int G,
+                           int D, int span, int nsplit, float softcap,
+                           void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int bs = dap::SLOT_ENTRY, nblk = (S + bs - 1) / bs;
+  if (dtype == 0)
+    return dap::launch_split<float, int8_t, false, true>(
+        q, kq, ks, vq, vs, nullptr, cache_pos, out, part, tickets, B, nblk,
+        bs, S, KH, G, D, span, nsplit, softcap, s);
+  if (dtype == 1)
+    return dap::launch_split<__nv_bfloat16, int8_t, false, true>(
+        q, kq, ks, vq, vs, nullptr, cache_pos, out, part, tickets, B, nblk,
+        bs, S, KH, G, D, span, nsplit, softcap, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -22,12 +22,16 @@
 //
 // What bounds it on an H100: the pool bytes, 2*S*D int8 per (slot, head)
 // -- a handful of FLOPs per byte.  Every position is read (masked, not
-// skipped), as in the reference.  Simple first: B*KH CTAs of 128 threads
-// (64 for the served model on 132 SMs), K/V blocks of 64 positions staged
-// through shared memory with 16-byte loads (rows padded by one word so
-// the per-position dot products hit distinct banks), plain f32 FMAs.
-// Splitting S across CTAs, and skipping blocks past cache_pos, are later
-// work.
+// skipped), as in the reference.  B*KH CTAs of 128 threads (64 for the
+// served model on 132 SMs), K/V blocks of 64 positions staged through
+// shared memory with 16-byte loads (rows padded by one word so the
+// per-position dot products hit distinct banks), plain f32 FMAs.
+//
+// This is the earlier design, kept callable as lrk_decode_attention_q_prev
+// (the wrapper's prev_decode_attention_q, chip_smoke's prev_ms); the serve
+// path runs B5 on the sequence-split kernel of decode_attention_paged.cu
+// (its slot view), which splits S across CTAs and skips the positions
+// past cache_pos.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -210,22 +214,22 @@ int launch(const void* q, const void* kq, const void* ks, const void* vq,
 
 extern "C" {
 
-// Whether the kernel takes this geometry: D a multiple of 16 up to 256,
-// at most 16 query heads per KV head, G*D <= 1024, S >= 1.
+// Whether the earlier kernel takes this geometry: D a multiple of 16 up to
+// 256, at most 16 query heads per KV head, G*D <= 1024, S >= 1.
 int lrk_decode_attention_q_fits(int S, int G, int D) {
   return S >= 1 && D >= 16 && D % 16 == 0 && D <= daq::MAX_D && G >= 1 &&
          G <= daq::MAX_G && G * D <= daq::THREADS * daq::MAX_OUT;
 }
 
-// out (B,KH,G,D) = attention of q (B,KH,G,D) over the int8 pool kq/vq
-// (B,S,KH,D) with scales ks/vs (B,KH,D) f32 and positions <= cache_pos (B,)
-// int32; all contiguous.  dtype: 0 = float32, 1 = bfloat16 (q, out).
-// Returns the launch's cudaError_t (0 on success).
-int lrk_decode_attention_q(int dtype, const void* q, const void* kq,
-                           const void* ks, const void* vq, const void* vs,
-                           const void* cache_pos, void* out, int B, int S,
-                           int KH, int G, int D, float softcap,
-                           void* stream) {
+// The earlier kernel: out (B,KH,G,D) = attention of q (B,KH,G,D) over the
+// int8 pool kq/vq (B,S,KH,D) with scales ks/vs (B,KH,D) f32 and positions
+// <= cache_pos (B,) int32; all contiguous.  dtype: 0 = float32, 1 =
+// bfloat16 (q, out).  Returns the launch's cudaError_t (0 on success).
+int lrk_decode_attention_q_prev(int dtype, const void* q, const void* kq,
+                                const void* ks, const void* vq,
+                                const void* vs, const void* cache_pos,
+                                void* out, int B, int S, int KH, int G,
+                                int D, float softcap, void* stream) {
   if (!lrk_decode_attention_q_fits(S, G, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)

@@ -1,19 +1,21 @@
 """The sequence splits of the attention kernels B10 (int8 latent MLA
-decode), B9 (int8 paged decode) and B8 (paged decode on a bf16 or f32
-pool, the same split kernel as B9), checked on the CPU.
+decode), B9 (int8 paged decode), B8 (paged decode on a bf16 or f32
+pool, the same split kernel as B9) and B5 (int8 slot-pool decode, the
+same kernel's slot view), checked on the CPU.
 
 The CUDA kernels run only on the card, so their work split and their
 arithmetic are held here through plain stand-ins:
 
-* the planners ``latent_split`` / ``paged_split`` (plain Python, the
-  wrappers' own) cover every position or table entry exactly once, in
-  order, within the CTA budget;
+* the planners ``latent_split`` / ``paged_split`` / ``slot_split`` (plain
+  Python, the wrappers' own) cover every position or table entry exactly
+  once, in order, within the CTA budget;
 * a numpy mirror of each kernel's split-and-fold arithmetic (per split an
   online softmax over the kernel's stages or passes, -1e30 masking, -inf
   marking a split that starts past a live slot's position, the per-entry
   V scale and the softcap of B9 -- B8 the same without scales -- then
-  the fold in split order) is held against the reference's Pallas
-  kernels in interpret mode at 1e-5,
+  the fold in split order; B5 with one K scale folded into the query and
+  one V scale applied after the fold) is held against the reference's
+  Pallas kernels in interpret mode at 1e-5,
   normalised as the card's ``KERNEL_TOL`` is (max |a - b| / max |b|), in
   f32;
 * a mirror of B10's bf16 hi + lo split of the folded query and of the
@@ -31,6 +33,7 @@ from repro.kernels import decode_attention_paged as jpaged
 from repro.kernels import ops as jops
 from repro_torch.kernels import decode_attention_latent_q as dlk
 from repro_torch.kernels import decode_attention_paged as dpk
+from repro_torch.kernels import decode_attention_q as dak
 from repro_torch.kernels import ref
 from repro_torch.quant import kv as tkv
 
@@ -473,3 +476,152 @@ def test_paged_split_refuses_a_wide_f32_pool_past_its_passes():
     assert dpk.paged_split(1, 1, 128, SMS, fit=fit).splits == 32
     with pytest.raises(ValueError, match="no span"):
         dpk.paged_split(1, 1, 256, SMS, fit=fit)
+
+
+# ---------------------------------------------------------------------------
+# B5: the slot pool on the split kernel
+# ---------------------------------------------------------------------------
+
+def slot_mirror(q, kq, ks, vq, vs, pos, softcap, plan):
+    """The split kernel's slot view in numpy: q (B,KH,G,D) f32; the int8
+    slot pool kq/vq (B,S,KH,D) with one scale row per slot and head ks/vs
+    (B,KH,D) f32; pos (B,) -> (B,KH,G,D) f32.  Entries of SLOT_ENTRY
+    positions, one pass each, the last cut at S; the K scale and 1/sqrt(D)
+    fold into the query once, the raw int8 V values are summed, and the V
+    scale multiplies the fold's result."""
+    b, kh, g, d = q.shape
+    s = kq.shape[1]
+    ent = dak.SLOT_ENTRY
+    f32 = np.float32
+    scale = f32(1.0 / math.sqrt(d))
+    out = np.zeros(q.shape, f32)
+    for bi in range(b):
+        cp = int(pos[bi])
+        walk = plan.nblk if cp < 0 else min(plan.nblk, cp // ent + 1)
+        for h in range(kh):
+            qk = q[bi, h] * (ks[bi, h] * scale)
+            parts = []
+            for e0, _ in plan.entries():
+                e1 = min(walk, e0 + plan.span)
+                if e0 >= e1:
+                    parts.append((np.full(g, -np.inf, f32),
+                                  np.zeros(g, f32), None))
+                    continue
+                state = (np.full(g, -np.inf, f32), np.zeros(g, f32),
+                         np.zeros((g, d), f32))
+                for p0 in range(e0 * ent, min(e1 * ent, s), ent):
+                    lp = np.arange(p0, min(p0 + ent, s))
+                    logit = (qk @ kq[bi, lp, h].astype(f32).T).astype(f32)
+                    if softcap:
+                        logit = (np.tanh(logit / f32(softcap))
+                                 * f32(softcap)).astype(f32)
+                    logit = np.where(lp <= cp, logit, NEG).astype(f32)
+
+                    def ctx(w, lp=lp):
+                        return w @ vq[bi, lp, h].astype(f32)
+                    state = _online(state, logit, ctx)
+                parts.append(state)
+            out[bi, h] = _fold(parts, vs[bi, h])
+    return out
+
+
+def _slot_inputs(b, s, kh, g, d, pos, seed):
+    """q and the int8 slot pool quantized as the engine's prefill
+    quantizes it (one scale row per slot and head)."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, kh, g, d), np.float32)
+    pool = []
+    for _ in ("k", "v"):
+        x = torch.from_numpy(rng.standard_normal((b, s, kh, d), np.float32))
+        xq, xs = tkv.quantize_kv_prefill(x)
+        pool += [xq.numpy(), xs.numpy()]
+    return q, *pool, np.asarray(pos, np.int32)
+
+
+#: (b, s, kh, g, d, positions, softcap, splits asked, the Pallas kernel's
+#: block): live slots whose later splits are empty; an idle slot at an S
+#: the Pallas block divides; a softcap; one split; more splits than live
+#: entries; a ragged S (live slots: the last entry cut at S)
+SLOT_CASES = {
+    "later splits empty": (2, 512, 2, 4, 32, [70, 511], 0.0, 4, 64),
+    "idle slot": (3, 256, 2, 2, 16, [255, 30, -1], 0.0, 3, 64),
+    "softcap": (2, 320, 1, 4, 16, [200, 319], 30.0, 2, 64),
+    "one split": (2, 192, 2, 2, 16, [191, 5], 0.0, 1, 64),
+    "more splits than live entries": (2, 384, 1, 2, 16, [3, 100], 5.0, 6,
+                                      64),
+    "ragged S": (3, 1000, 1, 4, 16, [999, 640, 63], 0.0, 8, 40),
+}
+
+
+@pytest.mark.parametrize("label", list(SLOT_CASES))
+def test_slot_split_mirror_matches_pallas_interpret(label):
+    b, s, kh, g, d, pos, softcap, splits, jbs = SLOT_CASES[label]
+    args = _slot_inputs(b, s, kh, g, d, pos, seed=s + d)
+    plan = dak.slot_split(b, kh, s, SMS, splits=splits, g=g, d=d)
+    got = slot_mirror(*args, softcap, plan)
+    q, kq, ks, vq, vs, cpos = args
+    q4 = q.reshape(b, 1, kh * g, d)
+    pallas = np.asarray(jops.decode_attention_q(
+        *map(jnp.asarray, (q4, kq, ks, vq, vs, cpos)), softcap=softcap,
+        bs=jbs, force_kernel=True)).reshape(b, kh, g, d)
+    assert _norm_err(got, pallas) <= 1e-5
+    plain = ref.decode_attention_q_ref(
+        *map(torch.from_numpy, (q4, kq, ks, vq, vs, cpos)),
+        softcap=softcap).numpy().reshape(b, kh, g, d)
+    assert _norm_err(got, plain) <= 1e-5
+    if label == "later splits empty":
+        assert any(e0 * dak.SLOT_ENTRY > pos[0] for e0, _ in plan.entries())
+    if label == "more splits than live entries":
+        assert plan.splits > pos[0] // dak.SLOT_ENTRY + 1
+
+
+def test_slot_split_idle_slot_at_a_ragged_s_is_the_plain_average():
+    """An idle slot (no valid position) at S = 1,000 averages its 1,000
+    positions, as the plain version does (the port's stated departure from
+    the Pallas kernel, which pads S to its block and averages the pad rows
+    too); its last entry stages no position of the next slot."""
+    b, s, kh, g, d = 3, 1000, 2, 2, 16
+    args = _slot_inputs(b, s, kh, g, d, [999, -1, 300], seed=11)
+    plan = dak.slot_split(b, kh, s, SMS, g=g, d=d)
+    got = slot_mirror(*args, 0.0, plan)
+    q, kq, ks, vq, vs, cpos = args
+    plain = ref.decode_attention_q_ref(
+        *map(torch.from_numpy, (q.reshape(b, 1, kh * g, d), kq, ks, vq, vs,
+                                cpos))).numpy().reshape(b, kh, g, d)
+    assert _norm_err(got, plain) <= 1e-5
+    uniform = vq[1].astype(np.float32).mean(0) * vs[1]      # (KH, D)
+    np.testing.assert_allclose(got[1], np.broadcast_to(
+        uniform[:, None], (kh, g, d)), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("b,kh,s,sms,splits", [
+    (8, 8, 1024, 132, None), (8, 8, 1000, 132, None), (3, 2, 70, 132, None),
+    (2, 1, 129, 132, None), (1, 1, 64, 132, None), (8, 8, 1024, 132, 1),
+    (1, 1, 4096, 132, None), (4, 8, 1000, 16, 3),
+])
+def test_slot_split_covers_each_position_once(b, kh, s, sms, splits):
+    plan = dak.slot_split(b, kh, s, sms, splits=splits, g=4, d=64)
+    ent = dak.SLOT_ENTRY
+    covered = [p for e0, e1 in plan.entries()
+               for p in range(e0 * ent, min(e1 * ent, s))]
+    assert covered == list(range(s))
+    assert all(min(e1 * ent, s) > e0 * ent for e0, e1 in plan.entries())
+    assert plan.nblk == math.ceil(s / ent)
+    assert 1 <= plan.splits <= dpk.MAX_SPLITS
+    budget = splits or math.ceil(sms * dpk.CTAS_PER_SM / (b * kh))
+    assert plan.splits <= max(1, budget)
+    assert dpk.split_smem(4, 64, ent, 1, False, plan.span) <= 232448
+
+
+def test_slot_split_served_plan():
+    """The served slot pool (8 slots of 1,024 positions, and the ragged
+    1,000, x 8 KV heads): 16 entries of 64, 8 splits of 2 entries (two
+    passes), 512 CTAs, B9's plan; the ring is two stages of 64 K and 64 V
+    int8 rows of 64 values padded by 16 bytes."""
+    for s in (1024, 1000):
+        plan = dak.slot_split(8, 8, s, SMS, g=4, d=64)
+        assert (plan.nblk, plan.span, plan.splits, plan.ctas) == \
+            (16, 2, 8, 512)
+    ring = 2 * 2 * 64 * (64 + 16)
+    assert dpk.split_smem(4, 64, dak.SLOT_ENTRY, 1, False, 2) == \
+        ring + 4 * 64 * 4 + 4 * 64 * 4 + 16 + 16

@@ -1227,3 +1227,170 @@ def test_split_lowrank_refuses_empty_factors(cuda, kind):
     with pytest.raises(ValueError, match="empty factors"):
         getattr(mod, name)(*args)
     assert mod.launches == n0
+
+
+# --- B5 on the split kernel's slot view ------------------------------------
+
+def _slot_args(g, case, dtype):
+    """chip_smoke's B5 inputs: q (B,KH,G,D), the int8 slot pool quantized
+    as the engine's prefill quantizes it, ragged positions, idle slots."""
+    from repro_torch.quant.kv import quantize_kv_prefill
+    b, s, kh, gg, d = (case[k] for k in ("b", "s", "kh", "g", "d"))
+    q = _rnd(g, b, kh, gg, d, dtype=getattr(torch, dtype))
+    k_q, k_s = quantize_kv_prefill(_rnd(g, b, s, kh, d, dtype=torch.float32))
+    v_q, v_s = quantize_kv_prefill(_rnd(g, b, s, kh, d, dtype=torch.float32))
+    pos = torch.randint(s // 2, s, (b,), generator=g, device="cuda",
+                        dtype=torch.int32)
+    if case["idle"]:
+        pos[b - case["idle"]:] = -1
+    pos[0] = s - 1
+    return q, k_q, k_s, v_q, v_s, pos
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("label", list(chip_smoke.ATTN_CASES))
+def test_slot_split_matches_plain_prev_and_one_split(cuda, label, dtype):
+    """B5 on the split kernel at chip_smoke's cases (the served pool, a
+    ragged S with idle slots, a softcap): within tolerance of the plain
+    version, of the earlier kernel and of itself forced to one split; a
+    second call gives the same bits; one counted launch per call, the
+    earlier kernel uncounted."""
+    from repro_torch.kernels import decode_attention_q as dak
+    from repro_torch.kernels import ref
+    case = chip_smoke.ATTN_CASES[label]
+    args = _slot_args(cuda, case, dtype)
+    kw = {"softcap": case["softcap"]}
+    n0 = dak.launches
+    y = dak.decode_attention_q(*args, **kw)
+    assert torch.equal(y, dak.decode_attention_q(*args, **kw))
+    one = dak.decode_attention_q_split(*args, **kw, splits=1)
+    assert dak.launches == n0 + 3
+    old = dak.prev_decode_attention_q(*args, **kw)
+    assert dak.launches == n0 + 3
+    b, kh, g, d = args[0].shape
+    want = ref.decode_attention_q_ref(args[0].reshape(b, 1, kh * g, d),
+                                      *args[1:], **kw)
+    tol = chip_smoke.KERNEL_TOL[dtype]
+    assert torch.isfinite(y.float()).all()
+    assert _norm_err(y.reshape(want.shape), want) <= tol
+    assert _norm_err(y, old) <= tol and _norm_err(one, y) <= tol
+
+
+def test_slot_split_smem_matches_the_wrapper(cuda):
+    """The C side takes B5's planned span at every chip_smoke case, with
+    the shared memory the wrapper counts."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import decode_attention_paged as dpk
+    from repro_torch.kernels import decode_attention_q as dak
+    lib = build.load()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for c in chip_smoke.ATTN_CASES.values():
+        fit = (c["g"], c["d"], dak.SLOT_ENTRY, 1, False)
+        span = dak.slot_split(c["b"], c["kh"], c["s"], sms, g=c["g"],
+                              d=c["d"]).span
+        assert lib.lrk_decode_attention_paged_split_fits(*fit[:4], 0, span)
+        assert int(lib.lrk_decode_attention_paged_split_smem(
+            *fit[:4], 0, span)) == dpk.split_smem(*fit, span)
+
+
+# --- B7 on the split-phase s8 kernel ---------------------------------------
+
+def _qa_args(g, m, label, dtype):
+    n, c, r, s = chip_smoke.BRANCHED_SHAPES[label]
+    x = _rnd(g, m, c, dtype=getattr(torch, dtype))
+    x[m // 2] = 0
+    return (x, *_quantized(g, n, c, r, mode="int8"),
+            *_quantized(g, n, r, r, mode="int8"),
+            *_quantized(g, n, r, s, mode="int8"))
+
+
+def _differing(a, b):
+    return int((a.float() != b.float()).sum())
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("m", [8, 37, 64, 512])
+@pytest.mark.parametrize("label", list(chip_smoke.BRANCHED_SHAPES))
+def test_split_qa_bit_equal_to_plain_and_cluster(cuda, label, m, dtype):
+    """B7's split-phase s8 kernel equals the plain version and the
+    earlier cluster kernel bit for bit (an all-zero row exactly 0), and a
+    second call gives the same bits; one counted launch per call, the
+    cluster kernel uncounted."""
+    from repro_torch.kernels import branched_matmul_qa as bak
+    from repro_torch.kernels import ref
+    args = _qa_args(cuda, m, label, dtype)
+    n0 = bak.launches
+    y = bak.branched_matmul_qa(*args)
+    assert torch.equal(y, bak.branched_matmul_qa(*args))
+    assert bak.launches == n0 + 2
+    old = bak.cluster_branched_matmul_qa(*args)
+    assert bak.launches == n0 + 2
+    assert _differing(y, ref.branched_matmul_qa_ref(*args)) == 0
+    assert _differing(y, old) == 0
+    assert (y[m // 2] == 0).all()
+
+
+@pytest.mark.parametrize("items", [1, 32, 132, 1000])
+def test_split_qa_plans_change_no_bit(cuda, items):
+    """int32 partials add up exactly: every plan gives the default's
+    bits, at a ragged chunk crossing a row block."""
+    from repro_torch.kernels import branched_matmul_qa as bak
+    args = _qa_args(cuda, 72, "gate,up", "bfloat16")
+    assert torch.equal(bak.branched_matmul_qa_split(*args, items=items),
+                       bak.branched_matmul_qa(*args))
+
+
+@pytest.mark.parametrize("m,c,r1,r2,s,n", [(1, 33, 5, 7, 70, 3),
+                                           (9, 200, 17, 64, 129, 1),
+                                           (70, 130, 96, 40, 300, 2)])
+def test_ragged_split_qa(cuda, m, c, r1, r2, s, n):
+    """Ragged sizes (rows, ranks and widths that are not whole stages,
+    tiles or 16-byte rows) on both activation types: bit-equal."""
+    from repro_torch.kernels import ops, ref
+    for dt in (torch.float32, torch.bfloat16):
+        x = _rnd(cuda, m, c, dtype=dt)
+        br = (*_quantized(cuda, n, c, r1, mode="int8"),
+              *_quantized(cuda, n, r1, r2, mode="int8"),
+              *_quantized(cuda, n, r2, s, mode="int8"))
+        assert _differing(ops.branched_matmul_qa(x, *br),
+                          ref.branched_matmul_qa_ref(x, *br)) == 0
+
+
+def test_split_qa_smem_and_grid(cuda):
+    """The C side's shared memory equals the wrapper's count, under the
+    opt-in limit; both activation types' persistent grids hold at least
+    one CTA per SM."""
+    from repro_torch.kernels import branched_matmul_qa as bak
+    from repro_torch.kernels import build
+    lib = build.load()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert lib.lrk_branched_qa_mma_smem() == bak.QA_SMEM <= build.SMEM_LIMIT
+    for dtype in (0, 1):
+        for rows in (1, 16, 32, 64):
+            assert lib.lrk_branched_qa_mma_grid(dtype, rows) >= sms
+
+
+def test_split_qa_refuses_past_the_shared_memory_gate(cuda, monkeypatch):
+    """The wrapper raises, and launches nothing, where the tile's shared
+    memory is past the opt-in limit (here a limit one byte under it)."""
+    from repro_torch.kernels import branched_matmul_qa as bak
+    from repro_torch.kernels import build
+    args = _qa_args(cuda, 8, "q,o", "bfloat16")
+    monkeypatch.setattr(build, "SMEM_LIMIT", bak.QA_SMEM - 1)
+    n0 = bak.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        bak.branched_matmul_qa(*args)
+    assert bak.launches == n0
+
+
+@pytest.mark.parametrize("m", [8, 72])
+def test_split_qa_phase_timer(cuda, m):
+    """B7's phase timer: one counted launch, phase 0 and six
+    non-negative times per 64-row block (each product phase's items and
+    the pass that sums them)."""
+    from repro_torch.kernels import branched_matmul_qa as bak
+    args = _qa_args(cuda, m, "q,o", "bfloat16")
+    n0 = bak.launches
+    us = bak.branched_matmul_qa_phase_us(*args)
+    assert bak.launches == n0 + 1
+    assert len(us) == 1 + 6 * -(-m // 64) and min(us) >= 0 and sum(us) > 0

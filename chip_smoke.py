@@ -38,25 +38,25 @@ Phases (each prints its own seconds; any failure exits non-zero):
              whole 128-byte int8 rows (``ALIGNED_CONTROL``).  The
              redesigned rows of B5, B8, B9, B10 (the split attentions,
              in both dtypes), B1, B3, B11 (the two-phase lowrank chains)
-             and B7 (the split-phase s8 chain) are timed with the host
-             kept ahead of the card (a spin kernel first, so the times
+             and B6, B7 (the split-phase s8 chains) are timed with the
+             host kept ahead of the card (a spin kernel first, so the times
              are the device's), and between CUDA events without
              (``event_ms``, ``library_event_ms``): the earlier kernel (one
              CTA per slot; the chains' cluster kernel) in turns with the
              new one (``prev_ms``), the two held within tolerance of each
-             other (``prev_err``; B7 bit for bit, ``differing_prev``), a
-             second call's bits, the cold-L2 times; the attentions' split
+             other (``prev_err``; B6 / B7 bit for bit, ``differing_prev``),
+             a second call's bits, the cold-L2 times; the attentions' split
              count and, at the served bf16 shape, the kernel at 1, 2, the
              planned and twice the planned splits (``split_ms``); the
              chains' phase timer (``phase_us``) and, at M = 8 at the
-             shapes of ``LOWRANK_PLAN_SHAPES`` (B7: M = 64, every branched
-             shape), the device and phase times of other plans
+             shapes of ``LOWRANK_PLAN_SHAPES`` (B6 / B7: M = 64, bf16,
+             every shape), the device and phase times of other plans
              (``plan_us``: coarser and finer K slices, fewer CTAs).
              ``--kernels decode_attention_paged,lowrank_matmul_sq`` with
              ``--phases device,build,kernels`` is the quick call for B8
              and B11, ``--kernels lowrank_matmul,lowrank_matmul_q`` for B1
              and B3, ``--kernels decode_attention_q,branched_matmul_qa``
-             for B5 and B7.
+             for B5 and B7, ``--kernels lowrank_matmul_qa`` for B6.
 4. serve   — llama3.2-1b at full width (random weights from a seed, bf16)
              decomposed with SVD + branched surgery, served by
              ServeEngine(slots=8, max_seq=1024) on 8 requests; every
@@ -128,8 +128,10 @@ Phases (each prints its own seconds; any failure exits non-zero):
 
 Only on request (``--phases ...,profile``): torch.profiler over steady
 decode steps of the branches=4 model, plain, int8 and 2:4-packed int8 —
-device time by operator and the device's idle share; ``profile_mla`` the
-same over the bf16 MLA stack.
+device time by operator and the device's idle share; ``profile_qa`` the
+same over steady act-quant prefill chunks of serve_qa's engine (32 B6 +
+80 B7 each), with the first chunk timed alone; ``profile_mla`` the same
+over the bf16 MLA decode step.
 
 Prints ``{"kernels": [...]}`` and the card's name and power limit on
 lines before the last, and ``{"ok": true, "device": {...}}`` last.
@@ -154,11 +156,11 @@ PHASES = ("device", "build", "kernels", "serve", "check", "serve_q",
 #: the phases that serve or check the llama3.2-1b trees, and the MLA ones
 LLAMA_PHASES = ("serve", "check", "serve_q", "check_q", "serve_paged",
                 "check_paged", "serve_qa", "check_qa", "serve_sq",
-                "check_sq", "profile")
+                "check_sq", "profile", "profile_qa")
 MLA_PHASES = ("serve_mla", "check_mla", "serve_mla_q", "check_mla_q",
               "serve_mla_sq", "check_mla_sq", "profile_mla")
 #: phases run only when asked for with --phases
-EXTRA_PHASES = ("profile", "profile_mla")
+EXTRA_PHASES = ("profile", "profile_qa", "profile_mla")
 
 HBM_BYTES_PER_S = 3.35e12
 #: dense peak rates of one H100 SXM (NVIDIA's data sheet constants, not
@@ -173,14 +175,14 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 KERNEL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 #: extra times of the branched chain rows (B2, B4, B12), the split
 #: attention rows (B5, B8, B9, B10), the lowrank chain rows (B1, B3, B11)
-#: and the activation-quantized branched rows (B7):
+#: and the activation-quantized rows (B6, B7):
 #: the earlier design (the cluster kernel in bf16; the one-CTA-per-slot
 #: attention kernels) on the same inputs in the same call, and the kernel
 #: and its library call with a cold L2
 SPLIT_TIMES = ("prev_ms", "cold_ms", "library_cold_ms")
 #: the kernel and its library call between CUDA events with the host not
 #: kept ahead, on the rows whose ``ms`` / ``library_ms`` are device times
-#: with the host ahead (B1, B3, B5, B7, B8-B11): the series of the earlier
+#: with the host ahead (B1, B3, B5-B11): the series of the earlier
 #: event-timed runs
 EVENT_TIMES = ("event_ms", "library_event_ms")
 
@@ -277,6 +279,17 @@ QA_M_CASES = (64, 37, 512)
 #: beside its own (qa_split's ``items`` a phase; None its default of two a
 #: SM): longer K slices, fewer int32 partials to write and sum
 QA_PLAN_SWEEP = (None, 132, 64)
+#: the plans of its two-phase form (B6) a bf16 M = 64 row times beside its
+#: own (lowrank_qa_split's ``items``, one count or one a phase, None its
+#: default of half an item a SM in phase 1 and one in phase 2; and
+#: ``ctas``, 0 the whole persistent grid, None the default of one a SM
+#: where no phase has more items than SMs): two a SM in both phases (the
+#: first default); more or fewer phase-1 items (K slices, partials for
+#: the requantization to sum); one K slice in phase 2; the CTA cap
+QA_LOWRANK_PLAN_SWEEP = ((None, None), (None, 0), (None, 64),
+                         ((264, 264), None), ((264, None), None),
+                         ((32, None), None), ((None, 264), None),
+                         ((None, 1), None), ((1, 1), None))
 #: paged decode attention at the served pool: 8 slots of 64 blocks of 16
 #: positions (max_seq 1024) over 512 physical blocks + the dummy, tables
 #: shuffled, ragged positions, one idle slot (no valid position)
@@ -809,29 +822,26 @@ def _lowrank_times(name: str, args: tuple, y, library, dname: str, flush,
         phases = getattr(mod, name + "_phase_us")
         times["phase_us"] = min((phases(*args) for _ in range(5)), key=sum)
         if plans:
-            times["plan_us"] = _lowrank_plans(mod, name, args)
+            times["plan_us"] = _lowrank_plans(mod, name, args,
+                                              LOWRANK_PLAN_SWEEP)
     return times
 
 
-def _lowrank_plans(mod, name: str, args: tuple) -> dict:
+def _lowrank_plans(mod, name: str, args: tuple, sweep: tuple) -> dict:
     """Device ms of one launch (host ahead) and the phase times (the
-    fastest of five launches) of the bf16 two-phase lowrank kernel of the
-    wrapper ``name`` (B1, B3, B11) at each plan of
-    :data:`LOWRANK_PLAN_SWEEP`, keyed ``items/ctas`` (``items`` a count
-    for both phases, or one a phase; ``-`` a default)."""
-    import torch
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    fastest of five launches) of the two-phase lowrank kernel of the
+    wrapper ``name`` (bf16 B1, B3, B11 at :data:`LOWRANK_PLAN_SWEEP`; B6
+    at :data:`QA_LOWRANK_PLAN_SWEEP`) at each plan of ``sweep``, keyed
+    ``items/ctas`` (``items`` a count for both phases, or one a phase;
+    ``-`` the wrapper's default)."""
     split = getattr(mod, name + "_split")
     phases = getattr(mod, name + "_phase_us")
     out = {}
-    for items, ctas in LOWRANK_PLAN_SWEEP:
-        default = kernel_module("branched_matmul").ITEMS_PER_SM * sms
-        if isinstance(items, tuple):
-            items = tuple(default if n is None else n for n in items)
+    for items, ctas in sweep:
         knobs = dict(items=items, ctas=ctas)
-        label = ("-" if items is None else
-                 ",".join(map(str, items)) if isinstance(items, tuple)
-                 else str(items)) + ("/-" if ctas is None else f"/{ctas}")
+        label = "/".join(",".join("-" if n is None else str(n) for n in v)
+                         if isinstance(v, tuple) else
+                         "-" if v is None else str(v) for v in (items, ctas))
         out[label] = dict(
             ms=time_ms(lambda: split(*args, **knobs), ahead=True),
             phase_us=min((phases(*args, **knobs) for _ in range(5)),
@@ -872,7 +882,7 @@ def _split_sweep(launch, planned: int) -> dict:
 def _attention_times(kernel, prev, library, flush) -> dict:
     """Times of a redesigned kernel's row (the split attentions B5, B8,
     B9, B10; the two-phase lowrank chains B1, B3, B11; the split-phase s8
-    chain B7) beside its library call ``library`` (None where there is
+    chains B6, B7) beside its library call ``library`` (None where there is
     none: its times are null), every one with the host ahead of the card
     (:func:`time_ms`): the kernel in turns with ``prev``, the earlier
     design (new, old, old, new: ``prev_ms``; ``prev`` None where the row
@@ -1051,24 +1061,27 @@ def _int_mm_chain(args: tuple):
 
 def _check_qa(label: str, m: int, dname: str, rnd, factors: list,
               flush) -> dict:
-    """One row of an activation-quantized chain: int8 ``factors`` (q,
-    scale) pairs, x in ``dname`` with one all-zero row (scale 0, output
-    exactly 0).  ``differing`` counts output elements not bit-equal to
-    the plain version (the folds and roundings are the same, so 0 is
-    expected).  The yardstick is the same quantization and folds around
-    ``torch._int_mm`` (:func:`_int_mm_chain`; null where cuBLASLt refuses
-    the shape).  B6 is timed between CUDA events; B7, the split-phase s8
-    kernel, by :func:`_attention_times` against the cluster kernel (the
-    earlier design), whose output it must equal bit for bit
-    (``differing_prev``), with its phase timer (``phase_us``, the fastest
-    of five launches) and, at M = 64 in bf16, the plans of
-    :data:`QA_PLAN_SWEEP` (``plan_us``)."""
+    """One row of an activation-quantized chain (B6 with two ``factors``,
+    B7 with three): int8 (q, scale) pairs, x in ``dname`` with one
+    all-zero row (scale 0, output exactly 0).  ``differing`` counts
+    output elements not bit-equal to the plain version (the folds and
+    roundings are the same, so 0 is expected).  The yardstick is the
+    same quantization and folds around ``torch._int_mm``
+    (:func:`_int_mm_chain`; null where cuBLASLt refuses the shape).  Both
+    run the split-phase s8 kernel, timed by :func:`_attention_times`
+    against the cluster kernel (the earlier design), whose output it must
+    equal bit for bit (``differing_prev``), with its phase timer
+    (``phase_us``, the fastest of five launches) and, at M = 64 in bf16,
+    the plans of :data:`QA_LOWRANK_PLAN_SWEEP` / :data:`QA_PLAN_SWEEP`
+    (``plan_us``)."""
     import torch
     from repro_torch.kernels import ref
     lowrank = len(factors) == 2
     name = "lowrank_matmul_qa" if lowrank else "branched_matmul_qa"
     mod = kernel_module(name)
     fn = getattr(mod, name)
+    cluster = getattr(mod, "cluster_" + name)
+    phases = getattr(mod, name + "_phase_us")
     plain = ref.lowrank_matmul_qa_ref if lowrank \
         else ref.branched_matmul_qa_ref
     c = factors[0][0].shape[-2]
@@ -1077,6 +1090,7 @@ def _check_qa(label: str, m: int, dname: str, rnd, factors: list,
     args = (x, *[t for pair in factors for t in pair])
     y = fn(*args)
     want = plain(*args)
+    old = cluster(*args)
     torch.cuda.synchronize()
     n = 1 if lowrank else factors[0][0].shape[0]
     chain = [tuple(q.shape[-2:]) for q, _ in factors]
@@ -1093,29 +1107,23 @@ def _check_qa(label: str, m: int, dname: str, rnd, factors: list,
 
     def differing(a):
         return int((y.to(torch.float32) != a.to(torch.float32)).sum().item())
-    if lowrank:
-        times = dict(ms=time_ms(lambda: fn(*args)),
-                     library_ms=None if library is None
-                     else time_ms(library))
-    else:
-        old = mod.cluster_branched_matmul_qa(*args)
-        torch.cuda.synchronize()
-        times = dict(
-            differing_prev=differing(old),
-            prev_err=_compare(y, old, dname)["norm_err"],
-            **_attention_times(
-                lambda: fn(*args),
-                lambda: mod.cluster_branched_matmul_qa(*args), library,
-                flush),
-            phase_us=min((mod.branched_matmul_qa_phase_us(*args)
-                          for _ in range(5)), key=sum))
-        if m == 64 and dname == "bfloat16":
+    times = dict(
+        differing_prev=differing(old),
+        prev_err=_compare(y, old, dname)["norm_err"],
+        **_attention_times(lambda: fn(*args), lambda: cluster(*args),
+                           library, flush),
+        phase_us=min((phases(*args) for _ in range(5)), key=sum))
+    if m == 64 and dname == "bfloat16":
+        if lowrank:
+            times["plan_us"] = _lowrank_plans(mod, name, args,
+                                              QA_LOWRANK_PLAN_SWEEP)
+        else:
             times["plan_us"] = {
                 "-" if items is None else str(items): dict(
                     ms=time_ms(lambda: mod.branched_matmul_qa_split(
                         *args, items=items), ahead=True),
-                    phase_us=min((mod.branched_matmul_qa_phase_us(
-                        *args, items=items) for _ in range(5)), key=sum))
+                    phase_us=min((phases(*args, items=items)
+                                  for _ in range(5)), key=sum))
                 for items in QA_PLAN_SWEEP}
     return dict(shape=label, dtype=dname, M=m, **dims,
                 **_compare(y, want, dname), differing=differing(want),
@@ -1449,6 +1457,8 @@ def serve(cfg, lrd, params, *, n_req: int, prompt_lo: int, prompt_hi: int,
            "launches": launches, "tokens_per_s": tp["tokens_per_s"],
            "ttft_mean_s": tp["ttft_mean_s"],
            "decode_step_ms_mean": tp["decode_step_ms_mean"],
+           "prefill_seconds": tp["prefill_seconds"],
+           "decode_seconds": tp["decode_seconds"],
            "preemptions": tp["preemptions"],
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "kv_bytes_per_step": eng.plan_summary["kv_bytes_per_step"],
@@ -1468,6 +1478,48 @@ def serve(cfg, lrd, params, *, n_req: int, prompt_lo: int, prompt_hi: int,
     return res
 
 
+def _profiled(step, steps: int) -> dict:
+    """``torch.profiler`` over ``steps`` calls of ``step`` (engine steps)
+    after a device sync: the host-clock window, the device's busy share
+    of it, the top kernels by device time and the top host ops by self
+    time, each per step."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    events = prof.key_averages()
+    # device-side rows only: a host op's device time repeats the time of
+    # the kernels it launched, which have rows of their own
+    kernels = sorted((e for e in events
+                      if e.device_type == DeviceType.CUDA),
+                     key=dev_us, reverse=True)
+    host = sorted((e for e in events if e.device_type == DeviceType.CPU),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    return {"steps": steps, "step_ms": wall_ms / steps,
+            "device_busy_ms_per_step": busy_ms / steps,
+            "device_idle_share": 1 - busy_ms / wall_ms,
+            "top_device_kernels": [
+                {"kernel": e.key[:70], "launches_per_step": e.count / steps,
+                 "ms_per_step": dev_us(e) / 1e3 / steps}
+                for e in kernels[:10]],
+            "top_host_ops": [
+                {"op": e.key[:40], "calls_per_step": e.count / steps,
+                 "self_ms_per_step": e.self_cpu_time_total / 1e3 / steps}
+                for e in host[:10]]}
+
+
 def profile_decode(cfg, lrd, params, card: str, seed: int,
                    steps: int = 5, quantize: str = "none",
                    kv_quantize: str = "none", sparsify: str = "none"
@@ -1477,8 +1529,6 @@ def profile_decode(cfg, lrd, params, card: str, seed: int,
     operator and the device's busy share of the host-clock window."""
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs.base import RunConfig
     from repro_torch.serve.engine import Request, ServeEngine
 
@@ -1493,41 +1543,49 @@ def profile_decode(cfg, lrd, params, card: str, seed: int,
         eng.step()                                  # admit + prefill all
     for _ in range(2):
         eng.step()                                  # warm decode
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            eng.step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-    events = prof.key_averages()
-    # device-side rows only: a host op's device time repeats the time of
-    # the kernels it launched, which have rows of their own
-    kernels = sorted((e for e in events
-                      if e.device_type == DeviceType.CUDA),
-                     key=dev_us, reverse=True)
-    host = sorted((e for e in events if e.device_type == DeviceType.CPU),
-                  key=lambda e: e.self_cpu_time_total, reverse=True)
-    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
     res = {"quantize": quantize, "sparsify": sparsify,
-           "kv_quantize": kv_quantize, "steps": steps, "live_slots": 8,
-           "step_ms": wall_ms / steps,
-           "device_busy_ms_per_step": busy_ms / steps,
-           "device_idle_share": 1 - busy_ms / wall_ms,
-           "top_device_kernels": [
-               {"kernel": e.key[:70], "launches_per_step": e.count / steps,
-                "ms_per_step": dev_us(e) / 1e3 / steps}
-               for e in kernels[:10]],
-           "top_host_ops": [
-               {"op": e.key[:40], "calls_per_step": e.count / steps,
-                "self_ms_per_step": e.self_cpu_time_total / 1e3 / steps}
-               for e in host[:10]],
-           "card": card}
+           "kv_quantize": kv_quantize, "live_slots": 8,
+           **_profiled(eng.step, steps), "card": card}
     log("profile " + json.dumps(res))
+    return res
+
+
+def profile_prefill(cfg, lrd, params_q, card: str, seed: int,
+                    steps: int = 8) -> dict:
+    """Where one act-quant prefill chunk's time goes (serve_qa's engine:
+    int8 factors, int8 activations, int8 paged pool): 8 prompts of 512
+    tokens that finish at their first token, so every engine step is one
+    64-token prefill chunk (32 B6 + 80 B7) and nothing decodes.  The
+    first chunk is timed alone (host clock to a device sync: first-call
+    costs included), then ``torch.profiler`` over ``steps`` steady
+    chunks after two more."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    eng = ServeEngine(RunConfig(model=cfg, lrd=lrd), params_q, slots=8,
+                      max_seq=1024, quantize="int8", act_quantize="int8",
+                      kv_quantize="int8", kv_layout="paged",
+                      kv_block_size=PAGED_BLOCK, device="cuda")
+    rng = np.random.default_rng(seed)
+    for i in range(8):
+        eng.add_request(Request(uid=i, prompt=rng.integers(
+            0, cfg.vocab_size, 512).tolist(), max_new_tokens=1))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.step()
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    for _ in range(2):
+        eng.step()
+    reset_launches()
+    res = {"act_quantize": "int8", "chunk_tokens": eng.prefill_chunk,
+           "first_chunk_ms": first_ms, **_profiled(eng.step, steps)}
+    res["launches_per_step"] = {k: launch_count(k) / steps for k in KERNELS
+                                if launch_count(k)}
+    res["card"] = card
+    log("profile_qa " + json.dumps(res))
     return res
 
 
@@ -1840,12 +1898,12 @@ def check_mla_surgery(rep, params, card: str) -> None:
 def split_kernels() -> None:
     """Print the shared memory and the persistent grid of every
     split-phase kernel (bf16 B2; B4, B12 on int8 / e4m3; the two-phase
-    B1, and B3, B11 on int8 / e4m3; B7's s8 kernel on bf16 and f32
-    activations) at each row tile count, the two-phase kernels' served
-    plans at M = 8 (B1 / B3 at every SVD pair of LOWRANK_SHAPES, B11 at
-    the 2:4-served ones) and B7's at M = 64, and fail where the C side's
-    shared memory disagrees with the wrapper's count or a grid is
-    empty."""
+    B1, and B3, B11 on int8 / e4m3; the s8 kernels of B7 and B6 on bf16
+    and f32 activations) at each row tile count, the two-phase kernels'
+    served plans at M = 8 (B1 / B3 at every SVD pair of LOWRANK_SHAPES,
+    B11 at the 2:4-served ones) and B7's and B6's at M = 64, and fail
+    where the C side's shared memory disagrees with the wrapper's count
+    or a grid is empty."""
     import torch
     from repro_torch.kernels import branched_matmul as bk
     from repro_torch.kernels import build
@@ -1906,6 +1964,27 @@ def split_kernels() -> None:
     if smem != bak.QA_SMEM or smem > build.SMEM_LIMIT \
             or min(min(g.values()) for g in grids.values()) <= 0:
         raise SystemExit("branched_matmul_qa split-phase kernel: shared "
+                         "memory or grid disagrees with the wrapper")
+    lak = kernel_module("lowrank_matmul_qa")
+    smem = int(lib.lrk_lowrank_qa_mma_smem())
+    grids = {dt: {rows: int(lib.lrk_lowrank_qa_mma_grid(code, rows))
+                  for rows in (8, 32, 64)}
+             for dt, code in (("bf16", 1), ("f32", 0))}
+    plans = []
+    for label, (c, r, s) in LOWRANK_SHAPES.items():
+        sp = lak.lowrank_qa_split(64, c, r, s, sms)
+        plans.append(f"{label}: " + ", ".join(
+            f"{sp.slices(i)} x {math.ceil(sp.phase(i)[2] / bk.BN)} items of "
+            f"K slice {sp.phase(i)[3]} (phase {i})" for i in sp.PHASES)
+            + (f", {sp.ctas} CTAs at most" if sp.ctas else ", the whole grid")
+            + f", {sp.scratch_bytes} B of scratch")
+    log(f"lowrank_matmul_qa (two-phase split s8, 4 stages): {smem} B of "
+        f"dynamic shared memory (wrapper's count {bak.QA_SMEM}, limit "
+        f"{build.SMEM_LIMIT}); persistent grid (CTAs) at 8 / 32 / 64 rows: "
+        f"{grids} on {sms} SMs; served plans at M = 64: " + "; ".join(plans))
+    if smem != bak.QA_SMEM or smem > build.SMEM_LIMIT \
+            or min(min(g.values()) for g in grids.values()) <= 0:
+        raise SystemExit("lowrank_matmul_qa split-phase kernel: shared "
                          "memory or grid disagrees with the wrapper")
 
 
@@ -2013,7 +2092,8 @@ def run_llama(phases: list[str], card: str, seed: int,
     if "check" in phases:
         with Phase("check"):
             cross_check(cfg, p4, card, seed)
-    if set(phases) & {"serve_q", "check_q", "serve_qa", "check_qa"}:
+    if set(phases) & {"serve_q", "check_q", "serve_qa", "check_qa",
+                      "profile_qa"}:
         from repro_torch.quant.quantize import quantize_tree
         t0 = time.perf_counter()
         with torch.inference_mode():
@@ -2062,6 +2142,9 @@ def run_llama(phases: list[str], card: str, seed: int,
         with Phase("check_qa"):
             cross_check_paged(cfg, pq, card, seed, kv_quantize="int8",
                               act_quantize="int8")
+    if "profile_qa" in phases:
+        with Phase("profile_qa"):
+            profile_prefill(cfg, lrd, pq, card, seed)
     if set(phases) & {"serve_sq", "check_sq"}:
         psq = pack_sparse(p4, lrd, card, "llama")
     if "serve_sq" in phases:

@@ -240,13 +240,13 @@ def lowrank_split(m: int, c: int, r: int, s: int, sms: int,
     """Work split of the two-phase lowrank kernel on a card of ``sms``
     SMs: each phase slices its reduction axis (C, R) so that with its
     column tiles (tiles(R), tiles(S)) it has about ``items`` items (one
-    count for both phases or one each; default ITEMS_PER_SM per SM, one
-    round of the persistent grid); fewer items give longer slices, fewer
-    partials to sum.  ``ctas``: the CTAs the launch takes at most (0: the
+    count for both phases or one each; None, or None for a phase, is
+    ITEMS_PER_SM per SM, one round of the persistent grid); fewer items
+    give longer slices, fewer partials to sum.  ``ctas``: the CTAs the launch takes at most (0: the
     whole persistent grid; default LOWRANK_CTAS_PER_SM per SM where no
     phase has more items than ``sms``, else the whole grid)."""
-    n1, n2 = (ITEMS_PER_SM * sms,) * 2 if items is None else \
-        (items, items) if isinstance(items, int) else items
+    n1, n2 = items if isinstance(items, tuple) else (items, items)
+    n1, n2 = (ITEMS_PER_SM * sms if n is None else n for n in (n1, n2))
     if min(m, c, r, s, sms, n1, n2) <= 0 or (ctas or 0) < 0:
         raise ValueError(f"lowrank split of ({m}, {c}, {r}, {s}) on {sms} "
                          f"SMs, {items} items, {ctas} CTAs: every size must "

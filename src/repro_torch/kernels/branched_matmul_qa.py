@@ -26,7 +26,6 @@ from repro_torch.kernels import branched_matmul as bk
 from repro_torch.kernels import build
 from repro_torch.kernels.lowrank_matmul import DTYPES
 from repro_torch.kernels.lowrank_matmul_q import check_operands
-from repro_torch.kernels.lowrank_matmul_qa import check_int8
 
 #: launches of the kernel since the last reset (set to 0 to reset)
 launches = 0
@@ -37,6 +36,15 @@ QBK = 64
 #: its dynamic shared memory (bytes): a ring of 4 stages of 64 A rows of
 #: QBK + 16 bytes and QBK W rows of 128 + 16 bytes, whatever the ranks
 QA_SMEM = 4 * (bk.BM * (QBK + 16) + QBK * (bk.BN + 16))
+
+
+def check_int8(name: str, *factors: torch.Tensor) -> None:
+    """The activation-quantized kernels take int8 factors only (fp8
+    plans keep the weight-only kernels)."""
+    for q in factors:
+        if q.dtype != torch.int8:
+            raise TypeError(f"{name} kernel takes int8 factors, got "
+                            f"{q.dtype}")
 
 
 def kpad(k: int) -> int:

@@ -177,6 +177,12 @@ def load() -> ctypes.CDLL:
     lib.lrk_lowrank_matmul_qa.restype = i
     lib.lrk_lowrank_qa_smem.argtypes = [i, i]
     lib.lrk_lowrank_qa_smem.restype = ctypes.c_size_t
+    lib.lrk_lowrank_matmul_qa_mma.argtypes = [i, *[p] * 11, *[i] * 7, p, p]
+    lib.lrk_lowrank_matmul_qa_mma.restype = i
+    lib.lrk_lowrank_qa_mma_smem.argtypes = []
+    lib.lrk_lowrank_qa_mma_smem.restype = ctypes.c_size_t
+    lib.lrk_lowrank_qa_mma_grid.argtypes = [i, i]
+    lib.lrk_lowrank_qa_mma_grid.restype = i
     lib.lrk_branched_matmul_qa.argtypes = [i, i, p, p, p, p, p, p, p, p, i,
                                            i, i, i, i, i, p]
     lib.lrk_branched_matmul_qa.restype = i

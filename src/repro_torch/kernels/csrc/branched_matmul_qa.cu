@@ -206,7 +206,8 @@ branched_qa_mma_kernel(const T* __restrict__ x, const int8_t* uq,
                   rows, smem);
     grid.sync();
     if (mark) *ts++ = global_ns();
-    fold_y<T>(p, cdiv(R2, k3), N, rows, S, h2s, vs, y + (size_t)row0 * S);
+    fold_y<T>(p, cdiv(R2, k3), N, rows, S, h2s, vs, y + (size_t)row0 * S,
+              true);
     // p is read above and written by the next row block's phase 1
     if (row0 + BM < M || ts != nullptr) grid.sync();
     if (mark) *ts++ = global_ns();

@@ -4,7 +4,8 @@
 // cooperative launch of a persistent grid, every phase's work items
 // spread over the whole card, grid syncs between the phases.
 //
-// Phases (branched_matmul_qa.cu's kernel strings them together):
+// Phases (branched_matmul_qa.cu's kernel strings them together, and
+// lowrank_matmul_qa.cu's two product phases of them):
 //   * quantize_rows: x (M, C) to int8 rows xq and f32 row scales xs, once
 //     for all M rows, the reference's quantize_rows (absmax / 127, a safe
 //     divisor of 1 for an all-zero row, rint(x / safe) clipped to +-127,
@@ -19,11 +20,12 @@
 //   * fold_y (the last product): after a grid sync, each output element
 //     sums every branch's slices, folds the branch's term with its own row
 //     and column scales and adds the terms in branch order from 0
-//     (__fadd_rn), rounding the f32 sum to x's type once.  (Items of whole
-//     column tiles running every branch, with no partials, left 16 to 64
-//     CTAs streaming and lost 4-8 us a launch on an H100.)
+//     (__fadd_rn; the lowrank chain, which has no branch sum, takes its
+//     one term as it is), rounding the f32 sum to x's type once.  (Items
+//     of whole column tiles running every branch, with no partials, left
+//     16 to 64 CTAs streaming and lost 4-8 us a launch on an H100.)
 // Every fold, division and rounding is the plain version's, so the result
-// is bit-equal to it (ref.branched_matmul_qa_ref).
+// is bit-equal to it (ref.branched_matmul_qa_ref, ref.lowrank_matmul_qa_ref).
 //
 // The tile.  A CTA of THREADS = 256 threads (8 warps) computes an int32
 // tile of up to BM = 64 rows by BN = 128 columns over one K slice; stages
@@ -409,11 +411,11 @@ __device__ void quantize_rows(const T* x, int8_t* xq, float* xs, int M,
 // column scales cs[n*NC + c], requantized over the segment: Hq row r,
 // branch n at Hq + r*ldh + n*NCP (NCP = kpad(NC), kpos order, zeros past
 // NC), its scale at Hs[r*nbr + n].  One CTA per segment, a thread per
-// value; red as quantize_rows'.
-__device__ void requant(const int* P, int nslices, int nbr, int rows,
-                        int NC, const float* rs, int rs_r, int rs_n,
-                        const float* cs, int8_t* Hq, int ldh, float* Hs,
-                        float* red) {
+// value; red as quantize_rows'.  (inline: two kernel sources include it.)
+__device__ inline void requant(const int* P, int nslices, int nbr,
+                               int rows, int NC, const float* rs, int rs_r,
+                               int rs_n, const float* cs, int8_t* Hq,
+                               int ldh, float* Hs, float* red) {
   const int tid = threadIdx.x;
   const int NCP = kpad(NC);
   for (int seg = blockIdx.x; seg < rows * nbr; seg += gridDim.x) {
@@ -457,9 +459,12 @@ constexpr int MAXB = 4;
 // (float(acc_n) * hs[r*nbr + n]) * ws[n*S + s] ), rows [0, rows), every
 // thread of the grid taking a stride of groups of four columns (one
 // where S is not a multiple of 4), the loads of MAXB branches at once.
+// from_zero false: the sum starts at the first branch's term itself, as
+// a chain with no branch sum folds (0 + -0 would be +0).
 template <typename T>
 __device__ void fold_y(const int* P, int nslices, int nbr, int rows, int S,
-                       const float* hs, const float* ws, T* y) {
+                       const float* hs, const float* ws, T* y,
+                       bool from_zero) {
   const int per = (S & 3) == 0 ? 4 : 1;
   const int groups = S / per;
   const size_t slice = (size_t)nbr * rows * S;
@@ -499,11 +504,12 @@ __device__ void fold_y(const int* P, int nslices, int nbr, int rows, int S,
         const float* w = ws + (size_t)(n0 + j) * S + s0;
         const int a[4] = {sum[j].x, sum[j].y, sum[j].z, sum[j].w};
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          if (i < per)
-            out[i] = __fadd_rn(out[i], __fmul_rn(__fmul_rn(
-                                           __int2float_rn(a[i]), h[j]),
-                                           w[i]));
+        for (int i = 0; i < 4; ++i) {
+          if (i >= per) continue;
+          const float t =
+              __fmul_rn(__fmul_rn(__int2float_rn(a[i]), h[j]), w[i]);
+          out[i] = from_zero || n0 + j > 0 ? __fadd_rn(out[i], t) : t;
+        }
       }
     }
     T* dst = y + (size_t)r * S + s0;

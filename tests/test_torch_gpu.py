@@ -1394,3 +1394,159 @@ def test_split_qa_phase_timer(cuda, m):
     us = bak.branched_matmul_qa_phase_us(*args)
     assert bak.launches == n0 + 1
     assert len(us) == 1 + 6 * -(-m // 64) and min(us) >= 0 and sum(us) > 0
+
+
+# --- B6 on the split-phase s8 kernel, in two phases ------------------------
+
+def _lowrank_qa_args(g, m, label, dtype, zero_product=False):
+    """chip_smoke's B6 inputs at a LOWRANK_SHAPES pair: an all-zero row
+    (m // 2) and, with ``zero_product``, a last row non-zero only on the
+    input channels whose w0 rows are zero (its product exactly 0)."""
+    c, r, s = chip_smoke.LOWRANK_SHAPES[label]
+    x = _rnd(g, m, c, dtype=getattr(torch, dtype))
+    x[m // 2] = 0
+    w0q, w0s = _quantized(g, c, r, mode="int8")
+    if zero_product:
+        w0q[:8] = 0
+        x[m - 1] = 0
+        x[m - 1, :8] = 1
+    return (x, w0q, w0s, *_quantized(g, r, s, mode="int8"))
+
+
+#: B6 plans besides the default: (items, ctas) of lowrank_qa_split -- one
+#: K slice in both phases, in phase 2 only, in phase 1 only, fine slices,
+#: fewer phase-1 items, the whole grid, small CTA caps
+_QA_LOWRANK_PLANS = [(1, None), ((None, 1), None), ((1, None), None),
+                     (1000, None), ((64, 1), None), (None, 0), (None, 7),
+                     ((3, 2), 0), ((1, 1), 7)]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("m", [8, 37, 64, 512])
+@pytest.mark.parametrize("label", list(chip_smoke.LOWRANK_SHAPES))
+def test_split_lowrank_qa_bit_equal_to_plain_and_cluster(cuda, label, m,
+                                                         dtype):
+    """B6's split-phase s8 kernel equals the plain version and the
+    earlier cluster kernel bit for bit (an all-zero row exactly 0), and a
+    second call gives the same bits; one counted launch per call, the
+    cluster kernel uncounted."""
+    from repro_torch.kernels import lowrank_matmul_qa as lak
+    from repro_torch.kernels import ref
+    args = _lowrank_qa_args(cuda, m, label, dtype)
+    n0 = lak.launches
+    y = lak.lowrank_matmul_qa(*args)
+    assert torch.equal(y, lak.lowrank_matmul_qa(*args))
+    assert lak.launches == n0 + 2
+    old = lak.cluster_lowrank_matmul_qa(*args)
+    assert lak.launches == n0 + 2
+    assert _differing(y, ref.lowrank_matmul_qa_ref(*args)) == 0
+    assert _differing(y, old) == 0
+    assert (y[m // 2] == 0).all()
+
+
+@pytest.mark.parametrize("items,ctas", _QA_LOWRANK_PLANS)
+@pytest.mark.parametrize("label", ["k,v", "q,o (branches=1)"])
+def test_split_lowrank_qa_plans_change_no_bit(cuda, label, items, ctas):
+    """int32 partials add up exactly: every plan and CTA cap gives the
+    default's bits, at a ragged chunk crossing a row block."""
+    from repro_torch.kernels import lowrank_matmul_qa as lak
+    args = _lowrank_qa_args(cuda, 72, label, "bfloat16")
+    assert torch.equal(lak.lowrank_matmul_qa_split(*args, items=items,
+                                                   ctas=ctas),
+                       lak.lowrank_matmul_qa(*args))
+
+
+@pytest.mark.parametrize("items", [None, 1, (None, 1)])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_split_lowrank_qa_zero_and_zero_product_rows(cuda, dtype, items):
+    """A zero row and a non-zero row whose product is exactly 0 give the
+    plain version's bits (exactly 0: the fold starts at the term itself,
+    not at 0 + term), at plans of one and of several K slices."""
+    from repro_torch.kernels import lowrank_matmul_qa as lak
+    from repro_torch.kernels import ref
+    args = _lowrank_qa_args(cuda, 64, "k,v", dtype, zero_product=True)
+    y = lak.lowrank_matmul_qa_split(*args, items=items)
+    assert _differing(y, ref.lowrank_matmul_qa_ref(*args)) == 0
+    assert (y[32] == 0).all() and (y[63] == 0).all()
+    assert not (args[0][63] == 0).all()
+
+
+@pytest.mark.parametrize("m,c,r,s", [(1, 33, 5, 70), (9, 200, 17, 129),
+                                     (70, 130, 96, 300), (3, 72, 136, 8)])
+def test_ragged_split_lowrank_qa(cuda, m, c, r, s):
+    """Ragged sizes (rows, ranks and widths that are not whole stages,
+    tiles or 16-byte rows) on both activation types, at the default plan,
+    in one K slice a phase and with few phase-1 items: bit-equal."""
+    from repro_torch.kernels import lowrank_matmul_qa as lak
+    from repro_torch.kernels import ref
+    for dt in (torch.float32, torch.bfloat16):
+        x = _rnd(cuda, m, c, dtype=dt)
+        lr = (*_quantized(cuda, c, r, mode="int8"),
+              *_quantized(cuda, r, s, mode="int8"))
+        want = ref.lowrank_matmul_qa_ref(x, *lr)
+        for items in (None, 1, (2, None)):
+            assert _differing(lak.lowrank_matmul_qa_split(x, *lr,
+                                                          items=items),
+                              want) == 0
+
+
+def test_split_lowrank_qa_smem_and_grid(cuda):
+    """The C side's shared memory equals the wrapper's count (B7's tile),
+    under the opt-in limit; both activation types' persistent grids hold
+    at least one CTA per SM."""
+    from repro_torch.kernels import branched_matmul_qa as bak
+    from repro_torch.kernels import build
+    lib = build.load()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert lib.lrk_lowrank_qa_mma_smem() == bak.QA_SMEM <= build.SMEM_LIMIT
+    for dtype in (0, 1):
+        for rows in (1, 16, 32, 64):
+            assert lib.lrk_lowrank_qa_mma_grid(dtype, rows) >= sms
+
+
+def test_split_lowrank_qa_refuses_past_the_shared_memory_gate(cuda,
+                                                              monkeypatch):
+    """The wrapper raises, and launches nothing, where the tile's shared
+    memory is past the opt-in limit (here a limit one byte under it)."""
+    from repro_torch.kernels import branched_matmul_qa as bak
+    from repro_torch.kernels import build
+    from repro_torch.kernels import lowrank_matmul_qa as lak
+    args = _lowrank_qa_args(cuda, 8, "k,v", "bfloat16")
+    monkeypatch.setattr(build, "SMEM_LIMIT", bak.QA_SMEM - 1)
+    n0 = lak.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        lak.lowrank_matmul_qa(*args)
+    assert lak.launches == n0
+
+
+@pytest.mark.parametrize("items", [None, 1])
+@pytest.mark.parametrize("m", [8, 72])
+def test_split_lowrank_qa_phase_timer(cuda, m, items):
+    """B6's phase timer: one counted launch, phase 0 and four
+    non-negative times per 64-row block (phase 1's items, the
+    requantization, phase 2's items, the fold), on the default plan and
+    in one K slice a phase."""
+    from repro_torch.kernels import lowrank_matmul_qa as lak
+    args = _lowrank_qa_args(cuda, m, "k,v", "bfloat16")
+    n0 = lak.launches
+    us = lak.lowrank_matmul_qa_phase_us(*args, items=items)
+    assert lak.launches == n0 + 1
+    assert len(us) == 1 + 4 * -(-m // 64) and min(us) >= 0 and sum(us) > 0
+
+
+def test_split_lowrank_qa_refuses_empty_factors(cuda):
+    """B6 takes no empty factors, as B7 and bf16 B1 / B3 (the plain
+    version raises on them too: a row absmax over no values); no surgery
+    makes a rank under 8, so nothing on the serve path has one."""
+    from repro_torch.kernels import lowrank_matmul_qa as lak
+    x = _rnd(cuda, 8, 64, dtype=torch.bfloat16)
+    for c, r in ((64, 0), (0, 32)):
+        args = (x[:, :c].contiguous(),
+                torch.zeros(c, r, dtype=torch.int8, device="cuda"),
+                torch.zeros(1, r, device="cuda"),
+                torch.zeros(r, 96, dtype=torch.int8, device="cuda"),
+                torch.zeros(1, 96, device="cuda"))
+        n0 = lak.launches
+        with pytest.raises(ValueError, match="empty factors"):
+            lak.lowrank_matmul_qa(*args)
+        assert lak.launches == n0

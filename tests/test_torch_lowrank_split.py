@@ -135,6 +135,9 @@ def test_served_plan():
     assert plans[((264, 4), None)] == (32, 128, 132)
     assert plans[((264, 4), 0)] == (32, 128, 0)
     assert plans[(None, 64)] == (32, 32, 64)
+    # None for one phase is that phase's default, as chip_smoke passes it
+    assert bk.lowrank_split(8, c, r, s, SMS, (None, 4)) \
+        == bk.lowrank_split(8, c, r, s, SMS, (264, 4))
 
 
 @pytest.mark.parametrize("label", list(chip_smoke.LOWRANK_SHAPES))

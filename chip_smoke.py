@@ -125,6 +125,32 @@ Phases (each prints its own seconds; any failure exits non-zero):
              decode_attention_latent_q, every prefill chunk 17
              branched_matmul_sq.
 19. check_mla_sq — check_mla on that configuration.
+20. train   — fine-tuning through the port's ``train()`` on the card:
+             llama3.2-1b at full width (random weights from the seed)
+             decomposed with the same LRD at branches=4 and the §2.2 freeze
+             (``freeze=True``), bf16, on ByteTextLM's built-in corpus at
+             batch 4 x seq 256 (M = 1,024 rows a chain kernel), 8 AdamW
+             steps: every step must launch exactly 32 lowrank_matmul + 80
+             branched_matmul forwards and no other chain kernel, and the
+             loss must fall; then 2 steps under remat="full" (64 + 160 a
+             step); beside it, nothing claimed: the same 8 steps with
+             ``freeze=False`` (the paper's §2.2 comparison) and the
+             undecomposed tree's steps (the port's dense path: products
+             widened to f32), no chain kernel.  Prints step ms (median of
+             the steps after the first), tokens/s, peak device memory,
+             ``optimizer_state_bytes``, trainable and frozen parameters,
+             launches per step and the loss at the first and last step.
+21. check_train — one step's loss and every trainable leaf's gradient of
+             that frozen tree and batch on the card (bf16, kernels)
+             against the port on the CPU in f32 (plain versions), full
+             depth: the loss within 1e-2 relative, each gradient within
+             0.05 relative L2 (``TRAIN_CHECK_TOL``).
+
+The kernels phase also holds bf16 B1 (k/v) and B2 (q,o, gate,up, down)
+at the training M (1,024 rows): the kernel against its plain version,
+its times beside the cuBLAS chain, and the autograd Function's gradients
+(kernel forward, explicit backward) against autograd of the plain
+version within ``KERNEL_TOL``.
 
 Only on request (``--phases ...,profile``): torch.profiler over steady
 decode steps of the branches=4 model, plain, int8 and 2:4-packed int8 —
@@ -152,13 +178,16 @@ sys.path.insert(0, str(ROOT / "src"))
 PHASES = ("device", "build", "kernels", "serve", "check", "serve_q",
           "check_q", "serve_paged", "check_paged", "serve_qa", "check_qa",
           "serve_sq", "check_sq", "serve_mla", "check_mla", "serve_mla_q",
-          "check_mla_q", "serve_mla_sq", "check_mla_sq")
-#: the phases that serve or check the llama3.2-1b trees, and the MLA ones
+          "check_mla_q", "serve_mla_sq", "check_mla_sq", "train",
+          "check_train")
+#: the phases that serve or check the llama3.2-1b trees, the MLA ones and
+#: the training ones
 LLAMA_PHASES = ("serve", "check", "serve_q", "check_q", "serve_paged",
                 "check_paged", "serve_qa", "check_qa", "serve_sq",
                 "check_sq", "profile", "profile_qa")
 MLA_PHASES = ("serve_mla", "check_mla", "serve_mla_q", "check_mla_q",
               "serve_mla_sq", "check_mla_sq", "profile_mla")
+TRAIN_PHASES = ("train", "check_train")
 #: phases run only when asked for with --phases
 EXTRA_PHASES = ("profile", "profile_qa", "profile_mla")
 
@@ -302,6 +331,29 @@ PAGED_CASES = {"served": dict(b=8, kh=8, g=4, d=64, bs=16, nblk=64, nb=512,
 PREFILL_LAUNCHES = {"lowrank_matmul_qa": {"k,v": 32},
                     "branched_matmul_qa": {"q,o": 32, "gate,up": 32,
                                            "down": 16}}
+#: the train phases: llama3.2-1b at full width decomposed at branches=4
+#: with the §2.2 freeze, fine-tuned on ByteTextLM's built-in corpus at
+#: batch x seq (M = 1,024 rows through every chain kernel), and its steps
+TRAIN_BATCH, TRAIN_SEQ = 4, 256
+TRAIN_M = TRAIN_BATCH * TRAIN_SEQ
+TRAIN_STEPS = 8
+#: the optimizer of the train phases (cosine over the run's steps)
+TRAIN_OPTIM = dict(peak_lr=2e-3, warmup_steps=2)
+#: launches of each chain kernel's forward per train step with
+#: remat="none" ("full" runs every block's forward again in backward:
+#: twice these)
+TRAIN_LAUNCHES = {"lowrank_matmul": {"k,v": 32},
+                  "branched_matmul": {"q,o": 32, "gate,up": 32,
+                                      "down": 16}}
+#: check_train: the card's bf16 step against the CPU's f32 step on the
+#: same params and batch: the loss within 1e-2 relative and every
+#: trainable leaf's gradient within 0.05 relative L2 (||card - cpu|| /
+#: ||cpu||).  bf16 rounds activations, intermediates and cotangents at
+#: every op of 16 layers; a 16-layer stack of d_model 256 under the same
+#: LRD read 0.005-0.010 on the CPU (bf16 against f32, the same rounding
+#: points), so 0.05 leaves a factor of 5 for the full width.
+TRAIN_CHECK_TOL = {"loss": 1e-2, "grad": 5e-2}
+
 #: kernel module of each wrapper (its CUDA source has the module's name),
 #: the wrapper's launch counter and the TPU kernel it replaces
 KERNELS = {
@@ -586,6 +638,22 @@ def check_kernels(card: str, only: frozenset = frozenset(KERNELS)
             for quant in (False, True):
                 add("decode_attention_paged" + ("_q" if quant else ""),
                     lambda: _check_paged(label, case, dname, quant, g, flush))
+    bf = torch.bfloat16
+    for label in TRAIN_LAUNCHES["lowrank_matmul"]:
+        c, r, s = LOWRANK_SHAPES[label]
+        add("lowrank_matmul", lambda: _train_row(
+            "lowrank_matmul", label, (rnd(TRAIN_M, c, dtype=bf),
+                                      rnd(c, r, scale=c ** -0.5, dtype=bf),
+                                      rnd(r, s, scale=r ** -0.5, dtype=bf)),
+            rnd, flush))
+    for label in TRAIN_LAUNCHES["branched_matmul"]:
+        n, c, r, s = BRANCHED_SHAPES[label]
+        add("branched_matmul", lambda: _train_row(
+            "branched_matmul", label, (
+                rnd(TRAIN_M, c, dtype=bf),
+                rnd(n, c, r, scale=c ** -0.5, dtype=bf),
+                rnd(n, r, r, scale=r ** -0.5, dtype=bf),
+                rnd(n, r, s, scale=r ** -0.5, dtype=bf)), rnd, flush))
     failures = []
     for name, rs in rows.items():
         for row in rs:
@@ -593,7 +661,8 @@ def check_kernels(card: str, only: frozenset = frozenset(KERNELS)
                   and row.get("same_bits", True)
                   and row.get("prev_err", 0.0) <= KERNEL_TOL[row["dtype"]]
                   and row.get("differing", 0) == 0
-                  and row.get("differing_prev", 0) == 0)
+                  and row.get("differing_prev", 0) == 0
+                  and row.get("grad_err", 0.0) <= KERNEL_TOL[row["dtype"]])
             lib_ms = row["library_ms"]
             extra = "".join(f"{k}={row[k]:.4f} "
                             for k in SPLIT_TIMES + EVENT_TIMES
@@ -620,6 +689,10 @@ def check_kernels(card: str, only: frozenset = frozenset(KERNELS)
                 + (f"splits={row['splits']} " if "splits" in row else "")
                 + (f"prev_err={row['prev_err']:.3e} "
                    if "prev_err" in row else "")
+                + (f"grad_err={row['grad_err']:.3e} bwd_ms="
+                   f"{row['bwd_ms']:.4f} bwd_frozen_ms="
+                   f"{row['bwd_frozen_ms']:.4f} "
+                   if "grad_err" in row else "")
                 + ("split_ms=" + "/".join(f"{n}:{t:.4f}" for n, t in
                                           row["split_ms"].items()) + " "
                    if "split_ms" in row else "")
@@ -847,6 +920,69 @@ def _lowrank_plans(mod, name: str, args: tuple, sweep: tuple) -> dict:
             phase_us=min((phases(*args, **knobs) for _ in range(5)),
                          key=sum))
     return out
+
+
+def _train_row(name: str, label: str, args: tuple, rnd, flush) -> dict:
+    """One bf16 B1 (three ``args``) or B2 (four) row at the training M:
+    the kernel against its plain version; its times with the host kept
+    ahead of the card, with a cold L2 and between events, beside the
+    cuBLAS chain (:func:`_attention_times`; no earlier design timed); the
+    autograd Function's gradients (kernel forward, explicit backward) for
+    a random cotangent against autograd of the plain version on the same
+    inputs (``grad_errs`` by input, ``grad_err`` the largest, normalised
+    as the forward's); and the backward products' time with every
+    gradient (``bwd_ms``) and with the frozen factors' left out, as a
+    step under the §2.2 freeze runs them (``bwd_frozen_ms``).  The bound
+    is the forward's."""
+    import torch
+    from repro_torch.kernels import autograd as kgrad
+    from repro_torch.kernels import ref
+    fn = getattr(kernel_module(name), name)
+    plain = getattr(ref, name + "_ref")
+    x = args[0]
+    m, c = x.shape
+    y = fn(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    if len(args) == 3:
+        _, w0, w1 = args
+        r, s = w1.shape
+        library = lambda: (x @ w0) @ w1  # noqa: E731
+        fwd, bwd = kgrad.LowrankMatmul, kgrad.lowrank_matmul_bwd
+        names, frozen = ("x", "w0", "w1"), (True, False, True)
+        dims = dict(C=c, R=r, S=s)
+        kept = c * r + r * s
+    else:
+        _, u, xc, v = args
+        n, _, r = u.shape
+        s = v.shape[-1]
+        xb3 = x.expand(n, m, c)
+        library = lambda: torch.bmm(torch.bmm(torch.bmm(  # noqa: E731
+            xb3, u), xc), v).sum(0)
+        fwd, bwd = kgrad.BranchedMatmul, kgrad.branched_matmul_bwd
+        names, frozen = ("x", "u", "xc", "v"), (True, False, True, False)
+        dims = dict(N=n, C=c, r=r, S=s)
+        kept = n * (c * r + r * r + r * s)
+    g = rnd(m, s, dtype=x.dtype)
+    ins = [a.detach().clone().requires_grad_(True) for a in args]
+    got = torch.autograd.grad(fwd.apply(*ins), ins, g)
+    pins = [a.detach().clone().requires_grad_(True) for a in args]
+    ref_g = torch.autograd.grad(plain(*pins), pins, g)
+    errs = {k: _compare(a, b, "bfloat16")["norm_err"]
+            for k, a, b in zip(names, got, ref_g)}
+    del ins, pins, got, ref_g
+    every = (True,) * len(args)
+    return dict(shape=label, dtype="bfloat16", M=m, **dims, path="train",
+                **_compare(y, want, "bfloat16"),
+                **_attention_times(lambda: fn(*args), None, library, flush),
+                grad_err=max(errs.values()), grad_errs=errs,
+                bwd_ms=time_ms(lambda: bwd(g, *args, needs=every),
+                               ahead=True),
+                bwd_frozen_ms=time_ms(lambda: bwd(g, *args, needs=frozen),
+                                      ahead=True),
+                plain_ms=time_ms(lambda: plain(*args)),
+                **_bound(2 * (m * c + kept + m * s), 2 * m * kept,
+                         "bfloat16"))
 
 
 def latent_inputs(case: dict, dname: str, rnd) -> tuple:
@@ -1303,6 +1439,21 @@ def _kernel_entries(rows: dict[str, list[dict]]) -> list[dict]:
             extra["mla_path"]["timed_as"] = (
                 "the 17 launches of one decode step (M=8) or prefill chunk "
                 "(M=64) of the 4-layer DeepSeek-V2 MLA stack, bf16")
+        trows = [r for r in rs if r.get("path") == "train"]
+        if trows:
+            tkeys = ("ms", "plain_ms", "library_ms", "bound_ms", "cold_ms",
+                     "library_cold_ms", "event_ms", "library_event_ms",
+                     "bwd_ms", "bwd_frozen_ms")
+            extra["train_path"] = {
+                k: sum(n * next(r for r in trows if r["shape"] == label)[k]
+                       for label, n in TRAIN_LAUNCHES[name].items())
+                for k in tkeys}
+            extra["train_path"].update(
+                grad_err=max(r["grad_err"] for r in trows), launches=None,
+                timed_as=f"the {sum(TRAIN_LAUNCHES[name].values())} forward "
+                "launches of one train step (M=1024, bf16) and their "
+                "backward products (bwd_ms every gradient, bwd_frozen_ms "
+                "under the §2.2 freeze); launches: the train phase's run")
         out.append({"name": name, "route": "cuda",
                     "source": "src/repro_torch/kernels/csrc/"
                               + SOURCE_OF.get(name, f"{module}.cu"),
@@ -1647,11 +1798,14 @@ def time_kv_write(card: str) -> dict:
 
 
 def to_cpu_f32(tree):
-    """A param tree on the CPU, float leaves widened to f32; int8 / e4m3
-    factors keep their storage (their f32 scales already are f32)."""
+    """A param (or gradient) tree on the CPU, float leaves widened to f32;
+    int8 / e4m3 factors keep their storage (their f32 scales already are
+    f32); ``None`` leaves stay."""
     import torch
     if isinstance(tree, dict):
         return {k: to_cpu_f32(v) for k, v in tree.items()}
+    if tree is None:
+        return None
     if tree.dtype in (torch.int8, torch.float8_e4m3fn):
         return tree.to("cpu")
     return tree.to("cpu", torch.float32)
@@ -2249,6 +2403,173 @@ def run_mla(phases: list[str], card: str, seed: int,
 
 
 # ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+def train_run(cfg, card: str, seed: int, *, label: str, lrd, remat: str,
+              steps: int, expect: dict[str, int], falls: bool) -> dict:
+    """``steps`` steps of the port's ``train()`` on the card (bf16,
+    ByteTextLM at TRAIN_BATCH x TRAIN_SEQ) and the checks: every step
+    launches exactly ``expect`` (kernel -> forwards; a kernel not named
+    must not launch), and with ``falls`` the last loss is below the
+    first.  The counts are set to 0 just before ``train()`` and read at
+    the start of every step (its ``fault_hook``) and just after."""
+    import statistics
+    import torch
+    from repro_torch.configs.base import ParallelConfig, RunConfig
+    from repro_torch.train.data import ByteTextLM
+    from repro_torch.train.loop import train
+    from repro_torch.train.optim import OptimConfig
+    run = RunConfig(model=cfg, lrd=lrd, parallel=ParallelConfig(remat=remat),
+                    seed=seed)
+    marks: list[dict[str, int]] = []
+
+    def mark(step: int) -> None:
+        marks.append({k: launch_count(k) for k in KERNELS})
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    r = train(run, ByteTextLM(cfg, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ),
+              num_steps=steps, optim_cfg=OptimConfig(total_steps=steps,
+                                                     **TRAIN_OPTIM),
+              fault_hook=mark, log_every=0, log_fn=log, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    mark(steps)
+    per_step = [{k: b[k] - a[k] for k in KERNELS if b[k] != a[k]}
+                for a, b in zip(marks, marks[1:])]
+    wrong = [(i, c) for i, c in enumerate(per_step) if c != expect]
+    if wrong or len(per_step) != steps:
+        raise SystemExit(f"train {label}: steps launched other kernel "
+                         f"counts than {expect}: {wrong[:3]}")
+    if not all(math.isfinite(x) for x in r.losses):
+        raise SystemExit(f"train {label}: non-finite loss {r.losses}")
+    if falls and not r.losses[-1] < r.losses[0]:
+        raise SystemExit(f"train {label}: the loss did not fall: "
+                         f"{r.losses}")
+    secs = r.stats["step_seconds"]
+    med = statistics.median(secs[1:])
+    res = {"label": label, "freeze": lrd.freeze, "lrd": lrd.enabled,
+           "remat": remat, "steps": steps, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "loss_first": r.losses[0],
+           "loss_last": r.losses[-1], "losses": r.losses,
+           "step_ms_median": med * 1e3, "first_step_ms": secs[0] * 1e3,
+           "step_ms": [t * 1e3 for t in secs],
+           "tokens_per_s": TRAIN_M / med,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "optimizer_state_bytes": r.stats["optimizer_state_bytes"],
+           "trainable_params": r.stats["trainable_params"],
+           "frozen_params": r.stats["frozen_params"],
+           "launches_per_step": expect,
+           "launches": {k: launch_count(k) for k in expect},
+           "wall_s": wall, "card": card}
+    log("train " + json.dumps(res))
+    return res
+
+
+def check_train(cfg, card: str, seed: int) -> dict:
+    """One step's loss and every trainable leaf's gradient of the frozen
+    branches=4 tree on the card (bf16, kernels) against the same params
+    and batch on the CPU in f32 (plain versions), full depth, within
+    TRAIN_CHECK_TOL; the frozen factors have no gradient on either side."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import LRDConfig, RunConfig
+    from repro_torch.core import freezing
+    from repro_torch.core.surgery import decompose_model
+    from repro_torch.models.api import get_model
+    from repro_torch.train.data import ByteTextLM
+    from repro_torch.train.steps import make_loss_fn, value_and_grad
+    from repro_torch.tree import paths
+
+    def flat(tree):
+        return {"/".join(p): v for p, v in paths(tree)}
+    lrd = LRDConfig(**LRD, branches=4, freeze=True)
+    run = RunConfig(model=cfg, lrd=lrd, seed=seed)
+    m_gpu = get_model(cfg, "cuda")
+    with torch.no_grad():
+        params, axes = m_gpu.init(
+            torch.Generator(device="cuda").manual_seed(seed))
+        params, _, _ = decompose_model(params, axes, lrd)
+    freezing.set_requires_grad(params, freeze=True)
+    toks = torch.as_tensor(ByteTextLM(cfg, TRAIN_BATCH,
+                                      TRAIN_SEQ).batch(0)["tokens"])
+    reset_launches()
+    t0 = time.perf_counter()
+    lg, _, gg = value_and_grad(make_loss_fn(m_gpu, run), params,
+                               {"tokens": toks.cuda()})
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = {k: launch_count(k) for k in KERNELS if launch_count(k)}
+    gg = flat(to_cpu_f32(gg))
+    with torch.no_grad():
+        p_cpu = to_cpu_f32(params)
+    del params
+    torch.cuda.empty_cache()
+    freezing.set_requires_grad(p_cpu, freeze=True)
+    m_cpu = get_model(dataclasses.replace(cfg, dtype="float32"), "cpu")
+    t0 = time.perf_counter()
+    lc, _, gc = value_and_grad(make_loss_fn(m_cpu, run), p_cpu,
+                               {"tokens": toks})
+    cpu_s = time.perf_counter() - t0
+    gc = flat(gc)
+    if {k for k, g in gg.items() if g is None} != \
+            {k for k, g in gc.items() if g is None}:
+        raise SystemExit("check_train: the card and the CPU leave other "
+                         "leaves without a gradient")
+    errs = {k: ((gg[k] - g).norm() / g.norm().clamp_min(1e-30)).item()
+            for k, g in gc.items() if g is not None}
+    loss_rel = abs(float(lg) - float(lc)) / abs(float(lc))
+    res = {"loss_card": float(lg), "loss_cpu": float(lc),
+           "loss_rel": loss_rel, "grad_rel_l2": errs,
+           "grad_rel_l2_max": max(errs.values()),
+           "no_grad": sorted(k for k, g in gc.items() if g is None),
+           "tol": TRAIN_CHECK_TOL, "launches": launches,
+           "card_step_s": card_s, "cpu_step_s": cpu_s, "depth": cfg.num_layers,
+           "card": card}
+    log("check_train " + json.dumps(res))
+    if not (loss_rel <= TRAIN_CHECK_TOL["loss"]
+            and res["grad_rel_l2_max"] <= TRAIN_CHECK_TOL["grad"]):
+        raise SystemExit(f"check_train: the card's step differs from the "
+                         f"CPU f32 step: loss {loss_rel:.2e}, gradients "
+                         f"{res['grad_rel_l2_max']:.3e} (tol "
+                         f"{TRAIN_CHECK_TOL})")
+    return res
+
+
+def run_train(phases: list[str], card: str, seed: int,
+              train_res: dict) -> None:
+    """The training phases on llama3.2-1b at full width."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import LRDConfig
+    cfg = registry.get("llama3.2-1b").full
+    chain = {k: sum(v.values()) for k, v in TRAIN_LAUNCHES.items()}
+    frozen = LRDConfig(**LRD, branches=4, freeze=True)
+    if "train" in phases:
+        with Phase("train"):
+            train_res["frozen"] = train_run(
+                cfg, card, seed, label="frozen", lrd=frozen, remat="none",
+                steps=TRAIN_STEPS, expect=chain, falls=True)
+            train_res["frozen_remat_full"] = train_run(
+                cfg, card, seed, label="frozen, remat full", lrd=frozen,
+                remat="full", steps=2,
+                expect={k: 2 * n for k, n in chain.items()}, falls=False)
+            train_res["unfrozen"] = train_run(
+                cfg, card, seed, label="unfrozen",
+                lrd=LRDConfig(**LRD, branches=4), remat="none",
+                steps=TRAIN_STEPS, expect=chain, falls=False)
+            train_res["dense"] = train_run(
+                cfg, card, seed, label="dense (f32-widened products)",
+                lrd=LRDConfig(), remat="none", steps=TRAIN_STEPS, expect={},
+                falls=False)
+    if "check_train" in phases:
+        with Phase("check_train"):
+            train_res["check"] = check_train(cfg, card, seed)
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2284,7 +2605,8 @@ def main() -> int:
             f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
     kernels = None
-    if set(phases) & {"build", "kernels", *LLAMA_PHASES, *MLA_PHASES}:
+    if set(phases) & {"build", "kernels", *LLAMA_PHASES, *MLA_PHASES,
+                      *TRAIN_PHASES}:
         with Phase("build"):
             from repro_torch.kernels import build
             _, report = build.build()
@@ -2334,12 +2656,19 @@ def main() -> int:
         torch.cuda.empty_cache()
     if set(phases) & set(MLA_PHASES):
         run_mla(phases, card, args.seed, serve_res)
+        torch.cuda.empty_cache()
+    train_res: dict[str, dict] = {}
+    if set(phases) & set(TRAIN_PHASES):
+        run_train(phases, card, args.seed, train_res)
 
     if kernels is not None:
         for k in kernels:
             run = serve_res.get(RUN_OF[k["name"]])
             if run is not None:
                 k["launches"] = run["launches"][k["name"]]
+            if "train_path" in k and "frozen" in train_res:
+                k["train_path"]["launches"] = \
+                    train_res["frozen"]["launches"][k["name"]]
         log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

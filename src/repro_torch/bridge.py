@@ -1,7 +1,11 @@
 """Move parameter trees between numpy (the reference package's arrays,
 via ``np.asarray``) and the port's torch tensors, keys and dtypes exact.
 
-A tree is nested dicts whose leaves are arrays.  bf16 arrives as the
+A tree is nested dicts whose leaves are arrays: a param tree, or the
+training state that goes with it, so both packages can start from one
+state -- the optimizer state ``{"step", "m", "v"}`` (a 0-d int32 step,
+zero-size moments for frozen leaves) and the EF-PowerSGD state (per
+leaf ``{"err"}`` or ``{"err", "q"}``).  bf16 arrives as the
 ``ml_dtypes`` ``bfloat16`` that ``np.asarray(jax_array)`` yields, which
 ``torch.from_numpy`` rejects: it crosses as a ``uint16`` bit view; the
 e4m3 fp8 of quantized factors (``float8_e4m3fn``) crosses as a ``uint8``

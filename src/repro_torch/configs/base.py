@@ -9,12 +9,17 @@ The port keeps its own copies of the reference package's config objects
   port dispatches each decomposed linear by the device its input lives
   on (a CUDA tensor launches the hand-written kernel, a CPU tensor takes
   the kernel's plain PyTorch version).
-* :class:`RunConfig` — model + lrd.
+* :class:`ParallelConfig` — the reference's mesh and sharding knobs; the
+  port takes the single-device ones (``remat``, ``grad_accum``,
+  ``grad_compression_rank``) and refuses the others (ROADMAP A14).
+* :class:`ShapeConfig` — one input-shape cell (sequence, batch, kind).
+* :class:`RunConfig` — model + lrd + parallel + seed.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
-from typing import Sequence
+from typing import Any, Sequence
 
 FAMILY_DENSE = "dense"
 FAMILY_MOE = "moe"
@@ -99,7 +104,8 @@ class ModelConfig:
 @dataclass(frozen=True)
 class LRDConfig:
     """The paper's LRD technique, as a config (the reference's field
-    names and defaults, minus ``use_pallas``)."""
+    names and defaults, minus ``use_pallas`` and the fields of ROADMAP
+    A2: ``rank_min_frac``, ``energy``, ``merge``)."""
 
     enabled: bool = False
     compression: float = 2.0          # target per-layer compression ratio
@@ -114,6 +120,8 @@ class LRDConfig:
         "unembed", "ssm_in", "ssm_out",
         "conv", "conv1x1", "fc",
     )
+    freeze: bool = False              # §2.2 freeze the teacher-derived
+                                      # factors (w0; u, v) in fine-tuning
     branches: int = 1                 # branched (block-diagonal) LRD; 1 = off
     # Serve-time factor quantization (repro_torch.quant): "none" | "int8"
     # (per-channel symmetric) | "fp8" (e4m3), of the factor keys below.
@@ -144,6 +152,48 @@ class LRDConfig:
 
 
 @dataclass(frozen=True)
+class ParallelConfig:
+    """Mesh + sharding strategy (the reference's field names and
+    defaults).  The port trains on one device: ``remat``, ``grad_accum``
+    and ``grad_compression_rank`` are taken; any other field at a value
+    other than its default raises (meshes and sharding come with ROADMAP
+    item A14)."""
+
+    multi_pod: bool = False
+    fsdp: bool = False
+    seq_shard: bool = False
+    remat: str = "none"               # "none" | "dots" | "full"
+    grad_accum: int = 1               # microbatch steps per optimizer step
+    grad_compression_rank: int = 0    # 0 = off; PowerSGD rank otherwise
+    shard_vocab: bool = True
+    decode_seq_shard: bool = False
+    shard_rank: bool = False
+
+    def __post_init__(self):
+        if self.remat not in ("none", "dots", "full"):
+            raise ValueError(f"unknown remat {self.remat!r}")
+        for f in dataclasses.fields(self):
+            if (f.name not in ("remat", "grad_accum", "grad_compression_rank")
+                    and getattr(self, f.name) != f.default):
+                raise NotImplementedError(
+                    f"ParallelConfig.{f.name}={getattr(self, f.name)!r}: "
+                    "meshes and sharding come with ROADMAP item A14")
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                         # "train" | "prefill" | "decode"
+
+
+@dataclass(frozen=True)
 class RunConfig:
     model: ModelConfig
     lrd: LRDConfig = LRDConfig()
+    parallel: ParallelConfig = ParallelConfig()
+    seed: int = 0
+
+    def replace(self, **kw: Any) -> "RunConfig":
+        return dataclasses.replace(self, **kw)

@@ -5,11 +5,20 @@ device the activation lives on: a CPU tensor runs the plain version in
 :mod:`repro_torch.kernels.ref`; any other device goes to the CUDA kernel,
 which launches or raises.  Nothing else -- no padding (the kernels mask
 ragged M, C, R and S themselves) and no fit fallback.
+
+Under autograd (grad enabled and an input that requires grad) the two
+chains of the training path, ``lowrank_matmul`` and ``branched_matmul``,
+run as :mod:`repro_torch.kernels.autograd`'s Functions: the same forward,
+a backward of explicit products.  The other kernels are serve-only (the
+quantized, 2:4 and activation-quantized chains are load-time rewrites
+the reference never trains, the decode attentions read a KV pool): a
+call under autograd raises.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import autograd as kgrad
 from repro_torch.kernels import branched_matmul as bk
 from repro_torch.kernels import branched_matmul_q as bqk
 from repro_torch.kernels import branched_matmul_qa as bak
@@ -24,12 +33,26 @@ from repro_torch.kernels import lowrank_matmul_sq as lsk
 from repro_torch.kernels import ref
 
 
+def _under_grad(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def _serve_only(name: str, x: torch.Tensor) -> None:
+    """Raise for a serve-only kernel called under autograd."""
+    if _under_grad(x):
+        raise RuntimeError(f"{name} is a serve-time kernel with no backward; "
+                           "call it under torch.no_grad() / "
+                           "torch.inference_mode()")
+
+
 def lowrank_matmul(x: torch.Tensor, w0: torch.Tensor,
                    w1: torch.Tensor) -> torch.Tensor:
     """y = (x @ w0) @ w1.  x (..., C); w0 (C, R); w1 (R, S) -> (..., S)."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    if x.device.type == "cpu":
+    if _under_grad(x, w0, w1):
+        y = kgrad.LowrankMatmul.apply(x2.contiguous(), w0, w1)
+    elif x.device.type == "cpu":
         y = ref.lowrank_matmul_ref(x2, w0, w1)
     else:
         y = lk.lowrank_matmul(x2.contiguous(), w0, w1)
@@ -41,7 +64,9 @@ def branched_matmul(x: torch.Tensor, u: torch.Tensor, xc: torch.Tensor,
     """y = sum_n ((x @ u_n) @ xc_n) @ v_n.  x (..., C) -> (..., S)."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    if x.device.type == "cpu":
+    if _under_grad(x, u, xc, v):
+        y = kgrad.BranchedMatmul.apply(x2.contiguous(), u, xc, v)
+    elif x.device.type == "cpu":
         y = ref.branched_matmul_ref(x2, u, xc, v)
     else:
         y = bk.branched_matmul(x2.contiguous(), u, xc, v)
@@ -53,6 +78,7 @@ def lowrank_matmul_q(x: torch.Tensor, w0_q: torch.Tensor,
                      w1_scale: torch.Tensor) -> torch.Tensor:
     """y = (x @ dq(w0)) @ dq(w1).  x (..., C); w0_q (C, R) + w0_scale
     (1, R); w1_q (R, S) + w1_scale (1, S) -> (..., S)."""
+    _serve_only("lowrank_matmul_q", x)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if x.device.type == "cpu":
@@ -69,6 +95,7 @@ def branched_matmul_q(x: torch.Tensor, u_q: torch.Tensor,
                       v_scale: torch.Tensor) -> torch.Tensor:
     """y = sum_n ((x @ dq(u_n)) @ dq(xc_n)) @ dq(v_n).  x (..., C) ->
     (..., S)."""
+    _serve_only("branched_matmul_q", x)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if x.device.type == "cpu":
@@ -87,6 +114,7 @@ def lowrank_matmul_sq(x: torch.Tensor, w0_sp: torch.Tensor,
     """y = (x @ ds(w0)) @ ds(w1) on 2:4-packed quantized factors.  x (...,
     C); w0_sp (2, C/4, R) + w0_idx (2, C/4, 1) + w0_scale (1, R); w1_sp
     (2, R/4, S) + w1_idx (2, R/4, 1) + w1_scale (1, S) -> (..., S)."""
+    _serve_only("lowrank_matmul_sq", x)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if x.device.type == "cpu":
@@ -105,6 +133,7 @@ def branched_matmul_sq(x: torch.Tensor, u_sp: torch.Tensor,
                        v_scale: torch.Tensor) -> torch.Tensor:
     """y = sum_n ((x @ ds(u_n)) @ dq(xc_n)) @ ds(v_n): u and v 2:4-packed
     per branch, xc quantized dense.  x (..., C) -> (..., S)."""
+    _serve_only("branched_matmul_sq", x)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if x.device.type == "cpu":
@@ -122,6 +151,7 @@ def lowrank_matmul_qa(x: torch.Tensor, w0_q: torch.Tensor,
     """The activation-quantized chain: x (..., C) quantized per row,
     both dots int8 x int8 on int8 w0_q (C, R) / w1_q (R, S) with f32
     scales (1, R) / (1, S) -> (..., S)."""
+    _serve_only("lowrank_matmul_qa", x)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if x.device.type == "cpu":
@@ -138,6 +168,7 @@ def branched_matmul_qa(x: torch.Tensor, u_q: torch.Tensor,
                        v_scale: torch.Tensor) -> torch.Tensor:
     """The activation-quantized branched chain: x (..., C) quantized per
     row once, every branch dot int8 x int8 -> (..., S)."""
+    _serve_only("branched_matmul_qa", x)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if x.device.type == "cpu":
@@ -165,6 +196,7 @@ def decode_attention_paged(q: torch.Tensor, k: torch.Tensor,
     """One decode step of attention over a full-width paged pool.  q (B,
     1, H, D); k/v (NB+1, bs, KH, D), block NB the dummy; block_tables
     (B, nblk) int32; cache_pos (B,) -> (B, 1, H, D)."""
+    _serve_only("decode_attention_paged", q)
     if q.device.type == "cpu":
         return ref.decode_attention_paged_ref(q, k, v, block_tables,
                                               cache_pos, softcap=softcap)
@@ -183,6 +215,7 @@ def decode_attention_paged_q(q: torch.Tensor, k_q: torch.Tensor,
                              softcap: float = 0.0) -> torch.Tensor:
     """One decode step of attention over an int8 paged pool with one
     scale row per physical block, k/v_scale (NB+1, KH, D) f32."""
+    _serve_only("decode_attention_paged_q", q)
     if q.device.type == "cpu":
         return ref.decode_attention_paged_q_ref(
             q, k_q, k_scale, v_q, v_scale, block_tables, cache_pos,
@@ -201,6 +234,7 @@ def decode_attention_q(q: torch.Tensor, k_q: torch.Tensor,
     """One decode step of attention over an int8 KV pool.  q (B, 1, H, D);
     k_q/v_q (B, S, KH, D) int8; k/v_scale (B, KH, D) f32; cache_pos (B,)
     -> (B, 1, H, D)."""
+    _serve_only("decode_attention_q", q)
     if q.device.type == "cpu":
         return ref.decode_attention_q_ref(q, k_q, k_scale, v_q, v_scale,
                                           cache_pos, softcap=softcap)
@@ -222,6 +256,7 @@ def decode_attention_latent_q(q_lat: torch.Tensor, q_rope: torch.Tensor,
     context latents (B, 1, H, L).  Where the reference falls back to its
     oracle when the VMEM budget does not fit (``repro/kernels/ops.py:
     478-510``), the kernel raises."""
+    _serve_only("decode_attention_latent_q", q_lat)
     if q_lat.device.type == "cpu":
         return ref.decode_attention_latent_q_ref(
             q_lat, q_rope, ckv_q, ckv_scale, krope_q, krope_scale,

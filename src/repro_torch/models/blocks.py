@@ -9,6 +9,8 @@ A13.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.layers import attention as attn
@@ -16,6 +18,15 @@ from repro_torch.layers import cache as cache_mod
 from repro_torch.layers.mlp import apply_mlp, init_mlp
 from repro_torch.layers.norm import init_rms_norm, rms_norm
 from repro_torch.layers.param import ParamBuilder
+
+
+class BlockOpts(NamedTuple):
+    """The reference's block options that the port reads:
+    ``freeze_factors``, the forward half of the §2.2 freeze (the model
+    detaches the frozen factors, ``core/freezing.py``).  The reference's
+    ``use_pallas`` has no counterpart (the device decides), and
+    ``act_quantize`` is a keyword of the serve calls."""
+    freeze_factors: bool = False
 
 
 def init_block(pb: ParamBuilder, cfg) -> None:

@@ -1,5 +1,6 @@
 """LM trunk for the dense family (GQA or MLA attention): init, embed,
-trunk, logits, prefill, chunked prefill and decode.
+trunk, logits, the training forward and loss, prefill, chunked prefill
+and decode.
 
 Per-layer params are stacked along a leading ``layers`` axis, as in the
 reference; where the reference scans the stack with ``lax.scan``, the
@@ -12,12 +13,23 @@ blocks and ``block_tables``, or an MLA stack's latents ``ckv``/``krope``
 left for ROADMAP item A13: the MoE family (DeepSeek-V2 with its experts,
 the reference's unstacked first dense block), VLM, SSM, hybrid and
 encoder.
+
+Training (:meth:`LMModel.loss`) runs the trunk without a cache over
+per-layer views from ``unbind`` (one stacked gradient per leaf in
+backward), each block optionally checkpointed (``remat``): ``"full"``
+recomputes the whole block in backward, ``"dots"`` keeps the outputs of
+the plain matrix products (``aten.mm`` / ``addmm``: the reference's
+``dots_with_no_batch_dims_saveable``) and of the two chain kernels, and
+recomputes the rest.  The cross-entropy runs over sequence chunks whose
+logits are recomputed in backward, never kept.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.layers import cache as cache_mod
@@ -28,6 +40,7 @@ from repro_torch.layers.plan import matmul_f32
 from repro_torch.models import blocks as B
 
 PyTree = Any
+CE_CHUNK_SEQ = 512      # logits computed per seq-chunk to bound activation
 
 
 def layer_slice(tree: PyTree, i: int) -> PyTree:
@@ -41,6 +54,39 @@ def _stack(trees: list[PyTree]) -> PyTree:
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
     return torch.stack(trees)
+
+
+def _unbind(tree: PyTree, n: int) -> list[PyTree]:
+    """The ``n`` layer trees of a stacked tree (views, no copy)."""
+    if isinstance(tree, dict):
+        per = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: per[k][i] for k in per} for i in range(n)]
+    return list(tree.unbind(0))
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Keep the plain matrix products' and the chain kernels' outputs,
+    recompute everything else."""
+    from repro_torch.kernels.autograd import KERNEL_OPS
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+              *KERNEL_OPS):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, remat: str):
+    """``fn`` checkpointed by the ``remat`` policy ("none" | "dots" |
+    "full")."""
+    if remat == "none":
+        return fn
+    if remat == "full":
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+    if remat == "dots":
+        return functools.partial(
+            ckpt.checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _dots_policy))
+    raise ValueError(f"unknown remat {remat!r}")
 
 
 def _stack_axes(axes: PyTree) -> PyTree:
@@ -113,11 +159,19 @@ class LMModel:
               positions: torch.Tensor, cache: PyTree | None = None,
               cache_pos: torch.Tensor | None = None,
               prompt_len: int | None = None, start_pos: int | None = None,
-              cache_plan=None, act_quantize: bool = False
-              ) -> tuple[torch.Tensor, PyTree | None]:
+              cache_plan=None, act_quantize: bool = False,
+              remat: str = "none") -> tuple[torch.Tensor, PyTree | None]:
         """Run every layer.  Returns ``(x, cache)``; the cache is written
         in place.  ``act_quantize`` runs every int8 linear int8 x int8
-        (prefill segments only)."""
+        (prefill segments only).  Without a cache (training) each block
+        runs under the ``remat`` policy."""
+        if cache is None:
+            block = _remat(lambda h, p_l: B.apply_block(
+                p_l, h, self.cfg, positions=positions,
+                act_quantize=act_quantize)[0], remat)
+            for p_l in _unbind(params["blocks"], self.cfg.num_layers):
+                x = block(x, p_l)
+            return x, None
         for i in range(self.cfg.num_layers):
             c_l = None if cache is None else layer_slice(cache["blocks"], i)
             x, _ = B.apply_block(layer_slice(params["blocks"], i), x,
@@ -126,6 +180,65 @@ class LMModel:
                                  start_pos=start_pos, cache_plan=cache_plan,
                                  act_quantize=act_quantize)
         return x, cache
+
+    # -- training -------------------------------------------------------------
+
+    def forward(self, params: PyTree, batch: dict, *,
+                opts: B.BlockOpts = B.BlockOpts(), remat: str = "none"
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Full-sequence forward (training).  Returns the pre-head
+        activations (B, S, D) and the auxiliary loss (0 for the dense
+        family); :meth:`loss` applies the head in chunks.  With
+        ``opts.freeze_factors`` the frozen factors are detached first."""
+        if opts.freeze_factors:
+            from repro_torch.core.freezing import stop_frozen_factors
+            params = stop_frozen_factors(params)
+        x = self.embed(params, batch["tokens"])
+        bsz, s = x.shape[:2]
+        positions = torch.arange(s, device=x.device)[None, :].expand(bsz, s)
+        x, _ = self.trunk(params, x, positions=positions, remat=remat)
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def loss(self, params: PyTree, batch: dict, *,
+             opts: B.BlockOpts = B.BlockOpts(), remat: str = "none"
+             ) -> tuple[torch.Tensor, dict]:
+        """Next-token cross-entropy over ``batch["tokens"]`` (B, S) (the
+        last position has no label), plus 0.01 x the auxiliary loss.
+        Returns ``(total, {"ce", "aux", "tokens"})``."""
+        x, aux = self.forward(params, batch, opts=opts, remat=remat)
+        tok = batch["tokens"].long()
+        labels = torch.cat([tok[:, 1:], torch.zeros_like(tok[:, :1])], 1)
+        valid = torch.cat([torch.ones_like(tok[:, 1:], dtype=torch.bool),
+                           torch.zeros_like(tok[:, :1], dtype=torch.bool)], 1)
+        ce, n_tok = self._chunked_ce(params, x, labels, valid)
+        loss = ce / torch.clamp(n_tok, min=1.0)
+        return loss + 0.01 * aux, {"ce": loss, "aux": aux, "tokens": n_tok}
+
+    def _chunked_ce(self, params: PyTree, x: torch.Tensor,
+                    labels: torch.Tensor, valid: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Summed cross-entropy and valid-token count over sequence
+        chunks of at most ``CE_CHUNK_SEQ`` (never the whole (B, S, V)
+        logits); each chunk's logits are recomputed in backward."""
+        s = x.shape[1]
+        chunk = min(CE_CHUNK_SEQ, s)
+        n = s // chunk if s % chunk == 0 else 1
+        chunk = s // n
+
+        def body(xc, lc, vc):
+            logits = self.logits(params, xc)             # (B, chunk, V) f32
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = logits.gather(-1, lc[..., None])[..., 0]
+            ce = torch.where(vc, logz - gold, 0.0)
+            return ce.sum(), vc.sum().to(torch.float32)
+
+        ce = n_tok = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(n):
+            sl = slice(i * chunk, (i + 1) * chunk)
+            c, t = ckpt.checkpoint(body, x[:, sl], labels[:, sl],
+                                   valid[:, sl], use_reentrant=False)
+            ce, n_tok = ce + c, n_tok + t
+        return ce, n_tok
 
     # -- caches ---------------------------------------------------------------
 

@@ -13,6 +13,7 @@ bf16 near-ties must not decide them.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 
@@ -215,3 +216,16 @@ def factor_weights(seed: int, shape, top_rows: bool = False) -> np.ndarray:
         sel = ((rows // 4) % 2 == 0) & (rows % 4 < 2)
         w[..., sel, :] *= 0.125
     return w
+
+
+@contextlib.contextmanager
+def torch_threads(n: int):
+    """torch's CPU intra-op threads set to ``n`` for a block: the smoke
+    trees' products are too small to share, and under several test
+    workers on one machine the threads only contend."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(old)

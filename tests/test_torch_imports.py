@@ -43,15 +43,25 @@ def test_port_has_the_slice_modules():
               "repro_torch.configs.deepseek_v2_236b",
               "repro_torch.quant.sparse",
               "repro_torch.kernels.lowrank_matmul_sq",
-              "repro_torch.kernels.branched_matmul_sq"):
+              "repro_torch.kernels.branched_matmul_sq",
+              "repro_torch.kernels.autograd", "repro_torch.core.freezing",
+              "repro_torch.models.api", "repro_torch.train.optim",
+              "repro_torch.train.compression", "repro_torch.train.steps",
+              "repro_torch.train.data", "repro_torch.train.checkpoint",
+              "repro_torch.train.fault_tolerance",
+              "repro_torch.train.loop"):
         assert m in mods, m
 
 
 def test_importing_every_module_leaves_jax_and_repro_out():
+    examples = sorted(str(p) for p in (ROOT / "examples_torch").glob("*.py"))
     code = (
-        "import importlib, json, sys\n"
+        "import importlib, importlib.util, json, sys\n"
         f"mods = {_modules()!r}\n"
         "for m in mods: importlib.import_module(m)\n"
+        f"for i, p in enumerate({examples!r}):\n"
+        "    spec = importlib.util.spec_from_file_location(f'ex{i}', p)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(k for k in sys.modules if k in ('jax', 'jaxlib', "
         "'repro') or k.startswith(('jax.', 'jaxlib.', 'repro.')))\n"
         "print(json.dumps(bad))\n")
@@ -67,6 +77,7 @@ _FORBIDDEN = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b"
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
+                         + sorted((ROOT / "examples_torch").glob("*.py"))
                          + [ROOT / "chip_smoke.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_names_no_jax_or_reference_import(path):

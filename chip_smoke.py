@@ -26,8 +26,9 @@ Phases (each prints its own seconds; any failure exits non-zero):
              the kernel, the plain version and one library call as
              yardstick (CUDA events), beside the bound (bytes at 3.35
              TB/s, operations at 989 TFLOP/s bf16 / 67 TFLOP/s f32 /
-             1,979 TOP/s int8).  The branched chain rows (bf16,
-             quantized and 2:4: B2, B4, B12) also time the kernel and
+             1,979 TOP/s int8: ``repro_torch.analysis.hw_specs.H100``).
+             The branched chain rows (bf16, quantized and 2:4: B2, B4,
+             B12) also time the kernel and
              the library call with a cold L2 (``cold_ms``,
              ``library_cold_ms``: 100 MB written before each launch),
              and in bf16 the cluster kernel (the earlier bf16 design)
@@ -152,6 +153,35 @@ its times beside the cuBLAS chain, and the autograd Function's gradients
 (kernel forward, explicit backward) against autograd of the plain
 version within ``KERNEL_TOL``.
 
+The search slice adds, in PHASES' order:
+
+- search  — for each of llama3.2-1b's four linear shapes at M = 8 and
+             4,096 rows: the rank of ``select_rank(mode="search")`` on
+             the H100 cost model and of ``algorithm1`` on the timer
+             measured on the card (bf16, CUDA events, the L2 flushed
+             before every call; run twice, and once more with the
+             factors left in L2), the timers' t(r) at those ranks, at
+             the aligned and at the ratio rank, the spread of five fresh
+             timings, each search's own seconds; every rank in [r_min,
+             r_start] or ORG.  The whole measured curves go to
+             ``build/search_curves.json``.
+- serve_search — the full-width llama decomposed through
+             ``decompose_model`` with ``rank_mode="search"``, branches=4
+             (q/o SVD 384, k/v SVD 191, gate/up/down branched 4 x 192),
+             served as ``serve``: every segment exactly the launches the
+             surgery report implies (64 B1 + 48 B2 at those ranks);
+             prints the ranks and ``weight_bytes`` beside the aligned
+             tree's.
+- check_search — prefill plus 16 greedy decode steps of that tree on the
+             card against the same tree in f32 on the CPU, as check_paged
+             over the slot pool.
+
+and, in the kernels phase, bf16 B1 rows at the searched SVD pairs (2048,
+191, 512), (2048, 384, 2048) and rank 191's aligned neighbour (2048,
+192, 512), M = 8 and 64, timed as the other B1 rows; the B1 / B2 entries
+of the kernels line carry ``search_path``, one decode step of the
+searched tree.
+
 Only on request (``--phases ...,profile``): torch.profiler over steady
 decode steps of the branches=4 model, plain, int8 and 2:4-packed int8 —
 device time by operator and the device's idle share; ``profile_qa`` the
@@ -175,26 +205,31 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-PHASES = ("device", "build", "kernels", "serve", "check", "serve_q",
-          "check_q", "serve_paged", "check_paged", "serve_qa", "check_qa",
-          "serve_sq", "check_sq", "serve_mla", "check_mla", "serve_mla_q",
-          "check_mla_q", "serve_mla_sq", "check_mla_sq", "train",
-          "check_train")
-#: the phases that serve or check the llama3.2-1b trees, the MLA ones and
-#: the training ones
-LLAMA_PHASES = ("serve", "check", "serve_q", "check_q", "serve_paged",
-                "check_paged", "serve_qa", "check_qa", "serve_sq",
-                "check_sq", "profile", "profile_qa")
+from repro_torch.analysis.hw_specs import H100  # noqa: E402
+
+PHASES = ("device", "build", "kernels", "search", "serve", "check",
+          "serve_search", "check_search", "serve_q", "check_q",
+          "serve_paged", "check_paged", "serve_qa", "check_qa", "serve_sq",
+          "check_sq", "serve_mla", "check_mla", "serve_mla_q", "check_mla_q",
+          "serve_mla_sq", "check_mla_sq", "train", "check_train")
+#: the phases that search, serve or check the llama3.2-1b trees, the MLA
+#: ones and the training ones
+LLAMA_PHASES = ("search", "serve", "check", "serve_search", "check_search",
+                "serve_q", "check_q", "serve_paged", "check_paged",
+                "serve_qa", "check_qa", "serve_sq", "check_sq", "profile",
+                "profile_qa")
 MLA_PHASES = ("serve_mla", "check_mla", "serve_mla_q", "check_mla_q",
               "serve_mla_sq", "check_mla_sq", "profile_mla")
 TRAIN_PHASES = ("train", "check_train")
 #: phases run only when asked for with --phases
 EXTRA_PHASES = ("profile", "profile_qa", "profile_mla")
 
-HBM_BYTES_PER_S = 3.35e12
-#: dense peak rates of one H100 SXM (NVIDIA's data sheet constants, not
-#: measurements): bf16 and int8 on the tensor cores, f32 outside them
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
+#: one H100 SXM's memory rate and dense peak rates (NVIDIA's data sheet
+#: constants, not measurements, from the port's hardware spec): bf16 and
+#: int8 on the tensor cores, f32 outside them
+HBM_BYTES_PER_S = H100.hbm_bandwidth
+PEAK_FLOPS = {"bfloat16": H100.peak_flops(2),
+              "float32": H100.peak_flops_f32, "int8": H100.peak_flops(1)}
 
 #: normalised tolerance of a kernel vs its plain version on the same
 #: inputs: max|kernel - plain| / max|plain|.  f32: the two sum the same
@@ -284,6 +319,24 @@ DECODE_LAUNCHES = {"lowrank_matmul": {"k,v": 32},
                                           "down": 16}}
 M_CASES = (8, 64, 37)
 QMODES = ("int8", "fp8")
+#: the search phase: llama3.2-1b's four linear shapes (C, S), and the rows
+#: Algorithm 1 times them at (a decode step, the cost model's default)
+SEARCH_SHAPES = {"q,o": (2048, 2048), "k,v": (2048, 512),
+                 "gate,up": (2048, 8192), "down": (8192, 2048)}
+SEARCH_M = (8, 4096)
+#: the searched tree (rank_mode="search", branches=4) on the H100 spec:
+#: q/o an SVD pair at 384 (384 / 4 is under rank_align), k/v one at 191,
+#: gate/up/down branched at 4 x 192 -- per decode step or prefill chunk
+#: 64 B1 + 48 B2 (serve_search holds the run to what the surgery report
+#: implies, and says whether that is this)
+SEARCH_LAUNCHES = {"lowrank_matmul": {"q,o r384": 32, "k,v r191": 32},
+                   "branched_matmul": {"gate,up": 32, "down": 16}}
+#: bf16 B1 rows at the searched SVD pairs and at the aligned neighbour of
+#: rank 191 (whole 16-byte rows of w0), at a decode step and a chunk
+SEARCH_LOWRANK_SHAPES = {"k,v r191": (2048, 191, 512),
+                         "q,o r384": (2048, 384, 2048),
+                         "k,v r192": (2048, 192, 512)}
+SEARCH_M_CASES = (8, 64)
 #: the SVD pairs that the branches=4 tree serves 2:4-packed (B11 rows)
 SPARSE_LOWRANK = ("k,v",)
 #: the SVD pairs whose bf16 B1 / B3 rows at M = 8 time the plans of
@@ -463,7 +516,7 @@ def time_ms(fn, iters: int = 20, warmup: int = 3,
 
 
 #: bytes written between cold-L2 launches: twice the H100's 50 MB L2
-L2_FLUSH_BYTES = 100 * 1024 * 1024
+L2_FLUSH_BYTES = 2 * H100.l2_bytes
 
 
 def cold_ms(fn, flush, iters: int = 10, warmup: int = 2,
@@ -520,7 +573,6 @@ def check_kernels(card: str, only: frozenset = frozenset(KERNELS)
     from repro_torch.quant.quantize import quantize_array
     from repro_torch.quant.sparse import sparsify_array
 
-    lk = kernel_module("lowrank_matmul")
     lqk = kernel_module("lowrank_matmul_q")
     g = torch.Generator(device="cuda").manual_seed(1234)
 
@@ -562,22 +614,9 @@ def check_kernels(card: str, only: frozenset = frozenset(KERNELS)
                 break
             for m in M_CASES:
                 x = rnd(m, c, dtype=dt)
-                w0 = rnd(c, r, scale=c ** -0.5, dtype=dt)
-                w1 = rnd(r, s, scale=r ** -0.5, dtype=dt)
-                y = lk.lowrank_matmul(x, w0, w1)
-                want = ref.lowrank_matmul_ref(x, w0, w1)
-                torch.cuda.synchronize()
                 plans = label in LOWRANK_PLAN_SHAPES and m == 8
-                add("lowrank_matmul", lambda: dict(
-                    shape=label, dtype=dname, M=m, C=c, R=r, S=s,
-                    **_compare(y, want, dname),
-                    **_lowrank_times("lowrank_matmul", (x, w0, w1), y,
-                                     lambda: (x @ w0) @ w1, dname, flush,
-                                     plans),
-                    plain_ms=time_ms(lambda: ref.lowrank_matmul_ref(x, w0,
-                                                                    w1)),
-                    **_bound(xb * (m * c + c * r + r * s + m * s),
-                             2 * m * (c * r + r * s), dname)))
+                add("lowrank_matmul", lambda: _lowrank_row(
+                    label, x, (c, r, s), dname, rnd, flush, plans))
                 for mode in QMODES:
                     if not only & (lowrank - {"lowrank_matmul"}):
                         break
@@ -638,6 +677,11 @@ def check_kernels(card: str, only: frozenset = frozenset(KERNELS)
             for quant in (False, True):
                 add("decode_attention_paged" + ("_q" if quant else ""),
                     lambda: _check_paged(label, case, dname, quant, g, flush))
+    for label, shape in SEARCH_LOWRANK_SHAPES.items():
+        for m in SEARCH_M_CASES:
+            add("lowrank_matmul", lambda: _lowrank_row(
+                label, rnd(m, shape[0], dtype=torch.bfloat16), shape,
+                "bfloat16", rnd, flush, plans=False))
     bf = torch.bfloat16
     for label in TRAIN_LAUNCHES["lowrank_matmul"]:
         c, r, s = LOWRANK_SHAPES[label]
@@ -871,6 +915,29 @@ def _check_sq(label: str, x, factors: list, dname: str,
                 plain_ms=time_ms(lambda: plain(*args)),
                 library="cuBLAS chain on factors expanded beforehand",
                 **_bound(nbytes, 2 * m * kept, dname))
+
+
+def _lowrank_row(label: str, x, shape: tuple, dname: str, rnd, flush,
+                 plans: bool) -> dict:
+    """One B1 row: ``x`` (M, C) through random factors of ``shape`` (C, R,
+    S) against the plain version, with :func:`_lowrank_times`."""
+    import torch
+    from repro_torch.kernels import ref
+    c, r, s = shape
+    m, dt = x.shape[0], x.dtype
+    w0 = rnd(c, r, scale=c ** -0.5, dtype=dt)
+    w1 = rnd(r, s, scale=r ** -0.5, dtype=dt)
+    y = kernel_module("lowrank_matmul").lowrank_matmul(x, w0, w1)
+    want = ref.lowrank_matmul_ref(x, w0, w1)
+    torch.cuda.synchronize()
+    return dict(
+        shape=label, dtype=dname, M=m, C=c, R=r, S=s,
+        **_compare(y, want, dname),
+        **_lowrank_times("lowrank_matmul", (x, w0, w1), y,
+                         lambda: (x @ w0) @ w1, dname, flush, plans),
+        plain_ms=time_ms(lambda: ref.lowrank_matmul_ref(x, w0, w1)),
+        **_bound(dt.itemsize * (m * c + c * r + r * s + m * s),
+                 2 * m * (c * r + r * s), dname))
 
 
 def _lowrank_times(name: str, args: tuple, y, library, dname: str, flush,
@@ -1439,6 +1506,19 @@ def _kernel_entries(rows: dict[str, list[dict]]) -> list[dict]:
             extra["mla_path"]["timed_as"] = (
                 "the 17 launches of one decode step (M=8) or prefill chunk "
                 "(M=64) of the 4-layer DeepSeek-V2 MLA stack, bf16")
+        search = SEARCH_LAUNCHES.get(name, {})
+        srows = {label: next((r for r in rs if r["shape"] == label
+                              and r["M"] == 8 and r["dtype"] == "bfloat16"),
+                             None) for label in search}
+        if search and None not in srows.values():
+            extra["search_path"] = {
+                k: sum(n * srows[label][k] for label, n in search.items())
+                for k in timed}
+            extra["search_path"].update(
+                launches=None,
+                timed_as=f"the {sum(search.values())} launches of one decode "
+                "step (M=8, bf16) of the searched tree (rank_mode='search', "
+                "branches=4); launches: the serve_search run")
         trows = [r for r in rs if r.get("path") == "train"]
         if trows:
             tkeys = ("ms", "plain_ms", "library_ms", "bound_ms", "cold_ms",
@@ -1492,16 +1572,113 @@ def full_model(seed: int = 0):
     return cfg, params, axes
 
 
-def decompose(params, axes, branches: int):
+def decompose(params, axes, branches: int, **lrd_kw):
+    """The LRD surgery of the serve phases (``LRD`` with ``lrd_kw`` over
+    it) on the card; returns (lrd, tree, report, seconds)."""
     import torch
     from repro_torch.configs.base import LRDConfig
     from repro_torch.core.surgery import decompose_model
-    lrd = LRDConfig(**LRD, branches=branches)
+    lrd = LRDConfig(**{**LRD, **lrd_kw}, branches=branches)
     t0 = time.perf_counter()
     with torch.inference_mode():
         p2, _, rep = decompose_model(params, axes, lrd)
     torch.cuda.synchronize()
     return lrd, p2, rep, time.perf_counter() - t0
+
+
+def chain_launches(rep) -> dict[str, int]:
+    """Chain-kernel launches per model segment that a surgery report
+    implies: one per layer of every stacked SVD pair (B1) and branched
+    linear (B2), one for an unstacked one."""
+    out = {"lowrank_matmul": 0, "branched_matmul": 0}
+    kernel = {"svd": "lowrank_matmul", "branched": "branched_matmul"}
+    for d in rep.decisions:
+        if d.kind in kernel:
+            out[kernel[d.kind]] += d.shape[0] if len(d.shape) == 3 else 1
+    return out
+
+
+def rank_search(card: str, seed: int) -> list[dict]:
+    """The search phase: for each of llama3.2-1b's linear shapes at each
+    row count of :data:`SEARCH_M`, the rank that ``select_rank``'s search
+    takes on the H100 cost model (as the surgery runs it) and the rank
+    that :func:`algorithm1` takes on the timer measured on the card (bf16,
+    CUDA events, the factors out of L2 before every call; twice, from
+    other seeds: the measured search is noisy), and once more on the
+    timer that leaves them in L2 (``cold=False``, for comparison); each
+    timer's t(r) at those ranks, at the aligned and at the ratio rank;
+    the measured t(r) of the chosen and the aligned rank from five fresh
+    timers (the spread); and each search's own seconds.  Every rank must
+    lie in the searched range [r_min, r_start] or be ORG.  The whole
+    measured curves go to build/search_curves.json."""
+    import torch
+    from repro_torch.core import cost_model as cm
+    from repro_torch.core import rank_selection as rs
+    from repro_torch.core.svd import ratio_rank
+    bf = torch.bfloat16
+    rows, curves = [], {}
+    for label, (c, s) in SEARCH_SHAPES.items():
+        r0 = ratio_rank(c, s, LRD["compression"])
+        start, r_min, step = rs.search_plan(r0)
+        aligned = rs.align_rank(r0, LRD["rank_align"])
+        for m in SEARCH_M:
+            t0 = time.perf_counter()
+            model_rank = rs.select_rank(c, s, compression=LRD["compression"],
+                                        mode="search", m_tokens=m)
+            model_s = time.perf_counter() - t0
+            model_t = cm.make_model_timer(m, c, s)
+            runs = []
+            for run, cold in ((0, True), (1, True), (0, False)):
+                t0 = time.perf_counter()
+                timer = cm.make_measured_timer(m, c, s, dtype=bf,
+                                               seed=seed + run, cold=cold)
+                t_dense = cm.measured_dense_time(m, c, s, dtype=bf,
+                                                 seed=seed + run, cold=cold)
+                dec = rs.algorithm1(timer, t_dense, start, r_min, step=step)
+                runs.append((dec, timer, time.perf_counter() - t0))
+            (dec, timer, _), warm = runs[0], runs.pop()
+            at = {"model": model_rank, "measured": dec.rank,
+                  "aligned": aligned, "ratio": r0}
+            us = lambda t, r: None if r == rs.ORG else t(r) * 1e6  # noqa
+            spread = {k: sorted(cm.make_measured_timer(
+                m, c, s, dtype=bf, seed=seed + 10 + i)(r) * 1e6
+                for i in range(5))
+                for k, r in (("measured", dec.rank), ("aligned", aligned))
+                if r != rs.ORG}
+            row = {"shape": label, "C": c, "S": s, "M": m,
+                   "r_range": [r_min, start], "step": step,
+                   "model_rank": model_rank,
+                   "measured_ranks": [d.rank for d, _, _ in runs],
+                   "model_us": {k: us(model_t, r) for k, r in at.items()},
+                   "measured_us": {k: us(timer, r) for k, r in at.items()},
+                   "warm_rank": warm[0].rank,
+                   "warm_us": {k: us(warm[1], r) for k, r in at.items()},
+                   "dense_us": {"model": cm.make_dense_time(m, c, s) * 1e6,
+                                "measured": dec.t_dense * 1e6,
+                                "warm": warm[0].t_dense * 1e6},
+                   "spread_us": spread,
+                   "search_s": {"model": model_s,
+                                "measured": [t for _, _, t in runs],
+                                "warm": warm[2]},
+                   "card": card}
+            log("search " + json.dumps(row))
+            rows.append(row)
+            curves[f"{label} M={m}"] = [
+                {str(r): t(r) * 1e6 for r in d.searched}
+                for d, t, _ in (*runs, warm)]
+            for r in (model_rank, *row["measured_ranks"], warm[0].rank):
+                if r != rs.ORG and not r_min <= r <= start:
+                    raise SystemExit(f"search: rank {r} of {label} at M={m} "
+                                     f"outside [{r_min}, {start}]")
+    out = ROOT / "build"
+    out.mkdir(exist_ok=True)
+    (out / "search_curves.json").write_text(json.dumps(
+        {"card": card, "timed_as": "t(r) in us of (x @ w0) @ w1, bf16, "
+         "CUDA events around each of 5 calls after a warm-up, host ahead; "
+         "two runs with the L2 flushed before every call, then one "
+         "without the flush",
+         "curves": curves}))
+    return rows
 
 
 def request_prompts(cfg, seed: int, n_req: int, lo: int, hi: int,
@@ -1526,6 +1703,21 @@ def request_prompts(cfg, seed: int, n_req: int, lo: int, hi: int,
     return out
 
 
+def fresh_peak() -> int:
+    """Collect the garbage of earlier phases, return the card's memory
+    to the allocator and reset its peak; returns the bytes the
+    collection freed (0 where no earlier phase left a tree in a
+    reference cycle), so a phase's ``max_memory_allocated`` holds none
+    of another phase's trees."""
+    import gc
+    import torch
+    before = torch.cuda.memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return before - torch.cuda.memory_allocated()
+
+
 def serve(cfg, lrd, params, *, n_req: int, prompt_lo: int, prompt_hi: int,
           new_tokens: int, expect: dict[str, dict[str, int]], card: str,
           seed: int, shared: int = 0, **engine_kw) -> dict:
@@ -1543,6 +1735,8 @@ def serve(cfg, lrd, params, *, n_req: int, prompt_lo: int, prompt_hi: int,
     from repro_torch.configs.base import RunConfig
     from repro_torch.serve.engine import Request, ServeEngine
 
+    freed = fresh_peak()
+    at_start = torch.cuda.memory_allocated()
     eng = ServeEngine(RunConfig(model=cfg, lrd=lrd), params, slots=8,
                       max_seq=1024, device="cuda", **engine_kw)
     paged = eng.kv_layout == "paged"
@@ -1580,6 +1774,9 @@ def serve(cfg, lrd, params, *, n_req: int, prompt_lo: int, prompt_hi: int,
     eng.run_until_done()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    # the counting wrapper closes over the engine: drop it, so the engine
+    # and its trees go when this returns, without waiting for a GC pass
+    del eng.runner.step
     launches = {k: launch_count(k) for k in KERNELS}
     bad = [r.uid for r in reqs
            if r.status != "finished" or len(r.output) != new_tokens]
@@ -1612,6 +1809,7 @@ def serve(cfg, lrd, params, *, n_req: int, prompt_lo: int, prompt_hi: int,
            "decode_seconds": tp["decode_seconds"],
            "preemptions": tp["preemptions"],
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "allocated_at_start": at_start, "freed_at_start": freed,
            "kv_bytes_per_step": eng.plan_summary["kv_bytes_per_step"],
            "weight_bytes": eng.plan_summary["weight_bytes"],
            "quant_bytes": eng.plan_summary["quant_bytes"],
@@ -2222,14 +2420,17 @@ def run_llama(phases: list[str], card: str, seed: int,
     """The llama3.2-1b phases (serve ... check_sq, profile) on one set of
     trees, freed when this returns."""
     import torch
+    if "search" in phases:
+        with Phase("search"):
+            rank_search(card, seed)
     cfg, dense, axes = full_model(seed)
     lrd, p4, rep, surg_s = decompose(dense, axes, branches=4)
     log(f"surgery branches=4: {surg_s:.2f} s, "
         f"{json.dumps(rep.summary())} [{card}]")
+    every = lambda counts: {"decode": counts,  # noqa: E731
+                            "prefill_chunk": counts}
     if "serve" in phases:
         with Phase("serve"):
-            every = lambda counts: {"decode": counts,  # noqa: E731
-                                    "prefill_chunk": counts}
             serve_res["branches4"] = serve(
                 cfg, lrd, p4, n_req=8, prompt_lo=32, prompt_hi=512,
                 new_tokens=32, card=card, seed=seed,
@@ -2246,6 +2447,41 @@ def run_llama(phases: list[str], card: str, seed: int,
     if "check" in phases:
         with Phase("check"):
             cross_check(cfg, p4, card, seed)
+    if set(phases) & {"serve_search", "check_search"}:
+        lrd_s, ps, rep_s, surg_s_s = decompose(dense, axes, branches=4,
+                                               rank_mode="search")
+        per_seg = chain_launches(rep_s)
+        want = {k: sum(v.values()) for k, v in SEARCH_LAUNCHES.items()}
+        searched = {
+            "surgery_s": surg_s_s, "launches_per_segment": per_seg,
+            "as_predicted": per_seg == want,
+            "ranks": {d.path: [d.kind, d.rank] for d in rep_s.decomposed},
+            "aligned_ranks": {d.path: [d.kind, d.rank]
+                              for d in rep.decomposed},
+            "summary": rep_s.summary()}
+        log(f"surgery search branches=4: {json.dumps(searched)} [{card}]")
+    if "serve_search" in phases:
+        with Phase("serve_search"):
+            from repro_torch.layers.plan import build_plan_tree, tree_summary
+            res = serve(cfg, lrd_s, ps, n_req=8, prompt_lo=32,
+                        prompt_hi=512, new_tokens=32, card=card, seed=seed,
+                        expect=every(per_seg))
+            res.update(searched, aligned_weight_bytes=tree_summary(
+                build_plan_tree(p4))["weight_bytes"])
+            log("serve_search " + json.dumps(
+                {k: res[k] for k in ("weight_bytes", "aligned_weight_bytes",
+                                     "launches_per_segment", "as_predicted",
+                                     "ranks", "aligned_ranks", "card")}))
+            serve_res["search"] = res
+    if "check_search" in phases:
+        with Phase("check_search"):
+            steps = 16
+            cross_check_staged(cfg, ps, card, seed, label="check_search",
+                               steps=steps,
+                               want={k: n * (steps + 1)
+                                     for k, n in per_seg.items()})
+    if set(phases) & {"serve_search", "check_search"}:
+        del ps
     if set(phases) & {"serve_q", "check_q", "serve_qa", "check_qa",
                       "profile_qa"}:
         from repro_torch.quant.quantize import quantize_tree
@@ -2427,8 +2663,8 @@ def train_run(cfg, card: str, seed: int, *, label: str, lrd, remat: str,
     def mark(step: int) -> None:
         marks.append({k: launch_count(k) for k in KERNELS})
 
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
+    freed = fresh_peak()
+    at_start = torch.cuda.memory_allocated()
     reset_launches()
     t0 = time.perf_counter()
     r = train(run, ByteTextLM(cfg, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ),
@@ -2459,6 +2695,7 @@ def train_run(cfg, card: str, seed: int, *, label: str, lrd, remat: str,
            "step_ms": [t * 1e3 for t in secs],
            "tokens_per_s": TRAIN_M / med,
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "allocated_at_start": at_start, "freed_at_start": freed,
            "optimizer_state_bytes": r.stats["optimizer_state_bytes"],
            "trainable_params": r.stats["trainable_params"],
            "frozen_params": r.stats["frozen_params"],
@@ -2652,7 +2889,7 @@ def main() -> int:
     serve_res: dict[str, dict] = {}
     if set(phases) & set(LLAMA_PHASES):
         run_llama(phases, card, args.seed, serve_res)
-        # the llama trees are gone with run_llama's frame
+        # the llama trees go with run_llama's frame
         torch.cuda.empty_cache()
     if set(phases) & set(MLA_PHASES):
         run_mla(phases, card, args.seed, serve_res)
@@ -2666,6 +2903,9 @@ def main() -> int:
             run = serve_res.get(RUN_OF[k["name"]])
             if run is not None:
                 k["launches"] = run["launches"][k["name"]]
+            if "search_path" in k and "search" in serve_res:
+                k["search_path"]["launches"] = \
+                    serve_res["search"]["launches"][k["name"]]
             if "train_path" in k and "frozen" in train_res:
                 k["train_path"]["launches"] = \
                     train_res["frozen"]["launches"][k["name"]]

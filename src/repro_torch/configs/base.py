@@ -101,17 +101,24 @@ class ModelConfig:
         return not (self.is_encoder or self.family == FAMILY_RESNET)
 
 
+RANK_MODE_RATIO = "ratio"        # rank from the compression ratio (Eq. 7)
+RANK_MODE_ALIGNED = "aligned"    # ratio rank snapped down to the tile
+RANK_MODE_SEARCH = "search"      # Algorithm 1 on the cost-model timer
+
+
 @dataclass(frozen=True)
 class LRDConfig:
     """The paper's LRD technique, as a config (the reference's field
-    names and defaults, minus ``use_pallas`` and the fields of ROADMAP
-    A2: ``rank_min_frac``, ``energy``, ``merge``)."""
+    names and defaults, minus the fields nothing reads: ``use_pallas``,
+    ``energy`` and ``merge``; layer merging is the explicit calls of
+    :mod:`repro_torch.core.merging`)."""
 
     enabled: bool = False
     compression: float = 2.0          # target per-layer compression ratio
-    rank_mode: str = "aligned"        # "ratio" | "aligned" ("search" waits
-                                      # for the cost model, ROADMAP A2)
+    rank_mode: str = RANK_MODE_ALIGNED  # RANK_MODE_RATIO | _ALIGNED |
+                                        # _SEARCH
     rank_align: int = 128             # "aligned" snaps ranks down to this
+    rank_min_frac: float = 0.25       # Algorithm 1's floor: R_min = frac * R
     min_dim: int = 256                # don't decompose layers smaller than this
     targets: Sequence[str] = (        # which logical layers to decompose
         "attn_q", "attn_k", "attn_v", "attn_o",

@@ -10,9 +10,10 @@ As in the reference, freezing is realized twice:
 * **forward**: :func:`stop_frozen_factors` detaches the frozen factor of
   every decomposed linear (``w0`` of an SVD pair, ``u`` / ``v`` of a
   branched one: the reference's ``lax.stop_gradient`` at the apply seam,
-  ``repro/layers/plan.py:206``).  A detached factor does not require
-  grad, so the chain kernels' backward (``kernels/autograd.py``) forms no
-  cotangent for it.
+  ``repro/layers/plan.py:206``), and the shared latents ``ak`` / ``bv``
+  of a merged attention (its ``apply_merged_attention``).  A detached
+  factor does not require grad, so the chain kernels' backward
+  (``kernels/autograd.py``) forms no cotangent for it.
   :func:`set_requires_grad` gives those factors ``requires_grad=False``
   and every other float leaf ``True``.
 * **optimizer**: :func:`trainable_mask` marks the frozen leaves by name,
@@ -64,33 +65,42 @@ def trainable_param_count(params: PyTree, mask: PyTree) -> int:
                                mask)))
 
 
-def _frozen_factors(p: dict) -> frozenset:
-    """The factors the forward stops in one linear subtree."""
-    from repro_torch.layers.plan import build_plan
-    return _KIND_FROZEN.get(build_plan(p).kind, frozenset())
+#: the shared latents the forward stops in a merged attention subtree
+#: (the reference's ``apply_merged_attention``)
+_MERGED_FROZEN = frozenset({"ak", "bv"})
+_MERGED_KEYS = frozenset({"aq", "ak", "bv", "bo"})
+
+
+def _frozen_factors(p: dict) -> frozenset | None:
+    """The factors the forward stops in a linear subtree or a merged
+    attention subtree; None for any other node."""
+    from repro_torch.layers.plan import build_plan, is_linear_subtree
+    if set(p) == _MERGED_KEYS:
+        return _MERGED_FROZEN
+    if is_linear_subtree(p):
+        return _KIND_FROZEN.get(build_plan(p).kind, frozenset())
+    return None
 
 
 def stop_frozen_factors(params: PyTree) -> PyTree:
-    """The tree with the frozen factor of every decomposed linear
-    detached (views, no copy): the forward half of the freeze policy."""
-    from repro_torch.layers.plan import is_linear_subtree
-    if is_linear_subtree(params):
-        frozen = _frozen_factors(params)
+    """The tree with the frozen factor of every decomposed linear and the
+    shared latents of every merged attention detached (views, no copy):
+    the forward half of the freeze policy."""
+    if not isinstance(params, dict):
+        return params
+    frozen = _frozen_factors(params)
+    if frozen is not None:
         return {k: v.detach() if k in frozen else v
                 for k, v in params.items()}
-    if isinstance(params, dict):
-        return {k: stop_frozen_factors(v) for k, v in params.items()}
-    return params
+    return {k: stop_frozen_factors(v) for k, v in params.items()}
 
 
 def set_requires_grad(params: PyTree, *, freeze: bool) -> PyTree:
     """``requires_grad`` in place on every float leaf, except, with
     ``freeze``, the factors :func:`stop_frozen_factors` detaches; returns
     ``params``."""
-    from repro_torch.layers.plan import is_linear_subtree
     if isinstance(params, dict):
-        frozen = (_frozen_factors(params)
-                  if freeze and is_linear_subtree(params) else frozenset())
+        frozen = (freeze and _frozen_factors(params)) or frozenset()
         for k, v in params.items():
             if isinstance(v, dict):
                 set_requires_grad(v, freeze=freeze)

@@ -3,7 +3,9 @@
 ``decompose_model(params, axes, lrd)`` walks the ``(params, axes)`` trees
 built by :class:`repro_torch.layers.param.ParamBuilder`, labels every
 linear subtree ``{"w": ...}`` by its path, picks a rank per
-:mod:`repro_torch.core.rank_selection` and rewrites the subtree:
+:mod:`repro_torch.core.rank_selection` (``rank_mode="search"``: the
+paper's Algorithm 1 on the H100 cost model, at ``m_tokens`` rows) and
+rewrites the subtree:
 
     {"w": (.., C, S)} -> {"w0": (.., C, R), "w1": (.., R, S)}     SVD pair
                       -> {"u": (.., N, C, r), "xc": (.., N, r, r),
@@ -112,8 +114,8 @@ def _batch_dims(ax: tuple) -> int:
 
 
 def _decompose_linear(w: torch.Tensor, ax: tuple, lrd: LRDConfig,
-                      cache: dict) -> tuple[dict | None, dict | None, str,
-                                            Any]:
+                      m_tokens: int, cache: dict
+                      ) -> tuple[dict | None, dict | None, str, Any]:
     """Returns (new_params, new_axes, kind, rank) or (None, None,
     "skip"/"org", reason)."""
     nb = _batch_dims(ax)
@@ -121,9 +123,10 @@ def _decompose_linear(w: torch.Tensor, ax: tuple, lrd: LRDConfig,
     if min(c, s) < lrd.min_dim:
         return None, None, "skip", f"min_dim({min(c, s)}<{lrd.min_dim})"
     if (c, s) not in cache:
-        cache[(c, s)] = rs.select_rank(c, s, compression=lrd.compression,
-                                       mode=lrd.rank_mode,
-                                       align=lrd.rank_align)
+        cache[(c, s)] = rs.select_rank(
+            c, s, compression=lrd.compression, mode=lrd.rank_mode,
+            align=lrd.rank_align, rank_min_frac=lrd.rank_min_frac,
+            m_tokens=m_tokens)
     rank = cache[(c, s)]
     if rank == rs.ORG:
         return None, None, "org", "algorithm1: dense layer faster"
@@ -157,11 +160,13 @@ def _fwd_flops(params: dict) -> float:
     return linear_flops({k: inner(k, v) for k, v in params.items()}, 1)
 
 
-def decompose_model(params: PyTree, axes: PyTree, lrd: LRDConfig
+def decompose_model(params: PyTree, axes: PyTree, lrd: LRDConfig, *,
+                    m_tokens: int = 4096
                     ) -> tuple[PyTree, PyTree, SurgeryReport]:
     """Apply LRD to every targeted linear subtree.  Returns rewritten
     copies of both trees (untouched leaves are shared, not copied) plus
-    the decision report."""
+    the decision report.  ``m_tokens``: the rows Algorithm 1's cost model
+    times each candidate rank at (``rank_mode="search"``)."""
     report = SurgeryReport()
     if not lrd.enabled:
         return params, axes, report
@@ -184,7 +189,8 @@ def decompose_model(params: PyTree, axes: PyTree, lrd: LRDConfig
                     before_params, before_params, before_flops, before_flops,
                     "label not targeted"))
                 return p, a
-            np_, na, kind, rank = _decompose_linear(w, ax, lrd, rank_cache)
+            np_, na, kind, rank = _decompose_linear(w, ax, lrd, m_tokens,
+                                                    rank_cache)
             if np_ is None:
                 report.decisions.append(LayerDecision(
                     pstr, label, kind, tuple(w.shape), None,

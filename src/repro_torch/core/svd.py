@@ -39,6 +39,23 @@ def reconstruct(f: SVDFactors) -> torch.Tensor:
                         f.w1.to(torch.float32)).to(f.w0.dtype)
 
 
+def approximation_error(w: torch.Tensor, f: SVDFactors) -> float:
+    """Relative Frobenius error ||W - W0 W1||_F / ||W||_F."""
+    wf = w.to(torch.float32)
+    err = torch.linalg.norm(wf - reconstruct(f).to(torch.float32))
+    return float(err / (torch.linalg.norm(wf) + 1e-30))
+
+
+def energy_rank(w: torch.Tensor, energy: float) -> int:
+    """Smallest rank whose singular values keep ``energy`` of
+    sum sigma_i^2."""
+    s = torch.linalg.svdvals(w.to(torch.float32))
+    e = torch.cumsum(s ** 2, dim=-1)
+    e = e / e[-1]
+    return int(torch.searchsorted(e, torch.tensor(energy,
+                                                  dtype=e.dtype))) + 1
+
+
 def ratio_rank(c: int, s: int, compression: float) -> int:
     """Rank giving ``compression``x fewer params: R = C*S / (alpha*(C+S))."""
     r = int(math.floor(c * s / (compression * (c + s))))
@@ -48,6 +65,20 @@ def ratio_rank(c: int, s: int, compression: float) -> int:
 def compression_of_rank(c: int, s: int, rank: int) -> float:
     """Achieved parameter compression ratio for a rank-R pair."""
     return (c * s) / (rank * (c + s))
+
+
+def lowrank_params(c: int, s: int, rank: int) -> int:
+    return rank * (c + s)
+
+
+def svd_flops_per_row(c: int, s: int, rank: int) -> float:
+    """Forward matmul FLOPs per input row (2 matmuls through the
+    bottleneck)."""
+    return 2.0 * rank * (c + s)
+
+
+def dense_flops_per_row(c: int, s: int) -> float:
+    return 2.0 * c * s
 
 
 def randomized_svd(w: torch.Tensor, rank: int, *, oversample: int = 8,

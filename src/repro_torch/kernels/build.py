@@ -21,6 +21,8 @@ from typing import Callable
 
 import torch
 
+from repro_torch.analysis.hw_specs import H100
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("lowrank_matmul.cu", "branched_matmul.cu", "lowrank_matmul_q.cu",
@@ -29,7 +31,10 @@ SOURCES = ("lowrank_matmul.cu", "branched_matmul.cu", "lowrank_matmul_q.cu",
            "decode_attention_paged.cu", "decode_attention_latent_q.cu",
            "lowrank_matmul_sq.cu", "branched_matmul_sq.cu")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
-FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+#: shared memory a CTA may opt into on an H100 (bytes)
+SMEM_LIMIT = int(H100.vmem_bytes)
+FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+         f"-DLRK_SMEM_LIMIT={SMEM_LIMIT}"]
 LIB_NAME = "libreprotorch_kernels.so"
 #: activation dtypes the kernels take, with their code in the C interface
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -229,10 +234,6 @@ def load() -> ctypes.CDLL:
     lib.lrk_error_string.argtypes = [i]
     lib.lrk_error_string.restype = ctypes.c_char_p
     return lib
-
-
-#: shared memory a CTA may opt into on an H100 (bytes)
-SMEM_LIMIT = 232448
 
 
 def chain_bm(m: int, smem_at: Callable[[int], int]) -> tuple[int, int]:

@@ -90,7 +90,7 @@ constexpr int PAD = 8;           // bf16 padding of a shared row (16 B)
 constexpr int SPAD = 8;          // f32 padding of a logit row (32 B)
 constexpr int MAX_GROUPS = 4;    // 16-column context groups per warp
 constexpr int MAX_SPLITS = 32;
-constexpr int SMEM_LIMIT = 232448;
+constexpr int SMEM_LIMIT = LRK_SMEM_LIMIT;  // kernels/build.py
 constexpr float NEG = -1e30f;    // the reference's mask value
 
 __device__ __forceinline__ float to_f32(float v) { return v; }

@@ -89,7 +89,7 @@ constexpr int MAX_D = 256;
 constexpr int MAX_G = 16;
 constexpr int MAX_OUT = 8;       // (g, d) outputs per thread
 constexpr int MAX_CB = 8;        // table entries per pass (bs < P)
-constexpr int SMEM_LIMIT = 232448;
+constexpr int SMEM_LIMIT = LRK_SMEM_LIMIT;  // kernels/build.py
 constexpr float NEG = -1e30f;    // the reference's mask value
 
 __device__ __forceinline__ float to_f32(float v) { return v; }

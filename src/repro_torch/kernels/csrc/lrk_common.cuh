@@ -38,7 +38,8 @@ constexpr int NT = 64;          // output columns per tile pass
 constexpr int ROW_GROUPS = THREADS / NT;
 constexpr int CLUSTER = 8;      // CTAs sharing one row block
 constexpr int TARGET_CTAS = 264;  // about two CTAs per SM of an H100
-constexpr int SMEM_LIMIT = 232448;  // opt-in shared memory per block
+constexpr int SMEM_LIMIT = LRK_SMEM_LIMIT;  // opt-in shared memory per block
+                                            // (kernels/build.py)
 
 // Reduction depth staged per step: deeper for the skinny decode blocks,
 // where each step's global loads dominate.

@@ -1,5 +1,5 @@
 """Attention: RoPE, GQA and MLA (DeepSeek-V2) for prefill, chunked
-prefill and decode.
+prefill and decode, and the merged attention of paper §2.3 (no cache).
 
 Plain torch (``einsum`` / ``softmax``), as the reference uses plain jnp
 for prefill and full-width slot decode; decode over an int8 or a paged
@@ -24,8 +24,9 @@ import torch
 from repro_torch.layers import cache as cache_mod
 from repro_torch.layers.cache import CachePlan, plan_from_cache
 from repro_torch.layers.norm import init_rms_norm, rms_norm
-from repro_torch.layers.param import (EMBED, QKV, RANK, ParamBuilder,
-                                      apply_linear, init_linear)
+from repro_torch.layers.param import (EMBED, HEADS, QKV, RANK,
+                                      ParamBuilder, apply_linear,
+                                      init_linear)
 
 Q_CHUNK = 1024
 
@@ -148,6 +149,47 @@ def apply_attention(p: dict, x: torch.Tensor, *, num_heads: int,
             o = chunked_attention(q, k, v, causal=causal, softcap=softcap)
     o = o.reshape(b, sq, num_heads * head_dim)
     return apply_linear(p["o"], o, **aq), cache
+
+
+# ---------------------------------------------------------------------------
+# Merged attention (paper §2.3 on a transformer: core/merging.py)
+# ---------------------------------------------------------------------------
+
+def init_merged_attention(pb: ParamBuilder, name: str, d_model: int,
+                          num_heads: int, head_dim: int, qk_rank: int,
+                          vo_rank: int) -> None:
+    """The joint factorization of the weight products W_q W_k^T and
+    W_v W_o: logits (x A_q)(x A_k)^T with A_q (d, H, qk_rank) and a key
+    latent A_k (d, qk_rank) shared by the heads; context attn . (x B_v)
+    and out ctx . B_o through a vo_rank bottleneck.  Four matmuls, as
+    q/k/v/o, with params shrunk by rank/d.  (``head_dim`` is the
+    reference's argument, unused there too.)"""
+    sub = pb.child(name)
+    sub.param("aq", (d_model, num_heads, qk_rank), (EMBED, HEADS, RANK))
+    sub.param("ak", (d_model, qk_rank), (EMBED, RANK))
+    sub.param("bv", (d_model, vo_rank), (EMBED, RANK))
+    sub.param("bo", (vo_rank, num_heads, d_model), (RANK, HEADS, EMBED))
+
+
+def apply_merged_attention(p: dict, x: torch.Tensor, *,
+                           positions: torch.Tensor, causal: bool = True,
+                           softcap: float = 0.0) -> torch.Tensor:
+    """Self-attention through the merged factors, plain torch, no cache
+    (as in the reference): RoPE (theta 1e4) over the rank dims of the
+    queries and the shared key latent, one latent KV head."""
+    b, s, _ = x.shape
+    h = p["aq"].shape[1]
+    r = p["aq"].shape[2]
+    q = torch.einsum("bsd,dhr->bshr", x, p["aq"])     # (B,S,H,r)
+    k = torch.einsum("bsd,dr->bsr", x, p["ak"])       # shared latent keys
+    sin, cos = rope_sincos(positions, r, 1e4)
+    q = apply_rope(q, sin, cos)
+    k = apply_rope(k[:, :, None, :], sin, cos)
+    vlat = torch.einsum("bsd,dr->bsr", x, p["bv"])    # (B,S,vo_rank)
+    o = chunked_attention(q, k, vlat[:, :, None, :], causal=causal,
+                          softcap=softcap, scale=1.0 / math.sqrt(r))
+    out = torch.einsum("bshr,rhd->bsd", o.reshape(b, s, h, -1), p["bo"])
+    return out.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

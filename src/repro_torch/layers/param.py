@@ -24,6 +24,7 @@ PyTree = Any
 LAYERS = "layers"
 EMBED = "embed"
 FFN = "ffn"
+HEADS = "heads"
 QKV = "qkv"
 VOCAB = "vocab"
 EXPERTS = "experts"

@@ -3,7 +3,8 @@ GQA or MLA attention.
 
 ``init_block(pb, cfg)`` builds a single layer's params (the model stacks
 layers along a leading axis); ``apply_block`` runs one layer's params,
-choosing MLA where the params hold an ``mla`` subtree.  The MoE,
+choosing MLA where the params hold an ``mla`` subtree and the merged
+attention of paper §2.3 (no cache) where they hold a ``merged`` one.  The MoE,
 cross-attention and SSM blocks of the reference come with ROADMAP item
 A13.
 """
@@ -59,6 +60,11 @@ def apply_block(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
             cache_pos=cache_pos, prompt_len=prompt_len, start_pos=start_pos,
             plan=cache_plan, softcap=cfg.attn_logit_softcap,
             act_quantize=act_quantize)
+    elif "merged" in p:
+        a = attn.apply_merged_attention(p["merged"], h, positions=positions,
+                                        causal=True,
+                                        softcap=cfg.attn_logit_softcap)
+        cache = None
     else:
         a, cache = attn.apply_attention(
             p["attn"], h, num_heads=cfg.num_heads,

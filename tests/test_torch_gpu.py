@@ -1550,3 +1550,45 @@ def test_split_lowrank_qa_refuses_empty_factors(cuda):
         with pytest.raises(ValueError, match="empty factors"):
             lak.lowrank_matmul_qa(*args)
         assert lak.launches == n0
+
+
+# --- the searched ranks (Algorithm 1 on the H100 spec) ----------------------
+
+@pytest.mark.parametrize("m", _LOWRANK_M)
+@pytest.mark.parametrize("label", list(chip_smoke.SEARCH_LOWRANK_SHAPES))
+def test_split_lowrank_at_searched_ranks(cuda, label, m):
+    """bf16 B1 at the ranks the search gives llama3.2-1b (191: rows of w0
+    382 B long, most off a 16-byte boundary, a last chunk of 7 values;
+    384) and at 191's aligned neighbour: within KERNEL_TOL of the plain
+    version, one counted launch, the same bits on a second call."""
+    from repro_torch.kernels import lowrank_matmul as lk
+    from repro_torch.kernels import ref
+    args = _lowrank_args(cuda, "bf16", m,
+                         *chip_smoke.SEARCH_LOWRANK_SHAPES[label])
+    n0 = lk.launches
+    y = lk.lowrank_matmul(*args)
+    assert lk.launches == n0 + 1
+    assert torch.equal(y, lk.lowrank_matmul(*args))
+    assert _norm_err(y, ref.lowrank_matmul_ref(*args)) \
+        <= chip_smoke.KERNEL_TOL["bfloat16"]
+
+
+@pytest.mark.parametrize("cold", [True, False], ids=["cold", "warm"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_measured_timer_on_cuda(cuda, dtype, cold):
+    """The measured timer of Algorithm 1 on the card: finite, positive
+    seconds per rank (CUDA events), cached per rank; the dense time
+    too; the cold timer's L2 flush leaves its input as it was."""
+    from repro_torch.core import cost_model as cm
+    dt = getattr(torch, dtype)
+    timer = cm.make_measured_timer(8, 2048, 512, dtype=dt, cold=cold)
+    for r in (191, 192, 128):
+        t = timer(r)
+        assert 0 < t < 1 and t == timer(r)
+    assert timer.cache_info().misses == 3
+    assert 0 < cm.measured_dense_time(8, 2048, 512, dtype=dt,
+                                      cold=cold) < 1
+    x = cm._randn((8, 2048), 0, dt, torch.device("cuda"))
+    y = x.clone()
+    cm._seconds(lambda: x @ x.T, torch.device("cuda"), 3, x, cold)
+    assert torch.equal(x, y)

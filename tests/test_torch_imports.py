@@ -49,7 +49,10 @@ def test_port_has_the_slice_modules():
               "repro_torch.train.compression", "repro_torch.train.steps",
               "repro_torch.train.data", "repro_torch.train.checkpoint",
               "repro_torch.train.fault_tolerance",
-              "repro_torch.train.loop"):
+              "repro_torch.train.loop", "repro_torch.analysis",
+              "repro_torch.analysis.hw_specs",
+              "repro_torch.core.rank_selection",
+              "repro_torch.core.merging", "repro_torch.core.svd"):
         assert m in mods, m
 
 

@@ -93,8 +93,22 @@ def test_rank_selection_matches_reference(c, s, alpha, mode, align):
 
 
 def test_search_mode_waits_for_the_cost_model():
-    with pytest.raises(NotImplementedError, match="A2"):
-        rs.select_rank(64, 64, compression=2.0, mode="search")
+    """The cost model has come: ``search`` runs Algorithm 1 on the H100
+    spec and picks the reference's rank on the same spec fields."""
+    import dataclasses
+    from repro.analysis import hw_specs as jhw
+    from repro.core import cost_model as jcm
+    from repro_torch.analysis import hw_specs as hw
+    spec = jhw.HardwareSpec(**{
+        f.name: getattr(hw.H100, f.name)
+        for f in dataclasses.fields(jhw.HardwareSpec)})
+    for c, s in ((64, 64), (2048, 512)):
+        want = jrs.select_rank(
+            c, s, compression=2.0, mode="search",
+            timer=jcm.make_model_timer(4096, c, s, spec=spec),
+            t_dense=jcm.make_dense_time(4096, c, s, spec=spec))
+        assert rs.select_rank(c, s, compression=2.0, mode="search") == want
+    assert rs.select_rank(2048, 512, compression=2.0, mode="search") == 191
 
 
 def test_randomized_svd_error_bound():

@@ -153,6 +153,37 @@ its times beside the cuBLAS chain, and the autograd Function's gradients
 (kernel forward, explicit backward) against autograd of the plain
 version within ``KERNEL_TOL``.
 
+Serve hardening and the router add, in PHASES' order after check_paged:
+
+- serve_faults — the bf16 branches=4 tree over an int8 slot pool
+             (kv_quantize="int8": 32 B1 + 80 B2 + 16 B5 every decode
+             step, 32 + 80 every prefill chunk), 8 greedy requests of
+             32-512 prompt and 32 new tokens: a clean run, then the same
+             requests with ``debug=True`` (the pool's integrity check
+             after every step) under a fault schedule (NaN logits once on
+             decode at slot 0, one corrupted int8 scale row, two refused
+             allocations, one host step slowed by 0.2 s), one request
+             cancelled mid-flight and one with ``deadline_s=0``: every
+             request ends with a status, at least one is quarantined and
+             one step flagged slow, the pool holds 0 bytes after the
+             drain, every survivor's stream is the clean run's token for
+             token, every segment's launches exact; then a ``kernel_gate``
+             scheduled at one dispatch must make ``step()`` raise
+             ``KernelRejected`` with every earlier dispatch launched, that
+             one not, and no plain version run.
+- serve_router — ``ServeRouter(replicas=2, devices=["cuda", "cuda"],
+             slots=8, max_seq=1024, kv_layout="paged", slo_itl_ms=200)``
+             (32 B1 + 80 B2 + 16 B8 every decode step), 12 greedy requests
+             (8 interactive, 4 batch; four on one 256-token prefix), and
+             one engine's run of the same requests beside it; once
+             replica 0 has streams in flight its step raises: it must trip
+             and be evacuated, every request finish with the engine's
+             stream, the radix hit, the launches be exact, and both
+             replicas serve one tree on the card with a pool each.
+
+Each prints its decode-step ms (the router its ``round_seconds``),
+tokens/s, per-class p99 ITL and peak memory.
+
 The search slice adds, in PHASES' order:
 
 - search  — for each of llama3.2-1b's four linear shapes at M = 8 and
@@ -209,14 +240,15 @@ from repro_torch.analysis.hw_specs import H100  # noqa: E402
 
 PHASES = ("device", "build", "kernels", "search", "serve", "check",
           "serve_search", "check_search", "serve_q", "check_q",
-          "serve_paged", "check_paged", "serve_qa", "check_qa", "serve_sq",
+          "serve_paged", "check_paged", "serve_faults", "serve_router",
+          "serve_qa", "check_qa", "serve_sq",
           "check_sq", "serve_mla", "check_mla", "serve_mla_q", "check_mla_q",
           "serve_mla_sq", "check_mla_sq", "train", "check_train")
 #: the phases that search, serve or check the llama3.2-1b trees, the MLA
 #: ones and the training ones
 LLAMA_PHASES = ("search", "serve", "check", "serve_search", "check_search",
                 "serve_q", "check_q", "serve_paged", "check_paged",
-                "serve_qa", "check_qa", "serve_sq", "check_sq", "profile",
+                "serve_faults", "serve_router", "serve_qa", "check_qa", "serve_sq", "check_sq", "profile",
                 "profile_qa")
 MLA_PHASES = ("serve_mla", "check_mla", "serve_mla_q", "check_mla_q",
               "serve_mla_sq", "check_mla_sq", "profile_mla")
@@ -1827,6 +1859,323 @@ def serve(cfg, lrd, params, *, n_req: int, prompt_lo: int, prompt_hi: int,
     return res
 
 
+# ---------------------------------------------------------------------------
+# serve hardening and the router
+# ---------------------------------------------------------------------------
+
+#: the fault schedule of serve_faults (1-based consultations of each
+#: point): NaN logits once on decode at slot 0, one corrupted int8 scale
+#: row (the second stream landed), two refused slot allocations; one host
+#: step slowed by 0.2 s three quarters into the run (the clean run's
+#: segment count sets the index)
+FAULT_SCHEDULE = dict(
+    schedule={"nan_logits": [6], "block_scale": [2], "pool_alloc": [2, 3]},
+    params={"nan_logits": {"seg": "decode", "slot": 0},
+            "slow_step": {"seconds": 0.2}})
+#: the dispatch (1-based entry-point consultation) the kernel_gate run
+#: rejects: inside the first prefill chunk (112 dispatches)
+GATE_AT = 50
+#: serve_faults' engine: the bf16 tree over an int8 slot pool (B1 / B2 /
+#: B5); serve_router's replicas: the bf16 tree over paged pools (B1 / B2
+#: / B8)
+FAULTS_SEGMENT = {"decode": {"lowrank_matmul": 32, "branched_matmul": 80,
+                             "decode_attention_q": 16},
+                  "prefill_chunk": {"lowrank_matmul": 32,
+                                    "branched_matmul": 80}}
+ROUTER_SEGMENT = {"decode": {"lowrank_matmul": 32, "branched_matmul": 80,
+                             "decode_attention_paged": 16},
+                  "prefill_chunk": {"lowrank_matmul": 32,
+                                    "branched_matmul": 80}}
+
+
+def _count_segments(eng, segs: list) -> None:
+    """Wrap ``eng.runner.step`` to append ``(seg_kind, launches of every
+    kernel)`` per model segment to ``segs`` (drop it with ``del
+    eng.runner.step``)."""
+    step = eng.runner.step
+
+    def counted(tokens, positions, seg_kind, **kw):
+        before = {k: launch_count(k) for k in KERNELS}
+        out = step(tokens, positions, seg_kind, **kw)
+        segs.append((seg_kind, {k: launch_count(k) - before[k]
+                                for k in KERNELS}))
+        return out
+    eng.runner.step = counted
+
+
+def _exact_segments(label: str, segs: list, expect: dict) -> dict:
+    want = {kind: {k: counts.get(k, 0) for k in KERNELS}
+            for kind, counts in expect.items()}
+    wrong = [s for s in segs if s[1] != want[s[0]]]
+    if wrong:
+        raise SystemExit(f"{label}: segments launched other kernel counts "
+                         f"than {want}: {wrong[:5]}")
+    return {kind: sum(1 for s in segs if s[0] == kind) for kind in want}
+
+
+def _engine_numbers(tp: dict) -> dict:
+    inter = tp["per_class"]["interactive"]
+    return {"decode_step_ms_mean": tp["decode_step_ms_mean"],
+            "tokens_per_s": tp["tokens_per_s"],
+            "itl_p99_ms": {p: c["itl_p99_ms"]
+                           for p, c in tp["per_class"].items()},
+            "ttft_p99_ms": inter["ttft_p99_ms"]}
+
+
+def serve_faults(cfg, lrd, params, card: str, seed: int) -> dict:
+    """The serve_faults phase: the bf16 tree over an int8 slot pool
+    (B1 / B2 / B5), 8 greedy requests of 32-512 prompt and 32 new tokens,
+    first clean, then with ``debug=True`` (the pool's integrity check
+    after every step) under :data:`FAULT_SCHEDULE`, one request cancelled
+    mid-flight and one with ``deadline_s=0``.  Every request must end
+    with a status, at least one quarantined and one slow step, the pool
+    empty after the drain, every survivor's stream the clean run's (a
+    cut one's a prefix of it), every segment's launches exact; then a
+    run whose ``kernel_gate`` rejects dispatch :data:`GATE_AT` must raise
+    :class:`KernelRejected` with the earlier dispatches launched, that
+    one not, and no plain version run."""
+    import torch
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.faults import FaultInjector
+    from repro_torch.serve.scheduler import STATUSES
+
+    run = RunConfig(model=cfg, lrd=lrd)
+    prompts = request_prompts(cfg, seed, 8, 32, 512)
+    new = 32
+    freed = fresh_peak()
+
+    def engine(**kw):
+        return ServeEngine(run, params, slots=8, max_seq=1024,
+                           kv_quantize="int8", device="cuda", **kw)
+
+    def requests():
+        return [Request(uid=i, prompt=p, max_new_tokens=new)
+                for i, p in enumerate(prompts)]
+
+    out = {"card": card, "freed_at_start": freed}
+    inj = None
+    for label in ("clean", "faulted"):
+        eng = engine(debug=label == "faulted", faults=inj)
+        segs: list = []
+        _count_segments(eng, segs)
+        reqs = requests()
+        if label == "faulted":
+            reqs[7].deadline_s = 0.0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for r in reqs:
+            eng.add_request(r)
+        steps, cancelled = 0, None
+        while eng.scheduler.busy():
+            eng.step()
+            steps += 1
+            # cancel the newest stream that is decoding with 4 tokens
+            live = [r for r in reqs if r.status is None
+                    and len(r.output) >= 4]
+            if label == "faulted" and cancelled is None and live:
+                cancelled = live[-1].uid
+                if not eng.cancel(cancelled):
+                    raise SystemExit(f"serve_faults: cancel({cancelled}) "
+                                     "found no request")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        del eng.runner.step
+        tp = eng.throughput()
+        res = {"wall_s": wall, "steps": steps,
+               "segments": _exact_segments(f"serve_faults {label}", segs,
+                                           FAULTS_SEGMENT),
+               "status_counts": tp["status_counts"],
+               "max_memory_allocated": torch.cuda.max_memory_allocated(),
+               **_engine_numbers(tp)}
+        if label == "clean":
+            if any(r.status != "finished" or len(r.output) != new
+                   for r in reqs):
+                raise SystemExit("serve_faults: the clean run did not "
+                                 "finish every request")
+            clean = {r.uid: r.output for r in reqs}
+            sched = dict(FAULT_SCHEDULE["schedule"])
+            sched["slow_step"] = [max(8, 3 * len(segs) // 4)]
+            inj = FaultInjector(schedule=sched,
+                                params=FAULT_SCHEDULE["params"])
+        else:
+            bad = [r.uid for r in reqs if r.status not in STATUSES]
+            differ = [r.uid for r in reqs
+                      if r.output != clean[r.uid][:len(r.output)]
+                      or (r.status == "finished"
+                          and r.output != clean[r.uid])]
+            res.update(
+                report=inj.report(), quarantined=tp["quarantined"],
+                slow_steps=tp["slow_steps"], step_ewma_s=tp["step_ewma_s"],
+                deadline_expired=tp["deadline_expired"],
+                admit_failures=tp["admit_failures"], cancelled_uid=cancelled,
+                integrity_checks=steps, used_bytes=eng.pool.used_bytes(),
+                statuses={r.uid: r.status for r in reqs},
+                survivors=sum(r.status == "finished" for r in reqs))
+            if (bad or differ or tp["quarantined"] < 1
+                    or tp["slow_steps"] < 1 or cancelled is None
+                    or eng.pool.used_bytes() != 0
+                    or reqs[7].status != "deadline_exceeded"
+                    or not eng.pool.check_integrity()):
+                raise SystemExit(
+                    f"serve_faults: statuses {bad}, streams off the clean "
+                    f"run {differ}, {json.dumps(res)}")
+        out[label] = res
+        del eng
+    # the gate: one dispatch rejected, nothing launched for it, no plain
+    # version run in its place
+    plain = {n: 0 for n in dir(ref) if n.endswith("_ref")}
+    saved = {n: getattr(ref, n) for n in plain}
+
+    def counting(name):
+        def call(*a, **kw):
+            plain[name] += 1
+            return saved[name](*a, **kw)
+        return call
+    eng = engine(faults=FaultInjector(schedule={"kernel_gate": [GATE_AT]}))
+    eng.add_request(Request(uid=0, prompt=prompts[0], max_new_tokens=new))
+    before = {k: launch_count(k) for k in KERNELS}
+    for n in plain:
+        setattr(ref, n, counting(n))
+    try:
+        eng.step()
+        raise SystemExit("serve_faults: the kernel_gate did not raise")
+    except ops.KernelRejected as e:
+        rejected = e.kernel
+    finally:
+        for n, f in saved.items():
+            setattr(ref, n, f)
+    torch.cuda.synchronize()
+    launched = {k: launch_count(k) - before[k] for k in KERNELS}
+    out["kernel_gate"] = {"rejected": rejected, "at": GATE_AT,
+                          "launched": {k: n for k, n in launched.items()
+                                       if n},
+                          "plain_calls": sum(plain.values()),
+                          "report": eng.faults.report()}
+    if (sum(launched.values()) != GATE_AT - 1 or any(plain.values())
+            or ops.set_fault_injector(None) is not None):
+        raise SystemExit(f"serve_faults: kernel_gate {out['kernel_gate']}")
+    del eng
+    log("serve_faults " + json.dumps(out))
+    return out
+
+
+def serve_router(cfg, lrd, params, card: str, seed: int) -> dict:
+    """The serve_router phase: ``ServeRouter(replicas=2, devices=["cuda",
+    "cuda"])`` over paged pools (B1 / B2 / B8), 12 greedy requests (8
+    interactive, 4 batch; 32-512 prompt tokens, four of them on one
+    256-token prefix, the last of those submitted once the first has a
+    token; 32 new tokens) against one engine's run of the same requests.
+    Once replica 0 has streams in flight its step raises: it must trip
+    (``step_failures``) and be evacuated, every request finish with the
+    single engine's stream, the radix hit, every segment's launches be
+    exact, and both replicas serve one tree on the card with a pool
+    each."""
+    import torch
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.router import ServeRouter
+
+    run = RunConfig(model=cfg, lrd=lrd)
+    kw = dict(slots=8, max_seq=1024, kv_layout="paged",
+              kv_block_size=PAGED_BLOCK)
+    prompts = request_prompts(cfg, seed, 12, 32, 512, shared=4)
+    new, late = 32, 3
+    freed = fresh_peak()
+
+    def requests():
+        return [Request(uid=i, prompt=p, max_new_tokens=new,
+                        priority="batch" if i >= 8 else "interactive")
+                for i, p in enumerate(prompts)]
+
+    def drive(target, reqs, step, busy):
+        for r in reqs:
+            if r.uid != late:
+                target.add_request(r)
+        while not reqs[0].output:
+            step()
+        target.add_request(reqs[late])
+        while busy():
+            step()
+
+    out = {"card": card, "freed_at_start": freed}
+    eng = ServeEngine(run, params, device="cuda", **kw)
+    one = requests()
+    segs: list = []
+    _count_segments(eng, segs)
+    t0 = time.perf_counter()
+    drive(eng, one, eng.step, eng.scheduler.busy)
+    torch.cuda.synchronize()
+    del eng.runner.step
+    out["engine"] = {"wall_s": time.perf_counter() - t0,
+                     "segments": _exact_segments("serve_router engine",
+                                                 segs, ROUTER_SEGMENT),
+                     **_engine_numbers(eng.throughput())}
+    if any(r.status != "finished" for r in one):
+        raise SystemExit("serve_router: the single engine did not finish")
+    del eng
+    torch.cuda.reset_peak_memory_stats()
+    rt = ServeRouter(run, params, replicas=2, devices=["cuda", "cuda"],
+                     slo_itl_ms=200.0, **kw)
+    reps = rt.replicas
+    leaf = [rep.engine.params["blocks"]["attn"]["k"]["w0"] for rep in reps]
+    pools = [rep.engine.pool.cache["blocks"]["k"] for rep in reps]
+    placed = {"tree_shared": leaf[0].data_ptr() == leaf[1].data_ptr(),
+              "tree_on": str(leaf[1].device),
+              "pools_on": [str(p.device) for p in pools],
+              "pools_distinct": pools[0].data_ptr() != pools[1].data_ptr()}
+    if not (placed["tree_shared"] and placed["pools_distinct"]
+            and all(p.is_cuda for p in (*leaf, *pools))):
+        raise SystemExit(f"serve_router: placement {placed}")
+    segs = []
+    for rep in reps:
+        _count_segments(rep.engine, segs)
+    two = requests()
+    failed = {}
+
+    def step():
+        rt.step()
+        sched = reps[0].engine.scheduler
+        if not failed and (sched.prefilling or sched.live_slots()):
+            failed["with_output"] = sum(
+                bool(ps.req.output) for ps in sched.prefilling) + sum(
+                bool(r and r.output) for r in sched.active)
+            failed["in_flight"] = (len(sched.prefilling)
+                                   + len(sched.live_slots()))
+            reps[0].engine.step = lambda: (_ for _ in ()).throw(
+                RuntimeError("replica 0 lost"))
+    t0 = time.perf_counter()
+    drive(rt, two, step, rt.busy)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for rep in reps:
+        del rep.engine.runner.step
+    tp = rt.throughput()
+    differ = [r.uid for r, s in zip(two, one)
+              if r.status != "finished" or r.output != s.output]
+    prefix = reps[1].engine.pool.prefix_stats()
+    out["router"] = {
+        "wall_s": wall, "round_seconds": tp["round_seconds"],
+        "rounds": tp["rounds"], "tokens_per_s": tp["tokens_per_s"],
+        "itl_p99_ms": {p: c["itl_p99_ms"]
+                       for p, c in tp["per_class"].items()},
+        "segments": _exact_segments("serve_router", segs, ROUTER_SEGMENT),
+        "failover": {**failed, "tripped": reps[0].guard.tripped,
+                     "evacuated": reps[0].evacuated},
+        "routed": [r["routed"] for r in tp["per_replica"]],
+        "decode_step_ms_mean": [r["decode_step_ms_mean"]
+                                for r in tp["per_replica"]],
+        "prefix_stats": prefix, "placement": placed,
+        "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    if (differ or reps[0].guard.tripped != "step_failures"
+            or not reps[0].evacuated or prefix["prefix_block_hits"] <= 0):
+        raise SystemExit(f"serve_router: streams off the engine's "
+                         f"{differ}, {json.dumps(out['router'])}")
+    log("serve_router " + json.dumps(out))
+    return out
+
+
 def _profiled(step, steps: int) -> dict:
     """``torch.profiler`` over ``steps`` calls of ``step`` (engine steps)
     after a device sync: the host-clock window, the device's busy share
@@ -2518,6 +2867,12 @@ def run_llama(phases: list[str], card: str, seed: int,
     if "check_paged" in phases:
         with Phase("check_paged"):
             cross_check_paged(cfg, p4, card, seed)
+    if "serve_faults" in phases:
+        with Phase("serve_faults"):
+            serve_res["faults"] = serve_faults(cfg, lrd, p4, card, seed)
+    if "serve_router" in phases:
+        with Phase("serve_router"):
+            serve_res["router"] = serve_router(cfg, lrd, p4, card, seed)
     if "serve_qa" in phases:
         with Phase("serve_qa"):
             serve_res["qa"] = serve(

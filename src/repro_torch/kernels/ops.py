@@ -13,8 +13,18 @@ a backward of explicit products.  The other kernels are serve-only (the
 quantized, 2:4 and activation-quantized chains are load-time rewrites
 the reference never trains, the decode attentions read a KV pool): a
 call under autograd raises.
+
+Every entry point first consults the ``kernel_gate`` fault point of the
+injector installed by :func:`fault_gate` (the serve engine installs its
+own for the length of its ``step()``).  A fire raises
+:class:`KernelRejected` before anything dispatches: no kernel launches
+and no plain version runs in its place.  (The reference's gate makes its
+fit predicate refuse at trace time and falls back to the oracle; the
+port has no fallback, and its hook is per step, not module-global.)
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -33,6 +43,44 @@ from repro_torch.kernels import lowrank_matmul_sq as lsk
 from repro_torch.kernels import ref
 
 
+class KernelRejected(RuntimeError):
+    """An entry point refused to dispatch: the ``kernel_gate`` fault point
+    fired.  ``kernel`` names the entry point."""
+
+    def __init__(self, kernel: str):
+        super().__init__(f"{kernel}: rejected by the kernel_gate fault point")
+        self.kernel = kernel
+
+
+#: the injector the entry points consult (``None``: the gate is inert)
+_FAULT_INJECTOR = None
+
+
+def set_fault_injector(inj):
+    """Install ``inj`` (a :class:`repro_torch.serve.faults.FaultInjector`,
+    or ``None`` to clear) for the ``kernel_gate`` point; returns the one
+    it replaces."""
+    global _FAULT_INJECTOR
+    prev, _FAULT_INJECTOR = _FAULT_INJECTOR, inj
+    return prev
+
+
+@contextlib.contextmanager
+def fault_gate(inj):
+    """Install ``inj`` for the block and restore the previous injector on
+    exit, an exception included."""
+    prev = set_fault_injector(inj)
+    try:
+        yield
+    finally:
+        set_fault_injector(prev)
+
+
+def _gate(name: str) -> None:
+    if _FAULT_INJECTOR is not None and _FAULT_INJECTOR.fire("kernel_gate"):
+        raise KernelRejected(name)
+
+
 def _under_grad(*ts: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
@@ -48,6 +96,7 @@ def _serve_only(name: str, x: torch.Tensor) -> None:
 def lowrank_matmul(x: torch.Tensor, w0: torch.Tensor,
                    w1: torch.Tensor) -> torch.Tensor:
     """y = (x @ w0) @ w1.  x (..., C); w0 (C, R); w1 (R, S) -> (..., S)."""
+    _gate("lowrank_matmul")
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if _under_grad(x, w0, w1):
@@ -62,6 +111,7 @@ def lowrank_matmul(x: torch.Tensor, w0: torch.Tensor,
 def branched_matmul(x: torch.Tensor, u: torch.Tensor, xc: torch.Tensor,
                     v: torch.Tensor) -> torch.Tensor:
     """y = sum_n ((x @ u_n) @ xc_n) @ v_n.  x (..., C) -> (..., S)."""
+    _gate("branched_matmul")
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if _under_grad(x, u, xc, v):
@@ -78,6 +128,7 @@ def lowrank_matmul_q(x: torch.Tensor, w0_q: torch.Tensor,
                      w1_scale: torch.Tensor) -> torch.Tensor:
     """y = (x @ dq(w0)) @ dq(w1).  x (..., C); w0_q (C, R) + w0_scale
     (1, R); w1_q (R, S) + w1_scale (1, S) -> (..., S)."""
+    _gate("lowrank_matmul_q")
     _serve_only("lowrank_matmul_q", x)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
@@ -95,6 +146,7 @@ def branched_matmul_q(x: torch.Tensor, u_q: torch.Tensor,
                       v_scale: torch.Tensor) -> torch.Tensor:
     """y = sum_n ((x @ dq(u_n)) @ dq(xc_n)) @ dq(v_n).  x (..., C) ->
     (..., S)."""
+    _gate("branched_matmul_q")
     _serve_only("branched_matmul_q", x)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
@@ -114,6 +166,7 @@ def lowrank_matmul_sq(x: torch.Tensor, w0_sp: torch.Tensor,
     """y = (x @ ds(w0)) @ ds(w1) on 2:4-packed quantized factors.  x (...,
     C); w0_sp (2, C/4, R) + w0_idx (2, C/4, 1) + w0_scale (1, R); w1_sp
     (2, R/4, S) + w1_idx (2, R/4, 1) + w1_scale (1, S) -> (..., S)."""
+    _gate("lowrank_matmul_sq")
     _serve_only("lowrank_matmul_sq", x)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
@@ -133,6 +186,7 @@ def branched_matmul_sq(x: torch.Tensor, u_sp: torch.Tensor,
                        v_scale: torch.Tensor) -> torch.Tensor:
     """y = sum_n ((x @ ds(u_n)) @ dq(xc_n)) @ ds(v_n): u and v 2:4-packed
     per branch, xc quantized dense.  x (..., C) -> (..., S)."""
+    _gate("branched_matmul_sq")
     _serve_only("branched_matmul_sq", x)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
@@ -151,6 +205,7 @@ def lowrank_matmul_qa(x: torch.Tensor, w0_q: torch.Tensor,
     """The activation-quantized chain: x (..., C) quantized per row,
     both dots int8 x int8 on int8 w0_q (C, R) / w1_q (R, S) with f32
     scales (1, R) / (1, S) -> (..., S)."""
+    _gate("lowrank_matmul_qa")
     _serve_only("lowrank_matmul_qa", x)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
@@ -168,6 +223,7 @@ def branched_matmul_qa(x: torch.Tensor, u_q: torch.Tensor,
                        v_scale: torch.Tensor) -> torch.Tensor:
     """The activation-quantized branched chain: x (..., C) quantized per
     row once, every branch dot int8 x int8 -> (..., S)."""
+    _gate("branched_matmul_qa")
     _serve_only("branched_matmul_qa", x)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
@@ -196,6 +252,7 @@ def decode_attention_paged(q: torch.Tensor, k: torch.Tensor,
     """One decode step of attention over a full-width paged pool.  q (B,
     1, H, D); k/v (NB+1, bs, KH, D), block NB the dummy; block_tables
     (B, nblk) int32; cache_pos (B,) -> (B, 1, H, D)."""
+    _gate("decode_attention_paged")
     _serve_only("decode_attention_paged", q)
     if q.device.type == "cpu":
         return ref.decode_attention_paged_ref(q, k, v, block_tables,
@@ -215,6 +272,7 @@ def decode_attention_paged_q(q: torch.Tensor, k_q: torch.Tensor,
                              softcap: float = 0.0) -> torch.Tensor:
     """One decode step of attention over an int8 paged pool with one
     scale row per physical block, k/v_scale (NB+1, KH, D) f32."""
+    _gate("decode_attention_paged_q")
     _serve_only("decode_attention_paged_q", q)
     if q.device.type == "cpu":
         return ref.decode_attention_paged_q_ref(
@@ -234,6 +292,7 @@ def decode_attention_q(q: torch.Tensor, k_q: torch.Tensor,
     """One decode step of attention over an int8 KV pool.  q (B, 1, H, D);
     k_q/v_q (B, S, KH, D) int8; k/v_scale (B, KH, D) f32; cache_pos (B,)
     -> (B, 1, H, D)."""
+    _gate("decode_attention_q")
     _serve_only("decode_attention_q", q)
     if q.device.type == "cpu":
         return ref.decode_attention_q_ref(q, k_q, k_scale, v_q, v_scale,
@@ -256,6 +315,7 @@ def decode_attention_latent_q(q_lat: torch.Tensor, q_rope: torch.Tensor,
     context latents (B, 1, H, L).  Where the reference falls back to its
     oracle when the VMEM budget does not fit (``repro/kernels/ops.py:
     478-510``), the kernel raises."""
+    _gate("decode_attention_latent_q")
     _serve_only("decode_attention_latent_q", q_lat)
     if q_lat.device.type == "cpu":
         return ref.decode_attention_latent_q_ref(

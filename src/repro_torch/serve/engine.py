@@ -35,10 +35,29 @@ blocks are cached in the radix starts with their KV gathered into its
 staging cache and prefills only the rest.
 
 Sampling is greedy or temperature (Gumbel-max on a seeded
-``torch.Generator``); a stream whose logits go non-finite is quarantined
-(terminated ``failed``) without disturbing its neighbours.
-Deadlines, cancellation, fault injection and load shedding come with
-ROADMAP item A12.
+``torch.Generator``).
+
+Hardening, as in the reference (``repro/serve/engine.py``):
+
+* lifecycle — per-request ``deadline_s`` / ``max_queue_s`` expiry,
+  :meth:`ServeEngine.cancel` from every state, a preemption-retry budget
+  ending in ``dropped``, and one of
+  :data:`repro_torch.serve.scheduler.STATUSES` on every request that
+  leaves the engine;
+* quarantine — a stream whose logits go non-finite terminates
+  ``failed`` (its blocks are not published) without disturbing its
+  neighbours (:mod:`repro_torch.serve.guard`);
+* degradation — a :class:`~repro_torch.serve.scheduler.LoadShedder`
+  watches preemption, admission-failure and the router's SLO pressure
+  and, past its watermark, shrinks the step budget and pauses admission;
+* watchdogs — the no-progress guard of :meth:`run_until_done`, a
+  per-step :class:`~repro_torch.train.fault_tolerance.StragglerDetector`
+  (host time of steps that each end in a device sync) and, under
+  ``debug=True``, the pool's ``check_integrity()`` after every step;
+* chaos — a :class:`~repro_torch.serve.faults.FaultInjector` threads its
+  points through the pool, the runner and, for the length of each
+  ``step()``, the kernels' entry points (``kernel_gate`` raises
+  :class:`~repro_torch.kernels.ops.KernelRejected`; nothing falls back).
 """
 from __future__ import annotations
 
@@ -50,25 +69,34 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import RunConfig
+from repro_torch.kernels import ops as kops
 from repro_torch.layers import plan as lplan
 from repro_torch.models.api import get_model
 from repro_torch.quant.quantize import MODES as QUANT_MODES
 from repro_torch.quant.quantize import quantize_tree
 from repro_torch.quant.sparse import sparsify_tree
 from repro_torch.serve import paging
+from repro_torch.serve.faults import NULL_INJECTOR, FaultInjector
 from repro_torch.serve.metrics import latency_summary
 from repro_torch.serve.paging import PoolExhausted
 from repro_torch.serve.pool import KVPoolManager, PagedKVPoolManager
 from repro_torch.serve.runner import ModelRunner
-from repro_torch.serve.scheduler import (PREFILL_BUCKET_MIN, PrefillStream,
-                                         Request, Scheduler)
+from repro_torch.serve.scheduler import (PREFILL_BUCKET_MIN, PRIORITIES,
+                                         DegradationPolicy, LoadShedder,
+                                         PrefillStream, Request, Scheduler)
+from repro_torch.train.fault_tolerance import StragglerDetector
 
-__all__ = ["ServeEngine", "Request", "PREFILL_BUCKET_MIN"]
+__all__ = ["ServeEngine", "Request", "FaultInjector", "PREFILL_BUCKET_MIN"]
 
 PyTree = Any
 
 DEFAULT_PREFILL_CHUNK = 64
+#: steps of stats kept (a ring: a long-running engine's host memory stays
+#: bounded)
 STATS_WINDOW = 4096
+#: consecutive zero-progress steps before :meth:`ServeEngine.run_until_done`
+#: fails the survivors
+DEFAULT_STALL_STEPS = 64
 
 
 def _param_device(params: PyTree) -> torch.device:
@@ -94,26 +122,46 @@ class ServeEngine:
                  kv_layout: str | None = None,
                  kv_block_size: int | None = None,
                  kv_num_blocks: int | None = None,
+                 step_token_budget: int | None = None,
+                 stats_window: int = STATS_WINDOW,
+                 debug: bool = False,
+                 faults: FaultInjector | None = None,
+                 degradation: DegradationPolicy | bool = True,
+                 stall_steps: int = DEFAULT_STALL_STEPS,
+                 priority_aware: bool = True,
+                 batch_share: float = 1.0,
                  device: str | torch.device = "cuda"):
         """``params`` must already live on ``device`` (the card by
-        default; tests pass ``"cpu"``).  ``admission`` is "continuous"
-        (default: token-budget chunked prefill) or "blocking" (one whole
-        prefill per admit).  ``kv_byte_budget`` gates admission and
-        triggers youngest-first preemption; None = never preempt.
-        ``quantize`` ("none" | "int8" | "fp8") quantizes the
-        ``run.lrd.quant_targets`` factors at load; ``sparsify`` ("none" |
-        "2:4") packs the ``run.lrd.sparse_targets`` factors 2:4 before
-        that (in the quantized dtype when ``quantize`` is set);
-        ``kv_quantize`` ("none" | "int8") stores the KV pool in int8;
-        ``act_quantize``
-        ("none" | "int8", needs ``quantize="int8"``) quantizes prefill
-        activations per token so the int8 plans run int8 x int8 (decode
-        keeps full-width activations).  ``kv_layout`` ("slot" |
-        "paged") selects the pool; "paged" needs continuous admission,
-        ``kv_block_size`` (default 16) must divide ``max_seq``, and
-        ``kv_num_blocks`` sizes the block pool (default the slot pool's
-        capacity, ``slots * max_seq / kv_block_size``).  All default to
-        ``run.lrd``."""
+        default; only an explicit ``"cpu"`` serves on the CPU).
+        ``admission`` is "continuous" (default: token-budget chunked
+        prefill) or "blocking" (one whole prefill per admit).
+        ``kv_byte_budget`` gates admission and triggers youngest-first
+        preemption; None = never preempt.  ``quantize`` ("none" | "int8" |
+        "fp8") quantizes the ``run.lrd.quant_targets`` factors at load;
+        ``sparsify`` ("none" | "2:4") packs the ``run.lrd.sparse_targets``
+        factors 2:4 before that (in the quantized dtype when ``quantize``
+        is set); ``kv_quantize`` ("none" | "int8") stores the KV pool in
+        int8; ``act_quantize`` ("none" | "int8", needs
+        ``quantize="int8"``) quantizes prefill activations per token so
+        the int8 plans run int8 x int8 (decode keeps full-width
+        activations).  ``kv_layout`` ("slot" | "paged") selects the pool;
+        "paged" needs continuous admission, ``kv_block_size`` (default
+        16) must divide ``max_seq``, and ``kv_num_blocks`` sizes the
+        block pool (default the slot pool's capacity, ``slots * max_seq
+        / kv_block_size``).  ``prefill_chunk`` / ``step_token_budget``
+        default to ``run.lrd`` (0 there: 64 and ``slots +
+        prefill_chunk``), as do the others.
+
+        ``debug=True`` runs the pool's ``check_integrity()`` after every
+        step.  ``faults`` threads a
+        :class:`~repro_torch.serve.faults.FaultInjector` through the pool,
+        the runner and the kernels' entry points (inert by default).
+        ``degradation`` is a :class:`~repro_torch.serve.scheduler.
+        DegradationPolicy` (True: the defaults; False / None: off) of the
+        load shedder; ``stall_steps`` the no-progress horizon of
+        :meth:`run_until_done`; ``stats_window`` the length of the stats
+        and per-class latency rings.  ``priority_aware`` / ``batch_share``
+        configure the scheduler's priority classes."""
         self.device = torch.device(device)
         if _param_device(params).type != self.device.type:
             raise ValueError(f"params live on {_param_device(params)}, "
@@ -164,7 +212,8 @@ class ServeEngine:
         chunk = prefill_chunk or run.lrd.prefill_chunk \
             or DEFAULT_PREFILL_CHUNK
         self.prefill_chunk = max(1, min(chunk, max_seq))
-        self.step_token_budget = (run.lrd.step_token_budget
+        self.step_token_budget = (step_token_budget
+                                  or run.lrd.step_token_budget
                                   or slots + self.prefill_chunk)
         if kv_layout is None:
             kv_layout = run.lrd.kv_layout or "slot"
@@ -193,16 +242,45 @@ class ServeEngine:
         self.plan_summary["kv_bytes_per_step"] = self.pool.kv_bytes_per_step
         self.plan_summary["kv_layout"] = kv_layout
         self.plan_summary["kv_cache_family"] = self.pool.plans[0].family
+        self.debug = debug
+        self.faults = faults if faults is not None else NULL_INJECTOR
+        self.pool.faults = self.faults
         self.runner = ModelRunner(self.model, params, max_seq=max_seq,
                                   kv_quantize=self.kv_quantize,
                                   act_quantize=self.act_quantize,
-                                  paged=getattr(self.pool, "geometry", None))
+                                  paged=getattr(self.pool, "geometry", None),
+                                  faults=self.faults)
         self.scheduler = Scheduler(slots, prefill_chunk=self.prefill_chunk,
-                                   step_token_budget=self.step_token_budget)
+                                   step_token_budget=self.step_token_budget,
+                                   priority_aware=priority_aware,
+                                   batch_share=batch_share)
+        if degradation is True:
+            degradation = DegradationPolicy()
+        self.shedder = (LoadShedder(degradation, self.step_token_budget)
+                        if degradation else None)
+        self.stragglers = StragglerDetector()
+        self.stall_steps = max(1, stall_steps)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.quarantined = 0
-        self.stats: deque[dict] = deque(maxlen=STATS_WINDOW)
+        self.deadline_expired = 0
+        self._step_idx = 0
+        self.stats: deque[dict] = deque(maxlen=stats_window)
+        # per-class latency rings (seconds).  ITL samples are service
+        # time: this engine's cumulative step seconds between a stream's
+        # tokens, so replicas sharing a device are not charged for each
+        # other; TTFT is wall clock (queue wait is real latency).
+        self.class_itl: dict[str, deque] = {
+            p: deque(maxlen=stats_window) for p in PRIORITIES}
+        self.class_ttft: dict[str, deque] = {
+            p: deque(maxlen=stats_window) for p in PRIORITIES}
+        #: set by the router's SLO tracker to trip the load shedder one
+        #: step early; consumed and cleared by :meth:`step`
+        self.slo_pressure = False
+        #: cumulative service seconds (admit + decode + prefill time of
+        #: every step), the clock of the class ITL rings
+        self.service_s = 0.0
+        self._step_token_reqs: list[Request] = []
 
     @property
     def finished(self) -> list[Request]:
@@ -237,10 +315,15 @@ class ServeEngine:
             torch.cuda.synchronize(self.device)
 
     def _append_token(self, req: Request, tok: int, now: float) -> None:
+        # the ITL sample is taken at the end of the step, against
+        # service_s (the step's length is not known yet)
+        self._step_token_reqs.append(req)
         req.output.append(tok)
         req.token_times.append(now)
         if req.first_token_time is None:
             req.first_token_time = now
+            if req.submit_time is not None:
+                self.class_ttft[req.priority].append(now - req.submit_time)
 
     def _maybe_finish(self, slot: int) -> bool:
         req = self.scheduler.active[slot]
@@ -344,6 +427,66 @@ class ServeEngine:
         self._sync()
         return pf_toks, first
 
+    # -- lifecycle: cancel / deadlines ------------------------------------------
+
+    def cancel(self, uid: int) -> bool:
+        """Cancel request ``uid`` wherever it is (waiting, preempted and
+        requeued, chunk-prefilling or decoding), releasing its slot,
+        blocks and copy-on-write references; it terminates
+        ``cancelled``.  False when ``uid`` is unknown or terminal."""
+        sched, pool = self.scheduler, self.pool
+        for req in sched.waiting:
+            if req.uid == uid:
+                sched.waiting.remove(req)
+                sched.terminal(req, "cancelled")
+                return True
+        for ps in sched.prefilling:
+            if ps.req.uid == uid:
+                sched.prefilling.remove(ps)
+                sched.terminal(ps.req, "cancelled")
+                # no KV landed yet: release drops exactly the references
+                # admission took
+                pool.release(ps.slot)
+                return True
+        for slot, req in enumerate(sched.active):
+            if req is not None and req.uid == uid:
+                sched.active[slot] = None
+                sched.terminal(req, "cancelled")
+                pool.release(slot)
+                return True
+        return False
+
+    def _expire_deadlines(self) -> int:
+        """Terminate every request whose ``deadline_s`` (anywhere) or
+        ``max_queue_s`` (waiting only) has elapsed; returns the count."""
+        sched, pool = self.scheduler, self.pool
+        now = time.perf_counter()
+
+        def over(req, budget):
+            return (budget is not None and req.submit_time is not None
+                    and now - req.submit_time > budget)
+
+        n = 0
+        for req in list(sched.waiting):
+            if over(req, req.deadline_s) or over(req, req.max_queue_s):
+                sched.waiting.remove(req)
+                sched.terminal(req, "deadline_exceeded")
+                n += 1
+        for ps in list(sched.prefilling):
+            if over(ps.req, ps.req.deadline_s):
+                sched.prefilling.remove(ps)
+                sched.terminal(ps.req, "deadline_exceeded")
+                pool.release(ps.slot)
+                n += 1
+        for slot, req in enumerate(sched.active):
+            if req is not None and over(req, req.deadline_s):
+                sched.active[slot] = None
+                sched.terminal(req, "deadline_exceeded")
+                pool.release(slot)
+                n += 1
+        self.deadline_expired += n
+        return n
+
     # -- main loop --------------------------------------------------------------
 
     def _decode_live(self, live: list[int]) -> int:
@@ -381,29 +524,47 @@ class ServeEngine:
         return produced
 
     def step(self) -> int:
-        """One scheduler step: preempt under KV pressure, admit, decode
-        every live stream, then spend leftover budget on prefill chunks.
-        Returns tokens produced (decode + first tokens)."""
-        with torch.inference_mode():
+        """One scheduler step: expire deadlines, preempt under KV
+        pressure, admit (unless the load shedder pauses it), decode every
+        live stream, then spend leftover budget on prefill chunks.
+        Returns tokens produced (decode + first tokens).  The engine's
+        injector gates the kernels' entry points for the length of the
+        step only."""
+        gate = self.faults if self.faults.configured("kernel_gate") else None
+        with torch.inference_mode(), kops.fault_gate(gate):
             return self._step()
 
     def _step(self) -> int:
         sched, pool = self.scheduler, self.pool
+        self._step_idx += 1
+        self._step_token_reqs.clear()
+        self.stragglers.start()
+        self._expire_deadlines()
         victims = pool.pressure_victims()
         for slot in victims:
             sched.preempt(slot)
             pool.release(slot)
+        admit_fail0 = sched.admit_failures
+        shed = False
+        if self.shedder is not None:
+            # degraded: the shrunk budget, and no admission while work is
+            # in flight (an idle engine always admits)
+            sched.step_token_budget = self.shedder.budget
+            shed = self.shedder.engaged and (
+                bool(sched.prefilling)
+                or any(r is not None for r in sched.active))
         admit_s = prefill_s = 0.0
         if self.admission == "blocking":
             t0 = time.perf_counter()
-            first, pf_toks = self._admit_blocking()
+            first, pf_toks = (0, 0) if shed else self._admit_blocking()
             admit_s = time.perf_counter() - t0
             live = sched.live_slots()
             t0 = time.perf_counter()
             produced = self._decode_live(live) if live else 0
             decode_s = time.perf_counter() - t0
         else:
-            sched.admit(pool)
+            if not shed:
+                sched.admit(pool)
             live = sched.live_slots()
             t0 = time.perf_counter()
             produced = self._decode_live(live) if live else 0
@@ -411,6 +572,12 @@ class ServeEngine:
             t0 = time.perf_counter()
             pf_toks, first = self._prefill_chunks(len(live))
             prefill_s = time.perf_counter() - t0
+        event = self.stragglers.stop(self._step_idx)
+        if self.shedder is not None:
+            self.shedder.observe(bool(victims)
+                                 or sched.admit_failures > admit_fail0
+                                 or self.slo_pressure)
+        self.slo_pressure = False
         if live or pf_toks or first:
             self.stats.append({"live": len(live), "tokens": produced,
                                "seconds": decode_s,
@@ -418,31 +585,97 @@ class ServeEngine:
                                "prefill_seconds": prefill_s,
                                "first_tokens": first,
                                "admit_seconds": admit_s,
-                               "preempted": len(victims)})
+                               "preempted": len(victims),
+                               "admit_failures":
+                                   sched.admit_failures - admit_fail0,
+                               "shed": int(shed),
+                               "straggler": int(event is not None)})
+        # service-time ITL: each token after a stream's first samples the
+        # service seconds since its previous token
+        self.service_s += admit_s + decode_s + prefill_s
+        key = id(self)
+        for req in self._step_token_reqs:
+            mark = req.service_mark
+            if mark is not None and mark[0] == key:
+                self.class_itl[req.priority].append(self.service_s - mark[1])
+            req.service_mark = (key, self.service_s)
+        self._step_token_reqs.clear()
+        if self.debug:
+            pool.check_integrity()
         return produced + first
+
+    def _fail_survivors(self) -> int:
+        """The no-progress watchdog fired: terminate everything queued or
+        in flight as ``failed`` and reclaim its pool state unpublished."""
+        sched, pool = self.scheduler, self.pool
+        n = 0
+        while sched.waiting:
+            sched.terminal(sched.waiting.popleft(), "failed")
+            n += 1
+        for ps in list(sched.prefilling):
+            sched.prefilling.remove(ps)
+            sched.terminal(ps.req, "failed")
+            pool.release(ps.slot, publish=False)
+            n += 1
+        for slot, req in enumerate(sched.active):
+            if req is not None:
+                sched.active[slot] = None
+                sched.terminal(req, "failed")
+                pool.release(slot, publish=False)
+                n += 1
+        return n
 
     def run_until_done(self, max_steps: int = 10_000) -> list[Request]:
         """Drive the engine until queue and slots drain; returns the
-        requests that reached a terminal status during this call."""
+        requests that reached a terminal status during this call.
+        ``stall_steps`` consecutive steps without progress (no token, no
+        prefill, no terminal transition) fail the survivors and return;
+        exhausting ``max_steps`` with work in flight raises."""
+        sched = self.scheduler
         start = len(self.finished)
+        stalled = 0
         for _ in range(max_steps):
-            if not self.scheduler.busy():
+            if not sched.busy():
                 break
-            self.step()
+            fin0 = len(self.finished)
+            prev = self.stats[-1] if self.stats else None
+            produced = self.step()
+            entry = (self.stats[-1]
+                     if self.stats and self.stats[-1] is not prev else None)
+            progressed = (produced > 0 or len(self.finished) > fin0
+                          or bool(entry and entry["prefill_tokens"]))
+            stalled = 0 if progressed else stalled + 1
+            if stalled >= self.stall_steps:
+                self._fail_survivors()
+                break
         else:
-            if self.scheduler.busy():
+            if sched.busy():
                 raise RuntimeError(
-                    f"run_until_done: {max_steps} steps exhausted with work "
+                    f"run_until_done: {max_steps} steps exhausted with "
+                    f"{len(sched.waiting)} waiting, "
+                    f"{len(sched.prefilling)} prefilling, "
+                    f"{len(sched.live_slots())} active requests still "
                     "in flight")
         return self.finished[start:]
 
+    def class_stats(self, priority: str) -> dict:
+        """Per-class p50 / p99 ITL and TTFT (ms) over the sample rings,
+        and the class's terminal request count."""
+        done = sum(1 for r in self.finished if r.priority == priority)
+        return latency_summary(self.class_itl[priority],
+                               self.class_ttft[priority], requests=done)
+
     def throughput(self) -> dict:
         """Aggregate serving stats over the stats window (host clock,
-        device synchronised by the sampler's host copy)."""
+        device synchronised by the sampler's host copy).  The reference's
+        key set, the same whether or not a step was recorded (the
+        ``shed_*`` / ``degradation_*`` group iff the engine has a load
+        shedder), plus ``decode_step_ms_mean`` and ``latency``."""
         stats = list(self.stats)
         status_counts: dict[str, int] = {}
         for r in self.finished:
-            status_counts[r.status] = status_counts.get(r.status, 0) + 1
+            key = r.status or "finished"
+            status_counts[key] = status_counts.get(key, 0) + 1
         ttfts = [r.ttft for r in self.finished if r.ttft is not None]
         itls = [b - a for r in self.finished
                 for a, b in zip(r.token_times, r.token_times[1:])]
@@ -456,10 +689,19 @@ class ServeEngine:
                "preemptions": self.scheduler.preemptions,
                "admit_failures": self.scheduler.admit_failures,
                "quarantined": self.quarantined,
+               "deadline_expired": self.deadline_expired,
                "status_counts": status_counts,
+               "slow_steps": len(self.stragglers.events),
+               "step_ewma_s": self.stragglers.ewma,
                "ttft_mean_s": (sum(ttfts) / len(ttfts)) if ttfts else 0.0,
+               "per_class": {p: self.class_stats(p) for p in PRIORITIES},
                "latency": latency_summary(itls, ttfts,
                                           requests=len(self.finished))}
+        if self.shedder is not None:
+            out["shed_steps"] = sum(s["shed"] for s in stats)
+            out["degradation_engaged"] = self.shedder.engaged
+            out["degradation_engages"] = self.shedder.engage_count
+            out["degradation_recoveries"] = self.shedder.recover_count
         if stats:
             dec = sum(s["tokens"] for s in stats)
             first = sum(s["first_tokens"] for s in stats)

@@ -20,7 +20,11 @@ chunked-prefill staging cache into an int8 pool on the way.  Both take
 the same ``allocate(..., tokens=)`` / ``can_admit(..., tokens=)`` /
 ``grow(..., token=)`` / ``release(..., publish=)`` surface; the slot pool
 ignores the prompt tokens and the publishing, which only the paged
-pool's prefix registry needs.
+pool's prefix registry needs.  Both carry the fault points of
+:mod:`repro_torch.serve.faults` (``pool_alloc``, the paged
+``radix_match``, ``block_scale`` on int8 pools) and an invariant oracle,
+``check_integrity()``, that the engine runs after every step under
+``debug=True``.
 """
 from __future__ import annotations
 
@@ -32,15 +36,27 @@ import torch
 from repro_torch.layers.cache import SEQ_AXIS, PagedGeometry
 from repro_torch.quant.kv import kv_scales, quantize_kv, quantize_kv_tree
 from repro_torch.serve import paging
+from repro_torch.serve.faults import NULL_INJECTOR
 from repro_torch.serve.paging import PoolExhausted
 
 PyTree = Any
 
 
 class IntegrityError(AssertionError):
-    """A pool invariant does not hold (refcounts vs block tables, the
-    free / cold / referenced partition, byte accounting); raised by
-    :meth:`PagedKVPoolManager.check_integrity`."""
+    """A pool invariant does not hold (slot state, tickets, refcounts vs
+    block tables, the free / cold / referenced partition, byte
+    accounting); raised by ``check_integrity()``."""
+
+
+def _corrupt_scale(cache: PyTree, index: int) -> None:
+    """The ``block_scale`` fault: set row ``index`` (a slot of the slot
+    pool, a physical block of the paged one) of the first ``*_scale``
+    leaf by name to ``+inf`` on every layer, as the reference's
+    ``_corrupt_scale_leaf`` does in its sorted tree order.  The
+    dequantized KV goes non-finite and the stream's next logits trip the
+    watchdog."""
+    name = min(n for n in cache["blocks"] if n.endswith("_scale"))
+    cache["blocks"][name][:, index] = float("inf")
 
 
 class KVPoolManager:
@@ -52,7 +68,10 @@ class KVPoolManager:
         self.model = model
         self.slots = slots
         self.max_seq = max_seq
+        self.kv_quantize = kv_quantize
         self.byte_budget = byte_budget
+        #: fault source (inert unless the engine threads its injector in)
+        self.faults = NULL_INJECTOR
         self.cache = model.init_cache(slots, max_seq, kv_quantize)
         self.positions = np.zeros((slots,), np.int32)   # next write pos
         self.lengths = np.zeros((slots,), np.int64)     # logical KV tokens
@@ -83,6 +102,8 @@ class KVPoolManager:
         del tokens
         if self.tickets[slot] >= 0:
             raise ValueError(f"slot {slot} is occupied")
+        if self.faults.fire("pool_alloc"):
+            raise PoolExhausted("injected: pool_alloc (slot pool)")
         self.tickets[slot] = self._next_ticket
         self._next_ticket += 1
         self.lengths[slot] = length
@@ -105,10 +126,59 @@ class KVPoolManager:
         self.lengths[slot] = 0
         self.positions[slot] = 0
 
+    # -- invariants ---------------------------------------------------------
+
+    def check_integrity(self) -> bool:
+        """Cross-check the slot pool's invariants (raises
+        :class:`IntegrityError`, else returns True): free slots hold no
+        state, occupied ones a position and length in ``[0, max_seq]``,
+        tickets are unique, ``used_bytes`` equals the occupied slots'
+        recomputation."""
+        errs: list[str] = []
+        occ = self.occupied_slots()
+        for s in range(self.slots):
+            if self.tickets[s] < 0:
+                if self.lengths[s] or self.positions[s]:
+                    errs.append(
+                        f"free slot {s} holds state "
+                        f"(len={self.lengths[s]}, pos={self.positions[s]})")
+                continue
+            for what, v in (("position", self.positions[s]),
+                            ("length", self.lengths[s])):
+                if not 0 <= v <= self.max_seq:
+                    errs.append(f"slot {s} {what} {v} out of "
+                                f"[0, {self.max_seq}]")
+        tickets = [int(self.tickets[s]) for s in occ]
+        if len(set(tickets)) != len(tickets):
+            errs.append(f"duplicate admission tickets: {tickets}")
+        recomputed = int(sum(int(self.lengths[s]) for s in occ)
+                         * self.bytes_per_token)
+        if recomputed != self.used_bytes():
+            errs.append(f"used_bytes {self.used_bytes()} != occupied-slot "
+                        f"recomputation {recomputed}")
+        if errs:
+            raise IntegrityError("; ".join(errs))
+        return True
+
     # -- byte budget --------------------------------------------------------
 
     def used_bytes(self) -> int:
         return int(self.lengths.sum() * self.bytes_per_token)
+
+    def capacity_bytes(self) -> int:
+        """Bytes the pool can hold: the byte budget when one is set, else
+        every slot full (the router's pressure denominator)."""
+        physical = self.slots * self.max_seq * self.bytes_per_token
+        if self.byte_budget is not None:
+            return min(self.byte_budget, physical) if physical else \
+                self.byte_budget
+        return physical
+
+    def prefix_affinity(self, tokens: list[int] | None) -> int:
+        """Leading prompt tokens whose KV this pool holds: always 0 (the
+        slot layout shares nothing; the router's routing signal)."""
+        del tokens
+        return 0
 
     def can_admit(self, prompt_len: int,
                   tokens: list[int] | None = None) -> bool:
@@ -155,6 +225,8 @@ class KVPoolManager:
             pool_leaf[:, slot] = one
         self.positions[slot] = length
         self.lengths[slot] = length
+        if self.kv_quantize and self.faults.fire("block_scale"):
+            _corrupt_scale(self.cache, slot)
 
 
 class PagedKVPoolManager:
@@ -186,8 +258,6 @@ class PagedKVPoolManager:
       its references: registered blocks go cold, the rest free.
 
     ``used_bytes`` counts referenced blocks: a shared prefix counts once.
-    The reference's fault points (``pool_alloc``, ``block_scale``) come
-    with ROADMAP item A12.
     """
 
     def __init__(self, model, slots: int, max_seq: int, *,
@@ -221,6 +291,7 @@ class PagedKVPoolManager:
         self.lengths = np.zeros((slots,), np.int64)     # logical KV tokens
         self.tickets = np.full((slots,), -1, np.int64)  # admission age
         self._next_ticket = 0
+        self.faults = NULL_INJECTOR
         self.blocks = paging.BlockPool(num_blocks, block_size)
         self.tables: list[list[int]] = [[] for _ in range(slots)]
         self.tokens: list[list[int]] = [[] for _ in range(slots)]
@@ -256,9 +327,13 @@ class PagedKVPoolManager:
         row would route it into a shared block."""
         if self.tickets[slot] >= 0:
             raise ValueError(f"slot {slot} is occupied")
+        if self.faults.fire("pool_alloc"):
+            raise PoolExhausted("injected: pool_alloc (paged admission)")
         toks = [int(t) for t in tokens] if tokens is not None else []
+        # an injected radix_match miss admits with no prefix reuse
+        blind = bool(toks) and self.faults.fire("radix_match")
         matched = (self.blocks.match_retain(toks, max_tokens=length - 1)
-                   if toks else [])
+                   if toks and not blind else [])
         table = list(matched)
         need = min(length // self.block_size + 1, self.blocks_per_slot)
         try:
@@ -289,6 +364,9 @@ class PagedKVPoolManager:
                    self.blocks_per_slot)
         fresh: list[int] = []
         try:
+            if (len(self.tables[slot]) < need
+                    and self.faults.fire("pool_alloc")):
+                raise PoolExhausted("injected: pool_alloc (decode grow)")
             while len(self.tables[slot]) + len(fresh) < need:
                 fresh.append(self.blocks.alloc())
         except PoolExhausted:
@@ -392,6 +470,25 @@ class PagedKVPoolManager:
         """Bytes of referenced blocks; a shared prefix counts once."""
         return int(self.blocks.used_blocks() * self.bytes_per_block)
 
+    def capacity_bytes(self) -> int:
+        """Bytes the pool can hold: the byte budget when one is set, else
+        the whole physical block pool."""
+        physical = self.num_blocks * self.bytes_per_block
+        if self.byte_budget is not None:
+            return min(self.byte_budget, physical) if physical else \
+                self.byte_budget
+        return physical
+
+    def prefix_affinity(self, tokens: list[int] | None) -> int:
+        """Leading prompt tokens whose KV this pool holds: the radix peek
+        (no references taken), in tokens; the router lands shared-prompt
+        traffic where its blocks are."""
+        if not tokens:
+            return 0
+        matched = self.blocks.match_peek([int(t) for t in tokens],
+                                         max_tokens=len(tokens) - 1)
+        return len(matched) * self.block_size
+
     def can_admit(self, prompt_len: int,
                   tokens: list[int] | None = None) -> bool:
         """Admission in blocks: the fresh blocks the prompt needs (radix
@@ -463,8 +560,11 @@ class PagedKVPoolManager:
         row[:len(table)] = table
         return torch.as_tensor(row, device=self.model.device)
 
+    @torch.inference_mode()
     def _push_table(self, slot: int) -> None:
-        """Write ``slot``'s block-table row on every layer."""
+        """Write ``slot``'s block-table row on every layer (the pool's
+        tensors are inference tensors: a release outside a step, as
+        ``cancel`` or a router's evacuation, writes here too)."""
         self.cache["blocks"]["block_tables"][:, slot] = self._ids_row(
             self.tables[slot]).to(torch.int32)
 
@@ -529,6 +629,11 @@ class PagedKVPoolManager:
         self.positions[slot] = length
         self.lengths[slot] = length
         self._push_table(slot)
+        if self.kv_quantize and table and self.faults.fire("block_scale"):
+            # the first block this stream owns (not a radix share): the
+            # watchdog quarantines this stream, not its prefix twins
+            _corrupt_scale(self.cache,
+                           table[min(self._shared[slot], len(table) - 1)])
 
     # -- stats ----------------------------------------------------------------
 

@@ -20,45 +20,33 @@ once at insert, so chunked greedy streams equal whole-prefill ones.
 int8 x int8; decode keeps full-width activations.
 
 Every step runs under ``torch.inference_mode()``.  :meth:`sample` is the
-batched sampler with the numerical watchdog fused in (the reference's
-``guard.sample_and_flag``).
+batched sampler with the numerical watchdog beside it
+(:func:`repro_torch.serve.guard.sample_and_flag`); tokens and flags come
+to the host in one transfer.  The runner carries the ``nan_logits`` and
+``slow_step`` fault points (:mod:`repro_torch.serve.faults`), applied
+after the model's call.
 """
 from __future__ import annotations
 
+import time
 from typing import Any
 
 import numpy as np
 import torch
+
+from repro_torch.serve.faults import NULL_INJECTOR
+from repro_torch.serve.guard import sample_and_flag
 
 PyTree = Any
 
 SEG_KINDS = ("decode", "prefill_chunk", "prefill")
 
 
-def sample_and_flag(logits: torch.Tensor, temps: torch.Tensor,
-                    generator: torch.Generator
-                    ) -> tuple[torch.Tensor, torch.Tensor]:
-    """``logits (rows, V)``, ``temps (rows,)`` -> ``(tokens (rows,),
-    bad (rows,) bool)``.  Greedy rows (``temps == 0``) take the argmax
-    (first maximum on ties); temperature rows draw by the Gumbel-max
-    trick from ``generator``.  A row with any non-finite logit is flagged
-    and sampled from zeroed logits."""
-    bad = ~torch.isfinite(logits).all(dim=-1)
-    clean = torch.where(bad[:, None], torch.zeros_like(logits), logits)
-    greedy = torch.argmax(clean, dim=-1)
-    safe = torch.where(temps > 0, temps, torch.ones_like(temps))
-    u = torch.rand(clean.shape, generator=generator, device=clean.device,
-                   dtype=torch.float32)
-    tiny = torch.finfo(torch.float32).tiny
-    gumbel = -torch.log(-torch.log(u.clamp(min=tiny)))
-    sampled = torch.argmax(clean / safe[:, None] + gumbel, dim=-1)
-    return torch.where(temps > 0, sampled, greedy), bad
-
-
 class ModelRunner:
     def __init__(self, model, params: PyTree, *, max_seq: int,
                  kv_quantize: str | None = None,
-                 act_quantize: str | None = None, paged=None):
+                 act_quantize: str | None = None, paged=None,
+                 faults=None):
         self.model = model
         self.params = params
         self.max_seq = max_seq
@@ -72,6 +60,8 @@ class ModelRunner:
         #: M = batch rows stay at full width, as in the reference
         #: (``repro/serve/runner.py:74-79``)
         self.prefill_act_quantize = act_quantize == "int8"
+        #: fault source of the ``nan_logits`` / ``slow_step`` points
+        self.faults = faults if faults is not None else NULL_INJECTOR
 
     def new_stream_cache(self, kv_quantize: str | None = None) -> PyTree:
         """A fresh batch=1 cache for one stream (full precision unless
@@ -85,28 +75,56 @@ class ModelRunner:
              ) -> tuple[torch.Tensor, PyTree]:
         """Run one segment.  Returns ``(logits, cache)``."""
         m, p = self.model, self.params
-        if seg_kind == "decode":
-            return m.decode_step(p, tokens, positions, cache,
-                                 cache_plan=self.pool_plan)
         aq = self.prefill_act_quantize
-        if seg_kind == "prefill_chunk":
-            return m.prefill_chunk(p, {"tokens": tokens}, cache,
-                                   start_pos=start_pos,
-                                   prompt_len=prompt_len,
-                                   cache_plan=self.stream_plan,
-                                   act_quantize=aq)
-        if seg_kind == "prefill":
-            return m.prefill(p, {"tokens": tokens}, cache,
-                             last_pos=last_pos, cache_plan=self.pool_plan,
-                             act_quantize=aq)
-        raise ValueError(
-            f"unknown seg_kind {seg_kind!r} (want one of {SEG_KINDS})")
+        if seg_kind == "decode":
+            out = m.decode_step(p, tokens, positions, cache,
+                                cache_plan=self.pool_plan)
+        elif seg_kind == "prefill_chunk":
+            out = m.prefill_chunk(p, {"tokens": tokens}, cache,
+                                  start_pos=start_pos, prompt_len=prompt_len,
+                                  cache_plan=self.stream_plan,
+                                  act_quantize=aq)
+        elif seg_kind == "prefill":
+            out = m.prefill(p, {"tokens": tokens}, cache, last_pos=last_pos,
+                            cache_plan=self.pool_plan, act_quantize=aq)
+        else:
+            raise ValueError(
+                f"unknown seg_kind {seg_kind!r} (want one of {SEG_KINDS})")
+        if self.faults.active:
+            out = self._inject(out, seg_kind)
+        return out
+
+    def _inject(self, out: tuple[torch.Tensor, PyTree],
+                seg_kind: str) -> tuple[torch.Tensor, PyTree]:
+        """The post-call fault points: ``slow_step`` sleeps on the host
+        (the card runs on meanwhile; the step's host time, which ends in
+        a sync, grows); ``nan_logits`` poisons the logits the model just
+        produced, one slot row on decode or the whole segment on prefill.
+        A ``seg`` param limits which segment kinds are consulted, so
+        schedule indices count matching calls only."""
+        if self.faults.fire("slow_step"):
+            time.sleep(float(self.faults.param("slow_step", "seconds",
+                                               0.05)))
+        seg = self.faults.param("nan_logits", "seg", None)
+        if seg is not None and seg_kind != seg:
+            return out
+        if self.faults.fire("nan_logits"):
+            logits, cache = out
+            logits = logits.clone()
+            if seg_kind == "decode":
+                logits[int(self.faults.param("nan_logits", "slot", 0))] = \
+                    float("nan")
+            else:
+                logits.fill_(float("nan"))
+            out = (logits, cache)
+        return out
 
     @torch.inference_mode()
     def sample(self, logits: torch.Tensor, temps: np.ndarray,
                generator: torch.Generator) -> tuple[np.ndarray, np.ndarray]:
         """Batched greedy/temperature sampling with the watchdog;
-        host-side ``(tokens, bad)`` arrays."""
+        host-side ``(tokens, bad)`` arrays, brought over in one copy."""
         t = torch.as_tensor(temps, dtype=torch.float32, device=logits.device)
         toks, bad = sample_and_flag(logits.to(torch.float32), t, generator)
-        return toks.cpu().numpy(), bad.cpu().numpy()
+        host = torch.stack((toks, bad.to(toks.dtype))).cpu().numpy()
+        return host[0], host[1].astype(bool)

@@ -1592,3 +1592,101 @@ def test_measured_timer_on_cuda(cuda, dtype, cold):
     y = x.clone()
     cm._seconds(lambda: x @ x.T, torch.device("cuda"), 3, x, cold)
     assert torch.equal(x, y)
+
+
+def _smoke_branched(dev):
+    """The f32 smoke llama, decomposed (SVD pairs and branched linears),
+    on ``dev``."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import LRDConfig, RunConfig
+    from repro_torch.core.surgery import decompose_model
+    from repro_torch.models.api import get_model
+    cfg = dataclasses.replace(registry.get("llama3.2-1b").smoke,
+                              dtype="float32")
+    params, axes = get_model(cfg, dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    lrd = LRDConfig(enabled=True, rank_mode="aligned", rank_align=8,
+                    min_dim=32, branches=2)
+    with torch.no_grad():
+        params, _, _ = decompose_model(params, axes, lrd)
+    return RunConfig(model=cfg, lrd=lrd), params
+
+
+def test_kernel_gate_raises_before_any_launch(cuda):
+    """A fired kernel_gate on CUDA tensors raises KernelRejected with
+    nothing launched and no plain version run; the engine's step raises
+    it with every earlier dispatch launched and the gated one not."""
+    from repro_torch.kernels import lowrank_matmul as lk
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.faults import FaultInjector
+    plain = []
+    orig = ref.lowrank_matmul_ref
+    ref.lowrank_matmul_ref = lambda *a: plain.append(1) or orig(*a)
+    try:
+        x = _rnd(cuda, 8, 256, dtype=torch.bfloat16)
+        w0 = _rnd(cuda, 256, 64, scale=1 / 16, dtype=torch.bfloat16)
+        w1 = _rnd(cuda, 64, 128, scale=1 / 8, dtype=torch.bfloat16)
+        n0 = lk.launches
+        with ops.fault_gate(FaultInjector(rates={"kernel_gate": 1.0})):
+            with pytest.raises(ops.KernelRejected):
+                ops.lowrank_matmul(x, w0, w1)
+        torch.cuda.synchronize()
+        assert lk.launches == n0 and not plain
+        ops.lowrank_matmul(x, w0, w1)
+        assert lk.launches == n0 + 1 and not plain
+    finally:
+        ref.lowrank_matmul_ref = orig
+    run, params = _smoke_branched("cuda")
+    inj = FaultInjector(schedule={"kernel_gate": [5]})
+    eng = ServeEngine(run, params, slots=2, max_seq=64, prefill_chunk=8,
+                      faults=inj)
+    eng.add_request(Request(uid=0, prompt=list(range(3, 20)),
+                            max_new_tokens=4))
+    before = {k: chip_smoke.launch_count(k) for k in chip_smoke.KERNELS}
+    with pytest.raises(ops.KernelRejected):
+        eng.step()
+    torch.cuda.synchronize()
+    after = {k: chip_smoke.launch_count(k) for k in chip_smoke.KERNELS}
+    assert sum(after[k] - before[k] for k in after) == 4
+    assert ops.set_fault_injector(None) is None
+
+
+def test_two_replica_router_on_one_card_equals_one_engine(cuda):
+    """Two replicas on cuda:0 share the param tensors, hold a pool each
+    on the card, and give one engine's greedy streams; the failover of
+    replica 0 moves its work to replica 1."""
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.router import ServeRouter
+    run, params = _smoke_branched("cuda")
+    prompts = [list(range(1 + i, 12 + 3 * i)) for i in range(6)]
+
+    def reqs():
+        return [Request(uid=i, prompt=p, max_new_tokens=6,
+                        priority=("interactive", "batch")[i % 2])
+                for i, p in enumerate(prompts)]
+    kw = dict(slots=2, max_seq=64, prefill_chunk=8, kv_layout="paged",
+              kv_block_size=16)
+    eng = ServeEngine(run, params, **kw)
+    one = reqs()
+    for r in one:
+        eng.add_request(r)
+    eng.run_until_done()
+    rt = ServeRouter(run, params, replicas=2, devices=["cuda", "cuda"],
+                     slo_itl_ms=200.0, **kw)
+    a, b = (rep.engine for rep in rt.replicas)
+    leaf_a, leaf_b = (e.params["blocks"]["attn"]["k"]["w0"] for e in (a, b))
+    assert leaf_a.data_ptr() == leaf_b.data_ptr() and leaf_a.is_cuda
+    assert a.pool.cache["blocks"]["k"].is_cuda
+    assert a.pool.cache["blocks"]["k"].data_ptr() != \
+        b.pool.cache["blocks"]["k"].data_ptr()
+    two = reqs()
+    for r in two:
+        rt.add_request(r)
+    rt.step()
+    a.step = lambda: (_ for _ in ()).throw(RuntimeError("device lost"))
+    rt.run_until_done()
+    assert rt.replicas[0].guard.tripped == "step_failures"
+    assert [r.status for r in two] == ["finished"] * len(two)
+    assert [r.output for r in two] == [r.output for r in one]

@@ -52,7 +52,9 @@ def test_port_has_the_slice_modules():
               "repro_torch.train.loop", "repro_torch.analysis",
               "repro_torch.analysis.hw_specs",
               "repro_torch.core.rank_selection",
-              "repro_torch.core.merging", "repro_torch.core.svd"):
+              "repro_torch.core.merging", "repro_torch.core.svd",
+              "repro_torch.serve.faults", "repro_torch.serve.guard",
+              "repro_torch.serve.router"):
         assert m in mods, m
 
 

@@ -14,7 +14,7 @@ from repro.serve.engine import Request as JRequest
 from repro.serve.engine import ServeEngine as JEngine
 from repro_torch.configs.base import RunConfig
 from repro_torch.serve.engine import Request, ServeEngine
-from repro_torch.serve.runner import sample_and_flag
+from repro_torch.serve.guard import sample_and_flag
 from repro_torch.serve.scheduler import Scheduler
 
 N_NEW = 6

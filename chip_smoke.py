@@ -213,6 +213,48 @@ and, in the kernels phase, bf16 B1 rows at the searched SVD pairs (2048,
 of the kernels line carry ``search_path``, one decode step of the
 searched tree.
 
+The other configs add, in PHASES' order after check_mla_sq (each tree
+built on the card at its published widths, cut in depth only, random
+bf16 weights from the seed, decomposed there with ``LRD`` at
+branches=4, its surgery decisions held to ``CONFIG_SURGERY`` and printed,
+freed after its two phases; 8 requests of 32-512 prompt and 32 new tokens
+at slots=8, max_seq=1024; each phase's peak memory printed):
+
+- serve_granite / check_granite — granite-8b, 4 of 36 layers (head dim
+             128, GQA group 4), paged bf16 pool: every decode step 8 B1 +
+             21 B2 + 4 B8, every prefill chunk 8 + 21.
+- serve_nemo / check_nemo — mistral-nemo-12b, 4 of 40 (q 4,096 wide at
+             d_model 5,120), int8 slot pool: 8 B1 + 21 B2 + 4 B5.
+- serve_minitron / check_minitron — minitron-4b, 4 of 32 (group 3, the
+             gelu MLP without a gate), paged int8 pool: 8 B1 + 17 B2 +
+             4 B9.
+- serve_moe / check_moe — moonshot-v1-16b-a3b, 4 of 48 (64 routed
+             experts top 6, 2 shared; group 1), int8 slot pool, blocking
+             admission: every decode step and prefill 29 B2 (+ 4 B5 a
+             decode step); the routed experts run plain batched products.
+- serve_mla_moe / check_mla_moe — deepseek-v2-236b with its experts, 2
+             of 60 (the dense first layer and one MoE layer of 160
+             experts), ``mla_latent_int8`` pool, blocking: 9 B2 (+ 2 B10
+             a decode step).
+
+The dense checks are check_paged's (a prefill chunk and 16 greedy decode
+steps through the phase's pool, bf16 on the card against f32 on the
+CPU, launches exact, ``CHECK_TOL``). The MoE checks run the blocking
+prefill and 16 decode steps five ways, all fed one run's greedy tokens:
+over the full-width slot pool the tree in f32 on the card must route
+every (token, k) to the experts the CPU's f32 run picks (the dispatch's
+top-k recorded through a wrapper), bar near ties (the CPU's gates of the
+swapped experts within ``ROUTER_TIE``, relative), and stay within
+``CHECK_TOL_F32`` of its logits; over the phase's int8 pool the bf16
+and f32 card runs' distance, greedy agreement and share of equal
+choices against the CPU's f32 run over that pool are printed, not gated
+(two f32 runs round a K / V value on an int8 boundary apart, which
+moves logits by ~1e-3 std and can tip a near-tied router score).  The
+kernels phase adds B5 at (G, D) = (4, 128) and (1, 128), B8 at (4, 128),
+B9 at (3, 128) (``WIDE_ATTN_CASES``, ``WIDE_PAGED_CASES``), and bf16 B1
+/ B2 rows at M = 8 at these trees' ranks and widths
+(``WIDE_LOWRANK_SHAPES``, ``WIDE_BRANCHED_SHAPES``).
+
 Only on request (``--phases ...,profile``): torch.profiler over steady
 decode steps of the branches=4 model, plain, int8 and 2:4-packed int8 —
 device time by operator and the device's idle share; ``profile_qa`` the
@@ -243,15 +285,21 @@ PHASES = ("device", "build", "kernels", "search", "serve", "check",
           "serve_paged", "check_paged", "serve_faults", "serve_router",
           "serve_qa", "check_qa", "serve_sq",
           "check_sq", "serve_mla", "check_mla", "serve_mla_q", "check_mla_q",
-          "serve_mla_sq", "check_mla_sq", "train", "check_train")
+          "serve_mla_sq", "check_mla_sq", "serve_granite", "check_granite",
+          "serve_nemo", "check_nemo", "serve_minitron", "check_minitron",
+          "serve_moe", "check_moe", "serve_mla_moe", "check_mla_moe",
+          "train", "check_train")
 #: the phases that search, serve or check the llama3.2-1b trees, the MLA
-#: ones and the training ones
+#: ones, the other configs' (CONFIG_RUNS) and the training ones
 LLAMA_PHASES = ("search", "serve", "check", "serve_search", "check_search",
                 "serve_q", "check_q", "serve_paged", "check_paged",
                 "serve_faults", "serve_router", "serve_qa", "check_qa", "serve_sq", "check_sq", "profile",
                 "profile_qa")
 MLA_PHASES = ("serve_mla", "check_mla", "serve_mla_q", "check_mla_q",
               "serve_mla_sq", "check_mla_sq", "profile_mla")
+CONFIG_PHASES = ("serve_granite", "check_granite", "serve_nemo",
+                 "check_nemo", "serve_minitron", "check_minitron",
+                 "serve_moe", "check_moe", "serve_mla_moe", "check_mla_moe")
 TRAIN_PHASES = ("train", "check_train")
 #: phases run only when asked for with --phases
 EXTRA_PHASES = ("profile", "profile_qa", "profile_mla")
@@ -411,6 +459,48 @@ PAGED_CASES = {"served": dict(b=8, kh=8, g=4, d=64, bs=16, nblk=64, nb=512,
                               idle=1, softcap=0.0),
                "softcap 30": dict(b=8, kh=8, g=4, d=64, bs=16, nblk=64,
                                   nb=512, idle=1, softcap=30.0)}
+#: the decode attentions at the head shapes of the other configs: B5 on
+#: the int8 slot pool at mistral-nemo's (8 KV heads of 128, G 4) and
+#: moonshot's (16 KV heads of 128, G 1), served 8 slots of 1,024
+WIDE_ATTN_CASES = {"nemo G4 D128": dict(b=8, s=1024, kh=8, g=4, d=128,
+                                        idle=0, softcap=0.0),
+                   "moonshot G1 D128": dict(b=8, s=1024, kh=16, g=1, d=128,
+                                            idle=0, softcap=0.0)}
+#: B8 on granite's bf16 / f32 paged pool (8 KV heads of 128, G 4) and B9
+#: on minitron's int8 one (8 KV heads of 128, G 3), as PAGED_CASES'
+#: served pool otherwise; ``quant`` picks the pool
+WIDE_PAGED_CASES = {"granite G4 D128": dict(b=8, kh=8, g=4, d=128, bs=16,
+                                            nblk=64, nb=512, idle=1,
+                                            softcap=0.0, quant=False),
+                    "minitron G3 D128": dict(b=8, kh=8, g=3, d=128, bs=16,
+                                             nblk=64, nb=512, idle=1,
+                                             softcap=0.0, quant=True)}
+#: the SVD pairs (C, R, S) and branched linears (N, C, r, S) of the other
+#: configs under LRD at branches=4 (CONFIG_SURGERY), timed at a decode
+#: step's M = 8 in bf16: the k/v pairs at rank 384, per-branch ranks 128
+#: to 608, output widths up to minitron's 256,000-wide unembed
+WIDE_LOWRANK_SHAPES = {"granite k,v": (4096, 384, 1024),
+                       "nemo k,v": (5120, 384, 1024),
+                       "minitron k,v": (3072, 384, 1024)}
+WIDE_BRANCHED_SHAPES = {
+    "granite q,o": (4, 4096, 256, 4096),
+    "granite gate,up": (4, 4096, 384, 14336),
+    "granite down": (4, 14336, 384, 4096),
+    "granite unembed": (4, 4096, 448, 49152),
+    "nemo q": (4, 5120, 256, 4096), "nemo o": (4, 4096, 256, 5120),
+    "nemo gate,up": (4, 5120, 448, 14336),
+    "nemo down": (4, 14336, 448, 5120),
+    "nemo unembed": (4, 5120, 608, 131072),
+    "minitron q,o": (4, 3072, 192, 3072),
+    "minitron up": (4, 3072, 288, 9216),
+    "minitron down": (4, 9216, 288, 3072),
+    "minitron unembed": (4, 3072, 352, 256000),
+    "moonshot q,k,v,o": (4, 2048, 128, 2048),
+    "moonshot shared gate,up": (4, 2048, 128, 2816),
+    "moonshot shared down": (4, 2816, 128, 2048),
+    "moonshot unembed": (4, 2048, 224, 163840),
+    "ds shared gate,up": (4, 5120, 224, 3072),
+    "ds shared down": (4, 3072, 224, 5120)}
 #: launches of each activation-quantized chain per prefill chunk (M = 64)
 #: of the branches=4 model
 PREFILL_LAUNCHES = {"lowrank_matmul_qa": {"k,v": 32},
@@ -486,6 +576,77 @@ RUN_OF = {"lowrank_matmul": "branches4", "branched_matmul": "branches4",
 #: (16 blocks) that four of the eight requests begin with
 PAGED_BLOCK = 16
 SHARED_PREFIX = 256
+
+#: the other configs' serve / check phases (``serve_<key>``,
+#: ``check_<key>``): the registered config at its published widths, cut
+#: to ``depth`` layers (DeepSeek-V2's 2: its dense first layer and one
+#: MoE layer), random bf16 weights from the seed, decomposed on the card
+#: with ``LRD`` at branches=4; the engine's pool (``engine``) and the
+#: attention kernel its decode steps launch in every layer (``attn``);
+#: ``shared``: prompts on one prefix (a paged pool's radix hits).  The
+#: MoE family admits blocking (whole-prompt prefill segments).
+CONFIG_RUNS = {
+    "granite": dict(arch="granite-8b", depth=4, attn="decode_attention_paged",
+                    engine=dict(kv_layout="paged", kv_block_size=PAGED_BLOCK),
+                    shared=4),
+    "nemo": dict(arch="mistral-nemo-12b", depth=4,
+                 attn="decode_attention_q", engine=dict(kv_quantize="int8")),
+    "minitron": dict(arch="minitron-4b", depth=4,
+                     attn="decode_attention_paged_q",
+                     engine=dict(kv_quantize="int8", kv_layout="paged",
+                                 kv_block_size=PAGED_BLOCK), shared=4),
+    "moe": dict(arch="moonshot-v1-16b-a3b", depth=4,
+                attn="decode_attention_q", engine=dict(kv_quantize="int8")),
+    "mla_moe": dict(arch="deepseek-v2-236b", depth=2,
+                    attn="decode_attention_latent_q",
+                    engine=dict(kv_quantize="int8")),
+}
+#: the surgery decisions each of those trees must get under ``LRD`` at
+#: branches=4 (path -> (kind, rank; a branched linear's per branch)); every
+#: other linear skips.  The routed expert banks (``moe_*``) decompose
+#: batched over layers and experts and run plain batched products.
+_DENSE_SURGERY = {"blocks/attn/q": "branched", "blocks/attn/k": "svd",
+                  "blocks/attn/v": "svd", "blocks/attn/o": "branched",
+                  "blocks/mlp/up": "branched", "blocks/mlp/gate": "branched",
+                  "blocks/mlp/down": "branched", "unembed": "branched"}
+CONFIG_SURGERY = {
+    "granite": {k: (kind, r) for (k, kind), r in zip(
+        _DENSE_SURGERY.items(), (256, 384, 384, 256, 384, 384, 384, 448))},
+    "nemo": {k: (kind, r) for (k, kind), r in zip(
+        _DENSE_SURGERY.items(), (256, 384, 384, 256, 448, 448, 448, 608))},
+    "minitron": {k: (kind, r) for (k, kind), r in zip(
+        [kv for kv in _DENSE_SURGERY.items() if kv[0] != "blocks/mlp/gate"],
+        (192, 384, 384, 192, 288, 288, 352))},
+    "moe": {**{f"blocks/attn/{p}": ("branched", 128) for p in "qkvo"},
+            **{f"blocks/moe/experts/{p}": ("svd", 384)
+               for p in ("up", "gate", "down")},
+            **{f"blocks/moe/shared/{p}": ("branched", 128)
+               for p in ("up", "gate", "down")},
+            "unembed": ("branched", 224)},
+    "mla_moe": {"first/mla/o": ("branched", 480),
+                **{f"first/mlp/{p}": ("branched", 448)
+                   for p in ("up", "gate", "down")},
+                "blocks/mla/o": ("branched", 480),
+                **{f"blocks/moe/experts/{p}": ("branched", 128)
+                   for p in ("up", "gate", "down")},
+                **{f"blocks/moe/shared/{p}": ("branched", 224)
+                   for p in ("up", "gate", "down")},
+                "unembed": ("branched", 608)},
+}
+#: chain-kernel launches per model segment that those decisions imply
+#: (B1, B2): one per layer of every SVD pair and branched linear outside
+#: the routed experts
+CONFIG_CHAINS = {"granite": (8, 21), "nemo": (8, 21), "minitron": (8, 17),
+                 "moe": (0, 29), "mla_moe": (0, 9)}
+#: the MoE checks' f32 gate: max |card f32 logits - CPU f32 logits| /
+#: std(CPU logits); the f32 chain kernels are held to 1e-4 a product
+CHECK_TOL_F32 = 1e-3
+#: the MoE checks' f32 routing gate: every (token, k) choice of the card's
+#: f32 run must be the CPU's, except where the CPU's gates of the two
+#: experts the runs swap at the top-k boundary lie within this of each
+#: other (relative): two f32 runs that sum the router's inputs in another
+#: order tip such a near tie either way
+ROUTER_TIE = 1e-5
 
 
 def log(msg: str) -> None:
@@ -709,12 +870,27 @@ def check_kernels(card: str, only: frozenset = frozenset(KERNELS)
             for quant in (False, True):
                 add("decode_attention_paged" + ("_q" if quant else ""),
                     lambda: _check_paged(label, case, dname, quant, g, flush))
+        for label, case in WIDE_ATTN_CASES.items():
+            add("decode_attention_q",
+                lambda: _check_attention(label, case, dname, rnd, flush))
+        for label, case in WIDE_PAGED_CASES.items():
+            quant = case["quant"]
+            add("decode_attention_paged" + ("_q" if quant else ""),
+                lambda: _check_paged(label, case, dname, quant, g, flush))
     for label, shape in SEARCH_LOWRANK_SHAPES.items():
         for m in SEARCH_M_CASES:
             add("lowrank_matmul", lambda: _lowrank_row(
                 label, rnd(m, shape[0], dtype=torch.bfloat16), shape,
                 "bfloat16", rnd, flush, plans=False))
     bf = torch.bfloat16
+    for label, shape in WIDE_LOWRANK_SHAPES.items():
+        add("lowrank_matmul", lambda: _lowrank_row(
+            label, rnd(8, shape[0], dtype=bf), shape, "bfloat16", rnd, flush,
+            plans=False))
+    for label, shape in (WIDE_BRANCHED_SHAPES.items()
+                         if "branched_matmul" in only else ()):
+        _check_branched(add, label, shape, 8, "bfloat16", rnd, qrnd, (),
+                        spack, flush, only)
     for label in TRAIN_LAUNCHES["lowrank_matmul"]:
         c, r, s = LOWRANK_SHAPES[label]
         add("lowrank_matmul", lambda: _train_row(
@@ -1621,11 +1797,12 @@ def decompose(params, axes, branches: int, **lrd_kw):
 def chain_launches(rep) -> dict[str, int]:
     """Chain-kernel launches per model segment that a surgery report
     implies: one per layer of every stacked SVD pair (B1) and branched
-    linear (B2), one for an unstacked one."""
+    linear (B2), one for an unstacked one; none for a routed expert bank
+    (``moe_*``: plain batched products)."""
     out = {"lowrank_matmul": 0, "branched_matmul": 0}
     kernel = {"svd": "lowrank_matmul", "branched": "branched_matmul"}
     for d in rep.decisions:
-        if d.kind in kernel:
+        if d.kind in kernel and not d.label.startswith("moe_"):
             out[kernel[d.kind]] += d.shape[0] if len(d.shape) == 3 else 1
     return out
 
@@ -2579,12 +2756,13 @@ MLA_SURGERY = {"blocks/mla/o": ("branched", 480),
                "unembed": ("branched", 608)}
 
 
-def check_mla_surgery(rep, params, card: str) -> None:
-    """Print every surgery decision of the MLA stack and hold the branched
-    ones (and their factors' per-branch ranks) to :data:`MLA_SURGERY`."""
+def check_surgery(label: str, rep, params, card: str, want: dict) -> None:
+    """Print every surgery decision of a tree and hold the decomposed
+    ones (and a branched linear's per-branch rank) to ``want`` (path ->
+    (kind, rank)); every other linear must skip."""
     got = {}
     for d in rep.decisions:
-        log(f"surgery mla: {d.path} label={d.label} kind={d.kind} "
+        log(f"surgery {label}: {d.path} label={d.label} kind={d.kind} "
             f"shape={list(d.shape)} rank={d.rank} {d.reason} [{card}]")
         if d.kind != "skip":
             node = params
@@ -2592,8 +2770,8 @@ def check_mla_surgery(rep, params, card: str) -> None:
                 node = node[k]
             got[d.path] = (d.kind, int(node["u"].shape[-1])
                            if "u" in node else d.rank)
-    if got != MLA_SURGERY:
-        raise SystemExit(f"MLA surgery decided {got}, want {MLA_SURGERY}")
+    if got != want:
+        raise SystemExit(f"{label} surgery decided {got}, want {want}")
 
 
 def split_kernels() -> None:
@@ -2930,7 +3108,7 @@ def run_mla(phases: list[str], card: str, seed: int,
     torch.cuda.empty_cache()
     log(f"surgery mla branches=4: {surg_s:.2f} s, "
         f"{json.dumps(rep.summary())} [{card}]")
-    check_mla_surgery(rep, pm, card)
+    check_surgery("mla", rep, pm, card, MLA_SURGERY)
     chain = 4 * cfg.num_layers + 1          # o, gate, up, down; unembed
     run = dict(n_req=8, prompt_lo=32, prompt_hi=512, new_tokens=32,
                card=card, seed=seed)
@@ -2991,6 +3169,280 @@ def run_mla(phases: list[str], card: str, seed: int,
         with Phase("check_mla_sq"):
             cross_check_mla(cfg, psq, card, seed, label="check_mla_sq",
                             chain="branched_matmul_sq", kv_quantize="int8")
+
+
+# ---------------------------------------------------------------------------
+# the other configs: granite, mistral-nemo, minitron, moonshot (MoE),
+# DeepSeek-V2 with its experts
+# ---------------------------------------------------------------------------
+
+def config_model(arch: str, depth: int, seed: int = 0):
+    """The registered config ``arch`` at its published widths, cut to
+    ``depth`` layers; random bf16 weights from ``seed``, on the card."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.models.api import get_model
+    cfg = dataclasses.replace(registry.get(arch).full, num_layers=depth)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    params, axes = get_model(cfg, "cuda").init(g)
+    torch.cuda.synchronize()
+    return cfg, params, axes
+
+
+def check_config_surgery(key: str, rep, params, card: str) -> None:
+    """:func:`check_surgery` of a :data:`CONFIG_RUNS` tree against
+    :data:`CONFIG_SURGERY`, and the chain launches its decisions imply
+    against :data:`CONFIG_CHAINS`."""
+    check_surgery(key, rep, params, card, CONFIG_SURGERY[key])
+    chain = chain_launches(rep)
+    if (chain["lowrank_matmul"], chain["branched_matmul"]) \
+            != CONFIG_CHAINS[key]:
+        raise SystemExit(f"{key} surgery implies {chain} a segment, want "
+                         f"{CONFIG_CHAINS[key]}")
+
+
+def _tree_to(tree, device: str, dtype):
+    import torch
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device, dtype) for k, v in tree.items()}
+    return tree.to(device, dtype)
+
+
+def _routing(got: list, want: list) -> dict:
+    """Routing agreement of two runs' recorded top-k calls (``(idx,
+    gates)`` per call, in call order; ``want`` the reference run): a
+    (token, k) choice is equal where the token's k experts hold the
+    expert (the set decides the routing: each expert gets the token with
+    its gate whatever the rank order).  An unequal choice is a near tie
+    where the reference's gates of the experts the two runs swapped lie
+    within :data:`ROUTER_TIE` of each other.  Also counted: the tokens
+    whose ranked order alone differs; and the first unequal choice, with
+    both runs' gates of the experts involved."""
+    if len(got) != len(want):
+        return {"choices_equal": f"calls {len(got)} != {len(want)}",
+                "choices_equal_share": 0.0, "beyond_near_ties": -1}
+    same = total = reordered = ties = 0
+    first = None
+    for call, ((gi, gg), (wi, wg)) in enumerate(zip(got, want)):
+        gs, ws = gi.sort(-1).values, wi.sort(-1).values
+        eq = (gs[:, :, None] == ws[:, None, :]).any(-1)
+        same += int(eq.sum())
+        total += eq.numel()
+        reordered += int(((gs == ws).all(-1) & (gi != wi).any(-1)).sum())
+        for t in (~eq).any(-1).nonzero()[:, 0].tolist():
+            mine = sorted(set(gi[t].tolist()) - set(wi[t].tolist()))
+            theirs = sorted(set(wi[t].tolist()) - set(gi[t].tolist()))
+            hi = max(float(wg[t, e]) for e in theirs)
+            lo = min(float(wg[t, e]) for e in mine)
+            if hi - lo <= ROUTER_TIE * hi:
+                ties += len(mine)
+            if first is None:
+                ex = mine + theirs
+                first = {"call": call, "token": t, "experts": ex,
+                         "gates": [[float(gg[t, e]) for e in ex],
+                                   [float(wg[t, e]) for e in ex]]}
+    return {"choices_equal": f"{same}/{total}",
+            "choices_equal_share": same / max(total, 1),
+            "near_ties": ties, "beyond_near_ties": total - same - ties,
+            "reordered_tokens": reordered, "first_unequal": first}
+
+
+def cross_check_moe(cfg, params, card: str, seed: int, *, label: str,
+                    chain: dict[str, int], attn: str, kv_quantize: str,
+                    n_tok: int = 64, steps: int = 16) -> dict:
+    """Prefill and ``steps`` greedy decode steps of an MoE tree as the
+    engine drives it (a blocking whole-prompt prefill into a staging
+    cache of the pool's family, inserted, decode over a one-slot pool),
+    five ways, every one fed the same tokens (the greedy ones of the CPU
+    run over the full-width pool): the tree in f32 on the card and on the
+    CPU over the full-width pool (``f32``, ``cpu``), and in f32 and bf16
+    on the card and f32 on the CPU over the phase's ``kv_quantize`` pool
+    (``f32_pool``, ``bf16``, ``cpu_pool``).  Every call of the dispatch's
+    top-k (``repro_torch.layers.moe._topk``) is recorded.
+
+    Gated: the card's f32 run picks every (token, k) expert of every MoE
+    layer that the CPU's picks, bar near ties (:func:`_routing`,
+    :data:`ROUTER_TIE`), and its logits stay within
+    :data:`CHECK_TOL_F32` of the CPU logits' std at every step; each card
+    run launches exactly its segments' kernels (``chain`` a segment, and
+    ``attn`` a layer of every decode step over the quantized pool).
+    Reported: the runs over the quantized pool against the CPU's over
+    it -- the bf16 run's distance, greedy agreement and share of equal
+    choices, and the f32 run's, where int8 roundings that the two f32
+    runs take apart (a K / V value on a rounding boundary) move the
+    logits and can tip a near-tied router score."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.layers import moe
+    from repro_torch.models.api import get_model
+    from repro_torch.serve.pool import KVPoolManager
+    from repro_torch.serve.runner import ModelRunner
+    toks = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, n_tok).tolist()
+    max_seq = n_tok + steps + 1
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    fresh_peak()
+    card32 = (get_model(cfg32, "cuda"),
+              _tree_to(params, "cuda", torch.float32))
+    cpu32 = (get_model(cfg32, "cpu"), to_cpu_f32(params))
+    sides = {"cpu": (*cpu32, None), "f32": (*card32, None),
+             "cpu_pool": (*cpu32, kv_quantize),
+             "f32_pool": (*card32, kv_quantize),
+             "bf16": (get_model(cfg, "cuda"), params, kv_quantize)}
+    runs = {}
+    for name, (model, p, kvq) in sides.items():
+        runs[name] = dict(
+            pool=KVPoolManager(model, 1, max_seq, kv_quantize=kvq),
+            runner=ModelRunner(model, p, max_seq=max_seq, kv_quantize=kvq),
+            kvq=kvq, dev=model.device, choices=[], logits=[],
+            launches={k: 0 for k in KERNELS})
+    topk = moe._topk
+    current: list = []
+
+    def counted_topk(gates, k):
+        vals, idx = topk(gates, k)
+        current.append((idx.to("cpu"), gates.to("cpu", torch.float32)))
+        return vals, idx
+
+    def run(r, fn):
+        nonlocal current
+        current = r["choices"]
+        before = {k: launch_count(k) for k in KERNELS}
+        lg = fn(r)
+        for k in KERNELS:
+            r["launches"][k] += launch_count(k) - before[k]
+        r["logits"].append(lg[0, -1].float().cpu())
+
+    def prefill(r):
+        r["pool"].allocate(0, n_tok)
+        lg, staged = r["runner"].step(
+            torch.tensor([toks], device=r["dev"]), None, "prefill",
+            cache=r["runner"].new_stream_cache(r["kvq"]),
+            last_pos=n_tok - 1)
+        r["pool"].insert(staged, 0, n_tok)
+        return lg
+
+    moe._topk = counted_topk
+    try:
+        with torch.inference_mode():
+            for r in runs.values():
+                run(r, prefill)
+            for _ in range(steps):
+                tok = int(runs["cpu"]["logits"][-1].argmax())
+
+                def decode(r):
+                    lg, r["pool"].cache = r["runner"].step(
+                        torch.tensor([[tok]], device=r["dev"]),
+                        torch.as_tensor(r["pool"].positions,
+                                        device=r["dev"]), "decode",
+                        cache=r["pool"].cache)
+                    r["pool"].grow(0, token=tok)
+                    return lg
+                for r in runs.values():
+                    run(r, decode)
+    finally:
+        moe._topk = topk
+    torch.cuda.synchronize()
+    res = {"kv_quantize": kv_quantize, "tokens": n_tok,
+           "decode_steps": steps, "tol": CHECK_TOL_F32,
+           "topk_calls": len(runs["cpu"]["choices"]),
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "card": card}
+    for name, ref_name in (("f32", "cpu"), ("f32_pool", "cpu_pool"),
+                           ("bf16", "cpu_pool")):
+        r, c = runs[name], runs[ref_name]
+        rels = [((a - b).abs().max() / b.std()).item()
+                for a, b in zip(r["logits"], c["logits"])]
+        gaps = {}
+        for i, (a, b) in enumerate(zip(r["logits"], c["logits"])):
+            gaps.update(_greedy_gap(i, a, b))
+        res[name] = {"pool": r["kvq"] or "full width",
+                     "max_diff_over_std": max(rels), "per_step": rels,
+                     "greedy_agree": f"{len(rels) - len(gaps)}/{len(rels)}",
+                     "greedy_gap": gaps, **_routing(r["choices"],
+                                                    c["choices"]),
+                     "launches": {k: n for k, n in r["launches"].items()
+                                  if n}}
+    log(f"{label} " + json.dumps(res))
+    f32 = res["f32"]
+    if f32["beyond_near_ties"] != 0:
+        raise SystemExit(f"{label}: the card's f32 run routed other experts "
+                         f"than the CPU's ({f32['choices_equal']} equal, "
+                         f"{f32['near_ties']} near ties)")
+    if not f32["max_diff_over_std"] <= CHECK_TOL_F32:
+        raise SystemExit(f"{label}: card f32 logits differ from the CPU f32 "
+                         f"reference: {f32['max_diff_over_std']:.2e} > "
+                         f"{CHECK_TOL_F32}")
+    for name in ("f32", "f32_pool", "bf16"):
+        want = {k: n * (steps + 1) for k, n in chain.items()}
+        if runs[name]["kvq"]:
+            want[attn] = cfg.num_layers * steps
+        want = {k: want.get(k, 0) for k in KERNELS}
+        if runs[name]["launches"] != want:
+            raise SystemExit(f"{label} ({name}) launched "
+                             f"{runs[name]['launches']}, want {want}")
+    return res
+
+
+def run_config(key: str, phases: list[str], card: str, seed: int,
+               serve_res: dict) -> None:
+    """``serve_<key>`` / ``check_<key>`` of one :data:`CONFIG_RUNS` tree:
+    built, decomposed and checked against its surgery decisions, served
+    with the exact launches of every segment, checked against the port's
+    f32 CPU run (:func:`cross_check_staged` for the dense configs,
+    :func:`cross_check_moe` for the MoE ones); freed when this returns."""
+    import torch
+    spec = CONFIG_RUNS[key]
+    if not {f"serve_{key}", f"check_{key}"} & set(phases):
+        return
+    fresh_peak()
+    t0 = time.perf_counter()
+    cfg, dense, axes = config_model(spec["arch"], spec["depth"], seed)
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    lrd, params, rep, surg_s = decompose(dense, axes, branches=4)
+    del dense, axes
+    torch.cuda.empty_cache()
+    log(f"surgery {key} branches=4: init {init_s:.2f} s, surgery "
+        f"{surg_s:.2f} s, peak {torch.cuda.max_memory_allocated()} B "
+        f"(init {init_peak} B), {json.dumps(rep.summary())} [{card}]")
+    check_config_surgery(key, rep, params, card)
+    chain = {k: n for k, n in chain_launches(rep).items() if n}
+    attn, L = spec["attn"], cfg.num_layers
+    moe = cfg.family == "moe"
+    if f"serve_{key}" in phases:
+        with Phase(f"serve_{key}"):
+            res = serve(cfg, lrd, params, n_req=8, prompt_lo=32,
+                        prompt_hi=512, new_tokens=32, card=card, seed=seed,
+                        shared=spec.get("shared", 0),
+                        expect={"decode": {**chain, attn: L},
+                                "prefill" if moe else "prefill_chunk":
+                                    chain}, **spec["engine"])
+            res.update(surgery_s=surg_s, init_s=init_s, config=spec["arch"],
+                       depth=L, admission="blocking" if moe
+                       else "continuous")
+            serve_res[key] = res
+    if f"check_{key}" in phases:
+        with Phase(f"check_{key}"):
+            steps = 16
+            want = {k: n * (steps + 1) for k, n in chain.items()}
+            want[attn] = L * steps
+            if moe:
+                cross_check_moe(cfg, params, card, seed,
+                                label=f"check_{key}", chain=chain, attn=attn,
+                                kv_quantize=spec["engine"]["kv_quantize"],
+                                steps=steps)
+            else:
+                fresh_peak()
+                res = cross_check_staged(
+                    cfg, params, card, seed, label=f"check_{key}",
+                    want=want, steps=steps,
+                    paged=spec["engine"].get("kv_layout") == "paged",
+                    kv_quantize=spec["engine"].get("kv_quantize"))
+                log(f"check_{key} max_memory_allocated "
+                    f"{torch.cuda.max_memory_allocated()} [{card}]")
 
 
 # ---------------------------------------------------------------------------
@@ -3195,10 +3647,15 @@ def main() -> int:
         card = smi()
         log(f"card: {card}; torch {torch.__version__}, CUDA "
             f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+        # the MoE checks hold the f32 trees on the host beside the card's
+        mem = next((ln.split(":", 1)[1].strip() for ln in
+                    Path("/proc/meminfo").read_text().splitlines()
+                    if ln.startswith("MemTotal:")), "unknown")
+        log(f"host MemTotal: {mem}")
 
     kernels = None
     if set(phases) & {"build", "kernels", *LLAMA_PHASES, *MLA_PHASES,
-                      *TRAIN_PHASES}:
+                      *CONFIG_PHASES, *TRAIN_PHASES}:
         with Phase("build"):
             from repro_torch.kernels import build
             _, report = build.build()
@@ -3248,6 +3705,9 @@ def main() -> int:
         torch.cuda.empty_cache()
     if set(phases) & set(MLA_PHASES):
         run_mla(phases, card, args.seed, serve_res)
+        torch.cuda.empty_cache()
+    for key in CONFIG_RUNS:
+        run_config(key, phases, card, args.seed, serve_res)
         torch.cuda.empty_cache()
     train_res: dict[str, dict] = {}
     if set(phases) & set(TRAIN_PHASES):

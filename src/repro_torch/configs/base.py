@@ -39,8 +39,7 @@ FAMILIES = (
 class ModelConfig:
     """Architecture definition (the reference's field names and
     defaults).  The fields of the dense family, MLA and MoE are here (the
-    MoE fields are not read yet: the MoE layer comes with ROADMAP A13, as
-    do the SSM, VLM, encoder and ResNet fields)."""
+    SSM, VLM, encoder and ResNet fields come with ROADMAP A13c-A13f)."""
 
     name: str = "tiny"
     family: str = FAMILY_DENSE
@@ -58,7 +57,7 @@ class ModelConfig:
     act: str = "swiglu"
     attn_logit_softcap: float = 0.0
 
-    # MoE (served with ROADMAP A13).
+    # MoE.
     moe_num_experts: int = 0           # 0 -> dense FFN
     moe_top_k: int = 2
     moe_num_shared: int = 0            # always-on shared experts

@@ -7,10 +7,12 @@
 MLA is the paper's layer-merging technique hard-coded: K and V are stored
 as one rank-512 joint factor (the latent), so LRD targets the o
 projection, the FFNs and the unembedding, and the ``mla_*`` projections
-stay dense under the default targets.  The MoE family comes with ROADMAP
-item A13; until then the port serves this stack as a dense-family MLA
-model (``dataclasses.replace(FULL, family="dense", moe_num_experts=0)``:
-every layer the first layer's dense FFN of ``d_ff``).
+stay dense under the default targets.  ``FULL`` is served as it stands:
+an unstacked first layer with the dense FFN of ``d_ff``, then stacked MoE
+layers (160 routed experts of ``moe_d_ff``, top 6, 2 shared).  A
+dense-family MLA stack (``dataclasses.replace(FULL, family="dense",
+moe_num_experts=0, moe_first_dense=0)``: every layer the first layer's
+dense FFN) serves too.
 """
 from repro_torch.configs.base import FAMILY_MOE, ModelConfig
 from repro_torch.configs.registry import ArchEntry, register
@@ -63,5 +65,5 @@ SMOKE = ModelConfig(
 
 register(ArchEntry(
     name="deepseek-v2-236b", full=FULL, smoke=SMOKE,
-    notes="MLA == the paper's layer merging; served as a dense-family MLA "
-          "stack until the MoE layer is ported."))
+    notes="MLA == the paper's layer merging; MoE with a dense first "
+          "layer."))

@@ -1,7 +1,9 @@
 """Architecture registry: name -> full-size and smoke-test configs.
 
-The port registers only the architectures its slices serve; the others
-come with ROADMAP item A13.
+The port registers the architectures its slices serve: the dense
+llama3.2-1b, granite-8b, mistral-nemo-12b and minitron-4b, and the MoE
+moonshot-v1-16b-a3b and deepseek-v2-236b.  The SSM, hybrid, VLM, encoder
+and ResNet ones come with ROADMAP items A13c-A13f.
 """
 from __future__ import annotations
 
@@ -40,4 +42,8 @@ def _ensure_loaded() -> None:
     # Importing the modules runs their register() calls (once: a second
     # import of a module is a no-op).
     from repro_torch.configs import deepseek_v2_236b  # noqa: F401
+    from repro_torch.configs import granite_8b  # noqa: F401
     from repro_torch.configs import llama3_2_1b  # noqa: F401
+    from repro_torch.configs import minitron_4b  # noqa: F401
+    from repro_torch.configs import mistral_nemo_12b  # noqa: F401
+    from repro_torch.configs import moonshot_v1_16b_a3b  # noqa: F401

@@ -5,7 +5,7 @@ factors with identity cores — exact at init (the SVD core is diagonal,
 and a diagonal matrix is block-diagonal); the cores then train as free
 per-branch mixers.  Executed as one grouped chain by the branched kernel
 (paper Fig. 4).  Branched Tucker for convolutions comes with ROADMAP item
-A13.
+A13f.
 """
 from __future__ import annotations
 
@@ -32,7 +32,9 @@ def quantize_ranks(r1: int, r2: int, branches: int) -> tuple[int, int]:
 
 
 def branch_svd(w: torch.Tensor, rank: int, branches: int) -> BranchedFactors:
-    """Branched factors for ``w (..., C, S)`` — exact at init."""
+    """Branched factors for ``w (..., C, S)`` — exact at init.  Batch dims
+    (stacked layers, expert banks) pass through: ``u (..., N, C, rb)``,
+    ``xc (..., N, rb, rb)``, ``v (..., N, rb, S)``."""
     n = branches
     rank, _ = quantize_ranks(rank, rank, n)
     c, s = int(w.shape[-2]), int(w.shape[-1])

@@ -12,11 +12,13 @@ rewrites the subtree:
                           "v": (.., N, r, S)}                     branched
                       -> unchanged                     (skip / ORG)
 
-Stacked-layer weights (leading ``layers`` axis) decompose batched, so
-every layer of a stack shares one rank.  The decisions go into a
-:class:`SurgeryReport`, field for field the reference's.
+Stacked-layer weights (leading ``layers`` axis) and MoE expert banks
+(leading ``experts`` axis, after the layers') decompose batched, so every
+layer of a stack and every expert of a bank share one rank.  The
+decisions go into a :class:`SurgeryReport`, field for field the
+reference's.
 :func:`sparsify_model` then 2:4-packs the factors (the third compression
-axis).  Convolution weights (Tucker-2) come with ROADMAP item A13.
+axis).  Convolution weights (Tucker-2) come with ROADMAP item A13f.
 """
 from __future__ import annotations
 
@@ -42,6 +44,10 @@ _LABELS: dict[tuple[str, str], str] = {
     ("mla", "kv_a"): "mla_kva", ("mla", "kv_b"): "mla_kvb",
     ("mlp", "up"): "ffn_up", ("mlp", "gate"): "ffn_gate",
     ("mlp", "down"): "ffn_down",
+    ("shared", "up"): "ffn_up", ("shared", "gate"): "ffn_gate",
+    ("shared", "down"): "ffn_down",
+    ("experts", "up"): "moe_up", ("experts", "gate"): "moe_gate",
+    ("experts", "down"): "moe_down",
 }
 
 
@@ -180,7 +186,7 @@ def decompose_model(params: PyTree, axes: PyTree, lrd: LRDConfig, *,
             core = ax[_batch_dims(ax):]
             if len(core) == 4 and core[0] == CONV:
                 raise NotImplementedError(
-                    "conv weights (Tucker-2) come with ROADMAP item A13")
+                    "conv weights (Tucker-2) come with ROADMAP item A13f")
             pstr = "/".join(path)
             before_params, before_flops = _count(p), _fwd_flops(p)
             if label not in targets:

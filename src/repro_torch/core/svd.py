@@ -4,10 +4,15 @@ Each dense weight ``W (C, S)`` decomposes into the balanced pair
 
     W0 = U' sqrt(S'),   W1 = sqrt(S') V'^T          (Eq. 3)
 
-with ``W0 (C, R)``, ``W1 (R, S)``.  The SVD runs in f32 through
-``torch.linalg.svd`` on whatever device the weights are on (the
-reference computes it outside any kernel too).  Leading batch dims
-(stacked layers) pass through.
+with ``W0 (C, R)``, ``W1 (R, S)``.  The SVD runs in f32 on whatever
+device the weights are on (the reference computes it outside any kernel
+too): through ``torch.linalg.svd``, except for a batch of matrices on a
+CUDA device (a stack of layers, an MoE expert bank), whose top ``R``
+singular triplets come from the eigendecomposition of each matrix's Gram
+matrix on its smaller side -- cuSOLVER's SVD takes a batch one matrix
+at a time, so a bank of hundreds of experts would take minutes, where
+the batched Gram products and ``eigh`` take seconds.  Leading batch dims
+pass through.
 """
 from __future__ import annotations
 
@@ -22,10 +27,32 @@ class SVDFactors(NamedTuple):
     w1: torch.Tensor        # (..., R, S)
 
 
+def _gram_svd(w: torch.Tensor, rank: int
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The top ``rank`` singular triplets ``(u, s, vt)`` of f32 ``w (...,
+    C, S)`` (descending) from ``eigh`` of the Gram matrix on the smaller
+    side; a zero singular value gets zero vectors on the other side."""
+    wide = w.shape[-2] < w.shape[-1]
+    a = w.transpose(-1, -2) if wide else w                    # (.., M, K)
+    evals, vecs = torch.linalg.eigh(a.transpose(-1, -2) @ a)  # ascending
+    r = min(rank, evals.shape[-1])
+    sig = torch.sqrt(torch.clamp(evals.flip(-1)[..., :r], min=0.0))
+    v = vecs.flip(-1)[..., :r]                                # (.., K, r)
+    inv = torch.where(sig > 0, 1.0 / torch.clamp(sig, min=1e-30), 0.0)
+    other = (a @ v) * inv[..., None, :]                       # (.., M, r)
+    if wide:
+        return v, sig, other.transpose(-1, -2)
+    return other, sig, v.transpose(-1, -2)
+
+
 def svd_decompose(w: torch.Tensor, rank: int) -> SVDFactors:
     """Truncated SVD of ``w (..., C, S)`` into balanced rank-``rank``
     factors, computed in f32 and cast back to ``w.dtype``."""
-    u, s, vt = torch.linalg.svd(w.to(torch.float32), full_matrices=False)
+    wf = w.to(torch.float32)
+    if wf.is_cuda and wf.ndim > 2:
+        u, s, vt = _gram_svd(wf, rank)
+    else:
+        u, s, vt = torch.linalg.svd(wf, full_matrices=False)
     r = min(rank, s.shape[-1])
     sq = torch.sqrt(s[..., :r])
     w0 = u[..., :, :r] * sq[..., None, :]

@@ -294,7 +294,7 @@ def classify(p: dict) -> str:
         return KIND_DENSE
     if _has(p, "tucker_u") or _has(p, "core"):
         raise NotImplementedError(
-            "Tucker conv subtrees come with ROADMAP item A13 (ResNet)")
+            "Tucker conv subtrees come with ROADMAP item A13f (ResNet)")
     if _has(p, "xc"):
         return KIND_BRANCHED
     if _has(p, "w0"):

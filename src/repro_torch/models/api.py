@@ -7,8 +7,6 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 
 
 def get_model(cfg: ModelConfig, device: str | torch.device = "cuda"):
-    if cfg.family == "resnet":
-        raise NotImplementedError("ResNet comes with ROADMAP item A13")
     from repro_torch.models.lm import LMModel
     return LMModel(cfg, device)
 
@@ -16,12 +14,12 @@ def get_model(cfg: ModelConfig, device: str | torch.device = "cuda"):
 def synth_inputs(cfg: ModelConfig, shape: ShapeConfig,
                  generator: torch.Generator) -> dict[str, torch.Tensor]:
     """Random inputs of one cell, drawn from ``generator`` on its device
-    (the reference's ``input_specs`` / ``synth_inputs`` for the dense
-    family): ``tokens`` (B, S) int32 for a train or prefill cell;
+    (the reference's ``input_specs`` / ``synth_inputs`` for the dense and
+    MoE families): ``tokens`` (B, S) int32 for a train or prefill cell;
     ``tokens`` (B, 1) and ``positions`` (B,) for a decode cell."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} comes with ROADMAP item A13")
+    from repro_torch.models.lm import FAMILIES, missing_family
+    if cfg.family not in FAMILIES:
+        raise missing_family(cfg.family)
     b, s = shape.global_batch, shape.seq_len
     dev = generator.device
     if shape.kind == "decode":

@@ -1,12 +1,12 @@
-"""The dense pre-norm decoder block on the LRD-transparent layers, with
-GQA or MLA attention.
+"""The pre-norm decoder block on the LRD-transparent layers: GQA or MLA
+attention, a dense FFN or an MoE one.
 
-``init_block(pb, cfg)`` builds a single layer's params (the model stacks
-layers along a leading axis); ``apply_block`` runs one layer's params,
-choosing MLA where the params hold an ``mla`` subtree and the merged
-attention of paper §2.3 (no cache) where they hold a ``merged`` one.  The MoE,
-cross-attention and SSM blocks of the reference come with ROADMAP item
-A13.
+``init_block(pb, cfg, moe=...)`` builds a single layer's params (the model
+stacks layers along a leading axis); ``apply_block`` runs one layer's
+params, choosing MLA where the params hold an ``mla`` subtree, the merged
+attention of paper §2.3 (no cache) where they hold a ``merged`` one, and
+the MoE FFN where they hold a ``moe`` one.  The reference's SSM block
+comes with ROADMAP item A13c, its cross-attention block with A13d.
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ import torch
 from repro_torch.layers import attention as attn
 from repro_torch.layers import cache as cache_mod
 from repro_torch.layers.mlp import apply_mlp, init_mlp
+from repro_torch.layers.moe import apply_moe, init_moe
 from repro_torch.layers.norm import init_rms_norm, rms_norm
 from repro_torch.layers.param import ParamBuilder
 
@@ -30,9 +31,7 @@ class BlockOpts(NamedTuple):
     freeze_factors: bool = False
 
 
-def init_block(pb: ParamBuilder, cfg) -> None:
-    if cfg.moe_num_experts:
-        raise NotImplementedError("MoE blocks come with ROADMAP item A13")
+def init_block(pb: ParamBuilder, cfg, *, moe: bool = False) -> None:
     init_rms_norm(pb, "attn_norm", cfg.d_model)
     if cfg.mla:
         attn.init_mla(pb, "mla", cfg)
@@ -40,7 +39,11 @@ def init_block(pb: ParamBuilder, cfg) -> None:
         attn.init_attention(pb, "attn", cfg.d_model, cfg.num_heads,
                             cfg.num_kv_heads, cfg.resolved_head_dim)
     init_rms_norm(pb, "mlp_norm", cfg.d_model)
-    init_mlp(pb, "mlp", cfg.d_model, cfg.d_ff, cfg.act)
+    if moe:
+        init_moe(pb, "moe", cfg.d_model, cfg.resolved_moe_d_ff,
+                 cfg.moe_num_experts, cfg.moe_num_shared, cfg.act)
+    else:
+        init_mlp(pb, "mlp", cfg.d_model, cfg.d_ff, cfg.act)
 
 
 def apply_block(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
@@ -48,11 +51,12 @@ def apply_block(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
                 cache_pos: torch.Tensor | None = None,
                 prompt_len: int | None = None, start_pos: int | None = None,
                 cache_plan=None, act_quantize: bool = False
-                ) -> tuple[torch.Tensor, dict | None]:
-    """Pre-norm block.  Returns ``(x', cache)``; ``start_pos`` marks a
-    chunked prefill (K/V land at the offset in the existing cache);
-    ``act_quantize`` runs every int8 linear int8 x int8 (prefill
-    segments)."""
+                ) -> tuple[torch.Tensor, dict | None, torch.Tensor | None]:
+    """Pre-norm block.  Returns ``(x', cache, aux_loss)``: the MoE
+    load-balance loss, ``None`` for a dense FFN (no device op for a loss
+    that is 0); ``start_pos`` marks a chunked prefill (K/V land at the
+    offset in the existing cache); ``act_quantize`` runs every int8
+    linear int8 x int8 (prefill segments)."""
     h = rms_norm(p["attn_norm"], x, cfg.norm_eps)
     if "mla" in p:
         a, cache = attn.apply_mla(
@@ -75,7 +79,16 @@ def apply_block(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
             softcap=cfg.attn_logit_softcap, act_quantize=act_quantize)
     x = x + a
     h = rms_norm(p["mlp_norm"], x, cfg.norm_eps)
-    return x + apply_mlp(p["mlp"], h, act_quantize=act_quantize), cache
+    if "moe" in p:
+        f, aux = apply_moe(p["moe"], h, top_k=cfg.moe_top_k,
+                           capacity_factor=cfg.moe_capacity_factor,
+                           act=cfg.act,
+                           dispatch_groups=cfg.moe_dispatch_groups,
+                           act_quantize=act_quantize)
+    else:
+        f, aux = apply_mlp(p["mlp"], h, cfg.act,
+                           act_quantize=act_quantize), None
+    return x + f, cache, aux
 
 
 def block_cache_spec(cfg, batch: int, seq_len: int, dtype: torch.dtype,

@@ -1,6 +1,10 @@
-"""LM trunk for the dense family (GQA or MLA attention): init, embed,
-trunk, logits, the training forward and loss, prefill, chunked prefill
-and decode.
+"""LM trunk for the dense and MoE families (GQA or MLA attention): init,
+embed, trunk, logits, the training forward and loss, prefill, chunked
+prefill and decode.
+
+* dense: one stack of L blocks.
+* moe:   an optional unstacked first block with the dense FFN
+         (``moe_first_dense``, DeepSeek-V2's), then a stack of MoE blocks.
 
 Per-layer params are stacked along a leading ``layers`` axis, as in the
 reference; where the reference scans the stack with ``lax.scan``, the
@@ -9,10 +13,10 @@ factor views that go straight to the kernels.  The KV cache is stacked
 the same way (``{"blocks": {"k", "v"}}``, ``(L, B, S, KH, D)``, the
 int8 family's ``k_q``/``k_scale``/``v_q``/``v_scale``, a paged pool's
 blocks and ``block_tables``, or an MLA stack's latents ``ckv``/``krope``
-``(L, B, S, r)`` and their int8 pairs) and is written in place.  Still
-left for ROADMAP item A13: the MoE family (DeepSeek-V2 with its experts,
-the reference's unstacked first dense block), VLM, SSM, hybrid and
-encoder.
+``(L, B, S, r)`` and their int8 pairs), with the unstacked first block's
+leaves under ``"first"`` (no ``L`` axis), and is written in place.  The
+reference's VLM, SSM, hybrid and encoder families come with ROADMAP items
+A13c-A13e.
 
 Training (:meth:`LMModel.loss`) runs the trunk without a cache over
 per-layer views from ``unbind`` (one stacked gradient per leaf in
@@ -95,15 +99,31 @@ def _stack_axes(axes: PyTree) -> PyTree:
     return (LAYERS, *axes)
 
 
+#: the families :class:`LMModel` serves
+FAMILIES = ("dense", "moe")
+#: the ROADMAP item of each family still to come
+_MISSING = {"ssm": "A13c", "hybrid": "A13c", "vlm": "A13d",
+            "encoder": "A13e", "resnet": "A13f"}
+
+
+def missing_family(family: str) -> NotImplementedError:
+    """The refusal of a family the port does not serve yet."""
+    return NotImplementedError(
+        f"family {family!r} comes with ROADMAP item "
+        f"{_MISSING.get(family, 'A13')}")
+
+
 class LMModel:
-    """init / embed / trunk / logits / prefill / decode for one dense
-    architecture, on one device."""
+    """init / embed / trunk / logits / prefill / decode for one dense or
+    MoE architecture, on one device."""
 
     def __init__(self, cfg: ModelConfig, device: str | torch.device = "cuda"):
-        if cfg.family != "dense":
-            raise NotImplementedError(
-                f"family {cfg.family!r} comes with ROADMAP item A13")
+        if cfg.family not in FAMILIES:
+            raise missing_family(cfg.family)
         self.cfg = cfg
+        #: unstacked first blocks (dense FFN) and the stacked rest
+        self.n_first = cfg.moe_first_dense if cfg.family == "moe" else 0
+        self.n_stack = cfg.num_layers - self.n_first
         self.device = torch.device(device)
         self.dtype = getattr(torch, cfg.dtype)
         self.padded_vocab = ((-cfg.vocab_size) % 128 + cfg.vocab_size
@@ -118,10 +138,19 @@ class LMModel:
         pb = ParamBuilder(generator, self.dtype, self.device)
         pb.child("embed").param("w", (self.padded_vocab, cfg.d_model),
                                 (VOCAB, EMBED), init="embed", scale=0.02)
+        moe = cfg.family == "moe"
+        if self.n_first:
+            if self.n_first != 1:
+                raise ValueError(
+                    f"moe_first_dense={self.n_first}: the reference builds "
+                    "one unstacked first block")
+            first = ParamBuilder(generator, self.dtype, self.device)
+            B.init_block(first, cfg, moe=False)
+            pb.attach("first", first.params, first.axes)
         layers, layer_axes = [], None
-        for _ in range(cfg.num_layers):
+        for _ in range(self.n_stack):
             lb = ParamBuilder(generator, self.dtype, self.device)
-            B.init_block(lb, cfg)
+            B.init_block(lb, cfg, moe=moe)
             layers.append(lb.params)
             layer_axes = lb.axes
         pb.attach("blocks", _stack(layers), _stack_axes(layer_axes))
@@ -160,26 +189,43 @@ class LMModel:
               cache_pos: torch.Tensor | None = None,
               prompt_len: int | None = None, start_pos: int | None = None,
               cache_plan=None, act_quantize: bool = False,
-              remat: str = "none") -> tuple[torch.Tensor, PyTree | None]:
-        """Run every layer.  Returns ``(x, cache)``; the cache is written
-        in place.  ``act_quantize`` runs every int8 linear int8 x int8
-        (prefill segments only).  Without a cache (training) each block
-        runs under the ``remat`` policy."""
+              remat: str = "none"
+              ) -> tuple[torch.Tensor, PyTree | None, torch.Tensor]:
+        """Run every layer: the unstacked first block (if any), then the
+        stack.  Returns ``(x, cache, aux)``, ``aux`` the summed MoE
+        load-balance loss (``None`` without an MoE layer); the cache is
+        written in place.  ``act_quantize`` runs every int8 linear int8 x
+        int8 (prefill segments only).  Without a cache (training) each
+        block runs under the ``remat`` policy."""
+        aux = None
+
+        def add(a):
+            return aux if a is None else a if aux is None else aux + a
+        layers = ([] if "first" not in params
+                  else [(params["first"], None if cache is None
+                         else cache["first"])])
         if cache is None:
+            layers += [(p_l, None)
+                       for p_l in _unbind(params["blocks"], self.n_stack)]
             block = _remat(lambda h, p_l: B.apply_block(
                 p_l, h, self.cfg, positions=positions,
-                act_quantize=act_quantize)[0], remat)
-            for p_l in _unbind(params["blocks"], self.cfg.num_layers):
-                x = block(x, p_l)
-            return x, None
-        for i in range(self.cfg.num_layers):
-            c_l = None if cache is None else layer_slice(cache["blocks"], i)
-            x, _ = B.apply_block(layer_slice(params["blocks"], i), x,
-                                 self.cfg, positions=positions, cache=c_l,
-                                 cache_pos=cache_pos, prompt_len=prompt_len,
-                                 start_pos=start_pos, cache_plan=cache_plan,
-                                 act_quantize=act_quantize)
-        return x, cache
+                act_quantize=act_quantize)[::2], remat)
+            for p_l, _ in layers:
+                x, a = block(x, p_l)
+                aux = add(a)
+            return x, None, aux
+        layers += [(layer_slice(params["blocks"], i),
+                    layer_slice(cache["blocks"], i))
+                   for i in range(self.n_stack)]
+        for p_l, c_l in layers:
+            x, _, a = B.apply_block(p_l, x, self.cfg, positions=positions,
+                                    cache=c_l, cache_pos=cache_pos,
+                                    prompt_len=prompt_len,
+                                    start_pos=start_pos,
+                                    cache_plan=cache_plan,
+                                    act_quantize=act_quantize)
+            aux = add(a)
+        return x, cache, aux
 
     # -- training -------------------------------------------------------------
 
@@ -187,8 +233,8 @@ class LMModel:
                 opts: B.BlockOpts = B.BlockOpts(), remat: str = "none"
                 ) -> tuple[torch.Tensor, torch.Tensor]:
         """Full-sequence forward (training).  Returns the pre-head
-        activations (B, S, D) and the auxiliary loss (0 for the dense
-        family); :meth:`loss` applies the head in chunks.  With
+        activations (B, S, D) and the summed MoE load-balance loss (0 for
+        the dense family); :meth:`loss` applies the head in chunks.  With
         ``opts.freeze_factors`` the frozen factors are detached first."""
         if opts.freeze_factors:
             from repro_torch.core.freezing import stop_frozen_factors
@@ -196,8 +242,10 @@ class LMModel:
         x = self.embed(params, batch["tokens"])
         bsz, s = x.shape[:2]
         positions = torch.arange(s, device=x.device)[None, :].expand(bsz, s)
-        x, _ = self.trunk(params, x, positions=positions, remat=remat)
-        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        x, _, aux = self.trunk(params, x, positions=positions, remat=remat)
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return x, aux
 
     def loss(self, params: PyTree, batch: dict, *,
              opts: B.BlockOpts = B.BlockOpts(), remat: str = "none"
@@ -256,15 +304,22 @@ class LMModel:
     def init_cache(self, batch: int, seq_len: int,
                    kv_quantize: str | None = None,
                    paged: cache_mod.PagedGeometry | None = None) -> PyTree:
-        """A fresh cache of every layer, stacked ``(L, ...)`` per leaf of
-        the plan (int8 values and f32 scale rows for ``"int8"``; for a
-        ``paged`` geometry, ``batch`` physical blocks of ``seq_len``
+        """A fresh cache of every layer, per leaf of the plan: stacked
+        ``(L, ...)`` under ``"blocks"``, and the unstacked first block's
+        under ``"first"`` (int8 values and f32 scale rows for ``"int8"``;
+        for a ``paged`` geometry, ``batch`` physical blocks of ``seq_len``
         positions plus block tables pointing at the dummy)."""
         plan = self.cache_plan(kv_quantize, paged)
-        return {"blocks": {
-            n: torch.full((self.cfg.num_layers, *shape), plan.fill_value(n),
-                          dtype=dt, device=self.device)
-            for n, (shape, dt) in plan.leaves(batch, seq_len).items()}}
+
+        def entry(*lead: int) -> dict:
+            return {n: torch.full((*lead, *shape), plan.fill_value(n),
+                                  dtype=dt, device=self.device)
+                    for n, (shape, dt) in plan.leaves(batch,
+                                                      seq_len).items()}
+        out = {"blocks": entry(self.n_stack)}
+        if self.n_first:
+            out["first"] = entry()
+        return out
 
     # -- prefill / decode -----------------------------------------------------
 
@@ -279,9 +334,10 @@ class LMModel:
         bsz, s = x.shape[:2]
         positions = torch.arange(s, device=x.device)[None, :].expand(bsz, s)
         prompt_len = None if last_pos is None else int(last_pos) + 1
-        x, cache = self.trunk(params, x, positions=positions, cache=cache,
-                              prompt_len=prompt_len, cache_plan=cache_plan,
-                              act_quantize=act_quantize)
+        x, cache, _ = self.trunk(params, x, positions=positions,
+                                 cache=cache, prompt_len=prompt_len,
+                                 cache_plan=cache_plan,
+                                 act_quantize=act_quantize)
         lp = s - 1 if last_pos is None else int(last_pos)
         return self.logits(params, x[:, lp:lp + 1],
                            act_quantize=act_quantize), cache
@@ -300,10 +356,10 @@ class LMModel:
         positions = (int(start_pos)
                      + torch.arange(c, device=x.device))[None, :].expand(bsz,
                                                                          c)
-        x, cache = self.trunk(params, x, positions=positions, cache=cache,
-                              prompt_len=prompt_len, start_pos=start_pos,
-                              cache_plan=cache_plan,
-                              act_quantize=act_quantize)
+        x, cache, _ = self.trunk(params, x, positions=positions,
+                                 cache=cache, prompt_len=prompt_len,
+                                 start_pos=start_pos, cache_plan=cache_plan,
+                                 act_quantize=act_quantize)
         lp = min(max(int(prompt_len) - 1 - int(start_pos), 0), c - 1)
         return self.logits(params, x[:, lp:lp + 1],
                            act_quantize=act_quantize), cache
@@ -313,7 +369,7 @@ class LMModel:
                     cache_plan=None) -> tuple[torch.Tensor, PyTree]:
         """One token per sequence.  tokens (B, 1); positions (B,)."""
         x = self.embed(params, tokens)
-        x, cache = self.trunk(params, x, positions=positions[:, None],
-                              cache=cache, cache_pos=positions,
-                              cache_plan=cache_plan)
+        x, cache, _ = self.trunk(params, x, positions=positions[:, None],
+                                 cache=cache, cache_pos=positions,
+                                 cache_plan=cache_plan)
         return self.logits(params, x), cache

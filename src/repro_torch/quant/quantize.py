@@ -143,6 +143,21 @@ def align_quantized_axes(params_node: dict, axes_node: dict) -> dict:
     return out
 
 
+def refuse_expert_bank(path: tuple[str, ...], what: str) -> None:
+    """Raise where a pass would rewrite a factor of an MoE expert bank
+    (``path`` runs through ``"experts"``): the routed expert products run
+    dense, SVD-pair or branched banks only, as the reference's
+    ``_expert_matmul`` does, which reads ``w0`` / ``u`` and so cannot run
+    a quantized or packed bank."""
+    if "experts" in path:
+        raise ValueError(
+            f"{what} of the MoE expert bank at {'/'.join(path)}: the "
+            "routed expert products have no quantized or 2:4 path (nor "
+            "has the reference's _expert_matmul); serve an MoE tree with "
+            "decomposed experts in its own dtype, or leave the experts "
+            "dense")
+
+
 def quantize_tree(params: PyTree, mode: str = MODE_INT8, *,
                   targets: Iterable[str] = FACTOR_KEYS,
                   axes: PyTree | None = None) -> PyTree:
@@ -153,10 +168,13 @@ def quantize_tree(params: PyTree, mode: str = MODE_INT8, *,
     that already hold quantized factors are left alone, so the transform
     is idempotent.  With ``axes`` (the matching logical-axes tree) the
     rewrite applies to both trees and ``(qparams, qaxes)`` is returned.
+    A targeted factor of an MoE expert bank raises ``ValueError``
+    (:func:`refuse_expert_bank`); a dense expert bank's ``w`` is not a
+    factor key and passes through.
     """
     targets = set(targets)
 
-    def walk(node: Any, ax: Any) -> tuple[Any, Any]:
+    def walk(node: Any, ax: Any, path: tuple = ()) -> tuple[Any, Any]:
         if not isinstance(node, dict):
             return node, ax
         if is_quantized(node):
@@ -174,13 +192,14 @@ def quantize_tree(params: PyTree, mode: str = MODE_INT8, *,
                 a_k = None
             if (k in targets and isinstance(v, torch.Tensor)
                     and v.ndim >= 2):
+                refuse_expert_bank((*path, k), f"quantize={mode!r}")
                 out[k + QUANT_SUFFIX], out[k + SCALE_SUFFIX] = \
                     quantize_array(v, mode)
                 if isinstance(ax, dict):
                     a_out[k + QUANT_SUFFIX] = a_k
                     a_out[k + SCALE_SUFFIX] = scale_axes(a_k)
             else:
-                out[k], a_out[k] = walk(v, a_k)
+                out[k], a_out[k] = walk(v, a_k, (*path, k))
         return out, a_out
 
     qparams, qaxes = walk(params, axes)

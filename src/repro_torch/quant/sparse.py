@@ -31,8 +31,9 @@ import torch
 
 from repro_torch.quant.quantize import (IDX_SUFFIX, MODE_INT8, SCALE_SUFFIX,
                                         SP_SUFFIX, is_quantized,
-                                        quantize_array, scale_axes,
-                                        sparse_index_axes, sparse_value_axes)
+                                        quantize_array, refuse_expert_bank,
+                                        scale_axes, sparse_index_axes,
+                                        sparse_value_axes)
 
 PyTree = Any
 
@@ -147,11 +148,12 @@ def sparsify_tree(params: PyTree, pattern: str = PATTERN_24,
     sparse or quantized are left alone, so the pass is idempotent and
     runs before ``quantize_tree`` in the engine's load pipeline.  With
     ``axes`` (the matching logical-axes tree) both trees are rewritten
-    and ``(sparams, saxes)`` is returned."""
+    and ``(sparams, saxes)`` is returned.  A targeted factor of an MoE
+    expert bank raises ``ValueError`` (``refuse_expert_bank``)."""
     _, group = pattern_nm(pattern)
     targets = set(targets)
 
-    def walk(node: Any, ax: Any) -> tuple[Any, Any]:
+    def walk(node: Any, ax: Any, path: tuple = ()) -> tuple[Any, Any]:
         if not isinstance(node, dict):
             return node, ax
         if is_sparse(node) or is_quantized(node):
@@ -161,6 +163,7 @@ def sparsify_tree(params: PyTree, pattern: str = PATTERN_24,
             a_k = ax[k] if isinstance(ax, dict) else None
             if (k in targets and isinstance(v, torch.Tensor) and v.ndim >= 2
                     and v.shape[-2] % group == 0 and v.shape[-2] >= group):
+                refuse_expert_bank((*path, k), f"sparsify={pattern!r}")
                 sp, idx, scale = sparsify_array(v, pattern, mode)
                 out[k + SP_SUFFIX] = sp
                 out[k + IDX_SUFFIX] = idx
@@ -172,7 +175,7 @@ def sparsify_tree(params: PyTree, pattern: str = PATTERN_24,
                     if scale is not None:
                         a_out[k + SCALE_SUFFIX] = scale_axes(a_k)
             else:
-                out[k], a_out[k] = walk(v, a_k)
+                out[k], a_out[k] = walk(v, a_k, (*path, k))
         return out, a_out
 
     sparams, saxes = walk(params, axes)

@@ -17,7 +17,8 @@
   ``step(tokens, positions, seg_kind)`` entry, plus the sampler.
 
 Continuous (chunked) admission is the default for the dense family, MLA
-stacks included; a
+stacks included (the MoE family admits blocking: per-chunk expert
+capacity would route other tokens than the whole prompt's); a
 prompt stages in a full-width batch=1 cache while it is chunk-prefilled
 and lands in its slot in one scatter (quantizing into an int8 pool), so
 chunked greedy streams equal whole-prefill ("blocking" admission)
@@ -107,12 +108,17 @@ def _param_device(params: PyTree) -> torch.device:
 
 class ServeEngine:
     #: families whose prefill padding is inert (causal attention never
-    #: lets a real token see a pad token)
+    #: lets a real token see a pad token); MoE capacity routing lets pads
+    #: displace real tokens, so the MoE family prefills unpadded
     _BUCKET_FAMILIES = ("dense",)
+    #: families served with chunked continuous admission: a chunk's
+    #: per-chunk expert capacity differs from the whole prompt's, so the
+    #: MoE family keeps blocking whole-prompt admission
+    _CHUNK_FAMILIES = ("dense",)
 
     def __init__(self, run: RunConfig, params: PyTree, *, slots: int = 4,
                  max_seq: int = 512, seed: int = 0,
-                 admission: str = "continuous",
+                 admission: str | None = None,
                  prefill_chunk: int | None = None,
                  kv_byte_budget: int | None = None,
                  quantize: str | None = None,
@@ -133,8 +139,9 @@ class ServeEngine:
                  device: str | torch.device = "cuda"):
         """``params`` must already live on ``device`` (the card by
         default; only an explicit ``"cpu"`` serves on the CPU).
-        ``admission`` is "continuous" (default: token-budget chunked
-        prefill) or "blocking" (one whole prefill per admit).
+        ``admission`` is "continuous" (token-budget chunked prefill; the
+        default for the dense family) or "blocking" (one whole prefill per
+        admit; the default, and the only choice, for the MoE family).
         ``kv_byte_budget`` gates admission and triggers youngest-first
         preemption; None = never preempt.  ``quantize`` ("none" | "int8" |
         "fp8") quantizes the ``run.lrd.quant_targets`` factors at load;
@@ -205,9 +212,16 @@ class ServeEngine:
         self.plan_summary = lplan.tree_summary(self.plans)
         self.slots = slots
         self.max_seq = max_seq
-        if admission not in ("continuous", "blocking"):
+        chunked = run.model.family in self._CHUNK_FAMILIES
+        if admission is None:
+            admission = "continuous" if chunked else "blocking"
+        elif admission not in ("continuous", "blocking"):
             raise ValueError(f"admission {admission!r} (want 'continuous' "
                              "or 'blocking')")
+        elif admission == "continuous" and not chunked:
+            raise ValueError(
+                f"family {run.model.family!r} does not support chunked "
+                "admission; use admission='blocking'")
         self.admission = admission
         chunk = prefill_chunk or run.lrd.prefill_chunk \
             or DEFAULT_PREFILL_CHUNK

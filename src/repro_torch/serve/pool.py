@@ -48,15 +48,29 @@ class IntegrityError(AssertionError):
     accounting); raised by ``check_integrity()``."""
 
 
+def _at(lead: int, *index) -> tuple:
+    """The index of ``index`` past ``lead`` leading (layer) axes."""
+    return (slice(None),) * lead + index
+
+
+def _leaf_names(cache: PyTree) -> dict[str, set[str]]:
+    return {top: set(entry) for top, entry in cache.items()}
+
+
 def _corrupt_scale(cache: PyTree, index: int) -> None:
     """The ``block_scale`` fault: set row ``index`` (a slot of the slot
     pool, a physical block of the paged one) of the first ``*_scale``
-    leaf by name to ``+inf`` on every layer, as the reference's
-    ``_corrupt_scale_leaf`` does in its sorted tree order.  The
-    dequantized KV goes non-finite and the stream's next logits trip the
-    watchdog."""
-    name = min(n for n in cache["blocks"] if n.endswith("_scale"))
-    cache["blocks"][name][:, index] = float("inf")
+    leaf in sorted tree order to ``+inf`` on every layer, as the
+    reference's ``_corrupt_scale_leaf`` does.  The dequantized KV goes
+    non-finite and the stream's next logits trip the watchdog."""
+    for top in sorted(cache):
+        names = sorted(n for n in cache[top] if n.endswith("_scale"))
+        if names:
+            leaf = cache[top][names[0]]
+            ax = leaf.ndim - (3 if names[0] in ("k_scale", "v_scale")
+                              else 2)
+            leaf[_at(ax, index)] = float("inf")
+            return
 
 
 class KVPoolManager:
@@ -79,6 +93,12 @@ class KVPoolManager:
         self._next_ticket = 0
         #: one CachePlan per attention layer — the source of all bytes
         self.plans = model.cache_plans(kv_quantize)
+        #: rank of one layer's leaf, by name: a cache entry's leaves carry
+        #: the layer axis where they have one more ("blocks"), none where
+        #: they have not (an unstacked "first" block)
+        self._rank = {n: len(shape) for n, (shape, _) in
+                      model.cache_plan(kv_quantize).leaves(
+                          slots, max_seq).items()}
         #: per-position KV bytes of ONE stream across all layers
         self.bytes_per_token = sum(p.bytes_per_token for p in self.plans)
         #: bytes the whole pool streams per decode step
@@ -208,21 +228,25 @@ class KVPoolManager:
     # -- slot scatter -------------------------------------------------------
 
     def insert(self, cache1: PyTree, slot: int, length: int) -> None:
-        """Land a batch=1 staging cache in pool slot ``slot``.  Positions
-        ``>= length`` (bucket padding) are zeroed on the way in.  A
-        full-width staging cache entering an int8 pool (chunked prefill)
-        is quantized first, with one-shot scales over the real prompt; a
-        cache already in the pool's family (blocking prefill) lands as
-        it is."""
-        if cache1["blocks"].keys() != self.cache["blocks"].keys():
+        """Land a batch=1 staging cache in pool slot ``slot``, every entry
+        of the cache tree (the stack's ``(L, ...)`` leaves and an
+        unstacked first block's).  Positions ``>= length`` (bucket
+        padding) are zeroed on the way in.  A full-width staging cache
+        entering an int8 pool (chunked prefill) is quantized first, with
+        one-shot scales over the real prompt; a cache already in the
+        pool's family (blocking prefill) lands as it is."""
+        if _leaf_names(cache1) != _leaf_names(self.cache):
             cache1 = quantize_kv_tree(cache1, length)
-        for name, pool_leaf in self.cache["blocks"].items():
-            one = cache1["blocks"][name][:, 0]   # (L, S, *tail) / (L, *tail)
-            if name in SEQ_AXIS:
-                keep = (torch.arange(one.shape[1], device=one.device)
-                        < length).reshape(1, -1, *([1] * (one.ndim - 2)))
-                one = torch.where(keep, one, torch.zeros_like(one))
-            pool_leaf[:, slot] = one
+        for top, entry in self.cache.items():
+            for name, pool_leaf in entry.items():
+                lead = pool_leaf.ndim - self._rank[name]
+                one = cache1[top][name][_at(lead, 0)]   # (*L, S, *tail)
+                if name in SEQ_AXIS:
+                    ax = SEQ_AXIS[name]
+                    keep = (torch.arange(one.shape[ax], device=one.device)
+                            < length).reshape(-1, *([1] * (-ax - 1)))
+                    one = torch.where(keep, one, torch.zeros_like(one))
+                pool_leaf[_at(lead, slot)] = one
         self.positions[slot] = length
         self.lengths[slot] = length
         if self.kv_quantize and self.faults.fire("block_scale"):
@@ -560,29 +584,42 @@ class PagedKVPoolManager:
         row[:len(table)] = table
         return torch.as_tensor(row, device=self.model.device)
 
+    def _entries(self, cache: PyTree):
+        """``(name, entry, lead)`` of every top-level entry of a cache
+        tree: ``lead`` the layer axes in front of its leaves (1 for the
+        stack, 0 for an unstacked first block), read off the pool's
+        block tables ``(*L, slots, blocks_per_slot)``."""
+        for top, entry in cache.items():
+            yield top, entry, self.cache[top]["block_tables"].ndim - 2
+
     @torch.inference_mode()
     def _push_table(self, slot: int) -> None:
         """Write ``slot``'s block-table row on every layer (the pool's
         tensors are inference tensors: a release outside a step, as
         ``cancel`` or a router's evacuation, writes here too)."""
-        self.cache["blocks"]["block_tables"][:, slot] = self._ids_row(
-            self.tables[slot]).to(torch.int32)
+        row = self._ids_row(self.tables[slot]).to(torch.int32)
+        for _, entry, lead in self._entries(self.cache):
+            entry["block_tables"][_at(lead, slot)] = row
 
     def gather_prefix(self, staging: PyTree, slot: int,
                       upto: int) -> PyTree:
         """Copy ``slot``'s first ``upto`` pooled positions (the
         radix-matched prefix) into a batch=1 full-precision staging cache
-        ``(L, 1, S, KH, D)``, in place; int8 blocks are dequantized."""
+        (``(L, 1, S, KH, D)`` leaves, ``(1, S, KH, D)`` for an unstacked
+        entry), in place; int8 blocks are dequantized."""
         ids = self._ids_row(self.tables[slot])
-        pool = self.cache["blocks"]
-        for name, leaf in staging["blocks"].items():
-            if name in pool:
-                g = pool[name][:, ids]
-            else:
-                g = (pool[name + "_q"][:, ids].to(torch.float32)
-                     * pool[name + "_scale"][:, ids][:, :, None])
-            g = g.reshape(g.shape[0], -1, *g.shape[-2:])
-            leaf[:, 0, :upto] = g[:, :upto].to(leaf.dtype)
+        for top, entry, lead in self._entries(staging):
+            pool = self.cache[top]
+            for name, leaf in entry.items():
+                if name in pool:
+                    g = pool[name][_at(lead, ids)]
+                else:
+                    g = (pool[name + "_q"][_at(lead, ids)].to(torch.float32)
+                         * pool[name + "_scale"][_at(lead, ids)]
+                         .unsqueeze(lead + 1))
+                g = g.reshape(*g.shape[:lead], -1, *g.shape[-2:])
+                leaf[_at(lead, 0, slice(None, upto))] = \
+                    g[_at(lead, slice(None, upto))].to(leaf.dtype)
         return staging
 
     def insert(self, cache1: PyTree, slot: int, length: int) -> None:
@@ -612,20 +649,21 @@ class PagedKVPoolManager:
         ids = self._ids_row(table)
         ids[:self._shared[slot]] = self.geometry.dummy_block
         bs = self.block_size
-        pool = self.cache["blocks"]
         keep = (torch.arange(self.max_seq, device=ids.device)
-                < length).reshape(1, self.blocks_per_slot, bs, 1, 1)
-        for name in ("k", "v"):
-            x = cache1["blocks"][name][:, 0]               # (L, S, KH, D)
-            xb = x.reshape(x.shape[0], self.blocks_per_slot, bs,
-                           *x.shape[-2:])
-            xb = torch.where(keep, xb, torch.zeros_like(xb))
-            if name in pool:
-                pool[name][:, ids] = xb.to(pool[name].dtype)
-                continue
-            scale = kv_scales(xb, axis=-3)                 # (L, nblk, KH, D)
-            pool[name + "_q"][:, ids] = quantize_kv(xb, scale.unsqueeze(-3))
-            pool[name + "_scale"][:, ids] = scale
+                < length).reshape(self.blocks_per_slot, bs, 1, 1)
+        for top, entry, lead in self._entries(self.cache):
+            for name in ("k", "v"):
+                x = cache1[top][name][_at(lead, 0)]        # (*L, S, KH, D)
+                xb = x.reshape(*x.shape[:lead], self.blocks_per_slot, bs,
+                               *x.shape[-2:])
+                xb = torch.where(keep, xb, torch.zeros_like(xb))
+                if name in entry:
+                    entry[name][_at(lead, ids)] = xb.to(entry[name].dtype)
+                    continue
+                scale = kv_scales(xb, axis=-3)         # (*L, nblk, KH, D)
+                entry[name + "_q"][_at(lead, ids)] = quantize_kv(
+                    xb, scale.unsqueeze(-3))
+                entry[name + "_scale"][_at(lead, ids)] = scale
         self.positions[slot] = length
         self.lengths[slot] = length
         self._push_table(slot)

@@ -229,3 +229,46 @@ def torch_threads(n: int):
         yield
     finally:
         torch.set_num_threads(old)
+
+
+# ---------------------------------------------------------------------------
+# the other registered configs (granite, mistral-nemo, minitron, moonshot,
+# DeepSeek-V2 with its experts) at their smoke widths
+# ---------------------------------------------------------------------------
+
+#: LRD of their decomposed trees: every linear of the smoke widths (the
+#: expert banks included) as an SVD pair, or branched (N = 4) where the
+#: aligned rank gives each branch at least 4 (the narrow k / v stay SVD
+#: pairs)
+CFG_LRD = {
+    "dense": None,
+    "svd": dict(enabled=True, rank_mode="ratio", min_dim=16),
+    "branched": dict(enabled=True, rank_mode="aligned", rank_align=4,
+                     min_dim=16, branches=4),
+}
+
+
+def smoke_cfg(name: str, side: str, **kw):
+    """The registered smoke config ``name`` (f32) in the reference's
+    (``side`` = "jax") or the port's ("torch") ModelConfig, with ``kw``
+    replaced."""
+    reg = jreg if side == "jax" else treg
+    return dataclasses.replace(reg.get(name).smoke, dtype="float32", **kw)
+
+
+@functools.lru_cache(maxsize=None)
+def smoke_port_tree(name: str, tree: str):
+    """(params, axes) of a smoke tree of ``name`` built by the port (CPU
+    tensors, seed 0), decomposed with :data:`CFG_LRD`."""
+    params, axes = tget_model(smoke_cfg(name, "torch"), "cpu").init(
+        torch.Generator().manual_seed(0))
+    if CFG_LRD[tree] is not None:
+        params, axes, _ = tdecompose(params, axes, TLRD(**CFG_LRD[tree]))
+    return params, axes
+
+
+def copy_tree(tree):
+    """A private copy of a port tree (the cached ones are shared)."""
+    if isinstance(tree, dict):
+        return {k: copy_tree(v) for k, v in tree.items()}
+    return tree.detach().clone()

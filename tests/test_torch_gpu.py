@@ -1690,3 +1690,139 @@ def test_two_replica_router_on_one_card_equals_one_engine(cuda):
     assert rt.replicas[0].guard.tripped == "step_failures"
     assert [r.status for r in two] == ["finished"] * len(two)
     assert [r.output for r in two] == [r.output for r in one]
+
+
+# ---------------------------------------------------------------------------
+# the other configs' shapes: head dim 128 at GQA groups 1, 3 and 4; B2 at
+# mistral-nemo's unembed; the MoE layer on the card
+# ---------------------------------------------------------------------------
+
+_WIDE_HEADS = [(16, 1, 128), (8, 3, 128), (8, 4, 128)]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("kh,g,d", _WIDE_HEADS,
+                         ids=["moonshot-G1", "minitron-G3", "G4-D128"])
+def test_decode_attention_q_at_wide_heads(cuda, kh, g, d, dtype):
+    """B5 over the int8 slot pool at head dim 128 and groups 1, 3, 4 (a
+    block of 32, 96 or 128 threads folding G rows), ragged positions and
+    an idle slot."""
+    from repro_torch.kernels import decode_attention_q as dak
+    from repro_torch.kernels import ops, ref
+    from repro_torch.quant.kv import quantize_kv_prefill
+    b, s = 8, 1024
+    q = _rnd(cuda, b, 1, kh * g, d, dtype=getattr(torch, dtype))
+    k_q, k_s = quantize_kv_prefill(_rnd(cuda, b, s, kh, d,
+                                        dtype=torch.float32))
+    v_q, v_s = quantize_kv_prefill(_rnd(cuda, b, s, kh, d,
+                                        dtype=torch.float32))
+    pos = torch.randint(s // 2, s, (b,), generator=cuda, device="cuda",
+                        dtype=torch.int32)
+    pos[-1] = -1
+    n0 = dak.launches
+    y = ops.decode_attention_q(q, k_q, k_s, v_q, v_s, pos)
+    assert dak.launches == n0 + 1
+    want = ref.decode_attention_q_ref(q, k_q, k_s, v_q, v_s, pos)
+    assert torch.isfinite(y.float()).all()
+    assert _norm_err(y, want) <= chip_smoke.KERNEL_TOL[dtype]
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("kh,g,d", _WIDE_HEADS,
+                         ids=["moonshot-G1", "minitron-G3", "G4-D128"])
+def test_paged_attention_at_wide_heads(cuda, kh, g, d, dtype, quant):
+    """B8 / B9 at head dim 128 and groups 1, 3, 4 on the served paged
+    pool (shuffled tables, ragged positions, an idle slot)."""
+    from repro_torch.kernels import ops, ref
+    case = dict(b=8, kh=kh, g=g, d=d, bs=16, nblk=64, nb=512, idle=1,
+                softcap=0.0)
+    name = "decode_attention_paged" + ("_q" if quant else "")
+    q, pool, tables, pos = chip_smoke.paged_inputs(case, dtype, quant, cuda)
+    y = getattr(ops, name)(q, *pool, tables, pos)
+    want = getattr(ref, name + "_ref")(q, *pool, tables, pos)
+    assert torch.isfinite(y.float()).all()
+    assert _norm_err(y, want) <= chip_smoke.KERNEL_TOL[dtype]
+
+
+@pytest.mark.parametrize("m", [8, 64])
+def test_branched_kernel_at_nemo_unembed(cuda, m):
+    """B2 at per-branch rank 608 and 131,072 output columns (bf16)."""
+    from repro_torch.kernels import branched_matmul as bk
+    from repro_torch.kernels import ref
+    n, c, r, s = chip_smoke.WIDE_BRANCHED_SHAPES["nemo unembed"]
+    dt = torch.bfloat16
+    x = _rnd(cuda, m, c, dtype=dt)
+    u = _rnd(cuda, n, c, r, scale=c ** -0.5, dtype=dt)
+    xc = _rnd(cuda, n, r, r, scale=r ** -0.5, dtype=dt)
+    v = _rnd(cuda, n, r, s, scale=r ** -0.5, dtype=dt)
+    n0 = bk.launches
+    y = bk.branched_matmul(x, u, xc, v)
+    assert bk.launches == n0 + 1
+    assert _norm_err(y, ref.branched_matmul_ref(x, u, xc, v)) \
+        <= chip_smoke.KERNEL_TOL["bfloat16"]
+
+
+@pytest.mark.parametrize("groups", [0, 4])
+def test_apply_moe_on_the_card_matches_cpu(cuda, groups):
+    """One MoE layer of moonshot's smoke widths, decomposed at branches=4
+    (the shared experts through the chain kernel on the card), against
+    the same layer in f32 on the CPU, on the global and the grouped
+    dispatch: in f32 on the card the same routing and the output within
+    the f32 kernel tolerance; in bf16, at a capacity no expert overflows,
+    the tokens whose k experts are the CPU's within ``CHECK_TOL`` of the
+    output's std (a near-tied router score may pick another expert in
+    bf16), and at least 90 % of the tokens so."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import LRDConfig
+    from repro_torch.core.surgery import decompose_model
+    from repro_torch.kernels import branched_matmul as bk
+    from repro_torch.layers import moe
+    from repro_torch.models.api import get_model
+    from repro_torch.models.lm import layer_slice
+    cfg = dataclasses.replace(registry.get("moonshot-v1-16b-a3b").smoke,
+                              num_layers=1, dtype="float32")
+    params, axes = get_model(cfg, "cpu").init(
+        torch.Generator().manual_seed(0))
+    params, _, _ = decompose_model(params, axes, LRDConfig(
+        enabled=True, rank_mode="aligned", rank_align=4, min_dim=16,
+        branches=4))
+    layer = layer_slice(params["blocks"]["moe"], 0)
+    x = torch.randn(2, 32, cfg.d_model,
+                    generator=torch.Generator().manual_seed(1))
+    topk, picks = moe._topk, []
+
+    def recorded(gates, k):
+        vals, idx = topk(gates, k)
+        picks.append(idx.sort(-1).values.cpu())
+        return vals, idx
+    for dt, factor in ((torch.float32, cfg.moe_capacity_factor),
+                       (torch.bfloat16, 8.0)):
+        kw = dict(top_k=cfg.moe_top_k, capacity_factor=factor,
+                  dispatch_groups=groups)
+        picks.clear()
+        moe._topk = recorded
+        try:
+            want, waux = moe.apply_moe(layer, x, **kw)
+            n0 = bk.launches
+            got, aux = moe.apply_moe(chip_smoke._tree_to(layer, "cuda", dt),
+                                     x.to("cuda", dt), **kw)
+        finally:
+            moe._topk = topk
+        assert bk.launches == n0 + 3        # the shared up, gate, down
+        assert got.dtype == dt and torch.isfinite(got.float()).all()
+        half = len(picks) // 2
+        alike = torch.cat([(a == b).all(-1) for a, b in
+                           zip(picks[:half], picks[half:])])
+        got = got.float().cpu().reshape(-1, cfg.d_model)
+        want = want.reshape(-1, cfg.d_model)
+        if dt == torch.float32:
+            assert bool(alike.all())
+            assert _norm_err(got, want) <= chip_smoke.KERNEL_TOL["float32"]
+            assert float(aux) == pytest.approx(float(waux), rel=1e-5)
+        else:
+            assert float(alike.float().mean()) >= 0.9
+            rel = ((got[alike] - want[alike]).abs().max()
+                   / want.std()).item()
+            assert rel <= chip_smoke.CHECK_TOL

@@ -54,7 +54,11 @@ def test_port_has_the_slice_modules():
               "repro_torch.core.rank_selection",
               "repro_torch.core.merging", "repro_torch.core.svd",
               "repro_torch.serve.faults", "repro_torch.serve.guard",
-              "repro_torch.serve.router"):
+              "repro_torch.serve.router", "repro_torch.layers.moe",
+              "repro_torch.layers.mlp", "repro_torch.configs.granite_8b",
+              "repro_torch.configs.mistral_nemo_12b",
+              "repro_torch.configs.minitron_4b",
+              "repro_torch.configs.moonshot_v1_16b_a3b"):
         assert m in mods, m
 
 

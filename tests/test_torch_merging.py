@@ -170,7 +170,7 @@ def test_block_with_merged_attention_equals_reference(rank):
     jp = to_jax(p)
     x = _rnd(99, 2, 13, cfg.d_model)
     pos = np.broadcast_to(np.arange(13), (2, 13)).astype(np.int32)
-    got, cache = apply_block(p, _t(x), cfg, positions=_t(pos).long())
+    got, cache, _ = apply_block(p, _t(x), cfg, positions=_t(pos).long())
     want, jcache, _ = japply_block(jp, jnp.asarray(x), jcfg,
                                    positions=jnp.asarray(pos))
     assert cache is None and jcache is None

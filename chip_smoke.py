@@ -237,6 +237,29 @@ at slots=8, max_seq=1024; each phase's peak memory printed):
              experts), ``mla_latent_int8`` pool, blocking: 9 B2 (+ 2 B10
              a decode step).
 
+- serve_mamba2 / check_mamba2 — mamba2-2.7b, 8 of 64 layers (attention
+             free: d_inner 5,120, 80 SSD heads of 64, state 128, chunk
+             256), bf16 factors over the recurrent slot pool, blocking:
+             every decode step and prefill 16 B2, no attention kernel.
+- serve_zamba2 / check_zamba2 — zamba2-1.2b, 14 of 38 (2 groups of 6
+             SSM layers, each followed by the shared attention + MLP
+             block over its own KV entry, and 2 trailing SSM layers),
+             int8 factors over the int8 slot pool, blocking: every
+             segment 42 B4 (28 for the SSM layers, 7 a shared-block
+             invocation), every decode step 2 B5 (G 1, D 64, 32 KV
+             heads).
+
+Each of those two prints the pool's recurrent state bytes (read and
+written by every decode step; ``kv_bytes_per_step`` is 0 for mamba2)
+beside ``weight_bytes``.  Their checks (:func:`cross_check_recurrent`)
+prefill 300 tokens (past the 256-token chunk, not a multiple of it) and
+run 16 greedy decode steps, fed the CPU f32 run's tokens: the tree in
+f32 on the card against f32 on the CPU over the full-width pool
+(``CHECK_TOL_F32``); in bf16 on the card (and, reported, on the CPU)
+against f32 on the CPU over the phase's pool (``CHECK_TOL``); and, over
+zamba2's int8 pool, in f32 on the card against f32 on the CPU
+(``CHECK_TOL_POOL_F32``: B5 on the shared block's KV end to end).
+
 The dense checks are check_paged's (a prefill chunk and 16 greedy decode
 steps through the phase's pool, bf16 on the card against f32 on the
 CPU, launches exact, ``CHECK_TOL``). The MoE checks run the blocking
@@ -288,6 +311,7 @@ PHASES = ("device", "build", "kernels", "search", "serve", "check",
           "serve_mla_sq", "check_mla_sq", "serve_granite", "check_granite",
           "serve_nemo", "check_nemo", "serve_minitron", "check_minitron",
           "serve_moe", "check_moe", "serve_mla_moe", "check_mla_moe",
+          "serve_mamba2", "check_mamba2", "serve_zamba2", "check_zamba2",
           "train", "check_train")
 #: the phases that search, serve or check the llama3.2-1b trees, the MLA
 #: ones, the other configs' (CONFIG_RUNS) and the training ones
@@ -299,7 +323,9 @@ MLA_PHASES = ("serve_mla", "check_mla", "serve_mla_q", "check_mla_q",
               "serve_mla_sq", "check_mla_sq", "profile_mla")
 CONFIG_PHASES = ("serve_granite", "check_granite", "serve_nemo",
                  "check_nemo", "serve_minitron", "check_minitron",
-                 "serve_moe", "check_moe", "serve_mla_moe", "check_mla_moe")
+                 "serve_moe", "check_moe", "serve_mla_moe", "check_mla_moe",
+                 "serve_mamba2", "check_mamba2", "serve_zamba2",
+                 "check_zamba2")
 TRAIN_PHASES = ("train", "check_train")
 #: phases run only when asked for with --phases
 EXTRA_PHASES = ("profile", "profile_qa", "profile_mla")
@@ -465,7 +491,9 @@ PAGED_CASES = {"served": dict(b=8, kh=8, g=4, d=64, bs=16, nblk=64, nb=512,
 WIDE_ATTN_CASES = {"nemo G4 D128": dict(b=8, s=1024, kh=8, g=4, d=128,
                                         idle=0, softcap=0.0),
                    "moonshot G1 D128": dict(b=8, s=1024, kh=16, g=1, d=128,
-                                            idle=0, softcap=0.0)}
+                                            idle=0, softcap=0.0),
+                   "zamba2 G1 D64": dict(b=8, s=1024, kh=32, g=1, d=64,
+                                         idle=0, softcap=0.0)}
 #: B8 on granite's bf16 / f32 paged pool (8 KV heads of 128, G 4) and B9
 #: on minitron's int8 one (8 KV heads of 128, G 3), as PAGED_CASES'
 #: served pool otherwise; ``quant`` picks the pool
@@ -501,6 +529,26 @@ WIDE_BRANCHED_SHAPES = {
     "moonshot unembed": (4, 2048, 224, 163840),
     "ds shared gate,up": (4, 5120, 224, 3072),
     "ds shared down": (4, 3072, 224, 5120)}
+#: the recurrent trees' branched linears (N, C, r, S) under LRD at
+#: branches=4, timed at a decode step's M = 8 and a blocking prefill's
+#: M = 512: mamba2's in bf16 (B2), zamba2's with int8 factors (B4; its
+#: in_proj and the shared block's up / gate share a shape)
+SSM_BRANCHED_SHAPES = {"mamba2 in_proj": (4, 2560, 256, 10240),
+                       "mamba2 out_proj": (4, 5120, 192, 2560)}
+ZAMBA_BRANCHED_SHAPES = {"zamba2 in_proj,up,gate": (4, 2048, 192, 8192),
+                         "zamba2 out_proj": (4, 4096, 160, 2048),
+                         "zamba2 q,k,v,o": (4, 2048, 128, 2048),
+                         "zamba2 down": (4, 8192, 192, 2048)}
+SSM_M_CASES = (8, 512)
+#: launches of those rows' kernels in one decode step of the recurrent
+#: trees (8 mamba2 layers; 14 zamba2 layers and 2 shared-block
+#: invocations)
+SSM_LAUNCHES = {"branched_matmul": {"mamba2 in_proj": 8,
+                                    "mamba2 out_proj": 8},
+                "branched_matmul_q": {"zamba2 in_proj,up,gate": 18,
+                                      "zamba2 out_proj": 14,
+                                      "zamba2 q,k,v,o": 8, "zamba2 down": 2},
+                "decode_attention_q": {"zamba2 G1 D64": 2}}
 #: launches of each activation-quantized chain per prefill chunk (M = 64)
 #: of the branches=4 model
 PREFILL_LAUNCHES = {"lowrank_matmul_qa": {"k,v": 32},
@@ -600,7 +648,16 @@ CONFIG_RUNS = {
     "mla_moe": dict(arch="deepseek-v2-236b", depth=2,
                     attn="decode_attention_latent_q",
                     engine=dict(kv_quantize="int8")),
+    "mamba2": dict(arch="mamba2-2.7b", depth=8, attn=None, engine={}),
+    "zamba2": dict(arch="zamba2-1.2b", depth=14, attn="decode_attention_q",
+                   engine=dict(quantize="int8", kv_quantize="int8"),
+                   bf16_against="cpu_bf16"),
 }
+#: (``bf16_against``: the run the recurrent check holds the card's bf16
+#: run to, where the CPU's own bf16 run misses the CPU f32 one by as much
+#: as the card's does: zamba2's reads 0.301 std to the card's 0.305, the
+#: bf16 recurrent state and int8 pool rounding over 14 layers; the two
+#: bf16 runs lie 0.181 apart)
 #: the surgery decisions each of those trees must get under ``LRD`` at
 #: branches=4 (path -> (kind, rank; a branched linear's per branch)); every
 #: other linear skips.  The routed expert banks (``moe_*``) decompose
@@ -632,12 +689,21 @@ CONFIG_SURGERY = {
                 **{f"blocks/moe/shared/{p}": ("branched", 224)
                    for p in ("up", "gate", "down")},
                 "unembed": ("branched", 608)},
+    "mamba2": {"blocks/ssm/in_proj": ("branched", 256),
+               "blocks/ssm/out_proj": ("branched", 192)},
+    "zamba2": {"blocks/ssm/in_proj": ("branched", 192),
+               "blocks/ssm/out_proj": ("branched", 160),
+               **{f"shared_attn/attn/{p}": ("branched", 128) for p in "qkvo"},
+               **{f"shared_attn/mlp/{p}": ("branched", 192)
+                  for p in ("up", "gate", "down")}},
 }
 #: chain-kernel launches per model segment that those decisions imply
-#: (B1, B2): one per layer of every SVD pair and branched linear outside
-#: the routed experts
+#: (B1, B2; B3, B4 for an int8 tree): one per layer of every SVD pair and
+#: branched linear outside the routed experts, one per invocation of the
+#: hybrid's shared block
 CONFIG_CHAINS = {"granite": (8, 21), "nemo": (8, 21), "minitron": (8, 17),
-                 "moe": (0, 29), "mla_moe": (0, 9)}
+                 "moe": (0, 29), "mla_moe": (0, 9), "mamba2": (0, 16),
+                 "zamba2": (0, 42)}
 #: the MoE checks' f32 gate: max |card f32 logits - CPU f32 logits| /
 #: std(CPU logits); the f32 chain kernels are held to 1e-4 a product
 CHECK_TOL_F32 = 1e-3
@@ -647,6 +713,11 @@ CHECK_TOL_F32 = 1e-3
 #: other (relative): two f32 runs that sum the router's inputs in another
 #: order tip such a near tie either way
 ROUTER_TIE = 1e-5
+#: the recurrent checks' gate on the card's f32 run over an int8 pool
+#: against the CPU's over it: int8 roundings that the two runs take apart
+#: (a K / V value on a rounding boundary) move its logits, so it is held
+#: to the bf16 runs' gate
+CHECK_TOL_POOL_F32 = CHECK_TOL
 
 
 def log(msg: str) -> None:
@@ -891,6 +962,21 @@ def check_kernels(card: str, only: frozenset = frozenset(KERNELS)
                          if "branched_matmul" in only else ()):
         _check_branched(add, label, shape, 8, "bfloat16", rnd, qrnd, (),
                         spack, flush, only)
+    for label, shape in (SSM_BRANCHED_SHAPES.items()
+                         if "branched_matmul" in only else ()):
+        for m in SSM_M_CASES:
+            _check_branched(add, label, shape, m, "bfloat16", rnd, qrnd, (),
+                            spack, flush, only)
+
+    def add_q(name: str, make_row) -> None:
+        """:func:`add` of the B4 rows alone (zamba2's tree is int8)."""
+        if name == "branched_matmul_q":
+            add(name, make_row)
+    for label, shape in (ZAMBA_BRANCHED_SHAPES.items()
+                         if "branched_matmul_q" in only else ()):
+        for m in SSM_M_CASES:
+            _check_branched(add_q, label, shape, m, "bfloat16", rnd, qrnd,
+                            ("int8",), spack, flush, only)
     for label in TRAIN_LAUNCHES["lowrank_matmul"]:
         c, r, s = LOWRANK_SHAPES[label]
         add("lowrank_matmul", lambda: _train_row(
@@ -1727,6 +1813,21 @@ def _kernel_entries(rows: dict[str, list[dict]]) -> list[dict]:
                 timed_as=f"the {sum(search.values())} launches of one decode "
                 "step (M=8, bf16) of the searched tree (rank_mode='search', "
                 "branches=4); launches: the serve_search run")
+        ssm = SSM_LAUNCHES.get(name, {})
+        ssm_rows = {label: next((r for r in rs if r["shape"] == label
+                                 and r.get("M", 8) == 8
+                                 and r["dtype"] == "bfloat16"), None)
+                    for label in ssm}
+        if ssm and None not in ssm_rows.values():
+            extra["ssm_path"] = {
+                k: sum(n * ssm_rows[label][k] for label, n in ssm.items())
+                for k in timed}
+            extra["ssm_path"].update(
+                launches=sum(ssm.values()),
+                timed_as=f"the {sum(ssm.values())} launches of one decode "
+                "step (M=8, bf16) of the "
+                + ("8-layer mamba2 tree" if name == "branched_matmul"
+                   else "14-layer zamba2 tree (int8 factors, int8 pool)"))
         trows = [r for r in rs if r.get("path") == "train"]
         if trows:
             tkeys = ("ms", "plain_ms", "library_ms", "bound_ms", "cold_ms",
@@ -1794,16 +1895,19 @@ def decompose(params, axes, branches: int, **lrd_kw):
     return lrd, p2, rep, time.perf_counter() - t0
 
 
-def chain_launches(rep) -> dict[str, int]:
+def chain_launches(rep, shared: int = 1) -> dict[str, int]:
     """Chain-kernel launches per model segment that a surgery report
     implies: one per layer of every stacked SVD pair (B1) and branched
-    linear (B2), one for an unstacked one; none for a routed expert bank
+    linear (B2), one for an unstacked one (``shared`` for the hybrid's
+    shared block, once per invocation); none for a routed expert bank
     (``moe_*``: plain batched products)."""
     out = {"lowrank_matmul": 0, "branched_matmul": 0}
     kernel = {"svd": "lowrank_matmul", "branched": "branched_matmul"}
     for d in rep.decisions:
         if d.kind in kernel and not d.label.startswith("moe_"):
-            out[kernel[d.kind]] += d.shape[0] if len(d.shape) == 3 else 1
+            out[kernel[d.kind]] += (
+                d.shape[0] if len(d.shape) == 3
+                else shared if d.path.startswith("shared_attn/") else 1)
     return out
 
 
@@ -2003,6 +2107,10 @@ def serve(cfg, lrd, params, *, n_req: int, prompt_lo: int, prompt_hi: int,
             if n and launches[name] == 0:
                 raise SystemExit(f"{name} never launched on the main path")
     tp = eng.throughput()
+    #: the pool's recurrent state (SSM / hybrid), read and written whole
+    #: by every decode step
+    state = [leaf for top in eng.pool.cache.values()
+             for n, leaf in top.items() if n in eng.model.state_leaves(1)]
     res = {**{k: engine_kw.get(k, "none")
               for k in ("quantize", "sparsify", "kv_quantize",
                         "act_quantize")},
@@ -2020,9 +2128,11 @@ def serve(cfg, lrd, params, *, n_req: int, prompt_lo: int, prompt_hi: int,
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "allocated_at_start": at_start, "freed_at_start": freed,
            "kv_bytes_per_step": eng.plan_summary["kv_bytes_per_step"],
+           "state_bytes": sum(t.numel() * t.element_size() for t in state),
            "weight_bytes": eng.plan_summary["weight_bytes"],
            "quant_bytes": eng.plan_summary["quant_bytes"],
-           "kv_cache_family": eng.plan_summary["kv_cache_family"],
+           "kv_cache_family": eng.plan_summary.get("kv_cache_family",
+                                                   "none"),
            "plan_summary": eng.plan_summary, "card": card}
     if paged:
         eng.pool.check_integrity()
@@ -2521,18 +2631,26 @@ def time_kv_write(card: str) -> dict:
     return res
 
 
-def to_cpu_f32(tree):
-    """A param (or gradient) tree on the CPU, float leaves widened to f32;
-    int8 / e4m3 factors keep their storage (their f32 scales already are
-    f32); ``None`` leaves stay."""
+def _tree_to(tree, device: str, dtype=None):
+    """A param (or gradient) tree on ``device``, its leaves in ``dtype``
+    (``None``: their own) bar the int8 / e4m3 factors, which keep their
+    storage; ``None`` leaves stay."""
     import torch
     if isinstance(tree, dict):
-        return {k: to_cpu_f32(v) for k, v in tree.items()}
+        return {k: _tree_to(v, device, dtype) for k, v in tree.items()}
     if tree is None:
         return None
     if tree.dtype in (torch.int8, torch.float8_e4m3fn):
-        return tree.to("cpu")
-    return tree.to("cpu", torch.float32)
+        return tree.to(device)
+    return tree.to(device, dtype)
+
+
+def to_cpu_f32(tree):
+    """A param (or gradient) tree on the CPU, float leaves widened to f32
+    (int8 / e4m3 factors keep their storage, their f32 scales already
+    are f32)."""
+    import torch
+    return _tree_to(tree, "cpu", torch.float32)
 
 
 def _greedy_gap(step: int, lg, lc) -> dict[str, float]:
@@ -3190,23 +3308,18 @@ def config_model(arch: str, depth: int, seed: int = 0):
     return cfg, params, axes
 
 
-def check_config_surgery(key: str, rep, params, card: str) -> None:
+def check_config_surgery(key: str, rep, params, card: str,
+                         shared: int = 1) -> None:
     """:func:`check_surgery` of a :data:`CONFIG_RUNS` tree against
     :data:`CONFIG_SURGERY`, and the chain launches its decisions imply
-    against :data:`CONFIG_CHAINS`."""
+    (the hybrid's shared block ``shared`` times) against
+    :data:`CONFIG_CHAINS`."""
     check_surgery(key, rep, params, card, CONFIG_SURGERY[key])
-    chain = chain_launches(rep)
+    chain = chain_launches(rep, shared)
     if (chain["lowrank_matmul"], chain["branched_matmul"]) \
             != CONFIG_CHAINS[key]:
         raise SystemExit(f"{key} surgery implies {chain} a segment, want "
                          f"{CONFIG_CHAINS[key]}")
-
-
-def _tree_to(tree, device: str, dtype):
-    import torch
-    if isinstance(tree, dict):
-        return {k: _tree_to(v, device, dtype) for k, v in tree.items()}
-    return tree.to(device, dtype)
 
 
 def _routing(got: list, want: list) -> dict:
@@ -3248,72 +3361,42 @@ def _routing(got: list, want: list) -> dict:
             "reordered_tokens": reordered, "first_unequal": first}
 
 
-def cross_check_moe(cfg, params, card: str, seed: int, *, label: str,
-                    chain: dict[str, int], attn: str, kv_quantize: str,
-                    n_tok: int = 64, steps: int = 16) -> dict:
-    """Prefill and ``steps`` greedy decode steps of an MoE tree as the
-    engine drives it (a blocking whole-prompt prefill into a staging
-    cache of the pool's family, inserted, decode over a one-slot pool),
-    five ways, every one fed the same tokens (the greedy ones of the CPU
-    run over the full-width pool): the tree in f32 on the card and on the
-    CPU over the full-width pool (``f32``, ``cpu``), and in f32 and bf16
-    on the card and f32 on the CPU over the phase's ``kv_quantize`` pool
-    (``f32_pool``, ``bf16``, ``cpu_pool``).  Every call of the dispatch's
-    top-k (``repro_torch.layers.moe._topk``) is recorded.
-
-    Gated: the card's f32 run picks every (token, k) expert of every MoE
-    layer that the CPU's picks, bar near ties (:func:`_routing`,
-    :data:`ROUTER_TIE`), and its logits stay within
-    :data:`CHECK_TOL_F32` of the CPU logits' std at every step; each card
-    run launches exactly its segments' kernels (``chain`` a segment, and
-    ``attn`` a layer of every decode step over the quantized pool).
-    Reported: the runs over the quantized pool against the CPU's over
-    it -- the bf16 run's distance, greedy agreement and share of equal
-    choices, and the f32 run's, where int8 roundings that the two f32
-    runs take apart (a K / V value on a rounding boundary) move the
-    logits and can tip a near-tied router score."""
-    import dataclasses
-    import numpy as np
+def _pooled_runs(sides: dict, toks: list, steps: int, vocab: int, *,
+                 record: list | None = None) -> dict:
+    """Prefill and ``steps`` greedy decode steps of a stream as the engine
+    drives it with blocking admission, for each of ``sides`` (``{name:
+    (model, params, kv_quantize)}``): a whole-prompt prefill of ``toks``
+    into a staging cache of the pool's family, inserted into a one-slot
+    pool, then decode over the pool; every side is fed the greedy tokens
+    of the ``"cpu"`` side.  Returns ``{name: run}``: each run's pool, its
+    logits at every step (the ``vocab`` real columns: a padded vocab's
+    columns hold -1e30), the kernels it launched and its host seconds.
+    What instrumentation appends to ``record`` while a side steps moves
+    to that run's ``"recorded"``."""
     import torch
-    from repro_torch.layers import moe
-    from repro_torch.models.api import get_model
     from repro_torch.serve.pool import KVPoolManager
     from repro_torch.serve.runner import ModelRunner
-    toks = np.random.default_rng(seed).integers(
-        0, cfg.vocab_size, n_tok).tolist()
+    n_tok = len(toks)
     max_seq = n_tok + steps + 1
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
-    fresh_peak()
-    card32 = (get_model(cfg32, "cuda"),
-              _tree_to(params, "cuda", torch.float32))
-    cpu32 = (get_model(cfg32, "cpu"), to_cpu_f32(params))
-    sides = {"cpu": (*cpu32, None), "f32": (*card32, None),
-             "cpu_pool": (*cpu32, kv_quantize),
-             "f32_pool": (*card32, kv_quantize),
-             "bf16": (get_model(cfg, "cuda"), params, kv_quantize)}
     runs = {}
     for name, (model, p, kvq) in sides.items():
         runs[name] = dict(
             pool=KVPoolManager(model, 1, max_seq, kv_quantize=kvq),
             runner=ModelRunner(model, p, max_seq=max_seq, kv_quantize=kvq),
-            kvq=kvq, dev=model.device, choices=[], logits=[],
+            kvq=kvq, dev=model.device, logits=[], recorded=[], seconds=0.0,
             launches={k: 0 for k in KERNELS})
-    topk = moe._topk
-    current: list = []
-
-    def counted_topk(gates, k):
-        vals, idx = topk(gates, k)
-        current.append((idx.to("cpu"), gates.to("cpu", torch.float32)))
-        return vals, idx
 
     def run(r, fn):
-        nonlocal current
-        current = r["choices"]
+        t0 = time.perf_counter()
         before = {k: launch_count(k) for k in KERNELS}
         lg = fn(r)
         for k in KERNELS:
             r["launches"][k] += launch_count(k) - before[k]
-        r["logits"].append(lg[0, -1].float().cpu())
+        r["logits"].append(lg[0, -1, :vocab].float().cpu())
+        r["seconds"] += time.perf_counter() - t0
+        if record is not None:
+            r["recorded"] += record
+            record.clear()
 
     def prefill(r):
         r["pool"].allocate(0, n_tok)
@@ -3324,47 +3407,116 @@ def cross_check_moe(cfg, params, card: str, seed: int, *, label: str,
         r["pool"].insert(staged, 0, n_tok)
         return lg
 
+    with torch.inference_mode():
+        for r in runs.values():
+            run(r, prefill)
+        for _ in range(steps):
+            tok = int(runs["cpu"]["logits"][-1].argmax())
+
+            def decode(r):
+                lg, r["pool"].cache = r["runner"].step(
+                    torch.tensor([[tok]], device=r["dev"]),
+                    torch.as_tensor(r["pool"].positions, device=r["dev"]),
+                    "decode", cache=r["pool"].cache)
+                r["pool"].grow(0, token=tok)
+                return lg
+            for r in runs.values():
+                run(r, decode)
+    torch.cuda.synchronize()
+    return runs
+
+
+def _against(r: dict, c: dict) -> dict:
+    """Run ``r``'s logits against run ``c``'s at every step (the largest
+    difference over ``c``'s std, greedy agreement and its gaps) and the
+    kernels ``r`` launched."""
+    rels = [((a - b).abs().max() / b.std()).item()
+            for a, b in zip(r["logits"], c["logits"])]
+    gaps = {}
+    for i, (a, b) in enumerate(zip(r["logits"], c["logits"])):
+        gaps.update(_greedy_gap(i, a, b))
+    return {"pool": r["kvq"] or "full width",
+            "max_diff_over_std": max(rels), "per_step": rels,
+            "greedy_agree": f"{len(rels) - len(gaps)}/{len(rels)}",
+            "greedy_gap": gaps,
+            "launches": {k: n for k, n in r["launches"].items() if n}}
+
+
+def _exact_runs(label: str, runs: dict, names: tuple, chain: dict[str, int],
+                attn: str | None, attn_layers: int, steps: int) -> None:
+    """Each of the card's ``names`` runs launched exactly its segments'
+    kernels: ``chain`` a segment, and ``attn`` once per attention layer
+    (``attn_layers``) of every decode step over a quantized pool."""
+    for name in names:
+        want = {k: n * (steps + 1) for k, n in chain.items()}
+        if runs[name]["kvq"] and attn:
+            want[attn] = attn_layers * steps
+        want = {k: want.get(k, 0) for k in KERNELS}
+        if runs[name]["launches"] != want:
+            raise SystemExit(f"{label} ({name}) launched "
+                             f"{runs[name]['launches']}, want {want}")
+
+
+def cross_check_moe(cfg, params, card: str, seed: int, *, label: str,
+                    chain: dict[str, int], attn: str, kv_quantize: str,
+                    n_tok: int = 64, steps: int = 16) -> dict:
+    """:func:`_pooled_runs` of an MoE tree five ways: the tree in f32 on
+    the card and on the CPU over the full-width pool (``f32``, ``cpu``),
+    and in f32 and bf16 on the card and f32 on the CPU over the phase's
+    ``kv_quantize`` pool (``f32_pool``, ``bf16``, ``cpu_pool``).  Every
+    call of the dispatch's top-k (``repro_torch.layers.moe._topk``) is
+    recorded.
+
+    Gated: the card's f32 run picks every (token, k) expert of every MoE
+    layer that the CPU's picks, bar near ties (:func:`_routing`,
+    :data:`ROUTER_TIE`), and its logits stay within
+    :data:`CHECK_TOL_F32` of the CPU logits' std at every step; each card
+    run launches exactly its segments' kernels (:func:`_exact_runs`).
+    Reported: the runs over the quantized pool against the CPU's over
+    it -- the bf16 run's distance, greedy agreement and share of equal
+    choices, and the f32 run's, where int8 roundings that the two f32
+    runs take apart (a K / V value on a rounding boundary) move the
+    logits and can tip a near-tied router score."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.layers import moe
+    from repro_torch.models.api import get_model
+    toks = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, n_tok).tolist()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    fresh_peak()
+    card32 = (get_model(cfg32, "cuda"),
+              _tree_to(params, "cuda", torch.float32))
+    cpu32 = (get_model(cfg32, "cpu"), to_cpu_f32(params))
+    sides = {"cpu": (*cpu32, None), "f32": (*card32, None),
+             "cpu_pool": (*cpu32, kv_quantize),
+             "f32_pool": (*card32, kv_quantize),
+             "bf16": (get_model(cfg, "cuda"), params, kv_quantize)}
+    topk = moe._topk
+    calls: list = []
+
+    def counted_topk(gates, k):
+        vals, idx = topk(gates, k)
+        calls.append((idx.to("cpu"), gates.to("cpu", torch.float32)))
+        return vals, idx
+
     moe._topk = counted_topk
     try:
-        with torch.inference_mode():
-            for r in runs.values():
-                run(r, prefill)
-            for _ in range(steps):
-                tok = int(runs["cpu"]["logits"][-1].argmax())
-
-                def decode(r):
-                    lg, r["pool"].cache = r["runner"].step(
-                        torch.tensor([[tok]], device=r["dev"]),
-                        torch.as_tensor(r["pool"].positions,
-                                        device=r["dev"]), "decode",
-                        cache=r["pool"].cache)
-                    r["pool"].grow(0, token=tok)
-                    return lg
-                for r in runs.values():
-                    run(r, decode)
+        runs = _pooled_runs(sides, toks, steps, cfg.vocab_size, record=calls)
     finally:
         moe._topk = topk
-    torch.cuda.synchronize()
     res = {"kv_quantize": kv_quantize, "tokens": n_tok,
            "decode_steps": steps, "tol": CHECK_TOL_F32,
-           "topk_calls": len(runs["cpu"]["choices"]),
+           "topk_calls": len(runs["cpu"]["recorded"]),
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "seconds": {n: r["seconds"] for n, r in runs.items()},
            "card": card}
     for name, ref_name in (("f32", "cpu"), ("f32_pool", "cpu_pool"),
                            ("bf16", "cpu_pool")):
         r, c = runs[name], runs[ref_name]
-        rels = [((a - b).abs().max() / b.std()).item()
-                for a, b in zip(r["logits"], c["logits"])]
-        gaps = {}
-        for i, (a, b) in enumerate(zip(r["logits"], c["logits"])):
-            gaps.update(_greedy_gap(i, a, b))
-        res[name] = {"pool": r["kvq"] or "full width",
-                     "max_diff_over_std": max(rels), "per_step": rels,
-                     "greedy_agree": f"{len(rels) - len(gaps)}/{len(rels)}",
-                     "greedy_gap": gaps, **_routing(r["choices"],
-                                                    c["choices"]),
-                     "launches": {k: n for k, n in r["launches"].items()
-                                  if n}}
+        res[name] = {**_against(r, c),
+                     **_routing(r["recorded"], c["recorded"])}
     log(f"{label} " + json.dumps(res))
     f32 = res["f32"]
     if f32["beyond_near_ties"] != 0:
@@ -3375,14 +3527,103 @@ def cross_check_moe(cfg, params, card: str, seed: int, *, label: str,
         raise SystemExit(f"{label}: card f32 logits differ from the CPU f32 "
                          f"reference: {f32['max_diff_over_std']:.2e} > "
                          f"{CHECK_TOL_F32}")
-    for name in ("f32", "f32_pool", "bf16"):
-        want = {k: n * (steps + 1) for k, n in chain.items()}
-        if runs[name]["kvq"]:
-            want[attn] = cfg.num_layers * steps
-        want = {k: want.get(k, 0) for k in KERNELS}
-        if runs[name]["launches"] != want:
-            raise SystemExit(f"{label} ({name}) launched "
-                             f"{runs[name]['launches']}, want {want}")
+    _exact_runs(label, runs, ("f32", "f32_pool", "bf16"), chain, attn,
+                cfg.num_layers, steps)
+    return res
+
+
+#: prompt tokens of the recurrent checks: past the 256-token SSD chunk
+#: (the inter-chunk recurrence runs) and not a multiple of it (the last
+#: chunk is padded with dt = 0)
+RECURRENT_CHECK_TOKENS = 300
+
+
+def cross_check_recurrent(cfg, params, card: str, seed: int, *, label: str,
+                          chain: dict[str, int], attn: str | None,
+                          quantize: str = "none",
+                          kv_quantize: str | None = None,
+                          bf16_against: str = "cpu",
+                          steps: int = 16) -> dict:
+    """:func:`_pooled_runs` of an SSM or hybrid tree, with the factors
+    quantized as the engine quantizes them (``quantize``): the tree in
+    f32 on the card and on the CPU over the full-width pool (``f32``,
+    ``cpu``); in bf16 on the card and, reported, on the CPU over the
+    phase's ``kv_quantize`` pool (``bf16``, ``cpu_bf16``); and, where
+    that pool is quantized, in f32 on the card and on the CPU over it
+    (``f32_pool``, ``cpu_pool``).  The recurrent state stays in the model
+    dtype, as the reference keeps it.
+
+    Gated: the card's f32 logits within :data:`CHECK_TOL_F32` of the
+    CPU's at every step; the card's bf16 logits within :data:`CHECK_TOL`
+    of the CPU's f32 ones over the same pool (``bf16_against="cpu"``) or
+    of the CPU's bf16 ones (``"cpu_bf16"``: where the CPU's bf16 run
+    misses its f32 run as far as the card's does); the card's f32 run
+    over a quantized pool within :data:`CHECK_TOL_POOL_F32` of the CPU's
+    over it (int8 roundings that the two f32 runs take apart, a K / V
+    value on a rounding boundary, move its logits); each card run
+    launches exactly its segments' kernels (:func:`_exact_runs`)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import LRDConfig
+    from repro_torch.models.api import get_model
+    from repro_torch.quant.quantize import quantize_tree
+    n_tok = RECURRENT_CHECK_TOKENS
+    toks = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, n_tok).tolist()
+    fresh_peak()
+    if quantize != "none":
+        with torch.inference_mode():
+            params = quantize_tree(params, quantize,
+                                   targets=LRDConfig().quant_targets)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    cpu32 = (get_model(cfg32, "cpu"), to_cpu_f32(params))
+    card32 = (get_model(cfg32, "cuda"),
+              _tree_to(params, "cuda", torch.float32))
+    sides = {"cpu": (*cpu32, None), "f32": (*card32, None),
+             "bf16": (get_model(cfg, "cuda"), params, kv_quantize),
+             "cpu_bf16": (get_model(cfg, "cpu"), _tree_to(params, "cpu"),
+                          kv_quantize)}
+    pairs = [("f32", "cpu"), ("bf16", "cpu"), ("cpu_bf16", "cpu")]
+    if kv_quantize:
+        sides["cpu_pool"] = (*cpu32, kv_quantize)
+        sides["f32_pool"] = (*card32, kv_quantize)
+        pairs = [("f32", "cpu"), ("f32_pool", "cpu_pool"),
+                 ("bf16", "cpu_pool"), ("cpu_bf16", "cpu_pool")]
+    runs = _pooled_runs(sides, toks, steps, cfg.vocab_size)
+    res = {"quantize": quantize, "kv_quantize": kv_quantize or "none",
+           "tokens": n_tok, "decode_steps": steps,
+           "tol": CHECK_TOL, "tol_f32": CHECK_TOL_F32,
+           "tol_pool_f32": CHECK_TOL_POOL_F32,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "seconds": {n: r["seconds"] for n, r in runs.items()},
+           "card": card}
+    for name, ref_name in pairs:
+        res[name] = {**_against(runs[name], runs[ref_name]),
+                     "against": ref_name}
+    res["bf16_vs_cpu_bf16"] = _against(
+        runs["bf16"], runs["cpu_bf16"])["max_diff_over_std"]
+    gated = (res["bf16"]["max_diff_over_std"] if bf16_against == "cpu"
+             else res["bf16_vs_cpu_bf16"])
+    res["bf16_gate"] = {"against": bf16_against, "reading": gated}
+    log(f"{label} " + json.dumps(res))
+    if not res["f32"]["max_diff_over_std"] <= CHECK_TOL_F32:
+        raise SystemExit(f"{label}: card f32 logits differ from the CPU f32 "
+                         f"reference: {res['f32']['max_diff_over_std']:.2e} "
+                         f"> {CHECK_TOL_F32}")
+    if kv_quantize and not (res["f32_pool"]["max_diff_over_std"]
+                            <= CHECK_TOL_POOL_F32):
+        raise SystemExit(f"{label}: card f32 logits over the {kv_quantize} "
+                         f"pool differ from the CPU's over it: "
+                         f"{res['f32_pool']['max_diff_over_std']:.2e} > "
+                         f"{CHECK_TOL_POOL_F32}")
+    if not gated <= CHECK_TOL:
+        raise SystemExit(f"{label}: card bf16 logits differ from the CPU "
+                         f"run {bf16_against!r}: {gated:.4f} > {CHECK_TOL}")
+    groups = runs["bf16"]["pool"].model.n_groups
+    _exact_runs(label, runs, tuple(n for n in ("f32", "f32_pool", "bf16")
+                                   if n in runs),
+                chain, attn, groups or cfg.num_layers, steps)
     return res
 
 
@@ -3394,6 +3635,7 @@ def run_config(key: str, phases: list[str], card: str, seed: int,
     f32 CPU run (:func:`cross_check_staged` for the dense configs,
     :func:`cross_check_moe` for the MoE ones); freed when this returns."""
     import torch
+    from repro_torch.models.api import get_model
     spec = CONFIG_RUNS[key]
     if not {f"serve_{key}", f"check_{key}"} & set(phases):
         return
@@ -3408,28 +3650,46 @@ def run_config(key: str, phases: list[str], card: str, seed: int,
     log(f"surgery {key} branches=4: init {init_s:.2f} s, surgery "
         f"{surg_s:.2f} s, peak {torch.cuda.max_memory_allocated()} B "
         f"(init {init_peak} B), {json.dumps(rep.summary())} [{card}]")
-    check_config_surgery(key, rep, params, card)
-    chain = {k: n for k, n in chain_launches(rep).items() if n}
-    attn, L = spec["attn"], cfg.num_layers
-    moe = cfg.family == "moe"
+    groups = get_model(cfg, "cpu").n_groups
+    check_config_surgery(key, rep, params, card, shared=groups)
+    tag = "_q" if spec["engine"].get("quantize") == "int8" else ""
+    chain = {k + tag: n for k, n in chain_launches(rep, groups).items() if n}
+    attn = spec["attn"]
+    #: attention layers a decode step runs (the hybrid's shared block once
+    #: a group; none in mamba2)
+    L = (groups if cfg.family == "hybrid" else 0 if attn is None
+         else cfg.num_layers)
+    blocking = cfg.family in ("moe", "ssm", "hybrid")
+    decode = {**chain, **({attn: L} if attn else {})}
     if f"serve_{key}" in phases:
         with Phase(f"serve_{key}"):
             res = serve(cfg, lrd, params, n_req=8, prompt_lo=32,
                         prompt_hi=512, new_tokens=32, card=card, seed=seed,
                         shared=spec.get("shared", 0),
-                        expect={"decode": {**chain, attn: L},
-                                "prefill" if moe else "prefill_chunk":
+                        expect={"decode": decode,
+                                "prefill" if blocking else "prefill_chunk":
                                     chain}, **spec["engine"])
             res.update(surgery_s=surg_s, init_s=init_s, config=spec["arch"],
-                       depth=L, admission="blocking" if moe
-                       else "continuous")
+                       depth=cfg.num_layers, admission="blocking"
+                       if blocking else "continuous")
             serve_res[key] = res
+            if res["state_bytes"]:
+                log(f"serve_{key} recurrent state {res['state_bytes']} B, "
+                    f"kv_bytes_per_step {res['kv_bytes_per_step']} B, "
+                    f"weight_bytes {res['weight_bytes']} B [{card}]")
     if f"check_{key}" in phases:
         with Phase(f"check_{key}"):
             steps = 16
             want = {k: n * (steps + 1) for k, n in chain.items()}
-            want[attn] = L * steps
-            if moe:
+            if attn:
+                want[attn] = L * steps
+            if cfg.family in ("ssm", "hybrid"):
+                cross_check_recurrent(
+                    cfg, params, card, seed, label=f"check_{key}",
+                    chain=chain, attn=attn, steps=steps,
+                    bf16_against=spec.get("bf16_against", "cpu"),
+                    **spec["engine"])
+            elif cfg.family == "moe":
                 cross_check_moe(cfg, params, card, seed,
                                 label=f"check_{key}", chain=chain, attn=attn,
                                 kv_quantize=spec["engine"]["kv_quantize"],

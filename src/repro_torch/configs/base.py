@@ -38,8 +38,9 @@ FAMILIES = (
 @dataclass(frozen=True)
 class ModelConfig:
     """Architecture definition (the reference's field names and
-    defaults).  The fields of the dense family, MLA and MoE are here (the
-    SSM, VLM, encoder and ResNet fields come with ROADMAP A13c-A13f)."""
+    defaults).  The fields of the dense family, MLA, MoE, the SSM and the
+    hybrid are here (the VLM, encoder and ResNet fields come with ROADMAP
+    A13d-A13f)."""
 
     name: str = "tiny"
     family: str = FAMILY_DENSE
@@ -75,6 +76,16 @@ class ModelConfig:
     qk_nope_dim: int = 128
     v_head_dim: int = 128
 
+    # SSM (mamba2 / SSD).
+    ssm_state: int = 0                 # N (state dim); 0 -> no SSM
+    ssm_expand: int = 2                # d_inner = expand * d_model
+    ssm_heads: int = 0                 # 0 -> d_inner // 64
+    ssm_chunk: int = 256               # SSD chunk length
+    ssm_conv_width: int = 4
+
+    # Hybrid (zamba2-style shared attention block).
+    hybrid_attn_every: int = 6         # shared attn block applied every k layers
+
     is_encoder: bool = False
 
     dtype: str = "bfloat16"            # activation / param dtype
@@ -94,6 +105,23 @@ class ModelConfig:
     @property
     def resolved_moe_d_ff(self) -> int:
         return self.moe_d_ff or self.d_ff
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def resolved_ssm_heads(self) -> int:
+        return self.ssm_heads or max(1, self.d_inner // 64)
+
+    @property
+    def attention_free(self) -> bool:
+        return self.family == FAMILY_SSM
+
+    @property
+    def subquadratic(self) -> bool:
+        """Can this arch run the 500k-context decode cell?"""
+        return self.family in (FAMILY_SSM, FAMILY_HYBRID)
 
     @property
     def has_decode(self) -> bool:

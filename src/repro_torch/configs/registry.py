@@ -1,9 +1,10 @@
 """Architecture registry: name -> full-size and smoke-test configs.
 
 The port registers the architectures its slices serve: the dense
-llama3.2-1b, granite-8b, mistral-nemo-12b and minitron-4b, and the MoE
-moonshot-v1-16b-a3b and deepseek-v2-236b.  The SSM, hybrid, VLM, encoder
-and ResNet ones come with ROADMAP items A13c-A13f.
+llama3.2-1b, granite-8b, mistral-nemo-12b and minitron-4b, the MoE
+moonshot-v1-16b-a3b and deepseek-v2-236b, the SSM mamba2-2.7b and the
+hybrid zamba2-1.2b.  The VLM, encoder and ResNet ones come with ROADMAP
+items A13d-A13f.
 """
 from __future__ import annotations
 
@@ -44,6 +45,8 @@ def _ensure_loaded() -> None:
     from repro_torch.configs import deepseek_v2_236b  # noqa: F401
     from repro_torch.configs import granite_8b  # noqa: F401
     from repro_torch.configs import llama3_2_1b  # noqa: F401
+    from repro_torch.configs import mamba2_2_7b  # noqa: F401
     from repro_torch.configs import minitron_4b  # noqa: F401
     from repro_torch.configs import mistral_nemo_12b  # noqa: F401
     from repro_torch.configs import moonshot_v1_16b_a3b  # noqa: F401
+    from repro_torch.configs import zamba2_1_2b  # noqa: F401

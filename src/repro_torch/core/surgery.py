@@ -48,6 +48,7 @@ _LABELS: dict[tuple[str, str], str] = {
     ("shared", "down"): "ffn_down",
     ("experts", "up"): "moe_up", ("experts", "gate"): "moe_gate",
     ("experts", "down"): "moe_down",
+    ("ssm", "in_proj"): "ssm_in", ("ssm", "out_proj"): "ssm_out",
 }
 
 

@@ -1,4 +1,4 @@
-"""RMSNorm with f32 internals."""
+"""RMSNorm and mamba2's gated RMSNorm, with f32 internals."""
 from __future__ import annotations
 
 import torch
@@ -12,6 +12,16 @@ def init_rms_norm(pb: ParamBuilder, name: str, dim: int) -> None:
 
 def rms_norm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     xf = x.to(torch.float32)
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * p["scale"].to(torch.float32)).to(x.dtype)
+
+
+def gated_rms_norm(p: dict, x: torch.Tensor, gate: torch.Tensor,
+                   eps: float = 1e-5) -> torch.Tensor:
+    """Mamba2's RMSNormGated: normalize(x * silu(gate))."""
+    xf = x.to(torch.float32) * torch.nn.functional.silu(
+        gate.to(torch.float32))
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * p["scale"].to(torch.float32)).to(x.dtype)

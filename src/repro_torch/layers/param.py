@@ -31,6 +31,8 @@ EXPERTS = "experts"
 RANK = "rank"
 BRANCH = "branch"
 CONV = "conv"
+STATE = "state"          # SSM state dim
+INNER = "inner"          # SSM d_inner
 
 
 class ParamBuilder:

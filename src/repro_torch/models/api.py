@@ -14,8 +14,8 @@ def get_model(cfg: ModelConfig, device: str | torch.device = "cuda"):
 def synth_inputs(cfg: ModelConfig, shape: ShapeConfig,
                  generator: torch.Generator) -> dict[str, torch.Tensor]:
     """Random inputs of one cell, drawn from ``generator`` on its device
-    (the reference's ``input_specs`` / ``synth_inputs`` for the dense and
-    MoE families): ``tokens`` (B, S) int32 for a train or prefill cell;
+    (the reference's ``input_specs`` / ``synth_inputs`` for the dense,
+    MoE, SSM and hybrid families): ``tokens`` (B, S) int32 for a train or prefill cell;
     ``tokens`` (B, 1) and ``positions`` (B,) for a decode cell."""
     from repro_torch.models.lm import FAMILIES, missing_family
     if cfg.family not in FAMILIES:

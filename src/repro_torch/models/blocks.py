@@ -1,12 +1,14 @@
 """The pre-norm decoder block on the LRD-transparent layers: GQA or MLA
-attention, a dense FFN or an MoE one.
+attention, a dense FFN or an MoE one; and the mamba2 (SSM) block.
 
 ``init_block(pb, cfg, moe=...)`` builds a single layer's params (the model
 stacks layers along a leading axis); ``apply_block`` runs one layer's
 params, choosing MLA where the params hold an ``mla`` subtree, the merged
 attention of paper §2.3 (no cache) where they hold a ``merged`` one, and
-the MoE FFN where they hold a ``moe`` one.  The reference's SSM block
-comes with ROADMAP item A13c, its cross-attention block with A13d.
+the MoE FFN where they hold a ``moe`` one.  ``init_ssm_block`` /
+``apply_ssm_block`` are the SSM family's layer (and the hybrid's, beside
+its shared attention block).  The reference's cross-attention block comes
+with ROADMAP item A13d.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import torch
 
 from repro_torch.layers import attention as attn
 from repro_torch.layers import cache as cache_mod
+from repro_torch.layers import ssm as ssm_mod
 from repro_torch.layers.mlp import apply_mlp, init_mlp
 from repro_torch.layers.moe import apply_moe, init_moe
 from repro_torch.layers.norm import init_rms_norm, rms_norm
@@ -100,3 +103,32 @@ def block_cache_spec(cfg, batch: int, seq_len: int, dtype: torch.dtype,
     physical blocks + 1 / block size)."""
     return cache_mod.build_cache_plan(cfg, dtype, kv_quantize,
                                       paged).leaves(batch, seq_len)
+
+
+# ---------------------------------------------------------------------------
+# SSM (mamba2) block
+# ---------------------------------------------------------------------------
+
+def init_ssm_block(pb: ParamBuilder, cfg) -> None:
+    init_rms_norm(pb, "norm", cfg.d_model)
+    ssm_mod.init_ssm(pb, "ssm", ssm_mod.dims_from_config(cfg))
+
+
+def apply_ssm_block(p: dict, x: torch.Tensor, cfg, *,
+                    state: dict | None = None, decode: bool = False,
+                    act_quantize: bool = False
+                    ) -> tuple[torch.Tensor, dict | None]:
+    """Pre-norm mamba2 layer.  Returns ``(x', state)``: with ``decode``
+    one step advances ``state`` in place, else the full-sequence SSD
+    writes its final state into ``state`` (when given)."""
+    dims = ssm_mod.dims_from_config(cfg)
+    h = rms_norm(p["norm"], x, cfg.norm_eps)
+    if decode:
+        y, state = ssm_mod.apply_ssm_decode(
+            p["ssm"], h, dims, state, act_quantize=act_quantize,
+            norm_eps=cfg.norm_eps)
+    else:
+        y, state = ssm_mod.apply_ssm(
+            p["ssm"], h, dims, state=state, act_quantize=act_quantize,
+            norm_eps=cfg.norm_eps)
+    return x + y, state

@@ -1,10 +1,16 @@
-"""LM trunk for the dense and MoE families (GQA or MLA attention): init,
-embed, trunk, logits, the training forward and loss, prefill, chunked
-prefill and decode.
+"""LM trunk for the dense, MoE, SSM and hybrid families: init, embed,
+trunk, logits, the training forward and loss, prefill, chunked prefill
+(attention-cached families) and decode.
 
-* dense: one stack of L blocks.
-* moe:   an optional unstacked first block with the dense FFN
-         (``moe_first_dense``, DeepSeek-V2's), then a stack of MoE blocks.
+* dense:  one stack of L blocks (GQA or MLA attention).
+* moe:    an optional unstacked first block with the dense FFN
+          (``moe_first_dense``, DeepSeek-V2's), then a stack of MoE blocks.
+* ssm:    one stack of L mamba2 blocks (mamba2).
+* hybrid: the mamba2 stack with one *shared* attention + MLP block
+          (``shared_attn``, unstacked) applied after every
+          ``hybrid_attn_every`` SSM layers, each application with its own
+          KV entry; the ``num_layers % hybrid_attn_every`` trailing SSM
+          layers run last (zamba2).
 
 Per-layer params are stacked along a leading ``layers`` axis, as in the
 reference; where the reference scans the stack with ``lax.scan``, the
@@ -15,8 +21,11 @@ int8 family's ``k_q``/``k_scale``/``v_q``/``v_scale``, a paged pool's
 blocks and ``block_tables``, or an MLA stack's latents ``ckv``/``krope``
 ``(L, B, S, r)`` and their int8 pairs), with the unstacked first block's
 leaves under ``"first"`` (no ``L`` axis), and is written in place.  The
-reference's VLM, SSM, hybrid and encoder families come with ROADMAP items
-A13c-A13e.
+recurrent families' cache is ``{"blocks": {"ssm", "conv_x", "conv_bc"}}``
+(``(L, B, nh, hd, N)``, ``(L, B, K-1, d_inner)``, ``(L, B, K-1, 2N)``,
+in the model dtype), plus the hybrid's ``"shared"`` KV entry with an
+``n_groups`` lead.  The reference's VLM and encoder families come with
+ROADMAP items A13d-A13e.
 
 Training (:meth:`LMModel.loss`) runs the trunk without a cache over
 per-layer views from ``unbind`` (one stacked gradient per leaf in
@@ -37,6 +46,7 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.layers import cache as cache_mod
+from repro_torch.layers import ssm as ssm_mod
 from repro_torch.layers.norm import init_rms_norm, rms_norm
 from repro_torch.layers.param import (EMBED, LAYERS, VOCAB, ParamBuilder,
                                       apply_linear, init_linear)
@@ -100,10 +110,11 @@ def _stack_axes(axes: PyTree) -> PyTree:
 
 
 #: the families :class:`LMModel` serves
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
+#: the families whose layers carry recurrent state
+RECURRENT = ("ssm", "hybrid")
 #: the ROADMAP item of each family still to come
-_MISSING = {"ssm": "A13c", "hybrid": "A13c", "vlm": "A13d",
-            "encoder": "A13e", "resnet": "A13f"}
+_MISSING = {"vlm": "A13d", "encoder": "A13e", "resnet": "A13f"}
 
 
 def missing_family(family: str) -> NotImplementedError:
@@ -114,8 +125,8 @@ def missing_family(family: str) -> NotImplementedError:
 
 
 class LMModel:
-    """init / embed / trunk / logits / prefill / decode for one dense or
-    MoE architecture, on one device."""
+    """init / embed / trunk / logits / prefill / decode for one dense,
+    MoE, SSM or hybrid architecture, on one device."""
 
     def __init__(self, cfg: ModelConfig, device: str | torch.device = "cuda"):
         if cfg.family not in FAMILIES:
@@ -124,6 +135,10 @@ class LMModel:
         #: unstacked first blocks (dense FFN) and the stacked rest
         self.n_first = cfg.moe_first_dense if cfg.family == "moe" else 0
         self.n_stack = cfg.num_layers - self.n_first
+        #: the hybrid's groups of ``hybrid_attn_every`` SSM layers, each
+        #: followed by the shared block (0 for every other family)
+        self.n_groups = (cfg.num_layers // cfg.hybrid_attn_every
+                         if cfg.family == "hybrid" else 0)
         self.device = torch.device(device)
         self.dtype = getattr(torch, cfg.dtype)
         self.padded_vocab = ((-cfg.vocab_size) % 128 + cfg.vocab_size
@@ -147,14 +162,22 @@ class LMModel:
             first = ParamBuilder(generator, self.dtype, self.device)
             B.init_block(first, cfg, moe=False)
             pb.attach("first", first.params, first.axes)
+        recurrent = cfg.family in RECURRENT
         layers, layer_axes = [], None
         for _ in range(self.n_stack):
             lb = ParamBuilder(generator, self.dtype, self.device)
-            B.init_block(lb, cfg, moe=moe)
+            if recurrent:
+                B.init_ssm_block(lb, cfg)
+            else:
+                B.init_block(lb, cfg, moe=moe)
             layers.append(lb.params)
             layer_axes = lb.axes
         pb.attach("blocks", _stack(layers), _stack_axes(layer_axes))
         del layers
+        if cfg.family == "hybrid":
+            shared = ParamBuilder(generator, self.dtype, self.device)
+            B.init_block(shared, cfg, moe=False)
+            pb.attach("shared_attn", shared.params, shared.axes)
         init_rms_norm(pb, "final_norm", cfg.d_model)
         if not cfg.tie_embeddings:
             init_linear(pb, "unembed", cfg.d_model, self.padded_vocab,
@@ -192,11 +215,18 @@ class LMModel:
               remat: str = "none"
               ) -> tuple[torch.Tensor, PyTree | None, torch.Tensor]:
         """Run every layer: the unstacked first block (if any), then the
-        stack.  Returns ``(x, cache, aux)``, ``aux`` the summed MoE
-        load-balance loss (``None`` without an MoE layer); the cache is
-        written in place.  ``act_quantize`` runs every int8 linear int8 x
-        int8 (prefill segments only).  Without a cache (training) each
-        block runs under the ``remat`` policy."""
+        stack (the recurrent families: :meth:`_recurrent_trunk`).
+        Returns ``(x, cache, aux)``, ``aux`` the summed MoE load-balance
+        loss (``None`` without an MoE layer); the cache is written in
+        place.  ``act_quantize`` runs every int8 linear int8 x int8
+        (prefill segments only).  Without a cache (training) each block
+        runs under the ``remat`` policy."""
+        if self.cfg.family in RECURRENT:
+            return self._recurrent_trunk(
+                params, x, positions=positions, cache=cache,
+                cache_pos=cache_pos, prompt_len=prompt_len,
+                start_pos=start_pos, cache_plan=cache_plan,
+                act_quantize=act_quantize, remat=remat)
         aux = None
 
         def add(a):
@@ -226,6 +256,59 @@ class LMModel:
                                     act_quantize=act_quantize)
             aux = add(a)
         return x, cache, aux
+
+    def _recurrent_trunk(self, params: PyTree, x: torch.Tensor, *,
+                         positions: torch.Tensor, cache: PyTree | None,
+                         cache_pos: torch.Tensor | None,
+                         prompt_len: int | None, start_pos: int | None,
+                         cache_plan, act_quantize: bool, remat: str
+                         ) -> tuple[torch.Tensor, PyTree | None, None]:
+        """The SSM stack, or the hybrid's: ``n_groups`` groups of
+        ``hybrid_attn_every`` SSM layers, each followed by the shared
+        block over that group's own KV entry, then the trailing SSM
+        layers (``num_layers % hybrid_attn_every``).  A prefill writes every layer's final state (and the
+        shared block's K/V) into the cache, a decode step advances them;
+        recurrent state advances through every token it sees, so prompts
+        prefill whole (no chunk offset)."""
+        cfg = self.cfg
+        if start_pos is not None:
+            raise ValueError(f"family {cfg.family!r} prefills whole prompts "
+                             "(its recurrent state has no chunk offset)")
+        decode = cache_pos is not None
+        if cache is None:
+            per_layer = _unbind(params["blocks"], cfg.num_layers)
+            ssm_step = _remat(lambda h, p_l: B.apply_ssm_block(
+                p_l, h, cfg, act_quantize=act_quantize)[0], remat)
+            shared_step = _remat(lambda h, p_s: B.apply_block(
+                p_s, h, cfg, positions=positions,
+                act_quantize=act_quantize)[0], remat)
+
+        def ssm(i: int, h: torch.Tensor) -> torch.Tensor:
+            if cache is None:
+                return ssm_step(h, per_layer[i])
+            return B.apply_ssm_block(
+                layer_slice(params["blocks"], i), h, cfg,
+                state=layer_slice(cache["blocks"], i), decode=decode,
+                act_quantize=act_quantize)[0]
+
+        def shared(g: int, h: torch.Tensor) -> torch.Tensor:
+            if cache is None:
+                return shared_step(h, params["shared_attn"])
+            return B.apply_block(
+                params["shared_attn"], h, cfg, positions=positions,
+                cache=layer_slice(cache["shared"], g), cache_pos=cache_pos,
+                prompt_len=prompt_len, cache_plan=cache_plan,
+                act_quantize=act_quantize)[0]
+
+        i = 0
+        for g in range(self.n_groups):
+            for _ in range(cfg.hybrid_attn_every):
+                x = ssm(i, x)
+                i += 1
+            x = shared(g, x)
+        for i in range(i, cfg.num_layers):
+            x = ssm(i, x)
+        return x, cache, None
 
     # -- training -------------------------------------------------------------
 
@@ -299,7 +382,22 @@ class LMModel:
     def cache_plans(self, kv_quantize: str | None = None,
                     paged: cache_mod.PagedGeometry | None = None
                     ) -> list[cache_mod.CachePlan]:
-        return [self.cache_plan(kv_quantize, paged)] * self.cfg.num_layers
+        """One plan per cached attention layer (the hybrid's shared block
+        once per group; none for the SSM stack, whose recurrent state is
+        no per-token KV stream)."""
+        f = self.cfg.family
+        n = (self.n_groups if f == "hybrid" else 0 if f == "ssm"
+             else self.cfg.num_layers)
+        return [self.cache_plan(kv_quantize, paged)] * n
+
+    def state_leaves(self, batch: int
+                     ) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
+        """``{name: (shape, dtype)}`` of one layer's recurrent state (none
+        for the attention families)."""
+        if self.cfg.family not in RECURRENT:
+            return {}
+        return ssm_mod.ssm_state_spec(
+            batch, ssm_mod.dims_from_config(self.cfg), self.dtype)
 
     def init_cache(self, batch: int, seq_len: int,
                    kv_quantize: str | None = None,
@@ -308,7 +406,9 @@ class LMModel:
         ``(L, ...)`` under ``"blocks"``, and the unstacked first block's
         under ``"first"`` (int8 values and f32 scale rows for ``"int8"``;
         for a ``paged`` geometry, ``batch`` physical blocks of ``seq_len``
-        positions plus block tables pointing at the dummy)."""
+        positions plus block tables pointing at the dummy).  The recurrent
+        families' ``"blocks"`` hold zero states (:meth:`state_leaves`),
+        and the hybrid's ``"shared"`` one KV entry per group."""
         plan = self.cache_plan(kv_quantize, paged)
 
         def entry(*lead: int) -> dict:
@@ -316,6 +416,14 @@ class LMModel:
                                   dtype=dt, device=self.device)
                     for n, (shape, dt) in plan.leaves(batch,
                                                       seq_len).items()}
+        if self.cfg.family in RECURRENT:
+            out = {"blocks": {
+                n: torch.zeros((self.cfg.num_layers, *shape), dtype=dt,
+                               device=self.device)
+                for n, (shape, dt) in self.state_leaves(batch).items()}}
+            if self.n_groups:
+                out["shared"] = entry(self.n_groups)
+            return out
         out = {"blocks": entry(self.n_stack)}
         if self.n_first:
             out["first"] = entry()

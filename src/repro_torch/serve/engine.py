@@ -109,11 +109,13 @@ def _param_device(params: PyTree) -> torch.device:
 class ServeEngine:
     #: families whose prefill padding is inert (causal attention never
     #: lets a real token see a pad token); MoE capacity routing lets pads
-    #: displace real tokens, so the MoE family prefills unpadded
+    #: displace real tokens and recurrent state advances through them, so
+    #: the MoE, SSM and hybrid families prefill unpadded
     _BUCKET_FAMILIES = ("dense",)
     #: families served with chunked continuous admission: a chunk's
-    #: per-chunk expert capacity differs from the whole prompt's, so the
-    #: MoE family keeps blocking whole-prompt admission
+    #: per-chunk expert capacity differs from the whole prompt's, and
+    #: recurrent state has no chunk offset, so the MoE, SSM and hybrid
+    #: families keep blocking whole-prompt admission
     _CHUNK_FAMILIES = ("dense",)
 
     def __init__(self, run: RunConfig, params: PyTree, *, slots: int = 4,
@@ -255,7 +257,8 @@ class ServeEngine:
                                           byte_budget=kv_byte_budget)
         self.plan_summary["kv_bytes_per_step"] = self.pool.kv_bytes_per_step
         self.plan_summary["kv_layout"] = kv_layout
-        self.plan_summary["kv_cache_family"] = self.pool.plans[0].family
+        if self.pool.plans:
+            self.plan_summary["kv_cache_family"] = self.pool.plans[0].family
         self.debug = debug
         self.faults = faults if faults is not None else NULL_INJECTOR
         self.pool.faults = self.faults

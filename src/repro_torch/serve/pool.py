@@ -6,7 +6,9 @@ cache pool.
 one batch slot per in-flight stream, in the full-width ``gqa_f32`` /
 ``mla_latent`` or the int8 ``gqa_int8`` / ``mla_latent_int8`` family
 (``kv_quantize="int8"``: int8 values plus ``(L, slots, KH, D)`` or
-``(L, slots, r)`` f32 scale rows).  :class:`PagedKVPoolManager` — the
+``(L, slots, r)`` f32 scale rows), or the recurrent families' state
+``(L, slots, ...)`` (no sequence axis, no per-token bytes; the hybrid's
+shared attention KV beside it).  :class:`PagedKVPoolManager` — the
 paged pool, fixed-size physical blocks behind per-slot block tables with
 radix prefix sharing (``gqa_paged_f32`` / ``gqa_paged_int8``,
 :mod:`repro_torch.serve.paging`; no MLA).
@@ -93,12 +95,14 @@ class KVPoolManager:
         self._next_ticket = 0
         #: one CachePlan per attention layer — the source of all bytes
         self.plans = model.cache_plans(kv_quantize)
-        #: rank of one layer's leaf, by name: a cache entry's leaves carry
-        #: the layer axis where they have one more ("blocks"), none where
-        #: they have not (an unstacked "first" block)
+        #: rank of one layer's leaf, by name (KV leaves and recurrent
+        #: state): a cache entry's leaves carry the layer axis where they
+        #: have one more ("blocks", the hybrid's "shared" group axis), none
+        #: where they have not (an unstacked "first" block)
         self._rank = {n: len(shape) for n, (shape, _) in
-                      model.cache_plan(kv_quantize).leaves(
-                          slots, max_seq).items()}
+                      {**model.cache_plan(kv_quantize).leaves(
+                          slots, max_seq),
+                       **model.state_leaves(slots)}.items()}
         #: per-position KV bytes of ONE stream across all layers
         self.bytes_per_token = sum(p.bytes_per_token for p in self.plans)
         #: bytes the whole pool streams per decode step
@@ -187,7 +191,8 @@ class KVPoolManager:
 
     def capacity_bytes(self) -> int:
         """Bytes the pool can hold: the byte budget when one is set, else
-        every slot full (the router's pressure denominator)."""
+        every slot full (the router's pressure denominator; 0 for a pool
+        without per-token bytes, where the router counts streams)."""
         physical = self.slots * self.max_seq * self.bytes_per_token
         if self.byte_budget is not None:
             return min(self.byte_budget, physical) if physical else \
@@ -229,9 +234,10 @@ class KVPoolManager:
 
     def insert(self, cache1: PyTree, slot: int, length: int) -> None:
         """Land a batch=1 staging cache in pool slot ``slot``, every entry
-        of the cache tree (the stack's ``(L, ...)`` leaves and an
-        unstacked first block's).  Positions ``>= length`` (bucket
-        padding) are zeroed on the way in.  A full-width staging cache
+        of the cache tree (the stack's ``(L, ...)`` leaves, an unstacked
+        first block's, the hybrid's per-group KV).  Positions ``>=
+        length`` (bucket padding) are zeroed on the way in; recurrent
+        state has no sequence axis and replaces the slot's whole state.  A full-width staging cache
         entering an int8 pool (chunked prefill) is quantized first, with
         one-shot scales over the real prompt; a cache already in the
         pool's family (blocking prefill) lands as it is."""

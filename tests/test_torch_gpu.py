@@ -1826,3 +1826,75 @@ def test_apply_moe_on_the_card_matches_cpu(cuda, groups):
             rel = ((got[alike] - want[alike]).abs().max()
                    / want.std()).item()
             assert rel <= chip_smoke.CHECK_TOL
+
+
+def _ssm_layer(dtype):
+    """One mamba2 layer at its published widths, decomposed as the serve
+    phases decompose it (in_proj / out_proj branched, N = 4), on the CPU
+    in f32, and the same layer on the card in ``dtype``."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import LRDConfig
+    from repro_torch.core.surgery import decompose_model
+    from repro_torch.models.api import get_model
+    from repro_torch.models.lm import layer_slice
+    cfg = dataclasses.replace(registry.get("mamba2-2.7b").full,
+                              num_layers=1, dtype="float32")
+    params, axes = get_model(cfg, "cpu").init(
+        torch.Generator().manual_seed(0))
+    params, _, _ = decompose_model(params, axes,
+                                   LRDConfig(**chip_smoke.LRD, branches=4))
+    layer = layer_slice(params["blocks"], 0)
+    return cfg, layer, chip_smoke._tree_to(layer, "cuda", dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssm_layer_and_decode_step_on_the_card(cuda, dtype):
+    """A 300-token prefill (past the 256-token chunk, not a multiple of
+    it) and 4 decode steps of one full-width mamba2 block on the card,
+    in_proj and out_proj through the branched chain kernel, against the
+    same block in f32 on the CPU: f32 outputs and states within the f32
+    kernel tolerance; bf16 outputs within ``CHECK_TOL`` of the output's
+    std, bf16 states within the bf16 kernel tolerance in relative L2
+    (the recurrent state is heavy-tailed: its largest error is ~0.9 of
+    its std on the CPU's own bf16 run, 0.9 % in L2)."""
+    from repro_torch.kernels import branched_matmul as bk
+    from repro_torch.layers import ssm
+    from repro_torch.models import blocks as B
+    dt = getattr(torch, dtype)
+    cfg, cpu_layer, card_layer = _ssm_layer(dt)
+    dims = ssm.dims_from_config(cfg)
+    x = torch.randn(2, 304, cfg.d_model,
+                    generator=torch.Generator().manual_seed(1))
+    tol = (chip_smoke.KERNEL_TOL["float32"] if dtype == "float32"
+           else chip_smoke.CHECK_TOL)
+
+    def err(got, want):
+        got = got.float().cpu()
+        if dtype == "float32":
+            return _norm_err(got, want)
+        return ((got - want).abs().max() / want.std()).item()
+    st_cpu = ssm.init_ssm_state(2, dims, torch.float32, "cpu")
+    st_gpu = ssm.init_ssm_state(2, dims, dt, "cuda")
+    with torch.inference_mode():
+        want, _ = B.apply_ssm_block(cpu_layer, x[:, :300], cfg, state=st_cpu)
+        n0 = bk.launches
+        got, _ = B.apply_ssm_block(card_layer, x[:, :300].to("cuda", dt),
+                                   cfg, state=st_gpu)
+        assert bk.launches == n0 + 2
+        assert err(got, want) <= tol
+        for t in range(300, 304):
+            want, _ = B.apply_ssm_block(cpu_layer, x[:, t:t + 1], cfg,
+                                        state=st_cpu, decode=True)
+            got, _ = B.apply_ssm_block(card_layer, x[:, t:t + 1].to(
+                "cuda", dt), cfg, state=st_gpu, decode=True)
+            assert err(got, want) <= tol, t
+    assert bk.launches == n0 + 10
+    for k in st_cpu:
+        assert st_gpu[k].dtype == dt
+        got = st_gpu[k].float().cpu()
+        if dtype == "float32":
+            assert _norm_err(got, st_cpu[k]) <= tol, k
+        else:
+            rel = ((got - st_cpu[k]).norm() / st_cpu[k].norm()).item()
+            assert rel <= chip_smoke.KERNEL_TOL["bfloat16"], (k, rel)

@@ -58,7 +58,9 @@ def test_port_has_the_slice_modules():
               "repro_torch.layers.mlp", "repro_torch.configs.granite_8b",
               "repro_torch.configs.mistral_nemo_12b",
               "repro_torch.configs.minitron_4b",
-              "repro_torch.configs.moonshot_v1_16b_a3b"):
+              "repro_torch.configs.moonshot_v1_16b_a3b",
+              "repro_torch.layers.ssm", "repro_torch.configs.mamba2_2_7b",
+              "repro_torch.configs.zamba2_1_2b"):
         assert m in mods, m
 
 

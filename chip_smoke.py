@@ -278,6 +278,42 @@ B9 at (3, 128) (``WIDE_ATTN_CASES``, ``WIDE_PAGED_CASES``), and bf16 B1
 / B2 rows at M = 8 at these trees' ranks and widths
 (``WIDE_LOWRANK_SHAPES``, ``WIDE_BRANCHED_SHAPES``).
 
+The ResNets (the paper's own benchmark architectures, Tables 1 and 3)
+add, in PHASES' order after check_zamba2, at full width and depth, f32
+(TF32 off for the whole run: the times are strict f32), 224 x 224,
+1,000 classes, every tree built and decomposed on the card from the
+seed (``RESNET_LRD``, ``RESNET_VARIANTS``):
+
+- infer_resnet — resnet50 original and the Table 3 rows (vanilla LRD,
+             searched ranks on the H100 cost model, layer freezing (the
+             vanilla tree), merged bottlenecks, branched Tucker at N = 4,
+             and the vanilla tree with int8 factors), resnet101 and
+             resnet152 original and vanilla (Table 1): layers, params,
+             forward GFLOPs at 224, surgery seconds, images/s at batch 32
+             (mean and spread of 10 forwards after warm-up, each ending
+             in a sync), batch-1 ms, peak memory, speedup over the
+             original, and the exact chain-kernel launches per forward:
+             one B1 (the fc's SVD pair, f32 cluster kernel) for the
+             vanilla and searched trees, one B3 for the int8 tree, none
+             for the others.  The convolutions are cuDNN's.
+- check_resnet — every tree's f32 logits on the card against the port's
+             CPU f32 run of the same tree (4 images for resnet50, 2 for
+             the others) within ``CHECK_TOL_F32`` of the CPU logits' std;
+             top-1 agreement and each decomposed tree's distance from the
+             original printed.
+- train_resnet — 5 masked-AdamW steps at batch 32 of resnet50 original,
+             vanilla, freezing, merging and branching (the example's
+             ``finetune``): step ms (mean of steps 2-5), peak memory,
+             losses, speedup over the original, one B1 forward a step
+             where the fc is an SVD pair; the frozen factors unchanged.
+- check_train_resnet — one step of vanilla and freezing at batch 2, card
+             against CPU f32: loss within 1e-2, every gradient within
+             0.05 relative L2 (``TRAIN_CHECK_TOL``).
+
+The kernels phase adds B1 and B3 in f32 at the fc's shapes
+(``RESNET_FC``: C 2,048, S 1,000, rank 335 (ratio) and 256 (search), M =
+32 and 1); their rows are the ``resnet_path`` of the kernels line.
+
 Only on request (``--phases ...,profile``): torch.profiler over steady
 decode steps of the branches=4 model, plain, int8 and 2:4-packed int8 —
 device time by operator and the device's idle share; ``profile_qa`` the
@@ -312,7 +348,8 @@ PHASES = ("device", "build", "kernels", "search", "serve", "check",
           "serve_nemo", "check_nemo", "serve_minitron", "check_minitron",
           "serve_moe", "check_moe", "serve_mla_moe", "check_mla_moe",
           "serve_mamba2", "check_mamba2", "serve_zamba2", "check_zamba2",
-          "train", "check_train")
+          "infer_resnet", "check_resnet", "train_resnet",
+          "check_train_resnet", "train", "check_train")
 #: the phases that search, serve or check the llama3.2-1b trees, the MLA
 #: ones, the other configs' (CONFIG_RUNS) and the training ones
 LLAMA_PHASES = ("search", "serve", "check", "serve_search", "check_search",
@@ -327,6 +364,8 @@ CONFIG_PHASES = ("serve_granite", "check_granite", "serve_nemo",
                  "serve_mamba2", "check_mamba2", "serve_zamba2",
                  "check_zamba2")
 TRAIN_PHASES = ("train", "check_train")
+RESNET_PHASES = ("infer_resnet", "check_resnet", "train_resnet",
+                 "check_train_resnet")
 #: phases run only when asked for with --phases
 EXTRA_PHASES = ("profile", "profile_qa", "profile_mla")
 
@@ -576,6 +615,38 @@ TRAIN_LAUNCHES = {"lowrank_matmul": {"k,v": 32},
 #: LRD read 0.005-0.010 on the CPU (bf16 against f32, the same rounding
 #: points), so 0.05 leaves a factor of 5 for the full width.
 TRAIN_CHECK_TOL = {"loss": 1e-2, "grad": 5e-2}
+
+#: the ResNet phases: the LRD of the paper's Table 1 runs
+#: (``benchmarks/bench_table1.py``) and the overrides of each Table 3 row
+#: (``benchmarks/bench_table3.py``, ``examples/compress_resnet.py``);
+#: ``None`` is the original tree, layer_freezing is vanilla_lrd's tree
+#: (frozen in fine-tuning only), vanilla_int8 vanilla_lrd's with int8
+#: factors
+RESNET_LRD = dict(enabled=True, compression=2.0, rank_mode="ratio",
+                  min_dim=8)
+RESNET_VARIANTS = {"original": None, "vanilla_lrd": {},
+                   "optimized_ranks": {"rank_mode": "search"},
+                   "layer_freezing": {},
+                   "layer_merging": {"targets": ("conv",)},
+                   "layer_branching": {"compression": 1.0001, "branches": 4,
+                                       "targets": ("conv",)},
+                   "vanilla_int8": {}}
+#: the Table 1 archs beside resnet50 (original and vanilla_lrd)
+RESNET_TABLE1 = ("resnet101", "resnet152")
+RESNET_BATCH = 32
+RESNET_TIMED = 10
+RESNET_CHECK_IMAGES = {"resnet50": 4, "resnet101": 2, "resnet152": 2}
+#: train_resnet's rows, steps and optimizer (the example's finetune)
+RESNET_TRAIN = ("original", "vanilla_lrd", "layer_freezing",
+                "layer_merging", "layer_branching")
+RESNET_TRAIN_STEPS = 5
+RESNET_TRAIN_OPTIM = dict(peak_lr=1e-3, warmup_steps=1)
+RESNET_CHECK_TRAIN = ("vanilla_lrd", "layer_freezing")
+RESNET_CHECK_TRAIN_BATCH = 2
+#: the fc's chain (C, R, S) in the vanilla (ratio) and searched trees,
+#: and its rows: a batch-32 forward (inference and fine-tune) and batch 1
+RESNET_FC = {"fc r335": (2048, 335, 1000), "fc r256": (2048, 256, 1000)}
+RESNET_FC_M = (32, 1)
 
 #: kernel module of each wrapper (its CUDA source has the module's name),
 #: the wrapper's launch counter and the TPU kernel it replaces
@@ -992,6 +1063,31 @@ def check_kernels(card: str, only: frozenset = frozenset(KERNELS)
                 rnd(n, c, r, scale=c ** -0.5, dtype=bf),
                 rnd(n, r, r, scale=r ** -0.5, dtype=bf),
                 rnd(n, r, s, scale=r ** -0.5, dtype=bf)), rnd, flush))
+    f32 = torch.float32
+    for label, (c, r, s) in RESNET_FC.items():
+        for m in RESNET_FC_M:
+            x = rnd(m, c)
+            add("lowrank_matmul", lambda: dict(_lowrank_row(
+                label, x, (c, r, s), "float32", rnd, flush, plans=False),
+                path="resnet"))
+            if label != "fc r335" or "lowrank_matmul_q" not in only:
+                continue
+            w0q, w0s = qrnd(c, r, mode="int8")
+            w1q, w1s = qrnd(r, s, mode="int8")
+            args = (x, w0q, w0s, w1q, w1s)
+            y = lqk.lowrank_matmul_q(*args)
+            want = ref.lowrank_matmul_q_ref(*args)
+            torch.cuda.synchronize()
+            w0d, w1d = dq(w0q, w0s, f32), dq(w1q, w1s, f32)
+            add("lowrank_matmul_q", lambda: dict(
+                shape=label, dtype="float32", qmode="int8", M=m, C=c, R=r,
+                S=s, path="resnet", **_compare(y, want, "float32"),
+                **_lowrank_times("lowrank_matmul_q", args, y,
+                                 lambda: (x @ w0d) @ w1d, "float32", flush,
+                                 False),
+                plain_ms=time_ms(lambda: ref.lowrank_matmul_q_ref(*args)),
+                **_bound(4 * (m * c + m * s) + c * r + r * s + 4 * (r + s),
+                         2 * m * (c * r + r * s), "float32")))
     failures = []
     for name, rs in rows.items():
         for row in rs:
@@ -1828,6 +1924,24 @@ def _kernel_entries(rows: dict[str, list[dict]]) -> list[dict]:
                 "step (M=8, bf16) of the "
                 + ("8-layer mamba2 tree" if name == "branched_matmul"
                    else "14-layer zamba2 tree (int8 factors, int8 pool)"))
+        rrows = [r for r in rs if r.get("path") == "resnet"]
+        if rrows:
+            extra["resnet_path"] = {
+                f"{r['shape']} M={r['M']}": dict(
+                    {k: r[k] for k in ("ms", "plain_ms", "library_ms",
+                                       "bound_ms", "bound_by", "max_abs_err",
+                                       "norm_err", "cold_ms", "event_ms")},
+                    launches=None)
+                for r in rrows}
+            extra["resnet_path"]["timed_as"] = (
+                "one launch, f32 activations "
+                + ("and int8 factors " if name.endswith("_q") else "")
+                + "(TF32 off), at the fc of the resnet50 "
+                + ("int8 vanilla tree" if name.endswith("_q") else
+                   "vanilla (r335) and searched (r256) trees")
+                + ": M=32 a batch-32 forward or fine-tune step, M=1 a "
+                "batch-1 forward; launches: per forward of the "
+                "infer_resnet run")
         trows = [r for r in rs if r.get("path") == "train"]
         if trows:
             tkeys = ("ms", "plain_ms", "library_ms", "bound_ms", "cold_ms",
@@ -3706,6 +3820,441 @@ def run_config(key: str, phases: list[str], card: str, seed: int,
 
 
 # ---------------------------------------------------------------------------
+# the ResNets (paper Tables 1 and 3)
+# ---------------------------------------------------------------------------
+
+def resnet_fwd_flops(params, img_hw: int) -> float:
+    """Forward FLOPs of one image through a (possibly decomposed or
+    quantized) ResNet tree: this script's copy of the reference's
+    ``benchmarks/common.py::fwd_flops_resnet``, read from the logical
+    factor shapes of each subtree's plan (an int8 tree counts as its f32
+    twin)."""
+    from repro_torch.layers.plan import build_plan
+    total = [0.0]
+
+    def conv(p, hw: int, stride: int) -> int:
+        out = hw // stride
+        plan = build_plan(p)
+        sh = {f.name: f.shape for f in plan.factors}
+        if plan.kind == "dense":
+            kh, kw, c, o = sh["w"]
+            per = kh * kw * c * o
+        elif plan.kind == "lowrank":
+            c, r = sh["w0"]
+            per = r * (c + sh["w1"][-1])
+        elif plan.kind == "tucker_conv":
+            c, r1 = sh["tucker_u"]
+            kh, kw, _, r2 = sh["core"]
+            per = c * r1 + kh * kw * r1 * r2 + r2 * sh["tucker_v"][-1]
+        else:
+            n, c, r1 = sh["u"]
+            _, kh, kw, _, r2 = sh["core"]
+            per = n * (c * r1 + kh * kw * r1 * r2 + r2 * sh["v"][-1])
+        total[0] += 2.0 * out * out * per
+        return out
+
+    hw = conv(params["stem"], img_hw, 2) // 2          # stem, max pool
+    si = 0
+    while f"stage{si}" in params:
+        stage = params[f"stage{si}"]
+        bi = 0
+        while f"block{bi}" in stage:
+            blk = stage[f"block{bi}"]
+            s = (1 if si == 0 else 2) if bi == 0 else 1
+            conv(blk["conv1"], hw, 1)
+            hw2 = conv(blk["conv2"], hw, s)
+            conv(blk["conv3"], hw2, 1)
+            if "downsample" in blk:
+                conv(blk["downsample"], hw, s)
+            hw, bi = hw2, bi + 1
+        si += 1
+    fc = build_plan(params["fc"])
+    sh = {f.name: f.shape for f in fc.factors}
+    total[0] += 2.0 * (sh["w"][0] * sh["w"][1] if fc.kind == "dense" else
+                       sh["w0"][1] * (sh["w0"][0] + sh["w1"][1]))
+    return total[0]
+
+
+def resnet_trees(arch: str, names: tuple, seed: int) -> tuple:
+    """resnet ``arch`` at full width and depth on the card (f32, random
+    weights from ``seed``) and its trees of ``names``
+    (:data:`RESNET_VARIANTS`), each decomposed on the card: returns
+    (model, {name: dict(tree, report, surgery_s, expect)}), ``expect``
+    the chain-kernel launches one forward must make, read from the
+    surgery report's fc decision."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import LRDConfig
+    from repro_torch.core.surgery import decompose_model
+    from repro_torch.models.api import get_model
+    from repro_torch.models.resnet import merge_bottleneck
+    from repro_torch.quant.quantize import quantize_tree
+    model = get_model(registry.get(arch).full, "cuda")
+    with torch.no_grad():
+        params, axes = model.init(
+            torch.Generator(device="cuda").manual_seed(seed))
+    out = {"original": dict(tree=params, report=None, surgery_s=0.0,
+                            expect={})}
+    for name in names:
+        over = RESNET_VARIANTS[name]
+        if over is None:
+            continue
+        if name == "layer_freezing":
+            out[name] = out["vanilla_lrd"]
+            continue
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            if name == "vanilla_int8":
+                base = out["vanilla_lrd"]
+                tree, rep = quantize_tree(base["tree"], "int8"), base["report"]
+            else:
+                tree, _, rep = decompose_model(
+                    params, axes, LRDConfig(**{**RESNET_LRD, **over}))
+                if name == "layer_merging":
+                    tree = merge_bottleneck(tree)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if name == "vanilla_int8":
+            secs += out["vanilla_lrd"]["surgery_s"]
+        fc = next(d for d in rep.decisions if d.path == "fc")
+        kernel = "lowrank_matmul_q" if name == "vanilla_int8" \
+            else "lowrank_matmul"
+        out[name] = dict(tree=tree, report=rep, surgery_s=secs,
+                         expect={kernel: 1} if fc.kind == "svd" else {})
+    return model, out
+
+
+def resnet_layers(tree) -> int:
+    """Weighted layers as the paper counts them (convs and fc: a dense
+    one 1, an SVD pair 2, a Tucker triple or branched Tucker 3), from
+    each subtree's plan, so an int8 tree counts as its f32 twin (the
+    models' ``layer_count`` reads the plain factor keys)."""
+    from repro_torch.layers.plan import build_plan_tree, plan_leaves
+    per = {"dense": 1, "lowrank": 2}
+    return sum(per.get(p.kind, 3) for p in plan_leaves(build_plan_tree(tree)))
+
+
+def _launches() -> dict[str, int]:
+    return {k: launch_count(k) for k in KERNELS if launch_count(k)}
+
+
+def _forward_times(model, tree, x, n: int) -> list[float]:
+    """Seconds of ``n`` forwards of ``x``, each ending in a sync."""
+    import torch
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        model.forward(tree, x)
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def infer_resnet(arch: str, name: str, model, t: dict, card: str,
+                 seed: int) -> dict:
+    """One tree's Table 1 / Table 3 inference row (see the module
+    docstring); every forward must launch exactly ``t["expect"]``."""
+    import statistics
+    import torch
+    from repro_torch.quant.quantize import tree_bytes
+    from repro_torch.tree import paths
+    cfg, tree = model.cfg, t["tree"]
+    g = torch.Generator(device="cuda").manual_seed(seed + 7)
+    x = torch.randn((RESNET_BATCH, cfg.img_size, cfg.img_size, 3),
+                    generator=g, device="cuda")
+    x1 = x[:1].contiguous()
+    at_start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        reset_launches()
+        y = model.forward(tree, x)
+        torch.cuda.synchronize()
+        first = _launches()
+        _forward_times(model, tree, x, 3)
+        reset_launches()
+        secs = _forward_times(model, tree, x, RESNET_TIMED)
+        timed = _launches()
+        _forward_times(model, tree, x1, 3)
+        secs1 = _forward_times(model, tree, x1, RESNET_TIMED)
+    want = {k: n * RESNET_TIMED for k, n in t["expect"].items()}
+    if first != t["expect"] or timed != want:
+        raise SystemExit(f"infer_resnet {arch} {name}: a forward launched "
+                         f"{first} (timed: {timed}), not {t['expect']}")
+    if y.shape != (RESNET_BATCH, cfg.num_classes) or \
+            not torch.isfinite(y).all():
+        raise SystemExit(f"infer_resnet {arch} {name}: logits of shape "
+                         f"{tuple(y.shape)} or not finite")
+    mean = statistics.fmean(secs)
+    res = {"arch": arch, "variant": name, "layers": resnet_layers(tree),
+           "params": sum(v.numel() for p, v in paths(tree)
+                         if not p[-1].endswith("_scale")),
+           "weight_bytes": tree_bytes(tree),
+           "gflops_fwd_224": resnet_fwd_flops(tree, cfg.img_size) / 1e9,
+           "surgery_s": t["surgery_s"], "batch": RESNET_BATCH,
+           "images_per_s": RESNET_BATCH / mean,
+           "forward_ms_mean": mean * 1e3,
+           "forward_ms_stdev": statistics.stdev(secs) * 1e3,
+           "forward_ms_min": min(secs) * 1e3,
+           "forward_ms_max": max(secs) * 1e3,
+           "batch1_ms": statistics.fmean(secs1) * 1e3,
+           "batch1_ms_stdev": statistics.stdev(secs1) * 1e3,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "allocated_at_start": at_start,
+           "launches_per_forward": first, "card": card}
+    if t["report"] is not None:
+        kinds: dict[str, int] = {}
+        for d in t["report"].decisions:
+            kinds[f"{d.label}:{d.kind}"] = kinds.get(f"{d.label}:{d.kind}",
+                                                     0) + 1
+        fc = next(d for d in t["report"].decisions if d.path == "fc")
+        res.update(decisions=kinds, fc_rank=fc.rank,
+                   first_conv2_rank=next(
+                       d.rank for d in t["report"].decisions
+                       if d.path == "stage0/block0/conv2"))
+    return res
+
+
+def check_resnet(arch: str, name: str, model, tree, card: str, seed: int,
+                 base_logits=None) -> tuple[dict, object]:
+    """The card's f32 logits of ``tree`` against the port's CPU f32 run
+    of the same tree, copied to the host: within ``CHECK_TOL_F32`` of the
+    CPU logits' std (gated); top-1 agreement with the logit gap at each
+    disagreement, and the distance from the original tree's card logits
+    ``base_logits`` (reported).  Returns (result, card logits)."""
+    import dataclasses
+    import torch
+    from repro_torch.models.api import get_model
+    cfg = model.cfg
+    n = RESNET_CHECK_IMAGES[arch]
+    g = torch.Generator(device="cuda").manual_seed(seed + 11)
+    x = torch.randn((n, cfg.img_size, cfg.img_size, 3), generator=g,
+                    device="cuda")
+    with torch.no_grad():
+        lg = model.forward(tree, x).cpu()
+        cpu = get_model(dataclasses.replace(cfg, dtype="float32"), "cpu")
+        t0 = time.perf_counter()
+        lc = cpu.forward(to_cpu_f32(tree), x.cpu())
+        cpu_s = time.perf_counter() - t0
+    rel = ((lg - lc).abs().max() / lc.std()).item()
+    top_g, top_c = lg.argmax(-1), lc.argmax(-1)
+    gaps = [(lc[i, top_c[i]] - lc[i, top_g[i]]).item()
+            for i in range(n) if top_g[i] != top_c[i]]
+    res = {"arch": arch, "variant": name, "images": n,
+           "max_diff_over_std": rel, "tol": CHECK_TOL_F32,
+           "top1_agree": int((top_g == top_c).sum()),
+           "top1_gaps": gaps, "cpu_forward_s": cpu_s, "card": card}
+    if base_logits is not None:
+        res["from_original_over_std"] = (
+            (lg - base_logits).abs().max() / base_logits.std()).item()
+        res["top1_agree_original"] = int(
+            (top_g == base_logits.argmax(-1)).sum())
+    log("check_resnet " + json.dumps(res))
+    if not rel <= CHECK_TOL_F32:
+        raise SystemExit(f"check_resnet {arch} {name}: card logits "
+                         f"{rel:.3e} std from the CPU's (tol "
+                         f"{CHECK_TOL_F32})")
+    return res, lg
+
+
+def _finetune_setup(model, tree, freeze: bool, steps: int):
+    """(params, opt state, step) of the example's ``finetune`` on a copy
+    of ``tree``."""
+    from repro_torch.configs.base import LRDConfig, RunConfig
+    from repro_torch.core import freezing
+    from repro_torch.train.optim import OptimConfig
+    from repro_torch.train.steps import init_opt_state, make_train_step
+    from repro_torch.tree import tree_map
+    run = RunConfig(model=model.cfg, lrd=LRDConfig(enabled=True,
+                                                   freeze=freeze))
+    opt = OptimConfig(total_steps=steps, **RESNET_TRAIN_OPTIM)
+    params = tree_map(lambda v: v.detach().clone(), tree)
+    freezing.set_requires_grad(params, freeze=freeze)
+    return (run, params, init_opt_state(model, run, params, opt),
+            make_train_step(model, run, opt))
+
+
+def train_resnet(name: str, model, t: dict, card: str, seed: int) -> dict:
+    """RESNET_TRAIN_STEPS masked-AdamW steps of one resnet50 tree at
+    batch 32 (``SyntheticImages``): every step launches exactly the
+    tree's fc chain once (B1 forward of an SVD pair), the losses are
+    finite, and under the freeze the frozen factors have no gradient
+    (``requires_grad`` off, values unchanged)."""
+    import statistics
+    import torch
+    from repro_torch.core.freezing import FROZEN_LEAVES
+    from repro_torch.train.data import SyntheticImages
+    from repro_torch.train.optim import optimizer_state_bytes
+    from repro_torch.tree import paths
+    freeze = name == "layer_freezing"
+    freed = fresh_peak()
+    at_start = torch.cuda.memory_allocated()
+    _, params, state, step = _finetune_setup(model, t["tree"], freeze,
+                                             RESNET_TRAIN_STEPS)
+    frozen = {p: v.clone() for p, v in paths(params)
+              if freeze and set(p) & FROZEN_LEAVES}
+    data = SyntheticImages(model.cfg, RESNET_BATCH, seed)
+    losses, secs, per_step = [], [], []
+    for i in range(RESNET_TRAIN_STEPS):
+        batch = {k: v.cuda() for k, v in data.batch(i).items()}
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        params, state, met = step(params, state, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        per_step.append(_launches())
+        losses.append(float(met["loss"]))
+    if any(c != t["expect"] for c in per_step):
+        raise SystemExit(f"train_resnet {name}: steps launched {per_step}, "
+                         f"not {t['expect']} each")
+    if not all(math.isfinite(v) for v in losses):
+        raise SystemExit(f"train_resnet {name}: non-finite loss {losses}")
+    now = dict(paths(params))
+    moved = [p for p, v in frozen.items()
+             if now[p].requires_grad or not torch.equal(now[p], v)]
+    if moved:
+        raise SystemExit(f"train_resnet {name}: frozen factors trained: "
+                         f"{moved[:3]}")
+    res = {"variant": name, "freeze": freeze, "batch": RESNET_BATCH,
+           "steps": RESNET_TRAIN_STEPS, "losses": losses,
+           "step_ms_mean_2_5": statistics.fmean(secs[1:]) * 1e3,
+           "step_ms_stdev_2_5": statistics.stdev(secs[1:]) * 1e3,
+           "step_ms": [v * 1e3 for v in secs],
+           "images_per_s": RESNET_BATCH / statistics.fmean(secs[1:]),
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "allocated_at_start": at_start, "freed_at_start": freed,
+           "optimizer_state_bytes": optimizer_state_bytes(state["adam"]),
+           "frozen_leaves": len(frozen), "launches_per_step": t["expect"],
+           "card": card}
+    log("train_resnet " + json.dumps(res))
+    return res
+
+
+def check_train_resnet(name: str, model, t: dict, card: str,
+                       seed: int) -> dict:
+    """One step's loss and every gradient of one resnet50 tree at batch
+    2 on the card against the same params and batch on the CPU in f32,
+    within TRAIN_CHECK_TOL; the frozen factors have no gradient on
+    either side."""
+    import dataclasses
+    import torch
+    from repro_torch.core import freezing
+    from repro_torch.models.api import get_model
+    from repro_torch.train.data import SyntheticImages
+    from repro_torch.train.steps import make_loss_fn, value_and_grad
+    from repro_torch.tree import paths
+    run, params, _, _ = _finetune_setup(model, t["tree"],
+                                        name == "layer_freezing", 1)
+    batch = SyntheticImages(model.cfg, RESNET_CHECK_TRAIN_BATCH,
+                            seed).batch(0)
+    reset_launches()
+    lg, _, gg = value_and_grad(make_loss_fn(model, run), params,
+                               {k: v.cuda() for k, v in batch.items()})
+    torch.cuda.synchronize()
+    launches = _launches()
+    gg = {p: g for p, g in paths(to_cpu_f32(gg))}
+    with torch.no_grad():
+        p_cpu = to_cpu_f32(params)
+    freezing.set_requires_grad(p_cpu, freeze=run.lrd.freeze)
+    cpu = get_model(dataclasses.replace(model.cfg, dtype="float32"), "cpu")
+    t0 = time.perf_counter()
+    lc, _, gc = value_and_grad(make_loss_fn(cpu, run), p_cpu, batch)
+    cpu_s = time.perf_counter() - t0
+    gc = dict(paths(gc))
+    if {p for p, g in gg.items() if g is None} != \
+            {p for p, g in gc.items() if g is None}:
+        raise SystemExit(f"check_train_resnet {name}: the card and the CPU "
+                         "leave other leaves without a gradient")
+    errs = {"/".join(p): ((gg[p] - g).norm() / g.norm().clamp_min(1e-30)
+                          ).item() for p, g in gc.items() if g is not None}
+    loss_rel = abs(float(lg) - float(lc)) / abs(float(lc))
+    res = {"variant": name, "batch": RESNET_CHECK_TRAIN_BATCH,
+           "loss_card": float(lg), "loss_cpu": float(lc),
+           "loss_rel": loss_rel, "grad_rel_l2_max": max(errs.values()),
+           "grad_rel_l2_worst": sorted(errs.items(), key=lambda kv: -kv[1])[
+               :5],
+           "no_grad": sorted("/".join(p) for p, g in gc.items()
+                             if g is None),
+           "tol": TRAIN_CHECK_TOL, "launches": launches, "cpu_step_s": cpu_s,
+           "card": card}
+    log("check_train_resnet " + json.dumps(res))
+    if launches != t["expect"]:
+        raise SystemExit(f"check_train_resnet {name}: launched {launches}, "
+                         f"not {t['expect']}")
+    if not (loss_rel <= TRAIN_CHECK_TOL["loss"]
+            and res["grad_rel_l2_max"] <= TRAIN_CHECK_TOL["grad"]):
+        raise SystemExit(f"check_train_resnet {name}: the card's step "
+                         f"differs from the CPU f32 step: loss "
+                         f"{loss_rel:.2e}, gradients "
+                         f"{res['grad_rel_l2_max']:.3e} (tol "
+                         f"{TRAIN_CHECK_TOL})")
+    return res
+
+
+def run_resnet(phases: list[str], card: str, seed: int,
+               resnet_res: dict) -> None:
+    """The ResNet phases: resnet50's Table 3 trees, then resnet101's and
+    resnet152's Table 1 trees, each arch's trees freed before the
+    next's."""
+    import torch
+    infer, check = "infer_resnet" in phases, "check_resnet" in phases
+    timer = {p: 0.0 for p in RESNET_PHASES}
+    archs = [("resnet50", tuple(RESNET_VARIANTS))]
+    if infer or check:
+        archs += [(a, ("original", "vanilla_lrd")) for a in RESNET_TABLE1]
+    for arch, names in archs:
+        log(f"-- {arch}: {', '.join(names)}")
+        t0 = time.perf_counter()
+        model, trees = resnet_trees(arch, names, seed)
+        surgery_s = time.perf_counter() - t0
+        timer["infer_resnet" if infer else "check_resnet"] += surgery_s
+        rows = resnet_res.setdefault(arch, {})
+        base = None
+        for name in names:
+            if infer:
+                t0 = time.perf_counter()
+                rows.setdefault(name, {})["infer"] = r = infer_resnet(
+                    arch, name, model, trees[name], card, seed)
+                timer["infer_resnet"] += time.perf_counter() - t0
+                orig = rows["original"]["infer"]
+                r["speedup"] = r["images_per_s"] / orig["images_per_s"]
+                r["batch1_speedup"] = orig["batch1_ms"] / r["batch1_ms"]
+                log("infer_resnet " + json.dumps(r))
+            if check:
+                t0 = time.perf_counter()
+                rows.setdefault(name, {})["check"], lg = check_resnet(
+                    arch, name, model, trees[name]["tree"], card, seed,
+                    base)
+                base = lg if base is None else base
+                timer["check_resnet"] += time.perf_counter() - t0
+        if arch == "resnet50" and "train_resnet" in phases:
+            t0 = time.perf_counter()
+            for name in RESNET_TRAIN:
+                rows.setdefault(name, {})["train"] = r = train_resnet(
+                    name, model, trees[name], card, seed)
+                r["speedup"] = (rows["original"]["train"]["step_ms_mean_2_5"]
+                                / r["step_ms_mean_2_5"])
+                log(f"train_resnet {name} speedup {r['speedup']:.4f}")
+            timer["train_resnet"] += time.perf_counter() - t0
+        if arch == "resnet50" and "check_train_resnet" in phases:
+            t0 = time.perf_counter()
+            for name in RESNET_CHECK_TRAIN:
+                rows.setdefault(name, {})["check_train"] = \
+                    check_train_resnet(name, model, trees[name], card, seed)
+            timer["check_train_resnet"] += time.perf_counter() - t0
+        log(f"{arch} max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated()} [{card}]")
+        del model, trees
+        torch.cuda.empty_cache()
+    # the phases run interleaved, arch by arch: each one's seconds summed
+    # (the surgeries counted in infer_resnet, or in check_resnet without
+    # it)
+    for p in RESNET_PHASES:
+        if p in phases:
+            log(f"== phase {p}: {timer[p]:.2f} s")
+
+
+# ---------------------------------------------------------------------------
 # training
 # ---------------------------------------------------------------------------
 
@@ -3915,7 +4464,7 @@ def main() -> int:
 
     kernels = None
     if set(phases) & {"build", "kernels", *LLAMA_PHASES, *MLA_PHASES,
-                      *CONFIG_PHASES, *TRAIN_PHASES}:
+                      *CONFIG_PHASES, *RESNET_PHASES, *TRAIN_PHASES}:
         with Phase("build"):
             from repro_torch.kernels import build
             _, report = build.build()
@@ -3969,6 +4518,9 @@ def main() -> int:
     for key in CONFIG_RUNS:
         run_config(key, phases, card, args.seed, serve_res)
         torch.cuda.empty_cache()
+    resnet_res: dict[str, dict] = {}
+    if set(phases) & set(RESNET_PHASES):
+        run_resnet(phases, card, args.seed, resnet_res)
     train_res: dict[str, dict] = {}
     if set(phases) & set(TRAIN_PHASES):
         run_train(phases, card, args.seed, train_res)
@@ -3984,6 +4536,15 @@ def main() -> int:
             if "train_path" in k and "frozen" in train_res:
                 k["train_path"]["launches"] = \
                     train_res["frozen"]["launches"][k["name"]]
+            tree_of = {"fc r335": "vanilla_int8"
+                       if k["name"] == "lowrank_matmul_q" else "vanilla_lrd",
+                       "fc r256": "optimized_ranks"}
+            for row_key, row in k.get("resnet_path", {}).items():
+                infer = resnet_res.get("resnet50", {}).get(
+                    tree_of.get(row_key.split(" M=")[0]), {}).get("infer")
+                if isinstance(row, dict) and infer is not None:
+                    row["launches"] = infer["launches_per_forward"].get(
+                        k["name"], 0)
         log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

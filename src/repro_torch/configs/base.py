@@ -38,9 +38,9 @@ FAMILIES = (
 @dataclass(frozen=True)
 class ModelConfig:
     """Architecture definition (the reference's field names and
-    defaults).  The fields of the dense family, MLA, MoE, the SSM and the
-    hybrid are here (the VLM, encoder and ResNet fields come with ROADMAP
-    A13d-A13f)."""
+    defaults).  The fields of the dense family, MLA, MoE, the SSM, the
+    hybrid and the ResNets are here (the VLM and encoder fields come with
+    ROADMAP A13d-A13e)."""
 
     name: str = "tiny"
     family: str = FAMILY_DENSE
@@ -87,6 +87,12 @@ class ModelConfig:
     hybrid_attn_every: int = 6         # shared attn block applied every k layers
 
     is_encoder: bool = False
+
+    # ResNet family (the paper's own benchmark architecture).
+    resnet_stage_blocks: Sequence[int] = ()
+    resnet_width: int = 64
+    num_classes: int = 1000
+    img_size: int = 224
 
     dtype: str = "bfloat16"            # activation / param dtype
     pad_vocab: bool = True             # pad vocab to a multiple of 128,

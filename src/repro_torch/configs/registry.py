@@ -2,9 +2,9 @@
 
 The port registers the architectures its slices serve: the dense
 llama3.2-1b, granite-8b, mistral-nemo-12b and minitron-4b, the MoE
-moonshot-v1-16b-a3b and deepseek-v2-236b, the SSM mamba2-2.7b and the
-hybrid zamba2-1.2b.  The VLM, encoder and ResNet ones come with ROADMAP
-items A13d-A13f.
+moonshot-v1-16b-a3b and deepseek-v2-236b, the SSM mamba2-2.7b, the
+hybrid zamba2-1.2b and the paper's own resnet50 / resnet101 / resnet152.
+The VLM and encoder ones come with ROADMAP items A13d-A13e.
 """
 from __future__ import annotations
 
@@ -49,4 +49,5 @@ def _ensure_loaded() -> None:
     from repro_torch.configs import minitron_4b  # noqa: F401
     from repro_torch.configs import mistral_nemo_12b  # noqa: F401
     from repro_torch.configs import moonshot_v1_16b_a3b  # noqa: F401
+    from repro_torch.configs import resnet  # noqa: F401
     from repro_torch.configs import zamba2_1_2b  # noqa: F401

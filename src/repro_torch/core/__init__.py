@@ -9,9 +9,8 @@
 * :mod:`repro_torch.core.merging` -- layer merging incl. QK/VO products
   (§2.3).
 * :mod:`repro_torch.core.branching` -- block-diagonal branched LRD (§2.4).
+* :mod:`repro_torch.core.tucker` -- Tucker-2 of conv weights (Eq. 4-7).
 * :mod:`repro_torch.core.surgery` -- the whole-model decomposition.
-
-Tucker-2 (``core/tucker.py``) comes with ROADMAP item A13f.
 """
 from repro_torch.core.svd import (  # noqa: F401
     SVDFactors, svd_decompose, randomized_svd, decompose_auto,
@@ -21,7 +20,11 @@ from repro_torch.core.rank_selection import (  # noqa: F401
     ORG, RankDecision, algorithm1, align_rank, select_rank, max_branches,
 )
 from repro_torch.core.branching import (  # noqa: F401
-    BranchedFactors, branch_svd, quantize_ranks,
+    BranchedConvFactors, BranchedFactors, branch_svd, branch_tucker,
+    quantize_ranks,
+)
+from repro_torch.core.tucker import (  # noqa: F401
+    TuckerFactors, tucker2_decompose, ratio_ranks,
 )
 from repro_torch.core.merging import (  # noqa: F401
     MergedAttnFactors, merge_attention, merge_linear,

@@ -8,8 +8,10 @@ fine-tuning while leaving inference untouched.
 As in the reference, freezing is realized twice:
 
 * **forward**: :func:`stop_frozen_factors` detaches the frozen factor of
-  every decomposed linear (``w0`` of an SVD pair, ``u`` / ``v`` of a
-  branched one: the reference's ``lax.stop_gradient`` at the apply seam,
+  every decomposed linear or conv (``w0`` of an SVD pair, ``u`` / ``v``
+  of a branched linear or branched Tucker conv, ``tucker_u`` /
+  ``tucker_v`` of a Tucker conv: the reference's ``lax.stop_gradient``
+  at the apply seam,
   ``repro/layers/plan.py:206``), and the shared latents ``ak`` / ``bv``
   of a merged attention (its ``apply_merged_attention``).  A detached
   factor does not require grad, so the chain kernels' backward
@@ -42,10 +44,12 @@ FROZEN_LEAVES = {
     "tucker_u", "tucker_v",  # conv Tucker 1x1 factors
 }
 
-#: the factors the forward stops, per kind of linear subtree (the
+#: the factors the forward stops, per kind of linear / conv subtree (the
 #: reference's ``_KIND_FROZEN``, ``repro/layers/plan.py:88-94``)
 _KIND_FROZEN = {"lowrank": frozenset({"w0"}),
-                "branched": frozenset({"u", "v"})}
+                "branched": frozenset({"u", "v"}),
+                "tucker_conv": frozenset({"tucker_u", "tucker_v"}),
+                "branched_tucker_conv": frozenset({"u", "v"})}
 
 
 def trainable_mask(params: PyTree, *, enabled: bool = True) -> PyTree:

@@ -22,8 +22,14 @@ packed and ``xc`` quantized dense) runs the sparse kernel
 expands and dequantizes to ``x.dtype`` and runs the plain chain's
 kernel, as the reference runs it through its jnp path.
 
-The Tucker conv kinds are not part of the port yet; they raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+The Tucker-2 conv triple (paper Fig. 1b) and its branched form (Fig. 4)
+classify the same way, as ``tucker_conv`` (``tucker_u`` / ``core`` /
+``tucker_v``) and ``branched_tucker_conv`` (``u`` / ``core`` / ``v``).
+They have spatial weights, so they execute through
+:func:`repro_torch.layers.conv.apply_conv` (``torch.nn.functional.
+conv2d``, as the reference runs them through ``lax.conv_general_dilated``
+outside any Pallas kernel); :meth:`LinearPlan.execute` raises on them and
+:meth:`LinearPlan.kernel_for` names no kernel.
 """
 from __future__ import annotations
 
@@ -38,11 +44,22 @@ PyTree = Any
 KIND_DENSE = "dense"
 KIND_LOWRANK = "lowrank"
 KIND_BRANCHED = "branched"
+KIND_TUCKER_CONV = "tucker_conv"
+KIND_BRANCHED_TUCKER_CONV = "branched_tucker_conv"
 
+#: kinds :meth:`LinearPlan.execute` runs
+LINEAR_KINDS = (KIND_DENSE, KIND_LOWRANK, KIND_BRANCHED)
+#: kinds only :func:`repro_torch.layers.conv.apply_conv` runs (spatial
+#: weights)
+CONV_KINDS = (KIND_TUCKER_CONV, KIND_BRANCHED_TUCKER_CONV)
+
+#: factor names per kind, in chain order
 _KIND_FACTORS: dict[str, tuple[str, ...]] = {
     KIND_DENSE: ("w",),
     KIND_LOWRANK: ("w0", "w1"),
     KIND_BRANCHED: ("u", "xc", "v"),
+    KIND_TUCKER_CONV: ("tucker_u", "core", "tucker_v"),
+    KIND_BRANCHED_TUCKER_CONV: ("u", "core", "v"),
 }
 
 _QUANT_SUFFIX, _SCALE_SUFFIX = "_q", "_scale"
@@ -109,7 +126,9 @@ class LinearPlan:
 
     @property
     def branches(self) -> int:
-        return self.factors[0].shape[-3] if self.kind == KIND_BRANCHED else 1
+        if self.kind in (KIND_BRANCHED, KIND_BRANCHED_TUCKER_CONV):
+            return self.factors[0].shape[-3]
+        return 1
 
     @property
     def quantized(self) -> bool:
@@ -147,17 +166,31 @@ class LinearPlan:
 
     def matmul_chain(self) -> list[tuple[int, int, int]]:
         """The chain as ``(mult, k, n)`` triples — ``mult`` repetitions of
-        an ``(M, k) @ (k, n)`` product."""
+        an ``(M, k) @ (k, n)`` product (per output pixel for a Tucker
+        conv kind: ``k`` counts the core's window).  A dense plan counts
+        one ``(C, S)`` product: its weight carries no axes that would
+        tell a spatial conv from a stacked bank, so the surgery counts a
+        dense conv's window itself."""
         s = {f.name: f.shape for f in self.factors}
         if self.kind == KIND_DENSE:
             return [(1, s["w"][-2], s["w"][-1])]
         if self.kind == KIND_LOWRANK:
             c, r = s["w0"][-2], s["w0"][-1]
             return [(1, c, r), (1, r, s["w1"][-1])]
-        n = self.branches
+        if self.kind == KIND_BRANCHED:
+            n = self.branches
+            c, r1 = s["u"][-2], s["u"][-1]
+            r2 = s["xc"][-1]
+            return [(n, c, r1), (n, r1, r2), (n, r2, s["v"][-1])]
+        if self.kind == KIND_TUCKER_CONV:
+            c, r1 = s["tucker_u"][-2], s["tucker_u"][-1]
+            kh, kw, _, r2 = s["core"][-4:]
+            return [(1, c, r1), (1, kh * kw * r1, r2),
+                    (1, r2, s["tucker_v"][-1])]
+        n = self.branches                             # branched Tucker
         c, r1 = s["u"][-2], s["u"][-1]
-        r2 = s["xc"][-1]
-        return [(n, c, r1), (n, r1, r2), (n, r2, s["v"][-1])]
+        kh, kw, _, r2 = s["core"][-4:]
+        return [(n, c, r1), (n, kh * kw * r1, r2), (n, r2, s["v"][-1])]
 
     def chain_factors(self) -> tuple[FactorSpec, ...]:
         """The weight operand of each product of :meth:`matmul_chain`
@@ -197,8 +230,9 @@ class LinearPlan:
         dequantized plain chain, as in the reference
         (``repro/layers/plan.py:370-381``).  Stacked factors (a leading
         layer axis) never reach a kernel: the model slices the layer
-        axis first."""
-        if self.kind == KIND_DENSE or len(x_shape) < 2:
+        axis first.  A conv kind names no kernel (its convolutions run in
+        ``apply_conv``)."""
+        if self.kind in (KIND_DENSE, *CONV_KINDS) or len(x_shape) < 2:
             return None
         want_ndim = 2 if self.kind == KIND_LOWRANK else 3
         if any(len(f.shape) != want_ndim for f in self.factors):
@@ -238,8 +272,12 @@ class LinearPlan:
     def execute(self, p: dict, x: torch.Tensor, *,
                 act_quantize: bool = False) -> torch.Tensor:
         """Apply this plan's linear op to ``x`` (..., d_in);
-        ``act_quantize`` as in :meth:`kernel_for`."""
+        ``act_quantize`` as in :meth:`kernel_for`.  A conv kind raises:
+        it runs through :func:`repro_torch.layers.conv.apply_conv`."""
         from repro_torch.kernels import ops
+        if self.kind not in LINEAR_KINDS:
+            raise ValueError(
+                f"kind {self.kind!r} is a conv plan; use apply_conv")
         kernel = self.kernel_for(tuple(x.shape), act_quantize)
         if kernel == "lowrank_qa":
             return ops.lowrank_matmul_qa(x, p["w0_q"], p["w0_scale"],
@@ -287,26 +325,27 @@ def _has(p: dict, key: str) -> bool:
 
 
 def classify(p: dict) -> str:
-    """Kind of a linear subtree from the keys present (quantized
+    """Kind of a linear / conv subtree from the keys present (quantized
     ``k_q``/``k_scale`` and 2:4-packed ``k_sp``/``k_idx`` trees classify
     as their plain originals)."""
     if _has(p, "w"):
         return KIND_DENSE
-    if _has(p, "tucker_u") or _has(p, "core"):
-        raise NotImplementedError(
-            "Tucker conv subtrees come with ROADMAP item A13f (ResNet)")
+    if _has(p, "tucker_u"):
+        return KIND_TUCKER_CONV
     if _has(p, "xc"):
         return KIND_BRANCHED
+    if _has(p, "core"):
+        return KIND_BRANCHED_TUCKER_CONV
     if _has(p, "w0"):
         return KIND_LOWRANK
     raise ValueError(f"not a linear param subtree: {sorted(p)}")
 
 
 def is_linear_subtree(node: Any) -> bool:
-    """Does this dict node hold the factors of one linear op?"""
+    """Does this dict node hold the factors of one linear / conv op?"""
     return isinstance(node, dict) and any(
         isinstance(node.get(k + sfx), torch.Tensor)
-        for k in ("w", "w0", "xc", "u")
+        for k in ("w", "w0", "xc", "tucker_u", "core", "u")
         for sfx in ("", _QUANT_SUFFIX, _SP_SUFFIX))
 
 

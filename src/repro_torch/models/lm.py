@@ -114,11 +114,17 @@ FAMILIES = ("dense", "moe", "ssm", "hybrid")
 #: the families whose layers carry recurrent state
 RECURRENT = ("ssm", "hybrid")
 #: the ROADMAP item of each family still to come
-_MISSING = {"vlm": "A13d", "encoder": "A13e", "resnet": "A13f"}
+_MISSING = {"vlm": "A13d", "encoder": "A13e"}
 
 
 def missing_family(family: str) -> NotImplementedError:
-    """The refusal of a family the port does not serve yet."""
+    """The refusal of a family :class:`LMModel` does not serve: the
+    ResNets are :class:`repro_torch.models.resnet.ResNetModel`'s, the
+    others still to come."""
+    if family == "resnet":
+        return NotImplementedError(
+            "family 'resnet' is served by models/resnet.py's ResNetModel "
+            "(models.api.get_model), not by LMModel")
     return NotImplementedError(
         f"family {family!r} comes with ROADMAP item "
         f"{_MISSING.get(family, 'A13')}")

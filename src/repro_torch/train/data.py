@@ -1,12 +1,12 @@
-"""Data pipeline: synthetic and byte-level text batches, deterministic
-resume.
+"""Data pipeline: synthetic token and image batches and byte-level text
+batches, deterministic resume.
 
-Both sources are stateless functions of ``(seed, step)`` with an explicit
+Every source is stateless functions of ``(seed, step)`` with an explicit
 cursor (:class:`DataState`) that every checkpoint saves, so a restore
 replays the exact stream.  :class:`ByteTextLM` is numpy and yields the
 reference's batches token for token; :class:`SyntheticLM` draws from a
 ``torch.Generator`` (its tokens differ from the reference's
-``jax.random`` ones).  The image source waits for ROADMAP item A13f.
+``jax.random`` ones), as :class:`SyntheticImages` does for the ResNets.
 """
 from __future__ import annotations
 
@@ -56,6 +56,33 @@ class SyntheticLM:
         from repro_torch.models.api import synth_inputs
         g = torch.Generator().manual_seed((self.seed << 32) + step)
         return synth_inputs(self.cfg, self.shape, g)
+
+    def stream(self, state: DataState) -> Iterator[tuple[dict, DataState]]:
+        step = state.step
+        while True:
+            yield self.batch(step), DataState(step + 1)
+            step += 1
+
+
+class SyntheticImages:
+    """Random image batches for the ResNets: ``batch(i)`` is a pure
+    function of (seed, i), drawn on the CPU: ``images`` (B, img, img, 3)
+    f32 at std 0.3 and ``labels`` (B,) int32 below ``num_classes``."""
+
+    def __init__(self, cfg: ModelConfig, batch: int, seed: int = 0):
+        self.cfg = cfg
+        self.batch_size = batch
+        self.seed = seed
+
+    def batch(self, step: int) -> dict:
+        g = torch.Generator().manual_seed((self.seed << 32) + step)
+        cfg = self.cfg
+        return {"images": torch.randn(
+                    (self.batch_size, cfg.img_size, cfg.img_size, 3),
+                    generator=g) * 0.3,
+                "labels": torch.randint(0, cfg.num_classes,
+                                        (self.batch_size,), generator=g,
+                                        dtype=torch.int32)}
 
     def stream(self, state: DataState) -> Iterator[tuple[dict, DataState]]:
         step = state.step

@@ -1898,3 +1898,68 @@ def test_ssm_layer_and_decode_step_on_the_card(cuda, dtype):
         else:
             rel = ((got - st_cpu[k]).norm() / st_cpu[k].norm()).item()
             assert rel <= chip_smoke.KERNEL_TOL["bfloat16"], (k, rel)
+
+
+@pytest.mark.parametrize("m", chip_smoke.RESNET_FC_M)
+@pytest.mark.parametrize("label", list(chip_smoke.RESNET_FC))
+def test_resnet_fc_chain_kernels_match_plain(cuda, label, m):
+    """B1 (f32 cluster kernel) and B3 (f32 activations, int8 factors) at
+    the ResNet fc's shapes: an odd rank (335) and S = 1,000, neither a
+    multiple of the 128-wide tile."""
+    from repro_torch.kernels import lowrank_matmul as lk
+    from repro_torch.kernels import lowrank_matmul_q as lqk
+    from repro_torch.kernels import ref
+    from repro_torch.quant.quantize import quantize_array
+    c, r, s = chip_smoke.RESNET_FC[label]
+    f32 = torch.float32
+    x = _rnd(cuda, m, c, dtype=f32)
+    w0 = _rnd(cuda, c, r, scale=c ** -0.5, dtype=f32)
+    w1 = _rnd(cuda, r, s, scale=r ** -0.5, dtype=f32)
+    n0 = lk.launches
+    y = lk.lowrank_matmul(x, w0, w1)
+    assert lk.launches == n0 + 1
+    assert _norm_err(y, ref.lowrank_matmul_ref(x, w0, w1)) \
+        <= chip_smoke.KERNEL_TOL["float32"]
+    (w0q, w0s), (w1q, w1s) = quantize_array(w0), quantize_array(w1)
+    n0 = lqk.launches
+    y = lqk.lowrank_matmul_q(x, w0q, w0s, w1q, w1s)
+    assert lqk.launches == n0 + 1
+    assert _norm_err(y, ref.lowrank_matmul_q_ref(x, w0q, w0s, w1q, w1s)) \
+        <= chip_smoke.KERNEL_TOL["float32"]
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("kind", ["dense3", "dense7", "svd", "tucker",
+                                  "branched2", "branched4", "tucker_int8"])
+def test_apply_conv_on_the_card_matches_the_cpu(cuda, kind, stride):
+    """Each conv kind on the card (cuDNN, TF32 off) against the same tree
+    on the CPU, f32, within CHECK_TOL_F32 of the CPU output's std, on an
+    even (56) side."""
+    from repro_torch.layers.conv import apply_conv
+    from repro_torch.quant.quantize import quantize_tree
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator().manual_seed(3)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g) * shape[-2] ** -0.5
+    c, s = 64, 96
+    p = {"dense3": lambda: {"w": rnd(3, 3, c, s)},
+         "dense7": lambda: {"w": rnd(7, 7, c, s)},
+         "svd": lambda: {"w0": rnd(c, 24), "w1": rnd(24, s)},
+         "tucker": lambda: {"tucker_u": rnd(c, 32), "core": rnd(3, 3, 32, 48),
+                            "tucker_v": rnd(48, s)},
+         "branched2": lambda: {"u": rnd(2, c, 16), "core": rnd(2, 3, 3, 16, 24),
+                               "v": rnd(2, 24, s)},
+         "branched4": lambda: {"u": rnd(4, c, 8), "core": rnd(4, 3, 3, 8, 12),
+                               "v": rnd(4, 12, s)},
+         "tucker_int8": lambda: quantize_tree(
+             {"tucker_u": rnd(c, 32), "core": rnd(3, 3, 32, 48),
+              "tucker_v": rnd(48, s)})}[kind]()
+    x = torch.randn((4, 56, 56, c), generator=g)
+    want = apply_conv(p, x, stride=stride)
+    with torch.no_grad():
+        got = apply_conv({k: v.cuda() for k, v in p.items()}, x.cuda(),
+                         stride=stride)
+    assert got.shape == want.shape
+    assert ((got.cpu() - want).abs().max() / want.std()).item() \
+        <= chip_smoke.CHECK_TOL_F32

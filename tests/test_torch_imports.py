@@ -60,7 +60,9 @@ def test_port_has_the_slice_modules():
               "repro_torch.configs.minitron_4b",
               "repro_torch.configs.moonshot_v1_16b_a3b",
               "repro_torch.layers.ssm", "repro_torch.configs.mamba2_2_7b",
-              "repro_torch.configs.zamba2_1_2b"):
+              "repro_torch.configs.zamba2_1_2b", "repro_torch.core.tucker",
+              "repro_torch.layers.conv", "repro_torch.models.resnet",
+              "repro_torch.configs.resnet"):
         assert m in mods, m
 
 

@@ -272,18 +272,21 @@ def test_latent_ref_equals_f32_attend_on_dequantized_pool():
 
 def test_moe_family_refused_naming_a13():
     """The MoE family is served now (DeepSeek-V2 with its experts and its
-    unstacked dense first block), as are the SSM and hybrid families;
-    the families still to come are refused naming their ROADMAP item
-    (A13d-A13f).  A dense-family config with
+    unstacked dense first block), as are the SSM, hybrid and ResNet
+    families; the families still to come are refused naming their
+    ROADMAP item (A13d-A13e).  A dense-family config with
     experts builds dense FFNs, as the reference's does."""
     params, _ = get_model(treg.get("deepseek-v2-236b").smoke, "cpu").init(
         torch.Generator().manual_seed(0))
     assert "moe" in params["blocks"] and "mlp" in params["first"]
-    for family in ("vlm", "encoder", "resnet"):
+    for family in ("vlm", "encoder"):
         cfg = dataclasses.replace(mla_cfg("deepseek-smoke", "torch"),
                                   family=family)
         with pytest.raises(NotImplementedError, match="A13"):
             get_model(cfg, "cpu")
+    from repro_torch.models.resnet import ResNetModel
+    assert isinstance(get_model(treg.get("resnet50").smoke, "cpu"),
+                      ResNetModel)
     dense_moe = dataclasses.replace(mla_cfg("deepseek-smoke", "torch"),
                                     moe_num_experts=8)
     params, _ = get_model(dense_moe, "cpu").init(

@@ -314,6 +314,48 @@ The kernels phase adds B1 and B3 in f32 at the fc's shapes
 (``RESNET_FC``: C 2,048, S 1,000, rank 335 (ratio) and 256 (search), M =
 32 and 1); their rows are the ``resnet_path`` of the kernels line.
 
+The last two model families add, in PHASES' order after
+check_train_resnet (each tree built on the card at its published widths,
+random bf16 weights from the seed, decomposed there with ``LRD`` at
+branches=4, its surgery decisions held to ``VLM_SURGERY`` /
+``HUBERT_SURGERY`` and printed, freed after its phases):
+
+- serve_vlm / check_vlm — llama-3.2-vision-90b, 5 of 100 layers (one
+             super block: 4 self layers, then the gated cross-attention
+             block over 1,601 image tokens; 64 query heads over 8 KV
+             heads of 128), bf16 slot pool, blocking admission with
+             bucketed prompts and zero image embeddings (the engine's
+             stub image): every prefill 10 B1 (the cross k / v at M =
+             1,601 among them) + 26 B2, every decode step 8 B1 + 26 B2
+             (``VLM_CHAINS``, derived from the surgery report by
+             :func:`vlm_chains`); ``kv_bytes_per_step`` counts the image
+             K/V. The check (:func:`cross_check_vlm`) runs
+             ``LMModel.prefill`` of 64 tokens with random image
+             embeddings and 16 greedy decode steps, every cross gate at
+             0.5, bf16 on the card against f32 on the CPU
+             (``CHECK_TOL``), and the card with the gates at 0 beside it
+             (the image path must move the logits by more than
+             ``CHECK_TOL_F32``).
+- serve_vlm_q / check_vlm_q — the same tree with int8 factors over the
+             int8 slot pool (the image K/V stays bf16): 10 B3 + 26 B4 a
+             prefill, 8 B3 + 26 B4 + 4 B5 (G 8, D 128) a decode step.
+- infer_hubert / check_hubert — hubert-xlarge, all 48 layers (16 heads
+             of 80, bidirectional, layer norms, gelu MLP, 504 units
+             padded to 512) through ``make_forward_step`` on 4 clips of
+             500 frames (M = 2,000 rows a linear): ms a forward (mean
+             and stdev of 10), frames/s, the dense tree's forward before
+             the surgery beside it, peak memory, 193 B1 + 96 B2 a
+             forward, exactly; the check on one clip: f32 on the card
+             within ``CHECK_TOL_F32`` and bf16 within ``CHECK_TOL`` of
+             f32 on the CPU.
+
+The kernels phase adds their rows (``path``: "vlm" / "hubert"): B1 / B2
+and B3 / B4 at the VLM's shapes, M = 8, with the 128,256-column unembed;
+B1 / B3 at the cross k / v's M = 1,601; B5 at (G 8, D 128) in
+``WIDE_ATTN_CASES``; B1 / B2 at hubert's shapes, M = 2,000; summed per
+decode step or forward as ``vlm_path`` / ``hubert_path`` of the kernels
+line, the cuBLAS chain's time beside each.
+
 Only on request (``--phases ...,profile``): torch.profiler over steady
 decode steps of the branches=4 model, plain, int8 and 2:4-packed int8 —
 device time by operator and the device's idle share; ``profile_qa`` the
@@ -332,6 +374,7 @@ import math
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -349,7 +392,9 @@ PHASES = ("device", "build", "kernels", "search", "serve", "check",
           "serve_moe", "check_moe", "serve_mla_moe", "check_mla_moe",
           "serve_mamba2", "check_mamba2", "serve_zamba2", "check_zamba2",
           "infer_resnet", "check_resnet", "train_resnet",
-          "check_train_resnet", "train", "check_train")
+          "check_train_resnet", "serve_vlm", "check_vlm", "serve_vlm_q",
+          "check_vlm_q", "infer_hubert", "check_hubert", "train",
+          "check_train")
 #: the phases that search, serve or check the llama3.2-1b trees, the MLA
 #: ones, the other configs' (CONFIG_RUNS) and the training ones
 LLAMA_PHASES = ("search", "serve", "check", "serve_search", "check_search",
@@ -366,6 +411,8 @@ CONFIG_PHASES = ("serve_granite", "check_granite", "serve_nemo",
 TRAIN_PHASES = ("train", "check_train")
 RESNET_PHASES = ("infer_resnet", "check_resnet", "train_resnet",
                  "check_train_resnet")
+VLM_PHASES = ("serve_vlm", "check_vlm", "serve_vlm_q", "check_vlm_q")
+HUBERT_PHASES = ("infer_hubert", "check_hubert")
 #: phases run only when asked for with --phases
 EXTRA_PHASES = ("profile", "profile_qa", "profile_mla")
 
@@ -525,14 +572,18 @@ PAGED_CASES = {"served": dict(b=8, kh=8, g=4, d=64, bs=16, nblk=64, nb=512,
                "softcap 30": dict(b=8, kh=8, g=4, d=64, bs=16, nblk=64,
                                   nb=512, idle=1, softcap=30.0)}
 #: the decode attentions at the head shapes of the other configs: B5 on
-#: the int8 slot pool at mistral-nemo's (8 KV heads of 128, G 4) and
-#: moonshot's (16 KV heads of 128, G 1), served 8 slots of 1,024
+#: the int8 slot pool at mistral-nemo's (8 KV heads of 128, G 4),
+#: moonshot's (16 KV heads of 128, G 1), zamba2's (32 of 64, G 1) and
+#: llama-3.2-vision's (8 of 128, G 8: G * D at the kernel's 1,024 limit),
+#: served 8 slots of 1,024
 WIDE_ATTN_CASES = {"nemo G4 D128": dict(b=8, s=1024, kh=8, g=4, d=128,
                                         idle=0, softcap=0.0),
                    "moonshot G1 D128": dict(b=8, s=1024, kh=16, g=1, d=128,
                                             idle=0, softcap=0.0),
                    "zamba2 G1 D64": dict(b=8, s=1024, kh=32, g=1, d=64,
-                                         idle=0, softcap=0.0)}
+                                         idle=0, softcap=0.0),
+                   "vlm G8 D128": dict(b=8, s=1024, kh=8, g=8, d=128,
+                                       idle=0, softcap=0.0)}
 #: B8 on granite's bf16 / f32 paged pool (8 KV heads of 128, G 4) and B9
 #: on minitron's int8 one (8 KV heads of 128, G 3), as PAGED_CASES'
 #: served pool otherwise; ``quant`` picks the pool
@@ -647,6 +698,73 @@ RESNET_CHECK_TRAIN_BATCH = 2
 #: and its rows: a batch-32 forward (inference and fine-tune) and batch 1
 RESNET_FC = {"fc r335": (2048, 335, 1000), "fc r256": (2048, 256, 1000)}
 RESNET_FC_M = (32, 1)
+
+#: the VLM phases: llama-3.2-vision-90b at its published widths, cut to
+#: one super block (4 self layers and the cross block after them, 5 of
+#: 100 layers), random bf16 weights from the seed, decomposed on the card
+#: with ``LRD`` at branches=4; the per-branch ranks and SVD ranks its
+#: linears must get (the cross block's as the self blocks', the
+#: embedding skipped)
+VLM_ARCH = "llama-3.2-vision-90b"
+VLM_DEPTH = 5
+VLM_SURGERY = {
+    **{f"{top}/{p}": ("branched", 512)
+       for top in ("blocks/attn", "cross/cross_attn") for p in "qo"},
+    **{f"{top}/{p}": ("svd", 384)
+       for top in ("blocks/attn", "cross/cross_attn") for p in "kv"},
+    **{f"{top}/mlp/{p}": ("branched", 768)
+       for top in ("blocks", "cross") for p in ("up", "gate", "down")},
+    "unembed": ("branched", 960)}
+#: chain launches (B1, B2; B3, B4 for the int8 tree) of a blocking
+#: prefill segment and of a decode step: 2 SVD pairs x 4 self layers, 5
+#: branched linears x 5 layers and the unembed; the cross block's k / v
+#: (its two SVD pairs) run at prefill only, over the 1,601 image tokens
+VLM_CHAINS = {"prefill": (10, 26), "decode": (8, 26)}
+#: check_vlm: the gate of every cross block (a fresh tree's is 0, where
+#: the cross attention adds nothing) and the std of the random image
+#: embeddings
+VLM_GATE = 0.5
+VLM_IMAGE_STD = 0.2
+#: the encoder phases: hubert-xlarge at full width and depth, a batch of
+#: 4 clips of 500 frames (10 s at 50 frames/s: M = 2,000 rows through
+#: every linear), 10 timed forwards; the check on one clip
+HUBERT_ARCH = "hubert-xlarge"
+HUBERT_CLIPS, HUBERT_FRAMES = 4, 500
+HUBERT_M = HUBERT_CLIPS * HUBERT_FRAMES
+HUBERT_TIMED = 10
+HUBERT_CHECK_CLIPS = 1
+HUBERT_SURGERY = {**{f"blocks/attn/{p}": ("svd", 256) for p in "qkvo"},
+                  "blocks/mlp/up": ("branched", 128),
+                  "blocks/mlp/down": ("branched", 128),
+                  "unembed": ("svd", 128)}
+#: chain launches (B1, B2) of one forward: 4 SVD pairs x 48 layers and
+#: the unembed's; 2 branched linears x 48 layers
+HUBERT_CHAINS = (193, 96)
+#: the kernels phase's rows of those trees (bf16): the VLM's SVD pairs
+#: (C, R, S) and branched linears (N, C, r, S) at a decode step's M = 8
+#: (B1 / B2, and B3 / B4 with int8 factors), the cross k / v pair at the
+#: prefill's M = 1,601 image tokens; hubert's at M = 2,000
+VLM_LOWRANK_SHAPES = {"vlm k,v": (8192, 384, 1024)}
+VLM_BRANCHED_SHAPES = {"vlm q,o": (4, 8192, 512, 8192),
+                       "vlm gate,up": (4, 8192, 768, 28672),
+                       "vlm down": (4, 28672, 768, 8192),
+                       "vlm unembed": (4, 8192, 960, 128256)}
+VLM_CROSS_M = 1601
+HUBERT_LOWRANK_SHAPES = {"hubert q,k,v,o": (1280, 256, 1280),
+                         "hubert unembed": (1280, 128, 512)}
+HUBERT_BRANCHED_SHAPES = {"hubert up": (4, 1280, 128, 5120),
+                          "hubert down": (4, 5120, 128, 1280)}
+#: launches of those rows' kernels in one VLM decode step (B5 on the 4
+#: self layers of the int8 pool: G 8, D 128) and one hubert forward
+VLM_LAUNCHES = {
+    **{k: {"vlm k,v": 8} for k in ("lowrank_matmul", "lowrank_matmul_q")},
+    **{k: {"vlm q,o": 10, "vlm gate,up": 10, "vlm down": 5,
+           "vlm unembed": 1}
+       for k in ("branched_matmul", "branched_matmul_q")},
+    "decode_attention_q": {"vlm G8 D128": 4}}
+HUBERT_LAUNCHES = {"lowrank_matmul": {"hubert q,k,v,o": 192,
+                                      "hubert unembed": 1},
+                   "branched_matmul": {"hubert up": 48, "hubert down": 48}}
 
 #: kernel module of each wrapper (its CUDA source has the module's name),
 #: the wrapper's launch counter and the TPU kernel it replaces
@@ -1048,6 +1166,37 @@ def check_kernels(card: str, only: frozenset = frozenset(KERNELS)
         for m in SSM_M_CASES:
             _check_branched(add_q, label, shape, m, "bfloat16", rnd, qrnd,
                             ("int8",), spack, flush, only)
+
+    def add_path(path: str, names: set):
+        """:func:`add` of the rows of ``names`` alone, tagged ``path``."""
+        def add_p(name: str, make_row) -> None:
+            if name in names:
+                add(name, lambda: dict(make_row(), path=path))
+        return add_p
+    for label, shape in (VLM_BRANCHED_SHAPES.items()
+                         if only & {"branched_matmul", "branched_matmul_q"}
+                         else ()):
+        _check_branched(add_path("vlm", {"branched_matmul",
+                                         "branched_matmul_q"}),
+                        label, shape, 8, "bfloat16", rnd, qrnd, ("int8",),
+                        spack, flush, only)
+    for label, shape in VLM_LOWRANK_SHAPES.items():
+        for m in (8, VLM_CROSS_M):
+            x = rnd(m, shape[0], dtype=bf)
+            add("lowrank_matmul", lambda: dict(_lowrank_row(
+                label, x, shape, "bfloat16", rnd, flush, plans=False),
+                path="vlm"))
+            add("lowrank_matmul_q", lambda: dict(_lowrank_q_row(
+                label, x, shape, "bfloat16", qrnd, flush), path="vlm"))
+    for label, shape in (HUBERT_BRANCHED_SHAPES.items()
+                         if "branched_matmul" in only else ()):
+        _check_branched(add_path("hubert", {"branched_matmul"}), label,
+                        shape, HUBERT_M, "bfloat16", rnd, qrnd, (), spack,
+                        flush, only)
+    for label, shape in HUBERT_LOWRANK_SHAPES.items():
+        add("lowrank_matmul", lambda: dict(_lowrank_row(
+            label, rnd(HUBERT_M, shape[0], dtype=bf), shape, "bfloat16", rnd,
+            flush, plans=False), path="hubert"))
     for label in TRAIN_LAUNCHES["lowrank_matmul"]:
         c, r, s = LOWRANK_SHAPES[label]
         add("lowrank_matmul", lambda: _train_row(
@@ -1328,6 +1477,34 @@ def _lowrank_row(label: str, x, shape: tuple, dname: str, rnd, flush,
         plain_ms=time_ms(lambda: ref.lowrank_matmul_ref(x, w0, w1)),
         **_bound(dt.itemsize * (m * c + c * r + r * s + m * s),
                  2 * m * (c * r + r * s), dname))
+
+
+def _lowrank_q_row(label: str, x, shape: tuple, dname: str, qrnd, flush,
+                   mode: str = "int8") -> dict:
+    """One B3 row: ``x`` (M, C) through random factors of ``shape`` (C,
+    R, S) quantized as the engine quantizes them (``qrnd``), against the
+    plain version, with :func:`_lowrank_times` (the yardstick: the cuBLAS
+    chain on factors dequantized beforehand)."""
+    import torch
+    from repro_torch.kernels import ref
+    c, r, s = shape
+    m, dt = x.shape[0], x.dtype
+    w0q, w0s = qrnd(c, r, mode=mode)
+    w1q, w1s = qrnd(r, s, mode=mode)
+    args = (x, w0q, w0s, w1q, w1s)
+    y = kernel_module("lowrank_matmul_q").lowrank_matmul_q(*args)
+    want = ref.lowrank_matmul_q_ref(*args)
+    torch.cuda.synchronize()
+    w0d = (w0q.to(torch.float32) * w0s).to(dt)
+    w1d = (w1q.to(torch.float32) * w1s).to(dt)
+    return dict(
+        shape=label, dtype=dname, qmode=mode, M=m, C=c, R=r, S=s,
+        **_compare(y, want, dname),
+        **_lowrank_times("lowrank_matmul_q", args, y,
+                         lambda: (x @ w0d) @ w1d, dname, flush, False),
+        plain_ms=time_ms(lambda: ref.lowrank_matmul_q_ref(*args)),
+        **_bound(dt.itemsize * (m * c + m * s) + c * r + r * s
+                 + 4 * (r + s), 2 * m * (c * r + r * s), dname))
 
 
 def _lowrank_times(name: str, args: tuple, y, library, dname: str, flush,
@@ -1924,6 +2101,41 @@ def _kernel_entries(rows: dict[str, list[dict]]) -> list[dict]:
                 "step (M=8, bf16) of the "
                 + ("8-layer mamba2 tree" if name == "branched_matmul"
                    else "14-layer zamba2 tree (int8 factors, int8 pool)"))
+        for path, spec, m_path, what in (
+                ("vlm", VLM_LAUNCHES, 8, "one decode step (M=8, bf16) of "
+                 "the 5-layer llama-3.2-vision tree (int8 factors and the "
+                 "int8 slot pool for the _q kernels and B5); launches: the "
+                 "serve_vlm / serve_vlm_q run"),
+                ("hubert", HUBERT_LAUNCHES, HUBERT_M,
+                 f"one forward (M={HUBERT_M}, bf16) of the 48-layer "
+                 "hubert-xlarge tree; launches: per forward of the "
+                 "infer_hubert run")):
+            counts = spec.get(name, {})
+            prows = {label: next((r for r in rs if r["shape"] == label
+                                  and r.get("M", m_path) == m_path
+                                  and r["dtype"] == "bfloat16"
+                                  and r.get("qmode", "int8") == "int8"),
+                                 None) for label in counts}
+            if not counts or None in prows.values():
+                continue
+            entry = {k: (None if any(prows[lb].get(k) is None
+                                     for lb in counts)
+                         else sum(n * prows[lb][k]
+                                  for lb, n in counts.items()))
+                     for k in timed}
+            entry.update(launches=None, timed_as=f"the "
+                         f"{sum(counts.values())} launches of {what}")
+            cross = next((r for r in rs if r.get("path") == "vlm"
+                          and r.get("M") == VLM_CROSS_M), None)
+            if path == "vlm" and cross is not None:
+                entry["cross_kv"] = dict(
+                    {k: cross[k] for k in (
+                        "ms", "plain_ms", "library_ms", "bound_ms",
+                        "bound_by", "max_abs_err", "norm_err")},
+                    launches_per_prefill=2, M=VLM_CROSS_M,
+                    timed_as="one launch: the cross block's k or v over "
+                    "the 1,601 image tokens of a prefill")
+            extra[f"{path}_path"] = entry
         rrows = [r for r in rs if r.get("path") == "resnet"]
         if rrows:
             extra["resnet_path"] = {
@@ -4255,6 +4467,342 @@ def run_resnet(phases: list[str], card: str, seed: int,
 
 
 # ---------------------------------------------------------------------------
+# the last two families: llama-3.2-vision (VLM) and hubert-xlarge (encoder)
+# ---------------------------------------------------------------------------
+
+def vlm_chains(rep) -> tuple[dict[str, int], dict[str, int]]:
+    """Chain launches (:func:`chain_launches`) of a VLM prefill segment
+    and of a decode step: the cross blocks' k / v run at prefill only
+    (their image K/V is cached)."""
+    cached = ("cross/cross_attn/k", "cross/cross_attn/v")
+    decode = types.SimpleNamespace(decisions=[
+        d for d in rep.decisions if d.path not in cached])
+    return chain_launches(rep), chain_launches(decode)
+
+
+def with_gate(tree, gate: float):
+    """``tree`` with every cross block's gate at ``gate`` (a new top of
+    the tree; every other leaf shared)."""
+    import torch
+    ca = tree["cross"]["cross_attn"]
+    return {**tree, "cross": {**tree["cross"], "cross_attn": {
+        **ca, "gate": torch.full_like(ca["gate"], gate)}}}
+
+
+def cross_check_vlm(cfg, params, card: str, seed: int, *, label: str,
+                    prefill: dict[str, int], decode: dict[str, int],
+                    quantize: str = "none", kv_quantize: str | None = None,
+                    n_tok: int = 64, steps: int = 16) -> dict:
+    """The image path on the card: ``LMModel.prefill`` of ``n_tok``
+    tokens with random image embeddings (std :data:`VLM_IMAGE_STD`, the
+    seed) and ``steps`` greedy decode steps over a one-stream cache of
+    the phase's pool, with the factors quantized as the engine quantizes
+    them (``quantize``), every cross gate at :data:`VLM_GATE`, three
+    ways fed the CPU run's greedy tokens: the tree in f32 on the CPU
+    (``cpu``), in bf16 on the card (``bf16``), and in bf16 on the card
+    with the gates at 0 (``bf16_gate0``: a fresh tree's, where the cross
+    attention adds nothing).  The CPU run takes int8 factors dequantized
+    once to f32: the values the plain versions of B3 / B4 form from them
+    at every call, so the same function at a quarter of the time.
+
+    Gated: the card's logits within :data:`CHECK_TOL` of the CPU's std
+    at every step; the gate-0 run's distance from the gated one
+    (``image_effect``, two card runs that differ in the gates alone)
+    above :data:`CHECK_TOL_F32`; each card run
+    launches exactly ``prefill`` once and ``decode`` a step (B5 on the
+    self layers of an int8 pool included)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import LRDConfig
+    from repro_torch.models.api import get_model
+    from repro_torch.quant.quantize import dequantize_tree, quantize_tree
+    fresh_peak()
+    if quantize != "none":
+        with torch.inference_mode():
+            params = quantize_tree(params, quantize,
+                                   targets=LRDConfig().quant_targets)
+    cpu_tree = dequantize_tree(to_cpu_f32(params), torch.float32)
+    toks = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, n_tok).tolist()
+    img = torch.randn(
+        (1, cfg.num_image_tokens, cfg.vision_d_model or cfg.d_model),
+        generator=torch.Generator().manual_seed(seed)) * VLM_IMAGE_STD
+    card_m = get_model(cfg, "cuda")
+    card_img = img.to("cuda", card_m.dtype)
+    sides = {"cpu": (get_model(dataclasses.replace(cfg, dtype="float32"),
+                               "cpu"), with_gate(cpu_tree, VLM_GATE), img),
+             "bf16": (card_m, with_gate(params, VLM_GATE), card_img),
+             "bf16_gate0": (card_m, with_gate(params, 0.0), card_img)}
+    runs: dict[str, dict] = {}
+    with torch.inference_mode():
+        for name, (m, p, im) in sides.items():
+            dev, plan = m.device, m.cache_plan(kv_quantize)
+            before = {k: launch_count(k) for k in KERNELS}
+            t0 = time.perf_counter()
+            cache = m.init_cache(1, n_tok + steps + 1, kv_quantize)
+            lg, cache = m.prefill(
+                p, {"tokens": torch.tensor([toks], device=dev),
+                    "image_embeds": im}, cache, cache_plan=plan)
+            logits = [lg[0, -1, :cfg.vocab_size].float().cpu()]
+            fed = runs["cpu"]["fed"] if runs else []
+            for i in range(steps):
+                if not runs:
+                    fed.append(int(logits[-1].argmax()))
+                lg, cache = m.decode_step(
+                    p, torch.tensor([[fed[i]]], device=dev),
+                    torch.tensor([n_tok + i], device=dev), cache,
+                    cache_plan=plan)
+                logits.append(lg[0, -1, :cfg.vocab_size].float().cpu())
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            runs[name] = dict(
+                logits=logits, fed=fed, kvq=kv_quantize,
+                seconds=time.perf_counter() - t0,
+                launches={k: launch_count(k) - before[k] for k in KERNELS})
+            del cache
+    res = {"quantize": quantize, "kv_quantize": kv_quantize or "none",
+           "tokens": n_tok, "image_tokens": cfg.num_image_tokens,
+           "decode_steps": steps, "gate": VLM_GATE, "tol": CHECK_TOL,
+           "bf16": _against(runs["bf16"], runs["cpu"]),
+           "gate0_vs_cpu": _against(runs["bf16_gate0"],
+                                    runs["cpu"])["max_diff_over_std"],
+           "image_effect": _against(runs["bf16_gate0"],
+                                    runs["bf16"])["max_diff_over_std"],
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "seconds": {n: r["seconds"] for n, r in runs.items()},
+           "card": card}
+    log(f"{label} " + json.dumps(res))
+    reading = res["bf16"]["max_diff_over_std"]
+    if not reading <= CHECK_TOL:
+        raise SystemExit(f"{label}: card bf16 logits differ from the CPU f32 "
+                         f"reference: {reading:.4f} > {CHECK_TOL}")
+    if not res["image_effect"] > CHECK_TOL_F32:
+        raise SystemExit(f"{label}: the image path moves the logits by "
+                         f"{res['image_effect']:.2e} std, no more than "
+                         f"CHECK_TOL_F32 ({CHECK_TOL_F32})")
+    want = {k: n for k, n in prefill.items()}
+    for k, n in decode.items():
+        want[k] = want.get(k, 0) + n * steps
+    want = {k: want.get(k, 0) for k in KERNELS}
+    for name in ("bf16", "bf16_gate0"):
+        if runs[name]["launches"] != want:
+            raise SystemExit(f"{label} ({name}) launched "
+                             f"{runs[name]['launches']}, want {want}")
+    return res
+
+
+def run_vlm(phases: list[str], card: str, seed: int,
+            serve_res: dict) -> None:
+    """``serve_vlm`` / ``check_vlm`` (bf16 factors, bf16 slot pool) and
+    ``serve_vlm_q`` / ``check_vlm_q`` (int8 factors, int8 slot pool) of
+    llama-3.2-vision-90b at its published widths, cut to
+    :data:`VLM_DEPTH` layers: built, decomposed and held to
+    :data:`VLM_SURGERY` on the card, served by blocking admission with
+    the exact launches of every segment, checked against the port's CPU
+    f32 run (:func:`cross_check_vlm`); freed when this returns."""
+    import torch
+    from repro_torch.quant.quantize import tree_bytes
+    t_all = time.perf_counter()
+    fresh_peak()
+    t0 = time.perf_counter()
+    cfg, dense, axes = config_model(VLM_ARCH, VLM_DEPTH, seed)
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    dense_bytes = tree_bytes(dense)
+    lrd, params, rep, surg_s = decompose(dense, axes, branches=4)
+    del dense, axes
+    torch.cuda.empty_cache()
+    log(f"surgery vlm branches=4: init {init_s:.2f} s, surgery "
+        f"{surg_s:.2f} s, dense tree {dense_bytes} B, peak "
+        f"{torch.cuda.max_memory_allocated()} B (init {init_peak} B), "
+        f"{json.dumps(rep.summary())} [{card}]")
+    check_surgery("vlm", rep, params, card, VLM_SURGERY)
+    prefill, decode = vlm_chains(rep)
+    if (tuple(prefill.values()), tuple(decode.values())) != (
+            VLM_CHAINS["prefill"], VLM_CHAINS["decode"]):
+        raise SystemExit(f"vlm surgery implies {prefill} a prefill and "
+                         f"{decode} a decode step, want {VLM_CHAINS}")
+    n_self = VLM_DEPTH - VLM_DEPTH // cfg.cross_attn_every
+    #: the image K/V of the 8-slot pool (model dtype in either pool)
+    cross_bytes = (2 * (VLM_DEPTH // cfg.cross_attn_every) * 8
+                   * cfg.num_image_tokens * cfg.num_kv_heads
+                   * cfg.resolved_head_dim * 2)
+    for tag, engine in (("", {}), ("_q", dict(quantize="int8",
+                                              kv_quantize="int8"))):
+        pf = {k + tag: n for k, n in prefill.items()}
+        dec = {k + tag: n for k, n in decode.items()}
+        if tag:
+            dec["decode_attention_q"] = n_self
+        if f"serve_vlm{tag}" in phases:
+            with Phase(f"serve_vlm{tag}"):
+                res = serve(cfg, lrd, params, n_req=8, prompt_lo=32,
+                            prompt_hi=512, new_tokens=32, card=card,
+                            seed=seed, expect={"decode": dec,
+                                               "prefill": pf}, **engine)
+                res.update(surgery_s=surg_s, init_s=init_s,
+                           config=VLM_ARCH, depth=VLM_DEPTH,
+                           admission="blocking",
+                           dense_weight_bytes=dense_bytes,
+                           cross_kv_bytes=cross_bytes)
+                serve_res["vlm" + tag] = res
+                log(f"serve_vlm{tag} kv_bytes_per_step "
+                    f"{res['kv_bytes_per_step']} B ({cross_bytes} B of "
+                    f"them the image K/V), weight_bytes "
+                    f"{res['weight_bytes']} B [{card}]")
+        if f"check_vlm{tag}" in phases:
+            with Phase(f"check_vlm{tag}"):
+                cross_check_vlm(cfg, params, card, seed,
+                                label=f"check_vlm{tag}", prefill=pf,
+                                decode=dec,
+                                quantize=engine.get("quantize", "none"),
+                                kv_quantize=engine.get("kv_quantize"))
+    del params
+    log(f"vlm phases {time.perf_counter() - t_all:.2f} s [{card}]")
+
+
+def _hubert_logits(model, tree, batch, vocab: int):
+    """``make_forward_step``'s logits of ``batch`` over the real
+    vocabulary (the padded columns hold -1e30), on the host in f32."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.train.steps import make_forward_step
+    fwd = make_forward_step(model, RunConfig(model=model.cfg))
+    return fwd(tree, batch)[..., :vocab].float().cpu()
+
+
+def run_hubert(phases: list[str], card: str, seed: int,
+               hubert_res: dict) -> None:
+    """``infer_hubert`` / ``check_hubert``: hubert-xlarge at full width
+    and depth, random bf16 weights from the seed, decomposed on the card
+    with ``LRD`` at branches=4 and held to :data:`HUBERT_SURGERY`;
+    ``make_forward_step`` (the encoder's entry point) over
+    :data:`HUBERT_CLIPS` clips of :data:`HUBERT_FRAMES` frames (M =
+    :data:`HUBERT_M` rows through every linear), the dense tree timed
+    before the surgery; the check against the port's CPU f32 run."""
+    import dataclasses
+    import statistics
+    import torch
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.models.api import get_model, synth_inputs
+    from repro_torch.quant.quantize import tree_bytes
+    from repro_torch.train.steps import make_forward_step
+    t_all = time.perf_counter()
+    fresh_peak()
+    t0 = time.perf_counter()
+    cfg, dense, axes = config_model(HUBERT_ARCH, 48, seed)
+    init_s = time.perf_counter() - t0
+    model = get_model(cfg, "cuda")
+    batch = synth_inputs(cfg, ShapeConfig("infer_hubert", HUBERT_FRAMES,
+                                          HUBERT_CLIPS, "prefill"),
+                         torch.Generator(device="cuda").manual_seed(seed))
+    fwd = make_forward_step(model, RunConfig(model=cfg))
+
+    def times(tree) -> list[float]:
+        out = []
+        for _ in range(HUBERT_TIMED):
+            t0 = time.perf_counter()
+            fwd(tree, batch)
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+        return out
+    infer = "infer_hubert" in phases
+    if infer:
+        for _ in range(2):
+            fwd(dense, batch)
+        dense_s = times(dense)
+    dense_bytes = tree_bytes(dense)
+    lrd, params, rep, surg_s = decompose(dense, axes, branches=4)
+    del dense, axes
+    torch.cuda.empty_cache()
+    log(f"surgery hubert branches=4: init {init_s:.2f} s, surgery "
+        f"{surg_s:.2f} s, {json.dumps(rep.summary())} [{card}]")
+    check_surgery("hubert", rep, params, card, HUBERT_SURGERY)
+    chain = chain_launches(rep)
+    if (chain["lowrank_matmul"], chain["branched_matmul"]) != HUBERT_CHAINS:
+        raise SystemExit(f"hubert surgery implies {chain} a forward, want "
+                         f"{HUBERT_CHAINS}")
+    if infer:
+        with Phase("infer_hubert"):
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            y = fwd(params, batch)
+            torch.cuda.synchronize()
+            first = _launches()
+            fwd(params, batch)
+            reset_launches()
+            secs = times(params)
+            timed = _launches()
+            if first != chain or timed != {k: n * HUBERT_TIMED
+                                           for k, n in chain.items()}:
+                raise SystemExit(f"infer_hubert: a forward launched {first} "
+                                 f"(timed: {timed}), not {chain}")
+            if y.shape != (HUBERT_CLIPS, HUBERT_FRAMES, model.padded_vocab) \
+                    or not torch.isfinite(y[..., :cfg.vocab_size]).all():
+                raise SystemExit(f"infer_hubert: logits of shape "
+                                 f"{tuple(y.shape)} or not finite")
+            mean, dmean = statistics.fmean(secs), statistics.fmean(dense_s)
+            res = {"config": HUBERT_ARCH, "layers": cfg.num_layers,
+                   "clips": HUBERT_CLIPS, "frames": HUBERT_FRAMES,
+                   "rows": HUBERT_M, "forward_ms_mean": mean * 1e3,
+                   "forward_ms_stdev": statistics.stdev(secs) * 1e3,
+                   "frames_per_s": HUBERT_M / mean,
+                   "dense_forward_ms_mean": dmean * 1e3,
+                   "dense_forward_ms_stdev": statistics.stdev(dense_s) * 1e3,
+                   "dense_frames_per_s": HUBERT_M / dmean,
+                   "speedup": dmean / mean,
+                   "weight_bytes": tree_bytes(params),
+                   "dense_weight_bytes": dense_bytes,
+                   "surgery_s": surg_s, "init_s": init_s,
+                   "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                   "launches_per_forward": first, "card": card}
+            hubert_res["infer"] = res
+            log("infer_hubert " + json.dumps(res))
+    if "check_hubert" in phases:
+        with Phase("check_hubert"):
+            one = {k: v[:HUBERT_CHECK_CLIPS] for k, v in batch.items()}
+            cpu = get_model(dataclasses.replace(cfg, dtype="float32"), "cpu")
+            card32 = get_model(dataclasses.replace(cfg, dtype="float32"),
+                               "cuda")
+            fresh_peak()
+            reset_launches()
+            lg = _hubert_logits(model, params, one, cfg.vocab_size)
+            bf16_launches = _launches()
+            lg32 = _hubert_logits(card32, _tree_to(params, "cuda",
+                                                   torch.float32),
+                                  one, cfg.vocab_size)
+            f32_launches = {k: n - bf16_launches.get(k, 0)
+                            for k, n in _launches().items()}
+            t0 = time.perf_counter()
+            lc = _hubert_logits(cpu, to_cpu_f32(params),
+                                {k: v.cpu() for k, v in one.items()},
+                                cfg.vocab_size)
+            cpu_s = time.perf_counter() - t0
+            res = {"clips": HUBERT_CHECK_CLIPS, "frames": HUBERT_FRAMES,
+                   "tol": CHECK_TOL, "tol_f32": CHECK_TOL_F32,
+                   "cpu_forward_s": cpu_s, "card": card}
+            for name, got, n in (("bf16", lg, bf16_launches),
+                                 ("f32", lg32, f32_launches)):
+                res[name] = {
+                    "max_diff_over_std": ((got - lc).abs().max()
+                                          / lc.std()).item(),
+                    "argmax_agree_share": (got.argmax(-1) == lc.argmax(-1))
+                    .float().mean().item(), "launches": n}
+            res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+            hubert_res["check"] = res
+            log("check_hubert " + json.dumps(res))
+            for name, tol in (("f32", CHECK_TOL_F32), ("bf16", CHECK_TOL)):
+                if not res[name]["max_diff_over_std"] <= tol:
+                    raise SystemExit(
+                        f"check_hubert: card {name} logits differ from the "
+                        f"CPU f32 reference: "
+                        f"{res[name]['max_diff_over_std']:.3e} > {tol}")
+                if res[name]["launches"] != chain:
+                    raise SystemExit(f"check_hubert ({name}) launched "
+                                     f"{res[name]['launches']}, not {chain}")
+    log(f"hubert phases {time.perf_counter() - t_all:.2f} s [{card}]")
+
+
+# ---------------------------------------------------------------------------
 # training
 # ---------------------------------------------------------------------------
 
@@ -4464,7 +5012,8 @@ def main() -> int:
 
     kernels = None
     if set(phases) & {"build", "kernels", *LLAMA_PHASES, *MLA_PHASES,
-                      *CONFIG_PHASES, *RESNET_PHASES, *TRAIN_PHASES}:
+                      *CONFIG_PHASES, *RESNET_PHASES, *VLM_PHASES,
+                      *HUBERT_PHASES, *TRAIN_PHASES}:
         with Phase("build"):
             from repro_torch.kernels import build
             _, report = build.build()
@@ -4521,6 +5070,13 @@ def main() -> int:
     resnet_res: dict[str, dict] = {}
     if set(phases) & set(RESNET_PHASES):
         run_resnet(phases, card, args.seed, resnet_res)
+    if set(phases) & set(VLM_PHASES):
+        run_vlm(phases, card, args.seed, serve_res)
+        torch.cuda.empty_cache()
+    hubert_res: dict[str, dict] = {}
+    if set(phases) & set(HUBERT_PHASES):
+        run_hubert(phases, card, args.seed, hubert_res)
+        torch.cuda.empty_cache()
     train_res: dict[str, dict] = {}
     if set(phases) & set(TRAIN_PHASES):
         run_train(phases, card, args.seed, train_res)
@@ -4536,6 +5092,13 @@ def main() -> int:
             if "train_path" in k and "frozen" in train_res:
                 k["train_path"]["launches"] = \
                     train_res["frozen"]["launches"][k["name"]]
+            vrun = serve_res.get("vlm_q" if k["name"].endswith("_q")
+                                 else "vlm")
+            if "vlm_path" in k and vrun is not None:
+                k["vlm_path"]["launches"] = vrun["launches"][k["name"]]
+            if "hubert_path" in k and "infer" in hubert_res:
+                k["hubert_path"]["launches"] = hubert_res["infer"][
+                    "launches_per_forward"].get(k["name"], 0)
             tree_of = {"fc r335": "vanilla_int8"
                        if k["name"] == "lowrank_matmul_q" else "vanilla_lrd",
                        "fc r256": "optimized_ranks"}

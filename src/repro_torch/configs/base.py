@@ -38,9 +38,9 @@ FAMILIES = (
 @dataclass(frozen=True)
 class ModelConfig:
     """Architecture definition (the reference's field names and
-    defaults).  The fields of the dense family, MLA, MoE, the SSM, the
-    hybrid and the ResNets are here (the VLM and encoder fields come with
-    ROADMAP A13d-A13e)."""
+    defaults): the fields of every family the reference registers (dense,
+    MLA, MoE, the SSM, the hybrid, the VLM, the encoder and the
+    ResNets)."""
 
     name: str = "tiny"
     family: str = FAMILY_DENSE
@@ -86,7 +86,14 @@ class ModelConfig:
     # Hybrid (zamba2-style shared attention block).
     hybrid_attn_every: int = 6         # shared attn block applied every k layers
 
-    is_encoder: bool = False
+    # VLM (llama-3.2-vision-style cross attention).
+    cross_attn_every: int = 0          # 0 -> no cross-attn layers
+    num_image_tokens: int = 1601       # stub frontend output length
+    vision_d_model: int = 0            # 0 -> d_model
+
+    # Encoder-only (hubert) specifics.
+    is_encoder: bool = False           # bidirectional attention, no KV cache
+    frontend_dim: int = 0              # stub frame embedding (0 -> d_model)
 
     # ResNet family (the paper's own benchmark architecture).
     resnet_stage_blocks: Sequence[int] = ()

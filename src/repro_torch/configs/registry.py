@@ -3,8 +3,9 @@
 The port registers the architectures its slices serve: the dense
 llama3.2-1b, granite-8b, mistral-nemo-12b and minitron-4b, the MoE
 moonshot-v1-16b-a3b and deepseek-v2-236b, the SSM mamba2-2.7b, the
-hybrid zamba2-1.2b and the paper's own resnet50 / resnet101 / resnet152.
-The VLM and encoder ones come with ROADMAP items A13d-A13e.
+hybrid zamba2-1.2b, the VLM llama-3.2-vision-90b, the encoder
+hubert-xlarge and the paper's own resnet50 / resnet101 / resnet152: every
+architecture the reference registers.
 """
 from __future__ import annotations
 
@@ -44,7 +45,9 @@ def _ensure_loaded() -> None:
     # import of a module is a no-op).
     from repro_torch.configs import deepseek_v2_236b  # noqa: F401
     from repro_torch.configs import granite_8b  # noqa: F401
+    from repro_torch.configs import hubert_xlarge  # noqa: F401
     from repro_torch.configs import llama3_2_1b  # noqa: F401
+    from repro_torch.configs import llama_3_2_vision_90b  # noqa: F401
     from repro_torch.configs import mamba2_2_7b  # noqa: F401
     from repro_torch.configs import minitron_4b  # noqa: F401
     from repro_torch.configs import mistral_nemo_12b  # noqa: F401

@@ -54,6 +54,8 @@ PyTree = Any
 _LABELS: dict[tuple[str, str], str] = {
     ("attn", "q"): "attn_q", ("attn", "k"): "attn_k",
     ("attn", "v"): "attn_v", ("attn", "o"): "attn_o",
+    ("cross_attn", "q"): "attn_q", ("cross_attn", "k"): "attn_k",
+    ("cross_attn", "v"): "attn_v", ("cross_attn", "o"): "attn_o",
     ("mla", "o"): "attn_o",
     ("mla", "q_a"): "mla_qa", ("mla", "q_b"): "mla_qb",
     ("mla", "kv_a"): "mla_kva", ("mla", "kv_b"): "mla_kvb",

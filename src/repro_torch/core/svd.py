@@ -11,8 +11,10 @@ CUDA device (a stack of layers, an MoE expert bank), whose top ``R``
 singular triplets come from the eigendecomposition of each matrix's Gram
 matrix on its smaller side -- cuSOLVER's SVD takes a batch one matrix
 at a time, so a bank of hundreds of experts would take minutes, where
-the batched Gram products and ``eigh`` take seconds.  Leading batch dims
-pass through.
+the batched Gram products and ``eigh`` take seconds -- and for a single
+CUDA matrix too large for cuSOLVER's SVD (:func:`cusolver_takes`:
+llama-3.2-vision's 8,192 x 128,256 unembed).  Leading batch dims pass
+through.
 """
 from __future__ import annotations
 
@@ -45,11 +47,21 @@ def _gram_svd(w: torch.Tensor, rank: int
     return other, sig, v.transpose(-1, -2)
 
 
+def cusolver_takes(w: torch.Tensor) -> bool:
+    """Whether cuSOLVER's SVD takes the matrix ``w (C, S)``: its int32
+    workspace count holds about two copies of the matrix and the square
+    of its smaller side, so it refuses past 2^31 values (it took
+    mistral-nemo's 5,120 x 131,072 and minitron's 3,072 x 256,000
+    unembeds and refused llama-3.2-vision's 8,192 x 128,256)."""
+    c, s = int(w.shape[-2]), int(w.shape[-1])
+    return 2 * c * s + min(c, s) ** 2 < 2 ** 31
+
+
 def svd_decompose(w: torch.Tensor, rank: int) -> SVDFactors:
     """Truncated SVD of ``w (..., C, S)`` into balanced rank-``rank``
     factors, computed in f32 and cast back to ``w.dtype``."""
     wf = w.to(torch.float32)
-    if wf.is_cuda and wf.ndim > 2:
+    if wf.is_cuda and (wf.ndim > 2 or not cusolver_takes(wf)):
         u, s, vt = _gram_svd(wf, rank)
     else:
         u, s, vt = torch.linalg.svd(wf, full_matrices=False)

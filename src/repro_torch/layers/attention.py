@@ -1,5 +1,6 @@
 """Attention: RoPE, GQA and MLA (DeepSeek-V2) for prefill, chunked
-prefill and decode, and the merged attention of paper §2.3 (no cache).
+prefill and decode, the merged attention of paper §2.3 (no cache), and
+the VLM's gated cross attention over image K/V.
 
 Plain torch (``einsum`` / ``softmax``), as the reference uses plain jnp
 for prefill and full-width slot decode; decode over an int8 or a paged
@@ -340,3 +341,54 @@ def _pad_last(x: torch.Tensor, n: int) -> torch.Tensor:
     if n <= 0:
         return x
     return torch.nn.functional.pad(x, (0, n))
+
+
+# ---------------------------------------------------------------------------
+# Cross attention (VLM): queries from text, K/V from image embeddings
+# ---------------------------------------------------------------------------
+
+def init_cross_attention(pb: ParamBuilder, name: str, d_model: int,
+                         num_heads: int, num_kv_heads: int, head_dim: int,
+                         kv_dim: int) -> None:
+    """q / k / v / o and the scalar ``gate``, zero at init (a fresh
+    cross layer adds nothing until trained, as in llama-3.2-vision)."""
+    sub = pb.child(name)
+    init_linear(sub, "q", d_model, num_heads * head_dim, EMBED, QKV)
+    init_linear(sub, "k", kv_dim, num_kv_heads * head_dim, EMBED, QKV)
+    init_linear(sub, "v", kv_dim, num_kv_heads * head_dim, EMBED, QKV)
+    init_linear(sub, "o", num_heads * head_dim, d_model, QKV, EMBED)
+    sub.param("gate", (), (), init="zeros")
+
+
+def cross_attn_kv(p: dict, kv_feats: torch.Tensor, *, num_kv_heads: int,
+                  head_dim: int, act_quantize: bool = False) -> dict:
+    """Cross-attention K/V ``(B, T, KH, D)`` from image features ``(B, T,
+    kv_dim)``: computed once at prefill (image tokens never change during
+    decode)."""
+    b, t, _ = kv_feats.shape
+    aq = dict(act_quantize=act_quantize)
+    k = apply_linear(p["k"], kv_feats, **aq).reshape(b, t, num_kv_heads,
+                                                    head_dim)
+    v = apply_linear(p["v"], kv_feats, **aq).reshape(b, t, num_kv_heads,
+                                                    head_dim)
+    return {"k": k, "v": v}
+
+
+def apply_cross_attention(p: dict, x: torch.Tensor,
+                          kv_feats: torch.Tensor | None = None, *,
+                          num_heads: int, num_kv_heads: int, head_dim: int,
+                          kv: dict | None = None,
+                          act_quantize: bool = False) -> torch.Tensor:
+    """Non-causal attention of ``x``'s queries over the image K/V (``kv``,
+    or computed from ``kv_feats``), no RoPE, scaled by ``tanh(gate)``
+    (f32, rounded to x's dtype)."""
+    b, sq, _ = x.shape
+    if kv is None:
+        kv = cross_attn_kv(p, kv_feats, num_kv_heads=num_kv_heads,
+                           head_dim=head_dim, act_quantize=act_quantize)
+    q = apply_linear(p["q"], x, act_quantize=act_quantize).reshape(
+        b, sq, num_heads, head_dim)
+    o = chunked_attention(q, kv["k"], kv["v"], causal=False)
+    o = apply_linear(p["o"], o.reshape(b, sq, num_heads * head_dim),
+                     act_quantize=act_quantize)
+    return torch.tanh(p["gate"].to(torch.float32)).to(x.dtype) * o

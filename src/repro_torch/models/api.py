@@ -17,30 +17,39 @@ def get_model(cfg: ModelConfig, device: str | torch.device = "cuda"):
 def synth_inputs(cfg: ModelConfig, shape: ShapeConfig,
                  generator: torch.Generator) -> dict[str, torch.Tensor]:
     """Random inputs of one cell, drawn from ``generator`` on its device
-    (the reference's ``input_specs`` / ``synth_inputs`` for the dense,
-    MoE, SSM, hybrid and ResNet families): ``tokens`` (B, S) int32 for a
-    train or prefill cell; ``tokens`` (B, 1) and ``positions`` (B,) for a
-    decode cell; ``images`` (B, img, img, 3) in the model dtype and
-    ``labels`` (B,) int32 below ``num_classes`` for a ResNet."""
+    (the reference's ``input_specs`` / ``synth_inputs``): ``tokens`` (B,
+    S) int32 for a train or prefill cell, plus the VLM's ``image_embeds``
+    (B, num_image_tokens, vision_d_model or d_model); the encoder's
+    ``frames`` (B, S, frontend_dim or d_model) and ``labels`` (B, S)
+    int32; ``tokens`` (B, 1) and ``positions`` (B,) for a decode cell;
+    ``images`` (B, img, img, 3) and ``labels`` (B,) int32 below
+    ``num_classes`` for a ResNet.  Float inputs are normal at std 0.2 in
+    the model dtype (the stub frontends' precomputed embeddings)."""
     from repro_torch.models.lm import FAMILIES, missing_family
     b, s = shape.global_batch, shape.seq_len
     dev = generator.device
+    dt = getattr(torch, cfg.dtype)
+
+    def normal(*dims: int) -> torch.Tensor:
+        return (torch.randn(dims, generator=generator, device=dev)
+                * 0.2).to(dt)
+
+    def ints(hi: int, *dims: int) -> torch.Tensor:
+        return torch.randint(0, hi, dims, generator=generator, device=dev,
+                             dtype=torch.int32)
     if cfg.family == "resnet":
-        images = torch.randn((b, cfg.img_size, cfg.img_size, 3),
-                             generator=generator, device=dev) * 0.2
-        return {"images": images.to(getattr(torch, cfg.dtype)),
-                "labels": torch.randint(0, cfg.num_classes, (b,),
-                                        generator=generator, device=dev,
-                                        dtype=torch.int32)}
+        return {"images": normal(b, cfg.img_size, cfg.img_size, 3),
+                "labels": ints(cfg.num_classes, b)}
     if cfg.family not in FAMILIES:
         raise missing_family(cfg.family)
     if shape.kind == "decode":
-        return {"tokens": torch.randint(0, cfg.vocab_size, (b, 1),
-                                        generator=generator, device=dev,
-                                        dtype=torch.int32),
-                "positions": torch.randint(0, s - 1, (b,),
-                                           generator=generator, device=dev,
-                                           dtype=torch.int32)}
-    return {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
-                                    generator=generator, device=dev,
-                                    dtype=torch.int32)}
+        return {"tokens": ints(cfg.vocab_size, b, 1),
+                "positions": ints(s - 1, b)}
+    if cfg.family == "encoder":
+        return {"frames": normal(b, s, cfg.frontend_dim or cfg.d_model),
+                "labels": ints(cfg.vocab_size, b, s)}
+    out = {"tokens": ints(cfg.vocab_size, b, s)}
+    if cfg.family == "vlm":
+        out["image_embeds"] = normal(b, cfg.num_image_tokens,
+                                     cfg.vision_d_model or cfg.d_model)
+    return out

@@ -164,7 +164,9 @@ def quantize_kv_tree(cache: PyTree, prompt_len: int | None = None
     ``*_scale`` pairs, per-layer or stacked ``(L, B, S, ...)`` alike.
     Positions ``>= prompt_len`` (the right-padded prefill tail) are
     masked out of the values and of the absmax, so the result equals the
-    quantize-on-insert whole-prefill path."""
+    quantize-on-insert whole-prefill path.  A VLM's image K/V
+    (``"cross_kv"``) stays in the model dtype, unmasked: it is no
+    per-token stream, as in the reference's int8 pool."""
     def one(x: torch.Tensor, seq_axis: int
             ) -> tuple[torch.Tensor, torch.Tensor]:
         xf = x.to(torch.float32)
@@ -183,7 +185,8 @@ def quantize_kv_tree(cache: PyTree, prompt_len: int | None = None
                     out[name + "_q"], out[name + "_scale"] = one(
                         cache[name], seq_axis)
                 return out
-        return {k: quantize_kv_tree(v, prompt_len) for k, v in cache.items()}
+        return {k: v if k == "cross_kv" else quantize_kv_tree(v, prompt_len)
+                for k, v in cache.items()}
     return cache
 
 

@@ -18,7 +18,9 @@
 
 Continuous (chunked) admission is the default for the dense family, MLA
 stacks included (the MoE family admits blocking: per-chunk expert
-capacity would route other tokens than the whole prompt's); a
+capacity would route other tokens than the whole prompt's; so do the
+recurrent families and the VLM, whose blocking prefill computes the
+image K/V from zero image embeddings, as the reference's engine does); a
 prompt stages in a full-width batch=1 cache while it is chunk-prefilled
 and lands in its slot in one scatter (quantizing into an int8 pool), so
 chunked greedy streams equal whole-prefill ("blocking" admission)
@@ -108,13 +110,15 @@ def _param_device(params: PyTree) -> torch.device:
 
 class ServeEngine:
     #: families whose prefill padding is inert (causal attention never
-    #: lets a real token see a pad token); MoE capacity routing lets pads
-    #: displace real tokens and recurrent state advances through them, so
-    #: the MoE, SSM and hybrid families prefill unpadded
-    _BUCKET_FAMILIES = ("dense",)
+    #: lets a real token see a pad token; the VLM's cross attention reads
+    #: the image only); MoE capacity routing lets pads displace real
+    #: tokens and recurrent state advances through them, so the MoE, SSM
+    #: and hybrid families prefill unpadded
+    _BUCKET_FAMILIES = ("dense", "vlm")
     #: families served with chunked continuous admission: a chunk's
-    #: per-chunk expert capacity differs from the whole prompt's, and
-    #: recurrent state has no chunk offset, so the MoE, SSM and hybrid
+    #: per-chunk expert capacity differs from the whole prompt's,
+    #: recurrent state has no chunk offset and the VLM precomputes its
+    #: image K/V at a whole prefill, so the MoE, SSM, hybrid and VLM
     #: families keep blocking whole-prompt admission
     _CHUNK_FAMILIES = ("dense",)
 
@@ -143,7 +147,9 @@ class ServeEngine:
         default; only an explicit ``"cpu"`` serves on the CPU).
         ``admission`` is "continuous" (token-budget chunked prefill; the
         default for the dense family) or "blocking" (one whole prefill per
-        admit; the default, and the only choice, for the MoE family).
+        admit; the default, and the only choice, for the MoE, SSM, hybrid
+        and VLM families).  An encoder config is refused (no decode
+        step).
         ``kv_byte_budget`` gates admission and triggers youngest-first
         preemption; None = never preempt.  ``quantize`` ("none" | "int8" |
         "fp8") quantizes the ``run.lrd.quant_targets`` factors at load;
@@ -178,7 +184,8 @@ class ServeEngine:
         self.run = run
         self.model = get_model(run.model, self.device)
         if not run.model.has_decode:
-            raise ValueError("serving needs a decoder")
+            raise ValueError("serving needs a decoder (encoder-only: no "
+                             "decode step)")
         if quantize is None:
             quantize = run.lrd.quantize
         if quantize not in ("none", *QUANT_MODES):
@@ -393,9 +400,16 @@ class ServeEngine:
             padded = np.zeros((1, self._bucket_len(n)), np.int64)
             padded[0, :n] = ps.tokens
             cache1 = self.runner.new_stream_cache(self.kv_quantize)
+            batch = {"tokens": self._tokens(padded)}
+            if self.run.model.family == "vlm":
+                # the reference engine's stub image: zero embeddings
+                batch["image_embeds"] = torch.zeros(
+                    (1, self.run.model.num_image_tokens,
+                     self.run.model.d_model), dtype=self.model.dtype,
+                    device=self.device)
             logits, cache1 = self.runner.step(
-                self._tokens(padded), None, "prefill", cache=cache1,
-                last_pos=n - 1)
+                batch["tokens"], None, "prefill", cache=cache1,
+                last_pos=n - 1, batch=batch)
             self.pool.insert(cache1, ps.slot, n)
             self.scheduler.activate(ps)
             pf_toks += n

@@ -8,10 +8,13 @@ one batch slot per in-flight stream, in the full-width ``gqa_f32`` /
 (``kv_quantize="int8"``: int8 values plus ``(L, slots, KH, D)`` or
 ``(L, slots, r)`` f32 scale rows), or the recurrent families' state
 ``(L, slots, ...)`` (no sequence axis, no per-token bytes; the hybrid's
-shared attention KV beside it).  :class:`PagedKVPoolManager` — the
-paged pool, fixed-size physical blocks behind per-slot block tables with
-radix prefix sharing (``gqa_paged_f32`` / ``gqa_paged_int8``,
-:mod:`repro_torch.serve.paging`; no MLA).
+shared attention KV beside it), or the VLM's self-block entries beside
+its image K/V ``cross_kv`` ``(n_super, slots, T_img, KH, D)`` (model
+dtype in either family, read by every decode step, no sequence mask).
+:class:`PagedKVPoolManager` — the paged pool, fixed-size physical
+blocks behind per-slot block tables with radix prefix sharing
+(``gqa_paged_f32`` / ``gqa_paged_int8``, :mod:`repro_torch.serve.paging`;
+no MLA).
 
 A manager owns the state side of the serve stack: the cache tensors and
 per-slot write positions, slot allocation with admission tickets
@@ -42,6 +45,10 @@ from repro_torch.serve.faults import NULL_INJECTOR
 from repro_torch.serve.paging import PoolExhausted
 
 PyTree = Any
+
+#: the VLM cache's image K/V entry (no per-token stream: never masked,
+#: never quantized, not in the per-token byte accounting)
+CROSS_KV = "cross_kv"
 
 
 class IntegrityError(AssertionError):
@@ -105,9 +112,13 @@ class KVPoolManager:
                        **model.state_leaves(slots)}.items()}
         #: per-position KV bytes of ONE stream across all layers
         self.bytes_per_token = sum(p.bytes_per_token for p in self.plans)
-        #: bytes the whole pool streams per decode step
+        #: bytes the whole pool streams per decode step: the plans' and
+        #: a VLM's image K/V (a per-image constant stream outside the
+        #: per-token plans, read every step too)
         self.kv_bytes_per_step = sum(p.bytes_per_step(slots, max_seq)
-                                     for p in self.plans)
+                                     for p in self.plans) + sum(
+            t.numel() * t.element_size()
+            for t in self.cache.get(CROSS_KV, {}).values())
 
     # -- slot bookkeeping ---------------------------------------------------
 
@@ -240,14 +251,16 @@ class KVPoolManager:
         state has no sequence axis and replaces the slot's whole state.  A full-width staging cache
         entering an int8 pool (chunked prefill) is quantized first, with
         one-shot scales over the real prompt; a cache already in the
-        pool's family (blocking prefill) lands as it is."""
+        pool's family (blocking prefill) lands as it is.  A VLM's image
+        K/V (``cross_kv``, lead ``n_super``) lands whole, unmasked."""
         if _leaf_names(cache1) != _leaf_names(self.cache):
             cache1 = quantize_kv_tree(cache1, length)
         for top, entry in self.cache.items():
             for name, pool_leaf in entry.items():
-                lead = pool_leaf.ndim - self._rank[name]
+                lead = (1 if top == CROSS_KV
+                        else pool_leaf.ndim - self._rank[name])
                 one = cache1[top][name][_at(lead, 0)]   # (*L, S, *tail)
-                if name in SEQ_AXIS:
+                if name in SEQ_AXIS and top != CROSS_KV:
                     ax = SEQ_AXIS[name]
                     keep = (torch.arange(one.shape[ax], device=one.device)
                             < length).reshape(-1, *([1] * (-ax - 1)))

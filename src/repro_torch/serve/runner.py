@@ -9,7 +9,9 @@ the model API directly.  Segment kinds:
 * ``"prefill_chunk"``: tokens ``(1, C)`` at offset ``start_pos`` against a
                        batch=1 staging cache (continuous admission);
 * ``"prefill"``:       tokens ``(1, S)`` whole-prompt prefill (blocking
-                       admission).
+                       admission); a ``batch`` given beside the tokens
+                       (the VLM's, with its ``image_embeds``) goes to the
+                       model unchanged.
 
 Each segment runs with its cache's plan: the pool plan (the
 ``kv_quantize`` family, slot or paged) for decode and blocking prefill,
@@ -71,21 +73,24 @@ class ModelRunner:
     @torch.inference_mode()
     def step(self, tokens: torch.Tensor, positions: torch.Tensor | None,
              seg_kind: str, *, cache: PyTree, start_pos: int | None = None,
-             prompt_len: int | None = None, last_pos: int | None = None
-             ) -> tuple[torch.Tensor, PyTree]:
-        """Run one segment.  Returns ``(logits, cache)``."""
+             prompt_len: int | None = None, last_pos: int | None = None,
+             batch: dict | None = None) -> tuple[torch.Tensor, PyTree]:
+        """Run one segment.  Returns ``(logits, cache)``.  ``batch``
+        (prefill segments) carries the model inputs beside ``tokens``."""
+        if batch is None:
+            batch = {"tokens": tokens}
         m, p = self.model, self.params
         aq = self.prefill_act_quantize
         if seg_kind == "decode":
             out = m.decode_step(p, tokens, positions, cache,
                                 cache_plan=self.pool_plan)
         elif seg_kind == "prefill_chunk":
-            out = m.prefill_chunk(p, {"tokens": tokens}, cache,
+            out = m.prefill_chunk(p, batch, cache,
                                   start_pos=start_pos, prompt_len=prompt_len,
                                   cache_plan=self.stream_plan,
                                   act_quantize=aq)
         elif seg_kind == "prefill":
-            out = m.prefill(p, {"tokens": tokens}, cache, last_pos=last_pos,
+            out = m.prefill(p, batch, cache, last_pos=last_pos,
                             cache_plan=self.pool_plan, act_quantize=aq)
         else:
             raise ValueError(

@@ -1963,3 +1963,136 @@ def test_apply_conv_on_the_card_matches_the_cpu(cuda, kind, stride):
     assert got.shape == want.shape
     assert ((got.cpu() - want).abs().max() / want.std()).item() \
         <= chip_smoke.CHECK_TOL_F32
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("case", ["vlm G8 D128"])
+def test_decode_attention_q_at_the_vlm_heads(cuda, case, dtype):
+    """B5 at llama-3.2-vision's served pool (8 slots of 1,024, 8 KV heads
+    of 128, 8 query heads each: G * D at the kernel's 1,024 limit)
+    against its plain version."""
+    from repro_torch.kernels import decode_attention_q as dak
+    from repro_torch.kernels import ops, ref
+    from repro_torch.quant.kv import quantize_kv_prefill
+    c = chip_smoke.WIDE_ATTN_CASES[case]
+    b, s, kh, g, d = c["b"], c["s"], c["kh"], c["g"], c["d"]
+    q = _rnd(cuda, b, 1, kh * g, d, dtype=getattr(torch, dtype))
+    k_q, k_s = quantize_kv_prefill(_rnd(cuda, b, s, kh, d,
+                                        dtype=torch.float32))
+    v_q, v_s = quantize_kv_prefill(_rnd(cuda, b, s, kh, d,
+                                        dtype=torch.float32))
+    pos = torch.arange(b, device="cuda", dtype=torch.int32) * (s // b) + 7
+    n0 = dak.launches
+    y = ops.decode_attention_q(q, k_q, k_s, v_q, v_s, pos)
+    assert dak.launches == n0 + 1
+    want = ref.decode_attention_q_ref(q, k_q, k_s, v_q, v_s, pos)
+    assert torch.isfinite(y.float()).all()
+    assert _norm_err(y, want) <= chip_smoke.KERNEL_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("label,m", [
+    ("vlm k,v", chip_smoke.VLM_CROSS_M),
+    ("hubert q,k,v,o", chip_smoke.HUBERT_M),
+    ("hubert unembed", chip_smoke.HUBERT_M)])
+def test_lowrank_kernels_at_large_m(cuda, label, m, dtype):
+    """B1 at the VLM cross k / v's M = 1,601 image tokens and at hubert's
+    M = 2,000 frames (many row blocks, a ragged last one), and B3 with
+    int8 factors beside it, against their plain versions."""
+    from repro_torch.kernels import lowrank_matmul as lk
+    from repro_torch.kernels import lowrank_matmul_q as lqk
+    from repro_torch.kernels import ref
+    from repro_torch.quant.quantize import quantize_array
+    c, r, s = {**chip_smoke.VLM_LOWRANK_SHAPES,
+               **chip_smoke.HUBERT_LOWRANK_SHAPES}[label]
+    dt = getattr(torch, dtype)
+    x = _rnd(cuda, m, c, dtype=dt)
+    w0 = _rnd(cuda, c, r, scale=c ** -0.5, dtype=dt)
+    w1 = _rnd(cuda, r, s, scale=r ** -0.5, dtype=dt)
+    n0 = lk.launches
+    y = lk.lowrank_matmul(x, w0, w1)
+    assert lk.launches == n0 + 1
+    assert _norm_err(y, ref.lowrank_matmul_ref(x, w0, w1)) \
+        <= chip_smoke.KERNEL_TOL[dtype]
+    (w0q, w0s), (w1q, w1s) = quantize_array(w0.float()), \
+        quantize_array(w1.float())
+    y = lqk.lowrank_matmul_q(x, w0q, w0s, w1q, w1s)
+    assert _norm_err(y, ref.lowrank_matmul_q_ref(x, w0q, w0s, w1q, w1s)) \
+        <= chip_smoke.KERNEL_TOL[dtype]
+
+
+@pytest.mark.parametrize("label", list(chip_smoke.HUBERT_BRANCHED_SHAPES))
+def test_branched_kernel_at_hubert_m(cuda, label):
+    """B2 (bf16) at hubert's M = 2,000 frames against its plain
+    version."""
+    from repro_torch.kernels import branched_matmul as bk
+    from repro_torch.kernels import ref
+    n, c, r, s = chip_smoke.HUBERT_BRANCHED_SHAPES[label]
+    bf = torch.bfloat16
+    x = _rnd(cuda, chip_smoke.HUBERT_M, c, dtype=bf)
+    u = _rnd(cuda, n, c, r, scale=c ** -0.5, dtype=bf)
+    xc = _rnd(cuda, n, r, r, scale=r ** -0.5, dtype=bf)
+    v = _rnd(cuda, n, r, s, scale=r ** -0.5, dtype=bf)
+    y = bk.branched_matmul(x, u, xc, v)
+    assert _norm_err(y, ref.branched_matmul_ref(x, u, xc, v)) \
+        <= chip_smoke.KERNEL_TOL["bfloat16"]
+
+
+@pytest.mark.parametrize("kv_quantize", [None, "int8"])
+def test_vlm_prefill_on_the_card_matches_the_cpu(cuda, kv_quantize):
+    """A decomposed VLM (two super blocks at d_model 256, the cross gates
+    at 0.5, random image embeddings) prefilled and decoded on the card
+    in f32 through the chain kernels (B5 over an int8 pool) against the
+    same tree on the CPU, within CHECK_TOL_F32 of the CPU logits' std;
+    the image path moves the logits."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import LRDConfig
+    from repro_torch.core.surgery import decompose_model
+    from repro_torch.kernels import branched_matmul as bk
+    from repro_torch.kernels import decode_attention_q as dak
+    from repro_torch.kernels import lowrank_matmul as lk
+    from repro_torch.models.api import get_model
+    cfg = dataclasses.replace(
+        registry.get("llama-3.2-vision-90b").smoke, num_layers=10,
+        d_model=256, num_heads=8, num_kv_heads=2, head_dim=32, d_ff=512,
+        num_image_tokens=33, dtype="float32")
+    cpu = get_model(cfg, "cpu")
+    params, axes = cpu.init(torch.Generator().manual_seed(0))
+    params["cross"]["cross_attn"]["gate"].fill_(0.5)
+    params, _, _ = decompose_model(params, axes, LRDConfig(
+        enabled=True, rank_mode="aligned", rank_align=16, min_dim=64,
+        branches=2))
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 12), generator=g)
+    img = torch.randn((2, 33, 256), generator=g) * 0.2
+
+    def run(model, p, dev, image):
+        cache = model.init_cache(2, 16, kv_quantize)
+        plan = model.cache_plan(kv_quantize)
+        lg, cache = model.prefill(p, {"tokens": toks[:, :10].to(dev),
+                                      "image_embeds": image.to(dev)},
+                                  cache, cache_plan=plan)
+        out = [lg.cpu()]
+        for t in (10, 11):
+            lg, cache = model.decode_step(
+                p, toks[:, t:t + 1].to(dev), torch.full((2,), t,
+                                                        device=dev),
+                cache, cache_plan=plan)
+            out.append(lg.cpu())
+        return torch.cat(out, 1)
+    card = get_model(cfg, "cuda")
+    cp = chip_smoke._tree_to(params, "cuda")
+    with torch.inference_mode():
+        want = run(cpu, params, "cpu", img)
+        n0 = (lk.launches, bk.launches, dak.launches)
+        got = run(card, cp, "cuda", img)
+        n1 = (lk.launches, bk.launches, dak.launches)
+        moved = run(card, chip_smoke.with_gate(cp, 0.0), "cuda", img)
+    assert n1[0] > n0[0] and n1[1] > n0[1]
+    assert (n1[2] > n0[2]) == (kv_quantize == "int8")
+    real = want[..., :cfg.vocab_size]
+    err = ((got[..., :cfg.vocab_size] - real).abs().max() / real.std())
+    assert err.item() <= chip_smoke.CHECK_TOL_F32
+    assert ((moved[..., :cfg.vocab_size] - real).abs().max()
+            / real.std()).item() > 10 * chip_smoke.CHECK_TOL_F32

@@ -62,7 +62,9 @@ def test_port_has_the_slice_modules():
               "repro_torch.layers.ssm", "repro_torch.configs.mamba2_2_7b",
               "repro_torch.configs.zamba2_1_2b", "repro_torch.core.tucker",
               "repro_torch.layers.conv", "repro_torch.models.resnet",
-              "repro_torch.configs.resnet"):
+              "repro_torch.configs.resnet",
+              "repro_torch.configs.llama_3_2_vision_90b",
+              "repro_torch.configs.hubert_xlarge"):
         assert m in mods, m
 
 

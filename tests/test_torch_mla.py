@@ -272,18 +272,23 @@ def test_latent_ref_equals_f32_attend_on_dequantized_pool():
 
 def test_moe_family_refused_naming_a13():
     """The MoE family is served now (DeepSeek-V2 with its experts and its
-    unstacked dense first block), as are the SSM, hybrid and ResNet
-    families; the families still to come are refused naming their
-    ROADMAP item (A13d-A13e).  A dense-family config with
+    unstacked dense first block), as are the SSM, hybrid, VLM, encoder
+    and ResNet families: no family is refused naming a ROADMAP item (A13)
+    any more.  A VLM config without cross-attention layers is refused
+    (the reference asserts ``cross_attn_every > 1``); an encoder-family
+    config builds without a token embedding.  A dense-family config with
     experts builds dense FFNs, as the reference's does."""
     params, _ = get_model(treg.get("deepseek-v2-236b").smoke, "cpu").init(
         torch.Generator().manual_seed(0))
     assert "moe" in params["blocks"] and "mlp" in params["first"]
-    for family in ("vlm", "encoder"):
-        cfg = dataclasses.replace(mla_cfg("deepseek-smoke", "torch"),
-                                  family=family)
-        with pytest.raises(NotImplementedError, match="A13"):
-            get_model(cfg, "cpu")
+    vlm = dataclasses.replace(mla_cfg("deepseek-smoke", "torch"),
+                              family="vlm")
+    with pytest.raises(ValueError, match="cross_attn_every"):
+        get_model(vlm, "cpu")
+    enc = dataclasses.replace(mla_cfg("deepseek-smoke", "torch"),
+                              family="encoder", is_encoder=True)
+    params, _ = get_model(enc, "cpu").init(torch.Generator().manual_seed(0))
+    assert "embed" not in params and "bias" in params["final_norm"]
     from repro_torch.models.resnet import ResNetModel
     assert isinstance(get_model(treg.get("resnet50").smoke, "cpu"),
                       ResNetModel)

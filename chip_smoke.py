@@ -356,6 +356,58 @@ B1 / B3 at the cross k / v's M = 1,601; B5 at (G 8, D 128) in
 decode step or forward as ``vlm_path`` / ``hubert_path`` of the kernels
 line, the cuBLAS chain's time beside each.
 
+Training the other families (ROADMAP A13t) adds one pair per family
+(``TRAIN_FAMILY_RUNS``), each right after the serve phases of the same
+tree (moonshot after check_moe, DeepSeek-V2 after check_mla_moe, mamba2
+and zamba2 after their checks, the VLM after check_vlm_q; hubert's, 12
+of its 48 layers, after check_train): the registered config at its
+published widths, cut in depth only, random bf16 weights from the seed,
+decomposed on the card with ``LRD`` at branches=4 (the serve phases'
+tree where they ran, else built for the pair), trained with the §2.2
+freeze (the VLM's cross gates set to 0.5: at 0, ``tanh(gate)`` gives
+the cross block no gradient):
+
+- check_train_<key> — one step's loss and every trainable leaf's
+             gradient on ``check_batch`` rows of the family's first batch
+             (:func:`check_train_step`): the card in bf16, and in f32
+             where the check's reference is f32, against the same params
+             and batch on the CPU in f32.  The gate (loss within 1e-2,
+             every gradient within 0.05 relative L2:
+             ``TRAIN_CHECK_TOL``) holds the run ``check`` names: f32 for
+             the MoE families (bf16 flips 1.7-6.7 % of top-k choices,
+             and a flipped token sends its gradient to another expert),
+             the SSM, the hybrid and the encoder (their f32 chains take
+             these ranks); bf16 for the VLM, whose f32 chains refuse its
+             per-branch ranks 768 / 960.  The other run is reported, and
+             the VLM's image path's share of its cross block's gradient
+             (bf16 card step with zero image embeddings beside it).
+             Exact launches: :func:`train_launches`.
+- train_<key> — ``steps`` steps of the port's ``train()`` on the card
+             (bf16) on the family's data: ``ByteTextLM`` for the LMs
+             (with the random image embeddings of ``synth_inputs`` for
+             the VLM: ``WithImageEmbeds``), ``SyntheticLM`` frames for
+             hubert; exact launches every step (each decomposed
+             linear's forward, the decomposed unembed's again per CE
+             chunk in backward), finite losses; step ms, tokens (frames)
+             / s, peak memory, seconds.
+
+The kernels phase adds one bf16 B2 row per family at its widest chain
+shape and its training M (``TRAIN_FAMILY_ROWS``, ``path`` "train": the
+kernel, the autograd Function's gradients, the backward products' time,
+the bound and the cuBLAS chain).
+
+- launch — the port's launchers on the card, in-process
+             (``repro_torch.launch.train.main`` / ``serve.main``): the
+             train launcher for every registered arch's ``--smoke``
+             config, 2 steps with ``--lrd aligned --freeze --branches
+             4``; for llama3.2-1b at full width, 4 steps (its registered
+             ``parallel("train")``, remat "full": exactly 64 B1 + 160 B2
+             a step); the serve launcher for llama3.2-1b at full
+             width, 8 requests; its refusal of hubert.  Each train run
+             prints a finite loss and launches B1 / B2 exactly where its
+             tree has an SVD pair / branched linear outside the routed
+             experts and the convolutions, and nothing else.
+
 Only on request (``--phases ...,profile``): torch.profiler over steady
 decode steps of the branches=4 model, plain, int8 and 2:4-packed int8 —
 device time by operator and the device's idle share; ``profile_qa`` the
@@ -389,12 +441,16 @@ PHASES = ("device", "build", "kernels", "search", "serve", "check",
           "check_sq", "serve_mla", "check_mla", "serve_mla_q", "check_mla_q",
           "serve_mla_sq", "check_mla_sq", "serve_granite", "check_granite",
           "serve_nemo", "check_nemo", "serve_minitron", "check_minitron",
-          "serve_moe", "check_moe", "serve_mla_moe", "check_mla_moe",
-          "serve_mamba2", "check_mamba2", "serve_zamba2", "check_zamba2",
-          "infer_resnet", "check_resnet", "train_resnet",
+          "serve_moe", "check_moe", "check_train_moonshot",
+          "train_moonshot", "serve_mla_moe", "check_mla_moe",
+          "check_train_deepseek", "train_deepseek", "serve_mamba2",
+          "check_mamba2", "check_train_mamba2", "train_mamba2",
+          "serve_zamba2", "check_zamba2", "check_train_zamba2",
+          "train_zamba2", "infer_resnet", "check_resnet", "train_resnet",
           "check_train_resnet", "serve_vlm", "check_vlm", "serve_vlm_q",
-          "check_vlm_q", "infer_hubert", "check_hubert", "train",
-          "check_train")
+          "check_vlm_q", "check_train_vlm", "train_vlm", "infer_hubert",
+          "check_hubert", "train", "check_train", "check_train_hubert",
+          "train_hubert", "launch")
 #: the phases that search, serve or check the llama3.2-1b trees, the MLA
 #: ones, the other configs' (CONFIG_RUNS) and the training ones
 LLAMA_PHASES = ("search", "serve", "check", "serve_search", "check_search",
@@ -409,6 +465,8 @@ CONFIG_PHASES = ("serve_granite", "check_granite", "serve_nemo",
                  "serve_mamba2", "check_mamba2", "serve_zamba2",
                  "check_zamba2")
 TRAIN_PHASES = ("train", "check_train")
+TRAIN_FAMILY_PHASES = tuple(p for p in PHASES if p.startswith(
+    ("train_", "check_train_")) and not p.endswith("resnet"))
 RESNET_PHASES = ("infer_resnet", "check_resnet", "train_resnet",
                  "check_train_resnet")
 VLM_PHASES = ("serve_vlm", "check_vlm", "serve_vlm_q", "check_vlm_q")
@@ -666,6 +724,47 @@ TRAIN_LAUNCHES = {"lowrank_matmul": {"k,v": 32},
 #: LRD read 0.005-0.010 on the CPU (bf16 against f32, the same rounding
 #: points), so 0.05 leaves a factor of 5 for the full width.
 TRAIN_CHECK_TOL = {"loss": 1e-2, "grad": 5e-2}
+#: the family training phases (``train_<key>`` / ``check_train_<key>``):
+#: the registered config cut to ``depth`` layers (widths as published),
+#: TRAIN_FAMILY_STEPS steps at ``batch`` x ``seq`` (hubert: clips x
+#: frames), the check on the first TRAIN_FAMILY_CHECK_BATCH rows of the
+#: first batch, gated on the card run in ``check`` (f32 or bf16) against
+#: the CPU's f32 step; ``tree_of``: the serve phases (a ``CONFIG_RUNS``
+#: key, or the VLM's) whose decomposed tree the pair takes over, right
+#: after them, where they ran (the same init and surgery: the §2.2
+#: freeze changes neither)
+TRAIN_FAMILY_RUNS = {
+    "moonshot": dict(arch="moonshot-v1-16b-a3b", depth=4, batch=2, seq=256,
+                     check="float32", tree_of="moe"),
+    "deepseek": dict(arch="deepseek-v2-236b", depth=2, batch=2, seq=256,
+                     check="float32", tree_of="mla_moe"),
+    "mamba2": dict(arch="mamba2-2.7b", depth=8, batch=1, seq=512,
+                   check="float32", tree_of="mamba2"),
+    "zamba2": dict(arch="zamba2-1.2b", depth=14, batch=1, seq=512,
+                   check="float32", tree_of="zamba2"),
+    "vlm": dict(arch="llama-3.2-vision-90b", depth=5, batch=2, seq=128,
+                check="bfloat16", tree_of="vlm"),
+    "hubert": dict(arch="hubert-xlarge", depth=12, batch=4, seq=500,
+                   check="float32"),
+}
+TRAIN_FAMILY_STEPS = 4
+TRAIN_FAMILY_CHECK_BATCH = 1
+#: the kernels phase's train rows of those families: the widest chain
+#: shape (N, C, r, S) of each tree and the training M (batch x seq)
+TRAIN_FAMILY_ROWS = {
+    "moonshot unembed (train)": ("moonshot", (4, 2048, 224, 163840)),
+    "deepseek unembed (train)": ("deepseek", (4, 5120, 608, 102400)),
+    "mamba2 in_proj (train)": ("mamba2", (4, 2560, 256, 10240)),
+    "zamba2 in_proj,up,gate (train)": ("zamba2", (4, 2048, 192, 8192)),
+    "vlm unembed (train)": ("vlm", (4, 8192, 960, 128256)),
+    "hubert up (train)": ("hubert", (4, 1280, 128, 5120)),
+}
+#: the launch phase: the train launcher's flags for every registered
+#: arch's smoke config, and the full-width llama3.2-1b runs
+LAUNCH_SMOKE = ("--smoke", "--steps", "2", "--lrd", "aligned", "--freeze",
+                "--branches", "4")
+LAUNCH_FULL_STEPS = 4
+LAUNCH_SERVE_REQUESTS = 8
 
 #: the ResNet phases: the LRD of the paper's Table 1 runs
 #: (``benchmarks/bench_table1.py``) and the overrides of each Table 3 row
@@ -1212,6 +1311,15 @@ def check_kernels(card: str, only: frozenset = frozenset(KERNELS)
                 rnd(n, c, r, scale=c ** -0.5, dtype=bf),
                 rnd(n, r, r, scale=r ** -0.5, dtype=bf),
                 rnd(n, r, s, scale=r ** -0.5, dtype=bf)), rnd, flush))
+    for label, (key, (n, c, r, s)) in TRAIN_FAMILY_ROWS.items():
+        spec = TRAIN_FAMILY_RUNS[key]
+        add("branched_matmul", lambda: dict(_train_row(
+            "branched_matmul", label, (
+                rnd(spec["batch"] * spec["seq"], c, dtype=bf),
+                rnd(n, c, r, scale=c ** -0.5, dtype=bf),
+                rnd(n, r, r, scale=r ** -0.5, dtype=bf),
+                rnd(n, r, s, scale=r ** -0.5, dtype=bf)), rnd, flush),
+            family=key))
     f32 = torch.float32
     for label, (c, r, s) in RESNET_FC.items():
         for m in RESNET_FC_M:
@@ -2154,7 +2262,21 @@ def _kernel_entries(rows: dict[str, list[dict]]) -> list[dict]:
                 + ": M=32 a batch-32 forward or fine-tune step, M=1 a "
                 "batch-1 forward; launches: per forward of the "
                 "infer_resnet run")
-        trows = [r for r in rs if r.get("path") == "train"]
+        trows = [r for r in rs if r.get("path") == "train"
+                 and "family" not in r]
+        frows = [r for r in rs if "family" in r]
+        if frows:
+            extra["train_family_path"] = {
+                r["shape"]: dict(
+                    {k: r[k] for k in (
+                        "M", "ms", "plain_ms", "library_ms", "bound_ms",
+                        "bound_by", "bwd_ms", "bwd_frozen_ms", "grad_err",
+                        "max_abs_err", "norm_err")}, family=r["family"],
+                    launches=None) for r in frows}
+            extra["train_family_path"]["timed_as"] = (
+                "one launch at the family's widest chain shape and its "
+                "training M (bf16), with its backward products; launches: "
+                "the kernel's forwards per step of the train_<family> run")
         if trows:
             tkeys = ("ms", "plain_ms", "library_ms", "bound_ms", "cold_ms",
                      "library_cold_ms", "event_ms", "library_event_ms",
@@ -3954,12 +4076,14 @@ def cross_check_recurrent(cfg, params, card: str, seed: int, *, label: str,
 
 
 def run_config(key: str, phases: list[str], card: str, seed: int,
-               serve_res: dict) -> None:
+               serve_res: dict, train_res: dict) -> None:
     """``serve_<key>`` / ``check_<key>`` of one :data:`CONFIG_RUNS` tree:
     built, decomposed and checked against its surgery decisions, served
     with the exact launches of every segment, checked against the port's
     f32 CPU run (:func:`cross_check_staged` for the dense configs,
-    :func:`cross_check_moe` for the MoE ones); freed when this returns."""
+    :func:`cross_check_moe` for the MoE ones); then the family training
+    pair that takes the tree over (:func:`train_served_tree`); freed when
+    this returns."""
     import torch
     from repro_torch.models.api import get_model
     spec = CONFIG_RUNS[key]
@@ -4029,6 +4153,9 @@ def run_config(key: str, phases: list[str], card: str, seed: int,
                     kv_quantize=spec["engine"].get("kv_quantize"))
                 log(f"check_{key} max_memory_allocated "
                     f"{torch.cuda.max_memory_allocated()} [{card}]")
+    served = [cfg, params, rep, init_s, surg_s]
+    del params
+    train_served_tree(key, phases, card, seed, train_res, served)
 
 
 # ---------------------------------------------------------------------------
@@ -4593,14 +4720,16 @@ def cross_check_vlm(cfg, params, card: str, seed: int, *, label: str,
 
 
 def run_vlm(phases: list[str], card: str, seed: int,
-            serve_res: dict) -> None:
+            serve_res: dict, train_res: dict) -> None:
     """``serve_vlm`` / ``check_vlm`` (bf16 factors, bf16 slot pool) and
     ``serve_vlm_q`` / ``check_vlm_q`` (int8 factors, int8 slot pool) of
     llama-3.2-vision-90b at its published widths, cut to
     :data:`VLM_DEPTH` layers: built, decomposed and held to
     :data:`VLM_SURGERY` on the card, served by blocking admission with
     the exact launches of every segment, checked against the port's CPU
-    f32 run (:func:`cross_check_vlm`); freed when this returns."""
+    f32 run (:func:`cross_check_vlm`); then ``check_train_vlm`` /
+    ``train_vlm`` on the same tree (:func:`train_served_tree`); freed
+    when this returns."""
     import torch
     from repro_torch.quant.quantize import tree_bytes
     t_all = time.perf_counter()
@@ -4657,8 +4786,10 @@ def run_vlm(phases: list[str], card: str, seed: int,
                                 decode=dec,
                                 quantize=engine.get("quantize", "none"),
                                 kv_quantize=engine.get("kv_quantize"))
-    del params
     log(f"vlm phases {time.perf_counter() - t_all:.2f} s [{card}]")
+    served = [cfg, params, rep, init_s, surg_s]
+    del params
+    train_served_tree("vlm", phases, card, seed, train_res, served)
 
 
 def _hubert_logits(model, tree, batch, vocab: int):
@@ -4806,14 +4937,38 @@ def run_hubert(phases: list[str], card: str, seed: int,
 # training
 # ---------------------------------------------------------------------------
 
+def train_launches(model, rep, seq: int) -> dict[str, int]:
+    """Chain-kernel forwards in one train step (remat "none") of a tree
+    whose surgery ``rep`` reports: each decomposed linear's once
+    (:func:`chain_launches`; the hybrid's shared block once a group), and
+    a decomposed unembed once per cross-entropy chunk in the forward and
+    again in the backward, which recomputes each chunk's logits
+    (``models/lm.py::_chunked_ce``)."""
+    from repro_torch.models.lm import CE_CHUNK_SEQ
+    out = chain_launches(rep, getattr(model, "n_groups", 1))
+    kernel = {"svd": "lowrank_matmul", "branched": "branched_matmul"}
+    head = next((d for d in rep.decisions if d.path == "unembed"
+                 and d.kind in kernel), None)
+    if head is not None:
+        chunk = min(CE_CHUNK_SEQ, seq)
+        chunks = seq // chunk if seq % chunk == 0 else 1
+        out[kernel[head.kind]] += 2 * chunks - 1
+    return {k: n for k, n in out.items() if n}
+
+
 def train_run(cfg, card: str, seed: int, *, label: str, lrd, remat: str,
-              steps: int, expect: dict[str, int], falls: bool) -> dict:
-    """``steps`` steps of the port's ``train()`` on the card (bf16,
-    ByteTextLM at TRAIN_BATCH x TRAIN_SEQ) and the checks: every step
+              steps: int, expect: dict[str, int], falls: bool, data=None,
+              batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
+              params=None) -> dict:
+    """``steps`` steps of the port's ``train()`` on the card (bf16; by
+    default ByteTextLM at TRAIN_BATCH x TRAIN_SEQ and a tree ``train()``
+    builds and decomposes from the seed, else ``data`` at ``batch`` x
+    ``seq`` and ``params``, trained in place) and the checks: every step
     launches exactly ``expect`` (kernel -> forwards; a kernel not named
-    must not launch), and with ``falls`` the last loss is below the
-    first.  The counts are set to 0 just before ``train()`` and read at
-    the start of every step (its ``fault_hook``) and just after."""
+    must not launch), every loss is finite, and with ``falls`` the last
+    loss is below the first.  The counts are set to 0 just before
+    ``train()`` and read at the start of every step (its ``fault_hook``)
+    and just after."""
     import statistics
     import torch
     from repro_torch.configs.base import ParallelConfig, RunConfig
@@ -4822,6 +4977,8 @@ def train_run(cfg, card: str, seed: int, *, label: str, lrd, remat: str,
     from repro_torch.train.optim import OptimConfig
     run = RunConfig(model=cfg, lrd=lrd, parallel=ParallelConfig(remat=remat),
                     seed=seed)
+    if data is None:
+        data = ByteTextLM(cfg, batch=batch, seq_len=seq)
     marks: list[dict[str, int]] = []
 
     def mark(step: int) -> None:
@@ -4831,10 +4988,10 @@ def train_run(cfg, card: str, seed: int, *, label: str, lrd, remat: str,
     at_start = torch.cuda.memory_allocated()
     reset_launches()
     t0 = time.perf_counter()
-    r = train(run, ByteTextLM(cfg, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ),
-              num_steps=steps, optim_cfg=OptimConfig(total_steps=steps,
-                                                     **TRAIN_OPTIM),
-              fault_hook=mark, log_every=0, log_fn=log, device="cuda")
+    r = train(run, data, num_steps=steps,
+              optim_cfg=OptimConfig(total_steps=steps, **TRAIN_OPTIM),
+              fault_hook=mark, log_every=0, log_fn=log, device="cuda",
+              params=params)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     mark(steps)
@@ -4852,12 +5009,12 @@ def train_run(cfg, card: str, seed: int, *, label: str, lrd, remat: str,
     secs = r.stats["step_seconds"]
     med = statistics.median(secs[1:])
     res = {"label": label, "freeze": lrd.freeze, "lrd": lrd.enabled,
-           "remat": remat, "steps": steps, "batch": TRAIN_BATCH,
-           "seq": TRAIN_SEQ, "loss_first": r.losses[0],
+           "remat": remat, "steps": steps, "batch": batch, "seq": seq,
+           "depth": cfg.num_layers, "loss_first": r.losses[0],
            "loss_last": r.losses[-1], "losses": r.losses,
            "step_ms_median": med * 1e3, "first_step_ms": secs[0] * 1e3,
            "step_ms": [t * 1e3 for t in secs],
-           "tokens_per_s": TRAIN_M / med,
+           "tokens_per_s": batch * seq / med,
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "allocated_at_start": at_start, "freed_at_start": freed,
            "optimizer_state_bytes": r.stats["optimizer_state_bytes"],
@@ -4870,74 +5027,143 @@ def train_run(cfg, card: str, seed: int, *, label: str, lrd, remat: str,
     return res
 
 
-def check_train(cfg, card: str, seed: int) -> dict:
-    """One step's loss and every trainable leaf's gradient of the frozen
-    branches=4 tree on the card (bf16, kernels) against the same params
-    and batch on the CPU in f32 (plain versions), full depth, within
-    TRAIN_CHECK_TOL; the frozen factors have no gradient on either side."""
+def _flat_grads(tree) -> dict:
+    from repro_torch.tree import paths
+    return {"/".join(p): v for p, v in paths(tree)}
+
+
+def _train_step_on(cfg, params, batch: dict, device: str, dtype: str,
+                   run) -> tuple:
+    """One ``value_and_grad`` step of the loss of ``params`` (already on
+    ``device`` in ``dtype``, the freeze set) on ``batch`` moved there:
+    (loss, gradients flat by path on the CPU in f32, seconds)."""
     import dataclasses
+    import torch
+    from repro_torch.models.api import get_model
+    from repro_torch.train.steps import make_loss_fn, value_and_grad
+    model = get_model(dataclasses.replace(cfg, dtype=dtype), device)
+    on = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+    t0 = time.perf_counter()
+    loss, _, grads = value_and_grad(make_loss_fn(model, run), params, on)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return float(loss), _flat_grads(to_cpu_f32(grads)), secs
+
+
+def _grad_against(loss: float, grads: dict, loss_ref: float,
+                  ref: dict) -> dict:
+    """The relative loss difference and every gradient's relative L2
+    distance (||got - ref|| / ||ref||) from the reference step's."""
+    if {k for k, g in grads.items() if g is None} != \
+            {k for k, g in ref.items() if g is None}:
+        raise SystemExit("check_train: the card and the CPU leave other "
+                         "leaves without a gradient")
+    errs = {k: ((grads[k] - g).norm() / g.norm().clamp_min(1e-30)).item()
+            for k, g in ref.items() if g is not None}
+    return {"loss": loss, "loss_rel": abs(loss - loss_ref) / abs(loss_ref),
+            "grad_rel_l2": errs, "grad_rel_l2_max": max(errs.values()),
+            "worst_leaf": max(errs, key=errs.get)}
+
+
+def check_train_step(cfg, params, batch: dict, card: str, seed: int, *,
+                     label: str, gate: str = "bfloat16",
+                     expect: dict[str, int] | None = None,
+                     image_share: bool = False) -> dict:
+    """One step's loss and every trainable leaf's gradient of the frozen
+    tree ``params`` (on the card, bf16) on ``batch``: on the card in bf16
+    (kernels), and in f32 too where ``gate`` is f32, against the same
+    params and batch on the CPU in f32 (plain versions).  The card run in
+    ``gate`` must launch exactly ``expect`` (where given) and stay within
+    TRAIN_CHECK_TOL of the CPU's (the loss within 1e-2 relative, every
+    gradient within 0.05 relative L2); the other card run is reported.
+    The frozen factors have no gradient on any side.  ``image_share``
+    (the VLM): the bf16 card step again with zero image embeddings, and
+    the share of the cross block's gradient that the image path carries,
+    ||g - g(zero images)|| / ||g|| over its trainable leaves."""
     import torch
     from repro_torch.configs.base import LRDConfig, RunConfig
     from repro_torch.core import freezing
+    run = RunConfig(model=cfg, lrd=LRDConfig(**LRD, branches=4,
+                                             freeze=True), seed=seed)
+    freezing.set_requires_grad(params, freeze=True)
+    res = {"label": label, "gate": gate, "tol": TRAIN_CHECK_TOL,
+           "depth": cfg.num_layers,
+           "batch": {k: list(torch.as_tensor(v).shape)
+                     for k, v in batch.items()}, "card": card}
+    card_runs = {}
+    for dname in ("bfloat16",) + (("float32",) if gate == "float32"
+                                  else ()):
+        tree = params if dname == "bfloat16" else freezing.set_requires_grad(
+            _tree_to(params, "cuda", torch.float32), freeze=True)
+        fresh_peak()
+        reset_launches()
+        lg, gg, secs = _train_step_on(cfg, tree, batch, "cuda", dname, run)
+        launches = {k: launch_count(k) for k in KERNELS if launch_count(k)}
+        card_runs[dname] = (lg, gg)
+        res[f"card_{dname}"] = {"seconds": secs, "launches": launches,
+                                "max_memory_allocated":
+                                    torch.cuda.max_memory_allocated()}
+        if dname == gate and expect is not None and launches != expect:
+            raise SystemExit(f"{label}: the {dname} card step launched "
+                             f"{launches}, not {expect}")
+        del tree
+    if image_share:
+        zero = dict(batch, image_embeds=torch.zeros_like(
+            torch.as_tensor(batch["image_embeds"])))
+        _, g0, _ = _train_step_on(cfg, params, zero, "cuda", "bfloat16", run)
+        gg = card_runs["bfloat16"][1]
+        keys = [k for k in gg if k.startswith("cross/") and gg[k] is not None
+                and gg[k].ndim >= 2]
+        num = sum(float((gg[k] - g0[k]).norm() ** 2) for k in keys)
+        den = sum(float(gg[k].norm() ** 2) for k in keys)
+        res["image_share"] = math.sqrt(num / den)
+        res["image_share_leaves"] = {
+            k: float((gg[k] - g0[k]).norm() / gg[k].norm().clamp_min(1e-30))
+            for k in keys}
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        p_cpu = to_cpu_f32(params)
+    freezing.set_requires_grad(p_cpu, freeze=True)
+    torch.cuda.empty_cache()
+    to_cpu_s = time.perf_counter() - t0
+    lc, gc, cpu_s = _train_step_on(cfg, p_cpu, batch, "cpu", "float32", run)
+    del p_cpu
+    t0 = time.perf_counter()
+    for dname, (lg, gg) in card_runs.items():
+        res[f"card_{dname}"].update(_grad_against(lg, gg, lc, gc))
+    res.update(loss_cpu=lc, cpu_step_s=cpu_s, to_cpu_s=to_cpu_s,
+               compare_s=time.perf_counter() - t0,
+               no_grad=sorted(k for k, g in gc.items() if g is None))
+    got = res[f"card_{gate}"]
+    log(f"{label} " + json.dumps(res))
+    if not (got["loss_rel"] <= TRAIN_CHECK_TOL["loss"]
+            and got["grad_rel_l2_max"] <= TRAIN_CHECK_TOL["grad"]):
+        raise SystemExit(f"{label}: the card's {gate} step differs from "
+                         f"the CPU f32 step: loss {got['loss_rel']:.2e}, "
+                         f"gradients {got['grad_rel_l2_max']:.3e} at "
+                         f"{got['worst_leaf']} (tol {TRAIN_CHECK_TOL})")
+    return res
+
+
+def check_train(cfg, card: str, seed: int) -> dict:
+    """:func:`check_train_step` of the frozen branches=4 llama tree at
+    full depth on ByteTextLM's first batch (TRAIN_BATCH x TRAIN_SEQ), bf16
+    card against f32 CPU."""
+    import torch
+    from repro_torch.configs.base import LRDConfig
     from repro_torch.core.surgery import decompose_model
     from repro_torch.models.api import get_model
     from repro_torch.train.data import ByteTextLM
-    from repro_torch.train.steps import make_loss_fn, value_and_grad
-    from repro_torch.tree import paths
-
-    def flat(tree):
-        return {"/".join(p): v for p, v in paths(tree)}
     lrd = LRDConfig(**LRD, branches=4, freeze=True)
-    run = RunConfig(model=cfg, lrd=lrd, seed=seed)
     m_gpu = get_model(cfg, "cuda")
     with torch.no_grad():
         params, axes = m_gpu.init(
             torch.Generator(device="cuda").manual_seed(seed))
         params, _, _ = decompose_model(params, axes, lrd)
-    freezing.set_requires_grad(params, freeze=True)
-    toks = torch.as_tensor(ByteTextLM(cfg, TRAIN_BATCH,
-                                      TRAIN_SEQ).batch(0)["tokens"])
-    reset_launches()
-    t0 = time.perf_counter()
-    lg, _, gg = value_and_grad(make_loss_fn(m_gpu, run), params,
-                               {"tokens": toks.cuda()})
-    torch.cuda.synchronize()
-    card_s = time.perf_counter() - t0
-    launches = {k: launch_count(k) for k in KERNELS if launch_count(k)}
-    gg = flat(to_cpu_f32(gg))
-    with torch.no_grad():
-        p_cpu = to_cpu_f32(params)
-    del params
-    torch.cuda.empty_cache()
-    freezing.set_requires_grad(p_cpu, freeze=True)
-    m_cpu = get_model(dataclasses.replace(cfg, dtype="float32"), "cpu")
-    t0 = time.perf_counter()
-    lc, _, gc = value_and_grad(make_loss_fn(m_cpu, run), p_cpu,
-                               {"tokens": toks})
-    cpu_s = time.perf_counter() - t0
-    gc = flat(gc)
-    if {k for k, g in gg.items() if g is None} != \
-            {k for k, g in gc.items() if g is None}:
-        raise SystemExit("check_train: the card and the CPU leave other "
-                         "leaves without a gradient")
-    errs = {k: ((gg[k] - g).norm() / g.norm().clamp_min(1e-30)).item()
-            for k, g in gc.items() if g is not None}
-    loss_rel = abs(float(lg) - float(lc)) / abs(float(lc))
-    res = {"loss_card": float(lg), "loss_cpu": float(lc),
-           "loss_rel": loss_rel, "grad_rel_l2": errs,
-           "grad_rel_l2_max": max(errs.values()),
-           "no_grad": sorted(k for k, g in gc.items() if g is None),
-           "tol": TRAIN_CHECK_TOL, "launches": launches,
-           "card_step_s": card_s, "cpu_step_s": cpu_s, "depth": cfg.num_layers,
-           "card": card}
-    log("check_train " + json.dumps(res))
-    if not (loss_rel <= TRAIN_CHECK_TOL["loss"]
-            and res["grad_rel_l2_max"] <= TRAIN_CHECK_TOL["grad"]):
-        raise SystemExit(f"check_train: the card's step differs from the "
-                         f"CPU f32 step: loss {loss_rel:.2e}, gradients "
-                         f"{res['grad_rel_l2_max']:.3e} (tol "
-                         f"{TRAIN_CHECK_TOL})")
-    return res
+    batch = ByteTextLM(cfg, TRAIN_BATCH, TRAIN_SEQ).batch(0)
+    return check_train_step(cfg, params, batch, card, seed,
+                            label="check_train")
 
 
 def run_train(phases: list[str], card: str, seed: int,
@@ -4968,6 +5194,222 @@ def run_train(phases: list[str], card: str, seed: int,
     if "check_train" in phases:
         with Phase("check_train"):
             train_res["check"] = check_train(cfg, card, seed)
+
+
+def family_data(cfg, spec: dict):
+    """A family's training data at ``batch`` x ``seq``: SyntheticLM frames
+    for the encoder, ByteTextLM tokens otherwise (with the random image
+    embeddings of ``synth_inputs`` for the VLM)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.train.data import (ByteTextLM, SyntheticLM,
+                                        WithImageEmbeds)
+    if cfg.family == "encoder":
+        return SyntheticLM(cfg, ShapeConfig("train", spec["seq"],
+                                            spec["batch"], "train"))
+    data = ByteTextLM(cfg, batch=spec["batch"], seq_len=spec["seq"])
+    return WithImageEmbeds(data, cfg) if cfg.family == "vlm" else data
+
+
+def _clone(tree):
+    """A copy of a tree's tensors made outside inference mode (a serve
+    phase's tree is made under it, and autograd refuses such tensors)."""
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def train_served_tree(tree_of: str, phases: list[str], card: str,
+                      seed: int, train_res: dict, served: list) -> None:
+    """The family training pairs whose ``tree_of`` is ``tree_of``, on the
+    tree its serve phases built: ``served`` = [cfg, params, surgery
+    report, init seconds, surgery seconds], emptied here (the caller
+    keeps no reference, so the served tree goes once it is copied)."""
+    for key, spec in TRAIN_FAMILY_RUNS.items():
+        if (spec.get("tree_of") == tree_of and key not in train_res
+                and {f"check_train_{key}", f"train_{key}"} & set(phases)):
+            cfg, params, rep, init_s, surg_s = served
+            served.clear()
+            if cfg.num_layers != spec["depth"]:
+                raise SystemExit(f"train_{key}: the served tree has "
+                                 f"{cfg.num_layers} layers, not "
+                                 f"{spec['depth']}")
+            tree = [cfg, _clone(params), rep, init_s, surg_s]
+            del params
+            run_train_family(key, phases, card, seed, train_res, tree)
+
+
+def run_train_family(key: str, phases: list[str], card: str, seed: int,
+                     train_res: dict, tree: list | None = None) -> None:
+    """``check_train_<key>`` then ``train_<key>`` of one
+    :data:`TRAIN_FAMILY_RUNS` tree (the freeze on; the VLM's gates at
+    ``VLM_GATE``): ``tree`` ([cfg, params, surgery report, init seconds,
+    surgery seconds], emptied here) or built and decomposed on the card
+    here; checked on the first batch, then trained in place; freed when
+    this returns."""
+    import torch
+    from repro_torch.configs.base import LRDConfig
+    from repro_torch.core.surgery import decompose_model
+    from repro_torch.models.api import get_model
+    spec = TRAIN_FAMILY_RUNS[key]
+    names = (f"check_train_{key}", f"train_{key}")
+    if not set(names) & set(phases):
+        return
+    lrd = LRDConfig(**LRD, branches=4, freeze=True)
+    if tree:
+        cfg, params, rep, init_s, surg_s = tree
+        tree.clear()
+        source = f"the tree of the {spec['tree_of']} serve phases"
+    else:
+        fresh_peak()
+        t0 = time.perf_counter()
+        cfg, dense, axes = config_model(spec["arch"], spec["depth"], seed)
+        init_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            params, _, rep = decompose_model(dense, axes, lrd)
+        torch.cuda.synchronize()
+        surg_s = time.perf_counter() - t0
+        del dense, axes
+        source = "built here"
+    if cfg.family == "vlm":
+        params = with_gate(params, VLM_GATE)
+    expect = train_launches(get_model(cfg, "cpu"), rep, spec["seq"])
+    log(f"surgery train_{key} ({spec['arch']}, {cfg.num_layers} layers; "
+        f"{source}) branches=4, freeze: init {init_s:.2f} s, surgery "
+        f"{surg_s:.2f} s, {json.dumps(rep.summary())}; launches a step "
+        f"{expect} [{card}]")
+    data = family_data(cfg, spec)
+    res = train_res.setdefault(key, {"surgery_s": surg_s, "init_s": init_s,
+                                     "tree": source, "expect": expect})
+    if names[0] in phases:
+        with Phase(names[0]):
+            first = data.batch(0)
+            batch = {k: v[:TRAIN_FAMILY_CHECK_BATCH]
+                     for k, v in first.items()}
+            res["check"] = check_train_step(
+                cfg, params, batch, card, seed, label=names[0],
+                gate=spec["check"], expect=expect,
+                image_share=cfg.family == "vlm")
+    if names[1] in phases:
+        with Phase(names[1]):
+            res["train"] = train_run(
+                cfg, card, seed, label=key, lrd=lrd, remat="none",
+                steps=TRAIN_FAMILY_STEPS, expect=expect, falls=False,
+                data=data, batch=spec["batch"], seq=spec["seq"],
+                params=params)
+    del params
+    torch.cuda.empty_cache()
+
+
+def _chain_kinds(rep) -> set[str]:
+    """The chain kernels a tree's linears launch: B1 for an SVD pair, B2
+    for a branched linear, outside the routed expert banks (plain batched
+    products) and the convolutions (cuDNN)."""
+    kernel = {"svd": "lowrank_matmul", "branched": "branched_matmul"}
+    return {kernel[d.kind] for d in rep.decisions if d.kind in kernel
+            and not d.label.startswith(("moe_", "conv"))}
+
+
+def run_launch(card: str, seed: int, launch_res: dict) -> None:
+    """The ``launch`` phase: the port's train and serve launchers on the
+    card, called in-process as ``python -m repro_torch.launch.train`` /
+    ``serve`` would run them (their ``main(argv)``)."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import LRDConfig
+    from repro_torch.core.surgery import decompose_model
+    from repro_torch.launch import serve as lserve
+    from repro_torch.launch import train as ltrain
+    from repro_torch.models.api import get_model
+
+    def launched() -> dict[str, int]:
+        return {k: launch_count(k) for k in KERNELS if launch_count(k)}
+
+    def call(main, argv: list[str]):
+        out = io.StringIO()
+        fresh_peak()
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            got = main(argv)
+        torch.cuda.synchronize()
+        lines = out.getvalue().strip().splitlines()
+        return got, lines, launched(), time.perf_counter() - t0
+
+    for arch in registry.names():
+        cfg = registry.get(arch).smoke
+        # the kernels the smoke tree's linears must launch, from the same
+        # surgery on the CPU (the launcher's LRD for --smoke)
+        params, axes = get_model(cfg, "cpu").init(
+            torch.Generator().manual_seed(seed))
+        _, _, rep = decompose_model(params, axes, LRDConfig(
+            enabled=True, rank_mode="aligned", freeze=True, branches=4,
+            min_dim=32))
+        want = _chain_kinds(rep)
+        out, lines, got, secs = call(ltrain.main, ["--arch", arch,
+                                                   *LAUNCH_SMOKE])
+        losses = out["result"].losses
+        res = {"arch": arch, "losses": losses, "launches": got,
+               "last_line": lines[-1], "seconds": secs,
+               "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        launch_res[f"train {arch} smoke"] = res
+        log("launch " + json.dumps(res))
+        if not (lines[-1].startswith("[done] step=2 loss=")
+                and all(math.isfinite(x) for x in losses)):
+            raise SystemExit(f"launch: the train launcher on {arch} --smoke "
+                             f"ended {lines[-1]!r}, losses {losses}")
+        if set(got) != want:
+            raise SystemExit(f"launch: {arch} --smoke launched {got}, want "
+                             f"every one of {sorted(want)} and no other")
+    # the registered parallel("train") runs remat "full": every block's
+    # forward again in backward
+    remat = registry.get("llama3.2-1b").parallel("train").remat
+    chain = {k: LAUNCH_FULL_STEPS * (2 if remat == "full" else 1)
+             * sum(v.values()) for k, v in TRAIN_LAUNCHES.items()}
+    out, lines, got, secs = call(ltrain.main, [
+        "--arch", "llama3.2-1b", "--steps", str(LAUNCH_FULL_STEPS), "--lrd",
+        "aligned", "--freeze", "--branches", "4"])
+    r = out["result"]
+    res = {"arch": "llama3.2-1b", "losses": r.losses, "launches": got,
+           "step_ms": [t * 1e3 for t in r.stats["step_seconds"]],
+           "last_line": lines[-1], "seconds": secs,
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    launch_res["train llama3.2-1b"] = res
+    log("launch " + json.dumps(res))
+    if got != chain or not all(math.isfinite(x) for x in r.losses) \
+            or not lines[-1].startswith(f"[done] step={LAUNCH_FULL_STEPS} "):
+        raise SystemExit(f"launch: the full-width train launcher launched "
+                         f"{got} (want {chain}), ended {lines[-1]!r}")
+    eng, lines, got, secs = call(lserve.main, [
+        "--arch", "llama3.2-1b", "--requests", str(LAUNCH_SERVE_REQUESTS)])
+    tp = eng.throughput()
+    res = {"arch": "llama3.2-1b", "launches": got, "seconds": secs,
+           "status_counts": tp["status_counts"],
+           "tokens_per_s": tp["tokens_per_s"],
+           "decode_step_ms_mean": tp["decode_step_ms_mean"],
+           "lrd": lines[0], "max_memory_allocated":
+               torch.cuda.max_memory_allocated()}
+    launch_res["serve llama3.2-1b"] = res
+    log("launch " + json.dumps(res))
+    if (tp["status_counts"] != {"finished": LAUNCH_SERVE_REQUESTS}
+            or set(got) != {"lowrank_matmul"}
+            or not lines[-1].startswith("[throughput] ")):
+        raise SystemExit(f"launch: the serve launcher launched {got}, "
+                         f"finished {tp['status_counts']}")
+    del eng
+    try:
+        call(lserve.main, ["--arch", "hubert-xlarge"])
+    except SystemExit as e:
+        refused = str(e)
+    else:
+        refused = None
+    log(f"launch serve hubert-xlarge: {refused!r} [{card}]")
+    if refused is None or "encoder-only" not in refused:
+        raise SystemExit("launch: the serve launcher did not refuse "
+                         "hubert-xlarge")
+    launch_res["serve hubert-xlarge"] = {"refused": refused}
 
 
 # ---------------------------------------------------------------------------
@@ -5013,7 +5455,8 @@ def main() -> int:
     kernels = None
     if set(phases) & {"build", "kernels", *LLAMA_PHASES, *MLA_PHASES,
                       *CONFIG_PHASES, *RESNET_PHASES, *VLM_PHASES,
-                      *HUBERT_PHASES, *TRAIN_PHASES}:
+                      *HUBERT_PHASES, *TRAIN_PHASES, *TRAIN_FAMILY_PHASES,
+                      "launch"}:
         with Phase("build"):
             from repro_torch.kernels import build
             _, report = build.build()
@@ -5057,6 +5500,7 @@ def main() -> int:
             kernels = check_kernels(card, only)
 
     serve_res: dict[str, dict] = {}
+    train_res: dict[str, dict] = {}
     if set(phases) & set(LLAMA_PHASES):
         run_llama(phases, card, args.seed, serve_res)
         # the llama trees go with run_llama's frame
@@ -5065,21 +5509,30 @@ def main() -> int:
         run_mla(phases, card, args.seed, serve_res)
         torch.cuda.empty_cache()
     for key in CONFIG_RUNS:
-        run_config(key, phases, card, args.seed, serve_res)
+        run_config(key, phases, card, args.seed, serve_res, train_res)
         torch.cuda.empty_cache()
     resnet_res: dict[str, dict] = {}
     if set(phases) & set(RESNET_PHASES):
         run_resnet(phases, card, args.seed, resnet_res)
     if set(phases) & set(VLM_PHASES):
-        run_vlm(phases, card, args.seed, serve_res)
+        run_vlm(phases, card, args.seed, serve_res, train_res)
         torch.cuda.empty_cache()
     hubert_res: dict[str, dict] = {}
     if set(phases) & set(HUBERT_PHASES):
         run_hubert(phases, card, args.seed, hubert_res)
         torch.cuda.empty_cache()
-    train_res: dict[str, dict] = {}
     if set(phases) & set(TRAIN_PHASES):
         run_train(phases, card, args.seed, train_res)
+        torch.cuda.empty_cache()
+    for key in TRAIN_FAMILY_RUNS:
+        # the pairs whose serve phases did not run build their own tree
+        if key not in train_res:
+            run_train_family(key, phases, card, args.seed, train_res)
+            torch.cuda.empty_cache()
+    launch_res: dict[str, dict] = {}
+    if "launch" in phases:
+        with Phase("launch"):
+            run_launch(card, args.seed, launch_res)
 
     if kernels is not None:
         for k in kernels:
@@ -5092,6 +5545,12 @@ def main() -> int:
             if "train_path" in k and "frozen" in train_res:
                 k["train_path"]["launches"] = \
                     train_res["frozen"]["launches"][k["name"]]
+            for label, row in k.get("train_family_path", {}).items():
+                fam = train_res.get(row["family"], {}) \
+                    if isinstance(row, dict) else {}
+                if "train" in fam:
+                    row["launches"] = fam["train"]["launches_per_step"].get(
+                        k["name"], 0)
             vrun = serve_res.get("vlm_q" if k["name"].endswith("_q")
                                  else "vlm")
             if "vlm_path" in k and vrun is not None:

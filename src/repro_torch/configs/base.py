@@ -9,17 +9,21 @@ The port keeps its own copies of the reference package's config objects
   port dispatches each decomposed linear by the device its input lives
   on (a CUDA tensor launches the hand-written kernel, a CPU tensor takes
   the kernel's plain PyTorch version).
-* :class:`ParallelConfig` — the reference's mesh and sharding knobs; the
-  port takes the single-device ones (``remat``, ``grad_accum``,
-  ``grad_compression_rank``) and refuses the others (ROADMAP A14).
-* :class:`ShapeConfig` — one input-shape cell (sequence, batch, kind).
+* :class:`ParallelConfig` — the reference's mesh and sharding knobs, every
+  field taken; the port reads ``remat``, ``grad_accum`` and
+  ``grad_compression_rank``, and the sharding fields are inert without a
+  mesh, as in the reference (a mesh raises: ROADMAP A14).
+* :class:`ShapeConfig` — one input-shape cell (sequence, batch, kind),
+  the four assigned cells (:data:`SHAPES`) and which apply to an
+  architecture (:func:`applicable_shapes`, :func:`skip_reason`).
 * :class:`RunConfig` — model + lrd + parallel + seed.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass
-from typing import Any, Sequence
+from typing import Any, Mapping, Sequence
 
 FAMILY_DENSE = "dense"
 FAMILY_MOE = "moe"
@@ -140,6 +144,44 @@ class ModelConfig:
     def has_decode(self) -> bool:
         return not (self.is_encoder or self.family == FAMILY_RESNET)
 
+    def param_count(self, active_only: bool = False) -> int:
+        """Exact parameter count of the port's own tree, built on the
+        ``meta`` device (shapes only, no values).  ``active_only`` scales
+        the routed MoE expert banks by top_k / num_experts (shared experts
+        stay fully active)."""
+        return _param_count_cached(self, active_only)
+
+    def matmul_param_count(self, active_only: bool = True) -> int:
+        """Params in matmuls per token: without the embedding *gather*
+        table (a tied table counts once: it is the unembed)."""
+        total = self.param_count(active_only=active_only)
+        if self.family == FAMILY_RESNET:
+            return total
+        if not self.tie_embeddings:
+            total -= self.vocab_size * self.d_model
+        return total
+
+    def flops_per_token(self, active_only: bool = True) -> float:
+        """~6 * N_active per training token (forward and backward); /3
+        for a forward."""
+        return 6.0 * self.matmul_param_count(active_only=active_only)
+
+
+@functools.lru_cache(maxsize=None)
+def _param_count_cached(cfg: ModelConfig, active_only: bool) -> int:
+    from repro_torch.models.api import get_model  # lazy: avoids a cycle
+    from repro_torch.tree import paths
+    params, _ = get_model(cfg, "meta").init(None)
+    total = expert = 0
+    for path, leaf in paths(params):
+        total += leaf.numel()
+        if "experts" in path:
+            expert += leaf.numel()
+    if active_only and cfg.moe_num_experts:
+        total -= expert
+        total += int(expert * cfg.moe_top_k / cfg.moe_num_experts)
+    return int(total)
+
 
 RANK_MODE_RATIO = "ratio"        # rank from the compression ratio (Eq. 7)
 RANK_MODE_ALIGNED = "aligned"    # ratio rank snapped down to the tile
@@ -201,10 +243,11 @@ class LRDConfig:
 @dataclass(frozen=True)
 class ParallelConfig:
     """Mesh + sharding strategy (the reference's field names and
-    defaults).  The port trains on one device: ``remat``, ``grad_accum``
-    and ``grad_compression_rank`` are taken; any other field at a value
-    other than its default raises (meshes and sharding come with ROADMAP
-    item A14)."""
+    defaults).  The port trains on one device and reads ``remat``,
+    ``grad_accum`` and ``grad_compression_rank``.  The sharding fields
+    take any value and are inert, as the reference's are without a mesh
+    (it reads them only through one: ``repro/train/loop.py:65-67``,
+    ``parallel/sharding.py``); a mesh itself raises (ROADMAP A14)."""
 
     multi_pod: bool = False
     fsdp: bool = False
@@ -219,12 +262,6 @@ class ParallelConfig:
     def __post_init__(self):
         if self.remat not in ("none", "dots", "full"):
             raise ValueError(f"unknown remat {self.remat!r}")
-        for f in dataclasses.fields(self):
-            if (f.name not in ("remat", "grad_accum", "grad_compression_rank")
-                    and getattr(self, f.name) != f.default):
-                raise NotImplementedError(
-                    f"ParallelConfig.{f.name}={getattr(self, f.name)!r}: "
-                    "meshes and sharding come with ROADMAP item A14")
 
 
 @dataclass(frozen=True)
@@ -233,6 +270,34 @@ class ShapeConfig:
     seq_len: int
     global_batch: int
     kind: str                         # "train" | "prefill" | "decode"
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+
+SHAPES: Mapping[str, ShapeConfig] = {
+    s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+}
+
+
+def applicable_shapes(model: ModelConfig) -> list[ShapeConfig]:
+    """The shape cells defined for this architecture."""
+    out = [TRAIN_4K, PREFILL_32K]
+    if model.has_decode:
+        out.append(DECODE_32K)
+        if model.subquadratic:
+            out.append(LONG_500K)
+    return out
+
+
+def skip_reason(model: ModelConfig, shape: ShapeConfig) -> str | None:
+    if shape.kind == "decode" and not model.has_decode:
+        return "encoder-only: no decode step"
+    if shape.name == "long_500k" and not model.subquadratic:
+        return "pure full-attention arch: 500k decode cell skipped per spec"
+    return None
 
 
 @dataclass(frozen=True)

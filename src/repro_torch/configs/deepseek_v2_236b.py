@@ -14,7 +14,7 @@ dense-family MLA stack (``dataclasses.replace(FULL, family="dense",
 moe_num_experts=0, moe_first_dense=0)``: every layer the first layer's
 dense FFN) serves too.
 """
-from repro_torch.configs.base import FAMILY_MOE, ModelConfig
+from repro_torch.configs.base import FAMILY_MOE, ModelConfig, ParallelConfig
 from repro_torch.configs.registry import ArchEntry, register
 
 FULL = ModelConfig(
@@ -63,7 +63,19 @@ SMOKE = ModelConfig(
     v_head_dim=16,
 )
 
+
+def _parallel(kind: str) -> ParallelConfig:
+    if kind == "train":
+        return ParallelConfig(seq_shard=True, fsdp=True, remat="full",
+                              grad_accum=1)
+    if kind == "prefill":
+        return ParallelConfig(fsdp=True, seq_shard=True)
+    # 236B bf16 does not fit 16-way TP: decode also shards expert ffn over
+    # `data` (2D weight sharding), see parallel/sharding.py.
+    return ParallelConfig(fsdp=True, decode_seq_shard=True)
+
+
 register(ArchEntry(
-    name="deepseek-v2-236b", full=FULL, smoke=SMOKE,
+    name="deepseek-v2-236b", full=FULL, smoke=SMOKE, parallel=_parallel,
     notes="MLA == the paper's layer merging; MoE with a dense first "
           "layer."))

@@ -3,7 +3,8 @@
 [arXiv:2405.04324; hf-verified tier]
 36L d_model=4096 32H (GQA kv=8) d_ff=14336 vocab=49152.
 """
-from repro_torch.configs.base import FAMILY_DENSE, ModelConfig
+from repro_torch.configs.base import (FAMILY_DENSE, ModelConfig,
+                                      ParallelConfig)
 from repro_torch.configs.registry import ArchEntry, register
 
 FULL = ModelConfig(
@@ -32,7 +33,15 @@ SMOKE = ModelConfig(
 )
 
 
+def _parallel(kind: str) -> ParallelConfig:
+    if kind == "train":
+        return ParallelConfig(seq_shard=True, remat="full")
+    if kind == "prefill":
+        return ParallelConfig(seq_shard=True)
+    return ParallelConfig(decode_seq_shard=True)
+
+
 register(ArchEntry(
-    name="granite-8b", full=FULL, smoke=SMOKE,
+    name="granite-8b", full=FULL, smoke=SMOKE, parallel=_parallel,
     notes="long_500k skipped: pure full attention.",
 ))

@@ -6,7 +6,8 @@ Encoder-only: bidirectional attention, no KV cache, no decode step.
 The conv waveform frontend is a stub: ``synth_inputs`` provides
 precomputed frame embeddings (B, T, frontend_dim).
 """
-from repro_torch.configs.base import FAMILY_ENCODER, ModelConfig
+from repro_torch.configs.base import (FAMILY_ENCODER, ModelConfig,
+                                      ParallelConfig)
 from repro_torch.configs.registry import ArchEntry, register
 
 FULL = ModelConfig(
@@ -40,8 +41,14 @@ SMOKE = ModelConfig(
 )
 
 
+def _parallel(kind: str) -> ParallelConfig:
+    if kind == "train":
+        return ParallelConfig(seq_shard=True, remat="full")
+    return ParallelConfig(seq_shard=True)
+
+
 register(ArchEntry(
-    name="hubert-xlarge", full=FULL, smoke=SMOKE,
+    name="hubert-xlarge", full=FULL, smoke=SMOKE, parallel=_parallel,
     notes="decode_32k/long_500k skipped: encoder-only. vocab=504 pads to "
           "512. head_dim=80 is not a multiple of 128: rank-selection demo "
           "case.",

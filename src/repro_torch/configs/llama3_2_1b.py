@@ -3,7 +3,8 @@
 [hf:meta-llama/Llama-3.2-1B; unverified tier]
 16L d_model=2048 32H (GQA kv=8) d_ff=8192 vocab=128256.
 """
-from repro_torch.configs.base import FAMILY_DENSE, ModelConfig
+from repro_torch.configs.base import (FAMILY_DENSE, ModelConfig,
+                                      ParallelConfig)
 from repro_torch.configs.registry import ArchEntry, register
 
 FULL = ModelConfig(
@@ -33,5 +34,15 @@ SMOKE = ModelConfig(
     tie_embeddings=True,
 )
 
+
+def _parallel(kind: str) -> ParallelConfig:
+    if kind == "train":
+        return ParallelConfig(seq_shard=True, remat="full")
+    if kind == "prefill":
+        return ParallelConfig(seq_shard=True)
+    return ParallelConfig(decode_seq_shard=True)
+
+
 register(ArchEntry(name="llama3.2-1b", full=FULL, smoke=SMOKE,
+                   parallel=_parallel,
                    notes="Smallest dense llama; the port's main path."))

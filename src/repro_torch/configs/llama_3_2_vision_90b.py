@@ -6,7 +6,7 @@ Every 5th layer is a cross-attention layer over precomputed image patch
 embeddings (the modality frontend is a stub: ``synth_inputs`` provides
 (B, n_img_tokens, d) embeddings).
 """
-from repro_torch.configs.base import FAMILY_VLM, ModelConfig
+from repro_torch.configs.base import FAMILY_VLM, ModelConfig, ParallelConfig
 from repro_torch.configs.registry import ArchEntry, register
 
 FULL = ModelConfig(
@@ -39,8 +39,16 @@ SMOKE = ModelConfig(
 )
 
 
+def _parallel(kind: str) -> ParallelConfig:
+    if kind == "train":
+        return ParallelConfig(seq_shard=True, fsdp=True, remat="full")
+    if kind == "prefill":
+        return ParallelConfig(fsdp=True, seq_shard=True)
+    return ParallelConfig(fsdp=True, decode_seq_shard=True)
+
+
 register(ArchEntry(
-    name="llama-3.2-vision-90b", full=FULL, smoke=SMOKE,
+    name="llama-3.2-vision-90b", full=FULL, smoke=SMOKE, parallel=_parallel,
     notes="Backbone only: image embeddings arrive precomputed, and the "
           "serve engine prefills every request with zero embeddings, as "
           "the reference's does. long_500k skipped: pure full attention.",

@@ -4,7 +4,7 @@
 64L d_model=2560 (attention-free) vocab=50280, ssm_state=128.
 d_inner = 2*2560 = 5120, 80 SSD heads of 64.
 """
-from repro_torch.configs.base import FAMILY_SSM, ModelConfig
+from repro_torch.configs.base import FAMILY_SSM, ModelConfig, ParallelConfig
 from repro_torch.configs.registry import ArchEntry, register
 
 FULL = ModelConfig(
@@ -39,8 +39,16 @@ SMOKE = ModelConfig(
 )
 
 
+def _parallel(kind: str) -> ParallelConfig:
+    if kind == "train":
+        return ParallelConfig(seq_shard=True, remat="full")
+    if kind == "prefill":
+        return ParallelConfig(seq_shard=True)
+    return ParallelConfig(decode_seq_shard=True)
+
+
 register(ArchEntry(
-    name="mamba2-2.7b", full=FULL, smoke=SMOKE,
+    name="mamba2-2.7b", full=FULL, smoke=SMOKE, parallel=_parallel,
     notes="Attention-free: the recurrent state is O(1) in the sequence. "
           "LRD targets the in/out projections; the depthwise conv1d is "
           "already diagonal (not decomposable).",

@@ -6,7 +6,8 @@
 24 query heads over 8 KV heads: a GQA group of 3 query heads.  The MLP is
 the gelu one (``act="gelu"``: no gate projection).
 """
-from repro_torch.configs.base import FAMILY_DENSE, ModelConfig
+from repro_torch.configs.base import (FAMILY_DENSE, ModelConfig,
+                                      ParallelConfig)
 from repro_torch.configs.registry import ArchEntry, register
 
 FULL = ModelConfig(
@@ -37,8 +38,16 @@ SMOKE = ModelConfig(
 )
 
 
+def _parallel(kind: str) -> ParallelConfig:
+    if kind == "train":
+        return ParallelConfig(seq_shard=True, remat="full")
+    if kind == "prefill":
+        return ParallelConfig(seq_shard=True)
+    return ParallelConfig(decode_seq_shard=True)
+
+
 register(ArchEntry(
-    name="minitron-4b", full=FULL, smoke=SMOKE,
+    name="minitron-4b", full=FULL, smoke=SMOKE, parallel=_parallel,
     notes="vocab 256000 dominates params (786M embed+unembed of ~4B): the "
           "paper's unembed LRD is maximal here. long_500k skipped: full attn.",
 ))

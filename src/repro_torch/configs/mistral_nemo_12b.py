@@ -3,7 +3,8 @@
 [hf:mistralai/Mistral-Nemo-Base-2407; hf-verified tier]
 40L d_model=5120 32H (GQA kv=8, head_dim=128) d_ff=14336 vocab=131072.
 """
-from repro_torch.configs.base import FAMILY_DENSE, ModelConfig
+from repro_torch.configs.base import (FAMILY_DENSE, ModelConfig,
+                                      ParallelConfig)
 from repro_torch.configs.registry import ArchEntry, register
 
 FULL = ModelConfig(
@@ -32,7 +33,15 @@ SMOKE = ModelConfig(
 )
 
 
+def _parallel(kind: str) -> ParallelConfig:
+    if kind == "train":
+        return ParallelConfig(seq_shard=True, remat="full", fsdp=True)
+    if kind == "prefill":
+        return ParallelConfig(seq_shard=True)
+    return ParallelConfig(decode_seq_shard=True)
+
+
 register(ArchEntry(
-    name="mistral-nemo-12b", full=FULL, smoke=SMOKE,
+    name="mistral-nemo-12b", full=FULL, smoke=SMOKE, parallel=_parallel,
     notes="long_500k skipped: pure full attention.",
 ))

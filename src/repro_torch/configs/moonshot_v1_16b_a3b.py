@@ -4,7 +4,7 @@
 48L d_model=2048 16H (GQA kv=16) expert d_ff=1408 vocab=163840, MoE 64
 routed experts top-6 (+2 shared, per the HF reference config).
 """
-from repro_torch.configs.base import FAMILY_MOE, ModelConfig
+from repro_torch.configs.base import FAMILY_MOE, ModelConfig, ParallelConfig
 from repro_torch.configs.registry import ArchEntry, register
 
 FULL = ModelConfig(
@@ -44,8 +44,16 @@ SMOKE = ModelConfig(
 )
 
 
+def _parallel(kind: str) -> ParallelConfig:
+    if kind == "train":
+        return ParallelConfig(seq_shard=True, fsdp=True, remat="full")
+    if kind == "prefill":
+        return ParallelConfig(seq_shard=True)
+    return ParallelConfig(decode_seq_shard=True)
+
+
 register(ArchEntry(
-    name="moonshot-v1-16b-a3b", full=FULL, smoke=SMOKE,
+    name="moonshot-v1-16b-a3b", full=FULL, smoke=SMOKE, parallel=_parallel,
     notes="MoE: LRD targets the expert banks (batched over layers and "
           "experts), the shared experts and the dense projections; vocab "
           "163840 is the largest LRD win (163840x2048 unembed -> rank-512 "

@@ -1,4 +1,9 @@
-"""Architecture registry: name -> full-size and smoke-test configs.
+"""Architecture registry: ``--arch <id>`` resolution.
+
+Every architecture registers a full-size :class:`ModelConfig`, a reduced
+smoke-test config of the same family, and its default
+:class:`ParallelConfig` for each shape kind (the reference's values; the
+sharding fields are inert on one device).
 
 The port registers the architectures its slices serve: the dense
 llama3.2-1b, granite-8b, mistral-nemo-12b and minitron-4b, the MoE
@@ -10,8 +15,10 @@ architecture the reference registers.
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import (LRDConfig, ModelConfig, ParallelConfig,
+                                      RunConfig)
 
 _REGISTRY: dict[str, "ArchEntry"] = {}
 
@@ -21,6 +28,7 @@ class ArchEntry:
     name: str
     full: ModelConfig
     smoke: ModelConfig
+    parallel: Callable[[str], ParallelConfig]  # shape kind -> ParallelConfig
     notes: str = ""
 
 
@@ -38,6 +46,24 @@ def get(name: str) -> ArchEntry:
     except KeyError:
         raise KeyError(
             f"unknown arch {name!r}; known: {sorted(_REGISTRY)}") from None
+
+
+def names() -> list[str]:
+    _ensure_loaded()
+    return sorted(_REGISTRY)
+
+
+def assigned_names() -> list[str]:
+    """The 10 assigned LM-family architectures (without the ResNets)."""
+    _ensure_loaded()
+    return [n for n in sorted(_REGISTRY) if not n.startswith("resnet")]
+
+
+def run_config(name: str, shape_kind: str = "train",
+               lrd: LRDConfig | None = None) -> RunConfig:
+    e = get(name)
+    return RunConfig(model=e.full, parallel=e.parallel(shape_kind),
+                     lrd=lrd or LRDConfig())
 
 
 def _ensure_loaded() -> None:

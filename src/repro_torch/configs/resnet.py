@@ -4,7 +4,7 @@
 paper are measured on, field for field the reference's configs.  f32
 activations and weights, 224 x 224 images, 1,000 classes.
 """
-from repro_torch.configs.base import FAMILY_RESNET, ModelConfig
+from repro_torch.configs.base import FAMILY_RESNET, ModelConfig, ParallelConfig
 from repro_torch.configs.registry import ArchEntry, register
 
 
@@ -35,7 +35,11 @@ SMOKE = ModelConfig(
 )
 
 
+def _parallel(kind: str) -> ParallelConfig:
+    return ParallelConfig()
+
+
 for _name, _full in (("resnet50", RESNET50), ("resnet101", RESNET101),
                      ("resnet152", RESNET152)):
-    register(ArchEntry(name=_name, full=_full, smoke=SMOKE,
+    register(ArchEntry(name=_name, full=_full, smoke=SMOKE, parallel=_parallel,
                        notes="paper's own arch; Tucker-2 LRD path"))

@@ -5,7 +5,7 @@
 A single *shared* attention+MLP block is applied every ``hybrid_attn_every``
 mamba layers (weights reused each invocation — Zamba's signature trick).
 """
-from repro_torch.configs.base import FAMILY_HYBRID, ModelConfig
+from repro_torch.configs.base import FAMILY_HYBRID, ModelConfig, ParallelConfig
 from repro_torch.configs.registry import ArchEntry, register
 
 FULL = ModelConfig(
@@ -43,8 +43,16 @@ SMOKE = ModelConfig(
 )
 
 
+def _parallel(kind: str) -> ParallelConfig:
+    if kind == "train":
+        return ParallelConfig(seq_shard=True, remat="full")
+    if kind == "prefill":
+        return ParallelConfig(seq_shard=True)
+    return ParallelConfig(decode_seq_shard=True)
+
+
 register(ArchEntry(
-    name="zamba2-1.2b", full=FULL, smoke=SMOKE,
+    name="zamba2-1.2b", full=FULL, smoke=SMOKE, parallel=_parallel,
     notes="Hybrid: the shared attention block decomposes once (its factors "
           "serve every invocation, each with its own KV entry).",
 ))

@@ -6,7 +6,8 @@ cursor (:class:`DataState`) that every checkpoint saves, so a restore
 replays the exact stream.  :class:`ByteTextLM` is numpy and yields the
 reference's batches token for token; :class:`SyntheticLM` draws from a
 ``torch.Generator`` (its tokens differ from the reference's
-``jax.random`` ones), as :class:`SyntheticImages` does for the ResNets.
+``jax.random`` ones), as :class:`SyntheticImages` does for the ResNets
+and :class:`WithImageEmbeds` for the VLM's image embeddings.
 """
 from __future__ import annotations
 
@@ -83,6 +84,34 @@ class SyntheticImages:
                 "labels": torch.randint(0, cfg.num_classes,
                                         (self.batch_size,), generator=g,
                                         dtype=torch.int32)}
+
+    def stream(self, state: DataState) -> Iterator[tuple[dict, DataState]]:
+        step = state.step
+        while True:
+            yield self.batch(step), DataState(step + 1)
+            step += 1
+
+
+class WithImageEmbeds:
+    """A token source for the VLM: each batch of ``data`` plus random image
+    embeddings (the stub vision frontend's output), ``image_embeds`` of
+    ``models/api.py::synth_inputs`` (B, num_image_tokens, vision_d_model
+    or d_model) at std 0.2 in the model dtype, drawn on the CPU from
+    (seed, step)."""
+
+    def __init__(self, data, cfg: ModelConfig, seed: int = 0):
+        self.data = data
+        self.cfg = cfg
+        self.seed = seed
+
+    def batch(self, step: int) -> dict:
+        from repro_torch.models.api import synth_inputs
+        out = dict(self.data.batch(step))
+        b, s = np.shape(out["tokens"])
+        g = torch.Generator().manual_seed((self.seed << 32) + step)
+        out["image_embeds"] = synth_inputs(
+            self.cfg, ShapeConfig("img", s, b, "train"), g)["image_embeds"]
+        return out
 
     def stream(self, state: DataState) -> Iterator[tuple[dict, DataState]]:
         step = state.step

@@ -11,9 +11,11 @@ tolerance.
 5. honours preemption (checkpoint now, exit), tracks stragglers,
 6. optionally crashes on cue (``fault_hook``) for the restart tests.
 
-It runs on the card unless the caller passes ``device="cpu"``.  Every
-step ends in a host read of the loss, so a step's host time is the
-card's time for it.
+``params`` (the port's addition) starts from a tree the caller built
+(already decomposed, on ``device``; updated in place) instead of step
+1's init and surgery.  It runs on the card unless the caller passes
+``device="cpu"``.  Every step ends in a host read of the loss, so a
+step's host time is the card's time for it.
 """
 from __future__ import annotations
 
@@ -61,7 +63,8 @@ def train(run: RunConfig, data, *, num_steps: int,
           fault_hook: Callable[[int], None] | None = None,
           preemption: PreemptionHandler | None = None,
           log_fn: Callable[[str], None] = print,
-          device: str | torch.device = "cuda") -> TrainResult:
+          device: str | torch.device = "cuda",
+          params: PyTree | None = None) -> TrainResult:
     steps_mod._no_mesh(mesh)
     device = torch.device(device)
     model = get_model(run.model, device)
@@ -70,12 +73,14 @@ def train(run: RunConfig, data, *, num_steps: int,
 
     # ---- init params (+ LRD surgery, + freezing) --------------------------
     with torch.no_grad():
-        params, axes = model.init(
-            torch.Generator(device=device).manual_seed(run.seed))
-        if decompose and run.lrd.enabled:
-            from repro_torch.core.surgery import decompose_model
-            params, axes, report = decompose_model(params, axes, run.lrd)
-            log_fn(f"[lrd] {report.summary()}")
+        if params is None:
+            params, axes = model.init(
+                torch.Generator(device=device).manual_seed(run.seed))
+            if decompose and run.lrd.enabled:
+                from repro_torch.core.surgery import decompose_model
+                params, axes, report = decompose_model(params, axes,
+                                                       run.lrd)
+                log_fn(f"[lrd] {report.summary()}")
     freezing.set_requires_grad(params, freeze=freeze)
     opt_state = steps_mod.init_opt_state(model, run, params, optim_cfg)
     data_state = DataState()

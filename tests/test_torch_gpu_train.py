@@ -6,9 +6,11 @@ itself when no CUDA card is present).  Run them on the card with
 The B1 / B2 autograd Functions (kernel forward, explicit backward)
 against autograd of the plain versions at the training M, and train
 steps of a decomposed, frozen smoke model on the card through the
-Functions, held to the same steps on the CPU.
+Functions, held to the same steps on the CPU (the dense llama; the MoE
+and SSM families' smoke trees).
 """
 import dataclasses
+import math
 import sys
 from pathlib import Path
 
@@ -151,3 +153,66 @@ def test_train_loop_runs_on_the_card_by_default(cuda):
               log_fn=lambda s: None)
     assert r.metrics["loss"].device.type == "cuda"
     assert r.losses[-1] < r.losses[0]
+
+
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "mamba2-2.7b"])
+def test_moe_and_ssm_train_steps_on_the_card_match_cpu(cuda, arch):
+    """Two f32 steps of a frozen, branched smoke tree of the MoE and the
+    SSM family on the card (B1 / B2 forwards through the Functions, the
+    expert products and the SSD scan plain torch) give the CPU's losses
+    and parameters, launching exactly :func:`chip_smoke.train_launches`
+    a step."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import LRDConfig, ParallelConfig, RunConfig
+    from repro_torch.core import freezing
+    from repro_torch.core.surgery import decompose_model
+    from repro_torch.kernels import branched_matmul as bk
+    from repro_torch.kernels import lowrank_matmul as lk
+    from repro_torch.models.api import get_model
+    from repro_torch.train import steps
+    from repro_torch.train.data import ByteTextLM
+    from repro_torch.train.optim import OptimConfig
+    cfg = dataclasses.replace(registry.get(arch).smoke, dtype="float32")
+    run = RunConfig(model=cfg, parallel=ParallelConfig(), lrd=LRDConfig(
+        enabled=True, rank_mode="aligned", rank_align=4, min_dim=16,
+        branches=4, freeze=True))
+    with torch.no_grad():
+        base, axes = get_model(cfg, "cpu").init(
+            torch.Generator().manual_seed(0))
+        base, _, rep = decompose_model(base, axes, run.lrd)
+    seq = 64
+    want = chip_smoke.train_launches(get_model(cfg, "cpu"), rep, seq)
+    assert want.get("branched_matmul", 0) > 0
+
+    def move(t, dev):
+        return ({k: move(v, dev) for k, v in t.items()}
+                if isinstance(t, dict) else t.detach().to(dev).clone())
+    data = ByteTextLM(cfg, batch=2, seq_len=seq)
+    ocfg = OptimConfig(peak_lr=1e-2, warmup_steps=1, total_steps=2)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = get_model(cfg, dev)
+        params = freezing.set_requires_grad(move(base, dev), freeze=True)
+        state = steps.init_opt_state(model, run, params, ocfg)
+        step = steps.make_train_step(model, run, ocfg)
+        losses, counts = [], []
+        for i in range(2):
+            lk.launches = bk.launches = 0
+            batch = {"tokens": torch.as_tensor(data.batch(i)["tokens"],
+                                               device=dev)}
+            params, state, met = step(params, state, batch)
+            losses.append(float(met["loss"]))
+            counts.append({k: n for k, n in (
+                ("lowrank_matmul", lk.launches),
+                ("branched_matmul", bk.launches)) if n})
+        out[dev] = (losses, params, counts)
+    assert out["cuda"][2] == [want, want]
+    assert out["cpu"][2] == [{}, {}]
+    for a, b in zip(out["cuda"][0], out["cpu"][0]):
+        assert math.isfinite(a) and a == pytest.approx(b, rel=1e-4)
+
+    def leaves(t):
+        return ([x for v in t.values() for x in leaves(v)]
+                if isinstance(t, dict) else [t])
+    for a, b in zip(leaves(out["cuda"][1]), leaves(out["cpu"][1])):
+        assert _norm_err(a.cpu(), b) <= 1e-3

@@ -208,12 +208,36 @@ def test_frozen_leaves_get_no_moments_and_stay():
 
 
 def test_mesh_refused():
+    """A mesh raises (A14).  The sharding fields are inert without one, as
+    the reference's are: a train step with llama's registered
+    ``parallel("train")`` (seq_shard, remat "full") equals one with
+    remat "full" and the other fields at their defaults, bit for bit."""
+    from repro_torch.configs import registry
     _, trun = _runs("branched", True, 1, 0)
     with pytest.raises(NotImplementedError, match="A14"):
         steps.make_train_step(get_model(trun.model, "cpu"), trun,
                               optim.OptimConfig(), mesh=object())
-    with pytest.raises(NotImplementedError, match="A14"):
-        ParallelConfig(fsdp=True)
+    registered = registry.get("llama3.2-1b").parallel("train")
+    assert registered != ParallelConfig(remat="full")
+    data = ByteTextLM(trun.model, batch=2, seq_len=16)
+    out = []
+    for par in (registered, ParallelConfig(remat="full")):
+        run = dataclasses.replace(trun, parallel=par)
+        tm = get_model(run.model, "cpu")
+        tp = freezing.set_requires_grad(_fresh("branched"), freeze=True)
+        ocfg = optim.OptimConfig(**OCFG)
+        state = steps.init_opt_state(tm, run, tp, ocfg)
+        step = steps.make_train_step(tm, run, ocfg)
+        losses = []
+        for i in range(2):
+            tp, state, met = step(tp, state, {"tokens": torch.from_numpy(
+                data.batch(i)["tokens"])})
+            losses.append(float(met["loss"]))
+        out.append((losses, flat(tp)))
+    (l0, p0), (l1, p1) = out
+    assert l0 == l1
+    assert p0.keys() == p1.keys()
+    assert all(torch.equal(p0[k], p1[k]) for k in p0)
 
 
 # ---------------------------------------------------------------------------

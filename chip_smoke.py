@@ -333,9 +333,11 @@ branches=4, its surgery decisions held to ``VLM_SURGERY`` /
              ``LMModel.prefill`` of 64 tokens with random image
              embeddings and 16 greedy decode steps, every cross gate at
              0.5, bf16 on the card against f32 on the CPU
-             (``CHECK_TOL``), and the card with the gates at 0 beside it
-             (the image path must move the logits by more than
-             ``CHECK_TOL_F32``).
+             (``CHECK_TOL``), f32 on the card against it too
+             (``CHECK_TOL_F32``: the f32 cluster chains at 4-row blocks
+             take the per-branch ranks 768 / 960), and the card with
+             the gates at 0 beside each (the image path must move the
+             bf16 logits by more than ``CHECK_TOL_F32``).
 - serve_vlm_q / check_vlm_q — the same tree with int8 factors over the
              int8 slot pool (the image K/V stays bf16): 10 B3 + 26 B4 a
              prefill, 8 B3 + 26 B4 + 4 B5 (G 8, D 128) a decode step.
@@ -351,6 +353,9 @@ branches=4, its surgery decisions held to ``VLM_SURGERY`` /
 
 The kernels phase adds their rows (``path``: "vlm" / "hubert"): B1 / B2
 and B3 / B4 at the VLM's shapes, M = 8, with the 128,256-column unembed;
+B2 / B4 in f32 at the VLM's gate / up / down and unembed, M = 8 and 128
+(``VLM_F32_SHAPES``, ``path`` "vlm_f32": the cluster kernels at 4-row
+blocks, ``vlm_f32_path`` of the kernels line);
 B1 / B3 at the cross k / v's M = 1,601; B5 at (G 8, D 128) in
 ``WIDE_ATTN_CASES``; B1 / B2 at hubert's shapes, M = 2,000; summed per
 decode step or forward as ``vlm_path`` / ``hubert_path`` of the kernels
@@ -408,6 +413,22 @@ the bound and the cuBLAS chain).
              tree has an SVD pair / branched linear outside the routed
              experts and the convolutions, and nothing else.
 
+- mesh — (after check_train) a process group of one NCCL rank, joined
+             through a ``FileStore`` in a temporary directory, and a
+             (1, 1, 1) ("pod", "data", "model") mesh from
+             ``launch/mesh.py``: llama3.2-1b at full width (the train
+             phase's frozen branches=4 tree and batch) under FSDP, the
+             sharded vocab, multi-pod and PowerSGD rank 4
+             (``MESH_PARALLEL``), 2 steps of ``train(..., mesh=)`` and 2
+             without the mesh, exact B1 / B2 launches in both, the
+             losses and one step's synced gradients within ``MESH_TOL``
+             (1e-6 relative) of the run without; then serve_q's int8
+             tree, quantized before it is placed, served on the mesh
+             over the int8 slot pool with exact launches, its greedy
+             streams token-identical to serve_q's.  One rank holds the
+             mesh code path and the kernels under it; collectives across
+             ranks are held on the CPU (gloo tests).
+
 Only on request (``--phases ...,profile``): torch.profiler over steady
 decode steps of the branches=4 model, plain, int8 and 2:4-packed int8 —
 device time by operator and the device's idle share; ``profile_qa`` the
@@ -449,8 +470,8 @@ PHASES = ("device", "build", "kernels", "search", "serve", "check",
           "train_zamba2", "infer_resnet", "check_resnet", "train_resnet",
           "check_train_resnet", "serve_vlm", "check_vlm", "serve_vlm_q",
           "check_vlm_q", "check_train_vlm", "train_vlm", "infer_hubert",
-          "check_hubert", "train", "check_train", "check_train_hubert",
-          "train_hubert", "launch")
+          "check_hubert", "train", "check_train", "mesh",
+          "check_train_hubert", "train_hubert", "launch")
 #: the phases that search, serve or check the llama3.2-1b trees, the MLA
 #: ones, the other configs' (CONFIG_RUNS) and the training ones
 LLAMA_PHASES = ("search", "serve", "check", "serve_search", "check_search",
@@ -849,6 +870,11 @@ VLM_BRANCHED_SHAPES = {"vlm q,o": (4, 8192, 512, 8192),
                        "vlm down": (4, 28672, 768, 8192),
                        "vlm unembed": (4, 8192, 960, 128256)}
 VLM_CROSS_M = 1601
+#: the f32 rows at the VLM's widest per-branch ranks (768, 960), where the
+#: 8-row block of the cluster chains does not fit and the 4-row one does
+VLM_F32_SHAPES = {k: VLM_BRANCHED_SHAPES[k]
+                  for k in ("vlm gate,up", "vlm down", "vlm unembed")}
+VLM_F32_M = (8, 128)
 HUBERT_LOWRANK_SHAPES = {"hubert q,k,v,o": (1280, 256, 1280),
                          "hubert unembed": (1280, 128, 512)}
 HUBERT_BRANCHED_SHAPES = {"hubert up": (4, 1280, 128, 5120),
@@ -1279,6 +1305,14 @@ def check_kernels(card: str, only: frozenset = frozenset(KERNELS)
                                          "branched_matmul_q"}),
                         label, shape, 8, "bfloat16", rnd, qrnd, ("int8",),
                         spack, flush, only)
+    for label, shape in (VLM_F32_SHAPES.items()
+                         if only & {"branched_matmul", "branched_matmul_q"}
+                         else ()):
+        for m in VLM_F32_M:
+            _check_branched(add_path("vlm_f32", {"branched_matmul",
+                                                 "branched_matmul_q"}),
+                            label, shape, m, "float32", rnd, qrnd,
+                            ("int8",), spack, flush, only)
     for label, shape in VLM_LOWRANK_SHAPES.items():
         for m in (8, VLM_CROSS_M):
             x = rnd(m, shape[0], dtype=bf)
@@ -2244,6 +2278,21 @@ def _kernel_entries(rows: dict[str, list[dict]]) -> list[dict]:
                     timed_as="one launch: the cross block's k or v over "
                     "the 1,601 image tokens of a prefill")
             extra[f"{path}_path"] = entry
+        frows32 = [r for r in rs if r.get("path") == "vlm_f32"]
+        if frows32:
+            extra["vlm_f32_path"] = {
+                f"{r['shape']} M={r['M']}": dict(
+                    {k: r[k] for k in ("ms", "plain_ms", "library_ms",
+                                       "bound_ms", "bound_by", "max_abs_err",
+                                       "norm_err", "cold_ms")},
+                    launches=None)
+                for r in frows32}
+            extra["vlm_f32_path"]["timed_as"] = (
+                "one launch, f32 activations "
+                + ("and int8 factors " if name.endswith("_q") else "")
+                + "(TF32 off), at the VLM's per-branch ranks 768 / 960: the "
+                "cluster kernel at 4-row blocks; launches: check_vlm's f32 "
+                "card run")
         rrows = [r for r in rs if r.get("path") == "resnet"]
         if rrows:
             extra["resnet_path"] = {
@@ -2563,6 +2612,7 @@ def serve(cfg, lrd, params, *, n_req: int, prompt_lo: int, prompt_hi: int,
               for k in ("quantize", "sparsify", "kv_quantize",
                         "act_quantize")},
            "kv_layout": eng.kv_layout, "requests": n_req, "new_tokens": new_tokens,
+           "outputs": [r.output for r in reqs],
            "wall_s": wall, "segments": len(segs),
            "decode_segments": sum(1 for s in segs if s[0] == "decode"),
            "per_segment": {kind: {k: n for k, n in c.items() if n}
@@ -4628,16 +4678,19 @@ def cross_check_vlm(cfg, params, card: str, seed: int, *, label: str,
     ways fed the CPU run's greedy tokens: the tree in f32 on the CPU
     (``cpu``), in bf16 on the card (``bf16``), and in bf16 on the card
     with the gates at 0 (``bf16_gate0``: a fresh tree's, where the cross
-    attention adds nothing).  The CPU run takes int8 factors dequantized
-    once to f32: the values the plain versions of B3 / B4 form from them
-    at every call, so the same function at a quarter of the time.
+    attention adds nothing); an unquantized tree also in f32 on the card
+    (``f32``, ``f32_gate0``: the f32 cluster chains, whose per-branch
+    ranks 768 / 960 fit at 4-row blocks).  The CPU run takes int8
+    factors dequantized once to f32: the values the plain versions of
+    B3 / B4 form from them at every call, so the same function at a
+    quarter of the time.
 
-    Gated: the card's logits within :data:`CHECK_TOL` of the CPU's std
-    at every step; the gate-0 run's distance from the gated one
-    (``image_effect``, two card runs that differ in the gates alone)
-    above :data:`CHECK_TOL_F32`; each card run
-    launches exactly ``prefill`` once and ``decode`` a step (B5 on the
-    self layers of an int8 pool included)."""
+    Gated: the card's bf16 logits within :data:`CHECK_TOL` of the CPU's
+    std at every step, its f32 logits within :data:`CHECK_TOL_F32`; the
+    gate-0 run's distance from the gated one (``image_effect``, two card
+    runs that differ in the gates alone) above :data:`CHECK_TOL_F32`;
+    each card run launches exactly ``prefill`` once and ``decode`` a
+    step (B5 on the self layers of an int8 pool included)."""
     import dataclasses
     import numpy as np
     import torch
@@ -4661,6 +4714,12 @@ def cross_check_vlm(cfg, params, card: str, seed: int, *, label: str,
                                "cpu"), with_gate(cpu_tree, VLM_GATE), img),
              "bf16": (card_m, with_gate(params, VLM_GATE), card_img),
              "bf16_gate0": (card_m, with_gate(params, 0.0), card_img)}
+    if quantize == "none":
+        f32_m = get_model(dataclasses.replace(cfg, dtype="float32"), "cuda")
+        f32_tree = _tree_to(params, "cuda", torch.float32)
+        f32_img = img.to("cuda")
+        sides.update(f32=(f32_m, with_gate(f32_tree, VLM_GATE), f32_img),
+                     f32_gate0=(f32_m, with_gate(f32_tree, 0.0), f32_img))
     runs: dict[str, dict] = {}
     with torch.inference_mode():
         for name, (m, p, im) in sides.items():
@@ -4699,11 +4758,20 @@ def cross_check_vlm(cfg, params, card: str, seed: int, *, label: str,
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "seconds": {n: r["seconds"] for n, r in runs.items()},
            "card": card}
+    if "f32" in runs:
+        res.update(f32=_against(runs["f32"], runs["cpu"]),
+                   tol_f32=CHECK_TOL_F32,
+                   image_effect_f32=_against(
+                       runs["f32_gate0"], runs["f32"])["max_diff_over_std"])
     log(f"{label} " + json.dumps(res))
     reading = res["bf16"]["max_diff_over_std"]
     if not reading <= CHECK_TOL:
         raise SystemExit(f"{label}: card bf16 logits differ from the CPU f32 "
                          f"reference: {reading:.4f} > {CHECK_TOL}")
+    if "f32" in res and not res["f32"]["max_diff_over_std"] <= CHECK_TOL_F32:
+        raise SystemExit(f"{label}: card f32 logits differ from the CPU f32 "
+                         f"reference: {res['f32']['max_diff_over_std']:.2e} > "
+                         f"{CHECK_TOL_F32}")
     if not res["image_effect"] > CHECK_TOL_F32:
         raise SystemExit(f"{label}: the image path moves the logits by "
                          f"{res['image_effect']:.2e} std, no more than "
@@ -4712,7 +4780,7 @@ def cross_check_vlm(cfg, params, card: str, seed: int, *, label: str,
     for k, n in decode.items():
         want[k] = want.get(k, 0) + n * steps
     want = {k: want.get(k, 0) for k in KERNELS}
-    for name in ("bf16", "bf16_gate0"):
+    for name in set(runs) - {"cpu"}:
         if runs[name]["launches"] != want:
             raise SystemExit(f"{label} ({name}) launched "
                              f"{runs[name]['launches']}, want {want}")
@@ -4959,14 +5027,16 @@ def train_launches(model, rep, seq: int) -> dict[str, int]:
 def train_run(cfg, card: str, seed: int, *, label: str, lrd, remat: str,
               steps: int, expect: dict[str, int], falls: bool, data=None,
               batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
-              params=None) -> dict:
+              params=None, parallel: dict | None = None,
+              mesh=None) -> dict:
     """``steps`` steps of the port's ``train()`` on the card (bf16; by
     default ByteTextLM at TRAIN_BATCH x TRAIN_SEQ and a tree ``train()``
     builds and decomposes from the seed, else ``data`` at ``batch`` x
-    ``seq`` and ``params``, trained in place) and the checks: every step
-    launches exactly ``expect`` (kernel -> forwards; a kernel not named
-    must not launch), every loss is finite, and with ``falls`` the last
-    loss is below the first.  The counts are set to 0 just before
+    ``seq`` and ``params``, trained in place; ``parallel``: more
+    ``ParallelConfig`` fields, ``mesh``: ``train()``'s) and the checks:
+    every step launches exactly ``expect`` (kernel -> forwards; a kernel
+    not named must not launch), every loss is finite, and with ``falls``
+    the last loss is below the first.  The counts are set to 0 just before
     ``train()`` and read at the start of every step (its ``fault_hook``)
     and just after."""
     import statistics
@@ -4975,8 +5045,8 @@ def train_run(cfg, card: str, seed: int, *, label: str, lrd, remat: str,
     from repro_torch.train.data import ByteTextLM
     from repro_torch.train.loop import train
     from repro_torch.train.optim import OptimConfig
-    run = RunConfig(model=cfg, lrd=lrd, parallel=ParallelConfig(remat=remat),
-                    seed=seed)
+    run = RunConfig(model=cfg, lrd=lrd, parallel=ParallelConfig(
+        remat=remat, **(parallel or {})), seed=seed)
     if data is None:
         data = ByteTextLM(cfg, batch=batch, seq_len=seq)
     marks: list[dict[str, int]] = []
@@ -4991,7 +5061,7 @@ def train_run(cfg, card: str, seed: int, *, label: str, lrd, remat: str,
     r = train(run, data, num_steps=steps,
               optim_cfg=OptimConfig(total_steps=steps, **TRAIN_OPTIM),
               fault_hook=mark, log_every=0, log_fn=log, device="cuda",
-              params=params)
+              params=params, mesh=mesh)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     mark(steps)
@@ -5023,6 +5093,8 @@ def train_run(cfg, card: str, seed: int, *, label: str, lrd, remat: str,
            "launches_per_step": expect,
            "launches": {k: launch_count(k) for k in expect},
            "wall_s": wall, "card": card}
+    if mesh is not None:
+        res["param_shard_bytes"] = r.stats["param_shard_bytes"]
     log("train " + json.dumps(res))
     return res
 
@@ -5194,6 +5266,175 @@ def run_train(phases: list[str], card: str, seed: int,
     if "check_train" in phases:
         with Phase("check_train"):
             train_res["check"] = check_train(cfg, card, seed)
+
+
+#: the mesh phase: one NCCL rank (a FileStore in a temporary directory
+#: joins it) on a (1, 1, 1) ("pod", "data", "model") mesh, and the
+#: ParallelConfig fields the mesh path reads; its train steps, and its
+#: gate: the loss and every gradient within this relative distance of the
+#: run without a mesh (one rank changes no arithmetic)
+MESH_PARALLEL = dict(fsdp=True, shard_vocab=True, multi_pod=True,
+                     grad_compression_rank=4)
+MESH_STEPS = 2
+MESH_TOL = 1e-6
+
+
+def _mesh_grads(cfg, lrd, mesh, seed: int) -> dict:
+    """One step's synced gradients (``make_synced_grads``, PowerSGD over
+    ``pod`` included) of the frozen branches=4 llama tree on ByteTextLM's
+    first batch, with and without ``mesh``: their loss and every
+    gradient's relative L2 distance."""
+    import torch
+    from repro_torch.configs.base import ParallelConfig, RunConfig
+    from repro_torch.core import freezing
+    from repro_torch.core.surgery import decompose_model
+    from repro_torch.models.api import get_model
+    from repro_torch.parallel import placement
+    from repro_torch.parallel.sharding import make_param_shardings
+    from repro_torch.train.data import ByteTextLM
+    from repro_torch.train.optim import OptimConfig
+    from repro_torch.train.steps import init_opt_state, make_synced_grads
+    run = RunConfig(model=cfg, lrd=lrd,
+                    parallel=ParallelConfig(**MESH_PARALLEL), seed=seed)
+    model = get_model(cfg, "cuda")
+    with torch.no_grad():
+        params, axes = model.init(
+            torch.Generator(device="cuda").manual_seed(seed))
+        params, axes, _ = decompose_model(params, axes, lrd)
+    freezing.set_requires_grad(params, freeze=True)
+    batch = {k: torch.as_tensor(v).cuda() for k, v in
+             ByteTextLM(cfg, TRAIN_BATCH, TRAIN_SEQ).batch(0).items()}
+    got = {}
+    for name, m in (("mesh", mesh), ("none", None)):
+        tree = params if m is None else placement.place(
+            params, make_param_shardings(m, params, axes, run.parallel))
+        state = init_opt_state(model, run, tree, OptimConfig())
+        loss, _, grads, _ = make_synced_grads(model, run, m)(tree, state,
+                                                            batch)
+        got[name] = (float(loss), _flat_grads(grads))
+        del tree, state, grads
+    (lm, gm), (ln, gn) = got["mesh"], got["none"]
+    if {k for k, g in gm.items() if g is None} != \
+            {k for k, g in gn.items() if g is None}:
+        raise SystemExit("mesh: the mesh leaves other leaves without a "
+                         "gradient")
+    errs = {k: ((gm[k].float() - g.float()).norm()
+                / g.float().norm().clamp_min(1e-30)).item()
+            for k, g in gn.items() if g is not None}
+    return {"loss_mesh": lm, "loss": ln, "loss_rel": abs(lm - ln) / abs(ln),
+            "grad_rel_l2_max": max(errs.values()),
+            "worst_leaf": max(errs, key=errs.get), "gradients": len(errs)}
+
+
+def run_mesh(card: str, seed: int, served_q: dict | None) -> dict:
+    """The ``mesh`` phase: a process group of one NCCL rank and a (1, 1,
+    1) ("pod", "data", "model") mesh from ``launch/mesh.py``.  Train:
+    llama3.2-1b at full width (the train phase's frozen branches=4 tree
+    and batch) under :data:`MESH_PARALLEL`, :data:`MESH_STEPS` steps of
+    ``train(..., mesh=)`` and the same steps without the mesh, exact B1 /
+    B2 launches in both; the losses, and one step's synced gradients
+    (:func:`_mesh_grads`), within :data:`MESH_TOL` of the run without.
+    Serve: serve_q's int8 tree (quantized before it is placed) on the
+    mesh over the int8 slot pool, exact launches, greedy streams
+    token-identical to serve_q's (to a run without the mesh where
+    serve_q did not run).  One rank holds the mesh code path and the
+    kernels under it on the card; collectives across ranks are held on
+    the CPU (``tests/test_torch_mesh_train.py``)."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import LRDConfig, ParallelConfig
+    from repro_torch.configs import registry
+    from repro_torch.core.surgery import decompose_model
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import placement
+    from repro_torch.parallel.sharding import make_param_shardings
+    from repro_torch.quant.quantize import quantize_tree
+    cfg = registry.get("llama3.2-1b").full
+    frozen = LRDConfig(**LRD, branches=4, freeze=True)
+    chain = {k: sum(v.values()) for k, v in TRAIN_LAUNCHES.items()}
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")   # one rank, local
+    store = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1, 1), ("pod", "data", "model"))
+        res = {"mesh": {"shape": [1, 1, 1], "axes": ["pod", "data", "model"],
+                        "backend": dist.get_backend()},
+               "parallel": MESH_PARALLEL, "card": card}
+        runs = {name: train_run(
+            cfg, card, seed, label=f"mesh phase, {name}", lrd=frozen,
+            remat="none", steps=MESH_STEPS, expect=chain, falls=False,
+            parallel=MESH_PARALLEL, mesh=m)
+            for name, m in (("on the mesh", mesh), ("no mesh", None))}
+        on, off = runs["on the mesh"], runs["no mesh"]
+        res["train"] = {
+            "losses": on["losses"], "losses_no_mesh": off["losses"],
+            "loss_rel_max": max(abs(a - b) / abs(b) for a, b in
+                                zip(on["losses"], off["losses"])),
+            "step_ms": on["step_ms"], "step_ms_no_mesh": off["step_ms"],
+            "launches_per_step": on["launches_per_step"],
+            "param_shard_bytes": on["param_shard_bytes"],
+            "max_memory_allocated": on["max_memory_allocated"],
+            "max_memory_allocated_no_mesh": off["max_memory_allocated"]}
+        res["grads"] = _mesh_grads(cfg, frozen, mesh, seed)
+        fresh_peak()
+        _, dense, axes = full_model(seed)
+        with torch.inference_mode():
+            p4, axes4, _ = decompose_model(dense, axes,
+                                           LRDConfig(**LRD, branches=4))
+            del dense
+            pq, axq = quantize_tree(p4, "int8", targets=frozen.quant_targets,
+                                    axes=axes4)
+            del p4
+            placed = placement.place(pq, make_param_shardings(
+                mesh, pq, axq, ParallelConfig(**MESH_PARALLEL)))
+        lrd = LRDConfig(**LRD, branches=4)
+        qchain = {"lowrank_matmul_q": 32, "branched_matmul_q": 80}
+        expect = {"decode": {**qchain, "decode_attention_q": 16},
+                  "prefill_chunk": qchain}
+        serve_kw = dict(n_req=8, prompt_lo=32, prompt_hi=512, new_tokens=32,
+                        card=card, seed=seed, expect=expect,
+                        kv_quantize="int8")
+        served = serve(cfg, lrd, placed, **serve_kw)
+        del placed
+        if served_q is None:
+            served_q = serve(cfg, lrd, pq, quantize="int8", **serve_kw)
+            against = "a run without the mesh"
+        else:
+            against = "serve_q"
+        del pq
+        greedy = range(0, len(served["outputs"]), 2)    # temperature 0
+        same = [served["outputs"][i] == served_q["outputs"][i]
+                for i in greedy]
+        res["serve"] = {
+            "against": against, "greedy_identical": f"{sum(same)}/"
+            f"{len(same)}", "all_identical": served["outputs"]
+            == served_q["outputs"],
+            **{k: served[k] for k in (
+                "decode_step_ms_mean", "tokens_per_s", "ttft_mean_s",
+                "weight_bytes", "kv_bytes_per_step", "launches",
+                "max_memory_allocated")},
+            "decode_step_ms_mean_against": served_q["decode_step_ms_mean"]}
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    log("mesh " + json.dumps(res))
+    if not res["train"]["loss_rel_max"] <= MESH_TOL:
+        raise SystemExit(f"mesh: the losses on the mesh differ from the run "
+                         f"without: {res['train']}")
+    grads = res["grads"]
+    if not (grads["loss_rel"] <= MESH_TOL
+            and grads["grad_rel_l2_max"] <= MESH_TOL):
+        raise SystemExit(f"mesh: the synced gradients on the mesh differ "
+                         f"from the run without: {grads}")
+    if not all(same):
+        raise SystemExit(f"mesh: greedy streams on the mesh differ from "
+                         f"{against}'s: {res['serve']['greedy_identical']}")
+    return res
 
 
 def family_data(cfg, spec: dict):
@@ -5456,7 +5697,7 @@ def main() -> int:
     if set(phases) & {"build", "kernels", *LLAMA_PHASES, *MLA_PHASES,
                       *CONFIG_PHASES, *RESNET_PHASES, *VLM_PHASES,
                       *HUBERT_PHASES, *TRAIN_PHASES, *TRAIN_FAMILY_PHASES,
-                      "launch"}:
+                      "mesh", "launch"}:
         with Phase("build"):
             from repro_torch.kernels import build
             _, report = build.build()
@@ -5470,15 +5711,16 @@ def main() -> int:
             # stage their weights in f32 after dequantizing, so each needs
             # what its plain twin needs
             for dt, code in (("bfloat16", 1), ("float32", 0)):
+                heights = build.chain_heights(getattr(torch, dt))
                 for m in (8, 64):
                     lr = {k: build.chain_bm(m, lambda bm, r=r: int(
-                        lib.lrk_lowrank_smem(code, bm, r)))
+                        lib.lrk_lowrank_smem(code, bm, r)), heights)
                         for k, (_, r, _) in LOWRANK_SHAPES.items()}
                     br = {k: build.chain_bm(m, lambda bm, n=n, r=r: int(
-                        lib.lrk_branched_smem(code, bm, n, r, r)))
+                        lib.lrk_branched_smem(code, bm, n, r, r)), heights)
                         for k, (n, _, r, _) in {
-                            **BRANCHED_SHAPES,
-                            **DEEPSEEK_BRANCHED_SHAPES}.items()}
+                            **BRANCHED_SHAPES, **DEEPSEEK_BRANCHED_SHAPES,
+                            **(VLM_F32_SHAPES if code == 0 else {})}.items()}
                     fits = max(b for _, b in [*lr.values(), *br.values()]) \
                         <= build.SMEM_LIMIT
                     log(f"dynamic shared memory (row block, bytes), {dt}, "
@@ -5523,6 +5765,11 @@ def main() -> int:
         torch.cuda.empty_cache()
     if set(phases) & set(TRAIN_PHASES):
         run_train(phases, card, args.seed, train_res)
+        torch.cuda.empty_cache()
+    if "mesh" in phases:
+        with Phase("mesh"):
+            train_res["mesh"] = run_mesh(card, args.seed,
+                                         serve_res.get("quantized"))
         torch.cuda.empty_cache()
     for key in TRAIN_FAMILY_RUNS:
         # the pairs whose serve phases did not run build their own tree

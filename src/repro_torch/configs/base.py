@@ -10,9 +10,10 @@ The port keeps its own copies of the reference package's config objects
   on (a CUDA tensor launches the hand-written kernel, a CPU tensor takes
   the kernel's plain PyTorch version).
 * :class:`ParallelConfig` — the reference's mesh and sharding knobs, every
-  field taken; the port reads ``remat``, ``grad_accum`` and
-  ``grad_compression_rank``, and the sharding fields are inert without a
-  mesh, as in the reference (a mesh raises: ROADMAP A14).
+  field taken; ``remat``, ``grad_accum`` and ``grad_compression_rank``
+  act everywhere, the sharding fields where a mesh is given
+  (``parallel/sharding.py`` resolves them, ``parallel/placement.py``
+  places the tree) and are inert without one, as in the reference.
 * :class:`ShapeConfig` — one input-shape cell (sequence, batch, kind),
   the four assigned cells (:data:`SHAPES`) and which apply to an
   architecture (:func:`applicable_shapes`, :func:`skip_reason`).
@@ -243,11 +244,13 @@ class LRDConfig:
 @dataclass(frozen=True)
 class ParallelConfig:
     """Mesh + sharding strategy (the reference's field names and
-    defaults).  The port trains on one device and reads ``remat``,
-    ``grad_accum`` and ``grad_compression_rank``.  The sharding fields
-    take any value and are inert, as the reference's are without a mesh
-    (it reads them only through one: ``repro/train/loop.py:65-67``,
-    ``parallel/sharding.py``); a mesh itself raises (ROADMAP A14)."""
+    defaults).  ``remat``, ``grad_accum`` and ``grad_compression_rank``
+    act with or without a mesh.  The sharding fields (``fsdp``,
+    ``shard_vocab``, ``shard_rank``, ``seq_shard``, ``decode_seq_shard``,
+    ``multi_pod``) act through a mesh, as the reference's do
+    (``repro/train/loop.py:65-67``, ``parallel/sharding.py``): they pick
+    each leaf's placement (``make_param_shardings``) and the activation,
+    input and cache rules; without a mesh they are inert."""
 
     multi_pod: bool = False
     fsdp: bool = False

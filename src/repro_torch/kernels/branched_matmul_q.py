@@ -109,12 +109,10 @@ def _launch_cluster(x, u_q, u_scale, xc_q, xc_scale, v_q, v_scale,
     """The cluster kernel (8-CTA clusters, CUDA-core FMAs): f32's kernel."""
     m, c, n, r1, r2, s = dims
     lib = build.load()
-    bm, smem = build.chain_bm(
-        m, lambda bm: lib.lrk_branched_smem(DTYPES[x.dtype], bm, n, r1, r2))
-    if smem > build.SMEM_LIMIT:
-        raise ValueError(f"branched_matmul_q kernel: {n} branches of ranks "
-                         f"({r1}, {r2}) need {smem} B of shared memory at "
-                         f"{bm} rows (limit {build.SMEM_LIMIT})")
+    bm, _ = build.chain_fit(
+        m, lambda bm: lib.lrk_branched_smem(DTYPES[x.dtype], bm, n, r1, r2),
+        build.chain_heights(x.dtype),
+        f"branched_matmul_q kernel at {n} branches of ranks ({r1}, {r2})")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.lrk_branched_matmul_q(

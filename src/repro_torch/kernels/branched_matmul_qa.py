@@ -254,12 +254,9 @@ def cluster_branched_matmul_qa(x: torch.Tensor, u_q: torch.Tensor,
     if m == 0 or s == 0:
         return y
     lib = build.load()
-    bm, smem = build.chain_bm(
-        m, lambda bm: lib.lrk_branched_qa_smem(bm, n, r1, r2))
-    if smem > build.SMEM_LIMIT:
-        raise ValueError(f"branched_matmul_qa kernel: {n} branches of ranks "
-                         f"({r1}, {r2}) need {smem} B of shared memory at "
-                         f"{bm} rows (limit {build.SMEM_LIMIT})")
+    bm, _ = build.chain_fit(
+        m, lambda bm: lib.lrk_branched_qa_smem(bm, n, r1, r2), build.HEIGHTS,
+        f"branched_matmul_qa kernel at {n} branches of ranks ({r1}, {r2})")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.lrk_branched_matmul_qa(

@@ -236,18 +236,45 @@ def load() -> ctypes.CDLL:
     return lib
 
 
-def chain_bm(m: int, smem_at: Callable[[int], int]) -> tuple[int, int]:
+#: the row block heights the f32 chain kernels are built for, tallest
+#: first (``lrk_common.cuh::known_bm``); bf16's cluster kernels and the
+#: activation-quantized ones stop at 8 rows
+F32_HEIGHTS = (32, 8, 4)
+HEIGHTS = (32, 8)
+
+
+def chain_heights(dtype: torch.dtype) -> tuple[int, ...]:
+    """The row block heights a plain, quantized or 2:4 chain kernel takes
+    for activations of ``dtype``."""
+    return F32_HEIGHTS if dtype == torch.float32 else HEIGHTS
+
+
+def chain_bm(m: int, smem_at: Callable[[int], int],
+             heights: tuple[int, ...] = HEIGHTS) -> tuple[int, int]:
     """The row block height a chain kernel (the lowrank and branched
     families) launches with for ``m`` activation rows, and the shared
     memory that launch needs: 32 rows where ``m > 8`` and the 32-row
-    intermediates fit, else 8.  ``smem_at(bm)`` gives the bytes at a
-    block height (the library's ``lrk_*_smem``).  The caller raises if
-    even the 8-row launch does not fit."""
-    if m > 8:
-        smem = int(smem_at(32))
+    intermediates fit, else the tallest of the lower ``heights`` that
+    fits, else the lowest.  ``smem_at(bm)`` gives the bytes at a block
+    height (the library's ``lrk_*_smem``).  :func:`chain_fit` raises
+    where even the lowest does not fit."""
+    tried = [h for h in heights if h <= 8 or m > 8]
+    for bm in tried:
+        smem = int(smem_at(bm))
         if smem <= SMEM_LIMIT:
-            return 32, smem
-    return 8, int(smem_at(8))
+            return bm, smem
+    return tried[-1], smem
+
+
+def chain_fit(m: int, smem_at: Callable[[int], int],
+              heights: tuple[int, ...], what: str) -> tuple[int, int]:
+    """:func:`chain_bm`, raising ``ValueError`` naming ``what`` (the
+    kernel and its ranks) where even the lowest block does not fit."""
+    bm, smem = chain_bm(m, smem_at, heights)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{what} needs {smem} B of shared memory at {bm} "
+                         f"rows (limit {SMEM_LIMIT})")
+    return bm, smem
 
 
 #: zeroed int32 tickets of the split attention kernels, per (device,

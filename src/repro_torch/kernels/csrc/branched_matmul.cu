@@ -80,32 +80,36 @@ int launch_branched(const void* x, const void* u, const void* xc,
 
 extern "C" {
 
-// Shared memory one launch needs (bytes) at a row block of bm rows (8 or
-// 32).  dtype: 0 = float32, 1 = bf16.  The quantized kernel
+// Shared memory one launch needs (bytes) at a row block of bm rows (4, 8
+// or 32).  dtype: 0 = float32, 1 = bf16.  The quantized kernel
 // (branched_matmul_q.cu) needs the same.
 size_t lrk_branched_smem(int dtype, int bm, int N, int R1, int R2) {
   if (dtype == 0)
-    return bm == 8 ? lrk::branched_smem<float, 8>(N, R1, R2)
-                   : lrk::branched_smem<float, 32>(N, R1, R2);
-  return bm == 8 ? lrk::branched_smem<__nv_bfloat16, 8>(N, R1, R2)
-                 : lrk::branched_smem<__nv_bfloat16, 32>(N, R1, R2);
+    return bm == 4   ? lrk::branched_smem<float, 4>(N, R1, R2)
+           : bm == 8 ? lrk::branched_smem<float, 8>(N, R1, R2)
+                     : lrk::branched_smem<float, 32>(N, R1, R2);
+  return bm == 4   ? lrk::branched_smem<__nv_bfloat16, 4>(N, R1, R2)
+         : bm == 8 ? lrk::branched_smem<__nv_bfloat16, 8>(N, R1, R2)
+                   : lrk::branched_smem<__nv_bfloat16, 32>(N, R1, R2);
 }
 
 // y (M,S) = sum_n ((x (M,C) @ u[n] (C,R1)) @ xc[n] (R1,R2)) @ v[n] (R2,S);
 // u (N,C,R1), xc (N,R1,R2), v (N,R2,S), all row-major contiguous, in row
-// blocks of bm rows (8 or 32).  Returns the launch's cudaError_t (0 on
-// success).
+// blocks of bm rows (8 or 32; f32 also 4).  Returns the launch's
+// cudaError_t (0 on success).
 int lrk_branched_matmul(int dtype, int bm, const void* x, const void* u,
                         const void* xc, const void* v, void* y, int M, int C,
                         int N, int R1, int R2, int S, void* stream) {
-  if (!lrk::known_bm(bm)) return (int)cudaErrorInvalidValue;
+  if (!lrk::known_bm(bm, dtype)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;
   if (dtype == 0)
-    return bm == 8 ? lrk::launch_branched<float, 8>(x, u, xc, v, y, M, C, N,
-                                                    R1, R2, S, s)
-                   : lrk::launch_branched<float, 32>(x, u, xc, v, y, M, C,
-                                                     N, R1, R2, S, s);
+    return bm == 4   ? lrk::launch_branched<float, 4>(x, u, xc, v, y, M, C,
+                                                      N, R1, R2, S, s)
+           : bm == 8 ? lrk::launch_branched<float, 8>(x, u, xc, v, y, M, C,
+                                                      N, R1, R2, S, s)
+                     : lrk::launch_branched<float, 32>(x, u, xc, v, y, M, C,
+                                                       N, R1, R2, S, s);
   if (dtype == 1)
     return bm == 8 ? lrk::launch_branched<bf16, 8>(x, u, xc, v, y, M, C, N,
                                                    R1, R2, S, s)

@@ -74,6 +74,11 @@ int dispatch_bm(int bm, const void* x, const void* uq, const void* us,
                 const void* xcq, const void* xcs, const void* vq,
                 const void* vs, void* y, int M, int C, int N, int R1, int R2,
                 int S, cudaStream_t s) {
+  if constexpr (std::is_same<T, float>::value) {
+    if (bm == 4)  // f32 only: lrk_common.cuh known_bm
+      return launch_branched_q<T, Q, 4>(x, uq, us, xcq, xcs, vq, vs, y, M, C,
+                                        N, R1, R2, S, s);
+  }
   return bm == 8
              ? launch_branched_q<T, Q, 8>(x, uq, us, xcq, xcs, vq, vs, y, M,
                                           C, N, R1, R2, S, s)
@@ -111,13 +116,13 @@ extern "C" {
 // xcq (N,R1,R2), vq (N,R2,S) with scales us (N,1,R1), xcs (N,1,R2),
 // vs (N,1,S), all row-major contiguous.  dtype: 0 = float32, 1 = bfloat16;
 // qtype: 0 = int8, 1 = float8_e4m3fn; bm: the row block height, 8 or
-// 32.  Returns the launch's cudaError_t.
+// 32 (f32 also 4).  Returns the launch's cudaError_t.
 int lrk_branched_matmul_q(int dtype, int qtype, int bm, const void* x,
                           const void* uq, const void* us, const void* xcq,
                           const void* xcs, const void* vq, const void* vs,
                           void* y, int M, int C, int N, int R1, int R2, int S,
                           void* stream) {
-  if (!lrk::known_bm(bm)) return (int)cudaErrorInvalidValue;
+  if (!lrk::known_bm(bm, dtype)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;
   using fp8 = __nv_fp8_e4m3;

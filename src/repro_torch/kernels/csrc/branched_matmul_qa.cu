@@ -266,7 +266,8 @@ int lrk_branched_matmul_qa(int dtype, int bm, const void* x, const void* uq,
                            const void* vq, const void* vs, void* y, int M,
                            int C, int N, int R1, int R2, int S,
                            void* stream) {
-  if (!lrk::known_bm(bm)) return (int)cudaErrorInvalidValue;
+  // the activation-quantized cluster kernels come at 8 and 32 rows only
+  if (bm != 8 && bm != 32) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return qa::dispatch_bm<float>(bm, x, uq, us, xcq, xcs, vq, vs, y, M, C,

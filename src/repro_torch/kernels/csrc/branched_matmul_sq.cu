@@ -81,6 +81,11 @@ int dispatch_bm(int bm, const void* x, const void* usp, const void* uidx,
                 const void* us, const void* xcq, const void* xcs,
                 const void* vsp, const void* vidx, const void* vs, void* y,
                 int M, int C, int N, int R1, int R2, int S, cudaStream_t s) {
+  if constexpr (std::is_same<T, float>::value) {
+    if (bm == 4)  // f32 only: lrk_common.cuh known_bm
+      return launch_branched_sq<T, Q, 4>(x, usp, uidx, us, xcq, xcs, vsp, vidx,
+                                         vs, y, M, C, N, R1, R2, S, s);
+  }
   return bm == 8
              ? launch_branched_sq<T, Q, 8>(x, usp, uidx, us, xcq, xcs, vsp,
                                            vidx, vs, y, M, C, N, R1, R2, S,
@@ -124,7 +129,7 @@ extern "C" {
 // (N,1,R2); vsp (N,2,R2/4,S) + vidx (N,2,R2/4) + vs (N,1,S); all
 // row-major contiguous.  dtype: 0 = float32, 1 = bfloat16; qtype: 0 =
 // int8, 1 = float8_e4m3fn (usp, xcq, vsp); bm: the row block height, 8
-// or 32.  C and R2 must be multiples of 4.  Returns the launch's
+// or 32 (f32 also 4).  C and R2 must be multiples of 4.  Returns the launch's
 // cudaError_t.
 int lrk_branched_matmul_sq(int dtype, int qtype, int bm, const void* x,
                            const void* usp, const void* uidx, const void* us,
@@ -132,7 +137,7 @@ int lrk_branched_matmul_sq(int dtype, int qtype, int bm, const void* x,
                            const void* vidx, const void* vs, void* y, int M,
                            int C, int N, int R1, int R2, int S,
                            void* stream) {
-  if (!lrk::known_bm(bm) || C % 4 != 0 || R2 % 4 != 0)
+  if (!lrk::known_bm(bm, dtype) || C % 4 != 0 || R2 % 4 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;

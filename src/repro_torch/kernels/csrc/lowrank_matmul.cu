@@ -66,30 +66,34 @@ int launch_lowrank(const void* x, const void* w0, const void* w1, void* y,
 
 extern "C" {
 
-// Shared memory one launch needs (bytes) at a row block of bm rows (8 or
-// 32); the wrappers pick bm from it and refuse a rank whose intermediate
-// fits at neither.  dtype: 0 = float32, 1 = bfloat16.
+// Shared memory one launch needs (bytes) at a row block of bm rows (4, 8
+// or 32); the wrappers pick bm from it and refuse a rank whose
+// intermediate fits at none.  dtype: 0 = float32, 1 = bfloat16.
 // The quantized kernel (lowrank_matmul_q.cu) stages its weights in f32
 // like this one, so it needs the same.
 size_t lrk_lowrank_smem(int dtype, int bm, int R) {
   if (dtype == 0)
-    return bm == 8 ? lrk::lowrank_smem<float, 8>(R)
-                   : lrk::lowrank_smem<float, 32>(R);
-  return bm == 8 ? lrk::lowrank_smem<__nv_bfloat16, 8>(R)
-                 : lrk::lowrank_smem<__nv_bfloat16, 32>(R);
+    return bm == 4   ? lrk::lowrank_smem<float, 4>(R)
+           : bm == 8 ? lrk::lowrank_smem<float, 8>(R)
+                     : lrk::lowrank_smem<float, 32>(R);
+  return bm == 4   ? lrk::lowrank_smem<__nv_bfloat16, 4>(R)
+         : bm == 8 ? lrk::lowrank_smem<__nv_bfloat16, 8>(R)
+                   : lrk::lowrank_smem<__nv_bfloat16, 32>(R);
 }
 
 // y (M,S) = (x (M,C) @ w0 (C,R)) @ w1 (R,S), all row-major contiguous,
-// in row blocks of bm rows (8 or 32).  Returns the launch's cudaError_t
-// (0 on success).
+// in row blocks of bm rows (8 or 32; f32 also 4).  Returns the launch's
+// cudaError_t (0 on success).
 int lrk_lowrank_matmul(int dtype, int bm, const void* x, const void* w0,
                        const void* w1, void* y, int M, int C, int R, int S,
                        void* stream) {
-  if (!lrk::known_bm(bm)) return (int)cudaErrorInvalidValue;
+  if (!lrk::known_bm(bm, dtype)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;
   if (dtype == 0)
-    return bm == 8
+    return bm == 4
+               ? lrk::launch_lowrank<float, 4>(x, w0, w1, y, M, C, R, S, s)
+           : bm == 8
                ? lrk::launch_lowrank<float, 8>(x, w0, w1, y, M, C, R, S, s)
                : lrk::launch_lowrank<float, 32>(x, w0, w1, y, M, C, R, S, s);
   if (dtype == 1)

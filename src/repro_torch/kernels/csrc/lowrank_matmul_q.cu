@@ -69,6 +69,11 @@ template <typename T, typename Q>
 int dispatch_bm(int bm, const void* x, const void* w0q, const void* w0s,
                 const void* w1q, const void* w1s, void* y, int M, int C,
                 int R, int S, cudaStream_t s) {
+  if constexpr (std::is_same<T, float>::value) {
+    if (bm == 4)  // f32 only: lrk_common.cuh known_bm
+      return launch_lowrank_q<T, Q, 4>(x, w0q, w0s, w1q, w1s, y, M, C, R, S,
+                                       s);
+  }
   return bm == 8
              ? launch_lowrank_q<T, Q, 8>(x, w0q, w0s, w1q, w1s, y, M, C, R,
                                          S, s)
@@ -102,13 +107,13 @@ extern "C" {
 // y (M,S) = (x (M,C) @ dq(w0q (C,R), w0s (1,R))) @ dq(w1q (R,S), w1s (1,S)),
 // all row-major contiguous.  dtype: 0 = float32, 1 = bfloat16 (x, y);
 // qtype: 0 = int8, 1 = float8_e4m3fn (w0q, w1q); scales f32; bm: the
-// row block height, 8 or 32.
+// row block height, 8 or 32 (f32 also 4).
 // Returns the launch's cudaError_t (0 on success).
 int lrk_lowrank_matmul_q(int dtype, int qtype, int bm, const void* x,
                          const void* w0q, const void* w0s, const void* w1q,
                          const void* w1s, void* y, int M, int C, int R, int S,
                          void* stream) {
-  if (!lrk::known_bm(bm)) return (int)cudaErrorInvalidValue;
+  if (!lrk::known_bm(bm, dtype)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;
   using fp8 = __nv_fp8_e4m3;

@@ -218,7 +218,8 @@ size_t lrk_lowrank_qa_smem(int bm, int R) {
 int lrk_lowrank_matmul_qa(int dtype, int bm, const void* x, const void* w0q,
                           const void* w0s, const void* w1q, const void* w1s,
                           void* y, int M, int C, int R, int S, void* stream) {
-  if (!lrk::known_bm(bm)) return (int)cudaErrorInvalidValue;
+  // the activation-quantized cluster kernels come at 8 and 32 rows only
+  if (bm != 8 && bm != 32) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return qa::dispatch_bm<float>(bm, x, w0q, w0s, w1q, w1s, y, M, C, R, S,

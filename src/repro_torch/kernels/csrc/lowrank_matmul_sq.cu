@@ -91,6 +91,11 @@ int dispatch_bm(int bm, const void* x, const void* w0sp, const void* w0idx,
                 const void* w0s, const void* w1sp, const void* w1idx,
                 const void* w1s, void* y, int M, int C, int R, int S,
                 cudaStream_t s) {
+  if constexpr (std::is_same<T, float>::value) {
+    if (bm == 4)  // f32 only: lrk_common.cuh known_bm
+      return launch_lowrank_sq<T, Q, 4>(x, w0sp, w0idx, w0s, w1sp, w1idx, w1s,
+                                        y, M, C, R, S, s);
+  }
   return bm == 8 ? launch_lowrank_sq<T, Q, 8>(x, w0sp, w0idx, w0s, w1sp,
                                               w1idx, w1s, y, M, C, R, S, s)
                  : launch_lowrank_sq<T, Q, 32>(x, w0sp, w0idx, w0s, w1sp,
@@ -127,14 +132,14 @@ extern "C" {
 // w0idx (2,C/4) int8 in {0..3}, w0s (1,R) f32; w1: w1sp (2,R/4,S),
 // w1idx (2,R/4), w1s (1,S); all row-major contiguous.  dtype: 0 =
 // float32, 1 = bfloat16 (x, y); qtype: 0 = int8, 1 = float8_e4m3fn; bm:
-// the row block height, 8 or 32.  C and R must be multiples of 4.
+// the row block height, 8 or 32 (f32 also 4).  C and R must be multiples of 4.
 // Returns the launch's cudaError_t (0 on success).
 int lrk_lowrank_matmul_sq(int dtype, int qtype, int bm, const void* x,
                           const void* w0sp, const void* w0idx,
                           const void* w0s, const void* w1sp,
                           const void* w1idx, const void* w1s, void* y, int M,
                           int C, int R, int S, void* stream) {
-  if (!lrk::known_bm(bm) || C % 4 != 0 || R % 4 != 0)
+  if (!lrk::known_bm(bm, dtype) || C % 4 != 0 || R % 4 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;

@@ -29,6 +29,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace lrk {
 
 namespace cg = cooperative_groups;
@@ -382,12 +384,18 @@ inline dim3 chain_grid(int M, int S, int BM) {
   return dim3(CLUSTER * (groups > 0 ? groups : 1), row_blocks);
 }
 
-// Row block heights the chain kernels are instantiated for.  The wrapper
-// picks one per launch from the shared memory each would need
-// (kernels/build.py chain_bm): 32 rows where M > 8 and the 32-row
-// intermediates fit, else 8 -- wide ranks (a branched o projection of
-// 4 x 480, an unembed of 4 x 608) fit only at 8 rows.
-inline bool known_bm(int bm) { return bm == 8 || bm == 32; }
+// Row block heights the chain kernels are instantiated for (dtype: 0 =
+// float32, 1 = bfloat16).  The wrapper picks one per launch from the
+// shared memory each would need (kernels/build.py chain_bm): 32 rows
+// where M > 8 and the 32-row intermediates fit, else 8 -- wide ranks (a
+// branched o projection of 4 x 480, an unembed of 4 x 608) fit only at 8
+// rows -- and, for f32 only, 4 where even 8 rows do not fit (a branched
+// chain of 4 x 768 or 4 x 960 needs 233,472 or 282,624 B at 8 rows,
+// 133,120 or 157,696 B at 4).  bf16 chains run the split-phase kernels;
+// their cluster kernels are kept at 8 and 32 rows only.
+inline bool known_bm(int bm, int dtype) {
+  return bm == 8 || bm == 32 || (bm == 4 && dtype == 0);
+}
 
 // Opt a kernel into `smem` bytes of dynamic shared memory and launch it
 // on the chain grid; returns the launch's cudaError_t.

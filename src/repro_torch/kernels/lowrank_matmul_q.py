@@ -166,12 +166,9 @@ def _launch_cluster(x, w0_q, w0_scale, w1_q, w1_scale, y: torch.Tensor,
     """The cluster kernel (8-CTA clusters, CUDA-core FMAs): f32's kernel."""
     m, c, r, s = dims
     lib = build.load()
-    bm, smem = build.chain_bm(
-        m, lambda bm: lib.lrk_lowrank_smem(DTYPES[x.dtype], bm, r))
-    if smem > build.SMEM_LIMIT:
-        raise ValueError(f"lowrank_matmul_q kernel: rank {r} needs {smem} B "
-                         f"of shared memory at {bm} rows (limit "
-                         f"{build.SMEM_LIMIT})")
+    bm, _ = build.chain_fit(
+        m, lambda bm: lib.lrk_lowrank_smem(DTYPES[x.dtype], bm, r),
+        build.chain_heights(x.dtype), f"lowrank_matmul_q kernel at rank {r}")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.lrk_lowrank_matmul_q(

@@ -230,11 +230,9 @@ def cluster_lowrank_matmul_qa(x: torch.Tensor, w0_q: torch.Tensor,
     if m == 0 or s == 0:
         return y
     lib = build.load()
-    bm, smem = build.chain_bm(m, lambda bm: lib.lrk_lowrank_qa_smem(bm, r))
-    if smem > build.SMEM_LIMIT:
-        raise ValueError(f"lowrank_matmul_qa kernel: rank {r} needs {smem} "
-                         f"B of shared memory at {bm} rows (limit "
-                         f"{build.SMEM_LIMIT})")
+    bm, _ = build.chain_fit(m, lambda bm: lib.lrk_lowrank_qa_smem(bm, r),
+                            build.HEIGHTS,
+                            f"lowrank_matmul_qa kernel at rank {r}")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.lrk_lowrank_matmul_qa(

@@ -14,25 +14,31 @@ decomposed.
 from __future__ import annotations
 
 import math
-from typing import Any
+from typing import Any, Callable
 
 import torch
 
 PyTree = Any
 
-# Logical axis names (the reference's names).
-LAYERS = "layers"
-EMBED = "embed"
-FFN = "ffn"
-HEADS = "heads"
-QKV = "qkv"
+# Logical axis names (the reference's names; resolved to mesh axes by
+# parallel/sharding.py).
+LAYERS = "layers"        # stacked-layer leading axis (never sharded)
+BATCH = "batch"
+SEQ = "seq"
+EMBED = "embed"          # d_model
+FFN = "ffn"              # hidden / intermediate
+HEADS = "heads"          # query heads
+KV_HEADS = "kv_heads"
+HEAD_DIM = "head_dim"
+QKV = "qkv"              # flattened heads*head_dim projection output
 VOCAB = "vocab"
 EXPERTS = "experts"
-RANK = "rank"
-BRANCH = "branch"
+RANK = "rank"            # low-rank inner dimension
+BRANCH = "branch"        # branched-LRD branch axis
 CONV = "conv"
 STATE = "state"          # SSM state dim
 INNER = "inner"          # SSM d_inner
+NONE = None
 
 
 class ParamBuilder:
@@ -99,3 +105,28 @@ def linear_flops(p: dict, n_tokens: int) -> float:
     """Forward matmul FLOPs for ``n_tokens`` rows through this op."""
     from repro_torch.layers.plan import build_plan
     return build_plan(p).flops_per_token * n_tokens
+
+
+# ---------------------------------------------------------------------------
+# Activation sharding (the reference's seam; a no-op without a resolver)
+# ---------------------------------------------------------------------------
+
+_ACT_RESOLVER: Callable | None = None
+
+
+def set_activation_resolver(fn: Callable | None) -> None:
+    """``parallel.sharding`` installs a (logical axes, shape) -> sharding
+    resolver."""
+    global _ACT_RESOLVER
+    _ACT_RESOLVER = fn
+
+
+def shard_act(x: torch.Tensor, *logical_axes) -> torch.Tensor:
+    """``x`` as it is.  The reference constrains the activation to the
+    resolver's sharding; the port's steps gather each block's weights at
+    use and keep every activation local and split over the batch axes
+    (``parallel/placement.py``), so the resolved sharding is only
+    checked for the shape."""
+    if _ACT_RESOLVER is not None:
+        _ACT_RESOLVER(logical_axes, tuple(x.shape))
+    return x

@@ -26,6 +26,7 @@ from repro_torch.layers.moe import apply_moe, init_moe
 from repro_torch.layers.norm import (init_layer_norm, init_rms_norm,
                                      layer_norm, rms_norm)
 from repro_torch.layers.param import ParamBuilder
+from repro_torch.parallel.placement import gather_tree
 from repro_torch.tree import tree_map
 
 
@@ -74,6 +75,7 @@ def apply_block(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
     offset in the existing cache); ``act_quantize`` runs every int8
     linear int8 x int8 (prefill segments).  The encoder's attention is
     bidirectional."""
+    p = gather_tree(p)   # a placed layer's leaves, whole (at use)
     _, norm = _norm_fns(cfg)
     causal = not cfg.is_encoder
     h = norm(p["attn_norm"], x, cfg.norm_eps)
@@ -138,6 +140,7 @@ def init_cross_block(pb: ParamBuilder, cfg) -> None:
 def cross_block_kv(p: dict, image_feats: torch.Tensor, cfg, *,
                    act_quantize: bool = False) -> dict:
     """One cross block's image K/V ``{"k", "v"}`` ``(B, T, KH, D)``."""
+    p = gather_tree(p)   # a placed layer's leaves, whole (at use)
     return attn.cross_attn_kv(p["cross_attn"], image_feats,
                               num_kv_heads=cfg.num_kv_heads,
                               head_dim=cfg.resolved_head_dim,
@@ -161,6 +164,7 @@ def apply_cross_block(p: dict, x: torch.Tensor, cfg, *,
                       act_quantize: bool = False) -> torch.Tensor:
     """Pre-norm gated cross attention over the image K/V (``kv``, or
     computed from ``image_feats``), then the MLP."""
+    p = gather_tree(p)   # a placed layer's leaves, whole (at use)
     _, norm = _norm_fns(cfg)
     h = norm(p["norm"], x, cfg.norm_eps)
     x = x + attn.apply_cross_attention(
@@ -187,6 +191,7 @@ def apply_ssm_block(p: dict, x: torch.Tensor, cfg, *,
     """Pre-norm mamba2 layer.  Returns ``(x', state)``: with ``decode``
     one step advances ``state`` in place, else the full-sequence SSD
     writes its final state into ``state`` (when given)."""
+    p = gather_tree(p)   # a placed layer's leaves, whole (at use)
     dims = ssm_mod.dims_from_config(cfg)
     h = rms_norm(p["norm"], x, cfg.norm_eps)
     if decode:

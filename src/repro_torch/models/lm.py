@@ -67,9 +67,13 @@ from repro_torch.layers.param import (EMBED, LAYERS, VOCAB, ParamBuilder,
                                       apply_linear, init_linear)
 from repro_torch.layers.plan import matmul_f32
 from repro_torch.models import blocks as B
+from repro_torch.parallel.placement import gather_outside
 
 PyTree = Any
 CE_CHUNK_SEQ = 512      # logits computed per seq-chunk to bound activation
+#: the layer stacks of a tree: a placed tree's are gathered a layer at a
+#: time by the block functions, every other leaf at the entry points
+STACKS = ("blocks", "cross")
 
 
 def layer_slice(tree: PyTree, i: int) -> PyTree:
@@ -239,6 +243,7 @@ class LMModel:
     def logits(self, params: PyTree, x: torch.Tensor, *,
                act_quantize: bool = False) -> torch.Tensor:
         """f32 logits over the padded vocab; padded columns masked."""
+        params = gather_outside(params, STACKS)
         cfg = self.cfg
         norm = layer_norm if cfg.family == "encoder" else rms_norm
         h = norm(params["final_norm"], x, cfg.norm_eps)
@@ -423,6 +428,7 @@ class LMModel:
         ``batch``: ``tokens`` (B, S), plus the VLM's ``image_embeds``
         (B, T_img, vision_d_model or d_model); the encoder's ``frames``
         (B, S, frontend_dim or d_model)."""
+        params = gather_outside(params, STACKS)
         if opts.freeze_factors:
             from repro_torch.core.freezing import stop_frozen_factors
             params = stop_frozen_factors(params)
@@ -442,6 +448,7 @@ class LMModel:
         last position has no label), or the encoder's cross-entropy
         against ``batch["labels"]`` (B, S) at every position, plus 0.01 x
         the auxiliary loss.  Returns ``(total, {"ce", "aux", "tokens"})``."""
+        params = gather_outside(params, STACKS)
         x, aux = self.forward(params, batch, opts=opts, remat=remat)
         if self.cfg.family == "encoder":
             labels = batch["labels"].long()
@@ -569,6 +576,7 @@ class LMModel:
         last real position (B, 1, V), cache).  ``last_pos`` is the index
         of the final real token of a right-padded prompt; a VLM's
         ``batch`` carries its ``image_embeds``."""
+        params = gather_outside(params, STACKS)
         x = self.embed(params, batch)
         bsz, s = x.shape[:2]
         positions = torch.arange(s, device=x.device)[None, :].expand(bsz, s)
@@ -590,6 +598,7 @@ class LMModel:
         (1, C) holds prompt positions ``[start_pos, start_pos + C)``,
         possibly right-padded; ``prompt_len`` is the chunk's real end.
         Returns logits (1, 1, V) at the last real row of the chunk."""
+        params = gather_outside(params, STACKS)
         x = self.embed(params, batch)
         bsz, c = x.shape[:2]
         positions = (int(start_pos)
@@ -609,6 +618,7 @@ class LMModel:
                     cache_plan=None) -> tuple[torch.Tensor, PyTree]:
         """One token per sequence.  tokens (B, 1); positions (B,).  The
         encoder has none."""
+        params = gather_outside(params, STACKS)
         if self.cfg.family == "encoder":
             raise ValueError("encoder-only model has no decode step")
         x = self.embed(params, {"tokens": tokens})

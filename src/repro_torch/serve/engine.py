@@ -75,6 +75,7 @@ from repro_torch.configs.base import RunConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.layers import plan as lplan
 from repro_torch.models.api import get_model
+from repro_torch.parallel import placement
 from repro_torch.quant.quantize import MODES as QUANT_MODES
 from repro_torch.quant.quantize import quantize_tree
 from repro_torch.quant.sparse import sparsify_tree
@@ -144,7 +145,10 @@ class ServeEngine:
                  batch_share: float = 1.0,
                  device: str | torch.device = "cuda"):
         """``params`` must already live on ``device`` (the card by
-        default; only an explicit ``"cpu"`` serves on the CPU).
+        default; only an explicit ``"cpu"`` serves on the CPU).  A tree
+        placed on a mesh (``parallel/placement.py::place``, already
+        quantized or packed) serves as it is: every rank runs the same
+        engine on its shards, each block gathering its leaves at use.
         ``admission`` is "continuous" (token-budget chunked prefill; the
         default for the dense family) or "blocking" (one whole prefill per
         admit; the default, and the only choice, for the MoE, SSM, hybrid
@@ -193,6 +197,11 @@ class ServeEngine:
                              f"of {QUANT_MODES})")
         if sparsify is None:
             sparsify = run.lrd.sparsify
+        placed = placement.is_placed(params)
+        if placed and (sparsify != "none" or quantize != "none"):
+            raise ValueError("quantize or sparsify a tree before placing "
+                             "it (make_param_shardings resolves the "
+                             "rewritten leaves)")
         if sparsify != "none":
             # before quantize_tree: the pass prunes and packs (in the
             # quantized dtype), and quantize_tree then skips the packed
@@ -217,7 +226,8 @@ class ServeEngine:
                 "act_quantize='int8' needs quantize='int8' — the qa "
                 "kernels run int8 x int8 against fully-int8 factor plans")
         self.params = params
-        self.plans = lplan.build_plan_tree(params)
+        self.plans = lplan.build_plan_tree(
+            placement.meta_view(params) if placed else params)
         self.plan_summary = lplan.tree_summary(self.plans)
         self.slots = slots
         self.max_seq = max_seq

@@ -7,9 +7,9 @@ back into the next step's gradient (error feedback).  Tensors that are
 not 2-D+ or too small to win pass uncompressed.
 
 The reference runs this inside a ``shard_map`` over the ``pod`` mesh
-axis; the port trains on one device, so ``reduce_fn`` is the identity
-there (multi-pod sync comes with ROADMAP item A14).  A ``None``
-gradient leaf (a factor the forward detached) passes through as
+axis; the port's multi-pod step passes the mean over the pod ranks as
+``reduce_fn`` (``train/steps.py``), and without a mesh the identity.  A
+``None`` gradient leaf (a factor the forward detached) passes through as
 ``None`` with its state unchanged.
 """
 from __future__ import annotations

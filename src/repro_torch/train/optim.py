@@ -71,15 +71,19 @@ def global_norm(tree: PyTree) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(grads: PyTree, state: dict, params: PyTree,
-                 cfg: OptimConfig, mask: PyTree | None = None
+                 cfg: OptimConfig, mask: PyTree | None = None,
+                 gnorm: torch.Tensor | None = None
                  ) -> tuple[PyTree, dict, dict]:
     """Returns ``(params, new_state, metrics)``; the parameters and the
-    moments are updated in place."""
+    moments are updated in place.  ``gnorm``: the clip's global norm
+    where the caller has it (shards summed over a mesh), else
+    :func:`global_norm` of ``grads``."""
     if mask is None:
         mask = tree_map(lambda _: True, params)
     step = state["step"] + 1
     lr = lr_schedule(cfg, step)
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = (torch.clamp(cfg.grad_clip / (gnorm + 1e-12), max=1.0)
              if cfg.grad_clip > 0 else 1.0)
     b1, b2 = cfg.b1, cfg.b2

@@ -28,6 +28,14 @@ from repro_torch.layers import cache as tcache
 from repro_torch.layers import plan as tplan
 from repro_torch.quant.quantize import quantize_tree
 from repro_torch.quant.sparse import sparsify_tree
+from _torch_parity import torch_threads
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread: the smoke products are too small to share, and
+    under several test workers the threads only contend."""
+    with torch_threads(1):
+        yield
 
 #: the reference's TPU spec, rebuilt from its fields in the port's class
 TPU = hw.HardwareSpec(**dataclasses.asdict(jhw.TPU_V5E))

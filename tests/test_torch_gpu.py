@@ -454,6 +454,62 @@ def test_branched_kernels_at_deepseek_shapes(cuda, label, m, dtype):
     assert torch.equal(y, bsk.branched_matmul_sq(*args))
 
 
+@pytest.mark.parametrize("m", chip_smoke.VLM_F32_M)
+@pytest.mark.parametrize("label", list(chip_smoke.VLM_F32_SHAPES))
+def test_f32_branched_kernels_at_vlm_ranks(cuda, label, m):
+    """f32 B2 and B4 (int8 factors) at the VLM's per-branch ranks 768 /
+    960, where the cluster chain's 8-row block does not fit shared memory:
+    they launch at 4-row blocks, once a call, within the f32 tolerance of
+    the plain versions, and give the same bits on a second call."""
+    from repro_torch.kernels import branched_matmul as bk
+    from repro_torch.kernels import branched_matmul_q as bqk
+    from repro_torch.kernels import build
+    from repro_torch.kernels import ref
+    n, c, r, s = chip_smoke.VLM_F32_SHAPES[label]
+    lib = build.load()
+    bm, _ = build.chain_bm(m, lambda bm: lib.lrk_branched_smem(0, bm, n, r,
+                                                               r),
+                           build.chain_heights(torch.float32))
+    assert bm == 4
+    dt = torch.float32
+    x = _rnd(cuda, m, c, dtype=dt)
+    u = _rnd(cuda, n, c, r, scale=c ** -0.5, dtype=dt)
+    xc = _rnd(cuda, n, r, r, scale=r ** -0.5, dtype=dt)
+    v = _rnd(cuda, n, r, s, scale=r ** -0.5, dtype=dt)
+    n0 = bk.launches
+    y = bk.branched_matmul(x, u, xc, v)
+    assert bk.launches == n0 + 1
+    assert _norm_err(y, ref.branched_matmul_ref(x, u, xc, v)) \
+        <= chip_smoke.KERNEL_TOL["float32"]
+    assert torch.equal(y, bk.branched_matmul(x, u, xc, v))
+    del u, xc, v
+    args = (x, *_quantized(cuda, n, c, r, mode="int8"),
+            *_quantized(cuda, n, r, r, mode="int8"),
+            *_quantized(cuda, n, r, s, mode="int8"))
+    n0 = bqk.launches
+    y = bqk.branched_matmul_q(*args)
+    assert bqk.launches == n0 + 1
+    assert _norm_err(y, ref.branched_matmul_q_ref(*args)) \
+        <= chip_smoke.KERNEL_TOL["float32"]
+    assert torch.equal(y, bqk.branched_matmul_q(*args))
+
+
+def test_f32_branched_kernel_refuses_past_the_4_row_block(cuda):
+    """Ranks whose 4-row block does not fit either raise, naming the
+    shapes, with nothing launched."""
+    from repro_torch.kernels import branched_matmul as bk
+    dt = torch.float32
+    n, c, r, s = 4, 256, 1600, 256
+    x = _rnd(cuda, 8, c, dtype=dt)
+    u = _rnd(cuda, n, c, r, dtype=dt)
+    xc = _rnd(cuda, n, r, r, dtype=dt)
+    v = _rnd(cuda, n, r, s, dtype=dt)
+    n0 = bk.launches
+    with pytest.raises(ValueError, match=r"ranks \(1600, 1600\).*4 rows"):
+        bk.branched_matmul(x, u, xc, v)
+    assert bk.launches == n0
+
+
 @pytest.mark.parametrize("kv_quantize", ["none", "int8"])
 def test_mla_serve_path_launches_kernels_and_matches_cpu(cuda, kv_quantize):
     """DeepSeek-V2's smoke MLA stack (f32, no experts, branched) served on

@@ -64,7 +64,11 @@ def test_port_has_the_slice_modules():
               "repro_torch.layers.conv", "repro_torch.models.resnet",
               "repro_torch.configs.resnet",
               "repro_torch.configs.llama_3_2_vision_90b",
-              "repro_torch.configs.hubert_xlarge"):
+              "repro_torch.configs.hubert_xlarge",
+              "repro_torch.configs.registry", "repro_torch.launch.train",
+              "repro_torch.launch.serve", "repro_torch.launch.mesh",
+              "repro_torch.parallel", "repro_torch.parallel.sharding",
+              "repro_torch.parallel.placement"):
         assert m in mods, m
 
 

@@ -18,6 +18,14 @@ from repro_torch.layers.mlp import apply_mlp
 from repro_torch.layers.norm import rms_norm
 from repro_torch.layers.param import apply_linear
 from repro_torch.layers.plan import build_plan
+from _torch_parity import torch_threads
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread: the smoke products are too small to share, and
+    under several test workers the threads only contend."""
+    with torch_threads(1):
+        yield
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

@@ -20,6 +20,14 @@ from repro_torch.core import freezing
 from repro_torch.core import merging
 from repro_torch.layers.param import ParamBuilder
 from repro_torch.models.blocks import apply_block, init_block
+from _torch_parity import torch_threads
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread: the smoke products are too small to share, and
+    under several test workers the threads only contend."""
+    with torch_threads(1):
+        yield
 
 
 def _rnd(seed, *shape, scale=1.0):

@@ -38,6 +38,14 @@ from repro_torch.layers import cache as tcache
 from repro_torch.models.api import get_model
 from repro_torch.models.blocks import block_cache_spec
 from repro_torch.quant import kv as tkv
+from _torch_parity import torch_threads
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread: the smoke products are too small to share, and
+    under several test workers the threads only contend."""
+    with torch_threads(1):
+        yield
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -374,6 +382,38 @@ def test_chain_bm_picks_8_rows_where_32_do_not_fit(shape, itemsize, m,
     assert smem == smem_at(bm) <= build.SMEM_LIMIT
     if m > 8 and bm == 8:
         assert smem_at(32) > build.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("shape,r,m", [
+    ("vlm gate,up / down", 768, 8), ("vlm gate,up / down", 768, 128),
+    ("vlm unembed", 960, 8), ("vlm unembed", 960, 128),
+])
+def test_chain_bm_picks_4_rows_at_the_vlm_f32_ranks(shape, r, m):
+    """f32 chains at the VLM's per-branch ranks fit neither 32 nor 8
+    rows (233,472 / 282,624 B at 8) and launch at 4 (133,120 / 157,696
+    B); bf16's cluster heights stop at 8."""
+    smem_at = _branched_smem(4, 4, r)
+    assert smem_at(8) > build.SMEM_LIMIT
+    bm, smem = build.chain_bm(m, smem_at, build.chain_heights(torch.float32))
+    assert (bm, smem) == (4, {768: 133_120, 960: 157_696}[r])
+    assert build.chain_fit(m, smem_at, build.F32_HEIGHTS, shape) == (bm,
+                                                                     smem)
+    assert build.chain_heights(torch.bfloat16) == build.HEIGHTS == (32, 8)
+
+
+def test_chain_fit_raises_past_the_4_row_block():
+    """Where even 4 rows do not fit, the f32 choice reports the 4-row
+    bytes and the gate raises naming the kernel and its ranks."""
+    smem_at = _branched_smem(4, 4, 1600)
+    assert smem_at(4) > build.SMEM_LIMIT
+    assert build.chain_bm(64, smem_at, build.F32_HEIGHTS) == (4, smem_at(4))
+    with pytest.raises(ValueError, match=r"ranks \(1600, 1600\) needs "
+                       r"\d+ B of shared memory at 4 rows"):
+        build.chain_fit(64, smem_at, build.F32_HEIGHTS,
+                        "branched_matmul kernel at 4 branches of ranks "
+                        "(1600, 1600)")
+    with pytest.raises(ValueError, match="at 8 rows"):
+        build.chain_fit(64, smem_at, build.HEIGHTS, "bf16 cluster kernel")
 
 
 def test_chain_bm_reports_an_8_row_launch_that_does_not_fit():

@@ -10,6 +10,14 @@ from _torch_parity import jax_cfg, jax_tree, torch_cfg, torch_tree
 from repro.models.api import get_model as jget_model
 from repro_torch.layers.plan import build_plan_tree, plan_leaves
 from repro_torch.models.api import get_model
+from _torch_parity import torch_threads
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread: the smoke products are too small to share, and
+    under several test workers the threads only contend."""
+    with torch_threads(1):
+        yield
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 TREES = ["dense", "svd", "branched"]

@@ -42,6 +42,14 @@ from repro_torch.models.api import get_model
 from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.serve.paging import BlockPool, PoolExhausted, RadixPrefixCache
 from repro_torch.serve.pool import KVPoolManager, PagedKVPoolManager
+from _torch_parity import torch_threads
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread: the smoke products are too small to share, and
+    under several test workers the threads only contend."""
+    with torch_threads(1):
+        yield
 
 BS = 16
 # prompts of the reference's paging tests: ROBUST keeps int8 noise below

@@ -27,6 +27,14 @@ from repro_torch.kernels import ref
 from repro_torch.layers import attention as tattn
 from repro_torch.layers import cache as tcache
 from repro_torch.quant import kv as tkv
+from _torch_parity import torch_threads
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread: the smoke products are too small to share, and
+    under several test workers the threads only contend."""
+    with torch_threads(1):
+        yield
 
 TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}

@@ -35,6 +35,14 @@ from repro_torch.core import rank_selection as rs
 from repro_torch.core import svd as tsvd
 from repro_torch.core.surgery import decompose_model
 from repro_torch.models.api import get_model
+from _torch_parity import torch_threads
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread: the smoke products are too small to share, and
+    under several test workers the threads only contend."""
+    with torch_threads(1):
+        yield
 
 TPU = hw.HardwareSpec(**dataclasses.asdict(jhw.TPU_V5E))
 #: the port's H100 in the reference's class (it has no f32 rate and no

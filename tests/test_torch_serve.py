@@ -16,6 +16,14 @@ from repro_torch.configs.base import RunConfig
 from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.serve.guard import sample_and_flag
 from repro_torch.serve.scheduler import Scheduler
+from _torch_parity import torch_threads
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread: the smoke products are too small to share, and
+    under several test workers the threads only contend."""
+    with torch_threads(1):
+        yield
 
 N_NEW = 6
 KW = dict(slots=4, max_seq=64, prefill_chunk=8)

@@ -21,6 +21,14 @@ from repro.serve.engine import Request as JRequest
 from repro.serve.engine import ServeEngine as JEngine
 from repro_torch.configs.base import LRDConfig, RunConfig
 from repro_torch.serve.engine import Request, ServeEngine
+from _torch_parity import torch_threads
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread: the smoke products are too small to share, and
+    under several test workers the threads only contend."""
+    with torch_threads(1):
+        yield
 
 SHARED = [(i * 5 + 2) % 60 + 1 for i in range(33)]     # 2 full blocks
 ROBUST = [(i * 7 + 14) % 50 + 1 for i in range(21)]

@@ -14,6 +14,14 @@ from repro.serve.engine import Request as JRequest
 from repro.serve.engine import ServeEngine as JEngine
 from repro_torch.configs.base import RunConfig
 from repro_torch.serve.engine import Request, ServeEngine
+from _torch_parity import torch_threads
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread: the smoke products are too small to share, and
+    under several test workers the threads only contend."""
+    with torch_threads(1):
+        yield
 
 N_NEW = 6
 KW = dict(slots=4, max_seq=64, prefill_chunk=8, kv_quantize="int8")

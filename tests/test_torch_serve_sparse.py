@@ -35,6 +35,14 @@ from repro_torch.configs.base import LRDConfig, RunConfig
 from repro_torch.quant.quantize import quantize_tree
 from repro_torch.quant.sparse import sparsify_tree
 from repro_torch.serve.engine import Request, ServeEngine
+from _torch_parity import torch_threads
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread: the smoke products are too small to share, and
+    under several test workers the threads only contend."""
+    with torch_threads(1):
+        yield
 
 N_NEW = 5
 SHARED = [(i * 5 + 2) % 60 + 1 for i in range(33)]     # 2 full blocks of 16

@@ -22,6 +22,14 @@ from repro_torch.configs.base import LRDConfig
 from repro_torch.core.surgery import sparsify_model
 from repro_torch.quant import quantize as tq
 from repro_torch.quant import sparse as tsp
+from _torch_parity import torch_threads
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread: the smoke products are too small to share, and
+    under several test workers the threads only contend."""
+    with torch_threads(1):
+        yield
 
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}

@@ -22,6 +22,14 @@ from repro.quant import quantize as jq
 from repro.quant import sparse as jsp
 from repro_torch import bridge
 from repro_torch.kernels import ops, ref
+from _torch_parity import torch_threads
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread: the smoke products are too small to share, and
+    under several test workers the threads only contend."""
+    with torch_threads(1):
+        yield
 
 TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}

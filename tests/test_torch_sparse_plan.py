@@ -19,6 +19,14 @@ from repro_torch.layers import plan as tplan
 from repro_torch.layers.param import apply_linear
 from repro_torch.quant import quantize as tq
 from repro_torch.quant import sparse as tsp
+from _torch_parity import torch_threads
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread: the smoke products are too small to share, and
+    under several test workers the threads only contend."""
+    with torch_threads(1):
+        yield
 
 MODES = ("int8", "fp8", "none")
 

@@ -16,6 +16,14 @@ from repro_torch.core import rank_selection as rs
 from repro_torch.core import svd as tsvd
 from repro_torch.core.surgery import decompose_model
 from repro_torch.models.lm import LMModel
+from _torch_parity import torch_threads
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread: the smoke products are too small to share, and
+    under several test workers the threads only contend."""
+    with torch_threads(1):
+        yield
 
 CASES = [
     dict(rank_mode="aligned", rank_align=32, min_dim=48, branches=1),

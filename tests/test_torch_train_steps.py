@@ -37,6 +37,7 @@ from repro_torch.train import compression as comp
 from repro_torch.train import optim
 from repro_torch.train import steps
 from repro_torch.train.data import ByteTextLM, DataState, SyntheticLM
+from repro_torch.tree import paths
 from test_torch_train import _fresh, _norm_err, jax_params
 
 OCFG = dict(peak_lr=1e-2, warmup_steps=2, total_steps=10)
@@ -207,16 +208,57 @@ def test_frozen_leaves_get_no_moments_and_stay():
     assert float(up["xc"].abs().max()) > 0
 
 
-def test_mesh_refused():
-    """A mesh raises (A14).  The sharding fields are inert without one, as
-    the reference's are: a train step with llama's registered
-    ``parallel("train")`` (seq_shard, remat "full") equals one with
-    remat "full" and the other fields at their defaults, bit for bit."""
+def test_one_rank_mesh_step_equals_the_step_without_a_mesh(tmp_path):
+    """Two train steps on a one-rank (1, 1, 1) ("pod", "data", "model")
+    mesh (a gloo group through a FileStore), with FSDP, the vocab
+    sharded, multi-pod and PowerSGD at rank 2, equal the steps without a
+    mesh bit for bit: one rank changes no arithmetic.  Without a mesh the
+    sharding fields are inert, as the reference's are: a train step with
+    llama's registered ``parallel("train")`` (seq_shard, remat "full")
+    equals one with remat "full" and the other fields at their defaults,
+    bit for bit."""
+    import torch.distributed as dist
+    from _torch_parity import port_tree_with_axes
     from repro_torch.configs import registry
-    _, trun = _runs("branched", True, 1, 0)
-    with pytest.raises(NotImplementedError, match="A14"):
-        steps.make_train_step(get_model(trun.model, "cpu"), trun,
-                              optim.OptimConfig(), mesh=object())
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import placement
+    from repro_torch.parallel.sharding import make_param_shardings
+    _, trun = _runs("branched", True, 1, 2)
+    trun = dataclasses.replace(trun, parallel=dataclasses.replace(
+        trun.parallel, fsdp=True, shard_vocab=True, multi_pod=True))
+    data = ByteTextLM(trun.model, batch=2, seq_len=16)
+    tm = get_model(trun.model, "cpu")
+    ocfg = optim.OptimConfig(**OCFG)
+    assert not dist.is_initialized()
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        runs = []
+        for mesh in (None, make_mesh((1, 1, 1), ("pod", "data", "model"))):
+            tp = freezing.set_requires_grad(_fresh("branched"), freeze=True)
+            if mesh is not None:
+                tp = placement.place(tp, make_param_shardings(
+                    mesh, tp, port_tree_with_axes("branched")[1],
+                    trun.parallel))
+                # a leaf gathered at use is whole and contiguous, as the
+                # card's kernels take their operands
+                for _, p in paths(tp):
+                    g = placement.gather(p)
+                    assert g.shape == p.shape and g.is_contiguous()
+            state = steps.init_opt_state(tm, trun, tp, ocfg)
+            step = steps.make_train_step(tm, trun, ocfg, mesh)
+            losses = []
+            for i in range(2):
+                tp, state, met = step(tp, state, {"tokens": torch.from_numpy(
+                    data.batch(i)["tokens"])})
+                losses.append(float(met["loss"]))
+            runs.append((losses, flat(placement.whole(tp) if mesh else tp)))
+    finally:
+        dist.destroy_process_group()
+    (l0, p0), (l1, p1) = runs
+    assert l0 == l1
+    assert p0.keys() == p1.keys()
+    assert all(torch.equal(p0[k], p1[k]) for k in p0)
     registered = registry.get("llama3.2-1b").parallel("train")
     assert registered != ParallelConfig(remat="full")
     data = ByteTextLM(trun.model, batch=2, seq_len=16)

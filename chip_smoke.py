@@ -24,9 +24,11 @@ Phases (each prints its own seconds; any failure exits non-zero):
              chains (int8 and fp8 packs, some groups keeping their top
              rows) at the k/v SVD shape and every branched shape; times
              the kernel, the plain version and one library call as
-             yardstick (CUDA events), beside the bound (bytes at 3.35
-             TB/s, operations at 989 TFLOP/s bf16 / 67 TFLOP/s f32 /
-             1,979 TOP/s int8: ``repro_torch.analysis.hw_specs.H100``).
+             yardstick (CUDA events), beside the bound (the bytes and
+             operations of ``analysis/roofline.py::kernel_cost``; bytes
+             at 3.35 TB/s, operations at 989 TFLOP/s bf16 / 67 TFLOP/s
+             f32 / 1,979 TOP/s int8: ``repro_torch.analysis.hw_specs.
+             H100``).
              The branched chain rows (bf16, quantized and 2:4: B2, B4,
              B12) also time the kernel and
              the library call with a cold L2 (``cold_ms``,
@@ -429,6 +431,26 @@ the bound and the cuBLAS chain).
              mesh code path and the kernels under it; collectives across
              ranks are held on the CPU (gloo tests).
 
+- roofline — (after mesh) the whole-step count of
+             ``analysis/roofline.py``: the full-width branches=4 llama
+             tree (bf16, slot pool) serves 8 greedy requests of one
+             64-token prefill chunk each, with a ``StepCounter`` around
+             the first prefill chunk and the first decode step of all 8
+             slots, and again without: token-identical streams, exact
+             B1 / B2 launches (as many as the counter charged), and each
+             counted call replayed on the CPU (fake tensors, the plain
+             path) to the same FLOPs and bytes; the call timed without
+             the counter (20 runs, CUDA events): the bound (the larger
+             of the compute and memory terms) over the median, counted
+             over model FLOPs.
+
+- dryrun — ``python -m repro_torch.launch.dryrun --arch llama3.2-1b``
+             for decode_32k and train_4k, single- and multi-pod, four
+             child processes side by side (fake process groups of 256 /
+             512 ranks, fake CPU tensors): each ``status: "ok"`` with
+             CUDA never initialised; each cell's bottleneck,
+             useful-FLOPs ratio, collective bytes and peak bytes.
+
 Only on request (``--phases ...,profile``): torch.profiler over steady
 decode steps of the branches=4 model, plain, int8 and 2:4-packed int8 —
 device time by operator and the device's idle share; ``profile_qa`` the
@@ -470,8 +492,8 @@ PHASES = ("device", "build", "kernels", "search", "serve", "check",
           "train_zamba2", "infer_resnet", "check_resnet", "train_resnet",
           "check_train_resnet", "serve_vlm", "check_vlm", "serve_vlm_q",
           "check_vlm_q", "check_train_vlm", "train_vlm", "infer_hubert",
-          "check_hubert", "train", "check_train", "mesh",
-          "check_train_hubert", "train_hubert", "launch")
+          "check_hubert", "train", "check_train", "mesh", "roofline",
+          "dryrun", "check_train_hubert", "train_hubert", "launch")
 #: the phases that search, serve or check the llama3.2-1b trees, the MLA
 #: ones, the other configs' (CONFIG_RUNS) and the training ones
 LLAMA_PHASES = ("search", "serve", "check", "serve_search", "check_search",
@@ -1186,7 +1208,6 @@ def check_kernels(card: str, only: frozenset = frozenset(KERNELS)
     branched = {"branched_matmul", "branched_matmul_q", "branched_matmul_sq"}
     for dname in ("bfloat16", "float32"):
         dt = getattr(torch, dname)
-        xb = dt.itemsize
         for label, (c, r, s) in LOWRANK_SHAPES.items():
             if not only & lowrank:
                 break
@@ -1213,9 +1234,7 @@ def check_kernels(card: str, only: frozenset = frozenset(KERNELS)
                                          flush, plans),
                         plain_ms=time_ms(
                             lambda: ref.lowrank_matmul_q_ref(*args)),
-                        **_bound(xb * (m * c + m * s) + c * r + r * s
-                                 + 4 * (r + s), 2 * m * (c * r + r * s),
-                                 dname)))
+                        **_cost_bound("lowrank_matmul_q", args, dname)))
                     if label in SPARSE_LOWRANK:
                         add("lowrank_matmul_sq", lambda: _check_sq(
                             label, x, [spack(c, r, mode=mode),
@@ -1377,8 +1396,7 @@ def check_kernels(card: str, only: frozenset = frozenset(KERNELS)
                                  lambda: (x @ w0d) @ w1d, "float32", flush,
                                  False),
                 plain_ms=time_ms(lambda: ref.lowrank_matmul_q_ref(*args)),
-                **_bound(4 * (m * c + m * s) + c * r + r * s + 4 * (r + s),
-                         2 * m * (c * r + r * s), "float32")))
+                **_cost_bound("lowrank_matmul_q", args, "float32")))
     failures = []
     for name, rs in rows.items():
         for row in rs:
@@ -1481,9 +1499,7 @@ def _branched_row(label: str, x, u, xc, v, dname: str, flush) -> dict:
             lambda: torch.bmm(torch.bmm(torch.bmm(xb3, u), xc), v).sum(0),
             flush, dname),
         plain_ms=time_ms(lambda: ref.branched_matmul_ref(x, u, xc, v)),
-        **_bound(x.dtype.itemsize * (m * c + n * (c * r + r * r + r * s)
-                                     + m * s),
-                 2 * m * n * (c * r + r * r + r * s), dname))
+        **_cost_bound("branched_matmul", (x, u, xc, v), dname))
 
 
 def _check_branched(add, label: str, shape: tuple, m: int, dname: str, rnd,
@@ -1498,7 +1514,6 @@ def _check_branched(add, label: str, shape: tuple, m: int, dname: str, rnd,
     bqk = kernel_module("branched_matmul_q")
     n, c, r, s = shape
     dt = getattr(torch, dname)
-    xb = dt.itemsize
     x = rnd(m, c, dtype=dt)
     u = rnd(n, c, r, scale=c ** -0.5, dtype=dt)
     xc = rnd(n, r, r, scale=r ** -0.5, dtype=dt)
@@ -1506,7 +1521,6 @@ def _check_branched(add, label: str, shape: tuple, m: int, dname: str, rnd,
     add("branched_matmul", lambda: _branched_row(label, x, u, xc, v, dname,
                                                  flush))
     xb3 = x.expand(n, m, c)
-    flops = 2 * m * n * (c * r + r * r + r * s)
     del u, xc, v
     for mode in qmodes:
         if not only & {"branched_matmul_q", "branched_matmul_sq"}:
@@ -1528,8 +1542,7 @@ def _check_branched(add, label: str, shape: tuple, m: int, dname: str, rnd,
                 lambda: torch.bmm(torch.bmm(torch.bmm(xb3, ud), xcd),
                                   vd).sum(0), flush, dname),
             plain_ms=time_ms(lambda: ref.branched_matmul_q_ref(*args)),
-            **_bound(xb * (m * c + m * s) + n * (c * r + r * r + r * s)
-                     + 4 * n * (2 * r + s), flops, dname)))
+            **_cost_bound("branched_matmul_q", args, dname)))
         del ud, xcd, vd
         add("branched_matmul_sq", lambda: _check_sq(
             label, x, [spack(n, c, r, mode=mode), qs[1],
@@ -1571,7 +1584,6 @@ def _check_sq(label: str, x, factors: list, dname: str,
         times = _lowrank_times(name, args, y, lambda: (x @ w0d) @ w1d,
                                dname, flush,
                                label in SPARSE_LOWRANK and m == 8)
-        kept = c * r // 2 + r * s // 2
         dims = dict(C=c, R=r, S=s)
     else:
         n, r, s = dense[1].shape
@@ -1584,18 +1596,14 @@ def _check_sq(label: str, x, factors: list, dname: str,
             lambda: mod.branched_matmul_sq_phase_us(*args),
             lambda: torch.bmm(torch.bmm(torch.bmm(xb3, ud), xcd),
                               vd).sum(0), flush, dname)
-        kept = n * (c * r // 2 + r * r + r * s // 2)
         dims = dict(N=n, C=c, r=r, S=s)
     del dense
-    nbytes = (dt.itemsize * m * (c + s) + kept
-              + sum(f[1].numel() for f in packs)
-              + 4 * sum(f[-1].numel() for f in factors))
     top = int((packs[0][1][..., 0, :, 0] == 2).sum().item())
     return dict(shape=label, dtype=dname, qmode=qmode, M=m, **dims,
                 top_groups=top, **_compare(y, want, dname), **times,
                 plain_ms=time_ms(lambda: plain(*args)),
                 library="cuBLAS chain on factors expanded beforehand",
-                **_bound(nbytes, 2 * m * kept, dname))
+                **_cost_bound(name, args, dname))
 
 
 def _lowrank_row(label: str, x, shape: tuple, dname: str, rnd, flush,
@@ -1617,8 +1625,7 @@ def _lowrank_row(label: str, x, shape: tuple, dname: str, rnd, flush,
         **_lowrank_times("lowrank_matmul", (x, w0, w1), y,
                          lambda: (x @ w0) @ w1, dname, flush, plans),
         plain_ms=time_ms(lambda: ref.lowrank_matmul_ref(x, w0, w1)),
-        **_bound(dt.itemsize * (m * c + c * r + r * s + m * s),
-                 2 * m * (c * r + r * s), dname))
+        **_cost_bound("lowrank_matmul", (x, w0, w1), dname))
 
 
 def _lowrank_q_row(label: str, x, shape: tuple, dname: str, qrnd, flush,
@@ -1645,8 +1652,7 @@ def _lowrank_q_row(label: str, x, shape: tuple, dname: str, qrnd, flush,
         **_lowrank_times("lowrank_matmul_q", args, y,
                          lambda: (x @ w0d) @ w1d, dname, flush, False),
         plain_ms=time_ms(lambda: ref.lowrank_matmul_q_ref(*args)),
-        **_bound(dt.itemsize * (m * c + m * s) + c * r + r * s
-                 + 4 * (r + s), 2 * m * (c * r + r * s), dname))
+        **_cost_bound("lowrank_matmul_q", args, dname))
 
 
 def _lowrank_times(name: str, args: tuple, y, library, dname: str, flush,
@@ -1727,7 +1733,6 @@ def _train_row(name: str, label: str, args: tuple, rnd, flush) -> dict:
         fwd, bwd = kgrad.LowrankMatmul, kgrad.lowrank_matmul_bwd
         names, frozen = ("x", "w0", "w1"), (True, False, True)
         dims = dict(C=c, R=r, S=s)
-        kept = c * r + r * s
     else:
         _, u, xc, v = args
         n, _, r = u.shape
@@ -1738,7 +1743,6 @@ def _train_row(name: str, label: str, args: tuple, rnd, flush) -> dict:
         fwd, bwd = kgrad.BranchedMatmul, kgrad.branched_matmul_bwd
         names, frozen = ("x", "u", "xc", "v"), (True, False, True, False)
         dims = dict(N=n, C=c, r=r, S=s)
-        kept = n * (c * r + r * r + r * s)
     g = rnd(m, s, dtype=x.dtype)
     ins = [a.detach().clone().requires_grad_(True) for a in args]
     got = torch.autograd.grad(fwd.apply(*ins), ins, g)
@@ -1757,8 +1761,7 @@ def _train_row(name: str, label: str, args: tuple, rnd, flush) -> dict:
                 bwd_frozen_ms=time_ms(lambda: bwd(g, *args, needs=frozen),
                                       ahead=True),
                 plain_ms=time_ms(lambda: plain(*args)),
-                **_bound(2 * (m * c + kept + m * s), 2 * m * kept,
-                         "bfloat16"))
+                **_cost_bound(name, args, "bfloat16"))
 
 
 def latent_inputs(case: dict, dname: str, rnd) -> tuple:
@@ -1854,9 +1857,6 @@ def _check_latent(label: str, case: dict, dname: str, rnd, flush) -> dict:
     vd = ckv[:, None].expand(b, h, s, lora)
     mask = (torch.arange(s, device="cuda")[None, :]
             <= pos[:, None].long())[:, None, None, :]
-    live = sum(s if cp < 0 else min(s, cp + 1) for cp in pos.tolist())
-    nbytes = (q_lat.numel() + q_rope.numel() + y.numel()) * dt.itemsize \
-        + live * (lora + rope) + 4 * b * (lora + rope) + 4 * b
     plan = dlk.latent_split(b, h, s, lora, rope,
                             torch.cuda.get_device_properties(0)
                             .multi_processor_count)
@@ -1878,7 +1878,7 @@ def _check_latent(label: str, case: dict, dname: str, rnd, flush) -> dict:
                 plain_ms=time_ms(lambda: ref.decode_attention_latent_q_ref(
                     *args, scale=scale)),
                 library="sdpa on dequantized latents",
-                **_bound(nbytes, 2 * h * (2 * lora + rope) * live, dname))
+                **_cost_bound("decode_attention_latent_q", args, dname))
 
 
 def _check_attention(label: str, case: dict, dname: str, rnd,
@@ -1905,7 +1905,11 @@ def _check_attention(label: str, case: dict, dname: str, rnd,
     q = rnd(b, kh, g_, d, dtype=dt)
     k_q, k_s = quantize_kv_prefill(rnd(b, s, kh, d))
     v_q, v_s = quantize_kv_prefill(rnd(b, s, kh, d))
-    pos = torch.randint(s // 2, s, (b,), device="cuda", dtype=torch.int32)
+    # the positions from a seeded generator: a row's bound (its live
+    # positions) is the same in every run
+    pos = torch.randint(s // 2, s, (b,), device="cuda", dtype=torch.int32,
+                        generator=torch.Generator(device="cuda")
+                        .manual_seed(b * s + kh * d))
     pos[b - case["idle"]:] = -1
     pos[0] = s - 1
     args = (q, k_q, k_s, v_q, v_s, pos)
@@ -1922,9 +1926,6 @@ def _check_attention(label: str, case: dict, dname: str, rnd,
     qd = q.reshape(b, kh * g_, 1, d)
     mask = (torch.arange(s, device="cuda")[None, :]
             <= pos[:, None].long())[:, None, None, :]
-    live = sum(s if cp < 0 else min(s, cp + 1) for cp in pos.tolist())
-    nbytes = (2 * live * kh * d + 2 * 4 * b * kh * d
-              + 2 * q.numel() * dt.itemsize + 4 * b)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     planned = dak.slot_split(b, kh, s, sms, g=g_, d=d).splits
     times = {}
@@ -1943,7 +1944,7 @@ def _check_attention(label: str, case: dict, dname: str, rnd,
                         qd, kd, vd, attn_mask=mask), flush),
                 plain_ms=time_ms(lambda: ref.decode_attention_q_ref(
                     q4, *args[1:], **kw)),
-                **_bound(nbytes, 4 * kh * g_ * d * live, dname))
+                **_cost_bound("decode_attention_q", args, dname))
 
 
 def _int_mm_chain(args: tuple):
@@ -2040,9 +2041,7 @@ def _check_qa(label: str, m: int, dname: str, rnd, factors: list,
     return dict(shape=label, dtype=dname, M=m, **dims,
                 **_compare(y, want, dname), differing=differing(want),
                 **times, plain_ms=time_ms(lambda: plain(*args)),
-                **_bound(x.element_size() * m * (c + s)
-                         + n * sum(k * o + 4 * o for k, o in chain),
-                         2 * m * n * sum(k * o for k, o in chain), "int8"))
+                **_cost_bound(name, args, "int8"))
 
 
 def paged_inputs(case: dict, dname: str, quant: bool, g) -> tuple:
@@ -2119,15 +2118,6 @@ def _check_paged(label: str, case: dict, dname: str, quant: bool,
     qd = q.reshape(b, kh * gg, 1, d)
     mask = (torch.arange(nblk * bs, device="cuda")[None, :]
             <= pos[:, None].long())[:, None, None, :]
-    walked, live = set(), 0
-    for i, cp in enumerate(pos.tolist()):
-        walk = nblk if cp < 0 else min(nblk, cp // bs + 1)
-        walked.update(tables[i, :walk].tolist())
-        live += walk
-    block_bytes = 2 * bs * kh * d * (1 if quant else dt.itemsize) \
-        + (2 * kh * d * 4 if quant else 0)
-    nbytes = (len(walked) * block_bytes + 4 * live + 4 * b
-              + 2 * q.numel() * dt.itemsize)
     library = (lambda: F.scaled_dot_product_attention(
         qd, heads[0], heads[1], attn_mask=mask))
     dpk = kernel_module(name)
@@ -2153,7 +2143,7 @@ def _check_paged(label: str, case: dict, dname: str, quant: bool,
                 nblk=nblk, softcap=case["softcap"], idle=case["idle"],
                 **_compare(y, want, dname), **times,
                 plain_ms=time_ms(lambda: plain(*args, **kw)),
-                **_bound(nbytes, 4 * gg * d * kh * bs * live, dname))
+                **_cost_bound(name, args, dname))
 
 
 def _compare(y, want, dname: str) -> dict:
@@ -2169,6 +2159,16 @@ def _bound(nbytes: int, flops: int, peak: str) -> dict:
     t, by = bound_ms(nbytes, flops, peak)
     return {"bound_ms": t, "bound_by": by, "flops": flops, "bytes": nbytes,
             "peak": peak}
+
+
+def _cost_bound(name: str, args: tuple, peak: str) -> dict:
+    """:func:`_bound` of one call of kernel ``name`` on ``args`` (its
+    entry point's argument order): the bytes and operations of
+    ``analysis/roofline.py::kernel_cost``, the attentions' at the
+    positions this run's ``cache_pos`` (and block tables) reach."""
+    from repro_torch.analysis.roofline import kernel_cost_of
+    flops, nbytes = kernel_cost_of(name, args)
+    return _bound(nbytes, flops, peak)
 
 
 def _kernel_entries(rows: dict[str, list[dict]]) -> list[dict]:
@@ -3151,6 +3151,21 @@ def to_cpu_f32(tree):
     return _tree_to(tree, "cpu", torch.float32)
 
 
+def cpu_reference(tree):
+    """:func:`to_cpu_f32` with every int8 / fp8 and 2:4-packed factor
+    restored once to a plain f32 factor (``expand_sparse``, ``(q.f32 *
+    scale)``): the values the plain versions of the _q / _sq chains
+    rebuild at every call, so the CPU's f32 logits are the same bits at
+    the cost of the plain chains (check_vlm's CPU tree is made so too).
+    Not for an activation-quantized run, whose chains need the int8
+    factors."""
+    import torch
+    from repro_torch.quant.quantize import dequantize_tree
+    from repro_torch.quant.sparse import desparsify_tree
+    return dequantize_tree(desparsify_tree(to_cpu_f32(tree), torch.float32),
+                           torch.float32)
+
+
 def _greedy_gap(step: int, lg, lc) -> dict[str, float]:
     """``{}`` where the card's greedy token at ``step`` (logits ``lg``) is
     the CPU's (``lc``); else ``{step: gap}``, how far below its own pick
@@ -3164,8 +3179,9 @@ def cross_check_q(cfg, params_q, card: str, seed: int, n_tok: int = 64,
                   steps: int = 16) -> dict:
     """Prefill and ``steps`` greedy decode steps over an int8 KV pool:
     the card (quantized kernels, bf16) against the same quantized tree in
-    f32 on the CPU (plain versions).  Both are fed the CPU's greedy
-    tokens, so every step compares logits of the same context."""
+    f32 on the CPU (its factors dequantized once, :func:`cpu_reference`;
+    plain versions).  Both are fed the CPU's greedy tokens, so every step
+    compares logits of the same context."""
     import dataclasses
     import numpy as np
     import torch
@@ -3175,7 +3191,7 @@ def cross_check_q(cfg, params_q, card: str, seed: int, n_tok: int = 64,
                            dtype=torch.long)
     m_gpu = get_model(cfg, "cuda")
     m_cpu = get_model(dataclasses.replace(cfg, dtype="float32"), "cpu")
-    p_cpu = to_cpu_f32(params_q)
+    p_cpu = cpu_reference(params_q)
     plans = (m_gpu.cache_plan("int8"), m_cpu.cache_plan("int8"))
     dak = kernel_module("decode_attention_q")
     rels, gaps = [], {}
@@ -3227,7 +3243,9 @@ def cross_check_staged(cfg, params, card: str, seed: int, *, label: str,
     inserted into the pool (quantized for an int8 pool; into the
     stream's blocks for a ``paged`` one), decode over the pool -- on the
     card (kernels, bf16) against the same tree in f32 on the CPU (plain
-    versions).  Both are fed the CPU's greedy tokens, so every step
+    versions; quantized and 2:4-packed factors restored once,
+    :func:`cpu_reference`, but for an act-quant run).  Both are fed the
+    CPU's greedy tokens, so every step
     compares logits of the same context.  Checks that the card launched
     exactly ``want`` (kernel -> launches over the prefill chunk and the
     decode steps; every other kernel none)."""
@@ -3245,7 +3263,8 @@ def cross_check_staged(cfg, params, card: str, seed: int, *, label: str,
     sides = []
     for model, p in ((get_model(cfg, "cuda"), params),
                      (get_model(dataclasses.replace(cfg, dtype="float32"),
-                                "cpu"), to_cpu_f32(params))):
+                                "cpu"), to_cpu_f32(params) if act_quantize
+                      else cpu_reference(params))):
         if paged:
             pool = PagedKVPoolManager(model, 1, max_seq,
                                       kv_quantize=kv_quantize,
@@ -5437,6 +5456,235 @@ def run_mesh(card: str, seed: int, served_q: dict | None) -> dict:
     return res
 
 
+#: the roofline phase: 8 greedy requests of one 64-token prefill chunk
+#: each on the bf16 slot pool of the branches=4 llama tree, and the
+#: uncounted step timed this many times
+ROOFLINE_PROMPT = 64
+ROOFLINE_NEW = 16
+ROOFLINE_TIMED = 20
+#: the dryrun phase's cells: llama3.2-1b (shape, multi-pod), one child
+#: process each, run side by side
+DRYRUN_CELLS = (("decode_32k", False), ("decode_32k", True),
+                ("train_4k", False), ("train_4k", True))
+DRYRUN_TIMEOUT = 600
+
+
+def _fake_like(obj):
+    """``obj`` with every tensor replaced by an empty CPU tensor of its
+    shape, strides and dtype (fake under the caller's ``FakeTensorMode``);
+    dicts, lists and tuples walked, other leaves kept."""
+    import torch
+    if isinstance(obj, torch.Tensor):
+        return torch.empty_strided(obj.shape, obj.stride(), dtype=obj.dtype,
+                                   device="cpu")
+    if isinstance(obj, dict):
+        return {k: _fake_like(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_fake_like(v) for v in obj)
+    return obj
+
+
+def _costs_row(costs) -> dict:
+    return {"flops": costs.flops, "hbm_bytes": costs.hbm_bytes,
+            "collective_bytes": costs.collective_bytes,
+            "kernels": {k: list(v) for k, v in costs.kernel_detail.items()}}
+
+
+def run_roofline(card: str, seed: int) -> dict:
+    """The ``roofline`` phase: the whole-step count of
+    ``analysis/roofline.py`` on the card.  The full-width llama3.2-1b
+    tree (bf16, branches=4, as the serve phase's) serves 8 greedy
+    requests of one :data:`ROOFLINE_PROMPT`-token prefill chunk each on
+    the slot pool, twice: once plainly, once with a ``StepCounter``
+    around the first prefill chunk and the first decode step with all 8
+    slots live.  The streams must be token-identical and the counted
+    segments' B1 / B2 launches exact (and equal to the kernels the
+    counter charged).  Each counted call is replayed through the same
+    runner on the CPU, on fake tensors of its arguments' shapes, strides
+    and dtypes (the plain path): its FLOPs, bytes and kernel charges must
+    equal the card's exactly.  The same call is then timed without the
+    counter (:data:`ROOFLINE_TIMED` runs, CUDA events): the bound (the
+    larger of the compute and memory terms on the H100 spec) over the
+    median measured time is the step's roofline share; counted over
+    model FLOPs (2 N a token, N the dense tree's matmul values) beside
+    it."""
+    import statistics
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.analysis.roofline import StepCounter, roofline
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models.api import get_model
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg, dense, axes = full_model(seed)
+    lrd, params, rep, _ = decompose(dense, axes, branches=4)
+    del dense
+    chain = {k: n for k, n in chain_launches(rep).items() if n}
+    prompts = request_prompts(cfg, seed, 8, ROOFLINE_PROMPT,
+                              ROOFLINE_PROMPT)
+
+    def drive(count: bool):
+        eng = ServeEngine(RunConfig(model=cfg, lrd=lrd), params, slots=8,
+                          max_seq=1024, device="cuda",
+                          prefill_chunk=ROOFLINE_PROMPT)
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=ROOFLINE_NEW,
+                        temperature=0.0) for i, p in enumerate(prompts)]
+        step, seen = eng.runner.step, {}
+
+        def wrapped(tokens, positions, seg_kind, **kw):
+            if not count or seg_kind in seen or (
+                    seg_kind == "decode"
+                    and not all(r.output for r in reqs)):
+                return step(tokens, positions, seg_kind, **kw)
+            torch.cuda.synchronize()
+            reset_launches()
+            with StepCounter() as c:
+                out = step(tokens, positions, seg_kind, **kw)
+            torch.cuda.synchronize()
+            seen[seg_kind] = dict(
+                costs=c.costs, call=(tokens, positions, kw),
+                launches={k: launch_count(k) for k in KERNELS
+                          if launch_count(k)})
+            return out
+        eng.runner.step = wrapped
+        for r in reqs:
+            eng.add_request(r)
+        eng.run_until_done()
+        return eng, step, [list(r.output) for r in reqs], seen
+
+    _, _, plain_out, _ = drive(False)
+    eng, step, out, seen = drive(True)
+    if out != plain_out:
+        raise SystemExit("roofline: the streams with the counter differ "
+                         "from the streams without it")
+    runner = eng.runner
+    card_model, card_params = runner.model, runner.params
+    runner.model = get_model(cfg, "cpu")
+    res = {"card": card, "streams_identical": True,
+           "requests": len(prompts), "prompt": ROOFLINE_PROMPT,
+           "new_tokens": ROOFLINE_NEW}
+    try:
+        for kind in ("prefill_chunk", "decode"):
+            if kind not in seen:
+                raise SystemExit(f"roofline: no {kind} segment was counted")
+            rec = seen[kind]
+            if rec["launches"] != chain:
+                raise SystemExit(f"roofline: {kind} launched "
+                                 f"{rec['launches']}, expected {chain}")
+            charged = {k: v[0] for k, v in rec["costs"].kernel_detail.items()}
+            if charged != chain:
+                raise SystemExit(f"roofline: {kind} charged {charged}, "
+                                 f"launched {chain}")
+            tokens, positions, kw = rec["call"]
+            with FakeTensorMode():
+                runner.params = _fake_like(card_params)
+                fargs = _fake_like((tokens, positions, kw))
+                with StepCounter() as cpu:
+                    step(fargs[0], fargs[1], kind, **fargs[2])
+            runner.params = card_params
+            got, want = _costs_row(rec["costs"]), _costs_row(cpu.costs)
+            if got != want:
+                raise SystemExit(f"roofline: {kind} counted {got} on the "
+                                 f"card and {want} on the CPU")
+            runner.model = card_model
+            times = []
+            for _ in range(ROOFLINE_TIMED):
+                a, b = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(2))
+                torch.cuda.synchronize()
+                a.record()
+                step(tokens, positions, kind, **kw)
+                b.record()
+                torch.cuda.synchronize()
+                times.append(a.elapsed_time(b))
+            runner.model = get_model(cfg, "cpu")
+            rows = tokens.numel()
+            model_flops = cfg.flops_per_token() / 3.0 * rows
+            roof = roofline(rec["costs"], n_devices=1,
+                            model_flops_global=model_flops)
+            bound_ms = max(roof.compute_s, roof.memory_s) * 1e3
+            ms = statistics.median(times)
+            res[kind] = dict(
+                got, rows=rows, cpu_equal=True, launches=rec["launches"],
+                model_flops=model_flops,
+                counted_over_model=rec["costs"].flops / model_flops,
+                compute_ms=roof.compute_s * 1e3,
+                memory_ms=roof.memory_s * 1e3, bound_ms=bound_ms,
+                bound_by=("operations" if roof.compute_s >= roof.memory_s
+                          else "bytes"),
+                ms_median=ms, ms_min=min(times), ms_max=max(times),
+                runs=len(times), bound_over_measured=bound_ms / ms)
+    finally:
+        runner.model, runner.params = card_model, card_params
+    log("roofline " + json.dumps(res))
+    return res
+
+
+def run_dryrun(card: str) -> dict:
+    """The ``dryrun`` phase: ``python -m repro_torch.launch.dryrun --arch
+    llama3.2-1b`` for each of :data:`DRYRUN_CELLS`, one child process
+    each, side by side, on this machine (fake process groups of 256 /
+    512 ranks, fake CPU tensors).  Each must end ``status: "ok"`` with
+    CUDA never initialised in the child; each cell's bottleneck,
+    useful-FLOPs ratio, collective bytes and peak bytes are logged."""
+    import os
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    try:
+        for shape, mp in DRYRUN_CELLS:
+            out = os.path.join(tmp, f"{shape}_{'mp' if mp else 'sp'}.json")
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", "llama3.2-1b", "--shape", shape, "--out", out]
+            procs.append((shape, mp, out, subprocess.Popen(
+                cmd + (["--multi-pod"] if mp else []), env=env,
+                stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                text=True)))
+        res = {"card": card, "cells": []}
+        for shape, mp, out, proc in procs:
+            try:
+                _, err = proc.communicate(timeout=DRYRUN_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.communicate()
+                raise SystemExit(f"dryrun: {shape} ({mp=}) timed out")
+            if proc.returncode != 0 or not os.path.exists(out):
+                raise SystemExit(f"dryrun: {shape} ({mp=}) failed "
+                                 f"(rc {proc.returncode}): {err[-3000:]}")
+            with open(out) as f:
+                cell = json.load(f)
+            if cell["status"] != "ok" or cell["cuda_initialized"]:
+                raise SystemExit(f"dryrun: {shape} ({mp=}): status "
+                                 f"{cell['status']}, CUDA initialised "
+                                 f"{cell['cuda_initialized']}")
+            r, co = cell["roofline"], cell["costs"]
+            row = {"shape": shape, "mesh": cell["mesh"],
+                   "n_devices": cell["n_devices"],
+                   "bottleneck": r["bottleneck"],
+                   "useful_flops_ratio": r["useful_flops_ratio"],
+                   "compute_s": r["compute_s"], "memory_s": r["memory_s"],
+                   "collective_s": r["collective_s"],
+                   "flops_per_device": co["flops_per_device"],
+                   "hbm_bytes_per_device": co["hbm_bytes_per_device"],
+                   "collective_bytes_per_device":
+                       co["collective_bytes_per_device"],
+                   "collective_groups": co["collective_groups"],
+                   "peak_bytes": cell["memory"]["peak_bytes"],
+                   "fits_hbm": cell["memory"]["fits_hbm"],
+                   "trace_s": cell["trace_s"], "total_s": cell["total_s"],
+                   "cuda_initialized": cell["cuda_initialized"]}
+            res["cells"].append(row)
+            log("dryrun " + json.dumps(row))
+    finally:
+        for *_, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
 def family_data(cfg, spec: dict):
     """A family's training data at ``batch`` x ``seq``: SyntheticLM frames
     for the encoder, ByteTextLM tokens otherwise (with the random image
@@ -5697,7 +5945,7 @@ def main() -> int:
     if set(phases) & {"build", "kernels", *LLAMA_PHASES, *MLA_PHASES,
                       *CONFIG_PHASES, *RESNET_PHASES, *VLM_PHASES,
                       *HUBERT_PHASES, *TRAIN_PHASES, *TRAIN_FAMILY_PHASES,
-                      "mesh", "launch"}:
+                      "mesh", "roofline", "launch"}:
         with Phase("build"):
             from repro_torch.kernels import build
             _, report = build.build()
@@ -5771,6 +6019,13 @@ def main() -> int:
             train_res["mesh"] = run_mesh(card, args.seed,
                                          serve_res.get("quantized"))
         torch.cuda.empty_cache()
+    if "roofline" in phases:
+        with Phase("roofline"):
+            run_roofline(card, args.seed)
+        torch.cuda.empty_cache()
+    if "dryrun" in phases:
+        with Phase("dryrun"):
+            run_dryrun(card)
     for key in TRAIN_FAMILY_RUNS:
         # the pairs whose serve phases did not run build their own tree
         if key not in train_res:

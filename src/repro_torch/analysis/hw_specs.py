@@ -6,8 +6,11 @@ the memory rate and the column tile, and its measured timer the L2
 size; the kernel build (``kernels/build.py`` ``SMEM_LIMIT``, passed to
 every CUDA source as ``LRK_SMEM_LIMIT``) reads the shared-memory limit;
 ``chip_smoke.py``'s roofline bounds and its L2 flush read the rates and
-the L2 size.  The numbers are NVIDIA's data sheet constants (dense
-rates, SXM part, 700 W), not measurements.
+the L2 size; the roofline (:mod:`repro_torch.analysis.roofline`,
+the dry run's report) reads ``peak_flops_bf16``, ``hbm_bandwidth``,
+``ici_link_bandwidth`` and ``hbm_bytes`` (whether a cell fits).  The
+numbers are NVIDIA's data sheet constants (dense rates, SXM part, 700
+W), not measurements.
 
 ``HardwareSpec`` keeps the reference's field names, which were chosen
 for a TPU, so that the parity tests can build the reference's TPU spec
@@ -20,10 +23,12 @@ in the port; on the H100 they mean:
   ``copy_chunk``);
 * ``vmem_bytes`` -- the shared memory one block may opt into;
 * ``ici_link_bandwidth`` -- one NVLink 4 link (900 GB/s over 18 links).
+  The roofline's collective term divides a device's ring bytes by it:
+  the reference's per-link convention, not a model of an H100
+  cluster's NVLink and InfiniBand topology.
 
-``hbm_bytes``, ``ici_link_bandwidth``, ``sublanes`` and
-:func:`sublane_padded` are the reference's and nothing in the port
-reads them yet.
+``sublanes`` and :func:`sublane_padded` are the reference's and nothing
+in the port reads them yet.
 """
 from __future__ import annotations
 

@@ -48,6 +48,18 @@ def branched_matmul_op(x: torch.Tensor, u: torch.Tensor, xc: torch.Tensor,
     return bk.branched_matmul(x, u, xc, v)
 
 
+@lowrank_matmul_op.register_fake
+def _(x, w0, w1):
+    """The output's shape and dtype without a value (``FakeTensorMode``:
+    the dry run)."""
+    return x.new_empty((x.shape[0], w1.shape[-1]))
+
+
+@branched_matmul_op.register_fake
+def _(x, u, xc, v):
+    return x.new_empty((x.shape[0], v.shape[-1]))
+
+
 #: the forward ops, for a selective-checkpoint policy that keeps them
 KERNEL_OPS = (torch.ops.repro_torch.lowrank_matmul.default,
               torch.ops.repro_torch.branched_matmul.default)

@@ -21,10 +21,18 @@ own for the length of its ``step()``).  A fire raises
 and no plain version runs in its place.  (The reference's gate makes its
 fit predicate refuse at trace time and falls back to the oracle; the
 port has no fallback, and its hook is per step, not module-global.)
+
+While a :class:`repro_torch.analysis.roofline.StepCounter` is active
+(:func:`set_counter`), each entry point is one fused op of the count: it
+charges its kernel's cost once (``roofline.kernel_cost``), and the
+counter sees none of the aten ops it runs, so a CPU tensor's plain
+version and a CUDA tensor's launch count alike.  With no counter (the
+default, ``None``) the entry points run as they are.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 
@@ -76,6 +84,32 @@ def fault_gate(inj):
         set_fault_injector(prev)
 
 
+#: the step counter the entry points charge (``None``: nothing counts)
+_COUNTER = None
+
+
+def set_counter(counter):
+    """Install ``counter`` (a ``StepCounter``, or ``None`` to clear);
+    returns the one it replaces."""
+    global _COUNTER
+    prev, _COUNTER = _COUNTER, counter
+    return prev
+
+
+def _counted(fn):
+    """Make entry point ``fn`` one op of an active counter's count."""
+    name = fn.__name__
+
+    @functools.wraps(fn)
+    def entry(*args, **kwargs):
+        counter = _COUNTER
+        if counter is None:
+            return fn(*args, **kwargs)
+        with counter.kernel(name, args):
+            return fn(*args, **kwargs)
+    return entry
+
+
 def _gate(name: str) -> None:
     if _FAULT_INJECTOR is not None and _FAULT_INJECTOR.fire("kernel_gate"):
         raise KernelRejected(name)
@@ -93,6 +127,7 @@ def _serve_only(name: str, x: torch.Tensor) -> None:
                            "torch.inference_mode()")
 
 
+@_counted
 def lowrank_matmul(x: torch.Tensor, w0: torch.Tensor,
                    w1: torch.Tensor) -> torch.Tensor:
     """y = (x @ w0) @ w1.  x (..., C); w0 (C, R); w1 (R, S) -> (..., S)."""
@@ -108,6 +143,7 @@ def lowrank_matmul(x: torch.Tensor, w0: torch.Tensor,
     return y.reshape(*lead, w1.shape[-1])
 
 
+@_counted
 def branched_matmul(x: torch.Tensor, u: torch.Tensor, xc: torch.Tensor,
                     v: torch.Tensor) -> torch.Tensor:
     """y = sum_n ((x @ u_n) @ xc_n) @ v_n.  x (..., C) -> (..., S)."""
@@ -123,6 +159,7 @@ def branched_matmul(x: torch.Tensor, u: torch.Tensor, xc: torch.Tensor,
     return y.reshape(*lead, v.shape[-1])
 
 
+@_counted
 def lowrank_matmul_q(x: torch.Tensor, w0_q: torch.Tensor,
                      w0_scale: torch.Tensor, w1_q: torch.Tensor,
                      w1_scale: torch.Tensor) -> torch.Tensor:
@@ -140,6 +177,7 @@ def lowrank_matmul_q(x: torch.Tensor, w0_q: torch.Tensor,
     return y.reshape(*lead, w1_q.shape[-1])
 
 
+@_counted
 def branched_matmul_q(x: torch.Tensor, u_q: torch.Tensor,
                       u_scale: torch.Tensor, xc_q: torch.Tensor,
                       xc_scale: torch.Tensor, v_q: torch.Tensor,
@@ -159,6 +197,7 @@ def branched_matmul_q(x: torch.Tensor, u_q: torch.Tensor,
     return y.reshape(*lead, v_q.shape[-1])
 
 
+@_counted
 def lowrank_matmul_sq(x: torch.Tensor, w0_sp: torch.Tensor,
                       w0_idx: torch.Tensor, w0_scale: torch.Tensor,
                       w1_sp: torch.Tensor, w1_idx: torch.Tensor,
@@ -179,6 +218,7 @@ def lowrank_matmul_sq(x: torch.Tensor, w0_sp: torch.Tensor,
     return y.reshape(*lead, w1_sp.shape[-1])
 
 
+@_counted
 def branched_matmul_sq(x: torch.Tensor, u_sp: torch.Tensor,
                        u_idx: torch.Tensor, u_scale: torch.Tensor,
                        xc_q: torch.Tensor, xc_scale: torch.Tensor,
@@ -199,6 +239,7 @@ def branched_matmul_sq(x: torch.Tensor, u_sp: torch.Tensor,
     return y.reshape(*lead, v_sp.shape[-1])
 
 
+@_counted
 def lowrank_matmul_qa(x: torch.Tensor, w0_q: torch.Tensor,
                       w0_scale: torch.Tensor, w1_q: torch.Tensor,
                       w1_scale: torch.Tensor) -> torch.Tensor:
@@ -217,6 +258,7 @@ def lowrank_matmul_qa(x: torch.Tensor, w0_q: torch.Tensor,
     return y.reshape(*lead, w1_q.shape[-1])
 
 
+@_counted
 def branched_matmul_qa(x: torch.Tensor, u_q: torch.Tensor,
                        u_scale: torch.Tensor, xc_q: torch.Tensor,
                        xc_scale: torch.Tensor, v_q: torch.Tensor,
@@ -245,6 +287,7 @@ def _decode_rows(q: torch.Tensor, kh: int) -> torch.Tensor:
     return q.reshape(b, kh, h // kh, d).contiguous()
 
 
+@_counted
 def decode_attention_paged(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, block_tables: torch.Tensor,
                            cache_pos: torch.Tensor, *,
@@ -264,6 +307,7 @@ def decode_attention_paged(q: torch.Tensor, k: torch.Tensor,
     return o.reshape(q.shape)
 
 
+@_counted
 def decode_attention_paged_q(q: torch.Tensor, k_q: torch.Tensor,
                              k_scale: torch.Tensor, v_q: torch.Tensor,
                              v_scale: torch.Tensor,
@@ -285,6 +329,7 @@ def decode_attention_paged_q(q: torch.Tensor, k_q: torch.Tensor,
     return o.reshape(q.shape)
 
 
+@_counted
 def decode_attention_q(q: torch.Tensor, k_q: torch.Tensor,
                        k_scale: torch.Tensor, v_q: torch.Tensor,
                        v_scale: torch.Tensor, cache_pos: torch.Tensor, *,
@@ -303,6 +348,7 @@ def decode_attention_q(q: torch.Tensor, k_q: torch.Tensor,
     return o.reshape(q.shape)
 
 
+@_counted
 def decode_attention_latent_q(q_lat: torch.Tensor, q_rope: torch.Tensor,
                               ckv_q: torch.Tensor, ckv_scale: torch.Tensor,
                               krope_q: torch.Tensor,

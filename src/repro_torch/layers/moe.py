@@ -112,7 +112,10 @@ def _dispatch(xt: torch.Tensor, router: torch.Tensor, top_k: int, cap: int
     flat_tok = torch.arange(t, device=dev).repeat_interleave(top_k)
     order = torch.argsort(flat_e, stable=True)
     se, st = flat_e[order], flat_tok[order]
-    counts = torch.bincount(flat_e, minlength=e)
+    # bincount's length depends on the values (FakeTensorMode refuses
+    # it); a scatter of ones counts the same
+    counts = torch.zeros(e, dtype=torch.long, device=dev).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
     starts = torch.cumsum(counts, 0) - counts
     pos_in_e = torch.arange(t * top_k, device=dev) - starts[se]
     keep = pos_in_e < cap

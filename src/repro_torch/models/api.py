@@ -1,5 +1,15 @@
-"""Model construction + random inputs for one (architecture x shape) cell."""
+"""Model construction, input specs and random inputs for one
+(architecture x shape) cell.
+
+``input_specs(cfg, shape)`` gives the ``(shape, dtype)`` of every step
+input of a cell without allocating anything: the dry run
+(``launch/dryrun.py``) makes fake tensors of them.  Modality frontends
+are stubs, as in the reference: the encoder takes precomputed frame
+embeddings, the VLM precomputed patch embeddings.
+"""
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -12,6 +22,41 @@ def get_model(cfg: ModelConfig, device: str | torch.device = "cuda"):
         return ResNetModel(cfg, device)
     from repro_torch.models.lm import LMModel
     return LMModel(cfg, device)
+
+
+class TensorSpec(NamedTuple):
+    """The shape and dtype of one step input (the reference's
+    ``jax.ShapeDtypeStruct``)."""
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig, *,
+                with_labels: bool = True) -> dict[str, TensorSpec]:
+    """:class:`TensorSpec` of one (arch x shape) cell's step inputs: the
+    names, shapes and dtypes of the reference's ``input_specs``."""
+    b, s = shape.global_batch, shape.seq_len
+    dt = getattr(torch, cfg.dtype)
+    i32 = torch.int32
+    if cfg.family == "resnet":
+        out = {"images": TensorSpec((b, cfg.img_size, cfg.img_size, 3), dt)}
+        if with_labels:
+            out["labels"] = TensorSpec((b,), i32)
+        return out
+    if shape.kind == "decode":
+        return {"tokens": TensorSpec((b, 1), i32),
+                "positions": TensorSpec((b,), i32)}
+    if cfg.family == "encoder":
+        out = {"frames": TensorSpec((b, s, cfg.frontend_dim or cfg.d_model),
+                                    dt)}
+        if with_labels:
+            out["labels"] = TensorSpec((b, s), i32)
+        return out
+    out = {"tokens": TensorSpec((b, s), i32)}
+    if cfg.family == "vlm":
+        out["image_embeds"] = TensorSpec(
+            (b, cfg.num_image_tokens, cfg.vision_d_model or cfg.d_model), dt)
+    return out
 
 
 def synth_inputs(cfg: ModelConfig, shape: ShapeConfig,

@@ -73,7 +73,7 @@ def mesh_shape(mesh) -> dict[str, int]:
     """Axis name -> size, in the mesh's axis order."""
     names = getattr(mesh, "mesh_dim_names", None)
     if names is not None:                               # a DeviceMesh
-        return dict(zip(names, mesh.mesh.shape))
+        return dict(zip(names, mesh.shape))
     return dict(mesh.shape)
 
 

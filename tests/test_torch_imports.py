@@ -68,7 +68,9 @@ def test_port_has_the_slice_modules():
               "repro_torch.configs.registry", "repro_torch.launch.train",
               "repro_torch.launch.serve", "repro_torch.launch.mesh",
               "repro_torch.parallel", "repro_torch.parallel.sharding",
-              "repro_torch.parallel.placement"):
+              "repro_torch.parallel.placement",
+              "repro_torch.analysis.roofline", "repro_torch.analysis.report",
+              "repro_torch.launch.dryrun"):
         assert m in mods, m
 
 

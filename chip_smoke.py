@@ -353,6 +353,26 @@ branches=4, its surgery decisions held to ``VLM_SURGERY`` /
              within ``CHECK_TOL_F32`` and bf16 within ``CHECK_TOL`` of
              f32 on the CPU.
 
+The large-M form (``kernels/csrc/chain_wgmma.cuh``: bf16 B1 / B2 at M >=
+``LARGE_M``, one output-tiled ``wgmma`` launch a product) adds: in the
+build phase its plans at the main path's shapes (:func:`large_m_plans`);
+in the kernels phase, on every B1 / B2 row it takes (the train step's,
+hubert's, the VLM's cross k / v, mamba2's blocking prefill, the family
+train rows), ``form`` "large_m" and the split-phase form forced, timed in
+turns as ``prev_ms`` (``prev_err`` its distance), each row failing where
+the large-M form is not the faster; and the ``LARGE_M`` sweep
+(:func:`_large_m_sweep`: both forms at M = 64 to 2,000 at llama's train
+shapes and hubert's, ``large_m_sweep`` of the kernels line), failing
+where a swept M >= LARGE_M finds the split form faster.  Two profile
+phases (:func:`_profiled`: the device's busy and idle share, the top
+device kernels and host ops, exact launches):
+
+- profile_hubert — (after check_hubert) three forwards of infer_hubert's
+             decomposed tree after two warm ones.
+- profile_train — (after check_train) three ``make_train_step`` steps of
+             the frozen branches=4 llama tree at TRAIN_BATCH x TRAIN_SEQ
+             after two warm ones (:func:`profile_train`).
+
 The kernels phase adds their rows (``path``: "vlm" / "hubert"): B1 / B2
 and B3 / B4 at the VLM's shapes, M = 8, with the 128,256-column unembed;
 B2 / B4 in f32 at the VLM's gate / up / down and unembed, M = 8 and 128
@@ -492,7 +512,8 @@ PHASES = ("device", "build", "kernels", "search", "serve", "check",
           "train_zamba2", "infer_resnet", "check_resnet", "train_resnet",
           "check_train_resnet", "serve_vlm", "check_vlm", "serve_vlm_q",
           "check_vlm_q", "check_train_vlm", "train_vlm", "infer_hubert",
-          "check_hubert", "train", "check_train", "mesh", "roofline",
+          "check_hubert", "profile_hubert", "train", "check_train",
+          "profile_train", "mesh", "roofline",
           "dryrun", "check_train_hubert", "train_hubert", "launch")
 #: the phases that search, serve or check the llama3.2-1b trees, the MLA
 #: ones, the other configs' (CONFIG_RUNS) and the training ones
@@ -507,13 +528,13 @@ CONFIG_PHASES = ("serve_granite", "check_granite", "serve_nemo",
                  "serve_moe", "check_moe", "serve_mla_moe", "check_mla_moe",
                  "serve_mamba2", "check_mamba2", "serve_zamba2",
                  "check_zamba2")
-TRAIN_PHASES = ("train", "check_train")
+TRAIN_PHASES = ("train", "check_train", "profile_train")
 TRAIN_FAMILY_PHASES = tuple(p for p in PHASES if p.startswith(
     ("train_", "check_train_")) and not p.endswith("resnet"))
 RESNET_PHASES = ("infer_resnet", "check_resnet", "train_resnet",
                  "check_train_resnet")
 VLM_PHASES = ("serve_vlm", "check_vlm", "serve_vlm_q", "check_vlm_q")
-HUBERT_PHASES = ("infer_hubert", "check_hubert")
+HUBERT_PHASES = ("infer_hubert", "check_hubert", "profile_hubert")
 #: phases run only when asked for with --phases
 EXTRA_PHASES = ("profile", "profile_qa", "profile_mla")
 
@@ -912,6 +933,19 @@ VLM_LAUNCHES = {
 HUBERT_LAUNCHES = {"lowrank_matmul": {"hubert q,k,v,o": 192,
                                       "hubert unembed": 1},
                    "branched_matmul": {"hubert up": 48, "hubert down": 48}}
+#: the LARGE_M sweep of the kernels phase: bf16 B1 / B2 in both forms
+#: (the large-M form, the split-phase one) at these M, at llama's train
+#: shapes and hubert's
+LARGE_M_SWEEP_M = (64, 128, 256, 512, 1024, 2000)
+LARGE_M_SWEEP = {
+    "lowrank_matmul": {"k,v": LOWRANK_SHAPES["k,v"], **HUBERT_LOWRANK_SHAPES},
+    "branched_matmul": {**{k: BRANCHED_SHAPES[k]
+                           for k in ("q,o", "gate,up", "down")},
+                        **HUBERT_BRANCHED_SHAPES}}
+#: the large-M form's source (``large_m_source`` of the kernels line)
+LARGE_M_SOURCE = "src/repro_torch/kernels/csrc/chain_wgmma.cuh"
+#: profiled steps of profile_train / profile_hubert (after two warm ones)
+PROFILE_STEPS = 3
 
 #: kernel module of each wrapper (its CUDA source has the module's name),
 #: the wrapper's launch counter and the TPU kernel it replaces
@@ -1397,7 +1431,11 @@ def check_kernels(card: str, only: frozenset = frozenset(KERNELS)
                                  False),
                 plain_ms=time_ms(lambda: ref.lowrank_matmul_q_ref(*args)),
                 **_cost_bound("lowrank_matmul_q", args, "float32")))
-    failures = []
+    sweep = _large_m_sweep(rnd, card, only)
+    least = kernel_module("branched_matmul").LARGE_M
+    failures = [(name, label, m, t) for name, shapes in sweep.items()
+                for label, ms in shapes.items() for m, t in ms.items()
+                if int(m) >= least and t["large_m"] >= t["split"]]
     for name, rs in rows.items():
         for row in rs:
             ok = (row["norm_err"] <= KERNEL_TOL[row["dtype"]]
@@ -1405,7 +1443,9 @@ def check_kernels(card: str, only: frozenset = frozenset(KERNELS)
                   and row.get("prev_err", 0.0) <= KERNEL_TOL[row["dtype"]]
                   and row.get("differing", 0) == 0
                   and row.get("differing_prev", 0) == 0
-                  and row.get("grad_err", 0.0) <= KERNEL_TOL[row["dtype"]])
+                  and row.get("grad_err", 0.0) <= KERNEL_TOL[row["dtype"]]
+                  and (row.get("form") != "large_m"
+                       or row["ms"] < row["prev_ms"]))
             lib_ms = row["library_ms"]
             extra = "".join(f"{k}={row[k]:.4f} "
                             for k in SPLIT_TIMES + EVENT_TIMES
@@ -1430,6 +1470,7 @@ def check_kernels(card: str, only: frozenset = frozenset(KERNELS)
                 + (f"same_bits={row['same_bits']} "
                    if "same_bits" in row else "")
                 + (f"splits={row['splits']} " if "splits" in row else "")
+                + (f"form={row['form']} " if "form" in row else "")
                 + (f"prev_err={row['prev_err']:.3e} "
                    if "prev_err" in row else "")
                 + (f"grad_err={row['grad_err']:.3e} bwd_ms="
@@ -1448,8 +1489,54 @@ def check_kernels(card: str, only: frozenset = frozenset(KERNELS)
                 failures.append((name, row))
     if failures:
         raise SystemExit(f"kernel disagrees with its plain version (or "
-                         f"with its own first call): {failures}")
-    return _kernel_entries(rows)
+                         f"with its own first call, or a large-M call is "
+                         f"not faster than its split form): {failures}")
+    entries = _kernel_entries(rows)
+    for entry in entries:
+        if entry["name"] in sweep:
+            entry.update(large_m=least, large_m_source=LARGE_M_SOURCE,
+                         large_m_sweep=sweep[entry["name"]])
+    return entries
+
+
+def _large_m_sweep(rnd, card: str, only) -> dict:
+    """The LARGE_M sweep: bf16 B1 / B2 (those in ``only``) at every shape
+    of :data:`LARGE_M_SWEEP` and M of :data:`LARGE_M_SWEEP_M`, the
+    large-M form and the split-phase form (both uncounted, forced) timed
+    in turns (large, split, split, large; device ms with the host kept
+    ahead), keyed kernel -> shape -> M."""
+    import torch
+    bf = torch.bfloat16
+    out = {}
+    for name, shapes in LARGE_M_SWEEP.items():
+        if name not in only:
+            continue
+        mod = kernel_module(name)
+        large = getattr(mod, "large_m_" + name)
+        split = getattr(mod, "split_" + name)
+        out[name] = {}
+        for label, shape in shapes.items():
+            if len(shape) == 3:
+                c, r, s = shape
+                ws = (rnd(c, r, scale=c ** -0.5, dtype=bf),
+                      rnd(r, s, scale=r ** -0.5, dtype=bf))
+            else:
+                n, c, r, s = shape
+                ws = (rnd(n, c, r, scale=c ** -0.5, dtype=bf),
+                      rnd(n, r, r, scale=r ** -0.5, dtype=bf),
+                      rnd(n, r, s, scale=r ** -0.5, dtype=bf))
+            row = {}
+            for m in LARGE_M_SWEEP_M:
+                x = rnd(m, c, dtype=bf)
+                t = [time_ms(lambda f=f: f(x, *ws), ahead=True)
+                     for f in (large, split, split, large)]
+                row[str(m)] = {"large_m": (t[0] + t[3]) / 2,
+                               "split": (t[1] + t[2]) / 2}
+            out[name][label] = row
+            log(f"large_m sweep {name:16s} {label:16s} " + " ".join(
+                f"M={m}:{v['large_m']:.4f}/{v['split']:.4f}"
+                for m, v in row.items()) + f" (ms large_m/split) [{card}]")
+    return out
 
 
 def _split_times(kernel, prev, phases, library, flush, dname: str) -> dict:
@@ -1489,15 +1576,24 @@ def _branched_row(label: str, x, u, xc, v, dname: str, flush) -> dict:
     want = ref.branched_matmul_ref(x, u, xc, v)
     torch.cuda.synchronize()
     xb3 = x.expand(n, m, c)
+    kernel = lambda: bk.branched_matmul(x, u, xc, v)  # noqa: E731
+    library = lambda: torch.bmm(torch.bmm(torch.bmm(  # noqa: E731
+        xb3, u), xc), v).sum(0)
+    if bk.chain_form(x.dtype, m) == "large_m":
+        split = lambda: bk.split_branched_matmul(x, u, xc, v)  # noqa: E731
+        times = dict(form="large_m",
+                     prev_err=_compare(y, split(), dname)["norm_err"],
+                     **_attention_times(kernel, split, library, flush))
+    else:
+        times = _split_times(
+            kernel, lambda: bk.cluster_branched_matmul(x, u, xc, v),
+            lambda: bk.branched_matmul_phase_us(x, u, xc, v), library,
+            flush, dname)
+        if dname == "bfloat16":
+            times["form"] = "split"
     return dict(
         shape=label, dtype=dname, M=m, N=n, C=c, r=r, S=s,
-        **_compare(y, want, dname),
-        **_split_times(
-            lambda: bk.branched_matmul(x, u, xc, v),
-            lambda: bk.cluster_branched_matmul(x, u, xc, v),
-            lambda: bk.branched_matmul_phase_us(x, u, xc, v),
-            lambda: torch.bmm(torch.bmm(torch.bmm(xb3, u), xc), v).sum(0),
-            flush, dname),
+        **_compare(y, want, dname), **times,
         plain_ms=time_ms(lambda: ref.branched_matmul_ref(x, u, xc, v)),
         **_cost_bound("branched_matmul", (x, u, xc, v), dname))
 
@@ -1664,16 +1760,23 @@ def _lowrank_times(name: str, args: tuple, y, library, dname: str, flush,
     design, ``prev_ms``), held to it (``prev_err``) and its phase timer
     read (``phase_us``, the fastest of five launches), with ``plans`` the
     times of the plans of :data:`LOWRANK_PLAN_SWEEP` (``plan_us``); f32
-    runs the cluster kernel."""
+    runs the cluster kernel.  A bf16 B1 call of M >= LARGE_M runs the
+    large-M form (``form``), timed in turns with the split kernel forced
+    (``prev_ms``, ``prev_err``), without a phase timer."""
     mod = kernel_module(name)
     fn = getattr(mod, name)
-    cluster = getattr(mod, "cluster_" + name)
     bf16 = dname == "bfloat16"
-    times = dict(prev_err=_compare(y, cluster(*args), dname)["norm_err"],
+    large = name == "lowrank_matmul" and bf16 and \
+        kernel_module("branched_matmul").chain_form(
+            args[0].dtype, args[0].shape[0]) == "large_m"
+    prev = getattr(mod, ("split_" if large else "cluster_") + name)
+    times = dict(prev_err=_compare(y, prev(*args), dname)["norm_err"],
                  **_attention_times(lambda: fn(*args),
-                                    (lambda: cluster(*args)) if bf16
+                                    (lambda: prev(*args)) if bf16
                                     else None, library, flush))
-    if bf16:
+    if name == "lowrank_matmul" and bf16:
+        times["form"] = "large_m" if large else "split"
+    if bf16 and not large:
         phases = getattr(mod, name + "_phase_us")
         times["phase_us"] = min((phases(*args) for _ in range(5)), key=sum)
         if plans:
@@ -1708,7 +1811,8 @@ def _train_row(name: str, label: str, args: tuple, rnd, flush) -> dict:
     """One bf16 B1 (three ``args``) or B2 (four) row at the training M:
     the kernel against its plain version; its times with the host kept
     ahead of the card, with a cold L2 and between events, beside the
-    cuBLAS chain (:func:`_attention_times`; no earlier design timed); the
+    cuBLAS chain (:func:`_attention_times`; at M >= LARGE_M the large-M
+    form, timed in turns with the split form forced: ``prev_ms``); the
     autograd Function's gradients (kernel forward, explicit backward) for
     a random cotangent against autograd of the plain version on the same
     inputs (``grad_errs`` by input, ``grad_err`` the largest, normalised
@@ -1719,10 +1823,13 @@ def _train_row(name: str, label: str, args: tuple, rnd, flush) -> dict:
     import torch
     from repro_torch.kernels import autograd as kgrad
     from repro_torch.kernels import ref
-    fn = getattr(kernel_module(name), name)
+    mod = kernel_module(name)
+    fn = getattr(mod, name)
     plain = getattr(ref, name + "_ref")
     x = args[0]
     m, c = x.shape
+    form = kernel_module("branched_matmul").chain_form(x.dtype, m)
+    prev = getattr(mod, "split_" + name) if form == "large_m" else None
     y = fn(*args)
     want = plain(*args)
     torch.cuda.synchronize()
@@ -1753,8 +1860,10 @@ def _train_row(name: str, label: str, args: tuple, rnd, flush) -> dict:
     del ins, pins, got, ref_g
     every = (True,) * len(args)
     return dict(shape=label, dtype="bfloat16", M=m, **dims, path="train",
-                **_compare(y, want, "bfloat16"),
-                **_attention_times(lambda: fn(*args), None, library, flush),
+                form=form, **_compare(y, want, "bfloat16"),
+                **_attention_times(lambda: fn(*args),
+                                   prev and (lambda: prev(*args)), library,
+                                   flush),
                 grad_err=max(errs.values()), grad_errs=errs,
                 bwd_ms=time_ms(lambda: bwd(g, *args, needs=every),
                                ahead=True),
@@ -2267,12 +2376,16 @@ def _kernel_entries(rows: dict[str, list[dict]]) -> list[dict]:
                      for k in timed}
             entry.update(launches=None, timed_as=f"the "
                          f"{sum(counts.values())} launches of {what}")
+            forms = {prows[lb].get("form") for lb in counts} - {None}
+            if forms:
+                entry["form"] = sorted(forms)
             cross = next((r for r in rs if r.get("path") == "vlm"
                           and r.get("M") == VLM_CROSS_M), None)
             if path == "vlm" and cross is not None:
                 entry["cross_kv"] = dict(
-                    {k: cross[k] for k in (
-                        "ms", "plain_ms", "library_ms", "bound_ms",
+                    {k: cross.get(k) for k in (
+                        "form", "ms", "prev_ms", "cold_ms", "event_ms",
+                        "plain_ms", "library_ms", "bound_ms",
                         "bound_by", "max_abs_err", "norm_err")},
                     launches_per_prefill=2, M=VLM_CROSS_M,
                     timed_as="one launch: the cross block's k or v over "
@@ -2318,7 +2431,8 @@ def _kernel_entries(rows: dict[str, list[dict]]) -> list[dict]:
             extra["train_family_path"] = {
                 r["shape"]: dict(
                     {k: r[k] for k in (
-                        "M", "ms", "plain_ms", "library_ms", "bound_ms",
+                        "M", "form", "ms", "prev_ms", "cold_ms", "event_ms",
+                        "plain_ms", "library_ms", "bound_ms",
                         "bound_by", "bwd_ms", "bwd_frozen_ms", "grad_err",
                         "max_abs_err", "norm_err")}, family=r["family"],
                     launches=None) for r in frows}
@@ -2327,13 +2441,18 @@ def _kernel_entries(rows: dict[str, list[dict]]) -> list[dict]:
                 "training M (bf16), with its backward products; launches: "
                 "the kernel's forwards per step of the train_<family> run")
         if trows:
-            tkeys = ("ms", "plain_ms", "library_ms", "bound_ms", "cold_ms",
-                     "library_cold_ms", "event_ms", "library_event_ms",
-                     "bwd_ms", "bwd_frozen_ms")
+            tkeys = ("ms", "prev_ms", "plain_ms", "library_ms", "bound_ms",
+                     "cold_ms", "library_cold_ms", "event_ms",
+                     "library_event_ms", "bwd_ms", "bwd_frozen_ms")
+            by_label = {label: next(r for r in trows if r["shape"] == label)
+                        for label in TRAIN_LAUNCHES[name]}
             extra["train_path"] = {
-                k: sum(n * next(r for r in trows if r["shape"] == label)[k]
-                       for label, n in TRAIN_LAUNCHES[name].items())
+                k: None if any(r[k] is None for r in by_label.values())
+                else sum(n * by_label[label][k]
+                         for label, n in TRAIN_LAUNCHES[name].items())
                 for k in tkeys}
+            extra["train_path"]["form"] = sorted(
+                {r["form"] for r in by_label.values()})
             extra["train_path"].update(
                 grad_err=max(r["grad_err"] for r in trows), launches=None,
                 timed_as=f"the {sum(TRAIN_LAUNCHES[name].values())} forward "
@@ -3407,6 +3526,37 @@ def check_surgery(label: str, rep, params, card: str, want: dict) -> None:
                            if "u" in node else d.rank)
     if got != want:
         raise SystemExit(f"{label} surgery decided {got}, want {want}")
+
+
+def large_m_plans() -> None:
+    """Print the large-M form's plan at each bf16 B1 / B2 shape the main
+    path runs at M >= LARGE_M (the train step's, hubert's, the VLM's
+    cross k / v, the searched k/v rank 191): per product its tile, ring
+    depth, tile count and shared memory, and the copies and scratch."""
+    import torch
+    from repro_torch.kernels import branched_matmul as bk
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    calls = {**{f"B1 {k} M={TRAIN_M}": (TRAIN_M, *LOWRANK_SHAPES[k])
+                for k in TRAIN_LAUNCHES["lowrank_matmul"]},
+             **{f"B1 {k} M={HUBERT_M}": (HUBERT_M, *v)
+                for k, v in HUBERT_LOWRANK_SHAPES.items()},
+             **{f"B1 {k} M={VLM_CROSS_M}": (VLM_CROSS_M, *v)
+                for k, v in VLM_LOWRANK_SHAPES.items()},
+             f"B1 k,v r191 M={TRAIN_M}": (
+                 TRAIN_M, *SEARCH_LOWRANK_SHAPES["k,v r191"]),
+             **{f"B2 {k} M={TRAIN_M}": (TRAIN_M, c, n, r, r, s_)
+                for k, (n, c, r, s_) in BRANCHED_SHAPES.items()},
+             **{f"B2 {k} M={HUBERT_M}": (HUBERT_M, c, n, r, r, s_)
+                for k, (n, c, r, s_) in HUBERT_BRANCHED_SHAPES.items()}}
+    for label, dims in calls.items():
+        plan = bk.large_m_plan(dims, sms)
+        log(f"large-M plan {label}: " + "; ".join(
+            f"{p.out} = {p.a} @ {p.b}: {p.bm}x{p.bn} tiles x "
+            f"{len(p.tiles())}, {p.stages} stages "
+            f"({(p.bm + p.bn) * bk.WG_BK * 2 * p.stages} B of ring)"
+            for p in plan.products)
+            + f"; copies {sorted(plan.copies)}, {plan.scratch_bytes} B of "
+            f"scratch (LARGE_M {bk.LARGE_M})")
 
 
 def split_kernels() -> None:
@@ -5017,6 +5167,19 @@ def run_hubert(phases: list[str], card: str, seed: int,
                 if res[name]["launches"] != chain:
                     raise SystemExit(f"check_hubert ({name}) launched "
                                      f"{res[name]['launches']}, not {chain}")
+    if "profile_hubert" in phases:
+        with Phase("profile_hubert"):
+            for _ in range(2):
+                fwd(params, batch)
+            reset_launches()
+            res = _profiled(lambda: fwd(params, batch), PROFILE_STEPS)
+            if _launches() != {k: n * PROFILE_STEPS for k, n in chain.items()}:
+                raise SystemExit(f"profile_hubert: {PROFILE_STEPS} forwards "
+                                 f"launched {_launches()}, not {chain} each")
+            res.update(config=HUBERT_ARCH, rows=HUBERT_M,
+                       launches_per_forward=chain, card=card)
+            hubert_res["profile"] = res
+            log("profile_hubert " + json.dumps(res))
     log(f"hubert phases {time.perf_counter() - t_all:.2f} s [{card}]")
 
 
@@ -5285,6 +5448,55 @@ def run_train(phases: list[str], card: str, seed: int,
     if "check_train" in phases:
         with Phase("check_train"):
             train_res["check"] = check_train(cfg, card, seed)
+    if "profile_train" in phases:
+        with Phase("profile_train"):
+            train_res["profile"] = profile_train(cfg, card, seed, chain)
+
+
+def profile_train(cfg, card: str, seed: int, chain: dict[str, int]
+                  ) -> dict:
+    """Where one frozen fine-tuning step's time goes (ROADMAP B-8's
+    first ask): the full-width branches=4 llama tree, decomposed and
+    frozen as the train phase's, one ``make_train_step`` step (forward,
+    backward, AdamW) on ByteTextLM's first batch (TRAIN_BATCH x
+    TRAIN_SEQ), :func:`_profiled` over PROFILE_STEPS steps after two warm
+    ones; every step launches exactly ``chain``."""
+    import torch
+    from repro_torch.configs.base import LRDConfig, RunConfig
+    from repro_torch.core import freezing
+    from repro_torch.core.surgery import decompose_model
+    from repro_torch.models.api import get_model
+    from repro_torch.train.data import ByteTextLM
+    from repro_torch.train.optim import OptimConfig
+    from repro_torch.train.steps import init_opt_state, make_train_step
+    lrd = LRDConfig(**LRD, branches=4, freeze=True)
+    run = RunConfig(model=cfg, lrd=lrd, seed=seed)
+    model = get_model(cfg, "cuda")
+    with torch.no_grad():
+        params, axes = model.init(
+            torch.Generator(device="cuda").manual_seed(seed))
+        params, _, _ = decompose_model(params, axes, lrd)
+    freezing.set_requires_grad(params, freeze=True)
+    opt_cfg = OptimConfig(total_steps=TRAIN_STEPS, **TRAIN_OPTIM)
+    state = [params, init_opt_state(model, run, params, opt_cfg)]
+    train_step = make_train_step(model, run, opt_cfg)
+    batch = {k: torch.as_tensor(v).to("cuda") for k, v in
+             ByteTextLM(cfg, TRAIN_BATCH, TRAIN_SEQ).batch(0).items()}
+
+    def step():
+        state[0], state[1], metrics = train_step(state[0], state[1], batch)
+        float(metrics["loss"])
+    for _ in range(2):
+        step()
+    reset_launches()
+    res = _profiled(step, PROFILE_STEPS)
+    if _launches() != {k: n * PROFILE_STEPS for k, n in chain.items()}:
+        raise SystemExit(f"profile_train: {PROFILE_STEPS} steps launched "
+                         f"{_launches()}, not {chain} each")
+    res.update(label="frozen", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+               launches_per_step=chain, card=card)
+    log("profile_train " + json.dumps(res))
+    return res
 
 
 #: the mesh phase: one NCCL rank (a FileStore in a temporary directory
@@ -5983,6 +6195,7 @@ def main() -> int:
                     f"shapes at 32 rows (the block a prefill chunk took "
                     f"before the fit repair): {at32}")
             split_kernels()
+            large_m_plans()
             attention_splits()
 
     if "kernels" in phases:

@@ -7,7 +7,10 @@ says what bounds them and how the design answers.  bf16 goes to the
 split-phase tensor-core kernel, one cooperative launch whose work split
 :func:`branched_split` computes here (:func:`lowrank_split` plans its
 two-phase form, which bf16 ``lowrank_matmul``, ``lowrank_matmul_q`` and
-``lowrank_matmul_sq`` run); f32 goes to the
+``lowrank_matmul_sq`` run), or, at LARGE_M rows or more, to the large-M
+form (``csrc/chain_wgmma.cuh``: one output-tiled ``wgmma`` launch per
+product, planned by :func:`large_m_plan`, which bf16 ``lowrank_matmul``
+takes too); f32 goes to the
 cluster kernel (tensor cores in TF32 cannot hold f32's tolerance).
 This wrapper checks the operands, allocates the output and the scratch,
 launches on the current stream and counts launches.  CUDA tensors only:
@@ -16,6 +19,7 @@ chosen by :mod:`repro_torch.kernels.ops`.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 from dataclasses import dataclass
@@ -63,6 +67,32 @@ ITEMS_PER_SM = 2
 LOWRANK_CTAS_PER_SM = 1
 #: alignment of each scratch region (bytes)
 ALIGN = 256
+#: the large-M form (csrc/chain_wgmma.cuh): the K depth of a ring stage,
+#: the output tile heights and widths it is built for, and its ring depth
+#: (stages of a BM x 64 A tile and a 64 x BN B tile): the deepest with one
+#: CTA a SM, or as many as fit 96 KB where a product has more tiles than
+#: the card has SMs, so that two CTAs share one
+WG_BK = 64
+WG_BM = (128, 64)
+WG_BN = (128, 64)
+WG_STAGES, WG_TWO_CTA_RING = 6, 96 * 1024
+#: the fewest activation rows at which bf16 B1 and B2 take the large-M
+#: form; fewer rows take the split-phase form.  From chip_smoke's LARGE_M
+#: sweep on an H100 at 700 W (PERF.md): at M = 128 the large-M form was
+#: the faster at every swept shape (1.2-2.8x; the split form walks two
+#: 64-row blocks), at M = 64 the split form at the k/v pair and the down
+#: projections (1.04-1.6x)
+LARGE_M = 128
+
+
+def chain_form(dtype: torch.dtype, m: int) -> str:
+    """The form a B1 or B2 call on ``m`` rows of ``dtype`` activations
+    runs: "cluster" for f32 (TF32 tensor cores cannot hold its
+    tolerance), "large_m" for bf16 at LARGE_M rows or more, else
+    "split"."""
+    if dtype == torch.float32:
+        return "cluster"
+    return "large_m" if m >= LARGE_M else "split"
 
 
 def mma_smem_bytes(kind: str = "bf16") -> int:
@@ -261,6 +291,217 @@ def lowrank_split(m: int, c: int, r: int, s: int, sms: int,
                         ctas=ctas)
 
 
+def _pad(n: int, to: int) -> int:
+    return -(-n // to) * to
+
+
+def _pad8(n: int) -> int:
+    """``n`` elements rounded up to whole 16-byte granules of bf16."""
+    return _pad(n, 8)
+
+
+def _tile(cols: int, rows: int, groups: int, sms: int
+          ) -> tuple[int, int, int]:
+    """The large-M form's output tile ``(bm, bn)`` and ring depth for a
+    product of ``groups`` x ``rows`` x ``cols`` outputs on a card of
+    ``sms`` SMs: 128 x 128; 64 wide where 128-wide tiles pad more columns
+    than 64-wide ones (a branch of 192) or leave SMs idle; then 64 high
+    where the card is still not full."""
+    def count(bm, bn):
+        return math.ceil(cols / bn) * math.ceil(rows / bm) * groups
+    bn = 128
+    if math.ceil(cols / 128) * 128 > _pad(cols, 64) or \
+            count(128, 128) < sms:
+        bn = 64
+    bm = 64 if count(128, bn) < sms else 128
+    stage = (bm + bn) * WG_BK * 2
+    stages = (min(WG_STAGES, WG_TWO_CTA_RING // stage)
+              if count(bm, bn) > sms else WG_STAGES)
+    return bm, bn, stages
+
+
+@dataclass(frozen=True)
+class Product:
+    """One product of the large-M form, one launch of
+    ``csrc/chain_wgmma.cuh``'s kernel:
+    ``out_z[m, n] = rnd(sum_{s < sum_groups} A_g[m, :k] @ B_g[:k, n])``
+    with ``g = z + s``, ``z < out_groups``, ``m < M``, ``n < cols`` (one
+    of out_groups and sum_groups is 1).  ``a``, ``b`` and ``out`` name the
+    operands: the call's inputs ("x", the factors), a scratch region, or
+    "y".  Strides in elements: A_g's row m at ``m * a_ld + g * a_group``
+    (g taken as 0 where ``a_groups`` is 1), B_g's row k at ``g * b_group +
+    k * b_ld``, out_z's row m at ``z * c_group + m * c_ld``.  ``bm`` x
+    ``bn``: the output tile, ``stages`` the depth of its ring."""
+    a: str
+    b: str
+    out: str
+    m: int
+    cols: int
+    k: int
+    out_groups: int
+    sum_groups: int
+    a_groups: int
+    b_groups: int
+    a_ld: int
+    a_group: int
+    b_ld: int
+    b_group: int
+    c_ld: int
+    c_group: int
+    bm: int
+    bn: int
+    stages: int
+
+    def tiles(self) -> list[tuple[int, int, int, int, int]]:
+        """The output tiles, one a CTA, in the grid's order (columns
+        fastest, then rows, then the group): ``(z, r0, r1, c0, c1)``."""
+        return [(z, r0, min(self.m, r0 + self.bm), c0,
+                 min(self.cols, c0 + self.bn))
+                for z in range(self.out_groups)
+                for r0 in range(0, self.m, self.bm)
+                for c0 in range(0, self.cols, self.bn)]
+
+    def spec(self, slot: dict[str, int]) -> tuple[int, ...]:
+        """The product's 19 integers in ``lrk_chain_wgmma``'s spec, its
+        operands as their ``slot`` in the call's pointer array."""
+        return (slot[self.a], self.a_ld, self.a_group, self.a_groups,
+                slot[self.b], self.b_ld, self.b_group, self.b_groups,
+                slot[self.out], self.c_ld, self.c_group, self.m, self.cols,
+                self.k, self.out_groups, self.sum_groups, self.bm, self.bn,
+                self.stages)
+
+
+@dataclass(frozen=True)
+class LargeMPlan:
+    """The large-M form's plan of one call: its products in launch order
+    and its scratch regions ``(name, padded shape)``, bf16, each aligned
+    to ALIGN bytes -- the padded copies of the inputs in ``copies`` (TMA
+    wants rows of whole 16-byte granules and 16-byte aligned bases), then
+    the intermediates (B1's h; B2's h1 and h2, each (M, N, r) with r
+    padded to a granule)."""
+    products: tuple[Product, ...]
+    regions: tuple[tuple[str, tuple[int, ...]], ...]
+    copies: frozenset
+
+    def region_bytes(self) -> dict[str, int]:
+        return {name: math.prod(shape) * 2 for name, shape in self.regions}
+
+    def offsets(self) -> dict[str, int]:
+        out, at = {}, 0
+        for name, nbytes in self.region_bytes().items():
+            out[name] = at
+            at += _align(nbytes)
+        return out
+
+    @property
+    def scratch_bytes(self) -> int:
+        return sum(_align(b) for b in self.region_bytes().values())
+
+
+def large_m_plan(dims: tuple[int, ...], sms: int,
+                 copies: frozenset = frozenset()) -> LargeMPlan:
+    """The large-M form's plan for B1 (``dims`` (M, C, R, S): h = rnd(x @
+    w0), y = rnd(h @ w1)) or B2 ((M, C, N, r1, r2, S): h1 = rnd(x @ u_n)
+    per branch, h2 = rnd(h1_n @ xc_n) per branch, y = rnd(h2 @ v) with the
+    branches summed in the K loop) on a card of ``sms`` SMs.  ``copies``:
+    the inputs the wrapper copies into padded scratch rows (a misaligned
+    base); an input whose row is not whole granules is always copied."""
+    if len(dims) not in (4, 6) or min(*dims, sms) <= 0:
+        raise ValueError(f"large-M plan of {dims} on {sms} SMs: a B1 (M, C, "
+                         "R, S) or B2 (M, C, N, r1, r2, S) call of positive "
+                         "sizes")
+    m, c, s = dims[0], dims[1], dims[-1]
+    if len(dims) == 4:
+        r = dims[2]
+        shapes = {"x": (m, c), "w0": (c, r), "w1": (r, s)}
+        inter = {"h": (m, r)}
+    else:
+        n, r1, r2 = dims[2:5]
+        shapes = {"x": (m, c), "u": (n, c, r1), "xc": (n, r1, r2),
+                  "v": (n, r2, s)}
+        inter = {"h1": (m, n, r1), "h2": (m, n, r2)}
+    if set(copies) - set(shapes):
+        raise ValueError(f"copies {sorted(copies)}: not inputs of {dims}")
+    copies = frozenset(copies) | {k for k, sh in shapes.items()
+                                  if sh[-1] % 8}
+    ld = {k: _pad8(sh[-1]) if k in copies else sh[-1]
+          for k, sh in shapes.items()}
+    regions = tuple((k, sh[:-1] + (ld[k],)) for k, sh in shapes.items()
+                    if k in copies) + tuple(
+        (k, sh[:-1] + (_pad8(sh[-1]),)) for k, sh in inter.items())
+
+    def product(a, b, out, cols, k, *, a_ld, c_ld, a_groups=1, a_group=0,
+                b_groups=1, c_group=0, out_groups=1, sum_groups=1):
+        bm, bn, stages = _tile(cols, m, out_groups, sms)
+        return Product(
+            a=a, b=b, out=out, m=m, cols=cols, k=k, out_groups=out_groups,
+            sum_groups=sum_groups, a_groups=a_groups, b_groups=b_groups,
+            a_ld=a_ld, a_group=a_group or a_ld, b_ld=ld[b],
+            b_group=k * ld[b], c_ld=c_ld, c_group=c_group, bm=bm, bn=bn,
+            stages=stages)
+    if len(dims) == 4:
+        rp = _pad8(r)
+        products = (product("x", "w0", "h", r, c, a_ld=ld["x"], c_ld=rp),
+                    product("h", "w1", "y", s, r, a_ld=rp, c_ld=s))
+    else:
+        r1p, r2p = _pad8(r1), _pad8(r2)
+        products = (
+            product("x", "u", "h1", r1, c, a_ld=ld["x"], b_groups=n,
+                    c_ld=n * r1p, c_group=r1p, out_groups=n),
+            product("h1", "xc", "h2", r2, r1, a_ld=n * r1p, a_groups=n,
+                    a_group=r1p, b_groups=n, c_ld=n * r2p, c_group=r2p,
+                    out_groups=n),
+            product("h2", "v", "y", s, r2, a_ld=n * r2p, a_groups=n,
+                    a_group=r2p, b_groups=n, c_ld=s, sum_groups=n))
+    return LargeMPlan(products=products, regions=regions, copies=copies)
+
+
+@functools.lru_cache(maxsize=256)
+def _large_launch(dims: tuple[int, ...], sms: int, copies: frozenset
+                  ) -> tuple[LargeMPlan, tuple[str, ...], object, tuple]:
+    """What a large-M call passes to C, cached per shape: its plan, the
+    operand names in the order of the pointer array, the products' spec
+    as a ctypes array, and the scratch regions' offsets."""
+    plan = large_m_plan(dims, sms, copies)
+    names = (("x", "w0", "w1") if len(dims) == 4 else ("x", "u", "xc", "v")
+             ) + ("y",) + tuple(name for name, _ in plan.regions)
+    slot = {name: i for i, name in enumerate(names)}
+    flat = [v for p in plan.products for v in p.spec(slot)]
+    return plan, names, (ctypes.c_longlong * len(flat))(*flat), tuple(
+        plan.offsets().values())
+
+
+def launch_large_m(x: torch.Tensor, weights: tuple[torch.Tensor, ...],
+                   y: torch.Tensor, dims: tuple[int, ...], what: str) -> None:
+    """The large-M form on bf16 operands already checked: B1's (w0, w1)
+    with ``dims`` (M, C, R, S) or B2's (u, xc, v) with (M, C, N, r1, r2,
+    S): the copies its plan asks for, then one host call that launches
+    every product of the plan in order on the current stream."""
+    inputs = (x, *weights)
+    names = ("x", "w0", "w1") if len(dims) == 4 else ("x", "u", "xc", "v")
+    misaligned = frozenset(n for n, t in zip(names, inputs)
+                           if t.data_ptr() % 16)
+    plan, slots, spec, offsets = _large_launch(
+        dims, _sm_count(x.device.index), misaligned)
+    scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8,
+                          device=x.device)
+    ptr = {n: t.data_ptr() for n, t in zip(names, inputs)}
+    ptr["y"] = y.data_ptr()
+    for (name, shape), at in zip(plan.regions, offsets):
+        ptr[name] = scratch.data_ptr() + at
+        if name in plan.copies:
+            t = inputs[names.index(name)]
+            region = scratch[at:at + math.prod(shape) * 2].view(
+                torch.bfloat16).view(shape)
+            region[..., :t.shape[-1]].copy_(t)
+    ptrs = (ctypes.c_void_p * len(slots))(*(ptr[n] for n in slots))
+    lib = build.load()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.lrk_chain_wgmma(len(plan.products), spec, ptrs, stream)
+    build.check(lib, rc, what)
+
+
 @functools.lru_cache(maxsize=256)
 def _plan(dims: tuple[int, ...], sms: int, knobs: tuple
           ) -> tuple[tuple[int, ...], int, tuple[int, ...]]:
@@ -316,18 +557,66 @@ def check_operands(x: torch.Tensor, u: torch.Tensor, xc: torch.Tensor,
 def branched_matmul(x: torch.Tensor, u: torch.Tensor, xc: torch.Tensor,
                     v: torch.Tensor) -> torch.Tensor:
     """x (M,C); u (N,C,r1); xc (N,r1,r2); v (N,r2,S) -> (M,S), all one
-    float dtype on one CUDA device, contiguous."""
+    float dtype on one CUDA device, contiguous, in the form
+    :func:`chain_form` names: bf16 at M >= LARGE_M the large-M form, at
+    fewer rows the split-phase kernel (neither takes empty factors); f32
+    the cluster kernel.  One counted call either way."""
     global launches
     dims = check_operands(x, u, xc, v)
     y = torch.empty((dims[0], dims[5]), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
-    if x.dtype == torch.float32:
+    form = chain_form(x.dtype, dims[0])
+    if form == "cluster":
         _launch_cluster(x, u, xc, v, y)
     else:
         check_factors("branched_matmul", dims[1:5], u, xc, v)
-        _launch_mma(x, u, xc, v, y, None, dims)
+        if form == "large_m":
+            launch_large_m(x, (u, xc, v), y, dims, "branched_matmul")
+        else:
+            _launch_mma(x, u, xc, v, y, None, dims)
     launches += 1
+    return y
+
+
+def split_branched_matmul(x: torch.Tensor, u: torch.Tensor,
+                          xc: torch.Tensor, v: torch.Tensor
+                          ) -> torch.Tensor:
+    """The bf16 split-phase kernel at any M, uncounted: the earlier form
+    of a large-M call (chip_smoke's ``prev_ms``) and one side of its
+    LARGE_M sweep.  The serve and train paths never call it."""
+    return _forced("split_branched_matmul", x, (u, xc, v),
+                   check_operands(x, u, xc, v))
+
+
+def large_m_branched_matmul(x: torch.Tensor, u: torch.Tensor,
+                            xc: torch.Tensor, v: torch.Tensor
+                            ) -> torch.Tensor:
+    """The large-M form at any M, uncounted: the other side of
+    chip_smoke's LARGE_M sweep.  bf16 only; f32 or empty factors raise
+    before anything is launched."""
+    return _forced("large_m_branched_matmul", x, (u, xc, v),
+                   check_operands(x, u, xc, v))
+
+
+def _forced(what: str, x: torch.Tensor, weights: tuple,
+            dims: tuple[int, ...]) -> torch.Tensor:
+    """B1 (two ``weights``, ``dims`` (M, C, R, S)) or B2 (three, (M, C,
+    N, r1, r2, S)) on operands already checked, in the form ``what``
+    names ("split_..." or "large_m_..."), whatever M, uncounted."""
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"{what} runs bf16 activations, got {x.dtype}")
+    check_factors(what, dims[1:-1], *weights)
+    y = torch.empty((dims[0], dims[-1]), dtype=x.dtype, device=x.device)
+    if y.numel() == 0:
+        return y
+    if what.startswith("large_m"):
+        launch_large_m(x, weights, y, dims, what)
+    elif len(weights) == 2:
+        launch_split("lrk_lowrank_matmul_mma", (), x, weights, y, dims, None,
+                     what)
+    else:
+        _launch_mma(x, *weights, y, None, dims)
     return y
 
 

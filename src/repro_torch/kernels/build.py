@@ -29,7 +29,8 @@ SOURCES = ("lowrank_matmul.cu", "branched_matmul.cu", "lowrank_matmul_q.cu",
            "branched_matmul_q.cu", "decode_attention_q.cu",
            "lowrank_matmul_qa.cu", "branched_matmul_qa.cu",
            "decode_attention_paged.cu", "decode_attention_latent_q.cu",
-           "lowrank_matmul_sq.cu", "branched_matmul_sq.cu")
+           "lowrank_matmul_sq.cu", "branched_matmul_sq.cu",
+           "chain_wgmma.cu")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 #: shared memory a CTA may opt into on an H100 (bytes)
 SMEM_LIMIT = int(H100.vmem_bytes)
@@ -231,6 +232,8 @@ def load() -> ctypes.CDLL:
     lib.lrk_decode_attention_latent_q_prev.restype = i
     lib.lrk_decode_attention_latent_q_prev_smem.argtypes = [i, i, i]
     lib.lrk_decode_attention_latent_q_prev_smem.restype = ctypes.c_size_t
+    lib.lrk_chain_wgmma.argtypes = [i, p, p, p]
+    lib.lrk_chain_wgmma.restype = i
     lib.lrk_error_string.argtypes = [i]
     lib.lrk_error_string.restype = ctypes.c_char_p
     return lib

@@ -49,6 +49,9 @@
 //            in ONE f32 accumulator.
 // Its bf16 instantiation stays callable as a yardstick (chip_smoke's
 // prev_ms); the wrapper never launches it for bf16.
+//
+// bf16 calls of M >= LARGE_M rows take the large-M form instead
+// (chain_wgmma.cuh: one output-tiled wgmma launch per product).
 #include "branched_mma.cuh"
 #include "lrk_common.cuh"
 

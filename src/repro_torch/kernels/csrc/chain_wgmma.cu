@@ -1,0 +1,55 @@
+// The C entry of the large-M form of bf16 B1 and B2 (chain_wgmma.cuh,
+// whose note says what it replaces, what bounds it and how it is built):
+// every product of one call of a chain, in the order its plan
+// (kernels/branched_matmul.py::large_m_plan) lists them, from one host
+// call (kernels/branched_matmul.py::launch_large_m).
+#include "chain_wgmma.cuh"
+
+extern "C" {
+
+// One call of the large-M form: the n products of its plan, launched in
+// order on `stream`.  Product i is the SPEC longs at spec + i * SPEC:
+//   a, a_ld, a_group, a_groups, b, b_ld, b_group, b_groups, c, ldc,
+//   c_group, M, N, K, out_groups, sum_groups, bm, bn, stages
+// with a, b, c slots of `ptrs` (the call's x, factors, y and scratch
+// regions), and computes
+//   c[z*c_group + m*ldc + n] = round_bf16( sum_{s < sum_groups}
+//       sum_{k < K} A_g[m, k] * B_g[k, n] ),  g = z + s,
+// z < out_groups, m < M, n < N, with A_g[m, k] = a[m*a_ld + g'*a_group +
+// k] (g' = g where a_groups > 1, else 0) and B_g[k, n] = b[g*b_group +
+// k*b_ld + n], all bf16; one of out_groups and sum_groups is 1.  Every
+// stride a multiple of 8 elements and a, b 16-byte aligned (TMA); bm x
+// bn the output tile, 64 or 128 each; stages the ring's depth, 2-6.
+// Returns the first failing launch's cudaError_t (0 on success).
+int lrk_chain_wgmma(int n, const long long* spec, const void* const* ptrs,
+                    void* stream) {
+  constexpr int SPEC = 19;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  for (int i = 0; i < n; ++i) {
+    const long long* q = spec + (size_t)i * SPEC;
+    const void* a = ptrs[q[0]];
+    const void* b = ptrs[q[4]];
+    void* c = const_cast<void*>(ptrs[q[8]]);
+    const int M = (int)q[11], N = (int)q[12], K = (int)q[13];
+    const int out_groups = (int)q[14], sum_groups = (int)q[15];
+    const int bm = (int)q[16], bn = (int)q[17], stages = (int)q[18];
+    if (M <= 0 || N <= 0 || K <= 0 || out_groups <= 0 || sum_groups <= 0 ||
+        (out_groups > 1 && sum_groups > 1))
+      return (int)cudaErrorInvalidValue;
+    int rc = (int)cudaErrorInvalidValue;
+#define LRK_CHAIN_WGMMA(BN, WG)                                              \
+    if (bn == BN && bm == 64 * WG)                                          \
+      rc = wgc::launch_gemm<BN, WG>(a, q[1], q[2], (int)q[3], b, q[5], q[6],\
+                                    (int)q[7], c, q[9], q[10], M, N, K,     \
+                                    out_groups, sum_groups, stages, st);
+    LRK_CHAIN_WGMMA(128, 2)
+    LRK_CHAIN_WGMMA(64, 2)
+    LRK_CHAIN_WGMMA(128, 1)
+    LRK_CHAIN_WGMMA(64, 1)
+#undef LRK_CHAIN_WGMMA
+    if (rc != 0) return rc;
+  }
+  return 0;
+}
+
+}  // extern "C"

@@ -37,7 +37,8 @@
 // f32 partials are summed in slice order, so a second call gives the same
 // bits.  The cluster kernel's bf16 instantiation stays callable as a
 // yardstick (chip_smoke's prev_ms); the wrapper never launches it for
-// bf16.
+// bf16.  bf16 calls of M >= LARGE_M rows take the large-M form
+// (chain_wgmma.cuh: two output-tiled wgmma launches, h then y).
 #include "branched_mma.cuh"
 #include "lrk_common.cuh"
 

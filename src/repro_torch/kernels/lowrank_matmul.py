@@ -5,7 +5,9 @@ The kernels (``csrc/lowrank_matmul.cu``) replace the TPU kernel
 says what bounds them and how the design answers.  bf16 goes to the
 two-phase split kernel on the split-phase tensor-core core of bf16
 ``branched_matmul``, one cooperative launch whose work split
-:func:`repro_torch.kernels.branched_matmul.lowrank_split` computes; f32
+:func:`repro_torch.kernels.branched_matmul.lowrank_split` computes, or,
+at ``LARGE_M`` rows or more, to the large-M form
+(``csrc/chain_wgmma.cuh``, two ``wgmma`` launches: h, then y); f32
 goes to the cluster kernel (tensor cores in TF32 cannot hold f32's
 tolerance).  This wrapper checks the operands, allocates the output and
 the scratch, launches on the current stream and counts launches.  CUDA
@@ -24,8 +26,8 @@ from repro_torch.kernels.build import DTYPES
 launches = 0
 
 
-def _check(x: torch.Tensor, w0: torch.Tensor,
-           w1: torch.Tensor) -> tuple[int, int, int, int]:
+def check_operands(x: torch.Tensor, w0: torch.Tensor,
+                   w1: torch.Tensor) -> tuple[int, int, int, int]:
     """Raise on operands the kernels do not take; return ``(M, C, R,
     S)``."""
     for name, t in (("x", x), ("w0", w0), ("w1", w1)):
@@ -56,29 +58,57 @@ def _check(x: torch.Tensor, w0: torch.Tensor,
 def lowrank_matmul(x: torch.Tensor, w0: torch.Tensor,
                    w1: torch.Tensor) -> torch.Tensor:
     """x (M,C); w0 (C,R); w1 (R,S) -> (M,S), all one float dtype on one
-    CUDA device, contiguous.  bf16 takes the two-phase split kernel, which
-    takes no empty factors (C or R of 0 raise); f32 the cluster kernel."""
+    CUDA device, contiguous, in the form ``branched_matmul.chain_form``
+    names: bf16 at M >= LARGE_M the large-M form, at fewer rows the
+    two-phase split kernel (neither takes empty factors: C or R of 0
+    raise); f32 the cluster kernel."""
     return lowrank_matmul_split(x, w0, w1)
 
 
 def lowrank_matmul_split(x: torch.Tensor, w0: torch.Tensor,
                          w1: torch.Tensor, **knobs) -> torch.Tensor:
-    """:func:`lowrank_matmul` with the bf16 plan's ``items`` and ``ctas``
-    asked of :func:`~repro_torch.kernels.branched_matmul.lowrank_split`
-    (its defaults where not given), one counted launch; chip_smoke times
-    other plans with it."""
+    """:func:`lowrank_matmul`, one counted call; ``knobs``, the split
+    plan's ``items`` and ``ctas`` asked of
+    :func:`~repro_torch.kernels.branched_matmul.lowrank_split` (its
+    defaults where not given), for a call that takes the split kernel
+    (chip_smoke times other plans with it): a large-M call refuses them."""
     global launches
-    dims = _check(x, w0, w1)
+    dims = check_operands(x, w0, w1)
     y = torch.empty((dims[0], dims[3]), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
-    if x.dtype == torch.float32:
+    form = bk.chain_form(x.dtype, dims[0])
+    if form == "cluster":
         _launch_cluster(x, w0, w1, y, dims)
     else:
         bk.check_factors("lowrank_matmul", dims[1:3], w0, w1)
-        _launch_mma(x, w0, w1, y, None, dims, **knobs)
+        if form == "large_m":
+            if knobs:
+                raise ValueError(f"lowrank_matmul at M = {dims[0]} takes the "
+                                 f"large-M form, which has no {knobs}")
+            bk.launch_large_m(x, (w0, w1), y, dims, "lowrank_matmul")
+        else:
+            _launch_mma(x, w0, w1, y, None, dims, **knobs)
     launches += 1
     return y
+
+
+def split_lowrank_matmul(x: torch.Tensor, w0: torch.Tensor,
+                         w1: torch.Tensor) -> torch.Tensor:
+    """The bf16 two-phase split kernel at any M, uncounted: the earlier
+    form of a large-M call (chip_smoke's ``prev_ms``) and one side of its
+    LARGE_M sweep.  The serve and train paths never call it."""
+    return bk._forced("split_lowrank_matmul", x, (w0, w1),
+                      check_operands(x, w0, w1))
+
+
+def large_m_lowrank_matmul(x: torch.Tensor, w0: torch.Tensor,
+                           w1: torch.Tensor) -> torch.Tensor:
+    """The large-M form at any M, uncounted: the other side of
+    chip_smoke's LARGE_M sweep.  bf16 only; f32 or empty factors raise
+    before anything is launched."""
+    return bk._forced("large_m_lowrank_matmul", x, (w0, w1),
+                      check_operands(x, w0, w1))
 
 
 def lowrank_matmul_phase_us(x: torch.Tensor, w0: torch.Tensor,
@@ -88,7 +118,7 @@ def lowrank_matmul_phase_us(x: torch.Tensor, w0: torch.Tensor,
     by CTA 0 from %globaltimer.  ``knobs``: the plan's ``items`` and
     ``ctas``, as for :func:`lowrank_matmul_split`."""
     global launches
-    dims = _check(x, w0, w1)
+    dims = check_operands(x, w0, w1)
     us = bk.phase_us(lambda y, ts: _launch_mma(x, w0, w1, y, ts, dims,
                                                **knobs), x, dims)
     launches += 1
@@ -100,7 +130,7 @@ def cluster_lowrank_matmul(x: torch.Tensor, w0: torch.Tensor,
     """The cluster kernel in x's dtype, bf16 included, uncounted: the
     earlier bf16 design, kept as a yardstick for the split kernel
     (chip_smoke's ``prev_ms``).  The serve path never calls it."""
-    dims = _check(x, w0, w1)
+    dims = check_operands(x, w0, w1)
     y = torch.empty((dims[0], dims[3]), dtype=x.dtype, device=x.device)
     if y.numel():
         _launch_cluster(x, w0, w1, y, dims)

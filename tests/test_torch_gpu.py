@@ -2046,21 +2046,38 @@ def test_decode_attention_q_at_the_vlm_heads(cuda, case, dtype):
     assert _norm_err(y, want) <= chip_smoke.KERNEL_TOL[dtype]
 
 
+#: B1 shapes (C, R, S) of the large-M cases: llama's train k/v, the
+#: searched k/v rank 191 (w0's rows are not whole 16-byte granules), the
+#: VLM's cross k / v and hubert's
+_LARGE_LOWRANK = {**chip_smoke.LOWRANK_SHAPES,
+                  **chip_smoke.SEARCH_LOWRANK_SHAPES,
+                  **chip_smoke.VLM_LOWRANK_SHAPES,
+                  **chip_smoke.HUBERT_LOWRANK_SHAPES}
+#: B2 shapes (N, C, r, S): llama's train shapes, hubert's, the VLM's q,o
+_LARGE_BRANCHED = {**chip_smoke.BRANCHED_SHAPES,
+                   **chip_smoke.HUBERT_BRANCHED_SHAPES,
+                   "vlm q,o": chip_smoke.VLM_BRANCHED_SHAPES["vlm q,o"]}
+
+
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("label,m", [
     ("vlm k,v", chip_smoke.VLM_CROSS_M),
     ("hubert q,k,v,o", chip_smoke.HUBERT_M),
-    ("hubert unembed", chip_smoke.HUBERT_M)])
+    ("hubert unembed", chip_smoke.HUBERT_M),
+    ("k,v", 513), ("k,v", 1024), ("k,v r191", 1024), ("k,v r191", 513),
+    ("hubert q,k,v,o", 1601), ("vlm k,v", 2000)])
 def test_lowrank_kernels_at_large_m(cuda, label, m, dtype):
-    """B1 at the VLM cross k / v's M = 1,601 image tokens and at hubert's
-    M = 2,000 frames (many row blocks, a ragged last one), and B3 with
-    int8 factors beside it, against their plain versions."""
+    """B1 at the VLM cross k / v's M = 1,601 image tokens, hubert's M =
+    2,000 frames, the train step's 1,024 rows, a ragged 513 and the
+    searched rank 191 (bf16: the large-M form, one counted launch, held
+    to the plain version and to the split-phase form forced), and B3
+    with int8 factors beside it, against their plain versions."""
+    from repro_torch.kernels import branched_matmul as bk
     from repro_torch.kernels import lowrank_matmul as lk
     from repro_torch.kernels import lowrank_matmul_q as lqk
     from repro_torch.kernels import ref
     from repro_torch.quant.quantize import quantize_array
-    c, r, s = {**chip_smoke.VLM_LOWRANK_SHAPES,
-               **chip_smoke.HUBERT_LOWRANK_SHAPES}[label]
+    c, r, s = _LARGE_LOWRANK[label]
     dt = getattr(torch, dtype)
     x = _rnd(cuda, m, c, dtype=dt)
     w0 = _rnd(cuda, c, r, scale=c ** -0.5, dtype=dt)
@@ -2068,13 +2085,18 @@ def test_lowrank_kernels_at_large_m(cuda, label, m, dtype):
     n0 = lk.launches
     y = lk.lowrank_matmul(x, w0, w1)
     assert lk.launches == n0 + 1
-    assert _norm_err(y, ref.lowrank_matmul_ref(x, w0, w1)) \
-        <= chip_smoke.KERNEL_TOL[dtype]
+    tol = chip_smoke.KERNEL_TOL[dtype]
+    assert _norm_err(y, ref.lowrank_matmul_ref(x, w0, w1)) <= tol
+    if dtype == "bfloat16":
+        assert bk.chain_form(dt, m) == "large_m"
+        assert _norm_err(y, lk.split_lowrank_matmul(x, w0, w1)) <= tol
+        assert torch.equal(y, lk.lowrank_matmul(x, w0, w1))
+        assert lk.launches == n0 + 2
     (w0q, w0s), (w1q, w1s) = quantize_array(w0.float()), \
         quantize_array(w1.float())
     y = lqk.lowrank_matmul_q(x, w0q, w0s, w1q, w1s)
     assert _norm_err(y, ref.lowrank_matmul_q_ref(x, w0q, w0s, w1q, w1s)) \
-        <= chip_smoke.KERNEL_TOL[dtype]
+        <= tol
 
 
 @pytest.mark.parametrize("label", list(chip_smoke.HUBERT_BRANCHED_SHAPES))
@@ -2092,6 +2114,60 @@ def test_branched_kernel_at_hubert_m(cuda, label):
     y = bk.branched_matmul(x, u, xc, v)
     assert _norm_err(y, ref.branched_matmul_ref(x, u, xc, v)) \
         <= chip_smoke.KERNEL_TOL["bfloat16"]
+
+
+@pytest.mark.parametrize("m", [513, 1024, 1601, 2000])
+@pytest.mark.parametrize("label", list(_LARGE_BRANCHED))
+def test_branched_large_m_form_matches_plain_and_split(cuda, label, m):
+    """bf16 B2 at M >= LARGE_M takes the large-M form: one counted
+    launch, within KERNEL_TOL of the plain version and of the split-phase
+    form forced on the same inputs, the same bits on a second call."""
+    from repro_torch.kernels import branched_matmul as bk
+    from repro_torch.kernels import ref
+    n, c, r, s = _LARGE_BRANCHED[label]
+    bf = torch.bfloat16
+    x = _rnd(cuda, m, c, dtype=bf)
+    u = _rnd(cuda, n, c, r, scale=c ** -0.5, dtype=bf)
+    xc = _rnd(cuda, n, r, r, scale=r ** -0.5, dtype=bf)
+    v = _rnd(cuda, n, r, s, scale=r ** -0.5, dtype=bf)
+    assert bk.chain_form(bf, m) == "large_m"
+    n0 = bk.launches
+    y = bk.branched_matmul(x, u, xc, v)
+    assert bk.launches == n0 + 1
+    tol = chip_smoke.KERNEL_TOL["bfloat16"]
+    assert _norm_err(y, ref.branched_matmul_ref(x, u, xc, v)) <= tol
+    assert _norm_err(y, bk.split_branched_matmul(x, u, xc, v)) <= tol
+    assert torch.equal(y, bk.large_m_branched_matmul(x, u, xc, v))
+    assert bk.launches == n0 + 1
+
+
+def test_large_m_form_refuses_before_launching(cuda):
+    """The large-M entries refuse f32 activations and empty factors, and
+    a large-M call refuses the split plan's knobs: each raises, and no
+    kernel runs (the output buffer of a refused call is never made)."""
+    from repro_torch.kernels import branched_matmul as bk
+    from repro_torch.kernels import lowrank_matmul as lk
+    m = bk.LARGE_M
+    x32 = _rnd(cuda, m, 64, dtype=torch.float32)
+    w0, w1 = (_rnd(cuda, 64, 16, dtype=torch.float32),
+              _rnd(cuda, 16, 32, dtype=torch.float32))
+    u, xc, v = (_rnd(cuda, 2, 64, 16, dtype=torch.float32),
+                _rnd(cuda, 2, 16, 16, dtype=torch.float32),
+                _rnd(cuda, 2, 16, 32, dtype=torch.float32))
+    n0 = (lk.launches, bk.launches)
+    torch.cuda.synchronize()
+    with pytest.raises(TypeError):
+        lk.large_m_lowrank_matmul(x32, w0, w1)
+    with pytest.raises(TypeError):
+        bk.large_m_branched_matmul(x32, u, xc, v)
+    xb = x32.bfloat16()
+    with pytest.raises(ValueError):
+        lk.large_m_lowrank_matmul(xb, w0[:, :0].bfloat16().contiguous(),
+                                  w1[:0].bfloat16().contiguous())
+    with pytest.raises(ValueError):
+        lk.lowrank_matmul_split(xb, w0.bfloat16(), w1.bfloat16(), items=8)
+    torch.cuda.synchronize()
+    assert (lk.launches, bk.launches) == n0
 
 
 @pytest.mark.parametrize("kv_quantize", [None, "int8"])

@@ -295,7 +295,7 @@ seed (``RESNET_LRD``, ``RESNET_VARIANTS``):
              (mean and spread of 10 forwards after warm-up, each ending
              in a sync), batch-1 ms, peak memory, speedup over the
              original, and the exact chain-kernel launches per forward:
-             one B1 (the fc's SVD pair, f32 cluster kernel) for the
+             one B1 (the fc's SVD pair, the f32 form) for the
              vanilla and searched trees, one B3 for the int8 tree, none
              for the others.  The convolutions are cuDNN's.
 - check_resnet — every tree's f32 logits on the card against the port's
@@ -336,8 +336,9 @@ branches=4, its surgery decisions held to ``VLM_SURGERY`` /
              embeddings and 16 greedy decode steps, every cross gate at
              0.5, bf16 on the card against f32 on the CPU
              (``CHECK_TOL``), f32 on the card against it too
-             (``CHECK_TOL_F32``: the f32 cluster chains at 4-row blocks
-             take the per-branch ranks 768 / 960), and the card with
+             (``CHECK_TOL_F32``: the f32 form of B1 / B2 takes any
+             per-branch rank; its decode step's ms and distance printed
+             on a line of their own), and the card with
              the gates at 0 beside each (the image path must move the
              bf16 logits by more than ``CHECK_TOL_F32``).
 - serve_vlm_q / check_vlm_q — the same tree with int8 factors over the
@@ -376,12 +377,27 @@ device kernels and host ops, exact launches):
 The kernels phase adds their rows (``path``: "vlm" / "hubert"): B1 / B2
 and B3 / B4 at the VLM's shapes, M = 8, with the 128,256-column unembed;
 B2 / B4 in f32 at the VLM's gate / up / down and unembed, M = 8 and 128
-(``VLM_F32_SHAPES``, ``path`` "vlm_f32": the cluster kernels at 4-row
-blocks, ``vlm_f32_path`` of the kernels line);
+(``VLM_F32_SHAPES``, ``path`` "vlm_f32": B2's f32 form, B4's cluster
+kernel at 4-row blocks, ``vlm_f32_path`` of the kernels line);
 B1 / B3 at the cross k / v's M = 1,601; B5 at (G 8, D 128) in
 ``WIDE_ATTN_CASES``; B1 / B2 at hubert's shapes, M = 2,000; summed per
 decode step or forward as ``vlm_path`` / ``hubert_path`` of the kernels
 line, the cuBLAS chain's time beside each.
+
+The f32 form of B1 / B2 (``kernels/csrc/chain_f32.cu``: one output-tiled,
+K-sliced split-TF32 ``mma.sync`` launch a product, every M) adds: in the
+build phase its plans (:func:`f32_plans`); in the kernels phase, on every
+f32 B1 / B2 row (llama's shapes at M = 8 / 64 / 37, ``vlm_f32``,
+``resnet``, and the rows below), ``form`` "f32" and the cluster kernel
+(the earlier f32 kernel) timed in turns as ``prev_ms`` (``prev_err`` its
+distance), the bound's operations at the split-TF32 peak (``peak``
+"tf32x3", 495 / 3 TFLOP/s), each row failing where the f32 form is off
+``KERNEL_TOL``, gives other bits on a second call or is not faster than
+``prev_ms``; f32 B1 rows at the VLM's cross k / v over the image tokens
+and hubert's q,k,v,o over one clip (``F32_LOWRANK_ROWS``: ``vlm_f32_path``,
+``hubert_f32_path``); and f32 B2 rows with their gradients at the family
+train shapes whose check step runs f32, at its M
+(``TRAIN_FAMILY_F32_ROWS``, in ``train_family_path``).
 
 Training the other families (ROADMAP A13t) adds one pair per family
 (``TRAIN_FAMILY_RUNS``), each right after the serve phases of the same
@@ -403,9 +419,8 @@ the cross block no gradient):
              ``TRAIN_CHECK_TOL``) holds the run ``check`` names: f32 for
              the MoE families (bf16 flips 1.7-6.7 % of top-k choices,
              and a flipped token sends its gradient to another expert),
-             the SSM, the hybrid and the encoder (their f32 chains take
-             these ranks); bf16 for the VLM, whose f32 chains refuse its
-             per-branch ranks 768 / 960.  The other run is reported, and
+             the SSM, the hybrid and the encoder; bf16 for the VLM.  The
+             other run is reported, and
              the VLM's image path's share of its cross block's gradient
              (bf16 card step with zero image embeddings beside it).
              Exact launches: :func:`train_launches`.
@@ -540,10 +555,13 @@ EXTRA_PHASES = ("profile", "profile_qa", "profile_mla")
 
 #: one H100 SXM's memory rate and dense peak rates (NVIDIA's data sheet
 #: constants, not measurements, from the port's hardware spec): bf16 and
-#: int8 on the tensor cores, f32 outside them
+#: int8 on the tensor cores, f32 outside them, and "tf32x3": f32 work in
+#: split TF32, three TF32 tensor-core products a term (the peak of the
+#: f32 form of B1 / B2, ``csrc/chain_f32.cu``)
 HBM_BYTES_PER_S = H100.hbm_bandwidth
 PEAK_FLOPS = {"bfloat16": H100.peak_flops(2),
-              "float32": H100.peak_flops_f32, "int8": H100.peak_flops(1)}
+              "float32": H100.peak_flops_f32, "int8": H100.peak_flops(1),
+              "tf32x3": H100.peak_flops_tf32 / 3}
 
 #: normalised tolerance of a kernel vs its plain version on the same
 #: inputs: max|kernel - plain| / max|plain|.  f32: the two sum the same
@@ -823,6 +841,13 @@ TRAIN_FAMILY_ROWS = {
     "vlm unembed (train)": ("vlm", (4, 8192, 960, 128256)),
     "hubert up (train)": ("hubert", (4, 1280, 128, 5120)),
 }
+#: the f32 train rows: the same shapes of the families whose check step
+#: runs f32 on the card (``check="float32"``), at that step's M
+#: (TRAIN_FAMILY_CHECK_BATCH x seq), through the f32 form
+TRAIN_FAMILY_F32_ROWS = {
+    label.replace("(train)", "(train, f32)"): (key, shape)
+    for label, (key, shape) in TRAIN_FAMILY_ROWS.items()
+    if TRAIN_FAMILY_RUNS[key]["check"] == "float32"}
 #: the launch phase: the train launcher's flags for every registered
 #: arch's smoke config, and the full-width llama3.2-1b runs
 LAUNCH_SMOKE = ("--smoke", "--steps", "2", "--lrd", "aligned", "--freeze",
@@ -914,10 +939,16 @@ VLM_BRANCHED_SHAPES = {"vlm q,o": (4, 8192, 512, 8192),
                        "vlm unembed": (4, 8192, 960, 128256)}
 VLM_CROSS_M = 1601
 #: the f32 rows at the VLM's widest per-branch ranks (768, 960), where the
-#: 8-row block of the cluster chains does not fit and the 4-row one does
+#: cluster chains (f32 B4's kernel, B2's ``prev_ms``) take 4-row blocks
 VLM_F32_SHAPES = {k: VLM_BRANCHED_SHAPES[k]
                   for k in ("vlm gate,up", "vlm down", "vlm unembed")}
 VLM_F32_M = (8, 128)
+#: the f32 B1 rows of check_vlm's and check_hubert's f32 runs: the VLM's
+#: cross k / v over the image tokens (path "vlm_f32") and hubert's
+#: q,k,v,o over one clip (path "hubert_f32")
+F32_LOWRANK_ROWS = {"vlm cross k,v": ("vlm_f32", (8192, 384, 1024), 1601),
+                    "hubert q,k,v,o": ("hubert_f32", (1280, 256, 1280),
+                                       500)}
 HUBERT_LOWRANK_SHAPES = {"hubert q,k,v,o": (1280, 256, 1280),
                          "hubert unembed": (1280, 128, 512)}
 HUBERT_BRANCHED_SHAPES = {"hubert up": (4, 1280, 128, 5120),
@@ -1383,6 +1414,10 @@ def check_kernels(card: str, only: frozenset = frozenset(KERNELS)
         add("lowrank_matmul", lambda: dict(_lowrank_row(
             label, rnd(HUBERT_M, shape[0], dtype=bf), shape, "bfloat16", rnd,
             flush, plans=False), path="hubert"))
+    for label, (path, shape, m) in F32_LOWRANK_ROWS.items():
+        add("lowrank_matmul", lambda: dict(_lowrank_row(
+            label, rnd(m, shape[0]), shape, "float32", rnd, flush,
+            plans=False), path=path))
     for label in TRAIN_LAUNCHES["lowrank_matmul"]:
         c, r, s = LOWRANK_SHAPES[label]
         add("lowrank_matmul", lambda: _train_row(
@@ -1407,6 +1442,14 @@ def check_kernels(card: str, only: frozenset = frozenset(KERNELS)
                 rnd(n, r, r, scale=r ** -0.5, dtype=bf),
                 rnd(n, r, s, scale=r ** -0.5, dtype=bf)), rnd, flush),
             family=key))
+    for label, (key, (n, c, r, s)) in TRAIN_FAMILY_F32_ROWS.items():
+        spec = TRAIN_FAMILY_RUNS[key]
+        add("branched_matmul", lambda: dict(_train_row(
+            "branched_matmul", label, (
+                rnd(TRAIN_FAMILY_CHECK_BATCH * spec["seq"], c),
+                rnd(n, c, r, scale=c ** -0.5), rnd(n, r, r, scale=r ** -0.5),
+                rnd(n, r, s, scale=r ** -0.5)), rnd, flush),
+            family=key, path="train_f32"))
     f32 = torch.float32
     for label, (c, r, s) in RESNET_FC.items():
         for m in RESNET_FC_M:
@@ -1444,7 +1487,7 @@ def check_kernels(card: str, only: frozenset = frozenset(KERNELS)
                   and row.get("differing", 0) == 0
                   and row.get("differing_prev", 0) == 0
                   and row.get("grad_err", 0.0) <= KERNEL_TOL[row["dtype"]]
-                  and (row.get("form") != "large_m"
+                  and (row.get("form") not in ("large_m", "f32")
                        or row["ms"] < row["prev_ms"]))
             lib_ms = row["library_ms"]
             extra = "".join(f"{k}={row[k]:.4f} "
@@ -1489,8 +1532,9 @@ def check_kernels(card: str, only: frozenset = frozenset(KERNELS)
                 failures.append((name, row))
     if failures:
         raise SystemExit(f"kernel disagrees with its plain version (or "
-                         f"with its own first call, or a large-M call is "
-                         f"not faster than its split form): {failures}")
+                         f"with its own first call, or a large-M or f32 "
+                         f"call is not faster than the form it replaced): "
+                         f"{failures}")
     entries = _kernel_entries(rows)
     for entry in entries:
         if entry["name"] in sweep:
@@ -1545,7 +1589,8 @@ def _split_times(kernel, prev, phases, library, flush, dname: str) -> dict:
     turns with ``prev``, the cluster kernel (the earlier design; new, old,
     old, new: ``prev_ms``), its phase timer read (``phase_us``, the
     fastest of five launches of ``phases()``) and a second call held to
-    the first's bits (``same_bits``).  f32 runs the cluster kernel.
+    the first's bits (``same_bits``).  f32 runs the cluster kernel (f32
+    B4 / B12; f32 B2 takes :func:`_branched_row`'s f32 form instead).
     ``cold_ms`` and ``library_cold_ms`` time the kernel and the library
     call with a cold L2."""
     import torch
@@ -1565,7 +1610,12 @@ def _split_times(kernel, prev, phases, library, flush, dname: str) -> dict:
 
 
 def _branched_row(label: str, x, u, xc, v, dname: str, flush) -> dict:
-    """One branched_matmul row (:func:`_split_times`)."""
+    """One branched_matmul row in the form :func:`chain_form` names:
+    bf16 below LARGE_M the split-phase kernel (:func:`_split_times`); at
+    or past it the large-M form, timed in turns with the split form
+    forced; f32 the f32 form, timed in turns with the cluster kernel
+    (the earlier f32 kernel: ``prev_ms``, ``prev_err``), its bound's
+    operations at the split-TF32 peak ("tf32x3")."""
     import torch
     from repro_torch.kernels import ref
     bk = kernel_module("branched_matmul")
@@ -1579,11 +1629,15 @@ def _branched_row(label: str, x, u, xc, v, dname: str, flush) -> dict:
     kernel = lambda: bk.branched_matmul(x, u, xc, v)  # noqa: E731
     library = lambda: torch.bmm(torch.bmm(torch.bmm(  # noqa: E731
         xb3, u), xc), v).sum(0)
-    if bk.chain_form(x.dtype, m) == "large_m":
-        split = lambda: bk.split_branched_matmul(x, u, xc, v)  # noqa: E731
-        times = dict(form="large_m",
-                     prev_err=_compare(y, split(), dname)["norm_err"],
-                     **_attention_times(kernel, split, library, flush))
+    form = bk.chain_form(x.dtype, m)
+    if form in ("large_m", "f32"):
+        prev = (  # noqa: E731
+            (lambda: bk.split_branched_matmul(x, u, xc, v))
+            if form == "large_m" else
+            (lambda: bk.cluster_branched_matmul(x, u, xc, v)))
+        times = dict(form=form,
+                     prev_err=_compare(y, prev(), dname)["norm_err"],
+                     **_attention_times(kernel, prev, library, flush))
     else:
         times = _split_times(
             kernel, lambda: bk.cluster_branched_matmul(x, u, xc, v),
@@ -1595,7 +1649,8 @@ def _branched_row(label: str, x, u, xc, v, dname: str, flush) -> dict:
         shape=label, dtype=dname, M=m, N=n, C=c, r=r, S=s,
         **_compare(y, want, dname), **times,
         plain_ms=time_ms(lambda: ref.branched_matmul_ref(x, u, xc, v)),
-        **_cost_bound("branched_matmul", (x, u, xc, v), dname))
+        **_cost_bound("branched_matmul", (x, u, xc, v),
+                      "tf32x3" if form == "f32" else dname))
 
 
 def _check_branched(add, label: str, shape: tuple, m: int, dname: str, rnd,
@@ -1721,7 +1776,8 @@ def _lowrank_row(label: str, x, shape: tuple, dname: str, rnd, flush,
         **_lowrank_times("lowrank_matmul", (x, w0, w1), y,
                          lambda: (x @ w0) @ w1, dname, flush, plans),
         plain_ms=time_ms(lambda: ref.lowrank_matmul_ref(x, w0, w1)),
-        **_cost_bound("lowrank_matmul", (x, w0, w1), dname))
+        **_cost_bound("lowrank_matmul", (x, w0, w1),
+                      "tf32x3" if dname == "float32" else dname))
 
 
 def _lowrank_q_row(label: str, x, shape: tuple, dname: str, qrnd, flush,
@@ -1760,22 +1816,25 @@ def _lowrank_times(name: str, args: tuple, y, library, dname: str, flush,
     design, ``prev_ms``), held to it (``prev_err``) and its phase timer
     read (``phase_us``, the fastest of five launches), with ``plans`` the
     times of the plans of :data:`LOWRANK_PLAN_SWEEP` (``plan_us``); f32
-    runs the cluster kernel.  A bf16 B1 call of M >= LARGE_M runs the
-    large-M form (``form``), timed in turns with the split kernel forced
-    (``prev_ms``, ``prev_err``), without a phase timer."""
+    B3 / B11 run the cluster kernel.  A bf16 B1 call of M >= LARGE_M runs
+    the large-M form (``form``), timed in turns with the split kernel
+    forced (``prev_ms``, ``prev_err``), without a phase timer; an f32 B1
+    call the f32 form, timed in turns with the cluster kernel."""
     mod = kernel_module(name)
     fn = getattr(mod, name)
     bf16 = dname == "bfloat16"
-    large = name == "lowrank_matmul" and bf16 and \
-        kernel_module("branched_matmul").chain_form(
-            args[0].dtype, args[0].shape[0]) == "large_m"
+    form = (kernel_module("branched_matmul").chain_form(
+        args[0].dtype, args[0].shape[0]) if name == "lowrank_matmul"
+        else None)
+    large = form == "large_m"
     prev = getattr(mod, ("split_" if large else "cluster_") + name)
     times = dict(prev_err=_compare(y, prev(*args), dname)["norm_err"],
                  **_attention_times(lambda: fn(*args),
-                                    (lambda: prev(*args)) if bf16
-                                    else None, library, flush))
-    if name == "lowrank_matmul" and bf16:
-        times["form"] = "large_m" if large else "split"
+                                    (lambda: prev(*args))
+                                    if bf16 or form == "f32" else None,
+                                    library, flush))
+    if form is not None:
+        times["form"] = form
     if bf16 and not large:
         phases = getattr(mod, name + "_phase_us")
         times["phase_us"] = min((phases(*args) for _ in range(5)), key=sum)
@@ -1808,11 +1867,13 @@ def _lowrank_plans(mod, name: str, args: tuple, sweep: tuple) -> dict:
 
 
 def _train_row(name: str, label: str, args: tuple, rnd, flush) -> dict:
-    """One bf16 B1 (three ``args``) or B2 (four) row at the training M:
-    the kernel against its plain version; its times with the host kept
-    ahead of the card, with a cold L2 and between events, beside the
+    """One B1 (three ``args``) or B2 (four) row at the training M, in the
+    dtype of ``args`` (bf16; f32 for the families whose check step runs
+    f32): the kernel against its plain version; its times with the host
+    kept ahead of the card, with a cold L2 and between events, beside the
     cuBLAS chain (:func:`_attention_times`; at M >= LARGE_M the large-M
-    form, timed in turns with the split form forced: ``prev_ms``); the
+    form, timed in turns with the split form forced: ``prev_ms``; f32 the
+    f32 form, timed in turns with the cluster kernel); the
     autograd Function's gradients (kernel forward, explicit backward) for
     a random cotangent against autograd of the plain version on the same
     inputs (``grad_errs`` by input, ``grad_err`` the largest, normalised
@@ -1828,8 +1889,10 @@ def _train_row(name: str, label: str, args: tuple, rnd, flush) -> dict:
     plain = getattr(ref, name + "_ref")
     x = args[0]
     m, c = x.shape
+    dname = "float32" if x.dtype == torch.float32 else "bfloat16"
     form = kernel_module("branched_matmul").chain_form(x.dtype, m)
-    prev = getattr(mod, "split_" + name) if form == "large_m" else None
+    prev = (getattr(mod, "split_" + name) if form == "large_m" else
+            getattr(mod, "cluster_" + name) if form == "f32" else None)
     y = fn(*args)
     want = plain(*args)
     torch.cuda.synchronize()
@@ -1855,12 +1918,14 @@ def _train_row(name: str, label: str, args: tuple, rnd, flush) -> dict:
     got = torch.autograd.grad(fwd.apply(*ins), ins, g)
     pins = [a.detach().clone().requires_grad_(True) for a in args]
     ref_g = torch.autograd.grad(plain(*pins), pins, g)
-    errs = {k: _compare(a, b, "bfloat16")["norm_err"]
+    errs = {k: _compare(a, b, dname)["norm_err"]
             for k, a, b in zip(names, got, ref_g)}
     del ins, pins, got, ref_g
     every = (True,) * len(args)
-    return dict(shape=label, dtype="bfloat16", M=m, **dims, path="train",
-                form=form, **_compare(y, want, "bfloat16"),
+    extra = ({} if prev is None else
+             dict(prev_err=_compare(y, prev(*args), dname)["norm_err"]))
+    return dict(shape=label, dtype=dname, M=m, **dims, path="train",
+                form=form, **_compare(y, want, dname), **extra,
                 **_attention_times(lambda: fn(*args),
                                    prev and (lambda: prev(*args)), library,
                                    flush),
@@ -1870,7 +1935,8 @@ def _train_row(name: str, label: str, args: tuple, rnd, flush) -> dict:
                 bwd_frozen_ms=time_ms(lambda: bwd(g, *args, needs=frozen),
                                       ahead=True),
                 plain_ms=time_ms(lambda: plain(*args)),
-                **_cost_bound(name, args, "bfloat16"))
+                **_cost_bound(name, args,
+                              "tf32x3" if form == "f32" else dname))
 
 
 def latent_inputs(case: dict, dname: str, rnd) -> tuple:
@@ -2391,55 +2457,61 @@ def _kernel_entries(rows: dict[str, list[dict]]) -> list[dict]:
                     timed_as="one launch: the cross block's k or v over "
                     "the 1,601 image tokens of a prefill")
             extra[f"{path}_path"] = entry
-        frows32 = [r for r in rs if r.get("path") == "vlm_f32"]
-        if frows32:
-            extra["vlm_f32_path"] = {
+        form32 = ("the f32 form" if name in ("lowrank_matmul",
+                                             "branched_matmul")
+                  else "the cluster kernel")
+        for path, what in (
+                ("vlm_f32", "at the VLM's per-branch ranks 768 / 960 "
+                 "(B2; B4's cluster kernel at 4-row blocks) and its cross "
+                 "k / v over the 1,601 image tokens (B1); launches: "
+                 "check_vlm's f32 card run"),
+                ("hubert_f32", "at hubert's q,k,v,o over one clip of 500 "
+                 "frames; launches: check_hubert's f32 card run"),
+                ("resnet", "at the fc of the resnet50 "
+                 + ("int8 vanilla tree" if name.endswith("_q") else
+                    "vanilla (r335) and searched (r256) trees")
+                 + ": M=32 a batch-32 forward or fine-tune step, M=1 a "
+                 "batch-1 forward; launches: per forward of the "
+                 "infer_resnet run")):
+            prs = [r for r in rs if r.get("path") == path]
+            if not prs:
+                continue
+            extra[f"{path}_path"] = {
                 f"{r['shape']} M={r['M']}": dict(
-                    {k: r[k] for k in ("ms", "plain_ms", "library_ms",
-                                       "bound_ms", "bound_by", "max_abs_err",
-                                       "norm_err", "cold_ms")},
+                    {k: r.get(k) for k in (
+                        "form", "ms", "prev_ms", "prev_err", "same_bits",
+                        "plain_ms", "library_ms", "bound_ms", "bound_by",
+                        "peak", "max_abs_err", "norm_err", "cold_ms",
+                        "event_ms")},
                     launches=None)
-                for r in frows32}
-            extra["vlm_f32_path"]["timed_as"] = (
-                "one launch, f32 activations "
+                for r in prs}
+            if form32 == "the f32 form":
+                extra[f"{path}_path"]["source"] = (
+                    "src/repro_torch/kernels/csrc/chain_f32.cu")
+            extra[f"{path}_path"]["timed_as"] = (
+                f"one launch of {form32}, f32 activations "
                 + ("and int8 factors " if name.endswith("_q") else "")
-                + "(TF32 off), at the VLM's per-branch ranks 768 / 960: the "
-                "cluster kernel at 4-row blocks; launches: check_vlm's f32 "
-                "card run")
-        rrows = [r for r in rs if r.get("path") == "resnet"]
-        if rrows:
-            extra["resnet_path"] = {
-                f"{r['shape']} M={r['M']}": dict(
-                    {k: r[k] for k in ("ms", "plain_ms", "library_ms",
-                                       "bound_ms", "bound_by", "max_abs_err",
-                                       "norm_err", "cold_ms", "event_ms")},
-                    launches=None)
-                for r in rrows}
-            extra["resnet_path"]["timed_as"] = (
-                "one launch, f32 activations "
-                + ("and int8 factors " if name.endswith("_q") else "")
-                + "(TF32 off), at the fc of the resnet50 "
-                + ("int8 vanilla tree" if name.endswith("_q") else
-                   "vanilla (r335) and searched (r256) trees")
-                + ": M=32 a batch-32 forward or fine-tune step, M=1 a "
-                "batch-1 forward; launches: per forward of the "
-                "infer_resnet run")
+                + f"(TF32 off; prev_ms: the cluster kernel), {what}")
         trows = [r for r in rs if r.get("path") == "train"
                  and "family" not in r]
         frows = [r for r in rs if "family" in r]
         if frows:
             extra["train_family_path"] = {
                 r["shape"]: dict(
-                    {k: r[k] for k in (
-                        "M", "form", "ms", "prev_ms", "cold_ms", "event_ms",
-                        "plain_ms", "library_ms", "bound_ms",
-                        "bound_by", "bwd_ms", "bwd_frozen_ms", "grad_err",
+                    {k: r.get(k) for k in (
+                        "dtype", "M", "form", "ms", "prev_ms", "prev_err",
+                        "same_bits", "cold_ms", "event_ms", "plain_ms",
+                        "library_ms", "bound_ms", "bound_by", "peak",
+                        "bwd_ms", "bwd_frozen_ms", "grad_err",
                         "max_abs_err", "norm_err")}, family=r["family"],
                     launches=None) for r in frows}
             extra["train_family_path"]["timed_as"] = (
                 "one launch at the family's widest chain shape and its "
                 "training M (bf16), with its backward products; launches: "
-                "the kernel's forwards per step of the train_<family> run")
+                "the kernel's forwards per step of the train_<family> run; "
+                "the (train, f32) rows at the f32 check step's M, through "
+                "the f32 form (prev_ms: the cluster kernel); launches: that "
+                "check step's f32 card run")
         if trows:
             tkeys = ("ms", "prev_ms", "plain_ms", "library_ms", "bound_ms",
                      "cold_ms", "library_cold_ms", "event_ms",
@@ -3557,6 +3629,40 @@ def large_m_plans() -> None:
             for p in plan.products)
             + f"; copies {sorted(plan.copies)}, {plan.scratch_bytes} B of "
             f"scratch (LARGE_M {bk.LARGE_M})")
+
+
+def f32_plans() -> None:
+    """Print the f32 form's plan at each f32 B1 / B2 shape the kernels
+    phase times (the VLM's, the fc's, the new B1 rows', the f32 train
+    rows'): per product its tile, tile count, K slices and
+    which operands go by 4-byte copies, and the scratch and tickets."""
+    import torch
+    from repro_torch.kernels import branched_matmul as bk
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    calls = {**{f"B2 {k} M={m}": (m, c, n, r, r, s_)
+                for k, (n, c, r, s_) in VLM_F32_SHAPES.items()
+                for m in VLM_F32_M},
+             **{f"B1 {k} M={m}": (m, *v) for k, v in RESNET_FC.items()
+                for m in RESNET_FC_M},
+             **{f"B1 {k} M={m}": (m, *v)
+                for k, (_, v, m) in F32_LOWRANK_ROWS.items()},
+             **{f"B2 {k} M={TRAIN_FAMILY_CHECK_BATCH * TRAIN_FAMILY_RUNS[
+                 key]['seq']}": (TRAIN_FAMILY_CHECK_BATCH
+                                 * TRAIN_FAMILY_RUNS[key]["seq"], c, n, r, r,
+                                 s_)
+                for k, (key, (n, c, r, s_)) in TRAIN_FAMILY_F32_ROWS.items()}}
+    for label, dims in calls.items():
+        plan = bk.f32_plan(dims, sms)
+        log(f"f32 plan {label}: " + "; ".join(
+            f"{p.out} = {p.a} @ {p.b}: {p.bm}x{bk.F32_BN} tiles x "
+            f"{len(p.tiles())}, {p.slices} K slices of "
+            f"{p.ks}" + ("" if all(p.granules()) else
+                         ", 4-byte copies of " + " ".join(
+                             n for n, ok in zip((p.a, p.b), p.granules())
+                             if not ok))
+            for p in plan.products)
+            + f"; {plan.scratch_bytes} B of scratch, {plan.tickets} "
+            "tickets")
 
 
 def split_kernels() -> None:
@@ -4848,8 +4954,9 @@ def cross_check_vlm(cfg, params, card: str, seed: int, *, label: str,
     (``cpu``), in bf16 on the card (``bf16``), and in bf16 on the card
     with the gates at 0 (``bf16_gate0``: a fresh tree's, where the cross
     attention adds nothing); an unquantized tree also in f32 on the card
-    (``f32``, ``f32_gate0``: the f32 cluster chains, whose per-branch
-    ranks 768 / 960 fit at 4-row blocks).  The CPU run takes int8
+    (``f32``, ``f32_gate0``: the f32 form of B1 / B2).  Each card run's
+    decode steps are timed on the host clock, synchronised around each
+    (``decode_ms``: the mean of steps 2 on).  The CPU run takes int8
     factors dequantized once to f32: the values the plain versions of
     B3 / B4 form from them at every call, so the same function at a
     quarter of the time.
@@ -4901,19 +5008,25 @@ def cross_check_vlm(cfg, params, card: str, seed: int, *, label: str,
                     "image_embeds": im}, cache, cache_plan=plan)
             logits = [lg[0, -1, :cfg.vocab_size].float().cpu()]
             fed = runs["cpu"]["fed"] if runs else []
+            step_s = []
             for i in range(steps):
                 if not runs:
                     fed.append(int(logits[-1].argmax()))
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                ts = time.perf_counter()
                 lg, cache = m.decode_step(
                     p, torch.tensor([[fed[i]]], device=dev),
                     torch.tensor([n_tok + i], device=dev), cache,
                     cache_plan=plan)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - ts)
                 logits.append(lg[0, -1, :cfg.vocab_size].float().cpu())
-            if dev.type == "cuda":
-                torch.cuda.synchronize()
             runs[name] = dict(
                 logits=logits, fed=fed, kvq=kv_quantize,
                 seconds=time.perf_counter() - t0,
+                decode_ms=1e3 * sum(step_s[1:]) / max(1, len(step_s) - 1),
                 launches={k: launch_count(k) - before[k] for k in KERNELS})
             del cache
     res = {"quantize": quantize, "kv_quantize": kv_quantize or "none",
@@ -4926,6 +5039,8 @@ def cross_check_vlm(cfg, params, card: str, seed: int, *, label: str,
                                     runs["bf16"])["max_diff_over_std"],
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "seconds": {n: r["seconds"] for n, r in runs.items()},
+           "decode_ms": {n: r["decode_ms"] for n, r in runs.items()
+                         if n != "cpu"},
            "card": card}
     if "f32" in runs:
         res.update(f32=_against(runs["f32"], runs["cpu"]),
@@ -4933,6 +5048,13 @@ def cross_check_vlm(cfg, params, card: str, seed: int, *, label: str,
                    image_effect_f32=_against(
                        runs["f32_gate0"], runs["f32"])["max_diff_over_std"])
     log(f"{label} " + json.dumps(res))
+    if "f32" in runs:
+        log(f"{label} f32 decode step {runs['f32']['decode_ms']:.3f} ms "
+            f"(host clock, mean of steps 2-{steps}; bf16 "
+            f"{runs['bf16']['decode_ms']:.3f}), f32 logits "
+            f"{res['f32']['max_diff_over_std']:.3e} std from the CPU's "
+            f"(tol {CHECK_TOL_F32}), image effect {res['image_effect']:.4f} "
+            f"std (bf16) / {res['image_effect_f32']:.4f} (f32) [{card}]")
     reading = res["bf16"]["max_diff_over_std"]
     if not reading <= CHECK_TOL:
         raise SystemExit(f"{label}: card bf16 logits differ from the CPU f32 "
@@ -6196,6 +6318,7 @@ def main() -> int:
                     f"before the fit repair): {at32}")
             split_kernels()
             large_m_plans()
+            f32_plans()
             attention_splits()
 
     if "kernels" in phases:
@@ -6261,9 +6384,14 @@ def main() -> int:
                 k["train_path"]["launches"] = \
                     train_res["frozen"]["launches"][k["name"]]
             for label, row in k.get("train_family_path", {}).items():
-                fam = train_res.get(row["family"], {}) \
-                    if isinstance(row, dict) else {}
-                if "train" in fam:
+                if not isinstance(row, dict):
+                    continue
+                fam = train_res.get(row["family"], {})
+                if row.get("dtype") == "float32":
+                    if "card_float32" in fam.get("check", {}):
+                        row["launches"] = fam["check"]["card_float32"][
+                            "launches"].get(k["name"], 0)
+                elif "train" in fam:
                     row["launches"] = fam["train"]["launches_per_step"].get(
                         k["name"], 0)
             vrun = serve_res.get("vlm_q" if k["name"].endswith("_q")

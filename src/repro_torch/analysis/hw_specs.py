@@ -51,6 +51,10 @@ class HardwareSpec:
                                  # never reads it)
     l2_bytes: int = 0           # L2 cache per card (the measured timer
                                 # and chip_smoke's flush write twice it)
+    peak_flops_tf32: float = 0.0  # FLOP/s of TF32 on the tensor cores
+                                  # (a third of it bounds the f32 chains'
+                                  # split-TF32 form; the cost model never
+                                  # reads it)
 
     def peak_flops(self, operand_bytes: int = 2) -> float:
         """Matmul FLOP/s at the *widest* operand width feeding the dot:
@@ -75,6 +79,7 @@ H100 = HardwareSpec(
     int8_mxu_mult=1979 / 989,   # the data sheet's 1,979 TOP/s int8
     peak_flops_f32=67e12,
     l2_bytes=50 * 1024 * 1024,
+    peak_flops_tf32=495e12,
 )
 
 DEFAULT = H100

@@ -5,7 +5,7 @@ The reference has no backward kernel: it trains with ``use_pallas=False``
 (``repro/configs/base.py:229``), so its backward products are XLA dots
 outside any Pallas kernel.  Here the forward is the hand-written kernel
 unchanged (bf16: the split-phase tensor-core kernel, or the large-M form
-at ``branched_matmul.LARGE_M`` rows or more; f32: the cluster kernel; a
+at ``branched_matmul.LARGE_M`` rows or more; f32: the f32 form; a
 CPU tensor: the plain version), and the backward is the chain's
 transposed products written out in ``torch.matmul``
 (:func:`lowrank_matmul_bwd`, :func:`branched_matmul_bwd`).  They form

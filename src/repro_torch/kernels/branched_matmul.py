@@ -10,8 +10,9 @@ two-phase form, which bf16 ``lowrank_matmul``, ``lowrank_matmul_q`` and
 ``lowrank_matmul_sq`` run), or, at LARGE_M rows or more, to the large-M
 form (``csrc/chain_wgmma.cuh``: one output-tiled ``wgmma`` launch per
 product, planned by :func:`large_m_plan`, which bf16 ``lowrank_matmul``
-takes too); f32 goes to the
-cluster kernel (tensor cores in TF32 cannot hold f32's tolerance).
+takes too); f32 goes at every M to the f32 form (``csrc/chain_f32.cu``:
+one output-tiled, K-sliced split-TF32 ``mma.sync`` launch per product,
+planned by :func:`f32_plan`, which f32 ``lowrank_matmul`` takes too).
 This wrapper checks the operands, allocates the output and the scratch,
 launches on the current stream and counts launches.  CUDA tensors only:
 the CPU path is the plain version in :mod:`repro_torch.kernels.ref`,
@@ -83,15 +84,22 @@ WG_STAGES, WG_TWO_CTA_RING = 6, 96 * 1024
 #: 64-row blocks), at M = 64 the split form at the k/v pair and the down
 #: projections (1.04-1.6x)
 LARGE_M = 128
+#: the f32 form (csrc/chain_f32.cu): the output tile's width, the K depth
+#: of a ring stage, the tile heights it is built for (the lowest that
+#: holds M, 64 past 32 rows; two CTAs an SM at each), the work items per
+#: SM a product's K slices aim for, and the shortest K slice (the 4-stage
+#: ring's worth)
+F32_BN, F32_BK, F32_BM = 128, 32, (16, 32, 64)
+F32_ITEMS_PER_SM = 2
+F32_MIN_SLICE = 4 * F32_BK
 
 
 def chain_form(dtype: torch.dtype, m: int) -> str:
     """The form a B1 or B2 call on ``m`` rows of ``dtype`` activations
-    runs: "cluster" for f32 (TF32 tensor cores cannot hold its
-    tolerance), "large_m" for bf16 at LARGE_M rows or more, else
-    "split"."""
+    runs: "f32" for f32 at every M (split TF32 on the tensor cores),
+    "large_m" for bf16 at LARGE_M rows or more, else "split"."""
     if dtype == torch.float32:
-        return "cluster"
+        return "f32"
     return "large_m" if m >= LARGE_M else "split"
 
 
@@ -118,7 +126,26 @@ def _align(n: int) -> int:
     return (n + ALIGN - 1) // ALIGN * ALIGN
 
 
-class _Split:
+class _Scratch:
+    """The scratch layout a plan of named regions shares: each region at an
+    offset aligned to ALIGN bytes, in the order of ``region_bytes()``."""
+
+    def region_bytes(self) -> dict[str, int]:
+        raise NotImplementedError
+
+    def offsets(self) -> dict[str, int]:
+        out, at = {}, 0
+        for name, nbytes in self.region_bytes().items():
+            out[name] = at
+            at += _align(nbytes)
+        return out
+
+    @property
+    def scratch_bytes(self) -> int:
+        return sum(_align(b) for b in self.region_bytes().values())
+
+
+class _Split(_Scratch):
     """What the split-phase kernels' plans share: each phase's K slices
     and work items, and the scratch layout -- P, the f32 partials of the
     largest K-sliced phase, then the bf16 intermediates
@@ -147,17 +174,6 @@ class _Split:
                     for _, nbr, width, _ in [self.phase(i)]
                     if self.slices(i) > 1]
         return {"p": max(partials, default=0), **self.intermediates()}
-
-    def offsets(self) -> dict[str, int]:
-        out, at = {}, 0
-        for name, nbytes in self.region_bytes().items():
-            out[name] = at
-            at += _align(nbytes)
-        return out
-
-    @property
-    def scratch_bytes(self) -> int:
-        return sum(_align(b) for b in self.region_bytes().values())
 
     def items(self, i: int) -> list[tuple[int, int, int, int, int]]:
         """Work items of phase ``i`` in the order the kernel decodes its
@@ -372,7 +388,7 @@ class Product:
 
 
 @dataclass(frozen=True)
-class LargeMPlan:
+class LargeMPlan(_Scratch):
     """The large-M form's plan of one call: its products in launch order
     and its scratch regions ``(name, padded shape)``, bf16, each aligned
     to ALIGN bytes -- the padded copies of the inputs in ``copies`` (TMA
@@ -385,17 +401,6 @@ class LargeMPlan:
 
     def region_bytes(self) -> dict[str, int]:
         return {name: math.prod(shape) * 2 for name, shape in self.regions}
-
-    def offsets(self) -> dict[str, int]:
-        out, at = {}, 0
-        for name, nbytes in self.region_bytes().items():
-            out[name] = at
-            at += _align(nbytes)
-        return out
-
-    @property
-    def scratch_bytes(self) -> int:
-        return sum(_align(b) for b in self.region_bytes().values())
 
 
 def large_m_plan(dims: tuple[int, ...], sms: int,
@@ -456,6 +461,12 @@ def large_m_plan(dims: tuple[int, ...], sms: int,
     return LargeMPlan(products=products, regions=regions, copies=copies)
 
 
+def _inputs(dims: tuple[int, ...]) -> tuple[str, ...]:
+    """The input operands' names of a B1 (``dims`` (M, C, R, S)) or B2
+    ((M, C, N, r1, r2, S)) call, in the C side's pointer order."""
+    return ("x", "w0", "w1") if len(dims) == 4 else ("x", "u", "xc", "v")
+
+
 @functools.lru_cache(maxsize=256)
 def _large_launch(dims: tuple[int, ...], sms: int, copies: frozenset
                   ) -> tuple[LargeMPlan, tuple[str, ...], object, tuple]:
@@ -463,8 +474,7 @@ def _large_launch(dims: tuple[int, ...], sms: int, copies: frozenset
     operand names in the order of the pointer array, the products' spec
     as a ctypes array, and the scratch regions' offsets."""
     plan = large_m_plan(dims, sms, copies)
-    names = (("x", "w0", "w1") if len(dims) == 4 else ("x", "u", "xc", "v")
-             ) + ("y",) + tuple(name for name, _ in plan.regions)
+    names = _inputs(dims) + ("y",) + tuple(name for name, _ in plan.regions)
     slot = {name: i for i, name in enumerate(names)}
     flat = [v for p in plan.products for v in p.spec(slot)]
     return plan, names, (ctypes.c_longlong * len(flat))(*flat), tuple(
@@ -478,7 +488,7 @@ def launch_large_m(x: torch.Tensor, weights: tuple[torch.Tensor, ...],
     S): the copies its plan asks for, then one host call that launches
     every product of the plan in order on the current stream."""
     inputs = (x, *weights)
-    names = ("x", "w0", "w1") if len(dims) == 4 else ("x", "u", "xc", "v")
+    names = _inputs(dims)
     misaligned = frozenset(n for n, t in zip(names, inputs)
                            if t.data_ptr() % 16)
     plan, slots, spec, offsets = _large_launch(
@@ -499,6 +509,197 @@ def launch_large_m(x: torch.Tensor, weights: tuple[torch.Tensor, ...],
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.lrk_chain_wgmma(len(plan.products), spec, ptrs, stream)
+    build.check(lib, rc, what)
+
+
+def _pad4(n: int) -> int:
+    """``n`` elements rounded up to whole 16-byte granules of f32."""
+    return _pad(n, 4)
+
+
+@dataclass(frozen=True)
+class F32Product:
+    """One product of the f32 form, one launch of ``csrc/chain_f32.cu``'s
+    kernel: ``out_z[m, n] = sum_{k < k} A_z[m, k] @ B_z[k, n]`` for ``z <
+    groups``, ``m < M``, ``n < cols``, in f32.  ``a``, ``b`` and ``out``
+    name the operands (the call's inputs, a scratch region, or "y").
+    Strides in elements: A_z's row m at ``z * a_group + m * a_ld``
+    (a_group 0: one A for every group), B_z's row k at ``z * b_group + k *
+    b_ld``, out_z's row m at ``z * c_group + m * c_ld``.  ``bm`` x F32_BN:
+    the output tile; ``ks`` the K slice (a multiple of F32_BK)."""
+    a: str
+    b: str
+    out: str
+    m: int
+    cols: int
+    k: int
+    groups: int
+    a_ld: int
+    a_group: int
+    b_ld: int
+    b_group: int
+    c_ld: int
+    c_group: int
+    bm: int
+    ks: int
+
+    @property
+    def slices(self) -> int:
+        return math.ceil(self.k / self.ks)
+
+    def k_slices(self) -> list[tuple[int, int]]:
+        """The K slices ``[k0, k1)`` in order, one a work item of a
+        tile."""
+        return [(q * self.ks, min(self.k, q * self.ks + self.ks))
+                for q in range(self.slices)]
+
+    def tiles(self) -> list[tuple[int, int, int, int, int]]:
+        """The output tiles in the grid's order (rows fastest, so the row
+        tiles of a column tile read its B together, then columns, then
+        the group): ``(z, r0, r1, c0, c1)``."""
+        return [(z, r0, min(self.m, r0 + self.bm), c0,
+                 min(self.cols, c0 + F32_BN))
+                for z in range(self.groups)
+                for c0 in range(0, self.cols, F32_BN)
+                for r0 in range(0, self.m, self.bm)]
+
+    def granules(self) -> tuple[bool, bool]:
+        """Whether A's and B's strides are whole 16-byte granules: the
+        kernel copies an operand 16 bytes at a time where they are (and
+        its base is 16-byte aligned), else 4 bytes at a time."""
+        return (self.a_ld % 4 == 0 and self.a_group % 4 == 0,
+                self.b_ld % 4 == 0 and self.b_group % 4 == 0)
+
+    @property
+    def p_ld(self) -> int:
+        """The row of a partial: the columns padded to a granule, so the
+        last CTA of a tile reads them 16 bytes at a time."""
+        return _pad4(self.cols)
+
+    def partial_floats(self) -> int:
+        """f32 partials of a sliced product: slices x groups x M x
+        p_ld."""
+        return (self.slices * self.groups * self.m * self.p_ld
+                if self.slices > 1 else 0)
+
+    def spec(self, slot: dict[str, int]) -> tuple[int, ...]:
+        """The product's 17 integers in ``lrk_chain_f32``'s spec, its
+        operands (and the partials' region "p", -1 where unsliced) as
+        their ``slot`` in the call's pointer array."""
+        return (slot[self.a], self.a_ld, self.a_group, slot[self.b],
+                self.b_ld, self.b_group, slot[self.out], self.c_ld,
+                self.c_group, self.m, self.cols, self.k, self.groups,
+                self.bm, self.ks,
+                slot["p"] if self.slices > 1 else -1, self.p_ld)
+
+
+@dataclass(frozen=True)
+class F32Plan(_Scratch):
+    """The f32 form's plan of one call: its products in launch order, its
+    scratch regions ``(name, shape)`` in f32, each aligned to ALIGN bytes
+    -- the intermediates (B1's h (M, R); B2's h1 (M, N, r1) and h2 (M,
+    N*r2), rows padded to a granule), then "p", the partials of the
+    largest sliced product -- and the tickets its sliced products take
+    (one an output tile)."""
+    products: tuple[F32Product, ...]
+    regions: tuple[tuple[str, tuple[int, ...]], ...]
+    tickets: int
+
+    def region_bytes(self) -> dict[str, int]:
+        return {name: math.prod(shape) * 4 for name, shape in self.regions}
+
+
+def f32_plan(dims: tuple[int, ...], sms: int) -> F32Plan:
+    """The f32 form's plan for B1 (``dims`` (M, C, R, S): h = x @ w0, y =
+    h @ w1) or B2 ((M, C, N, r1, r2, S): h1 = x @ u_n per branch, h2 =
+    h1_n @ xc_n per branch, y = h2 @ v with v read as one (N*r2, S)
+    matrix) on a card of ``sms`` SMs.  Each product takes the lowest tile
+    of F32_BM that holds M (64 past 32 rows) and, where its tiles number
+    fewer than F32_ITEMS_PER_SM x sms, K slices of at least F32_MIN_SLICE
+    so that tiles x slices come near that many."""
+    if len(dims) not in (4, 6) or min(*dims, sms) <= 0:
+        raise ValueError(f"f32 plan of {dims} on {sms} SMs: a B1 (M, C, R, "
+                         "S) or B2 (M, C, N, r1, r2, S) call of positive "
+                         "sizes")
+    m, c, s = dims[0], dims[1], dims[-1]
+    bm = next(h for h in F32_BM if m <= h or h == F32_BM[-1])
+    target = F32_ITEMS_PER_SM * sms
+
+    def product(a, b, out, cols, k, *, a_ld, b_ld, c_ld, groups=1,
+                a_group=0, b_group=0, c_group=0):
+        tiles = groups * math.ceil(m / bm) * math.ceil(cols / F32_BN)
+        ks = _pad(k, F32_BK)
+        if tiles < target:
+            want = target // tiles
+            ks = min(ks, max(F32_MIN_SLICE, math.ceil(
+                math.ceil(k / F32_BK) / want) * F32_BK))
+        return F32Product(a=a, b=b, out=out, m=m, cols=cols, k=k,
+                          groups=groups, a_ld=a_ld, a_group=a_group,
+                          b_ld=b_ld, b_group=b_group, c_ld=c_ld,
+                          c_group=c_group, bm=bm, ks=ks)
+    if len(dims) == 4:
+        r = dims[2]
+        rp = _pad4(r)
+        regions = [("h", (m, rp))]
+        products = (product("x", "w0", "h", r, c, a_ld=c, b_ld=r, c_ld=rp),
+                    product("h", "w1", "y", s, r, a_ld=rp, b_ld=s, c_ld=s))
+    else:
+        n, r1, r2 = dims[2:5]
+        r1p, h2ld = _pad4(r1), _pad4(n * r2)
+        regions = [("h1", (m, n, r1p)), ("h2", (m, h2ld))]
+        products = (
+            product("x", "u", "h1", r1, c, a_ld=c, b_ld=r1, c_ld=n * r1p,
+                    groups=n, b_group=c * r1, c_group=r1p),
+            product("h1", "xc", "h2", r2, r1, a_ld=n * r1p, b_ld=r2,
+                    c_ld=h2ld, groups=n, a_group=r1p, b_group=r1 * r2,
+                    c_group=r2),
+            product("h2", "v", "y", s, n * r2, a_ld=h2ld, b_ld=s, c_ld=s))
+    sliced = [p for p in products if p.slices > 1]
+    if sliced:
+        regions.append(("p", (max(p.partial_floats() for p in sliced),)))
+    return F32Plan(products=products, regions=tuple(regions),
+                   tickets=max((len(p.tiles()) for p in sliced), default=0))
+
+
+@functools.lru_cache(maxsize=256)
+def _f32_launch(dims: tuple[int, ...], sms: int
+                ) -> tuple[F32Plan, tuple[str, ...], object, tuple]:
+    """What an f32 call passes to C, cached per shape: its plan, the
+    operand names in the order of the pointer array, the products' spec
+    as a ctypes array, and the scratch regions' offsets."""
+    plan = f32_plan(dims, sms)
+    names = _inputs(dims) + ("y",) + tuple(name for name, _ in plan.regions)
+    slot = {name: i for i, name in enumerate(names)}
+    flat = [v for p in plan.products for v in p.spec(slot)]
+    return plan, names, (ctypes.c_longlong * len(flat))(*flat), tuple(
+        plan.offsets().values())
+
+
+def launch_f32(x: torch.Tensor, weights: tuple[torch.Tensor, ...],
+               y: torch.Tensor, dims: tuple[int, ...], what: str) -> None:
+    """The f32 form on f32 operands already checked: B1's (w0, w1) with
+    ``dims`` (M, C, R, S) or B2's (u, xc, v) with (M, C, N, r1, r2, S):
+    one host call that launches every product of the plan in order on
+    the current stream."""
+    plan, slots, spec, offsets = _f32_launch(dims,
+                                             _sm_count(x.device.index))
+    scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8,
+                          device=x.device)
+    ptr = {n: t.data_ptr() for n, t in zip(_inputs(dims), (x, *weights))}
+    ptr["y"] = y.data_ptr()
+    for (name, _), at in zip(plan.regions, offsets):
+        ptr[name] = scratch.data_ptr() + at
+    ptrs = (ctypes.c_void_p * len(slots))(*(ptr[n] for n in slots))
+    lib = build.load()
+    with torch.cuda.device(x.device):
+        tickets = build.tickets(x.device, plan.tickets) if plan.tickets \
+            else None
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.lrk_chain_f32(len(plan.products), spec, ptrs,
+                               None if tickets is None else
+                               tickets.data_ptr(),
+                               0 if tickets is None else tickets.numel(),
+                               stream)
     build.check(lib, rc, what)
 
 
@@ -558,23 +759,22 @@ def branched_matmul(x: torch.Tensor, u: torch.Tensor, xc: torch.Tensor,
                     v: torch.Tensor) -> torch.Tensor:
     """x (M,C); u (N,C,r1); xc (N,r1,r2); v (N,r2,S) -> (M,S), all one
     float dtype on one CUDA device, contiguous, in the form
-    :func:`chain_form` names: bf16 at M >= LARGE_M the large-M form, at
-    fewer rows the split-phase kernel (neither takes empty factors); f32
-    the cluster kernel.  One counted call either way."""
+    :func:`chain_form` names: f32 the f32 form, bf16 at M >= LARGE_M the
+    large-M form, at fewer rows the split-phase kernel (none takes empty
+    factors).  One counted call whatever the form."""
     global launches
     dims = check_operands(x, u, xc, v)
     y = torch.empty((dims[0], dims[5]), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
+    check_factors("branched_matmul", dims[1:5], u, xc, v)
     form = chain_form(x.dtype, dims[0])
-    if form == "cluster":
-        _launch_cluster(x, u, xc, v, y)
+    if form == "f32":
+        launch_f32(x, (u, xc, v), y, dims, "branched_matmul")
+    elif form == "large_m":
+        launch_large_m(x, (u, xc, v), y, dims, "branched_matmul")
     else:
-        check_factors("branched_matmul", dims[1:5], u, xc, v)
-        if form == "large_m":
-            launch_large_m(x, (u, xc, v), y, dims, "branched_matmul")
-        else:
-            _launch_mma(x, u, xc, v, y, None, dims)
+        _launch_mma(x, u, xc, v, y, None, dims)
     launches += 1
     return y
 
@@ -636,7 +836,8 @@ def branched_matmul_phase_us(x: torch.Tensor, u: torch.Tensor,
 
 def check_factors(what: str, sizes: tuple[int, ...], *factors) -> None:
     """Raise on empty factors (a zero in ``sizes``, the factors' widths):
-    the split-phase kernels take none."""
+    the split-phase kernels, the large-M form and the f32 form take
+    none."""
     if min(sizes) == 0:
         raise ValueError(f"{what} kernel: empty factors "
                          + " ".join(str(tuple(f.shape)) for f in factors))
@@ -696,7 +897,9 @@ def _launch_mma(x: torch.Tensor, u: torch.Tensor, xc: torch.Tensor,
 
 def _launch_cluster(x: torch.Tensor, u: torch.Tensor, xc: torch.Tensor,
                     v: torch.Tensor, y: torch.Tensor) -> None:
-    """The cluster kernel (8-CTA clusters, CUDA-core FMAs): f32's kernel."""
+    """The cluster kernel (8-CTA clusters, CUDA-core FMAs): the earlier
+    f32 kernel, kept as the yardstick :func:`cluster_branched_matmul`
+    launches."""
     m, c = x.shape
     n, _, r1 = u.shape
     r2, s = v.shape[1:]
@@ -717,9 +920,10 @@ def _launch_cluster(x: torch.Tensor, u: torch.Tensor, xc: torch.Tensor,
 def cluster_branched_matmul(x: torch.Tensor, u: torch.Tensor,
                             xc: torch.Tensor, v: torch.Tensor
                             ) -> torch.Tensor:
-    """The cluster kernel in x's dtype, bf16 included, uncounted: the
-    earlier bf16 design, kept as a yardstick for the split-phase kernel
-    (chip_smoke's ``prev_ms``).  The serve path never calls it."""
+    """The cluster kernel in x's dtype, uncounted: the earlier design of
+    both dtypes, kept as a yardstick for the split-phase kernel and the
+    f32 form (chip_smoke's ``prev_ms``).  The serve and train paths never
+    call it."""
     m, _, _, _, _, s = check_operands(x, u, xc, v)
     y = torch.empty((m, s), dtype=x.dtype, device=x.device)
     if m and s:

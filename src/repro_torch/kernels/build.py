@@ -30,7 +30,7 @@ SOURCES = ("lowrank_matmul.cu", "branched_matmul.cu", "lowrank_matmul_q.cu",
            "lowrank_matmul_qa.cu", "branched_matmul_qa.cu",
            "decode_attention_paged.cu", "decode_attention_latent_q.cu",
            "lowrank_matmul_sq.cu", "branched_matmul_sq.cu",
-           "chain_wgmma.cu")
+           "chain_wgmma.cu", "chain_f32.cu")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 #: shared memory a CTA may opt into on an H100 (bytes)
 SMEM_LIMIT = int(H100.vmem_bytes)
@@ -234,13 +234,16 @@ def load() -> ctypes.CDLL:
     lib.lrk_decode_attention_latent_q_prev_smem.restype = ctypes.c_size_t
     lib.lrk_chain_wgmma.argtypes = [i, p, p, p]
     lib.lrk_chain_wgmma.restype = i
+    lib.lrk_chain_f32.argtypes = [i, p, p, p, i, p]
+    lib.lrk_chain_f32.restype = i
     lib.lrk_error_string.argtypes = [i]
     lib.lrk_error_string.restype = ctypes.c_char_p
     return lib
 
 
-#: the row block heights the f32 chain kernels are built for, tallest
-#: first (``lrk_common.cuh::known_bm``); bf16's cluster kernels and the
+#: the row block heights the f32 cluster chain kernels are built for,
+#: tallest first (``lrk_common.cuh::known_bm``): f32 B3, B4, B11 and B12,
+#: and the cluster yardsticks of B1 / B2; bf16's cluster kernels and the
 #: activation-quantized ones stop at 8 rows
 F32_HEIGHTS = (32, 8, 4)
 HEIGHTS = (32, 8)

@@ -38,17 +38,18 @@
 // the quantized and the 2:4 kernels (branched_matmul_q.cu,
 // branched_matmul_sq.cu) run it on their dequantizing and expanding views.
 //
-// f32: the cluster design below (branched_kernel), kept because TF32 tensor
-// cores cannot reach f32's tolerance: a thread block cluster of CLUSTER
-// CTAs shares one row block.
+// The cluster design below (branched_kernel), the first f32 and bf16
+// kernel: a thread block cluster of CLUSTER CTAs shares one row block.
 //   stage 1: every branch's h1_n = round_T(x_blk @ u_n), the CTAs splitting
 //            the N*r1 columns between them, gathered over distributed
 //            shared memory into one BM x N*r1 tile per CTA;
 //   stage 2: h2_n = round_T(h1_n @ xc_n) the same way into BM x N*r2;
 //   stage 3: each CTA walks its S tiles accumulating sum_n h2_n @ v_n[:, tile]
 //            in ONE f32 accumulator.
-// Its bf16 instantiation stays callable as a yardstick (chip_smoke's
-// prev_ms); the wrapper never launches it for bf16.
+// Both instantiations stay callable as yardsticks (chip_smoke's prev_ms);
+// the wrapper never launches them.  f32 calls take the f32 form
+// (chain_f32.cu: one output-tiled, K-sliced split-TF32 mma.sync launch per
+// product, over the whole card).
 //
 // bf16 calls of M >= LARGE_M rows take the large-M form instead
 // (chain_wgmma.cuh: one output-tiled wgmma launch per product).

@@ -21,8 +21,10 @@
 // share of the S tiles with h resident in shared memory.  More clusters
 // per row block (groups) spread the w1 stream over more SMs at the cost of
 // recomputing h once per cluster.  Products are plain f32 FMAs staged
-// through shared memory, exact in f32: f32 activations run this design,
-// because TF32 tensor cores cannot hold f32's tolerance.
+// through shared memory, exact in f32.  f32 activations ran this design
+// until the f32 form (chain_f32.cu: output-tiled, K-sliced split-TF32
+// launches over the whole card) replaced it; its f32 and bf16
+// instantiations stay callable as yardsticks (chip_smoke's prev_ms).
 //
 // bf16 activations: lowrank_mma_kernel (branched_mma.cuh), the two-phase
 // split kernel of lowrank_matmul_sq.cu with both factors read through
@@ -36,8 +38,8 @@
 // 8 SMs of one cluster.  h rounds to bf16 where the TPU kernel casts;
 // f32 partials are summed in slice order, so a second call gives the same
 // bits.  The cluster kernel's bf16 instantiation stays callable as a
-// yardstick (chip_smoke's prev_ms); the wrapper never launches it for
-// bf16.  bf16 calls of M >= LARGE_M rows take the large-M form
+// yardstick (chip_smoke's prev_ms); the wrapper never launches it.
+// bf16 calls of M >= LARGE_M rows take the large-M form
 // (chain_wgmma.cuh: two output-tiled wgmma launches, h then y).
 #include "branched_mma.cuh"
 #include "lrk_common.cuh"

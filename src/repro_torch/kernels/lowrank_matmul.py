@@ -8,10 +8,12 @@ two-phase split kernel on the split-phase tensor-core core of bf16
 :func:`repro_torch.kernels.branched_matmul.lowrank_split` computes, or,
 at ``LARGE_M`` rows or more, to the large-M form
 (``csrc/chain_wgmma.cuh``, two ``wgmma`` launches: h, then y); f32
-goes to the cluster kernel (tensor cores in TF32 cannot hold f32's
-tolerance).  This wrapper checks the operands, allocates the output and
-the scratch, launches on the current stream and counts launches.  CUDA
-tensors only: the CPU path is the plain version in
+goes at every M to the f32 form (``csrc/chain_f32.cu``, two
+output-tiled, K-sliced split-TF32 ``mma.sync`` launches planned by
+:func:`repro_torch.kernels.branched_matmul.f32_plan`).  This wrapper
+checks the operands, allocates the output and the scratch, launches on
+the current stream and counts launches.  CUDA tensors only: the CPU path
+is the plain version in
 :mod:`repro_torch.kernels.ref`, chosen by :mod:`repro_torch.kernels.ops`.
 """
 from __future__ import annotations
@@ -59,9 +61,9 @@ def lowrank_matmul(x: torch.Tensor, w0: torch.Tensor,
                    w1: torch.Tensor) -> torch.Tensor:
     """x (M,C); w0 (C,R); w1 (R,S) -> (M,S), all one float dtype on one
     CUDA device, contiguous, in the form ``branched_matmul.chain_form``
-    names: bf16 at M >= LARGE_M the large-M form, at fewer rows the
-    two-phase split kernel (neither takes empty factors: C or R of 0
-    raise); f32 the cluster kernel."""
+    names: f32 the f32 form, bf16 at M >= LARGE_M the large-M form, at
+    fewer rows the two-phase split kernel (none takes empty factors: C or
+    R of 0 raise)."""
     return lowrank_matmul_split(x, w0, w1)
 
 
@@ -71,24 +73,24 @@ def lowrank_matmul_split(x: torch.Tensor, w0: torch.Tensor,
     plan's ``items`` and ``ctas`` asked of
     :func:`~repro_torch.kernels.branched_matmul.lowrank_split` (its
     defaults where not given), for a call that takes the split kernel
-    (chip_smoke times other plans with it): a large-M call refuses them."""
+    (chip_smoke times other plans with it): a large-M or f32 call refuses
+    them."""
     global launches
     dims = check_operands(x, w0, w1)
     y = torch.empty((dims[0], dims[3]), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
+    bk.check_factors("lowrank_matmul", dims[1:3], w0, w1)
     form = bk.chain_form(x.dtype, dims[0])
-    if form == "cluster":
-        _launch_cluster(x, w0, w1, y, dims)
+    if form != "split" and knobs:
+        raise ValueError(f"lowrank_matmul of {x.dtype} at M = {dims[0]} "
+                         f"takes the {form} form, which has no {knobs}")
+    if form == "f32":
+        bk.launch_f32(x, (w0, w1), y, dims, "lowrank_matmul")
+    elif form == "large_m":
+        bk.launch_large_m(x, (w0, w1), y, dims, "lowrank_matmul")
     else:
-        bk.check_factors("lowrank_matmul", dims[1:3], w0, w1)
-        if form == "large_m":
-            if knobs:
-                raise ValueError(f"lowrank_matmul at M = {dims[0]} takes the "
-                                 f"large-M form, which has no {knobs}")
-            bk.launch_large_m(x, (w0, w1), y, dims, "lowrank_matmul")
-        else:
-            _launch_mma(x, w0, w1, y, None, dims, **knobs)
+        _launch_mma(x, w0, w1, y, None, dims, **knobs)
     launches += 1
     return y
 
@@ -127,9 +129,10 @@ def lowrank_matmul_phase_us(x: torch.Tensor, w0: torch.Tensor,
 
 def cluster_lowrank_matmul(x: torch.Tensor, w0: torch.Tensor,
                            w1: torch.Tensor) -> torch.Tensor:
-    """The cluster kernel in x's dtype, bf16 included, uncounted: the
-    earlier bf16 design, kept as a yardstick for the split kernel
-    (chip_smoke's ``prev_ms``).  The serve path never calls it."""
+    """The cluster kernel in x's dtype, uncounted: the earlier design of
+    both dtypes, kept as a yardstick for the split kernel and the f32
+    form (chip_smoke's ``prev_ms``).  The serve and train paths never call
+    it."""
     dims = check_operands(x, w0, w1)
     y = torch.empty((dims[0], dims[3]), dtype=x.dtype, device=x.device)
     if y.numel():
@@ -147,7 +150,9 @@ def _launch_mma(x: torch.Tensor, w0: torch.Tensor, w1: torch.Tensor,
 
 def _launch_cluster(x: torch.Tensor, w0: torch.Tensor, w1: torch.Tensor,
                     y: torch.Tensor, dims: tuple[int, ...]) -> None:
-    """The cluster kernel (8-CTA clusters, CUDA-core FMAs): f32's kernel."""
+    """The cluster kernel (8-CTA clusters, CUDA-core FMAs): the earlier
+    f32 kernel, kept as the yardstick :func:`cluster_lowrank_matmul`
+    launches."""
     m, c, r, s = dims
     lib = build.load()
     bm, _ = build.chain_fit(

@@ -413,11 +413,11 @@ def test_decode_attention_latent_q_kernel_matches_plain(cuda, case, dtype):
 @pytest.mark.parametrize("label", list(chip_smoke.DEEPSEEK_BRANCHED_SHAPES))
 def test_branched_kernels_at_deepseek_shapes(cuda, label, m, dtype):
     """B2, B4 (int8 factors) and B12 (int8 packs) at DeepSeek-V2's wide
-    branch ranks stay within tolerance, one launch per call.  In f32 they
-    launch the cluster kernel at 8 rows (the 32-row block does not fit
-    shared memory at M = 64); in bf16 the split-phase kernel, whose shared
-    memory does not depend on the ranks, and give the same bits on a
-    second call."""
+    branch ranks stay within tolerance, one launch per call.  In f32 B4 and
+    B12 launch the cluster kernel at 8 rows (the 32-row block does not fit
+    shared memory at M = 64) and B2 the f32 form; in bf16 the split-phase
+    kernel, whose shared memory does not depend on the ranks; each gives
+    the same bits on a second call."""
     from repro_torch.kernels import branched_matmul as bk
     from repro_torch.kernels import branched_matmul_q as bqk
     from repro_torch.kernels import branched_matmul_sq as bsk
@@ -459,8 +459,9 @@ def test_branched_kernels_at_deepseek_shapes(cuda, label, m, dtype):
 def test_f32_branched_kernels_at_vlm_ranks(cuda, label, m):
     """f32 B2 and B4 (int8 factors) at the VLM's per-branch ranks 768 /
     960, where the cluster chain's 8-row block does not fit shared memory:
-    they launch at 4-row blocks, once a call, within the f32 tolerance of
-    the plain versions, and give the same bits on a second call."""
+    B4's cluster kernel launches at 4-row blocks and B2 runs the f32 form,
+    once a call, within the f32 tolerance of the plain versions, and give
+    the same bits on a second call."""
     from repro_torch.kernels import branched_matmul as bk
     from repro_torch.kernels import branched_matmul_q as bqk
     from repro_torch.kernels import build
@@ -494,20 +495,36 @@ def test_f32_branched_kernels_at_vlm_ranks(cuda, label, m):
     assert torch.equal(y, bqk.branched_matmul_q(*args))
 
 
-def test_f32_branched_kernel_refuses_past_the_4_row_block(cuda):
-    """Ranks whose 4-row block does not fit either raise, naming the
-    shapes, with nothing launched."""
+@pytest.mark.parametrize("kind", ["branched_matmul", "branched_matmul_q"])
+def test_f32_branched_kernel_refuses_past_the_4_row_block(cuda, kind):
+    """At per-branch ranks (1600, 1600), where the cluster kernel's 4-row
+    block does not fit shared memory: f32 B2 runs the f32 form, whose
+    shared memory is fixed by its tile (one counted launch, within f32's
+    tolerance of the plain version); f32 B4 keeps the cluster kernel and
+    raises, naming the shapes, with nothing launched."""
     from repro_torch.kernels import branched_matmul as bk
+    from repro_torch.kernels import branched_matmul_q as bqk
+    from repro_torch.kernels import ref
     dt = torch.float32
     n, c, r, s = 4, 256, 1600, 256
     x = _rnd(cuda, 8, c, dtype=dt)
-    u = _rnd(cuda, n, c, r, dtype=dt)
-    xc = _rnd(cuda, n, r, r, dtype=dt)
-    v = _rnd(cuda, n, r, s, dtype=dt)
-    n0 = bk.launches
+    if kind == "branched_matmul":
+        u = _rnd(cuda, n, c, r, scale=c ** -0.5, dtype=dt)
+        xc = _rnd(cuda, n, r, r, scale=r ** -0.5, dtype=dt)
+        v = _rnd(cuda, n, r, s, scale=r ** -0.5, dtype=dt)
+        n0 = bk.launches
+        y = bk.branched_matmul(x, u, xc, v)
+        assert bk.launches == n0 + 1
+        assert _norm_err(y, ref.branched_matmul_ref(x, u, xc, v)) \
+            <= chip_smoke.KERNEL_TOL["float32"]
+        return
+    args = (x, *_quantized(cuda, n, c, r, mode="int8"),
+            *_quantized(cuda, n, r, r, mode="int8"),
+            *_quantized(cuda, n, r, s, mode="int8"))
+    n0 = bqk.launches
     with pytest.raises(ValueError, match=r"ranks \(1600, 1600\).*4 rows"):
-        bk.branched_matmul(x, u, xc, v)
-    assert bk.launches == n0
+        bqk.branched_matmul_q(*args)
+    assert bqk.launches == n0
 
 
 @pytest.mark.parametrize("kv_quantize", ["none", "int8"])
@@ -1166,8 +1183,11 @@ def test_split_lowrank_bf16_matches_plain_and_cluster(cuda, label, m,
 
 @pytest.mark.parametrize("kind", _LOWRANK_KINDS)
 def test_split_lowrank_f32_runs_the_cluster_kernel(cuda, kind):
-    """f32 x keeps the cluster kernel: bit-equal to the yardstick entry
-    that launches it, one counted launch, within f32's tolerance."""
+    """f32 B3 (int8 / e4m3 factors) keeps the cluster kernel: bit-equal to
+    the yardstick entry that launches it.  f32 B1 runs the f32 form: the
+    same bits on a second call, within f32's tolerance of the cluster
+    kernel.  One counted launch each, within f32's tolerance of the plain
+    version."""
     from repro_torch.kernels import ref
     mod, name = _lowrank_kernel(kind)
     args = _lowrank_args(cuda, kind, 37, *chip_smoke.LOWRANK_SHAPES["k,v"],
@@ -1175,9 +1195,14 @@ def test_split_lowrank_f32_runs_the_cluster_kernel(cuda, kind):
     n0 = mod.launches
     y = getattr(mod, name)(*args)
     assert mod.launches == n0 + 1
-    assert torch.equal(y, getattr(mod, "cluster_" + name)(*args))
-    assert _norm_err(y, getattr(ref, name + "_ref")(*args)) \
-        <= chip_smoke.KERNEL_TOL["float32"]
+    tol = chip_smoke.KERNEL_TOL["float32"]
+    old = getattr(mod, "cluster_" + name)(*args)
+    if kind == "bf16":
+        assert torch.equal(y, getattr(mod, name)(*args))
+        assert _norm_err(y, old) <= tol
+    else:
+        assert torch.equal(y, old)
+    assert _norm_err(y, getattr(ref, name + "_ref")(*args)) <= tol
 
 
 def test_split_lowrank_smem_and_grid(cuda):

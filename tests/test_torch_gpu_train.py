@@ -62,9 +62,9 @@ def test_function_grads_match_autograd_of_plain(cuda, label, dtype):
                 _rnd(cuda, n, r, r, scale=r ** -0.5, dtype=dt),
                 _rnd(cuda, n, r, s, scale=r ** -0.5, dtype=dt))
         fn, plain, mod = kgrad.BranchedMatmul, ref.branched_matmul_ref, bk
-    # bf16 at the training M runs the large-M form, f32 the cluster kernel
+    # bf16 at the training M runs the large-M form, f32 the f32 form
     assert bk.chain_form(dt, m) == ("large_m" if dtype == "bfloat16"
-                                    else "cluster")
+                                    else "f32")
     g = _rnd(cuda, m, s, dtype=dt)
     ins = [a.clone().requires_grad_(True) for a in args]
     n0 = mod.launches

@@ -127,8 +127,8 @@ def test_dispatch_takes_large_m_exactly_at_bf16_past_large_m(
         monkeypatch, kind, dtype, m):
     calls = []
     for mod, name in ((bk, "launch_large_m"), (bk, "_launch_mma"),
-                      (bk, "_launch_cluster"), (lk, "_launch_mma"),
-                      (lk, "_launch_cluster")):
+                      (bk, "launch_f32"), (bk, "_launch_cluster"),
+                      (lk, "_launch_mma"), (lk, "_launch_cluster")):
         monkeypatch.setattr(mod, name, lambda *a, name=name, **k:
                             calls.append(name))
     x = torch.zeros(m, 16, dtype=dtype)
@@ -146,10 +146,10 @@ def test_dispatch_takes_large_m_exactly_at_bf16_past_large_m(
     n0 = mod.launches
     y = fn(x, *ws)
     assert y.shape == (m, 24) and mod.launches == n0 + 1
-    want = ("_launch_cluster" if dtype == torch.float32 else
+    want = ("launch_f32" if dtype == torch.float32 else
             "launch_large_m" if m >= L else "_launch_mma")
     assert calls == [want]
-    assert bk.chain_form(dtype, m) == {"_launch_cluster": "cluster",
+    assert bk.chain_form(dtype, m) == {"launch_f32": "f32",
                                        "launch_large_m": "large_m",
                                        "_launch_mma": "split"}[want]
 

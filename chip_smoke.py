@@ -377,8 +377,8 @@ device kernels and host ops, exact launches):
 The kernels phase adds their rows (``path``: "vlm" / "hubert"): B1 / B2
 and B3 / B4 at the VLM's shapes, M = 8, with the 128,256-column unembed;
 B2 / B4 in f32 at the VLM's gate / up / down and unembed, M = 8 and 128
-(``VLM_F32_SHAPES``, ``path`` "vlm_f32": B2's f32 form, B4's cluster
-kernel at 4-row blocks, ``vlm_f32_path`` of the kernels line);
+(``VLM_F32_SHAPES``, ``path`` "vlm_f32": the f32 form, ``vlm_f32_path``
+of the kernels line);
 B1 / B3 at the cross k / v's M = 1,601; B5 at (G 8, D 128) in
 ``WIDE_ATTN_CASES``; B1 / B2 at hubert's shapes, M = 2,000; summed per
 decode step or forward as ``vlm_path`` / ``hubert_path`` of the kernels
@@ -398,6 +398,23 @@ and hubert's q,k,v,o over one clip (``F32_LOWRANK_ROWS``: ``vlm_f32_path``,
 ``hubert_f32_path``); and f32 B2 rows with their gradients at the family
 train shapes whose check step runs f32, at its M
 (``TRAIN_FAMILY_F32_ROWS``, in ``train_family_path``).
+
+B3 / B4 (int8 / e4m3 factors) run both forms too: bf16 at M >=
+``LARGE_M_Q`` the large-M form on the factors the dequantizing pass
+(``kernels/csrc/chain_dequant.cu``) writes as bf16 into the call's
+scratch, f32 at every M the f32 form reading their bytes.  In the build
+phase their plans (with the dequantized factors and the scratch bytes);
+in the kernels phase, on every such row, ``form``, ``prev_ms`` (the split
+form forced, or the cluster kernel; ``prev_refused`` where the cluster
+kernel refuses the ranks), ``dq_us`` (the pass alone) and
+``equal_to_unquantized`` (the bits of B1 / B2 in the same form on the
+factors dequantized beforehand), each row failing where it is off
+``KERNEL_TOL``, its bits differ or it is not faster than ``prev_ms``:
+the int8 VLM's cross k / v at M = 1,601 and its prefill rows at
+``VLM_PREFILL_M`` (``vlm_prefill_path``), zamba2's at M = 512, the f32
+rows at llama's, the VLM's and the fc's shapes and at ``F32_WIDE_RANK``
+(``f32_wide_path``); the ``LARGE_M`` sweep holds B3 / B4 at the int8
+VLM's and zamba2's shapes to ``LARGE_M_Q``.
 
 Training the other families (ROADMAP A13t) adds one pair per family
 (``TRAIN_FAMILY_RUNS``), each right after the serve phases of the same
@@ -943,6 +960,14 @@ VLM_CROSS_M = 1601
 VLM_F32_SHAPES = {k: VLM_BRANCHED_SHAPES[k]
                   for k in ("vlm gate,up", "vlm down", "vlm unembed")}
 VLM_F32_M = (8, 128)
+#: the int8 VLM's blocking prefill at its largest prompt: the B3 k,v and
+#: B4 q,o / gate,up / down rows at this M (path "vlm_prefill"), the
+#: large-M form on the factors its dequantizing pass writes
+VLM_PREFILL_M = 512
+VLM_PREFILL_SHAPES = ("vlm q,o", "vlm gate,up", "vlm down")
+#: the f32 B4 row past the cluster kernel's 4-row block (per-branch ranks
+#: 1,600: that kernel refuses it, the f32 form runs it) at a decode step
+F32_WIDE_RANK = {"r1600": (4, 256, 1600, 256)}
 #: the f32 B1 rows of check_vlm's and check_hubert's f32 runs: the VLM's
 #: cross k / v over the image tokens (path "vlm_f32") and hubert's
 #: q,k,v,o over one clip (path "hubert_f32")
@@ -966,13 +991,20 @@ HUBERT_LAUNCHES = {"lowrank_matmul": {"hubert q,k,v,o": 192,
                    "branched_matmul": {"hubert up": 48, "hubert down": 48}}
 #: the LARGE_M sweep of the kernels phase: bf16 B1 / B2 in both forms
 #: (the large-M form, the split-phase one) at these M, at llama's train
-#: shapes and hubert's
+#: shapes and hubert's; B3 / B4 (int8 factors) at the int8 VLM's and
+#: zamba2's
 LARGE_M_SWEEP_M = (64, 128, 256, 512, 1024, 2000)
 LARGE_M_SWEEP = {
     "lowrank_matmul": {"k,v": LOWRANK_SHAPES["k,v"], **HUBERT_LOWRANK_SHAPES},
     "branched_matmul": {**{k: BRANCHED_SHAPES[k]
                            for k in ("q,o", "gate,up", "down")},
-                        **HUBERT_BRANCHED_SHAPES}}
+                        **HUBERT_BRANCHED_SHAPES},
+    "lowrank_matmul_q": dict(VLM_LOWRANK_SHAPES),
+    "branched_matmul_q": {**{k: VLM_BRANCHED_SHAPES[k]
+                             for k in VLM_PREFILL_SHAPES},
+                          **{k: ZAMBA_BRANCHED_SHAPES[k] for k in (
+                              "zamba2 in_proj,up,gate",
+                              "zamba2 q,k,v,o")}}}
 #: the large-M form's source (``large_m_source`` of the kernels line)
 LARGE_M_SOURCE = "src/repro_torch/kernels/csrc/chain_wgmma.cuh"
 #: profiled steps of profile_train / profile_hubert (after two warm ones)
@@ -1299,7 +1331,8 @@ def check_kernels(card: str, only: frozenset = frozenset(KERNELS)
                                          flush, plans),
                         plain_ms=time_ms(
                             lambda: ref.lowrank_matmul_q_ref(*args)),
-                        **_cost_bound("lowrank_matmul_q", args, dname)))
+                        **_cost_bound("lowrank_matmul_q", args,
+                                      _q_peak(dname))))
                     if label in SPARSE_LOWRANK:
                         add("lowrank_matmul_sq", lambda: _check_sq(
                             label, x, [spack(c, r, mode=mode),
@@ -1405,6 +1438,20 @@ def check_kernels(card: str, only: frozenset = frozenset(KERNELS)
                 path="vlm"))
             add("lowrank_matmul_q", lambda: dict(_lowrank_q_row(
                 label, x, shape, "bfloat16", qrnd, flush), path="vlm"))
+        add("lowrank_matmul_q", lambda: dict(_lowrank_q_row(
+            label, rnd(VLM_PREFILL_M, shape[0], dtype=bf), shape,
+            "bfloat16", qrnd, flush), path="vlm_prefill"))
+    for label in (VLM_PREFILL_SHAPES if "branched_matmul_q" in only
+                  else ()):
+        _check_branched(add_path("vlm_prefill", {"branched_matmul_q"}),
+                        label, VLM_BRANCHED_SHAPES[label], VLM_PREFILL_M,
+                        "bfloat16", rnd, qrnd, ("int8",), spack, flush,
+                        only)
+    for label, shape in (F32_WIDE_RANK.items()
+                         if "branched_matmul_q" in only else ()):
+        _check_branched(add_path("f32_wide", {"branched_matmul_q"}), label,
+                        shape, 8, "float32", rnd, qrnd, ("int8",), spack,
+                        flush, only)
     for label, shape in (HUBERT_BRANCHED_SHAPES.items()
                          if "branched_matmul" in only else ()):
         _check_branched(add_path("hubert", {"branched_matmul"}), label,
@@ -1473,12 +1520,14 @@ def check_kernels(card: str, only: frozenset = frozenset(KERNELS)
                                  lambda: (x @ w0d) @ w1d, "float32", flush,
                                  False),
                 plain_ms=time_ms(lambda: ref.lowrank_matmul_q_ref(*args)),
-                **_cost_bound("lowrank_matmul_q", args, "float32")))
+                **_cost_bound("lowrank_matmul_q", args, "tf32x3")))
     sweep = _large_m_sweep(rnd, card, only)
-    least = kernel_module("branched_matmul").LARGE_M
+    bkm = kernel_module("branched_matmul")
+    least = {name: bkm.LARGE_M_Q if name.endswith("_q") else bkm.LARGE_M
+             for name in sweep}
     failures = [(name, label, m, t) for name, shapes in sweep.items()
                 for label, ms in shapes.items() for m, t in ms.items()
-                if int(m) >= least and t["large_m"] >= t["split"]]
+                if int(m) >= least[name] and t["large_m"] >= t["split"]]
     for name, rs in rows.items():
         for row in rs:
             ok = (row["norm_err"] <= KERNEL_TOL[row["dtype"]]
@@ -1487,7 +1536,10 @@ def check_kernels(card: str, only: frozenset = frozenset(KERNELS)
                   and row.get("differing", 0) == 0
                   and row.get("differing_prev", 0) == 0
                   and row.get("grad_err", 0.0) <= KERNEL_TOL[row["dtype"]]
+                  and row.get("equal_to_unquantized", True)
                   and (row.get("form") not in ("large_m", "f32")
+                       or (row["prev_ms"] is None
+                           and bool(row.get("prev_refused")))
                        or row["ms"] < row["prev_ms"]))
             lib_ms = row["library_ms"]
             extra = "".join(f"{k}={row[k]:.4f} "
@@ -1514,6 +1566,11 @@ def check_kernels(card: str, only: frozenset = frozenset(KERNELS)
                    if "same_bits" in row else "")
                 + (f"splits={row['splits']} " if "splits" in row else "")
                 + (f"form={row['form']} " if "form" in row else "")
+                + (f"dq_us={row['dq_us']:.1f} "
+                   if row.get("dq_us") is not None else "")
+                + (f"equal_to_unquantized={row['equal_to_unquantized']} "
+                   if "equal_to_unquantized" in row else "")
+                + ("prev_refused " if row.get("prev_refused") else "")
                 + (f"prev_err={row['prev_err']:.3e} "
                    if "prev_err" in row else "")
                 + (f"grad_err={row['grad_err']:.3e} bwd_ms="
@@ -1532,24 +1589,27 @@ def check_kernels(card: str, only: frozenset = frozenset(KERNELS)
                 failures.append((name, row))
     if failures:
         raise SystemExit(f"kernel disagrees with its plain version (or "
-                         f"with its own first call, or a large-M or f32 "
+                         f"with its own first call, or B3 / B4 with B1 / B2 "
+                         f"on the dequantized factors, or a large-M or f32 "
                          f"call is not faster than the form it replaced): "
                          f"{failures}")
     entries = _kernel_entries(rows)
     for entry in entries:
         if entry["name"] in sweep:
-            entry.update(large_m=least, large_m_source=LARGE_M_SOURCE,
+            entry.update(large_m=least[entry["name"]],
+                         large_m_source=LARGE_M_SOURCE,
                          large_m_sweep=sweep[entry["name"]])
     return entries
 
 
 def _large_m_sweep(rnd, card: str, only) -> dict:
-    """The LARGE_M sweep: bf16 B1 / B2 (those in ``only``) at every shape
-    of :data:`LARGE_M_SWEEP` and M of :data:`LARGE_M_SWEEP_M`, the
-    large-M form and the split-phase form (both uncounted, forced) timed
-    in turns (large, split, split, large; device ms with the host kept
-    ahead), keyed kernel -> shape -> M."""
+    """The LARGE_M sweep: bf16 B1 / B2 and B3 / B4 with int8 factors
+    (those in ``only``) at every shape of :data:`LARGE_M_SWEEP` and M of
+    :data:`LARGE_M_SWEEP_M`, the large-M form and the split-phase form
+    (both uncounted, forced) timed in turns (large, split, split, large;
+    device ms with the host kept ahead), keyed kernel -> shape -> M."""
     import torch
+    from repro_torch.quant.quantize import quantize_array
     bf = torch.bfloat16
     out = {}
     for name, shapes in LARGE_M_SWEEP.items():
@@ -1558,6 +1618,7 @@ def _large_m_sweep(rnd, card: str, only) -> dict:
         mod = kernel_module(name)
         large = getattr(mod, "large_m_" + name)
         split = getattr(mod, "split_" + name)
+        quant = name.endswith("_q")
         out[name] = {}
         for label, shape in shapes.items():
             if len(shape) == 3:
@@ -1569,6 +1630,9 @@ def _large_m_sweep(rnd, card: str, only) -> dict:
                 ws = (rnd(n, c, r, scale=c ** -0.5, dtype=bf),
                       rnd(n, r, r, scale=r ** -0.5, dtype=bf),
                       rnd(n, r, s, scale=r ** -0.5, dtype=bf))
+            if quant:
+                ws = tuple(t for w in ws
+                           for t in quantize_array(w.float(), "int8"))
             row = {}
             for m in LARGE_M_SWEEP_M:
                 x = rnd(m, c, dtype=bf)
@@ -1590,7 +1654,8 @@ def _split_times(kernel, prev, phases, library, flush, dname: str) -> dict:
     old, new: ``prev_ms``), its phase timer read (``phase_us``, the
     fastest of five launches of ``phases()``) and a second call held to
     the first's bits (``same_bits``).  f32 runs the cluster kernel (f32
-    B4 / B12; f32 B2 takes :func:`_branched_row`'s f32 form instead).
+    B12; f32 B2 and B4 take the f32 form instead: :func:`_branched_row`,
+    :func:`_branched_q_times`).
     ``cold_ms`` and ``library_cold_ms`` time the kernel and the library
     call with a cold L2."""
     import torch
@@ -1686,18 +1751,72 @@ def _check_branched(add, label: str, shape: tuple, m: int, dname: str, rnd,
         add("branched_matmul_q", lambda: dict(
             shape=label, dtype=dname, qmode=mode, M=m, N=n, C=c, r=r, S=s,
             **_compare(y, want, dname),
-            **_split_times(
-                lambda: bqk.branched_matmul_q(*args),
-                lambda: bqk.cluster_branched_matmul_q(*args),
-                lambda: bqk.branched_matmul_q_phase_us(*args),
-                lambda: torch.bmm(torch.bmm(torch.bmm(xb3, ud), xcd),
-                                  vd).sum(0), flush, dname),
+            **_branched_q_times(
+                args, y, lambda: torch.bmm(torch.bmm(torch.bmm(xb3, ud),
+                                                     xcd), vd).sum(0),
+                flush, dname),
             plain_ms=time_ms(lambda: ref.branched_matmul_q_ref(*args)),
-            **_cost_bound("branched_matmul_q", args, dname)))
+            **_cost_bound("branched_matmul_q", args, _q_peak(dname))))
         del ud, xcd, vd
         add("branched_matmul_sq", lambda: _check_sq(
             label, x, [spack(n, c, r, mode=mode), qs[1],
                        spack(n, r, s, mode=mode)], dname, flush))
+
+
+def _quant_form_extras(name: str, args: tuple, y, form: str) -> dict:
+    """What a B3 / B4 row (the wrapper ``name`` on ``args``, output ``y``)
+    in the large-M or the f32 form adds: ``dq_us``, the dequantizing pass
+    of the call's form alone (us, host ahead; None where the form runs
+    none), and ``equal_to_unquantized``, whether ``y`` is bit-equal to B1
+    / B2 in the same form on the factors dequantized beforehand."""
+    import torch
+    from repro_torch.kernels import ref
+    mod = kernel_module(name)
+    dq = getattr(mod, "dequant_" + name)
+    ran = dq(*args) is not None
+    x = args[0]
+    dense = [ref._dq(q, sc, x.dtype) for q, sc in zip(args[1::2],
+                                                      args[2::2])]
+    base = name[:-2]
+    bmod = kernel_module(base)
+    same = getattr(bmod, ("large_m_" if form == "large_m" else "") + base)
+    return dict(dq_us=(time_ms(lambda: dq(*args), ahead=True) * 1e3
+                       if ran else None),
+                equal_to_unquantized=torch.equal(y, same(x, *dense)))
+
+
+def _branched_q_times(args: tuple, y, library, flush, dname: str) -> dict:
+    """Times of one B4 row in the form :func:`chain_form` names: bf16
+    below LARGE_M_Q the split-phase kernel (:func:`_split_times`); at or
+    past it the large-M form, timed in turns with the split form forced
+    (``prev_ms``, ``prev_err``); f32 the f32 form, timed in turns with the
+    cluster kernel (the earlier f32 kernel; ``prev_refused`` where it
+    refuses the ranks), both with :func:`_quant_form_extras`."""
+    bqk = kernel_module("branched_matmul_q")
+    x = args[0]
+    form = kernel_module("branched_matmul").chain_form(
+        x.dtype, x.shape[0], quantized=True)
+    kernel = lambda: bqk.branched_matmul_q(*args)  # noqa: E731
+    if form == "split":
+        return dict(_split_times(
+            kernel, lambda: bqk.cluster_branched_matmul_q(*args),
+            lambda: bqk.branched_matmul_q_phase_us(*args), library, flush,
+            dname), form=form)
+    prev = (bqk.split_branched_matmul_q if form == "large_m"
+            else bqk.cluster_branched_matmul_q)
+    try:
+        prev_err = _compare(y, prev(*args), dname)["norm_err"]
+        refused = None
+    except ValueError as e:  # the cluster kernel's 4-row block too large
+        prev_err, refused = None, str(e)
+    times = dict(form=form, **_attention_times(
+        kernel, None if refused else (lambda: prev(*args)), library, flush),
+        **_quant_form_extras("branched_matmul_q", args, y, form))
+    if refused:
+        times["prev_refused"] = refused
+    else:
+        times["prev_err"] = prev_err
+    return times
 
 
 def _check_sq(label: str, x, factors: list, dname: str,
@@ -1804,7 +1923,7 @@ def _lowrank_q_row(label: str, x, shape: tuple, dname: str, qrnd, flush,
         **_lowrank_times("lowrank_matmul_q", args, y,
                          lambda: (x @ w0d) @ w1d, dname, flush, False),
         plain_ms=time_ms(lambda: ref.lowrank_matmul_q_ref(*args)),
-        **_cost_bound("lowrank_matmul_q", args, dname))
+        **_cost_bound("lowrank_matmul_q", args, _q_peak(dname)))
 
 
 def _lowrank_times(name: str, args: tuple, y, library, dname: str, flush,
@@ -1816,16 +1935,17 @@ def _lowrank_times(name: str, args: tuple, y, library, dname: str, flush,
     design, ``prev_ms``), held to it (``prev_err``) and its phase timer
     read (``phase_us``, the fastest of five launches), with ``plans`` the
     times of the plans of :data:`LOWRANK_PLAN_SWEEP` (``plan_us``); f32
-    B3 / B11 run the cluster kernel.  A bf16 B1 call of M >= LARGE_M runs
-    the large-M form (``form``), timed in turns with the split kernel
-    forced (``prev_ms``, ``prev_err``), without a phase timer; an f32 B1
-    call the f32 form, timed in turns with the cluster kernel."""
+    B11 runs the cluster kernel.  A bf16 B1 / B3 call of M >= LARGE_M /
+    LARGE_M_Q runs the large-M form (``form``), timed in turns with the
+    split kernel forced (``prev_ms``, ``prev_err``), without a phase
+    timer; an f32 B1 / B3 call the f32 form, timed in turns with the cluster kernel; B3's
+    rows in these forms add :func:`_quant_form_extras`."""
     mod = kernel_module(name)
     fn = getattr(mod, name)
     bf16 = dname == "bfloat16"
     form = (kernel_module("branched_matmul").chain_form(
-        args[0].dtype, args[0].shape[0]) if name == "lowrank_matmul"
-        else None)
+        args[0].dtype, args[0].shape[0], quantized=name.endswith("_q"))
+        if name in ("lowrank_matmul", "lowrank_matmul_q") else None)
     large = form == "large_m"
     prev = getattr(mod, ("split_" if large else "cluster_") + name)
     times = dict(prev_err=_compare(y, prev(*args), dname)["norm_err"],
@@ -1835,6 +1955,8 @@ def _lowrank_times(name: str, args: tuple, y, library, dname: str, flush,
                                     library, flush))
     if form is not None:
         times["form"] = form
+    if name == "lowrank_matmul_q" and form != "split":
+        times.update(_quant_form_extras(name, args, y, form))
     if bf16 and not large:
         phases = getattr(mod, name + "_phase_us")
         times["phase_us"] = min((phases(*args) for _ in range(5)), key=sum)
@@ -2336,6 +2458,12 @@ def _bound(nbytes: int, flops: int, peak: str) -> dict:
             "peak": peak}
 
 
+def _q_peak(dname: str) -> str:
+    """The peak a B3 / B4 row's bound takes: f32 calls run the f32 form,
+    split TF32 ("tf32x3"), as f32 B1 / B2 do; bf16 calls bf16's."""
+    return "tf32x3" if dname == "float32" else dname
+
+
 def _cost_bound(name: str, args: tuple, peak: str) -> dict:
     """:func:`_bound` of one call of kernel ``name`` on ``args`` (its
     entry point's argument order): the bytes and operations of
@@ -2450,21 +2578,24 @@ def _kernel_entries(rows: dict[str, list[dict]]) -> list[dict]:
             if path == "vlm" and cross is not None:
                 entry["cross_kv"] = dict(
                     {k: cross.get(k) for k in (
-                        "form", "ms", "prev_ms", "cold_ms", "event_ms",
+                        "form", "ms", "prev_ms", "dq_us",
+                        "equal_to_unquantized", "cold_ms", "event_ms",
                         "plain_ms", "library_ms", "bound_ms",
                         "bound_by", "max_abs_err", "norm_err")},
                     launches_per_prefill=2, M=VLM_CROSS_M,
                     timed_as="one launch: the cross block's k or v over "
                     "the 1,601 image tokens of a prefill")
             extra[f"{path}_path"] = entry
-        form32 = ("the f32 form" if name in ("lowrank_matmul",
-                                             "branched_matmul")
-                  else "the cluster kernel")
+        form32 = ("the f32 form" if name in (
+            "lowrank_matmul", "branched_matmul", "lowrank_matmul_q",
+            "branched_matmul_q") else "the cluster kernel")
         for path, what in (
                 ("vlm_f32", "at the VLM's per-branch ranks 768 / 960 "
-                 "(B2; B4's cluster kernel at 4-row blocks) and its cross "
-                 "k / v over the 1,601 image tokens (B1); launches: "
-                 "check_vlm's f32 card run"),
+                 "(B2 / B4) and its cross k / v over the 1,601 image "
+                 "tokens (B1); launches: check_vlm's f32 card run"),
+                ("f32_wide", "at per-branch ranks (1600, 1600), which the "
+                 "cluster kernel refuses (prev_refused); launches: none "
+                 "on a served path"),
                 ("hubert_f32", "at hubert's q,k,v,o over one clip of 500 "
                  "frames; launches: check_hubert's f32 card run"),
                 ("resnet", "at the fc of the resnet50 "
@@ -2492,6 +2623,23 @@ def _kernel_entries(rows: dict[str, list[dict]]) -> list[dict]:
                 f"one launch of {form32}, f32 activations "
                 + ("and int8 factors " if name.endswith("_q") else "")
                 + f"(TF32 off; prev_ms: the cluster kernel), {what}")
+        prs = [r for r in rs if r.get("path") == "vlm_prefill"]
+        if prs:
+            extra["vlm_prefill_path"] = {
+                r["shape"]: {k: r.get(k) for k in (
+                    "M", "form", "ms", "prev_ms", "prev_err", "dq_us",
+                    "equal_to_unquantized", "same_bits", "plain_ms",
+                    "library_ms", "bound_ms", "bound_by", "max_abs_err",
+                    "norm_err", "cold_ms", "event_ms")} for r in prs}
+            extra["vlm_prefill_path"].update(
+                source=f"{LARGE_M_SOURCE} + src/repro_torch/kernels/csrc/"
+                "chain_dequant.cu", launches=None, timed_as=(
+                    f"one launch of the large-M form at M={VLM_PREFILL_M}, "
+                    "the int8 VLM's blocking prefill of its largest prompt "
+                    "(bf16, int8 factors written as bf16 by the "
+                    "dequantizing pass, dq_us; prev_ms: the split form "
+                    "forced); launches: 8 B3 k,v / 10 q,o, 10 gate,up, 5 "
+                    "down B4 of the 36 a prefill of the serve_vlm_q run"))
         trows = [r for r in rs if r.get("path") == "train"
                  and "family" not in r]
         frows = [r for r in rs if "family" in r]
@@ -3603,8 +3751,10 @@ def check_surgery(label: str, rep, params, card: str, want: dict) -> None:
 def large_m_plans() -> None:
     """Print the large-M form's plan at each bf16 B1 / B2 shape the main
     path runs at M >= LARGE_M (the train step's, hubert's, the VLM's
-    cross k / v, the searched k/v rank 191): per product its tile, ring
-    depth, tile count and shared memory, and the copies and scratch."""
+    cross k / v, the searched k/v rank 191) and at each B3 / B4 shape (the
+    int8 VLM's cross k / v and prefill rows, zamba2's at M = 512): per
+    product its tile, ring depth, tile count and shared memory, and the
+    copies, the factors the dequantizing pass writes and the scratch."""
     import torch
     from repro_torch.kernels import branched_matmul as bk
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -3619,23 +3769,37 @@ def large_m_plans() -> None:
              **{f"B2 {k} M={TRAIN_M}": (TRAIN_M, c, n, r, r, s_)
                 for k, (n, c, r, s_) in BRANCHED_SHAPES.items()},
              **{f"B2 {k} M={HUBERT_M}": (HUBERT_M, c, n, r, r, s_)
-                for k, (n, c, r, s_) in HUBERT_BRANCHED_SHAPES.items()}}
+                for k, (n, c, r, s_) in HUBERT_BRANCHED_SHAPES.items()},
+             **{f"B3 {k} M={m}": (m, *v) for k, v in
+                VLM_LOWRANK_SHAPES.items()
+                for m in (VLM_CROSS_M, VLM_PREFILL_M)},
+             **{f"B4 {k} M={VLM_PREFILL_M}": (VLM_PREFILL_M, c, n, r, r, s_)
+                for k, (n, c, r, s_) in VLM_BRANCHED_SHAPES.items()
+                if k in VLM_PREFILL_SHAPES},
+             **{f"B4 {k} M={SSM_M_CASES[-1]}": (SSM_M_CASES[-1], c, n, r, r,
+                                                s_)
+                for k, (n, c, r, s_) in ZAMBA_BRANCHED_SHAPES.items()}}
     for label, dims in calls.items():
-        plan = bk.large_m_plan(dims, sms)
+        quant = label[:2] in ("B3", "B4")
+        plan = bk.large_m_plan(dims, sms, quantized=quant)
         log(f"large-M plan {label}: " + "; ".join(
             f"{p.out} = {p.a} @ {p.b}: {p.bm}x{p.bn} tiles x "
             f"{len(p.tiles())}, {p.stages} stages "
             f"({(p.bm + p.bn) * bk.WG_BK * 2 * p.stages} B of ring)"
             for p in plan.products)
-            + f"; copies {sorted(plan.copies)}, {plan.scratch_bytes} B of "
-            f"scratch (LARGE_M {bk.LARGE_M})")
+            + f"; copies {sorted(plan.copies - plan.dequant)}, dequantized "
+            f"{sorted(plan.dequant)}, {plan.scratch_bytes} B of scratch "
+            f"(LARGE_M {bk.LARGE_M_Q if quant else bk.LARGE_M})")
 
 
 def f32_plans() -> None:
     """Print the f32 form's plan at each f32 B1 / B2 shape the kernels
     phase times (the VLM's, the fc's, the new B1 rows', the f32 train
-    rows'): per product its tile, tile count, K slices and
-    which operands go by 4-byte copies, and the scratch and tickets."""
+    rows') and at each f32 B3 / B4 one (int8 factors: the fc's, the VLM's,
+    llama's at M = 8 / 64, ranks 1,600): per product its tile, tile count,
+    K slices, which operands go by 4-byte copies and which factors read
+    quantized bytes, the factors dequantized first, and the scratch and
+    tickets."""
     import torch
     from repro_torch.kernels import branched_matmul as bk
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -3650,9 +3814,21 @@ def f32_plans() -> None:
                  key]['seq']}": (TRAIN_FAMILY_CHECK_BATCH
                                  * TRAIN_FAMILY_RUNS[key]["seq"], c, n, r, r,
                                  s_)
-                for k, (key, (n, c, r, s_)) in TRAIN_FAMILY_F32_ROWS.items()}}
+                for k, (key, (n, c, r, s_)) in TRAIN_FAMILY_F32_ROWS.items()},
+             **{f"B3 {k} M={m}": (m, *v) for k, v in RESNET_FC.items()
+                if k == "fc r335" for m in RESNET_FC_M},
+             **{f"B3 {k} M={m}": (m, *v) for k, v in LOWRANK_SHAPES.items()
+                for m in (8, 64)},
+             **{f"B4 {k} M={m}": (m, c, n, r, r, s_)
+                for k, (n, c, r, s_) in BRANCHED_SHAPES.items()
+                for m in (8, 64)},
+             **{f"B4 {k} M={m}": (m, c, n, r, r, s_)
+                for k, (n, c, r, s_) in {**VLM_F32_SHAPES,
+                                         **F32_WIDE_RANK}.items()
+                for m in VLM_F32_M}}
     for label, dims in calls.items():
-        plan = bk.f32_plan(dims, sms)
+        plan = bk.f32_plan(dims, sms, 0 if label[:2] in ("B3", "B4")
+                           else None)
         log(f"f32 plan {label}: " + "; ".join(
             f"{p.out} = {p.a} @ {p.b}: {p.bm}x{bk.F32_BN} tiles x "
             f"{len(p.tiles())}, {p.slices} K slices of "
@@ -3660,7 +3836,10 @@ def f32_plans() -> None:
                          ", 4-byte copies of " + " ".join(
                              n for n, ok in zip((p.a, p.b), p.granules())
                              if not ok))
+            + (", int8 bytes" if p.bq >= 0 else "")
             for p in plan.products)
+            + (f"; dequantized first {sorted(plan.dequant)}"
+               if plan.dequant else "")
             + f"; {plan.scratch_bytes} B of scratch, {plan.tickets} "
             "tickets")
 

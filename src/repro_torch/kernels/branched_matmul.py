@@ -13,6 +13,11 @@ product, planned by :func:`large_m_plan`, which bf16 ``lowrank_matmul``
 takes too); f32 goes at every M to the f32 form (``csrc/chain_f32.cu``:
 one output-tiled, K-sliced split-TF32 ``mma.sync`` launch per product,
 planned by :func:`f32_plan`, which f32 ``lowrank_matmul`` takes too).
+The quantized chains ``lowrank_matmul_q`` and ``branched_matmul_q`` run
+both forms too: the large-M form on factors that the dequantizing pass
+(``csrc/chain_dequant.cu``) writes into the plan's scratch as bf16 first,
+the f32 form reading their int8 / e4m3 bytes (``launch_large_m`` and
+``launch_f32`` with ``scales``).
 This wrapper checks the operands, allocates the output and the scratch,
 launches on the current stream and counts launches.  CUDA tensors only:
 the CPU path is the plain version in :mod:`repro_torch.kernels.ref`,
@@ -84,6 +89,15 @@ WG_STAGES, WG_TWO_CTA_RING = 6, 96 * 1024
 #: 64-row blocks), at M = 64 the split form at the k/v pair and the down
 #: projections (1.04-1.6x)
 LARGE_M = 128
+#: the same for bf16 B3 and B4, whose large-M form runs the dequantizing
+#: pass first.  From chip_smoke's LARGE_M sweep of B3 / B4 on int8
+#: factors on an H100 at 700 W (PERF.md): at M = 128 the split
+#: form was the faster at the VLM's k,v (0.0391 against 0.0548 ms; the
+#: large-M form's first product has 12 tiles over K = 8,192) and its down
+#: (0.2908 / 0.3105), the large-M form at its q,o and gate,up and at
+#: zamba2's shapes (1.15-1.88x); at M = 256 the large-M form at every
+#: swept shape (1.38-3.63x)
+LARGE_M_Q = 256
 #: the f32 form (csrc/chain_f32.cu): the output tile's width, the K depth
 #: of a ring stage, the tile heights it is built for (the lowest that
 #: holds M, 64 past 32 rows; two CTAs an SM at each), the work items per
@@ -94,13 +108,15 @@ F32_ITEMS_PER_SM = 2
 F32_MIN_SLICE = 4 * F32_BK
 
 
-def chain_form(dtype: torch.dtype, m: int) -> str:
-    """The form a B1 or B2 call on ``m`` rows of ``dtype`` activations
-    runs: "f32" for f32 at every M (split TF32 on the tensor cores),
-    "large_m" for bf16 at LARGE_M rows or more, else "split"."""
+def chain_form(dtype: torch.dtype, m: int, quantized: bool = False) -> str:
+    """The form a B1 or B2 call (``quantized``: B3 or B4) on ``m`` rows of
+    ``dtype`` activations runs: "f32" for f32 at every M (split TF32 on
+    the tensor cores), "large_m" for bf16 at LARGE_M rows or more
+    (LARGE_M_Q for B3 / B4), else "split"."""
     if dtype == torch.float32:
         return "f32"
-    return "large_m" if m >= LARGE_M else "split"
+    return "large_m" if m >= (LARGE_M_Q if quantized else LARGE_M) \
+        else "split"
 
 
 def mma_smem_bytes(kind: str = "bf16") -> int:
@@ -394,41 +410,58 @@ class LargeMPlan(_Scratch):
     to ALIGN bytes -- the padded copies of the inputs in ``copies`` (TMA
     wants rows of whole 16-byte granules and 16-byte aligned bases), then
     the intermediates (B1's h; B2's h1 and h2, each (M, N, r) with r
-    padded to a granule)."""
+    padded to a granule).  ``dequant``: the quantized factors (B3 / B4)
+    among the copies, which the dequantizing pass writes instead."""
     products: tuple[Product, ...]
     regions: tuple[tuple[str, tuple[int, ...]], ...]
     copies: frozenset
+    dequant: frozenset = frozenset()
 
     def region_bytes(self) -> dict[str, int]:
         return {name: math.prod(shape) * 2 for name, shape in self.regions}
 
 
+def _input_shapes(dims: tuple[int, ...]) -> dict[str, tuple[int, ...]]:
+    """The input operands' shapes of a B1 (``dims`` (M, C, R, S)) or B2
+    ((M, C, N, r1, r2, S)) call, by name, in the C side's pointer
+    order."""
+    m, c, s = dims[0], dims[1], dims[-1]
+    if len(dims) == 4:
+        r = dims[2]
+        return {"x": (m, c), "w0": (c, r), "w1": (r, s)}
+    n, r1, r2 = dims[2:5]
+    return {"x": (m, c), "u": (n, c, r1), "xc": (n, r1, r2),
+            "v": (n, r2, s)}
+
+
 def large_m_plan(dims: tuple[int, ...], sms: int,
-                 copies: frozenset = frozenset()) -> LargeMPlan:
+                 copies: frozenset = frozenset(),
+                 quantized: bool = False) -> LargeMPlan:
     """The large-M form's plan for B1 (``dims`` (M, C, R, S): h = rnd(x @
     w0), y = rnd(h @ w1)) or B2 ((M, C, N, r1, r2, S): h1 = rnd(x @ u_n)
     per branch, h2 = rnd(h1_n @ xc_n) per branch, y = rnd(h2 @ v) with the
     branches summed in the K loop) on a card of ``sms`` SMs.  ``copies``:
     the inputs the wrapper copies into padded scratch rows (a misaligned
-    base); an input whose row is not whole granules is always copied."""
+    base); an input whose row is not whole granules is always copied.
+    ``quantized`` (B3 / B4): every factor takes a region, which the
+    dequantizing pass fills (``dequant``)."""
     if len(dims) not in (4, 6) or min(*dims, sms) <= 0:
         raise ValueError(f"large-M plan of {dims} on {sms} SMs: a B1 (M, C, "
                          "R, S) or B2 (M, C, N, r1, r2, S) call of positive "
                          "sizes")
     m, c, s = dims[0], dims[1], dims[-1]
+    shapes = _input_shapes(dims)
     if len(dims) == 4:
         r = dims[2]
-        shapes = {"x": (m, c), "w0": (c, r), "w1": (r, s)}
         inter = {"h": (m, r)}
     else:
         n, r1, r2 = dims[2:5]
-        shapes = {"x": (m, c), "u": (n, c, r1), "xc": (n, r1, r2),
-                  "v": (n, r2, s)}
         inter = {"h1": (m, n, r1), "h2": (m, n, r2)}
     if set(copies) - set(shapes):
         raise ValueError(f"copies {sorted(copies)}: not inputs of {dims}")
-    copies = frozenset(copies) | {k for k, sh in shapes.items()
-                                  if sh[-1] % 8}
+    dequant = frozenset(k for k in shapes if k != "x" and quantized)
+    copies = frozenset(copies) | dequant | {k for k, sh in shapes.items()
+                                            if sh[-1] % 8}
     ld = {k: _pad8(sh[-1]) if k in copies else sh[-1]
           for k, sh in shapes.items()}
     regions = tuple((k, sh[:-1] + (ld[k],)) for k, sh in shapes.items()
@@ -458,7 +491,8 @@ def large_m_plan(dims: tuple[int, ...], sms: int,
                     out_groups=n),
             product("h2", "v", "y", s, r2, a_ld=n * r2p, a_groups=n,
                     a_group=r2p, b_groups=n, c_ld=s, sum_groups=n))
-    return LargeMPlan(products=products, regions=regions, copies=copies)
+    return LargeMPlan(products=products, regions=regions, copies=copies,
+                      dequant=dequant)
 
 
 def _inputs(dims: tuple[int, ...]) -> tuple[str, ...]:
@@ -467,39 +501,89 @@ def _inputs(dims: tuple[int, ...]) -> tuple[str, ...]:
     return ("x", "w0", "w1") if len(dims) == 4 else ("x", "u", "xc", "v")
 
 
+def _quant_names(dims: tuple[int, ...], quantized) -> tuple[str, ...]:
+    """The pointer array's extra names of a quantized call (B3 / B4): each
+    factor's values ("<f>_q") and scales ("<f>_scale"), in order."""
+    if not quantized:
+        return ()
+    return tuple(f"{f}_{k}" for f in _inputs(dims)[1:]
+                 for k in ("q", "scale"))
+
+
+def dequant_spec(dims: tuple[int, ...], regions, dequant, slot: dict
+                 ) -> list[int]:
+    """The dequantizing pass's spec (``lrk_dequant_rows``: 7 integers a
+    factor) for the factors named in ``dequant``, each into its region of
+    ``regions`` (padded rows), its operands as their ``slot``."""
+    shapes = _input_shapes(dims)
+    out = []
+    for name, shape in regions:
+        if name not in dequant:
+            continue
+        full = shapes[name]
+        groups = full[0] if len(full) == 3 else 1
+        out += [slot[f"{name}_q"], slot[f"{name}_scale"], slot[name],
+                groups, full[-2], full[-1], shape[-1]]
+    return out
+
+
 @functools.lru_cache(maxsize=256)
-def _large_launch(dims: tuple[int, ...], sms: int, copies: frozenset
-                  ) -> tuple[LargeMPlan, tuple[str, ...], object, tuple]:
+def _large_launch(dims: tuple[int, ...], sms: int, copies: frozenset,
+                  quantized: bool = False
+                  ) -> tuple[LargeMPlan, tuple[str, ...], object, tuple,
+                             object]:
     """What a large-M call passes to C, cached per shape: its plan, the
     operand names in the order of the pointer array, the products' spec
-    as a ctypes array, and the scratch regions' offsets."""
-    plan = large_m_plan(dims, sms, copies)
-    names = _inputs(dims) + ("y",) + tuple(name for name, _ in plan.regions)
+    as a ctypes array, the scratch regions' offsets, and the dequantizing
+    pass's spec (a ctypes array; None for B1 / B2)."""
+    plan = large_m_plan(dims, sms, copies, quantized)
+    names = _inputs(dims) + ("y",) + tuple(
+        name for name, _ in plan.regions) + _quant_names(dims, quantized)
     slot = {name: i for i, name in enumerate(names)}
     flat = [v for p in plan.products for v in p.spec(slot)]
+    dq = dequant_spec(dims, plan.regions, plan.dequant, slot)
     return plan, names, (ctypes.c_longlong * len(flat))(*flat), tuple(
-        plan.offsets().values())
+        plan.offsets().values()), (ctypes.c_longlong * len(dq))(*dq) \
+        if dq else None
+
+
+def _launch_dequant(lib, spec, n: int, ptrs, qcode: int, out_dtype: int,
+                    stream, what: str) -> None:
+    """One launch of the dequantizing pass over ``n`` factors."""
+    build.check(lib, lib.lrk_dequant_rows(n, spec, ptrs, qcode, out_dtype,
+                                          stream), what)
 
 
 def launch_large_m(x: torch.Tensor, weights: tuple[torch.Tensor, ...],
-                   y: torch.Tensor, dims: tuple[int, ...], what: str) -> None:
-    """The large-M form on bf16 operands already checked: B1's (w0, w1)
-    with ``dims`` (M, C, R, S) or B2's (u, xc, v) with (M, C, N, r1, r2,
-    S): the copies its plan asks for, then one host call that launches
-    every product of the plan in order on the current stream."""
+                   y: torch.Tensor, dims: tuple[int, ...], what: str,
+                   scales: tuple | None = None, qcode: int = 0,
+                   products: bool = True) -> torch.Tensor:
+    """The large-M form on bf16 ``x`` already checked: B1's (w0, w1) with
+    ``dims`` (M, C, R, S) or B2's (u, xc, v) with (M, C, N, r1, r2, S),
+    bf16; or, with ``scales`` (one a factor), B3's / B4's int8 / e4m3
+    factors (``qcode``, ``lowrank_matmul_q.QDTYPES``).  The copies its
+    plan asks for, then the dequantizing pass (B3 / B4: every factor into
+    its scratch region, as bf16) and one host call that launches every
+    product of the plan in order on the current stream.  ``products``
+    False stops after the pass (chip_smoke times it alone).  Returns the
+    scratch."""
+    quantized = scales is not None
     inputs = (x, *weights)
     names = _inputs(dims)
     misaligned = frozenset(n for n, t in zip(names, inputs)
                            if t.data_ptr() % 16)
-    plan, slots, spec, offsets = _large_launch(
-        dims, _sm_count(x.device.index), misaligned)
+    plan, slots, spec, offsets, dq = _large_launch(
+        dims, _sm_count(x.device.index), misaligned, quantized)
     scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8,
                           device=x.device)
     ptr = {n: t.data_ptr() for n, t in zip(names, inputs)}
-    ptr["y"] = y.data_ptr()
+    ptr["y"] = 0 if y is None else y.data_ptr()
+    if quantized:
+        for n, t, sc in zip(names[1:], weights, scales):
+            ptr[f"{n}_q"], ptr[f"{n}_scale"] = t.data_ptr(), sc.data_ptr()
     for (name, shape), at in zip(plan.regions, offsets):
         ptr[name] = scratch.data_ptr() + at
-        if name in plan.copies:
+        if name in plan.copies and name not in plan.dequant:
             t = inputs[names.index(name)]
             region = scratch[at:at + math.prod(shape) * 2].view(
                 torch.bfloat16).view(shape)
@@ -508,8 +592,13 @@ def launch_large_m(x: torch.Tensor, weights: tuple[torch.Tensor, ...],
     lib = build.load()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.lrk_chain_wgmma(len(plan.products), spec, ptrs, stream)
-    build.check(lib, rc, what)
+        if dq is not None:
+            _launch_dequant(lib, dq, len(plan.dequant), ptrs, qcode,
+                            DTYPES[torch.bfloat16], stream, what)
+        if products:
+            build.check(lib, lib.lrk_chain_wgmma(len(plan.products), spec,
+                                                 ptrs, stream), what)
+    return scratch
 
 
 def _pad4(n: int) -> int:
@@ -526,7 +615,10 @@ class F32Product:
     Strides in elements: A_z's row m at ``z * a_group + m * a_ld``
     (a_group 0: one A for every group), B_z's row k at ``z * b_group + k *
     b_ld``, out_z's row m at ``z * c_group + m * c_ld``.  ``bm`` x F32_BN:
-    the output tile; ``ks`` the K slice (a multiple of F32_BK)."""
+    the output tile; ``ks`` the K slice (a multiple of F32_BK).  A
+    quantized B (B3 / B4): ``bq`` its storage code
+    (``lowrank_matmul_q.QDTYPES``; -1 an f32 B), ``scale`` its scales'
+    operand, B_z[k, n] times ``scale[(z + k // s_rows) * cols + n]``."""
     a: str
     b: str
     out: str
@@ -542,6 +634,9 @@ class F32Product:
     c_group: int
     bm: int
     ks: int
+    bq: int = -1
+    scale: str | None = None
+    s_rows: int = 0
 
     @property
     def slices(self) -> int:
@@ -564,11 +659,13 @@ class F32Product:
                 for r0 in range(0, self.m, self.bm)]
 
     def granules(self) -> tuple[bool, bool]:
-        """Whether A's and B's strides are whole 16-byte granules: the
-        kernel copies an operand 16 bytes at a time where they are (and
-        its base is 16-byte aligned), else 4 bytes at a time."""
+        """Whether A's and B's strides are whole 16-byte granules (B's of
+        one byte a value where quantized): the kernel copies an operand 16
+        bytes at a time where they are (and its base is 16-byte aligned),
+        else 4 bytes at a time."""
+        per = 16 if self.bq >= 0 else 4
         return (self.a_ld % 4 == 0 and self.a_group % 4 == 0,
-                self.b_ld % 4 == 0 and self.b_group % 4 == 0)
+                self.b_ld % per == 0 and self.b_group % per == 0)
 
     @property
     def p_ld(self) -> int:
@@ -583,14 +680,16 @@ class F32Product:
                 if self.slices > 1 else 0)
 
     def spec(self, slot: dict[str, int]) -> tuple[int, ...]:
-        """The product's 17 integers in ``lrk_chain_f32``'s spec, its
-        operands (and the partials' region "p", -1 where unsliced) as
-        their ``slot`` in the call's pointer array."""
+        """The product's 20 integers in ``lrk_chain_f32``'s spec, its
+        operands (and the partials' region "p", -1 where unsliced; the
+        scales, -1 for an f32 B) as their ``slot`` in the call's pointer
+        array."""
         return (slot[self.a], self.a_ld, self.a_group, slot[self.b],
                 self.b_ld, self.b_group, slot[self.out], self.c_ld,
                 self.c_group, self.m, self.cols, self.k, self.groups,
                 self.bm, self.ks,
-                slot["p"] if self.slices > 1 else -1, self.p_ld)
+                slot["p"] if self.slices > 1 else -1, self.p_ld, self.bq,
+                -1 if self.scale is None else slot[self.scale], self.s_rows)
 
 
 @dataclass(frozen=True)
@@ -600,23 +699,33 @@ class F32Plan(_Scratch):
     -- the intermediates (B1's h (M, R); B2's h1 (M, N, r1) and h2 (M,
     N*r2), rows padded to a granule), then "p", the partials of the
     largest sliced product -- and the tickets its sliced products take
-    (one an output tile)."""
+    (one an output tile).  A quantized call's (B3 / B4) factors in
+    ``dequant`` (rows not whole 4-byte words) come first among the
+    regions: the dequantizing pass writes them as f32 padded rows, read by
+    their products as f32 factors."""
     products: tuple[F32Product, ...]
     regions: tuple[tuple[str, tuple[int, ...]], ...]
     tickets: int
+    dequant: frozenset = frozenset()
 
     def region_bytes(self) -> dict[str, int]:
         return {name: math.prod(shape) * 4 for name, shape in self.regions}
 
 
-def f32_plan(dims: tuple[int, ...], sms: int) -> F32Plan:
+def f32_plan(dims: tuple[int, ...], sms: int, qcode: int | None = None,
+             misaligned: frozenset = frozenset()) -> F32Plan:
     """The f32 form's plan for B1 (``dims`` (M, C, R, S): h = x @ w0, y =
     h @ w1) or B2 ((M, C, N, r1, r2, S): h1 = x @ u_n per branch, h2 =
     h1_n @ xc_n per branch, y = h2 @ v with v read as one (N*r2, S)
     matrix) on a card of ``sms`` SMs.  Each product takes the lowest tile
     of F32_BM that holds M (64 past 32 rows) and, where its tiles number
     fewer than F32_ITEMS_PER_SM x sms, K slices of at least F32_MIN_SLICE
-    so that tiles x slices come near that many."""
+    so that tiles x slices come near that many.  ``qcode`` (B3 / B4: the
+    factors' storage code, ``lowrank_matmul_q.QDTYPES``): the products
+    read the factors' bytes and scales (v's scales by branch, every r2
+    rows), but a factor whose rows are not whole 4-byte words, or whose
+    base is not (``misaligned``), is dequantized first into an f32 region
+    of padded rows (``dequant``)."""
     if len(dims) not in (4, 6) or min(*dims, sms) <= 0:
         raise ValueError(f"f32 plan of {dims} on {sms} SMs: a B1 (M, C, R, "
                          "S) or B2 (M, C, N, r1, r2, S) call of positive "
@@ -624,83 +733,124 @@ def f32_plan(dims: tuple[int, ...], sms: int) -> F32Plan:
     m, c, s = dims[0], dims[1], dims[-1]
     bm = next(h for h in F32_BM if m <= h or h == F32_BM[-1])
     target = F32_ITEMS_PER_SM * sms
+    shapes = _input_shapes(dims)
+    dequant = frozenset(
+        f for f, sh in shapes.items() if f != "x" and qcode is not None
+        and (sh[-1] % 4 or f in misaligned))
+    regions = [(f, sh[:-1] + (_pad4(sh[-1]),)) for f, sh in shapes.items()
+               if f in dequant]
+    ld = {f: (_pad4(sh[-1]) if f in dequant else sh[-1])
+          for f, sh in shapes.items()}
 
-    def product(a, b, out, cols, k, *, a_ld, b_ld, c_ld, groups=1,
-                a_group=0, b_group=0, c_group=0):
+    def product(a, b, out, cols, k, *, a_ld, c_ld, groups=1, a_group=0,
+                b_rows=0, c_group=0, s_rows=None):
         tiles = groups * math.ceil(m / bm) * math.ceil(cols / F32_BN)
         ks = _pad(k, F32_BK)
         if tiles < target:
             want = target // tiles
             ks = min(ks, max(F32_MIN_SLICE, math.ceil(
                 math.ceil(k / F32_BK) / want) * F32_BK))
+        quant = qcode is not None and b not in dequant
         return F32Product(a=a, b=b, out=out, m=m, cols=cols, k=k,
                           groups=groups, a_ld=a_ld, a_group=a_group,
-                          b_ld=b_ld, b_group=b_group, c_ld=c_ld,
-                          c_group=c_group, bm=bm, ks=ks)
+                          b_ld=ld[b], b_group=b_rows * ld[b], c_ld=c_ld,
+                          c_group=c_group, bm=bm, ks=ks,
+                          bq=qcode if quant else -1,
+                          scale=f"{b}_scale" if quant else None,
+                          s_rows=(s_rows or k) if quant else 0)
     if len(dims) == 4:
         r = dims[2]
         rp = _pad4(r)
-        regions = [("h", (m, rp))]
-        products = (product("x", "w0", "h", r, c, a_ld=c, b_ld=r, c_ld=rp),
-                    product("h", "w1", "y", s, r, a_ld=rp, b_ld=s, c_ld=s))
+        regions += [("h", (m, rp))]
+        products = (product("x", "w0", "h", r, c, a_ld=c, c_ld=rp),
+                    product("h", "w1", "y", s, r, a_ld=rp, c_ld=s))
     else:
         n, r1, r2 = dims[2:5]
         r1p, h2ld = _pad4(r1), _pad4(n * r2)
-        regions = [("h1", (m, n, r1p)), ("h2", (m, h2ld))]
+        regions += [("h1", (m, n, r1p)), ("h2", (m, h2ld))]
         products = (
-            product("x", "u", "h1", r1, c, a_ld=c, b_ld=r1, c_ld=n * r1p,
-                    groups=n, b_group=c * r1, c_group=r1p),
-            product("h1", "xc", "h2", r2, r1, a_ld=n * r1p, b_ld=r2,
-                    c_ld=h2ld, groups=n, a_group=r1p, b_group=r1 * r2,
-                    c_group=r2),
-            product("h2", "v", "y", s, n * r2, a_ld=h2ld, b_ld=s, c_ld=s))
+            product("x", "u", "h1", r1, c, a_ld=c, c_ld=n * r1p,
+                    groups=n, b_rows=c, c_group=r1p),
+            product("h1", "xc", "h2", r2, r1, a_ld=n * r1p, c_ld=h2ld,
+                    groups=n, a_group=r1p, b_rows=r1, c_group=r2),
+            product("h2", "v", "y", s, n * r2, a_ld=h2ld, c_ld=s,
+                    s_rows=r2))
     sliced = [p for p in products if p.slices > 1]
     if sliced:
         regions.append(("p", (max(p.partial_floats() for p in sliced),)))
     return F32Plan(products=products, regions=tuple(regions),
-                   tickets=max((len(p.tiles()) for p in sliced), default=0))
+                   tickets=max((len(p.tiles()) for p in sliced), default=0),
+                   dequant=dequant)
 
 
 @functools.lru_cache(maxsize=256)
-def _f32_launch(dims: tuple[int, ...], sms: int
-                ) -> tuple[F32Plan, tuple[str, ...], object, tuple]:
+def _f32_launch(dims: tuple[int, ...], sms: int, qcode: int | None = None,
+                misaligned: frozenset = frozenset()
+                ) -> tuple[F32Plan, tuple[str, ...], object, tuple, object]:
     """What an f32 call passes to C, cached per shape: its plan, the
     operand names in the order of the pointer array, the products' spec
-    as a ctypes array, and the scratch regions' offsets."""
-    plan = f32_plan(dims, sms)
-    names = _inputs(dims) + ("y",) + tuple(name for name, _ in plan.regions)
+    as a ctypes array, the scratch regions' offsets, and the dequantizing
+    pass's spec (a ctypes array; None where no factor is dequantized
+    first)."""
+    plan = f32_plan(dims, sms, qcode, misaligned)
+    names = _inputs(dims) + ("y",) + tuple(
+        name for name, _ in plan.regions) + _quant_names(
+            dims, qcode is not None)
     slot = {name: i for i, name in enumerate(names)}
     flat = [v for p in plan.products for v in p.spec(slot)]
+    dq = dequant_spec(dims, plan.regions, plan.dequant, slot)
     return plan, names, (ctypes.c_longlong * len(flat))(*flat), tuple(
-        plan.offsets().values())
+        plan.offsets().values()), (ctypes.c_longlong * len(dq))(*dq) \
+        if dq else None
 
 
 def launch_f32(x: torch.Tensor, weights: tuple[torch.Tensor, ...],
-               y: torch.Tensor, dims: tuple[int, ...], what: str) -> None:
-    """The f32 form on f32 operands already checked: B1's (w0, w1) with
-    ``dims`` (M, C, R, S) or B2's (u, xc, v) with (M, C, N, r1, r2, S):
-    one host call that launches every product of the plan in order on
-    the current stream."""
-    plan, slots, spec, offsets = _f32_launch(dims,
-                                             _sm_count(x.device.index))
+               y: torch.Tensor, dims: tuple[int, ...], what: str,
+               scales: tuple | None = None, qcode: int = 0,
+               products: bool = True) -> torch.Tensor:
+    """The f32 form on f32 ``x`` already checked: B1's (w0, w1) with
+    ``dims`` (M, C, R, S) or B2's (u, xc, v) with (M, C, N, r1, r2, S), f32;
+    or, with ``scales`` (one a factor), B3's / B4's int8 / e4m3 factors
+    (``qcode``, ``lowrank_matmul_q.QDTYPES``): the dequantizing pass where
+    the plan asks for it (factors of ragged rows), then one host call that
+    launches every product of the plan in order on the current stream.
+    ``products`` False stops after the pass (chip_smoke times it alone).
+    Returns the scratch (with ``products`` False, None where the plan
+    runs no pass)."""
+    quantized = scales is not None
+    names = _inputs(dims)
+    misaligned = frozenset(n for n, t in zip(names[1:], weights)
+                           if quantized and t.data_ptr() % 4)
+    plan, slots, spec, offsets, dq = _f32_launch(
+        dims, _sm_count(x.device.index), qcode if quantized else None,
+        misaligned)
     scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8,
                           device=x.device)
-    ptr = {n: t.data_ptr() for n, t in zip(_inputs(dims), (x, *weights))}
-    ptr["y"] = y.data_ptr()
+    ptr = {n: t.data_ptr() for n, t in zip(names, (x, *weights))}
+    ptr["y"] = 0 if y is None else y.data_ptr()
+    if quantized:
+        for n, t, sc in zip(names[1:], weights, scales):
+            ptr[f"{n}_q"], ptr[f"{n}_scale"] = t.data_ptr(), sc.data_ptr()
     for (name, _), at in zip(plan.regions, offsets):
         ptr[name] = scratch.data_ptr() + at
     ptrs = (ctypes.c_void_p * len(slots))(*(ptr[n] for n in slots))
     lib = build.load()
     with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if dq is not None:
+            _launch_dequant(lib, dq, len(plan.dequant), ptrs, qcode,
+                            DTYPES[torch.float32], stream, what)
+        if not products:
+            return None if dq is None else scratch
         tickets = build.tickets(x.device, plan.tickets) if plan.tickets \
             else None
-        stream = torch.cuda.current_stream().cuda_stream
         rc = lib.lrk_chain_f32(len(plan.products), spec, ptrs,
                                None if tickets is None else
                                tickets.data_ptr(),
                                0 if tickets is None else tickets.numel(),
                                stream)
     build.check(lib, rc, what)
+    return scratch
 
 
 @functools.lru_cache(maxsize=256)

@@ -30,7 +30,7 @@ SOURCES = ("lowrank_matmul.cu", "branched_matmul.cu", "lowrank_matmul_q.cu",
            "lowrank_matmul_qa.cu", "branched_matmul_qa.cu",
            "decode_attention_paged.cu", "decode_attention_latent_q.cu",
            "lowrank_matmul_sq.cu", "branched_matmul_sq.cu",
-           "chain_wgmma.cu", "chain_f32.cu")
+           "chain_wgmma.cu", "chain_f32.cu", "chain_dequant.cu")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 #: shared memory a CTA may opt into on an H100 (bytes)
 SMEM_LIMIT = int(H100.vmem_bytes)
@@ -236,6 +236,8 @@ def load() -> ctypes.CDLL:
     lib.lrk_chain_wgmma.restype = i
     lib.lrk_chain_f32.argtypes = [i, p, p, p, i, p]
     lib.lrk_chain_f32.restype = i
+    lib.lrk_dequant_rows.argtypes = [i, p, p, i, i, p]
+    lib.lrk_dequant_rows.restype = i
     lib.lrk_error_string.argtypes = [i]
     lib.lrk_error_string.restype = ctypes.c_char_p
     return lib

@@ -28,16 +28,20 @@
 // kernel's: h1 and h2 to bf16 once after their full f32 sum, y one f32
 // sum over every branch.
 //
-// f32 activations: the chain of branched_matmul.cu (lrk_common.cuh
-// branched_chain: h1 and h2 of every branch in shared memory, shared by
-// an 8-CTA cluster, the branch sum in one f32 accumulator per output
-// tile) with every weight read through the Dequant view: q * scale
-// rounded to x's type, widened to f32 for the FMA (TF32 tensor cores
-// cannot reach f32's tolerance).  The scale view moves by r1, r2 or S
-// columns per branch with its factor.  Shared memory as branched_matmul
-// at the same ranks (lrk_branched_smem).  Its bf16 instantiation stays
-// callable as a yardstick (chip_smoke's prev_ms); the wrapper never
-// launches it for bf16.
+// This split-phase kernel is bf16 B4 below LARGE_M rows.  At LARGE_M rows
+// or more bf16 B4 runs the large-M form of B2 (chain_wgmma.cuh) on the
+// factors chain_dequant.cu's pass writes as bf16 into the call's scratch,
+// and f32 B4 runs at every M the f32 form of B2 (chain_f32.cu), which
+// reads the factors' bytes and scales (kernels/branched_matmul.py:
+// chain_form, large_m_plan, f32_plan).
+//
+// The cluster kernel below, the earlier design of both dtypes (the chain
+// of branched_matmul.cu, lrk_common.cuh branched_chain: h1 and h2 of
+// every branch in shared memory, shared by an 8-CTA cluster, every weight
+// read through the Dequant view and multiplied on CUDA-core FMAs; at the
+// VLM's ranks 768 / 960 it takes 4-row blocks and refuses ranks of
+// 1,600), stays callable as a yardstick (chip_smoke's prev_ms); the
+// wrapper never launches it.
 #include "branched_mma.cuh"
 #include "lrk_common.cuh"
 

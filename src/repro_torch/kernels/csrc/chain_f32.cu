@@ -2,16 +2,22 @@
 //   y = (x @ w0) @ w1                                       (lowrank_matmul)
 // and B2
 //   y = sum_n ((x @ u_n) @ xc_n) @ v_n                      (branched_matmul)
-// with f32 activations and factors, held to 1e-4 of the plain versions
+// with f32 activations and factors, and B3 / B4, the same chains on int8 /
+// e4m3 factors with f32 per-column scales (lowrank_matmul_q,
+// branched_matmul_q), held to 1e-4 of the plain versions
 // (max |kernel - plain| / max |plain|), at every M: a decode step's 8 rows,
 // the ResNets' fc at 1 / 32, hubert's 500 frames, the VLM's 1,601 image
 // tokens.
 //
 // Replaces, for f32, the TPU kernels src/repro/kernels/lowrank_matmul.py::
-// lowrank_matmul (pallas_call at :68) and src/repro/kernels/
-// branched_matmul.py::branched_matmul (:69).  In f32 their casts are the
-// identity, so only the f32 sums are kept: h (B1), h1 and h2 (B2) are f32,
-// and B2's branch sum is taken in f32 inside y's one reduction.
+// lowrank_matmul (pallas_call at :68), src/repro/kernels/
+// branched_matmul.py::branched_matmul (:69), lowrank_matmul_q.py::
+// lowrank_matmul_q (:75) and branched_matmul_q.py::branched_matmul_q
+// (:90).  In f32 their casts are the identity, so only the f32 sums are
+// kept: h (B1, B3), h1 and h2 (B2, B4) are f32, and the branch sum is
+// taken in f32 inside y's one reduction.  A quantized factor's value is
+// dequantized as the TPU kernels do it (lowrank_matmul_q.py:41-49):
+// f32(q) * scale[column], rounded to nearest in f32.
 //
 // What bounds it on an H100: at decode the weight bytes (M = 8 does 4
 // operations per f32 weight byte: the VLM's gate,up chain reads 463 MB,
@@ -57,12 +63,30 @@
 // start from zero and the stage's sum is added to the tile's in f32
 // registers, rounded to nearest.
 //
+// B3 / B4 (quantized factors): the same plan and the same products, B
+// read as int8 / e4m3 bytes, a quarter of the f32 tile's (kernels/
+// branched_matmul.py::f32_plan).  Each stage's 32 x 128 byte tile comes
+// through the same 4-stage cp.async ring (16-byte copies where a factor's
+// rows are whole granules, 4-byte copies where they are whole words); once
+// landed, the CTA converts it into one f32 tile, each thread 4 columns
+// over a run of rows, f32(q) * scale -- the scale of the value's column and,
+// in B4's last product, where v is read as one (N*r2, S) matrix, of its
+// row's branch -- and the products read that tile as they read an f32
+// factor's.  A factor whose rows are not whole words (the ResNets' fc
+// rank 335: 335-byte rows, no cp.async size fits) is dequantized first by
+// chain_dequant.cu's pass into an f32 scratch of padded rows, which the
+// product reads as an f32 factor.  Either way the B values are the plain
+// version's, so the bits are those of B1 / B2's f32 form on the
+// dequantized factors, and a call's weight bytes are the int8 ones.
+//
 // Why mma.sync and not wgmma: PTX's wgmma takes the transposed (MN-major)
 // B layout only for f16 / bf16; tf32 wgmma wants B K-major.  The factors
 // are stored (K, N) row-major, N contiguous, so wgmma would need a
 // transposed copy of every weight (or one per call).  mma.sync's fragments
 // are read from padded shared tiles with 32- and 64-bit loads (ldmatrix is
 // a 16-bit instruction), conflict-free (f32_gemm_kernel's note).
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -72,34 +96,47 @@ constexpr int BK = 32;          // K depth of a ring stage (128 B of f32)
 constexpr int BN = 128;         // output tile width
 constexpr int A_LD = BK + 8;    // shared row of the A tile (floats)
 constexpr int B_LD = BN + 4;    // shared row of the B tile (floats)
+constexpr int Q_LD = BN + 16;   // shared row of a quantized B tile (bytes)
 
 constexpr int STAGES = 4;       // ring depth (two CTAs an SM)
 
 // A tile of BM rows (16, 32 or 64): warps along M (WM) and N (WN), each
-// owning a (BM / WM) x (BN / WN) block of MI x NI mma tiles of 16 x 8
-template <int BM>
+// owning a (BM / WM) x (BN / WN) block of MI x NI mma tiles of 16 x 8.  Q:
+// the storage of B -- float, or int8_t / __nv_fp8_e4m3 bytes, whose ring
+// stages hold the raw tile and which add one converted f32 tile after the
+// ring.
+template <int BM, typename Q = float>
 struct Tile {
+  static constexpr bool QUANT = sizeof(Q) == 1;
   static constexpr int WM = BM == 16 ? 1 : 2, WN = 4;
   static constexpr int MI = BM / (16 * WM), NI = BN / (8 * WN);
   static constexpr int THREADS = WM * WN * 32;
-  static constexpr int STAGE = BM * A_LD + BK * B_LD;  // floats
-  static constexpr size_t SMEM = (size_t)STAGES * STAGE * sizeof(float);
+  static constexpr int A_BYTES = BM * A_LD * 4;
+  static constexpr int B_BYTES = QUANT ? BK * Q_LD : BK * B_LD * 4;
+  static constexpr int STAGE = A_BYTES + B_BYTES;  // bytes
+  static constexpr size_t SMEM =
+      (size_t)STAGES * STAGE + (QUANT ? BK * B_LD * 4 : 0);
 };
 static_assert((A_LD * 4) % 16 == 0 && (B_LD * 4) % 16 == 0 &&
-                  (Tile<16>::STAGE * 4) % 16 == 0,
+                  Q_LD % 16 == 0 && Tile<16>::STAGE % 16 == 0 &&
+                  Tile<16, int8_t>::STAGE % 16 == 0,
               "every shared row and stage starts on a 16-byte granule");
-static_assert(2 * (Tile<64>::SMEM + 1024) <= 228 * 1024,
+static_assert(2 * (Tile<64>::SMEM + 1024) <= 228 * 1024 &&
+                  2 * (Tile<64, int8_t>::SMEM + 1024) <= 228 * 1024,
               "two CTAs of the tallest tile share an SM");
 
 // One product: c[z*c_group + m*c_ld + n] = sum_{k < K} A_z[m, k] B_z[k, n]
 // for z < groups (gridDim.z / slices), m < M, n < N, with A_z[m, k] =
 // a[z*a_group + m*a_ld + k] (a_group 0: one A for every group) and B_z[k, n]
-// = b[z*b_group + k*b_ld + n].  K slice q covers [q*ks, min(K, q*ks + ks)).
+// = b[z*b_group + k*b_ld + n] (a quantized B: times scale[(z + k / s_rows)
+// * N + n]).  K slice q covers [q*ks, min(K, q*ks + ks)).
 struct Gemm {
   const float* a;
   long long a_ld, a_group;
-  const float* b;
+  const void* b;
   long long b_ld, b_group;
+  const float* scale;  // a quantized B's scales
+  int s_rows;          // rows of B that share a row of scales
   float* c;
   long long c_ld, c_group;
   float* p;       // partials (slices, groups, M, p_ld), where slices > 1
@@ -122,6 +159,19 @@ __device__ __forceinline__ void cp16(float* dst, const float* src,
 // one float, or a zero where `bytes` is 0
 __device__ __forceinline__ void cp4(float* dst, const float* src,
                                     int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
+}
+
+// the byte-granule copies of a quantized tile: 16 or 4 bytes, of which
+// the first `bytes` come from src
+__device__ __forceinline__ void cpb16(uint8_t* dst, const uint8_t* src,
+                                      int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cpb4(uint8_t* dst, const uint8_t* src,
+                                     int bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
                    smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
 }
@@ -191,7 +241,8 @@ __device__ __forceinline__ void load_a(float* s, const Gemm& g,
   }
 }
 
-// rows [0, BK) x columns [0, BN) of B from row k0 (kv valid), column n0
+// rows [0, BK) x columns [0, BN) of an f32 B from row k0 (kv valid),
+// column n0
 template <int T>
 __device__ __forceinline__ void load_b(float* s, const Gemm& g,
                                        const float* B, int n0, int k0,
@@ -204,16 +255,120 @@ __device__ __forceinline__ void load_b(float* s, const Gemm& g,
       if (GRANULES % T && i >= GRANULES) break;
       const int r = i / (BN / 4), c = (i % (BN / 4)) * 4, col = n0 + c;
       const int bytes = r < kv ? 4 * max(0, min(4, g.N - col)) : 0;
-      cp16(s + r * B_LD + c, bytes ? B + (k0 + r) * g.b_ld + col : g.b,
+      cp16(s + r * B_LD + c, bytes ? B + (k0 + r) * g.b_ld + col : g.a,
            bytes);
     }
   } else {
     for (int i = threadIdx.x; i < BK * BN; i += T) {
       const int r = i / BN, c = i % BN, col = n0 + c;
       const bool in = r < kv && col < g.N;
-      cp4(s + r * B_LD + c, in ? B + (k0 + r) * g.b_ld + col : g.b,
+      cp4(s + r * B_LD + c, in ? B + (k0 + r) * g.b_ld + col : g.a,
           in ? 4 : 0);
     }
+  }
+}
+
+// rows [0, BK) x columns [0, BN) of a quantized B (one byte a value) from
+// row k0 (kv valid), column n0: 16-byte copies where g.b_vec (rows and
+// base whole granules), else 4-byte ones (whole words: the plan
+// dequantizes a factor of other rows beforehand); zeros past every edge
+template <int T>
+__device__ __forceinline__ void load_b_q(uint8_t* s, const Gemm& g,
+                                         const uint8_t* B, int n0, int k0,
+                                         int kv) {
+  const uint8_t* zero = static_cast<const uint8_t*>(g.b);
+  if (g.b_vec) {
+    constexpr int GRANULES = BK * (BN / 16);
+#pragma unroll
+    for (int pass = 0; pass < (GRANULES + T - 1) / T; ++pass) {
+      const int i = threadIdx.x + pass * T;
+      if (GRANULES % T && i >= GRANULES) break;
+      const int r = i / (BN / 16), c = (i % (BN / 16)) * 16, col = n0 + c;
+      const int bytes = r < kv ? max(0, min(16, g.N - col)) : 0;
+      cpb16(s + r * Q_LD + c, bytes ? B + (k0 + r) * g.b_ld + col : zero,
+            bytes);
+    }
+  } else {
+    constexpr int WORDS = BK * (BN / 4);
+#pragma unroll 4
+    for (int i = threadIdx.x; i < WORDS; i += T) {
+      const int r = i / (BN / 4), c = (i % (BN / 4)) * 4, col = n0 + c;
+      const bool in = r < kv && col < g.N;
+      cpb4(s + r * Q_LD + c, in ? B + (k0 + r) * g.b_ld + col : zero,
+           in ? 4 : 0);
+    }
+  }
+}
+
+// Four values of a quantized B (one 32-bit word of int8 / e4m3 bytes) as
+// f32, exactly.
+template <typename Q>
+__device__ __forceinline__ void word_to_f32(uint32_t w, float (&f)[4]);
+template <>
+__device__ __forceinline__ void word_to_f32<int8_t>(uint32_t w,
+                                                    float (&f)[4]) {
+  // byte b + 128 as the low mantissa bits of 2^23: the float 2^23 + 128
+  // + b, exact; subtracting 2^23 + 128 leaves b.  A byte permute and an
+  // add per value, where I2F runs at a quarter of their rate.
+  const uint32_t u = w ^ 0x80808080u;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    f[j] = __uint_as_float(__byte_perm(u, 0x4b000000u, 0x7440u | j)) -
+           8388736.f;
+}
+template <>
+__device__ __forceinline__ void word_to_f32<__nv_fp8_e4m3>(uint32_t w,
+                                                           float (&f)[4]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {  // e4m3 -> f16 is exact, f16 -> f32 too
+    const __half2 p(__nv_cvt_fp8x2_to_halfraw2(
+        (__nv_fp8x2_storage_t)((w >> (16 * h)) & 0xffffu), __NV_E4M3));
+    const float2 v = __half22float2(p);
+    f[2 * h] = v.x;
+    f[2 * h + 1] = v.y;
+  }
+}
+
+// A landed quantized stage (rows k0.. of B, kv valid; output columns
+// n0..; group z) into the f32 tile `f`: f32(q) * scale, rounded to nearest.
+// Thread t converts the 4 columns 4 (t % 32) over a run of BK * 32 / T
+// rows: a 32-bit shared load, four exact conversions and products, and a
+// 16-byte shared store a row; it loads its columns' scales where its row
+// enters a new row of scales (a branch of v in B4's last product).  A
+// warp reads 128 neighbouring bytes of a row and writes 512: no bank
+// conflicts.  N is a multiple of 4 (the plan dequantizes other factors
+// first), so a thread's 4 columns are all in or all out.
+template <typename Q, int T>
+__device__ __forceinline__ void convert_b(float* f, const uint8_t* s,
+                                          const Gemm& g, int z, int n0,
+                                          int k0, int kv) {
+  constexpr int RUN = BK * 32 / T;
+  static_assert(BK * 32 % T == 0 && T % 32 == 0, "whole runs a thread");
+  const int c = (threadIdx.x % 32) * 4, r0 = (threadIdx.x / 32) * RUN;
+  const int col = n0 + c;
+  const bool in_col = col < g.N;
+  float sc[4] = {0.f, 0.f, 0.f, 0.f};
+  int next = -1;  // the first row of B that takes another row of scales
+#pragma unroll
+  for (int i = 0; i < RUN; ++i) {
+    const int r = r0 + i, k = k0 + r;
+    float v[4] = {0.f, 0.f, 0.f, 0.f};
+    if (in_col && r < kv) {
+      if (k >= next) {
+        const int br = k / g.s_rows;
+        const float* p = g.scale + (long long)(z + br) * g.N + col;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) sc[j] = __ldg(p + j);
+        next = (br + 1) * g.s_rows;
+      }
+      float q[4];
+      word_to_f32<Q>(*reinterpret_cast<const uint32_t*>(s + r * Q_LD + c),
+                     q);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[j] = __fmul_rn(q[j], sc[j]);
+    }
+    *reinterpret_cast<float4*>(f + r * B_LD + c) =
+        make_float4(v[0], v[1], v[2], v[3]);
   }
 }
 
@@ -297,12 +452,16 @@ __device__ __forceinline__ void fold(const Gemm& g, int z, int groups,
 // With A_LD = 40 the eight lanes of a row group hit eight different 8-word
 // bank groups (64-bit loads, per half warp), and with B_LD = 132 the B
 // fragment's 32 words (rows 2 tig, columns group) 32 different banks.
-template <int BM>
-__global__ void __launch_bounds__(Tile<BM>::THREADS, 2)
+//
+// A quantized B (Q int8_t / __nv_fp8_e4m3) stages its bytes in the ring
+// and each landed stage is converted (convert_b) into the f32 tile after
+// the ring before the products read it: one more block-wide sync a stage.
+template <int BM, typename Q>
+__global__ void __launch_bounds__(Tile<BM, Q>::THREADS, 2)
 f32_gemm_kernel(const Gemm g) {
-  using TL = Tile<BM>;
+  using TL = Tile<BM, Q>;
   constexpr int T = TL::THREADS, WN = TL::WN, MI = TL::MI, NI = TL::NI;
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int last;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -313,13 +472,18 @@ f32_gemm_kernel(const Gemm g) {
   const int k_begin = q * g.ks, k_end = min(g.K, k_begin + g.ks);
   const int chunks = (k_end - k_begin + BK - 1) / BK;
   const float* A = g.a + z * g.a_group;
-  const float* B = g.b + z * g.b_group;
+  const Q* B = static_cast<const Q*>(g.b) + z * g.b_group;
+  float* conv = reinterpret_cast<float*>(smem + STAGES * TL::STAGE);
 
   auto load = [&](int stage, int chunk) {
-    float* s = smem + stage * TL::STAGE;
+    unsigned char* s = smem + stage * TL::STAGE;
     const int k0 = k_begin + chunk * BK, kv = min(BK, k_end - k0);
-    load_a<BM, T>(s, g, A, m0, k0, kv);
-    load_b<T>(s + BM * A_LD, g, B, n0, k0, kv);
+    load_a<BM, T>(reinterpret_cast<float*>(s), g, A, m0, k0, kv);
+    if constexpr (TL::QUANT)
+      load_b_q<T>(s + TL::A_BYTES, g, reinterpret_cast<const uint8_t*>(B),
+                  n0, k0, kv);
+    else
+      load_b<T>(reinterpret_cast<float*>(s + TL::A_BYTES), g, B, n0, k0, kv);
   };
 
   // acc: the tile's sum over the slice, added stage by stage in f32 (round
@@ -346,8 +510,18 @@ f32_gemm_kernel(const Gemm g) {
     if (it + STAGES - 1 < chunks)
       load((it + STAGES - 1) % STAGES, it + STAGES - 1);
     cp_commit();
-    const float* sa = smem + (it % STAGES) * TL::STAGE;
-    const float* sb = sa + BM * A_LD;
+    const unsigned char* st = smem + (it % STAGES) * TL::STAGE;
+    const float* sa = reinterpret_cast<const float*>(st);
+    const float* sb;
+    if constexpr (TL::QUANT) {
+      const int k0 = k_begin + it * BK;
+      convert_b<Q, T>(conv, st + TL::A_BYTES, g, z, n0, k0,
+                      min(BK, k_end - k0));
+      __syncthreads();
+      sb = conv;
+    } else {
+      sb = reinterpret_cast<const float*>(st + TL::A_BYTES);
+    }
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 8) {
       uint32_t ah[MI][4], al[MI][4], bh[NI][2], bl[NI][2];
@@ -421,15 +595,18 @@ f32_gemm_kernel(const Gemm g) {
   if (threadIdx.x == 0) g.tickets[tile] = 0;
 }
 
-inline bool granular(const void* p, long long ld, long long group) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && ld % 4 == 0 &&
-         group % 4 == 0;
+// whether p and the strides (elements of `size` bytes) are whole
+// `bytes`-byte units
+inline bool granular(const void* p, long long ld, long long group,
+                     int size = 4, int bytes = 16) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0 &&
+         ld * size % bytes == 0 && group * size % bytes == 0;
 }
 
-template <int BM>
+template <int BM, typename Q>
 int launch(const Gemm& g, int groups, cudaStream_t stream) {
-  using TL = Tile<BM>;
-  auto kernel = f32_gemm_kernel<BM>;
+  using TL = Tile<BM, Q>;
+  auto kernel = f32_gemm_kernel<BM, Q>;
   // the ring's shared memory, opted into once per device
   static unsigned long long opted = 0;
   int dev = 0;
@@ -448,6 +625,14 @@ int launch(const Gemm& g, int groups, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+template <int BM>
+int launch_q(const Gemm& g, int bq, int groups, cudaStream_t stream) {
+  if (bq < 0) return launch<BM, float>(g, groups, stream);
+  if (bq == 0) return launch<BM, int8_t>(g, groups, stream);
+  if (bq == 1) return launch<BM, __nv_fp8_e4m3>(g, groups, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace f32c
 
 extern "C" {
@@ -456,18 +641,21 @@ extern "C" {
 // (kernels/branched_matmul.py::f32_plan), launched in order on `stream`.
 // Product i is the SPEC longs at spec + i * SPEC:
 //   a, a_ld, a_group, b, b_ld, b_group, c, c_ld, c_group, M, N, K,
-//   groups, bm, ks, p, p_ld
-// with a, b, c, p slots of `ptrs` (the call's x, factors, y and scratch
-// regions; p -1 where the product has one K slice) and computes, for z <
-// groups, c[z*c_group + m*c_ld + n] = sum_{k < K} a[z*a_group + m*a_ld + k]
-// * b[z*b_group + k*b_ld + n], f32, in ceil(K / ks) K slices of ks (a
-// multiple of 32) on bm (16, 32, 64) x 128 tiles; a sliced product's
-// partials are (slices, groups, M, p_ld) at p.
+//   groups, bm, ks, p, p_ld, bq, scale, s_rows
+// with a, b, c, p, scale slots of `ptrs` (the call's x, factors, y,
+// scales and scratch regions; p -1 where the product has one K slice) and
+// computes, for z < groups, c[z*c_group + m*c_ld + n] = sum_{k < K}
+// a[z*a_group + m*a_ld + k] * B[k, n], f32, in ceil(K / ks) K slices of ks
+// (a multiple of 32) on bm (16, 32, 64) x 128 tiles; a sliced product's
+// partials are (slices, groups, M, p_ld) at p.  bq -1: B[k, n] = b[z*b_group
+// + k*b_ld + n], f32; bq 0 / 1: b holds int8 / e4m3 values (rows and base
+// whole 4-byte words) and B[k, n] = f32(b[...]) * scale[(z + k / s_rows) *
+// N + n], rounded to nearest.
 // `tickets`: n_tickets zeroed int32, one per output tile of a sliced
 // product, left zero.  Returns the first failing launch's cudaError_t.
 int lrk_chain_f32(int n, const long long* spec, const void* const* ptrs,
                   void* tickets, int n_tickets, void* stream) {
-  constexpr int SPEC = 17;
+  constexpr int SPEC = 20;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   for (int i = 0; i < n; ++i) {
     const long long* s = spec + (size_t)i * SPEC;
@@ -475,7 +663,7 @@ int lrk_chain_f32(int n, const long long* spec, const void* const* ptrs,
     g.a = static_cast<const float*>(ptrs[s[0]]);
     g.a_ld = s[1];
     g.a_group = s[2];
-    g.b = static_cast<const float*>(ptrs[s[3]]);
+    g.b = ptrs[s[3]];
     g.b_ld = s[4];
     g.b_group = s[5];
     g.c = static_cast<float*>(const_cast<void*>(ptrs[s[6]]));
@@ -501,12 +689,22 @@ int lrk_chain_f32(int n, const long long* spec, const void* const* ptrs,
          g.p_ld < g.N || g.p_ld % 4 ||
          reinterpret_cast<uintptr_t>(g.p) % 16))
       return (int)cudaErrorInvalidValue;
+    const int bq = (int)s[17];
+    g.scale = s[18] < 0 ? nullptr : static_cast<const float*>(ptrs[s[18]]);
+    g.s_rows = (int)s[19];
     g.a_vec = f32c::granular(g.a, g.a_ld, g.a_group);
-    g.b_vec = f32c::granular(g.b, g.b_ld, g.b_group);
+    if (bq < 0) {
+      g.b_vec = f32c::granular(g.b, g.b_ld, g.b_group);
+    } else {
+      g.b_vec = f32c::granular(g.b, g.b_ld, g.b_group, 1, 16);
+      if (g.scale == nullptr || g.s_rows <= 0 ||
+          !f32c::granular(g.b, g.b_ld, g.b_group, 1, 4))
+        return (int)cudaErrorInvalidValue;
+    }
     int rc = (int)cudaErrorInvalidValue;
-    if (bm == 16) rc = f32c::launch<16>(g, groups, st);
-    if (bm == 32) rc = f32c::launch<32>(g, groups, st);
-    if (bm == 64) rc = f32c::launch<64>(g, groups, st);
+    if (bm == 16) rc = f32c::launch_q<16>(g, bq, groups, st);
+    if (bm == 32) rc = f32c::launch_q<32>(g, bq, groups, st);
+    if (bm == 64) rc = f32c::launch_q<64>(g, bq, groups, st);
     if (rc != 0) return rc;
   }
   return 0;

@@ -9,7 +9,12 @@
 //
 // Replaces, at M >= LARGE_M (kernels/branched_matmul.py), the TPU kernels
 // src/repro/kernels/lowrank_matmul.py::lowrank_matmul (pallas_call at :68)
-// and src/repro/kernels/branched_matmul.py::branched_matmul (:69).  They
+// and src/repro/kernels/branched_matmul.py::branched_matmul (:69), and,
+// with chain_dequant.cu's pass writing their int8 / e4m3 factors as bf16
+// into the scratch regions below first, lowrank_matmul_q.py::
+// lowrank_matmul_q (:75) and branched_matmul_q.py::branched_matmul_q
+// (:90): the same products, the same bits as B1 / B2 on the dequantized
+// factors.  They
 // keep h (B1) and each branch's h1 / h2 (B2) in VMEM per row block, to save
 // the HBM round trip at M ~ 1e6.  Their roundings are kept exactly
 // (lowrank_matmul.py:45-47, branched_matmul.py:37-39, 51-53).
@@ -63,7 +68,8 @@
 // Operands whose row is not a whole number of 16-byte granules (TMA's
 // stride rule: the searched k/v rank 191), or whose base is not 16-byte
 // aligned, are copied by the wrapper into zero-padded rows of the scratch
-// first; the intermediates are laid out padded from the start.
+// first; the intermediates are laid out padded from the start.  B3 / B4's
+// quantized factors always take such a region, written by the pass.
 #pragma once
 
 // CUtensorMap and its enums; the encoder is fetched at run time

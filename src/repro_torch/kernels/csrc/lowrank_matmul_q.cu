@@ -18,8 +18,15 @@
 // casts (lowrank_matmul_q.py:42-48) -- then widened to f32 for the FMA.
 // h rounds to T as in lowrank_matmul.  Staging stays f32, so a launch
 // needs the shared memory of lowrank_matmul at the same rank
-// (lrk_lowrank_smem).  Plain f32 FMAs, exact in f32: f32 activations
-// run this design, because TF32 tensor cores cannot hold f32's tolerance.
+// (lrk_lowrank_smem).  Plain f32 FMAs on CUDA cores.  This cluster kernel
+// is the earlier design of both dtypes, kept callable as a yardstick
+// (chip_smoke's prev_ms); the wrapper never launches it: f32 B3 runs at
+// every M the f32 form of B1 (chain_f32.cu, split TF32 on the tensor
+// cores, reading the factors' bytes and scales; a factor of rows that are
+// not whole words, the ResNets' fc rank 335, dequantized first by
+// chain_dequant.cu), and bf16 B3 at LARGE_M rows or more the large-M form
+// of B1 (chain_wgmma.cuh) on the factors chain_dequant.cu's pass writes
+// as bf16 into the call's scratch.
 //
 // bf16 activations: lowrank_mma_kernel (branched_mma.cuh), the two-phase
 // split kernel of lowrank_matmul.cu with both factors read through
@@ -33,9 +40,8 @@
 // axis over the whole card (kernels/branched_matmul.py::lowrank_split),
 // where the cluster design streamed a k/v launch's 256 KB of w0 through
 // the 8 SMs of one cluster; f32 partials are summed in slice order, so a
-// second call gives the same bits.  The cluster kernel's bf16
-// instantiation stays callable as a yardstick (chip_smoke's prev_ms); the
-// wrapper never launches it for bf16.
+// second call gives the same bits.  This two-phase kernel is bf16 B3
+// below LARGE_M rows (kernels/branched_matmul.py::chain_form).
 #include "branched_mma.cuh"
 #include "lrk_common.cuh"
 

@@ -1,16 +1,22 @@
 """Wrapper of the fused low-rank CUDA kernels on quantized factors,
 ``y = (x @ dq(w0)) @ dq(w1)``.
 
-The kernels (``csrc/lowrank_matmul_q.cu``) replace the TPU kernel
-``repro/kernels/lowrank_matmul_q.py::lowrank_matmul_q``; the source note
-says what bounds them and how the design answers.  bf16 goes to the
-two-phase split kernel on the split-phase tensor-core core of bf16
-``branched_matmul``, one cooperative launch whose work split
-:func:`repro_torch.kernels.branched_matmul.lowrank_split` computes; f32
-goes to the cluster kernel (tensor cores in TF32 cannot hold f32's
-tolerance).  This wrapper checks the operands, allocates the output and
-the scratch, launches on the current stream and counts launches.  CUDA
-tensors only: the CPU path is the plain version in
+The kernels replace the TPU kernel
+``repro/kernels/lowrank_matmul_q.py::lowrank_matmul_q`` in the forms
+bf16 ``lowrank_matmul`` runs, as
+:func:`repro_torch.kernels.branched_matmul.chain_form` names them: bf16
+below ``LARGE_M_Q`` rows goes to the two-phase split kernel
+(``csrc/lowrank_matmul_q.cu``, on the split-phase tensor-core core of
+bf16 ``branched_matmul``), one cooperative launch whose work split
+:func:`repro_torch.kernels.branched_matmul.lowrank_split` computes; bf16
+at ``LARGE_M_Q`` rows or more to the large-M form (``csrc/chain_wgmma.cuh``)
+on factors the dequantizing pass (``csrc/chain_dequant.cu``) first
+writes into the call's scratch as bf16; f32 at every M to the f32 form
+(``csrc/chain_f32.cu``), which reads the factors' int8 / e4m3 bytes.  The
+source notes say what bounds them and how the designs answer.  This
+wrapper checks the operands, allocates the output and the scratch,
+launches on the current stream and counts launches (one a call, whatever
+the form).  CUDA tensors only: the CPU path is the plain version in
 :mod:`repro_torch.kernels.ref`, chosen by :mod:`repro_torch.kernels.ops`.
 """
 from __future__ import annotations
@@ -92,33 +98,103 @@ def lowrank_matmul_q(x: torch.Tensor, w0_q: torch.Tensor,
                      w0_scale: torch.Tensor, w1_q: torch.Tensor,
                      w1_scale: torch.Tensor) -> torch.Tensor:
     """x (M,C) f32/bf16; w0_q (C,R) + w0_scale (1,R); w1_q (R,S) +
-    w1_scale (1,S); int8 or e4m3 values, f32 scales -> (M,S) in x.dtype.
-    bf16 takes the two-phase split kernel, which takes no empty factors
-    (C or R of 0 raise); f32 the cluster kernel."""
+    w1_scale (1,S); int8 or e4m3 values, f32 scales -> (M,S) in x.dtype,
+    in the form ``branched_matmul.chain_form`` names: f32 the f32 form,
+    bf16 at M >= LARGE_M_Q the large-M form, at fewer rows the two-phase
+    split kernel (none takes empty factors: C or R of 0 raise)."""
     return lowrank_matmul_q_split(x, w0_q, w0_scale, w1_q, w1_scale)
 
 
 def lowrank_matmul_q_split(x: torch.Tensor, w0_q: torch.Tensor,
                            w0_scale: torch.Tensor, w1_q: torch.Tensor,
                            w1_scale: torch.Tensor, **knobs) -> torch.Tensor:
-    """:func:`lowrank_matmul_q` with the bf16 plan's ``items`` and
-    ``ctas`` asked of
+    """:func:`lowrank_matmul_q`, one counted call; ``knobs``, the split
+    plan's ``items`` and ``ctas`` asked of
     :func:`~repro_torch.kernels.branched_matmul.lowrank_split` (its
-    defaults where not given), one counted launch; chip_smoke times other
-    plans with it."""
+    defaults where not given), for a call that takes the split kernel
+    (chip_smoke times other plans with it): a large-M or f32 call refuses
+    them."""
     global launches
     args = (x, w0_q, w0_scale, w1_q, w1_scale)
     dims = _check(*args)
     y = torch.empty((dims[0], dims[3]), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
-    if x.dtype == torch.float32:
-        _launch_cluster(*args, y, dims)
-    else:
-        bk.check_factors("lowrank_matmul_q", dims[1:3], w0_q, w1_q)
+    bk.check_factors("lowrank_matmul_q", dims[1:3], w0_q, w1_q)
+    form = bk.chain_form(x.dtype, dims[0], quantized=True)
+    if form != "split" and knobs:
+        raise ValueError(f"lowrank_matmul_q of {x.dtype} at M = {dims[0]} "
+                         f"takes the {form} form, which has no {knobs}")
+    if form == "split":
         _launch_mma(*args, y, None, dims, **knobs)
+    else:
+        _launch_form(form, *args, y, dims)
     launches += 1
     return y
+
+
+def split_lowrank_matmul_q(x: torch.Tensor, w0_q: torch.Tensor,
+                           w0_scale: torch.Tensor, w1_q: torch.Tensor,
+                           w1_scale: torch.Tensor) -> torch.Tensor:
+    """The bf16 two-phase split kernel at any M, uncounted: the earlier
+    form of a large-M call (chip_smoke's ``prev_ms``) and one side of its
+    LARGE_M sweep.  The serve and train paths never call it."""
+    return _forced("split", x, w0_q, w0_scale, w1_q, w1_scale)
+
+
+def large_m_lowrank_matmul_q(x: torch.Tensor, w0_q: torch.Tensor,
+                             w0_scale: torch.Tensor, w1_q: torch.Tensor,
+                             w1_scale: torch.Tensor) -> torch.Tensor:
+    """The large-M form at any M, uncounted: the other side of
+    chip_smoke's LARGE_M sweep.  bf16 only; f32 or empty factors raise
+    before anything is launched."""
+    return _forced("large_m", x, w0_q, w0_scale, w1_q, w1_scale)
+
+
+def dequant_lowrank_matmul_q(x: torch.Tensor, w0_q: torch.Tensor,
+                             w0_scale: torch.Tensor, w1_q: torch.Tensor,
+                             w1_scale: torch.Tensor) -> torch.Tensor | None:
+    """The dequantizing pass alone of the call's form, uncounted (the
+    large-M form: every factor into bf16 scratch; the f32 form: the
+    factors of rows that are not whole words, into f32 scratch), for
+    chip_smoke's ``dq_us``: its scratch, or None where the form runs no
+    pass."""
+    args = (x, w0_q, w0_scale, w1_q, w1_scale)
+    dims = _check(*args)
+    bk.check_factors("lowrank_matmul_q", dims[1:3], w0_q, w1_q)
+    form = bk.chain_form(x.dtype, dims[0], quantized=True)
+    if form == "split" or not dims[0] * dims[3]:
+        return None
+    return _launch_form(form, *args, None, dims, products=False)
+
+
+def _forced(form: str, x, w0_q, w0_scale, w1_q, w1_scale) -> torch.Tensor:
+    """B3 on bf16 ``x`` in ``form`` ("split" or "large_m") whatever M,
+    uncounted."""
+    args = (x, w0_q, w0_scale, w1_q, w1_scale)
+    dims = _check(*args)
+    what = f"{form}_lowrank_matmul_q"
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"{what} runs bf16 activations, got {x.dtype}")
+    bk.check_factors(what, dims[1:3], w0_q, w1_q)
+    y = torch.empty((dims[0], dims[3]), dtype=x.dtype, device=x.device)
+    if y.numel():
+        if form == "split":
+            _launch_mma(*args, y, None, dims)
+        else:
+            _launch_form(form, *args, y, dims)
+    return y
+
+
+def _launch_form(form: str, x, w0_q, w0_scale, w1_q, w1_scale,
+                 y: torch.Tensor | None, dims: tuple[int, ...],
+                 products: bool = True) -> torch.Tensor:
+    """The large-M or the f32 form (``form``) on quantized factors already
+    checked: the form's launcher with the scales; its scratch."""
+    launch = bk.launch_f32 if form == "f32" else bk.launch_large_m
+    return launch(x, (w0_q, w1_q), y, dims, "lowrank_matmul_q",
+                  scales=(w0_scale, w1_scale), qcode=QDTYPES[w0_q.dtype],
+                  products=products)
 
 
 def lowrank_matmul_q_phase_us(x: torch.Tensor, w0_q: torch.Tensor,
@@ -141,8 +217,8 @@ def lowrank_matmul_q_phase_us(x: torch.Tensor, w0_q: torch.Tensor,
 def cluster_lowrank_matmul_q(x: torch.Tensor, w0_q: torch.Tensor,
                              w0_scale: torch.Tensor, w1_q: torch.Tensor,
                              w1_scale: torch.Tensor) -> torch.Tensor:
-    """The cluster kernel in x's dtype, bf16 included, uncounted: the
-    earlier bf16 design, kept as a yardstick for the split kernel
+    """The cluster kernel in x's dtype, uncounted: the earlier design of
+    both dtypes, kept as a yardstick for the split kernel and the f32 form
     (chip_smoke's ``prev_ms``).  The serve path never calls it."""
     args = (x, w0_q, w0_scale, w1_q, w1_scale)
     dims = _check(*args)
@@ -163,7 +239,9 @@ def _launch_mma(x, w0_q, w0_scale, w1_q, w1_scale, y: torch.Tensor,
 
 def _launch_cluster(x, w0_q, w0_scale, w1_q, w1_scale, y: torch.Tensor,
                     dims: tuple[int, ...]) -> None:
-    """The cluster kernel (8-CTA clusters, CUDA-core FMAs): f32's kernel."""
+    """The cluster kernel (8-CTA clusters, CUDA-core FMAs): the earlier
+    kernel of both dtypes, kept as the yardstick
+    :func:`cluster_lowrank_matmul_q` launches."""
     m, c, r, s = dims
     lib = build.load()
     bm, _ = build.chain_fit(

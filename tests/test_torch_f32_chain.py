@@ -11,9 +11,10 @@ surrounds it is held here:
   an intermediate is a whole number of 16-byte granules and an input
   whose stride is not (the ResNets' fc rank 335) is read by 4-byte copies,
   and the scratch regions are aligned and disjoint;
-* the dispatch: f32 B1 / B2 take the f32 form at every M, one counted
-  call, and refuse empty factors before anything is launched; f32 B3 /
-  B4 / B11 / B12 still take the cluster kernel;
+* the dispatch: f32 B1 / B2 (and B3 / B4, ``tests/test_torch_quant_forms.py``)
+  take the f32 form at every M, one counted call, and refuse empty
+  factors before anything is launched; f32 B11 / B12 still take the
+  cluster kernel;
 * the arithmetic: a torch mirror of the products in the plan's order --
   each operand split into tf32 hi and lo (``cvt.rna`` emulated on the
   bits), each K slice of each tile summing lo*hi + hi*lo + hi*hi in f32,
@@ -239,21 +240,27 @@ _QUANTIZED = {
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_quantized_and_sparse_chains_keep_their_forms(monkeypatch, name,
                                                       dtype):
-    """f32 B3 / B4 / B11 / B12 still take the cluster kernel (B-7 leaves
-    them), bf16 the split-phase kernel: one counted launch each."""
+    """f32 B3 / B4 take the f32 form (through ``_launch_form``), f32 B11 /
+    B12 still the cluster kernel (B-7 leaves them), bf16 at M = 8 the
+    split-phase kernel: one counted launch each."""
     mod, fn, nargs, dims = _QUANTIZED[name]
     calls = []
-    for launcher in ("_launch_cluster", "_launch_mma"):
-        monkeypatch.setattr(mod, launcher, lambda *a, launcher=launcher,
-                            **k: calls.append(launcher))
+    for launcher in ("_launch_cluster", "_launch_mma", "_launch_form"):
+        if hasattr(mod, launcher):
+            monkeypatch.setattr(mod, launcher, lambda *a, launcher=launcher,
+                                **k: calls.append((launcher, a[0])))
     monkeypatch.setattr(mod, "_check", lambda *a: dims)
     n0 = mod.launches
     y = fn(torch.zeros(dims[0], dims[1], dtype=dtype),
            *(torch.zeros(1),) * (nargs - 1))
     assert y.shape == (dims[0], dims[-1]) and y.dtype == dtype
     assert mod.launches == n0 + 1
-    assert calls == ["_launch_cluster" if dtype == torch.float32
-                     else "_launch_mma"]
+    if dtype == torch.bfloat16:
+        assert [c for c, _ in calls] == ["_launch_mma"]
+    elif name.endswith("_q"):
+        assert calls == [("_launch_form", "f32")]
+    else:
+        assert [c for c, _ in calls] == ["_launch_cluster"]
 
 
 def _tf32(a: torch.Tensor) -> torch.Tensor:

@@ -498,10 +498,11 @@ def test_f32_branched_kernels_at_vlm_ranks(cuda, label, m):
 @pytest.mark.parametrize("kind", ["branched_matmul", "branched_matmul_q"])
 def test_f32_branched_kernel_refuses_past_the_4_row_block(cuda, kind):
     """At per-branch ranks (1600, 1600), where the cluster kernel's 4-row
-    block does not fit shared memory: f32 B2 runs the f32 form, whose
-    shared memory is fixed by its tile (one counted launch, within f32's
-    tolerance of the plain version); f32 B4 keeps the cluster kernel and
-    raises, naming the shapes, with nothing launched."""
+    block does not fit shared memory: f32 B2 and f32 B4 run the f32 form,
+    whose shared memory is fixed by its tile (one counted launch, within
+    f32's tolerance of the plain version); the cluster kernel, B4's
+    yardstick, still refuses the shapes, naming them, with nothing
+    launched."""
     from repro_torch.kernels import branched_matmul as bk
     from repro_torch.kernels import branched_matmul_q as bqk
     from repro_torch.kernels import ref
@@ -522,9 +523,14 @@ def test_f32_branched_kernel_refuses_past_the_4_row_block(cuda, kind):
             *_quantized(cuda, n, r, r, mode="int8"),
             *_quantized(cuda, n, r, s, mode="int8"))
     n0 = bqk.launches
+    y = bqk.branched_matmul_q(*args)
+    assert bqk.launches == n0 + 1
+    assert _norm_err(y, ref.branched_matmul_q_ref(*args)) \
+        <= chip_smoke.KERNEL_TOL["float32"]
+    assert torch.equal(y, bqk.branched_matmul_q(*args))
     with pytest.raises(ValueError, match=r"ranks \(1600, 1600\).*4 rows"):
-        bqk.branched_matmul_q(*args)
-    assert bqk.launches == n0
+        bqk.cluster_branched_matmul_q(*args)
+    assert bqk.launches == n0 + 2
 
 
 @pytest.mark.parametrize("kv_quantize", ["none", "int8"])
@@ -780,8 +786,12 @@ def test_split_q_sq_row_blocks_same_bits(cuda, label, m, kind):
 
 @pytest.mark.parametrize("kind", ["q", "sq"])
 def test_split_q_sq_f32_runs_the_cluster_kernel(cuda, kind):
-    """f32 x keeps the cluster kernel: bit-equal to the yardstick entry
-    that launches it, and within f32's tolerance."""
+    """f32 B12 keeps the cluster kernel: bit-equal to the yardstick entry
+    that launches it.  f32 B4 runs the f32 form: bit-equal to f32 B2 on
+    the factors dequantized beforehand, within f32's tolerance of the
+    cluster kernel.  Both within f32's tolerance of the plain version."""
+    from repro_torch.kernels import branched_matmul as bk
+    from repro_torch.kernels import ref
     mod, fn, plain, make = _kind(kind)
     n, c, r, s = chip_smoke.BRANCHED_SHAPES["gate,up"]
     args = make(cuda, _rnd(cuda, 37, c, dtype=torch.float32), n, c, r, s,
@@ -789,9 +799,16 @@ def test_split_q_sq_f32_runs_the_cluster_kernel(cuda, kind):
     cluster = getattr(mod, f"cluster_branched_matmul_{kind}")
     n0 = mod.launches
     y = fn(*args)
-    assert torch.equal(y, cluster(*args))
+    tol = chip_smoke.KERNEL_TOL["float32"]
+    if kind == "q":
+        assert torch.equal(y, bk.branched_matmul(args[0], *(
+            ref._dq(q, sc, torch.float32)
+            for q, sc in zip(args[1::2], args[2::2]))))
+        assert _norm_err(y, cluster(*args)) <= tol
+    else:
+        assert torch.equal(y, cluster(*args))
     assert mod.launches == n0 + 1
-    assert _norm_err(y, plain(*args)) <= chip_smoke.KERNEL_TOL["float32"]
+    assert _norm_err(y, plain(*args)) <= tol
 
 
 def test_split_q_sq_smem_and_grid(cuda):
@@ -1183,11 +1200,12 @@ def test_split_lowrank_bf16_matches_plain_and_cluster(cuda, label, m,
 
 @pytest.mark.parametrize("kind", _LOWRANK_KINDS)
 def test_split_lowrank_f32_runs_the_cluster_kernel(cuda, kind):
-    """f32 B3 (int8 / e4m3 factors) keeps the cluster kernel: bit-equal to
-    the yardstick entry that launches it.  f32 B1 runs the f32 form: the
-    same bits on a second call, within f32's tolerance of the cluster
-    kernel.  One counted launch each, within f32's tolerance of the plain
-    version."""
+    """f32 B1 and f32 B3 (int8 / e4m3 factors) run the f32 form: the same
+    bits on a second call, within f32's tolerance of the cluster kernel
+    (the earlier design, uncounted); B3's bits are f32 B1's on the factors
+    dequantized beforehand.  One counted launch each, within f32's
+    tolerance of the plain version."""
+    from repro_torch.kernels import lowrank_matmul as lk
     from repro_torch.kernels import ref
     mod, name = _lowrank_kernel(kind)
     args = _lowrank_args(cuda, kind, 37, *chip_smoke.LOWRANK_SHAPES["k,v"],
@@ -1197,11 +1215,12 @@ def test_split_lowrank_f32_runs_the_cluster_kernel(cuda, kind):
     assert mod.launches == n0 + 1
     tol = chip_smoke.KERNEL_TOL["float32"]
     old = getattr(mod, "cluster_" + name)(*args)
-    if kind == "bf16":
-        assert torch.equal(y, getattr(mod, name)(*args))
-        assert _norm_err(y, old) <= tol
-    else:
-        assert torch.equal(y, old)
+    assert torch.equal(y, getattr(mod, name)(*args))
+    assert _norm_err(y, old) <= tol
+    if kind != "bf16":
+        x, w0q, w0s, w1q, w1s = args
+        assert torch.equal(y, lk.lowrank_matmul(
+            x, ref._dq(w0q, w0s, x.dtype), ref._dq(w1q, w1s, x.dtype)))
     assert _norm_err(y, getattr(ref, name + "_ref")(*args)) <= tol
 
 
@@ -2253,3 +2272,158 @@ def test_vlm_prefill_on_the_card_matches_the_cpu(cuda, kv_quantize):
     assert err.item() <= chip_smoke.CHECK_TOL_F32
     assert ((moved[..., :cfg.vocab_size] - real).abs().max()
             / real.std()).item() > 10 * chip_smoke.CHECK_TOL_F32
+
+
+#: B3 rows of the quantized large-M form (bf16): the VLM's cross k / v
+#: over the image tokens and at its largest prompt, llama's k,v at a
+#: ragged M, the searched rank 191 (ragged rows)
+_Q_LARGE_LOWRANK = [("vlm k,v", (8192, 384, 1024), 1601),
+                    ("vlm k,v", (8192, 384, 1024), 512),
+                    ("k,v", (2048, 128, 512), 513),
+                    ("k,v r191", (2048, 191, 512), 256)]
+#: B4 rows: zamba2's in_proj,up,gate and the VLM's q,o at a blocking
+#: prefill's 512 rows, a ragged one
+_Q_LARGE_BRANCHED = [("zamba2 in_proj,up,gate", (4, 2048, 192, 8192), 512),
+                     ("vlm q,o", (4, 8192, 512, 8192), 512),
+                     ("ragged", (2, 72, 20, 130), 300)]
+
+
+def _dq_all(args):
+    """The quantized call's factors dequantized as the plain version does
+    (``ref._dq`` to x's dtype)."""
+    from repro_torch.kernels import ref
+    x, *rest = args
+    return [ref._dq(q, sc, x.dtype) for q, sc in zip(rest[::2], rest[1::2])]
+
+
+@pytest.mark.parametrize("mode", chip_smoke.QMODES)
+@pytest.mark.parametrize("label,shape,m", _Q_LARGE_LOWRANK
+                         + _Q_LARGE_BRANCHED)
+def test_quantized_chains_take_the_large_m_form(cuda, label, shape, m, mode):
+    """bf16 B3 / B4 at M >= LARGE_M_Q run the large-M form on the factors
+    the dequantizing pass writes: one counted call, within KERNEL_TOL of
+    the plain version and of the split form forced, the same bits on a
+    second call, and bit-equal to B1 / B2's large-M form on the factors
+    dequantized beforehand."""
+    from repro_torch.kernels import branched_matmul as bk
+    from repro_torch.kernels import branched_matmul_q as bqk
+    from repro_torch.kernels import lowrank_matmul as lk
+    from repro_torch.kernels import lowrank_matmul_q as lqk
+    from repro_torch.kernels import ref
+    bf = torch.bfloat16
+    x = _rnd(cuda, m, shape[-3 if len(shape) == 3 else 1], dtype=bf)
+    if len(shape) == 3:
+        c, r, s = shape
+        args = (x, *_quantized(cuda, c, r, mode=mode),
+                *_quantized(cuda, r, s, mode=mode))
+        mod, fn, plain = lqk, lqk.lowrank_matmul_q, ref.lowrank_matmul_q_ref
+        split, same = lqk.split_lowrank_matmul_q, lk.large_m_lowrank_matmul
+    else:
+        n, c, r, s = shape
+        args = (x, *_quantized(cuda, n, c, r, mode=mode),
+                *_quantized(cuda, n, r, r, mode=mode),
+                *_quantized(cuda, n, r, s, mode=mode))
+        mod, fn, plain = bqk, bqk.branched_matmul_q, \
+            ref.branched_matmul_q_ref
+        split, same = bqk.split_branched_matmul_q, \
+            bk.large_m_branched_matmul
+    assert bk.chain_form(bf, m, quantized=True) == "large_m"
+    n0 = mod.launches
+    y = fn(*args)
+    assert mod.launches == n0 + 1
+    tol = chip_smoke.KERNEL_TOL["bfloat16"]
+    assert _norm_err(y, plain(*args)) <= tol
+    assert _norm_err(y, split(*args)) <= tol
+    assert torch.equal(y, fn(*args))
+    assert torch.equal(y, same(x, *_dq_all(args)))
+    assert mod.launches == n0 + 2
+
+
+#: f32 B3 / B4 rows: llama's shapes at M = 8 / 64, the ResNets' fc rank
+#: 335 (rows dequantized first) at M = 32 / 1, the VLM's gate,up at a
+#: decode step, ragged ones
+_Q_F32_LOWRANK = [("k,v", (2048, 128, 512), 8), ("k,v", (2048, 128, 512), 64),
+                  ("fc r335", (2048, 335, 1000), 32),
+                  ("fc r335", (2048, 335, 1000), 1),
+                  ("ragged", (33, 5, 70), 3)]
+_Q_F32_BRANCHED = [("gate,up", (4, 2048, 192, 8192), 8),
+                   ("down", (4, 8192, 192, 2048), 64),
+                   ("vlm gate,up", (4, 8192, 768, 28672), 8),
+                   ("ragged", (3, 33, 5, 70), 9),
+                   ("ragged v", (2, 72, 20, 130), 40)]
+
+
+@pytest.mark.parametrize("mode", chip_smoke.QMODES)
+@pytest.mark.parametrize("label,shape,m", _Q_F32_LOWRANK + _Q_F32_BRANCHED)
+def test_quantized_chains_take_the_f32_form(cuda, label, shape, m, mode):
+    """f32 B3 / B4 run the f32 form on the factors' int8 / e4m3 bytes (or
+    their f32 dequantization, where rows are not whole words): one
+    counted call, within 1e-4 of the plain version, the same bits on a
+    second call, bit-equal to B1 / B2's f32 form on the factors
+    dequantized beforehand, and within 1e-4 of the cluster kernel."""
+    from repro_torch.kernels import branched_matmul as bk
+    from repro_torch.kernels import branched_matmul_q as bqk
+    from repro_torch.kernels import lowrank_matmul as lk
+    from repro_torch.kernels import lowrank_matmul_q as lqk
+    from repro_torch.kernels import ref
+    f32 = torch.float32
+    x = _rnd(cuda, m, shape[-3 if len(shape) == 3 else 1], dtype=f32)
+    if len(shape) == 3:
+        c, r, s = shape
+        args = (x, *_quantized(cuda, c, r, mode=mode),
+                *_quantized(cuda, r, s, mode=mode))
+        mod, fn, plain = lqk, lqk.lowrank_matmul_q, ref.lowrank_matmul_q_ref
+        old, same = lqk.cluster_lowrank_matmul_q, lk.lowrank_matmul
+    else:
+        n, c, r, s = shape
+        args = (x, *_quantized(cuda, n, c, r, mode=mode),
+                *_quantized(cuda, n, r, r, mode=mode),
+                *_quantized(cuda, n, r, s, mode=mode))
+        mod, fn, plain = bqk, bqk.branched_matmul_q, \
+            ref.branched_matmul_q_ref
+        old, same = bqk.cluster_branched_matmul_q, bk.branched_matmul
+    assert bk.chain_form(f32, m) == "f32"
+    n0 = mod.launches
+    y = fn(*args)
+    assert mod.launches == n0 + 1
+    tol = chip_smoke.KERNEL_TOL["float32"]
+    assert _norm_err(y, plain(*args)) <= tol
+    assert torch.equal(y, fn(*args))
+    assert torch.equal(y, same(x, *_dq_all(args)))
+    assert _norm_err(y, old(*args)) <= tol
+
+
+def test_quantized_forced_forms_refuse_before_launching(cuda):
+    """The forced B3 / B4 entries refuse f32 activations and empty
+    factors, and a large-M or f32 B3 call refuses the split plan's knobs:
+    each raises, and no kernel runs."""
+    from repro_torch.kernels import branched_matmul as bk
+    from repro_torch.kernels import branched_matmul_q as bqk
+    from repro_torch.kernels import lowrank_matmul_q as lqk
+    m = bk.LARGE_M_Q
+    x32 = _rnd(cuda, m, 64, dtype=torch.float32)
+    lr = (*_quantized(cuda, 64, 16, mode="int8"),
+          *_quantized(cuda, 16, 32, mode="int8"))
+    br = (*_quantized(cuda, 2, 64, 16, mode="int8"),
+          *_quantized(cuda, 2, 16, 16, mode="int8"),
+          *_quantized(cuda, 2, 16, 32, mode="int8"))
+    n0 = (lqk.launches, bqk.launches)
+    torch.cuda.synchronize()
+    for fn, args in ((lqk.split_lowrank_matmul_q, lr),
+                     (lqk.large_m_lowrank_matmul_q, lr),
+                     (bqk.split_branched_matmul_q, br),
+                     (bqk.large_m_branched_matmul_q, br)):
+        with pytest.raises(TypeError):
+            fn(x32, *args)
+    xb = x32.bfloat16()
+    empty = (lr[0][:, :0].contiguous(), lr[1][:, :0].contiguous(),
+             lr[2][:0].contiguous(), lr[3])
+    with pytest.raises(ValueError):
+        lqk.large_m_lowrank_matmul_q(xb, *empty)
+    with pytest.raises(ValueError):
+        lqk.lowrank_matmul_q(x32, *empty)
+    for x in (xb, x32):
+        with pytest.raises(ValueError):
+            lqk.lowrank_matmul_q_split(x, *lr, items=8)
+    torch.cuda.synchronize()
+    assert (lqk.launches, bqk.launches) == n0

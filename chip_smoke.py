@@ -400,21 +400,28 @@ train shapes whose check step runs f32, at its M
 (``TRAIN_FAMILY_F32_ROWS``, in ``train_family_path``).
 
 B3 / B4 (int8 / e4m3 factors) run both forms too: bf16 at M >=
-``LARGE_M_Q`` the large-M form on the factors the dequantizing pass
-(``kernels/csrc/chain_dequant.cu``) writes as bf16 into the call's
-scratch, f32 at every M the f32 form reading their bytes.  In the build
-phase their plans (with the dequantized factors and the scratch bytes);
-in the kernels phase, on every such row, ``form``, ``prev_ms`` (the split
-form forced, or the cluster kernel; ``prev_refused`` where the cluster
-kernel refuses the ranks), ``dq_us`` (the pass alone) and
-``equal_to_unquantized`` (the bits of B1 / B2 in the same form on the
-factors dequantized beforehand), each row failing where it is off
-``KERNEL_TOL``, its bits differ or it is not faster than ``prev_ms``:
-the int8 VLM's cross k / v at M = 1,601 and its prefill rows at
-``VLM_PREFILL_M`` (``vlm_prefill_path``), zamba2's at M = 512, the f32
-rows at llama's, the VLM's and the fc's shapes and at ``F32_WIDE_RANK``
-(``f32_wide_path``); the ``LARGE_M`` sweep holds B3 / B4 at the int8
-VLM's and zamba2's shapes to ``LARGE_M_Q``.
+``LARGE_M_Q`` the large-M form, whose CTAs convert the factors' bytes to
+bf16 in registers (the A operand of a transposed ``wgmma`` product) and
+cut the K loop of a product whose tiles leave the card idle into slices;
+f32 at every M the f32 form reading their bytes.  In the build phase
+their plans (K slices, int8 copies, the scratch beside the earlier
+design's); in the kernels phase, on every such row, ``form``,
+``prev_ms`` (the earlier large-M
+design: the dequantizing pass, ``kernels/csrc/chain_dequant.cu``, then
+B1 / B2's products; or the cluster kernel; ``prev_refused`` where it
+refuses the ranks), ``dq_us`` (that pass alone), ``equal_to_unquantized``
+(the bits of B1 / B2 in the same form on the factors dequantized
+beforehand), and in the large-M form ``k_slices`` and ``scratch_bytes``
+(``prev_scratch_bytes`` the earlier design's), each row failing where it
+is off ``KERNEL_TOL``, gives other bits on a second call, differs from B1
+/ B2's bits where no product K-slices, or is not faster than
+``prev_ms``: the int8 VLM's cross k / v at M = 1,601 and its prefill
+rows at ``VLM_PREFILL_M`` (``vlm_prefill_path``), zamba2's at M = 512
+(every large-M row also in ``large_m_q_rows``), the f32 rows at llama's,
+the VLM's and the fc's shapes and at ``F32_WIDE_RANK``
+(``f32_wide_path``); the ``LARGE_M`` sweep (the large-M form against the
+split form forced) holds B3 / B4 at the int8 VLM's and zamba2's shapes to
+``LARGE_M_Q``.
 
 Training the other families (ROADMAP A13t) adds one pair per family
 (``TRAIN_FAMILY_RUNS``), each right after the serve phases of the same
@@ -962,7 +969,7 @@ VLM_F32_SHAPES = {k: VLM_BRANCHED_SHAPES[k]
 VLM_F32_M = (8, 128)
 #: the int8 VLM's blocking prefill at its largest prompt: the B3 k,v and
 #: B4 q,o / gate,up / down rows at this M (path "vlm_prefill"), the
-#: large-M form on the factors its dequantizing pass writes
+#: large-M form on the factors' int8 bytes
 VLM_PREFILL_M = 512
 VLM_PREFILL_SHAPES = ("vlm q,o", "vlm gate,up", "vlm down")
 #: the f32 B4 row past the cluster kernel's 4-row block (per-branch ranks
@@ -1536,7 +1543,8 @@ def check_kernels(card: str, only: frozenset = frozenset(KERNELS)
                   and row.get("differing", 0) == 0
                   and row.get("differing_prev", 0) == 0
                   and row.get("grad_err", 0.0) <= KERNEL_TOL[row["dtype"]]
-                  and row.get("equal_to_unquantized", True)
+                  and (row.get("equal_to_unquantized", True)
+                       or max(row.get("k_slices") or [1]) > 1)
                   and (row.get("form") not in ("large_m", "f32")
                        or (row["prev_ms"] is None
                            and bool(row.get("prev_refused")))
@@ -1570,6 +1578,10 @@ def check_kernels(card: str, only: frozenset = frozenset(KERNELS)
                    if row.get("dq_us") is not None else "")
                 + (f"equal_to_unquantized={row['equal_to_unquantized']} "
                    if "equal_to_unquantized" in row else "")
+                + (f"k_slices={'/'.join(map(str, row['k_slices']))} "
+                   f"scratch_bytes={row['scratch_bytes']} "
+                   f"prev_scratch_bytes={row['prev_scratch_bytes']} "
+                   if "k_slices" in row else "")
                 + ("prev_refused " if row.get("prev_refused") else "")
                 + (f"prev_err={row['prev_err']:.3e} "
                    if "prev_err" in row else "")
@@ -1590,9 +1602,9 @@ def check_kernels(card: str, only: frozenset = frozenset(KERNELS)
     if failures:
         raise SystemExit(f"kernel disagrees with its plain version (or "
                          f"with its own first call, or B3 / B4 with B1 / B2 "
-                         f"on the dequantized factors, or a large-M or f32 "
-                         f"call is not faster than the form it replaced): "
-                         f"{failures}")
+                         f"on the dequantized factors where no product "
+                         f"K-slices, or a large-M or f32 call is not faster "
+                         f"than the design it replaced): {failures}")
     entries = _kernel_entries(rows)
     for entry in entries:
         if entry["name"] in sweep:
@@ -1766,9 +1778,12 @@ def _check_branched(add, label: str, shape: tuple, m: int, dname: str, rnd,
 def _quant_form_extras(name: str, args: tuple, y, form: str) -> dict:
     """What a B3 / B4 row (the wrapper ``name`` on ``args``, output ``y``)
     in the large-M or the f32 form adds: ``dq_us``, the dequantizing pass
-    of the call's form alone (us, host ahead; None where the form runs
-    none), and ``equal_to_unquantized``, whether ``y`` is bit-equal to B1
-    / B2 in the same form on the factors dequantized beforehand."""
+    alone (us, host ahead; in the large-M form the earlier design's, which
+    its ``prev_ms`` runs; None where there is none), and
+    ``equal_to_unquantized``, whether ``y`` is bit-equal to B1 / B2 in the
+    same form on the factors dequantized beforehand; in the large-M form
+    also ``k_slices`` (each product's K slices), ``scratch_bytes`` and the
+    earlier design's ``prev_scratch_bytes``."""
     import torch
     from repro_torch.kernels import ref
     mod = kernel_module(name)
@@ -1780,18 +1795,32 @@ def _quant_form_extras(name: str, args: tuple, y, form: str) -> dict:
     base = name[:-2]
     bmod = kernel_module(base)
     same = getattr(bmod, ("large_m_" if form == "large_m" else "") + base)
-    return dict(dq_us=(time_ms(lambda: dq(*args), ahead=True) * 1e3
-                       if ran else None),
-                equal_to_unquantized=torch.equal(y, same(x, *dense)))
+    out = dict(dq_us=(time_ms(lambda: dq(*args), ahead=True) * 1e3
+                      if ran else None),
+               equal_to_unquantized=torch.equal(y, same(x, *dense)))
+    if form == "large_m":
+        bk = kernel_module("branched_matmul")
+        dims = ((x.shape[0], *args[1].shape, args[3].shape[-1])
+                if name == "lowrank_matmul_q" else
+                (x.shape[0], args[1].shape[1], args[1].shape[0],
+                 args[1].shape[2], args[3].shape[2], args[5].shape[2]))
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        plan = bk.large_m_plan(dims, sms, quantized=True)
+        out.update(k_slices=[p.slices for p in plan.products],
+                   scratch_bytes=plan.scratch_bytes,
+                   prev_scratch_bytes=bk.large_m_plan(
+                       dims, sms, quantized=True, dequant=True).scratch_bytes)
+    return out
 
 
 def _branched_q_times(args: tuple, y, library, flush, dname: str) -> dict:
     """Times of one B4 row in the form :func:`chain_form` names: bf16
     below LARGE_M_Q the split-phase kernel (:func:`_split_times`); at or
-    past it the large-M form, timed in turns with the split form forced
-    (``prev_ms``, ``prev_err``); f32 the f32 form, timed in turns with the
-    cluster kernel (the earlier f32 kernel; ``prev_refused`` where it
-    refuses the ranks), both with :func:`_quant_form_extras`."""
+    past it the large-M form, timed in turns with its earlier design (the
+    dequantizing pass, then B2's products: ``prev_ms``, ``prev_err``); f32
+    the f32 form, timed in turns with the cluster kernel (the earlier f32
+    kernel; ``prev_refused`` where it refuses the ranks), both with
+    :func:`_quant_form_extras`."""
     bqk = kernel_module("branched_matmul_q")
     x = args[0]
     form = kernel_module("branched_matmul").chain_form(
@@ -1802,7 +1831,7 @@ def _branched_q_times(args: tuple, y, library, flush, dname: str) -> dict:
             kernel, lambda: bqk.cluster_branched_matmul_q(*args),
             lambda: bqk.branched_matmul_q_phase_us(*args), library, flush,
             dname), form=form)
-    prev = (bqk.split_branched_matmul_q if form == "large_m"
+    prev = (bqk.prev_large_m_branched_matmul_q if form == "large_m"
             else bqk.cluster_branched_matmul_q)
     try:
         prev_err = _compare(y, prev(*args), dname)["norm_err"]
@@ -1937,9 +1966,11 @@ def _lowrank_times(name: str, args: tuple, y, library, dname: str, flush,
     times of the plans of :data:`LOWRANK_PLAN_SWEEP` (``plan_us``); f32
     B11 runs the cluster kernel.  A bf16 B1 / B3 call of M >= LARGE_M /
     LARGE_M_Q runs the large-M form (``form``), timed in turns with the
-    split kernel forced (``prev_ms``, ``prev_err``), without a phase
-    timer; an f32 B1 / B3 call the f32 form, timed in turns with the cluster kernel; B3's
-    rows in these forms add :func:`_quant_form_extras`."""
+    split kernel forced (B1) or the earlier large-M design of B3 (the
+    dequantizing pass, then B1's products) (``prev_ms``, ``prev_err``),
+    without a phase timer; an f32 B1 / B3 call the f32 form, timed in
+    turns with the cluster kernel; B3's rows in these forms add
+    :func:`_quant_form_extras`."""
     mod = kernel_module(name)
     fn = getattr(mod, name)
     bf16 = dname == "bfloat16"
@@ -1947,7 +1978,12 @@ def _lowrank_times(name: str, args: tuple, y, library, dname: str, flush,
         args[0].dtype, args[0].shape[0], quantized=name.endswith("_q"))
         if name in ("lowrank_matmul", "lowrank_matmul_q") else None)
     large = form == "large_m"
-    prev = getattr(mod, ("split_" if large else "cluster_") + name)
+    if not large:
+        prev = getattr(mod, "cluster_" + name)
+    elif name == "lowrank_matmul_q":
+        prev = getattr(mod, "prev_large_m_" + name)
+    else:
+        prev = getattr(mod, "split_" + name)
     times = dict(prev_err=_compare(y, prev(*args), dname)["norm_err"],
                  **_attention_times(lambda: fn(*args),
                                     (lambda: prev(*args))
@@ -2578,9 +2614,10 @@ def _kernel_entries(rows: dict[str, list[dict]]) -> list[dict]:
             if path == "vlm" and cross is not None:
                 entry["cross_kv"] = dict(
                     {k: cross.get(k) for k in (
-                        "form", "ms", "prev_ms", "dq_us",
-                        "equal_to_unquantized", "cold_ms", "event_ms",
-                        "plain_ms", "library_ms", "bound_ms",
+                        "form", "ms", "prev_ms", "prev_err", "dq_us",
+                        "equal_to_unquantized", "k_slices", "scratch_bytes",
+                        "prev_scratch_bytes", "same_bits", "cold_ms",
+                        "event_ms", "plain_ms", "library_ms", "bound_ms",
                         "bound_by", "max_abs_err", "norm_err")},
                     launches_per_prefill=2, M=VLM_CROSS_M,
                     timed_as="one launch: the cross block's k or v over "
@@ -2628,18 +2665,35 @@ def _kernel_entries(rows: dict[str, list[dict]]) -> list[dict]:
             extra["vlm_prefill_path"] = {
                 r["shape"]: {k: r.get(k) for k in (
                     "M", "form", "ms", "prev_ms", "prev_err", "dq_us",
-                    "equal_to_unquantized", "same_bits", "plain_ms",
+                    "equal_to_unquantized", "k_slices", "scratch_bytes",
+                    "prev_scratch_bytes", "same_bits", "plain_ms",
                     "library_ms", "bound_ms", "bound_by", "max_abs_err",
                     "norm_err", "cold_ms", "event_ms")} for r in prs}
             extra["vlm_prefill_path"].update(
-                source=f"{LARGE_M_SOURCE} + src/repro_torch/kernels/csrc/"
-                "chain_dequant.cu", launches=None, timed_as=(
+                source=LARGE_M_SOURCE, launches=None, timed_as=(
                     f"one launch of the large-M form at M={VLM_PREFILL_M}, "
                     "the int8 VLM's blocking prefill of its largest prompt "
-                    "(bf16, int8 factors written as bf16 by the "
-                    "dequantizing pass, dq_us; prev_ms: the split form "
-                    "forced); launches: 8 B3 k,v / 10 q,o, 10 gate,up, 5 "
-                    "down B4 of the 36 a prefill of the serve_vlm_q run"))
+                    "(bf16, int8 tiles converted in the CTAs; prev_ms: the "
+                    "earlier design, the dequantizing pass (dq_us, "
+                    "src/repro_torch/kernels/csrc/chain_dequant.cu) then "
+                    "B1 / B2's products); launches: 8 B3 k,v / 10 q,o, 10 "
+                    "gate,up, 5 down B4 of the 36 a prefill of the "
+                    "serve_vlm_q run"))
+        lrows = [r for r in rs if name.endswith("_q")
+                 and r.get("form") == "large_m"]
+        if lrows:
+            extra["large_m_q_rows"] = {
+                f"{r['shape']} {r.get('qmode', 'int8')} M={r['M']}": {
+                    k: r.get(k) for k in (
+                        "ms", "cold_ms", "library_ms", "prev_ms",
+                        "prev_err", "dq_us", "k_slices", "scratch_bytes",
+                        "prev_scratch_bytes", "equal_to_unquantized",
+                        "same_bits", "bound_ms", "bound_by", "norm_err")}
+                for r in lrows}
+            extra["large_m_q_rows"]["timed_as"] = (
+                "every large-M row of this kernel (bf16 at M >= LARGE_M_Q): "
+                "one launch, host ahead; prev_ms the earlier design (the "
+                "dequantizing pass, then B1 / B2's products) in turns")
         trows = [r for r in rs if r.get("path") == "train"
                  and "family" not in r]
         frows = [r for r in rs if "family" in r]
@@ -3753,8 +3807,10 @@ def large_m_plans() -> None:
     path runs at M >= LARGE_M (the train step's, hubert's, the VLM's
     cross k / v, the searched k/v rank 191) and at each B3 / B4 shape (the
     int8 VLM's cross k / v and prefill rows, zamba2's at M = 512): per
-    product its tile, ring depth, tile count and shared memory, and the
-    copies, the factors the dequantizing pass writes and the scratch."""
+    product its tile, ring depth, tile count, K slices and ring bytes
+    (B3 / B4: the A tiles, B's bytes and the two converted tiles), and the
+    copies (int8 ones for B3 / B4) and the scratch (B3 / B4: beside the
+    earlier design's, whose pass wrote every factor as bf16)."""
     import torch
     from repro_torch.kernels import branched_matmul as bk
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -3782,14 +3838,21 @@ def large_m_plans() -> None:
     for label, dims in calls.items():
         quant = label[:2] in ("B3", "B4")
         plan = bk.large_m_plan(dims, sms, quantized=quant)
+        prev = bk.large_m_plan(dims, sms, quantized=True, dequant=True) \
+            if quant else None
+        ring = ((lambda p: (2 * p.bm + p.bn) * bk.WG_BK * p.stages
+                 + 4 * bk.WG_BK * p.bn) if quant else
+                (lambda p: (p.bm + p.bn) * bk.WG_BK * 2 * p.stages))
         log(f"large-M plan {label}: " + "; ".join(
             f"{p.out} = {p.a} @ {p.b}: {p.bm}x{p.bn} tiles x "
-            f"{len(p.tiles())}, {p.stages} stages "
-            f"({(p.bm + p.bn) * bk.WG_BK * 2 * p.stages} B of ring)"
+            f"{len(p.tiles())}, {p.slices} K slices of {p.ks} / "
+            f"{p.iters}, {p.stages} stages ({ring(p)} B of ring)"
             for p in plan.products)
-            + f"; copies {sorted(plan.copies - plan.dequant)}, dequantized "
-            f"{sorted(plan.dequant)}, {plan.scratch_bytes} B of scratch "
-            f"(LARGE_M {bk.LARGE_M_Q if quant else bk.LARGE_M})")
+            + f"; copies {sorted(plan.copies)} (int8 "
+            f"{sorted(plan.qcopies)}), {plan.scratch_bytes} B of scratch"
+            + (f" (the earlier design's {prev.scratch_bytes})"
+               if quant else "")
+            + f" (LARGE_M {bk.LARGE_M_Q if quant else bk.LARGE_M})")
 
 
 def f32_plans() -> None:

@@ -14,10 +14,11 @@ takes too); f32 goes at every M to the f32 form (``csrc/chain_f32.cu``:
 one output-tiled, K-sliced split-TF32 ``mma.sync`` launch per product,
 planned by :func:`f32_plan`, which f32 ``lowrank_matmul`` takes too).
 The quantized chains ``lowrank_matmul_q`` and ``branched_matmul_q`` run
-both forms too: the large-M form on factors that the dequantizing pass
-(``csrc/chain_dequant.cu``) writes into the plan's scratch as bf16 first,
-the f32 form reading their int8 / e4m3 bytes (``launch_large_m`` and
-``launch_f32`` with ``scales``).
+both forms too, each reading the factors' int8 / e4m3 bytes
+(``launch_large_m`` and ``launch_f32`` with ``scales``): the large-M form
+converts each k16 step of a landed stage to bf16 in registers, as
+``wgmma``'s A operand of the transposed product, and cuts the K loop of a
+product whose tiles leave the card idle into slices.
 This wrapper checks the operands, allocates the output and the scratch,
 launches on the current stream and counts launches.  CUDA tensors only:
 the CPU path is the plain version in :mod:`repro_torch.kernels.ref`,
@@ -82,6 +83,18 @@ WG_BK = 64
 WG_BM = (128, 64)
 WG_BN = (128, 64)
 WG_STAGES, WG_TWO_CTA_RING = 6, 96 * 1024
+#: the quantized large-M products (B3 / B4, whose weight tile is wgmma's
+#: A operand from registers): the output tiles ``(bm, bn)`` they are built
+#: for (:func:`_q_tile`), the shared memory of the ring (one CTA an SM,
+#: and each of two), the fewest K blocks of a K slice, and the fewest a
+#: 128-row tile of 64 columns takes in its slices: on the card (PERF.md)
+#: 128-row tiles, whose converted weights serve twice the rows, won where
+#: their slices kept 16 K blocks or more (the VLM's cross k / v, its down
+#: at M = 128, zamba2's down) and lost where they were shorter (the VLM's
+#: k,v at M = 128 / 512, zamba2's in_proj,up,gate)
+WG_TILES_Q = ((256, 128), (128, 128), (128, 64), (64, 64))
+WG_RING_Q, WG_TWO_CTA_RING_Q = 220 * 1024, 108 * 1024
+WG_MIN_SLICE, WG_MIN_ROWS_SLICE = 4, 16
 #: the fewest activation rows at which bf16 B1 and B2 take the large-M
 #: form; fewer rows take the split-phase form.  From chip_smoke's LARGE_M
 #: sweep on an H100 at 700 W (PERF.md): at M = 128 the large-M form was
@@ -89,15 +102,14 @@ WG_STAGES, WG_TWO_CTA_RING = 6, 96 * 1024
 #: 64-row blocks), at M = 64 the split form at the k/v pair and the down
 #: projections (1.04-1.6x)
 LARGE_M = 128
-#: the same for bf16 B3 and B4, whose large-M form runs the dequantizing
-#: pass first.  From chip_smoke's LARGE_M sweep of B3 / B4 on int8
-#: factors on an H100 at 700 W (PERF.md): at M = 128 the split
-#: form was the faster at the VLM's k,v (0.0391 against 0.0548 ms; the
-#: large-M form's first product has 12 tiles over K = 8,192) and its down
-#: (0.2908 / 0.3105), the large-M form at its q,o and gate,up and at
-#: zamba2's shapes (1.15-1.88x); at M = 256 the large-M form at every
-#: swept shape (1.38-3.63x)
-LARGE_M_Q = 256
+#: the same for bf16 B3 and B4, whose large-M form converts the factors'
+#: int8 / e4m3 tiles in its CTAs.  From chip_smoke's LARGE_M sweep of B3 /
+#: B4 on int8 factors on an H100 at 700 W (PERF.md): at M = 128 the
+#: large-M form was the faster at every swept shape (1.30-2.63x: the VLM's
+#: k,v 0.0299 against 0.0388 ms, its q,o, gate,up and down, zamba2's
+#: in_proj,up,gate and q,k,v,o), at M = 64 the split form at the VLM's k,v
+#: and gate,up (1.69 / 1.21x)
+LARGE_M_Q = 128
 #: the f32 form (csrc/chain_f32.cu): the output tile's width, the K depth
 #: of a ring stage, the tile heights it is built for (the lowest that
 #: holds M, 64 past 32 rows; two CTAs an SM at each), the work items per
@@ -352,6 +364,49 @@ def _tile(cols: int, rows: int, groups: int, sms: int
     return bm, bn, stages
 
 
+def _k_slice(tiles: int, iters: int, slots: int) -> int:
+    """The iterations (K blocks of WG_BK, times the branches a summing
+    product walks) of a K slice of a quantized large-M product of ``tiles``
+    output tiles and ``iters`` iterations on a card of ``slots`` CTA slots
+    for its tile (SMs x CTAs an SM): the whole loop where the tiles fill at
+    least half the slots; else whole iterations, at least WG_MIN_SLICE a
+    slice, none empty, about ``slots`` CTAs in all."""
+    want = min(slots // tiles, iters // WG_MIN_SLICE) \
+        if 2 * tiles < slots else 1
+    return iters if want <= 1 else math.ceil(iters / want)
+
+
+def _q_tile(cols: int, rows: int, groups: int, iters: int, sms: int
+            ) -> tuple[int, int, int]:
+    """A quantized large-M product's output tile ``(bm, bn)`` and the CTA
+    slots it has on a card of ``sms`` SMs, for ``groups`` x ``rows`` x
+    ``cols`` outputs over ``iters`` iterations.  128 columns (two consumer
+    warpgroups sharing x's tile, one CTA an SM) where 128-wide tiles pad no
+    more columns than 64-wide ones and fill at least half the SMs, with 256
+    rows where those still do (a converted weight serves more rows); else
+    64 columns (one warpgroup, two CTAs an SM), with 128 rows where that
+    tile's K slices (:func:`_k_slice`) keep WG_MIN_ROWS_SLICE iterations,
+    else 64."""
+    def tiles(bm, bn):
+        return math.ceil(cols / bn) * math.ceil(rows / bm) * groups
+    if math.ceil(cols / 128) * 128 <= _pad(cols, 64):
+        for bm in (256, 128):
+            if 2 * tiles(bm, 128) >= sms:
+                return bm, 128, sms
+    if _k_slice(tiles(128, 64), iters, 2 * sms) >= WG_MIN_ROWS_SLICE:
+        return 128, 64, 2 * sms
+    return 64, 64, 2 * sms
+
+
+def _q_stages(bm: int, bn: int, ctas: int, sms: int) -> int:
+    """The ring depth of a quantized large-M product launching ``ctas``
+    CTAs of ``bm`` x ``bn`` tiles (a stage: the bf16 x tile and B's
+    bytes): as many as fit WG_RING_Q where one CTA an SM holds them (a
+    128-wide tile always), else WG_TWO_CTA_RING_Q; at most WG_STAGES."""
+    ring = WG_RING_Q if bn == 128 or ctas <= sms else WG_TWO_CTA_RING_Q
+    return min(WG_STAGES, ring // ((bm * 2 + bn) * WG_BK))
+
+
 @dataclass(frozen=True)
 class Product:
     """One product of the large-M form, one launch of
@@ -363,7 +418,12 @@ class Product:
     "y".  Strides in elements: A_g's row m at ``m * a_ld + g * a_group``
     (g taken as 0 where ``a_groups`` is 1), B_g's row k at ``g * b_group +
     k * b_ld``, out_z's row m at ``z * c_group + m * c_ld``.  ``bm`` x
-    ``bn``: the output tile, ``stages`` the depth of its ring."""
+    ``bn``: the output tile, ``stages`` the depth of its ring.  A quantized
+    B (B3 / B4): ``scale`` names its scales, B_g[k, n] =
+    rnd(f32(q_g[k, n]) * scale[g * cols + n]), and the K loop's ``iters``
+    iterations (K blocks, times the summed branches) run in slices of
+    ``ks`` (``ks`` = ``iters``: one slice, as for a bf16 B), whose f32
+    partials the last CTA of a tile sums in slice order."""
     a: str
     b: str
     out: str
@@ -383,6 +443,35 @@ class Product:
     bm: int
     bn: int
     stages: int
+    ks: int
+    scale: str | None = None
+
+    @property
+    def iters(self) -> int:
+        return math.ceil(self.k / WG_BK) * self.sum_groups
+
+    @property
+    def slices(self) -> int:
+        return math.ceil(self.iters / self.ks)
+
+    def k_slices(self) -> list[tuple[int, int]]:
+        """The K slices ``[i0, i1)`` of the iterations (iteration i: K
+        block ``i % ceil(k / WG_BK)`` of group ``z + i // ceil(k /
+        WG_BK)``), in the order their partials are summed."""
+        return [(q * self.ks, min(self.iters, q * self.ks + self.ks))
+                for q in range(self.slices)]
+
+    @property
+    def p_ld(self) -> int:
+        """The row of a partial (floats): the columns padded to a
+        granule."""
+        return _pad(self.cols, 4)
+
+    def partial_floats(self) -> int:
+        """f32 partials of a sliced product: slices x out groups x M x
+        p_ld."""
+        return (self.slices * self.out_groups * self.m * self.p_ld
+                if self.slices > 1 else 0)
 
     def tiles(self) -> list[tuple[int, int, int, int, int]]:
         """The output tiles, one a CTA, in the grid's order (columns
@@ -394,31 +483,45 @@ class Product:
                 for c0 in range(0, self.cols, self.bn)]
 
     def spec(self, slot: dict[str, int]) -> tuple[int, ...]:
-        """The product's 19 integers in ``lrk_chain_wgmma``'s spec, its
-        operands as their ``slot`` in the call's pointer array."""
+        """The product's 23 integers in ``lrk_chain_wgmma``'s spec, its
+        operands (the scales and the partials' region "p", -1 where
+        unused) as their ``slot`` in the call's pointer array."""
+        sliced = self.slices > 1
         return (slot[self.a], self.a_ld, self.a_group, self.a_groups,
                 slot[self.b], self.b_ld, self.b_group, self.b_groups,
                 slot[self.out], self.c_ld, self.c_group, self.m, self.cols,
                 self.k, self.out_groups, self.sum_groups, self.bm, self.bn,
-                self.stages)
+                self.stages, -1 if self.scale is None else slot[self.scale],
+                self.ks, slot["p"] if sliced else -1,
+                self.p_ld if sliced else 0)
 
 
 @dataclass(frozen=True)
 class LargeMPlan(_Scratch):
     """The large-M form's plan of one call: its products in launch order
-    and its scratch regions ``(name, padded shape)``, bf16, each aligned
-    to ALIGN bytes -- the padded copies of the inputs in ``copies`` (TMA
-    wants rows of whole 16-byte granules and 16-byte aligned bases), then
-    the intermediates (B1's h; B2's h1 and h2, each (M, N, r) with r
-    padded to a granule).  ``dequant``: the quantized factors (B3 / B4)
-    among the copies, which the dequantizing pass writes instead."""
+    and its scratch regions ``(name, padded shape)``, each aligned to
+    ALIGN bytes -- the padded copies of the inputs in ``copies`` (TMA
+    wants rows of whole 16-byte granules and 16-byte aligned bases; bf16,
+    int8 bytes for the quantized factors in ``qcopies``), then the
+    intermediates (B1's h; B2's h1 and h2, each (M, N, r) with r padded to
+    a granule; bf16), then "p", the f32 partials of the largest K-sliced
+    product, whose tiles take ``tickets`` tickets.  ``dequant``: the
+    quantized factors among the copies that the dequantizing pass writes
+    as bf16 instead (the earlier design of B3 / B4)."""
     products: tuple[Product, ...]
     regions: tuple[tuple[str, tuple[int, ...]], ...]
     copies: frozenset
     dequant: frozenset = frozenset()
+    qcopies: frozenset = frozenset()
+    tickets: int = 0
+
+    def itemsize(self, name: str) -> int:
+        """Bytes of a value of region ``name``."""
+        return 4 if name == "p" else 1 if name in self.qcopies else 2
 
     def region_bytes(self) -> dict[str, int]:
-        return {name: math.prod(shape) * 2 for name, shape in self.regions}
+        return {name: math.prod(shape) * self.itemsize(name)
+                for name, shape in self.regions}
 
 
 def _input_shapes(dims: tuple[int, ...]) -> dict[str, tuple[int, ...]]:
@@ -436,19 +539,27 @@ def _input_shapes(dims: tuple[int, ...]) -> dict[str, tuple[int, ...]]:
 
 def large_m_plan(dims: tuple[int, ...], sms: int,
                  copies: frozenset = frozenset(),
-                 quantized: bool = False) -> LargeMPlan:
+                 quantized: bool = False, dequant: bool = False
+                 ) -> LargeMPlan:
     """The large-M form's plan for B1 (``dims`` (M, C, R, S): h = rnd(x @
     w0), y = rnd(h @ w1)) or B2 ((M, C, N, r1, r2, S): h1 = rnd(x @ u_n)
     per branch, h2 = rnd(h1_n @ xc_n) per branch, y = rnd(h2 @ v) with the
     branches summed in the K loop) on a card of ``sms`` SMs.  ``copies``:
     the inputs the wrapper copies into padded scratch rows (a misaligned
     base); an input whose row is not whole granules is always copied.
-    ``quantized`` (B3 / B4): every factor takes a region, which the
-    dequantizing pass fills (``dequant``)."""
-    if len(dims) not in (4, 6) or min(*dims, sms) <= 0:
+    ``quantized`` (B3 / B4): each product reads its factor's int8 / e4m3
+    bytes and scales (a factor of rows not whole 16-byte granules, or of a
+    misaligned base, from an int8 copy of padded rows) on the tiles of
+    :func:`_q_tile`, and a product whose tiles fill less than half the
+    card's slots runs K slices (:func:`_k_slice`);
+    with ``dequant``, the earlier design instead: every factor takes a
+    bf16 region, which the dequantizing pass fills, and B1 / B2's
+    products read it."""
+    if len(dims) not in (4, 6) or min(*dims, sms) <= 0 or \
+            (dequant and not quantized):
         raise ValueError(f"large-M plan of {dims} on {sms} SMs: a B1 (M, C, "
                          "R, S) or B2 (M, C, N, r1, r2, S) call of positive "
-                         "sizes")
+                         "sizes (dequant only for a quantized one)")
     m, c, s = dims[0], dims[1], dims[-1]
     shapes = _input_shapes(dims)
     if len(dims) == 4:
@@ -459,10 +570,13 @@ def large_m_plan(dims: tuple[int, ...], sms: int,
         inter = {"h1": (m, n, r1), "h2": (m, n, r2)}
     if set(copies) - set(shapes):
         raise ValueError(f"copies {sorted(copies)}: not inputs of {dims}")
-    dequant = frozenset(k for k in shapes if k != "x" and quantized)
+    conv = quantized and not dequant  # products read the factors' bytes
+    dequant = frozenset(k for k in shapes if k != "x" and dequant)
+    # elements of a 16-byte granule of each input as the products read it
+    per = {k: 16 if conv and k != "x" else 8 for k in shapes}
     copies = frozenset(copies) | dequant | {k for k, sh in shapes.items()
-                                            if sh[-1] % 8}
-    ld = {k: _pad8(sh[-1]) if k in copies else sh[-1]
+                                            if sh[-1] % per[k]}
+    ld = {k: _pad(sh[-1], per[k]) if k in copies else sh[-1]
           for k, sh in shapes.items()}
     regions = tuple((k, sh[:-1] + (ld[k],)) for k, sh in shapes.items()
                     if k in copies) + tuple(
@@ -471,12 +585,19 @@ def large_m_plan(dims: tuple[int, ...], sms: int,
     def product(a, b, out, cols, k, *, a_ld, c_ld, a_groups=1, a_group=0,
                 b_groups=1, c_group=0, out_groups=1, sum_groups=1):
         bm, bn, stages = _tile(cols, m, out_groups, sms)
+        iters = math.ceil(k / WG_BK) * sum_groups
+        ks = iters
+        if conv:
+            bm, bn, slots = _q_tile(cols, m, out_groups, iters, sms)
+            tiles = out_groups * math.ceil(m / bm) * math.ceil(cols / bn)
+            ks = _k_slice(tiles, iters, slots)
+            stages = _q_stages(bm, bn, tiles * math.ceil(iters / ks), sms)
         return Product(
             a=a, b=b, out=out, m=m, cols=cols, k=k, out_groups=out_groups,
             sum_groups=sum_groups, a_groups=a_groups, b_groups=b_groups,
             a_ld=a_ld, a_group=a_group or a_ld, b_ld=ld[b],
             b_group=k * ld[b], c_ld=c_ld, c_group=c_group, bm=bm, bn=bn,
-            stages=stages)
+            stages=stages, ks=ks, scale=f"{b}_scale" if conv else None)
     if len(dims) == 4:
         rp = _pad8(r)
         products = (product("x", "w0", "h", r, c, a_ld=ld["x"], c_ld=rp),
@@ -491,8 +612,13 @@ def large_m_plan(dims: tuple[int, ...], sms: int,
                     out_groups=n),
             product("h2", "v", "y", s, r2, a_ld=n * r2p, a_groups=n,
                     a_group=r2p, b_groups=n, c_ld=s, sum_groups=n))
-    return LargeMPlan(products=products, regions=regions, copies=copies,
-                      dequant=dequant)
+    sliced = [p for p in products if p.slices > 1]
+    if sliced:
+        regions += (("p", (max(p.partial_floats() for p in sliced),)),)
+    return LargeMPlan(
+        products=products, regions=regions, copies=copies, dequant=dequant,
+        qcopies=frozenset(k for k in copies if conv and k != "x"),
+        tickets=max((len(p.tiles()) for p in sliced), default=0))
 
 
 def _inputs(dims: tuple[int, ...]) -> tuple[str, ...]:
@@ -529,14 +655,15 @@ def dequant_spec(dims: tuple[int, ...], regions, dequant, slot: dict
 
 @functools.lru_cache(maxsize=256)
 def _large_launch(dims: tuple[int, ...], sms: int, copies: frozenset,
-                  quantized: bool = False
+                  quantized: bool = False, dequant: bool = False
                   ) -> tuple[LargeMPlan, tuple[str, ...], object, tuple,
                              object]:
     """What a large-M call passes to C, cached per shape: its plan, the
     operand names in the order of the pointer array, the products' spec
     as a ctypes array, the scratch regions' offsets, and the dequantizing
-    pass's spec (a ctypes array; None for B1 / B2)."""
-    plan = large_m_plan(dims, sms, copies, quantized)
+    pass's spec (a ctypes array; None but for the earlier design of B3 /
+    B4, ``dequant``)."""
+    plan = large_m_plan(dims, sms, copies, quantized, dequant)
     names = _inputs(dims) + ("y",) + tuple(
         name for name, _ in plan.regions) + _quant_names(dims, quantized)
     slot = {name: i for i, name in enumerate(names)}
@@ -557,23 +684,25 @@ def _launch_dequant(lib, spec, n: int, ptrs, qcode: int, out_dtype: int,
 def launch_large_m(x: torch.Tensor, weights: tuple[torch.Tensor, ...],
                    y: torch.Tensor, dims: tuple[int, ...], what: str,
                    scales: tuple | None = None, qcode: int = 0,
-                   products: bool = True) -> torch.Tensor:
+                   products: bool = True, dequant: bool = False
+                   ) -> torch.Tensor:
     """The large-M form on bf16 ``x`` already checked: B1's (w0, w1) with
     ``dims`` (M, C, R, S) or B2's (u, xc, v) with (M, C, N, r1, r2, S),
     bf16; or, with ``scales`` (one a factor), B3's / B4's int8 / e4m3
-    factors (``qcode``, ``lowrank_matmul_q.QDTYPES``).  The copies its
-    plan asks for, then the dequantizing pass (B3 / B4: every factor into
-    its scratch region, as bf16) and one host call that launches every
-    product of the plan in order on the current stream.  ``products``
-    False stops after the pass (chip_smoke times it alone).  Returns the
-    scratch."""
+    factors (``qcode``, ``lowrank_matmul_q.QDTYPES``), whose bytes the
+    products convert.  The copies its plan asks for, then one host call
+    that launches every product of the plan in order on the current
+    stream.  ``dequant`` (B3 / B4): the earlier design, the dequantizing
+    pass (every factor into its scratch region, as bf16) before B1 / B2's
+    products; ``products`` False stops after that pass (chip_smoke times it
+    alone).  Returns the scratch."""
     quantized = scales is not None
     inputs = (x, *weights)
     names = _inputs(dims)
     misaligned = frozenset(n for n, t in zip(names, inputs)
                            if t.data_ptr() % 16)
     plan, slots, spec, offsets, dq = _large_launch(
-        dims, _sm_count(x.device.index), misaligned, quantized)
+        dims, _sm_count(x.device.index), misaligned, quantized, dequant)
     scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8,
                           device=x.device)
     ptr = {n: t.data_ptr() for n, t in zip(names, inputs)}
@@ -585,9 +714,12 @@ def launch_large_m(x: torch.Tensor, weights: tuple[torch.Tensor, ...],
         ptr[name] = scratch.data_ptr() + at
         if name in plan.copies and name not in plan.dequant:
             t = inputs[names.index(name)]
-            region = scratch[at:at + math.prod(shape) * 2].view(
-                torch.bfloat16).view(shape)
-            region[..., :t.shape[-1]].copy_(t)
+            byte = name in plan.qcopies  # an int8 / e4m3 factor's bytes
+            region = scratch[at:at + math.prod(shape) * plan.itemsize(
+                name)].view(
+                torch.uint8 if byte else torch.bfloat16).view(shape)
+            region[..., :t.shape[-1]].copy_(t.view(torch.uint8) if byte
+                                            else t)
     ptrs = (ctypes.c_void_p * len(slots))(*(ptr[n] for n in slots))
     lib = build.load()
     with torch.cuda.device(x.device):
@@ -596,8 +728,14 @@ def launch_large_m(x: torch.Tensor, weights: tuple[torch.Tensor, ...],
             _launch_dequant(lib, dq, len(plan.dequant), ptrs, qcode,
                             DTYPES[torch.bfloat16], stream, what)
         if products:
-            build.check(lib, lib.lrk_chain_wgmma(len(plan.products), spec,
-                                                 ptrs, stream), what)
+            tickets = build.tickets(x.device, plan.tickets) \
+                if plan.tickets else None
+            rc = lib.lrk_chain_wgmma(
+                len(plan.products), spec, ptrs,
+                qcode if quantized and not dequant else -1,
+                None if tickets is None else tickets.data_ptr(),
+                0 if tickets is None else tickets.numel(), stream)
+            build.check(lib, rc, what)
     return scratch
 
 

@@ -9,10 +9,15 @@ bf16 ``branched_matmul`` runs, as
 (``csrc/branched_matmul_q.cu``) on dequantizing weight views (one
 cooperative launch, the work split of
 :func:`repro_torch.kernels.branched_matmul.branched_split`); bf16 at
-``LARGE_M_Q`` rows or more to the large-M form (``csrc/chain_wgmma.cuh``)
-on factors the dequantizing pass (``csrc/chain_dequant.cu``) first
-writes into the call's scratch as bf16; f32 at every M to the f32 form
-(``csrc/chain_f32.cu``), which reads the factors' int8 / e4m3 bytes.  The
+``LARGE_M_Q`` rows or more to the large-M form (``csrc/chain_wgmma.cuh``:
+three ``wgmma`` launches whose CTAs read the factors' int8 / e4m3 bytes by
+TMA and convert them to bf16 in registers, v's scales picked by branch
+as the last product's K loop walks the branches, a
+product's K loop cut into slices where its tiles leave the card idle);
+f32 at every M to the f32 form (``csrc/chain_f32.cu``), which reads the
+factors' bytes too.  No dequantized factor goes through device memory, as
+in the TPU kernel, but for the f32 form's factors of rows that are not
+whole words (the dequantizing pass, ``csrc/chain_dequant.cu``).  The
 source notes say what bounds them and how the designs answer.  This
 wrapper checks the operands, allocates the output and the scratch,
 launches on the current stream and counts launches (one a call, whatever
@@ -97,25 +102,38 @@ def large_m_branched_matmul_q(x: torch.Tensor, u_q: torch.Tensor,
                    v_scale)
 
 
+def prev_large_m_branched_matmul_q(x: torch.Tensor, u_q: torch.Tensor,
+                                   u_scale: torch.Tensor, xc_q: torch.Tensor,
+                                   xc_scale: torch.Tensor, v_q: torch.Tensor,
+                                   v_scale: torch.Tensor) -> torch.Tensor:
+    """The earlier large-M design at any M, uncounted: the dequantizing
+    pass writes every factor as bf16 into scratch, then bf16 B2's large-M
+    products run on them (chip_smoke's ``prev_ms``).  The serve path never
+    calls it.  bf16 only."""
+    return _forced("prev_large_m", x, u_q, u_scale, xc_q, xc_scale, v_q,
+                   v_scale)
+
+
 def dequant_branched_matmul_q(x: torch.Tensor, u_q: torch.Tensor,
                               u_scale: torch.Tensor, xc_q: torch.Tensor,
                               xc_scale: torch.Tensor, v_q: torch.Tensor,
                               v_scale: torch.Tensor) -> torch.Tensor | None:
-    """The dequantizing pass alone of the call's form, uncounted (see
+    """The dequantizing pass alone, uncounted (see
     ``lowrank_matmul_q.dequant_lowrank_matmul_q``): its scratch, or None
-    where the form runs no pass."""
+    where there is none."""
     args = (x, u_q, u_scale, xc_q, xc_scale, v_q, v_scale)
     dims = _check(*args)
     bk.check_factors("branched_matmul_q", dims[1:5], u_q, xc_q, v_q)
     form = bk.chain_form(x.dtype, dims[0], quantized=True)
     if form == "split" or not dims[0] * dims[5]:
         return None
-    return _launch_form(form, *args, None, dims, products=False)
+    return _launch_form(form, *args, None, dims, products=False,
+                        dequant=True)
 
 
 def _forced(form: str, x, *factors) -> torch.Tensor:
-    """B4 on bf16 ``x`` in ``form`` ("split" or "large_m") whatever M,
-    uncounted."""
+    """B4 on bf16 ``x`` in ``form`` ("split", "large_m" or "prev_large_m",
+    the earlier large-M design) whatever M, uncounted."""
     args = (x, *factors)
     dims = _check(*args)
     what = f"{form}_branched_matmul_q"
@@ -127,19 +145,25 @@ def _forced(form: str, x, *factors) -> torch.Tensor:
         if form == "split":
             _launch_mma(*args, y, None, dims)
         else:
-            _launch_form(form, *args, y, dims)
+            _launch_form("large_m", *args, y, dims,
+                         dequant=form == "prev_large_m")
     return y
 
 
 def _launch_form(form: str, x, u_q, u_scale, xc_q, xc_scale, v_q, v_scale,
                  y: torch.Tensor | None, dims: tuple[int, ...],
-                 products: bool = True) -> torch.Tensor:
+                 products: bool = True, dequant: bool = False
+                 ) -> torch.Tensor:
     """The large-M or the f32 form (``form``) on quantized factors already
-    checked: the form's launcher with the scales; its scratch."""
-    launch = bk.launch_f32 if form == "f32" else bk.launch_large_m
-    return launch(x, (u_q, xc_q, v_q), y, dims, "branched_matmul_q",
-                  scales=(u_scale, xc_scale, v_scale),
-                  qcode=QDTYPES[u_q.dtype], products=products)
+    checked: the form's launcher with the scales (``dequant``: the earlier
+    large-M design); its scratch."""
+    kw = dict(scales=(u_scale, xc_scale, v_scale), qcode=QDTYPES[u_q.dtype],
+              products=products)
+    if form == "f32":
+        return bk.launch_f32(x, (u_q, xc_q, v_q), y, dims,
+                             "branched_matmul_q", **kw)
+    return bk.launch_large_m(x, (u_q, xc_q, v_q), y, dims,
+                             "branched_matmul_q", dequant=dequant, **kw)
 
 
 def branched_matmul_q_phase_us(x: torch.Tensor, u_q: torch.Tensor,

@@ -232,7 +232,7 @@ def load() -> ctypes.CDLL:
     lib.lrk_decode_attention_latent_q_prev.restype = i
     lib.lrk_decode_attention_latent_q_prev_smem.argtypes = [i, i, i]
     lib.lrk_decode_attention_latent_q_prev_smem.restype = ctypes.c_size_t
-    lib.lrk_chain_wgmma.argtypes = [i, p, p, p]
+    lib.lrk_chain_wgmma.argtypes = [i, p, p, i, p, i, p]
     lib.lrk_chain_wgmma.restype = i
     lib.lrk_chain_f32.argtypes = [i, p, p, p, i, p]
     lib.lrk_chain_f32.restype = i

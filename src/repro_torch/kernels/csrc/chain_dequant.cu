@@ -1,25 +1,26 @@
 // The dequantizing pass of the quantized chains B3 (lowrank_matmul_q) and
-// B4 (branched_matmul_q) on the forms B1 / B2 run (sm_90a):
+// B4 (branched_matmul_q) (sm_90a):
 //   out[g, k, n] = round_T( f32(q[g, k, n]) * scale[g, n] )
-// for every factor of a call that its form reads dequantized: T bf16 for
-// the large-M form (chain_wgmma.cuh), T f32 for the f32 form's factors
-// whose rows are not whole 4-byte words (chain_f32.cu; the ResNets' fc
-// rank 335).  The bits are those of the plain version's dequantization
-// (kernels/ref.py::_dq) and of the TPU kernels', which dequantize to x's
-// dtype in VMEM before each product (src/repro/kernels/lowrank_matmul_q.py
-// :41-49, branched_matmul_q.py:48-50): int8 converts to f32 exactly, e4m3
-// goes through f16 (cvt.rn.f16x2.e4m3x2, exact) to f32, the product with
-// the column's f32 scale rounds to nearest in f32, and bf16 rounds that
-// to nearest even once.
+// for the factors of a call that its form reads dequantized: T f32 for the
+// f32 form's factors whose rows are not whole 4-byte words (chain_f32.cu;
+// the ResNets' fc rank 335), and T bf16 for the earlier large-M design of
+// B3 / B4 (every factor into scratch, then B1 / B2's wgmma products), kept
+// callable, uncounted, as the yardstick of the large-M form that now
+// converts int8 / e4m3 tiles inside its pipeline (chain_wgmma.cuh).  The
+// bits are those of the plain version's dequantization (kernels/ref.py::
+// _dq) and of the TPU kernels', which dequantize to x's dtype in VMEM
+// before each product (src/repro/kernels/lowrank_matmul_q.py:41-49,
+// branched_matmul_q.py:48-50): int8 converts to f32 exactly, e4m3 goes
+// through f16 (cvt.rn.f16x2.e4m3x2, exact) to f32, the product with the
+// column's f32 scale rounds to nearest in f32, and bf16 rounds that to
+// nearest even once.
 //
-// Why a pass and not a converting stage: wgmma reads a bf16 B operand only
-// from shared memory, so converting int8 tiles between the TMA ring and
-// the tensor cores is a pipeline of its own (a converter warpgroup, or the
-// weight fed as A from registers, as CUTLASS's mixed-input GEMM does).  At
-// M >= LARGE_M the products are operation-bound, and the pass costs 3
-// bytes a weight value (1 read, 2 written), written into the scratch rows
-// the large-M plan lays out for its padded copies
-// (kernels/branched_matmul.py::large_m_plan), zero past the row's end.
+// Why a pass for the fc's rows: the f32 form copies a quantized tile 16 or
+// 4 bytes at a time, and a row of 335 bytes is neither; the pass writes it
+// as f32 padded rows.  It costs 1 byte read and 4
+// (f32) or 2 (bf16) written a weight value, into the scratch rows the plan
+// lays out (kernels/branched_matmul.py::f32_plan, ::large_m_plan with
+// dequant), zero past the row's end.
 //
 // Design: one launch for every factor of a call (up to 4 ops); a thread
 // converts 16 columns of one row: one 16-byte load of values and four of

@@ -9,11 +9,14 @@ below ``LARGE_M_Q`` rows goes to the two-phase split kernel
 (``csrc/lowrank_matmul_q.cu``, on the split-phase tensor-core core of
 bf16 ``branched_matmul``), one cooperative launch whose work split
 :func:`repro_torch.kernels.branched_matmul.lowrank_split` computes; bf16
-at ``LARGE_M_Q`` rows or more to the large-M form (``csrc/chain_wgmma.cuh``)
-on factors the dequantizing pass (``csrc/chain_dequant.cu``) first
-writes into the call's scratch as bf16; f32 at every M to the f32 form
-(``csrc/chain_f32.cu``), which reads the factors' int8 / e4m3 bytes.  The
-source notes say what bounds them and how the designs answer.  This
+at ``LARGE_M_Q`` rows or more to the large-M form
+(``csrc/chain_wgmma.cuh``: two ``wgmma`` launches whose CTAs read the
+factors' int8 / e4m3 bytes by TMA and convert them to bf16 in registers,
+the first product K-sliced where its tiles leave the card idle); f32 at every M to the f32 form (``csrc/chain_f32.cu``), which
+reads the factors' bytes too.  No dequantized factor goes through device
+memory, as in the TPU kernel, but for the f32 form's factors of rows that
+are not whole words (the dequantizing pass, ``csrc/chain_dequant.cu``).
+The source notes say what bounds them and how the designs answer.  This
 wrapper checks the operands, allocates the output and the scratch,
 launches on the current stream and counts launches (one a call, whatever
 the form).  CUDA tensors only: the CPU path is the plain version in
@@ -151,26 +154,37 @@ def large_m_lowrank_matmul_q(x: torch.Tensor, w0_q: torch.Tensor,
     return _forced("large_m", x, w0_q, w0_scale, w1_q, w1_scale)
 
 
+def prev_large_m_lowrank_matmul_q(x: torch.Tensor, w0_q: torch.Tensor,
+                                  w0_scale: torch.Tensor, w1_q: torch.Tensor,
+                                  w1_scale: torch.Tensor) -> torch.Tensor:
+    """The earlier large-M design at any M, uncounted: the dequantizing
+    pass writes both factors as bf16 into scratch, then bf16 B1's large-M
+    products run on them (chip_smoke's ``prev_ms``).  The serve and train
+    paths never call it.  bf16 only."""
+    return _forced("prev_large_m", x, w0_q, w0_scale, w1_q, w1_scale)
+
+
 def dequant_lowrank_matmul_q(x: torch.Tensor, w0_q: torch.Tensor,
                              w0_scale: torch.Tensor, w1_q: torch.Tensor,
                              w1_scale: torch.Tensor) -> torch.Tensor | None:
-    """The dequantizing pass alone of the call's form, uncounted (the
-    large-M form: every factor into bf16 scratch; the f32 form: the
-    factors of rows that are not whole words, into f32 scratch), for
-    chip_smoke's ``dq_us``: its scratch, or None where the form runs no
-    pass."""
+    """The dequantizing pass alone, uncounted, for chip_smoke's ``dq_us``:
+    at bf16 M >= LARGE_M_Q the earlier large-M design's (every factor into
+    bf16 scratch; the large-M form runs none), in the f32 form the one it
+    runs (the factors of rows that are not whole words, into f32 scratch):
+    its scratch, or None where there is none."""
     args = (x, w0_q, w0_scale, w1_q, w1_scale)
     dims = _check(*args)
     bk.check_factors("lowrank_matmul_q", dims[1:3], w0_q, w1_q)
     form = bk.chain_form(x.dtype, dims[0], quantized=True)
     if form == "split" or not dims[0] * dims[3]:
         return None
-    return _launch_form(form, *args, None, dims, products=False)
+    return _launch_form(form, *args, None, dims, products=False,
+                        dequant=True)
 
 
 def _forced(form: str, x, w0_q, w0_scale, w1_q, w1_scale) -> torch.Tensor:
-    """B3 on bf16 ``x`` in ``form`` ("split" or "large_m") whatever M,
-    uncounted."""
+    """B3 on bf16 ``x`` in ``form`` ("split", "large_m" or "prev_large_m",
+    the earlier large-M design) whatever M, uncounted."""
     args = (x, w0_q, w0_scale, w1_q, w1_scale)
     dims = _check(*args)
     what = f"{form}_lowrank_matmul_q"
@@ -182,19 +196,25 @@ def _forced(form: str, x, w0_q, w0_scale, w1_q, w1_scale) -> torch.Tensor:
         if form == "split":
             _launch_mma(*args, y, None, dims)
         else:
-            _launch_form(form, *args, y, dims)
+            _launch_form("large_m", *args, y, dims,
+                         dequant=form == "prev_large_m")
     return y
 
 
 def _launch_form(form: str, x, w0_q, w0_scale, w1_q, w1_scale,
                  y: torch.Tensor | None, dims: tuple[int, ...],
-                 products: bool = True) -> torch.Tensor:
+                 products: bool = True, dequant: bool = False
+                 ) -> torch.Tensor:
     """The large-M or the f32 form (``form``) on quantized factors already
-    checked: the form's launcher with the scales; its scratch."""
-    launch = bk.launch_f32 if form == "f32" else bk.launch_large_m
-    return launch(x, (w0_q, w1_q), y, dims, "lowrank_matmul_q",
-                  scales=(w0_scale, w1_scale), qcode=QDTYPES[w0_q.dtype],
-                  products=products)
+    checked: the form's launcher with the scales (``dequant``: the earlier
+    large-M design); its scratch."""
+    kw = dict(scales=(w0_scale, w1_scale), qcode=QDTYPES[w0_q.dtype],
+              products=products)
+    if form == "f32":
+        return bk.launch_f32(x, (w0_q, w1_q), y, dims, "lowrank_matmul_q",
+                             **kw)
+    return bk.launch_large_m(x, (w0_q, w1_q), y, dims, "lowrank_matmul_q",
+                             dequant=dequant, **kw)
 
 
 def lowrank_matmul_q_phase_us(x: torch.Tensor, w0_q: torch.Tensor,

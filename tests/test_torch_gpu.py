@@ -2300,11 +2300,14 @@ def _dq_all(args):
 @pytest.mark.parametrize("label,shape,m", _Q_LARGE_LOWRANK
                          + _Q_LARGE_BRANCHED)
 def test_quantized_chains_take_the_large_m_form(cuda, label, shape, m, mode):
-    """bf16 B3 / B4 at M >= LARGE_M_Q run the large-M form on the factors
-    the dequantizing pass writes: one counted call, within KERNEL_TOL of
-    the plain version and of the split form forced, the same bits on a
-    second call, and bit-equal to B1 / B2's large-M form on the factors
-    dequantized beforehand."""
+    """bf16 B3 / B4 at M >= LARGE_M_Q run the large-M form, converting
+    the factors' int8 / e4m3 tiles in the CTAs: one counted call, no
+    memory beyond the output and the plan's scratch (no bf16 copy of a
+    factor), within KERNEL_TOL of the plain version and of the split form
+    forced, the same bits on a second call; where no product of its plan
+    K-slices, bit-equal to the earlier design (the dequantizing pass, then
+    B1 / B2's products) and to B1 / B2's large-M form on the factors
+    dequantized beforehand, elsewhere within KERNEL_TOL of them."""
     from repro_torch.kernels import branched_matmul as bk
     from repro_torch.kernels import branched_matmul_q as bqk
     from repro_torch.kernels import lowrank_matmul as lk
@@ -2318,6 +2321,7 @@ def test_quantized_chains_take_the_large_m_form(cuda, label, shape, m, mode):
                 *_quantized(cuda, r, s, mode=mode))
         mod, fn, plain = lqk, lqk.lowrank_matmul_q, ref.lowrank_matmul_q_ref
         split, same = lqk.split_lowrank_matmul_q, lk.large_m_lowrank_matmul
+        prev, dims = lqk.prev_large_m_lowrank_matmul_q, (m, c, r, s)
     else:
         n, c, r, s = shape
         args = (x, *_quantized(cuda, n, c, r, mode=mode),
@@ -2327,15 +2331,31 @@ def test_quantized_chains_take_the_large_m_form(cuda, label, shape, m, mode):
             ref.branched_matmul_q_ref
         split, same = bqk.split_branched_matmul_q, \
             bk.large_m_branched_matmul
+        prev, dims = bqk.prev_large_m_branched_matmul_q, (m, c, n, r, r, s)
     assert bk.chain_form(bf, m, quantized=True) == "large_m"
+    plan = bk.large_m_plan(
+        dims, torch.cuda.get_device_properties(cuda).multi_processor_count,
+        quantized=True)
+    sliced = any(p.slices > 1 for p in plan.products)
+    fn(*args)
+    torch.cuda.synchronize()
     n0 = mod.launches
+    base = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
     y = fn(*args)
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated(cuda) - base
     assert mod.launches == n0 + 1
+    assert grown <= y.numel() * 2 + plan.scratch_bytes + (1 << 20)
     tol = chip_smoke.KERNEL_TOL["bfloat16"]
     assert _norm_err(y, plain(*args)) <= tol
     assert _norm_err(y, split(*args)) <= tol
     assert torch.equal(y, fn(*args))
-    assert torch.equal(y, same(x, *_dq_all(args)))
+    for old in (prev(*args), same(x, *_dq_all(args))):
+        if sliced:
+            assert _norm_err(y, old) <= tol
+        else:
+            assert torch.equal(y, old)
     assert mod.launches == n0 + 2
 
 
@@ -2411,8 +2431,10 @@ def test_quantized_forced_forms_refuse_before_launching(cuda):
     torch.cuda.synchronize()
     for fn, args in ((lqk.split_lowrank_matmul_q, lr),
                      (lqk.large_m_lowrank_matmul_q, lr),
+                     (lqk.prev_large_m_lowrank_matmul_q, lr),
                      (bqk.split_branched_matmul_q, br),
-                     (bqk.large_m_branched_matmul_q, br)):
+                     (bqk.large_m_branched_matmul_q, br),
+                     (bqk.prev_large_m_branched_matmul_q, br)):
         with pytest.raises(TypeError):
             fn(x32, *args)
     xb = x32.bfloat16()

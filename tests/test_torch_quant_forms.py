@@ -1,8 +1,11 @@
 """B3 (``lowrank_matmul_q``) and B4 (``branched_matmul_q``) on the forms
 B1 / B2 run, checked on the CPU: bf16 at M >= LARGE_M_Q on the large-M
-form (``csrc/chain_wgmma.cuh``) after the dequantizing pass
-(``csrc/chain_dequant.cu``), f32 at every M on the f32 form
-(``csrc/chain_f32.cu``) reading the factors' int8 / e4m3 bytes.
+form (``csrc/chain_wgmma.cuh``), whose CTAs convert the factors' int8 /
+e4m3 tiles to bf16 in registers and cut the K loop of a product whose
+tiles leave the card idle into slices; f32 at every M on the f32 form
+(``csrc/chain_f32.cu``) reading the factors' bytes too.  The earlier
+large-M design (the dequantizing pass, ``csrc/chain_dequant.cu``, then B1
+/ B2's products) stays as the card's yardstick.
 
 The kernels run only on the card, so what surrounds them is held here:
 
@@ -10,27 +13,27 @@ The kernels run only on the card, so what surrounds them is held here:
   into padded rows, zero past the row's end -- bit-equal to the port's
   plain dequantization (``ref._dq``) and to the JAX reference's, int8 and
   e4m3, to bf16 (round to nearest even) and to f32;
-* the plans: a quantized large-M call gives every factor a scratch region
-  (aligned, disjoint, rows of whole granules) and otherwise the products
-  of B1 / B2's plan, tile for tile, which is why the card's bits equal
-  B1 / B2's on the dequantized factors; a quantized f32 call keeps B1 /
-  B2's plan too, hands each product its factor's scales (v's by branch,
-  every r2 rows), copies int8 rows 16 bytes at a time where they are
-  whole granules and 4 bytes where they are whole words, and dequantizes
-  a factor of other rows (the ResNets' fc rank 335) into f32 scratch
-  first;
-* the arithmetic: the pass's mirror fed into the large-M and f32 mirrors
-  of ``test_torch_large_m.py`` / ``test_torch_f32_chain.py``, held
-  against the reference's ``lowrank_matmul_q_ref`` /
-  ``branched_matmul_q_ref`` and its Pallas kernels in interpret mode on
-  the same seeded numpy inputs (bf16 at ``KERNEL_TOL["bfloat16"]``, f32
-  at 1e-4), at ragged M on both sides of LARGE_M_Q and at ranks 191 /
-  335;
-* the dispatch, with the launchers stubbed: bf16 below LARGE_M_Q (the
-  sweep's threshold for the quantized chains, above B1 / B2's LARGE_M)
-  the split kernel, at or past it the large-M form, f32 the f32 form at
-  every M, f32 B11 / B12 still the cluster kernel; one counted launch a
-  call; empty factors refused before any form.
+* the plans: the earlier large-M design's (the card's yardstick) gives
+  every factor a bf16 region and otherwise B1 / B2's products (the new
+  form's plans, its converting stage and its dispatch through the real
+  launcher: ``test_torch_quant_large_m.py``); a quantized f32 call keeps
+  B1 / B2's plan too, hands each product its factor's scales (v's by
+  branch, every r2 rows), copies int8 rows 16 bytes at a time where they
+  are whole granules and 4 bytes where they are whole words, and
+  dequantizes a factor of other rows (the ResNets' fc rank 335) into f32
+  scratch first;
+* the arithmetic: a mirror of the converting, sliced mainloop (each stage
+  converted as the pass would, each slice summed in f32, the partials
+  added in slice order and rounded once) and the pass fed into the f32
+  mirror of ``test_torch_f32_chain.py``, held against the reference's
+  ``lowrank_matmul_q_ref`` / ``branched_matmul_q_ref`` and its Pallas
+  kernels in interpret mode on the same seeded numpy inputs (bf16 at
+  ``KERNEL_TOL["bfloat16"]``, f32 at 1e-4), at ragged M on both sides of
+  LARGE_M_Q, at ranks 191 / 335 and at branches a K slice straddles;
+* the dispatch, with the launchers stubbed: bf16 below LARGE_M_Q the
+  split kernel, at or past it the large-M form, f32 the f32 form at every
+  M, f32 B11 / B12 still the cluster kernel; one counted launch a call;
+  empty factors refused before any form.
 """
 import sys
 from pathlib import Path
@@ -145,11 +148,12 @@ def test_dequant_pass_is_the_plain_dequantization(shape, dtype, mode):
 
 @pytest.mark.parametrize("dims", LOWRANK_DIMS + BRANCHED_DIMS)
 def test_large_m_quantized_plan_is_b1_b2s_on_regions(dims):
-    """A quantized call's large-M plan: every factor in a region of rows
-    padded to whole granules, aligned and disjoint, filled by the pass
-    (its spec: 7 integers a factor); the products are B1 / B2's tile for
-    tile, each factor read from its region."""
-    plan = bk.large_m_plan(dims, SMS, quantized=True)
+    """The earlier large-M design's plan (chip_smoke's ``prev_ms``): every
+    factor in a region of rows padded to whole granules, aligned and
+    disjoint, filled by the pass (its spec: 7 integers a factor); the
+    products are B1 / B2's tile for tile, each factor read from its
+    region."""
+    plan = bk.large_m_plan(dims, SMS, quantized=True, dequant=True)
     plain = bk.large_m_plan(dims, SMS)
     shapes = _shapes(dims)
     assert plan.dequant == set(shapes) and plan.copies >= plan.dequant
@@ -265,29 +269,69 @@ def _err(got: torch.Tensor, want) -> float:
     return float((got.float() - want).abs().max() / want.abs().max())
 
 
-#: mirror cases: B3 at ranks 191 / 335 and ragged M on both sides of
-#: LARGE_M_Q; B4 at ragged ranks (v's branches straddling a stage)
-_MIRROR = [(L - 1, 96, 191, 70), (L + 3, 136, 335, 96), (2 * L + 5, 72, 40,
-                                                         130),
-           (L + 1, 40, 2, 16, 9, 130), (L - 5, 72, 3, 20, 24, 70)]
+def converting_mirror(plan: bk.LargeMPlan, x: torch.Tensor,
+                      factors: dict) -> torch.Tensor:
+    """The quantized large-M products of ``plan`` in order, tile by tile
+    as the kernel runs them: each iteration's stage (K block ``it % kb`` of
+    group ``z + it // kb``) converted to bf16 as the pass converts it
+    (asserted), its product summed in f32 into its K slice's partial; the
+    partials added in slice order, 0 first, and rounded once to bf16.
+    ``factors``: name -> (int8 / e4m3 values, f32 scales)."""
+    vals = {"x": x.float()}
+    for p in plan.products:
+        q, sc = factors[p.b]
+        cols = q.shape[-1]
+        dq = dq_pass(q, sc, -(-cols // 8) * 8, torch.bfloat16)[
+            ..., :cols].float()
+        if q.ndim == 2:
+            q, sc, dq = q[None], sc[None], dq[None]
+        a = vals[p.a]
+        if a.ndim == 2:
+            a = a[:, None, :]
+        kb = -(-p.k // bk.WG_BK)
+        out = torch.zeros(p.m, p.out_groups, p.cols)
+        for z, r0, r1, c0, c1 in p.tiles():
+            parts = []
+            for i0, i1 in p.k_slices():
+                acc = torch.zeros(r1 - r0, c1 - c0)
+                for it in range(i0, i1):
+                    g = z + it // kb
+                    k0 = (it % kb) * bk.WG_BK
+                    k1 = min(p.k, k0 + bk.WG_BK)
+                    stage = (q[g, k0:k1, c0:c1].to(torch.float32)
+                             * sc[g, :, c0:c1]).to(torch.bfloat16).float()
+                    assert torch.equal(stage, dq[g, k0:k1, c0:c1])
+                    ag = a[r0:r1, g if p.a_groups > 1 else 0]
+                    acc += ag[:, k0:k1] @ stage
+                parts.append(acc)
+            total = parts[0]
+            for part in parts[1:]:
+                total = total + part
+            out[r0:r1, z, c0:c1] = total.to(torch.bfloat16).float()
+        vals[p.out] = out[:, 0] if p.out_groups == 1 else out
+    return vals["y"]
+
+
+#: mirror cases: B3 at rank 191, ragged M on both sides of LARGE_M_Q, its
+#: first product K-sliced or not; B4 at ragged ranks, its first product
+#: sliced and its last product's slices straddling branches
+_MIRROR = [(L - 1, 96, 191, 70), (L + 3, 520, 191, 70),
+           (2 * L + 5, 600, 40, 130), (L + 1, 40, 2, 16, 9, 130),
+           (L - 5, 600, 4, 20, 150, 130)]
 
 
 @pytest.mark.parametrize("mode", ["int8", "fp8"])
 @pytest.mark.parametrize("dims", _MIRROR)
 def test_large_m_mirror_matches_the_reference_and_pallas_interpret(dims,
                                                                    mode):
-    """The pass's bf16 regions fed into the large-M mirror, at ragged M on
-    both sides of LARGE_M_Q (the forced entry runs the form below it),
-    against the reference's plain chain and its Pallas kernel in
-    interpret mode on the same inputs."""
+    """The converting, K-sliced mainloop's mirror, at ragged M on both
+    sides of LARGE_M_Q (the forced entry runs the form below it), against
+    the reference's plain chain and its Pallas kernel in interpret mode on
+    the same inputs."""
     bf = torch.bfloat16
     x, tq, jx, jq = _mirror_inputs(dims, mode, bf, dims[0] + len(dims))
     plan = bk.large_m_plan(dims, SMS, quantized=True)
-    regions = dict(plan.regions)
-    ops = {"x": x}
-    for f, (q, s) in tq.items():
-        ops[f] = dq_pass(q, s, regions[f][-1], bf)[..., :q.shape[-1]]
-    got = large_m_mirror(plan, ops)
+    got = converting_mirror(plan, x, tq)
     if len(dims) == 4:
         want = jref.lowrank_matmul_q_ref(jx, *jq)
         kern = jops.lowrank_matmul_q(jx, *jq, force_kernel=True)
